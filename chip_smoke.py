@@ -1,19 +1,24 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's CT-RCX main path once on one GPU.
+"""Drive the PyTorch/CUDA port's ported paths once on one GPU: CT-RCX,
+CT-RCQ and CT-ANS1 v2 rANS (the default codec).
 
     python3 chip_smoke.py
 
 Phases, one line each (a failed phase exits non-zero):
   1. env      the card, torch, nvcc and `nvidia-smi` name/power limit;
   2. build    nvcc builds the kernels of cpprcoder_tpu_torch/csrc/;
-  3. kernels  each kernel (A encode, B expand, C decode) against its plain
-              PyTorch version on the card, on seeded inputs at the main
-              path's shapes, exact equality; then both timed with CUDA
-              events at kennedy.xls's shape;
-  4. main     compress/decompress(codec="rcx", device="cuda") over the 11
-              Canterbury files: byte-identical to the numpy oracle, the
-              known container sizes, a round trip; the ratio preset on
-              three files; every kernel's launch count must move.
+  3. kernels  each kernel (A, B, C for CT-RCX; D, E for CT-RCQ; F, G for
+              rANS) against its plain PyTorch version on the card, on
+              seeded inputs at the main paths' shapes, exact equality; then
+              both timed with CUDA events at kennedy.xls's shape, and D to
+              G alone at a small file's (fields.c, grammar.lsp);
+  4. main     per codec (rcx, rcq, rans), with the launch counts set to 0
+              just before and read just after: compress/decompress(codec,
+              device="cuda") over the 11 Canterbury files, byte-identical
+              to the numpy oracle, the known container sizes, a round
+              trip; for rcx also the ratio preset on three files, for rans
+              also the default codec and a lane with a wide word count.
+              Every kernel of the path must have launched.
 Then a {"kernels": [...]} JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -30,22 +35,62 @@ import numpy as np
 import torch
 
 import cpprcoder_tpu_torch as ctt
-from cpprcoder_tpu_torch.models.cxmodel import rcx_params
+from cpprcoder_tpu_torch.models.cxmodel import rcq_params, rcx_params
 from cpprcoder_tpu_torch.native import build
-from cpprcoder_tpu_torch.ops import compaction, expand, rcx_kernels, rcx_ops
+from cpprcoder_tpu_torch.ops import (
+    compaction,
+    expand,
+    layout,
+    rans_kernels,
+    rans_ops,
+    rcq_kernels,
+    rcx_kernels,
+    rcx_ops,
+)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 MASK32 = 0xFFFFFFFF
 
-# CT-RCX container bytes with the balanced preset (numpy oracle); a
-# container's bytes do not depend on the device
+# Container bytes at each codec's defaults (CT-RCX: the balanced preset),
+# from the numpy oracles; a container's bytes do not depend on the device
 EXPECTED_SIZES = {
-    "alice29.txt": 80192, "asyoulik.txt": 65110, "cp.html": 14001,
-    "fields.c": 5623, "grammar.lsp": 2015, "kennedy.xls": 449071,
-    "lcet10.txt": 232081, "plrabn12.txt": 249999, "ptt5": 70628,
-    "sum": 20359, "xargs.1": 2534,
+    "rcx": {
+        "alice29.txt": 80192, "asyoulik.txt": 65110, "cp.html": 14001,
+        "fields.c": 5623, "grammar.lsp": 2015, "kennedy.xls": 449071,
+        "lcet10.txt": 232081, "plrabn12.txt": 249999, "ptt5": 70628,
+        "sum": 20359, "xargs.1": 2534,
+    },
+    "rcq": {
+        "alice29.txt": 88623, "asyoulik.txt": 76180, "cp.html": 16362,
+        "fields.c": 7073, "grammar.lsp": 2304, "kennedy.xls": 450232,
+        "lcet10.txt": 252633, "plrabn12.txt": 276850, "ptt5": 77083,
+        "sum": 23531, "xargs.1": 2745,
+    },
+    "rans": {
+        "alice29.txt": 87357, "asyoulik.txt": 75583, "cp.html": 16313,
+        "fields.c": 7194, "grammar.lsp": 2347, "kennedy.xls": 461571,
+        "lcet10.txt": 249921, "plrabn12.txt": 273833, "ptt5": 78748,
+        "sum": 25799, "xargs.1": 2782,
+    },
 }
 RATIO_FILES = ["alice29.txt", "kennedy.xls", "ptt5"]
+
+# the launch counter of each kernel: (wrapper module, attribute)
+COUNTERS = {
+    "rcx_encode": (rcx_kernels, "encode_launches"),
+    "expand": (expand, "launches"),
+    "rcx_decode": (rcx_kernels, "decode_launches"),
+    "rcq_encode": (rcq_kernels, "encode_launches"),
+    "rcq_decode": (rcq_kernels, "decode_launches"),
+    "rans_encode": (rans_kernels, "encode_launches"),
+    "rans_decode": (rans_kernels, "decode_launches"),
+}
+# the kernels each codec's main path runs
+PATH_KERNELS = {
+    "rcx": ["rcx_encode", "expand", "rcx_decode"],
+    "rcq": ["rcq_encode", "expand", "rcq_decode"],
+    "rans": ["rans_encode", "rans_decode"],
+}
 
 
 def fail(msg: str):
@@ -133,12 +178,30 @@ def phase_build():
           f"ptxas: {' | '.join(usage)}", flush=True)
 
 
-def word_rows_of(rows: torch.Tensor, sizes: torch.Tensor) -> torch.Tensor:
-    """Decode word rows of expanded payload rows, through the flat lane
-    payload a container holds."""
-    keep = torch.arange(rows.shape[1], device=rows.device)[None, :] \
-        < sizes[:, None].to(torch.int64)
-    return rcx_ops.word_rows(rows[keep], sizes, -(-int(sizes.max()) // 4) + 1)
+def to_dev(data: bytes, dev) -> torch.Tensor:
+    return torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(dev)
+
+
+def interleaved_inputs(data: bytes, k: int, dev):
+    """(n, stride, x2d, lane lengths) of the interleaved lane layout."""
+    n = len(data)
+    stride = -(-n // k)
+    x = to_dev(data, dev)
+    return (n, stride, layout.pad2d_interleaved(x, k, stride),
+            layout.lane_lengths_interleaved(n, k, stride, dev))
+
+
+def hold(err: dict, name: str, out_k, out_p, what: str):
+    """Hold a kernel's output (a tensor or a tuple of them) against its
+    plain version's: exact equality, the largest difference into
+    err[name]. -> the kernel's output."""
+    torch.cuda.synchronize()
+    ks = out_k if isinstance(out_k, tuple) else (out_k,)
+    ps = out_p if isinstance(out_p, tuple) else (out_p,)
+    err[name] = max([err[name]] + [max_err(a, b) for a, b in zip(ks, ps)])
+    if not all(torch.equal(a, b) for a, b in zip(ks, ps)):
+        fail(f"{what} != plain")
+    return out_k
 
 
 def phase_kernels(dev):
@@ -147,9 +210,9 @@ def phase_kernels(dev):
     def coder_inputs(data, k):
         n = len(data)
         stride = -(-n // k)
-        x = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(dev)
-        return (n, stride, rcx_ops.pad2d_chunked(x, k, stride),
-                rcx_ops.lane_lengths(n, k, stride, dev))
+        x = to_dev(data, dev)
+        return (n, stride, layout.pad2d_chunked(x, k, stride),
+                layout.lane_lengths(n, k, stride, dev))
 
     # A and C: K in {32, 1024, 2048}, cbits in {4, 5, 6, 8}, wlog in {0, 2}
     cases = [(32, 6, 2, 3000), (32, 8, 0, 2500), (1024, 5, 0, 150_000),
@@ -166,7 +229,7 @@ def phase_kernels(dev):
         err["rcx_encode"] = max(err["rcx_encode"], max_err(ev_k, ev_p))
         if not torch.equal(ev_k, ev_p):
             fail(f"kernel A != plain at K={k} cbits={cbits} wlog={wlog}")
-        words = word_rows_of(*compaction.materialize_rows_t(ev_p))
+        words = layout.decode_words(*compaction.materialize_rows_t(ev_p))
         sym_k = rcx_kernels.decode_symbols(words, lens, n, stride, *args)
         sym_p = rcx_ops.decode_symbols_plain(words, lens, n, stride, *args)
         torch.cuda.synchronize()
@@ -205,7 +268,7 @@ def phase_kernels(dev):
     args = (inc, 1 << cl, cbits, 2)
     ev = rcx_kernels.encode_events(x2d, lens, *args)
     rows, sizes = expand.materialize_rows(ev)
-    words = word_rows_of(rows, sizes)
+    words = layout.decode_words(rows, sizes)
     l2 = rows.shape[1]
     ms = {
         "rcx_encode": (
@@ -228,33 +291,158 @@ def phase_kernels(dev):
     return err, ms
 
 
-def phase_main():
-    rcx_kernels.encode_launches = 0
-    rcx_kernels.decode_launches = 0
-    expand.launches = 0
+def phase_kernels_rcq(dev):
+    """D and E against kernels A's and C's plain step loops with one
+    context, a requant every step and one halving (rounds=1)."""
+    err = {"rcq_encode": 0, "rcq_decode": 0}
+
+    def case(data, k, inc, cl, what):
+        """Hold D and E against their plain versions on `data`; -> (shape,
+        {kernel: (kernel call, plain call)})."""
+        n, stride, x2d, lens = interleaved_inputs(data, k, dev)
+        enc = (lambda: rcq_kernels.encode_events(x2d, lens, inc, 1 << cl),
+               lambda: rcx_ops.encode_events_plain(x2d, lens, inc, 1 << cl,
+                                                   0, 0, 1))
+        ev = hold(err, "rcq_encode", enc[0](), enc[1](), f"kernel D at {what}")
+        words = layout.decode_words(*expand.materialize_rows(ev))
+        dec = (lambda: rcq_kernels.decode_symbols(words, lens, n, stride, inc,
+                                                  1 << cl),
+               lambda: rcx_ops.decode_symbols_plain(
+                   words, lens, n, stride, inc, 1 << cl, 0, 0, 1,
+                   interleaved=True))
+        sym = hold(err, "rcq_decode", dec[0](), dec[1](), f"kernel E at {what}")
+        if sym.cpu().numpy().tobytes() != data:
+            fail(f"kernel E did not invert kernel D at {what}")
+        return f"K={k}, stride={stride}", {"rcq_encode": enc,
+                                           "rcq_decode": dec}
+
+    # K in {32, 128, 1024, 2048} at rcq_params' defaults, then the
+    # single-halving case (K*inc > climit; the oracle asserts there)
+    cases = [(32, 3000, None, None), (128, 40_000, None, None),
+             (1024, 300_000, None, None), (2048, 600_001, None, None),
+             (128, 4096, 24, 10)]
+    for i, (k, n, inc, cl) in enumerate(cases):
+        _, inc0, cl0 = rcq_params(n, lanes=k)
+        inc = inc0 if inc is None else inc
+        cl = cl0 if cl is None else cl
+        case(textish(n, seed=200 + i), k, inc, cl,
+             f"K={k} n={n} inc={inc} cl={cl}")
+
+    # held and timed at kennedy.xls's CT-RCQ shape, kernel vs plain; held
+    # there and at fields.c's (K = 32, one warp), where the per-step requant
+    # sets the pace and the kernels alone are timed
+    at, ms = {}, {}
+    for name in ("kennedy.xls", "fields.c"):
+        data = corpus(name)
+        shape, fns = case(data, *rcq_params(len(data)), name)
+        at[name] = f"{name} ({shape})"
+        ms[name] = {nm: (cuda_ms(kern, 5),
+                         name == "kennedy.xls" and cuda_ms(plain, 2, 0))
+                    for nm, (kern, plain) in fns.items()}
+    print(f"[kernels] ok {len(cases) + 2} CT-RCQ cases (D, E) equal their "
+          f"plain versions; at {at['kennedy.xls']} ms kernel/plain: "
+          + ", ".join(f"{nm} {a:.3f}/{b:.3f}"
+                      for nm, (a, b) in ms["kennedy.xls"].items())
+          + f"; at {at['fields.c']} ms kernel: "
+          + ", ".join(f"{nm} {a:.3f}" for nm, (a, _) in ms["fields.c"].items()),
+          flush=True)
+    return err, ms["kennedy.xls"]
+
+
+def phase_kernels_rans(dev):
+    """F and G against their plain step loops."""
+    err = {"rans_encode": 0, "rans_decode": 0}
+
+    def case(data, k, what):
+        """Hold F and G against their plain versions on `data`; -> (shape,
+        {kernel: (kernel call, plain call)})."""
+        n, stride, x2d, lens = interleaved_inputs(data, k, dev)
+        tables = rans_ops.tables(rans_ops.static_freqs(x2d.reshape(-1)[:n]),
+                                 dev)
+        enc = (lambda: rans_kernels.encode_events(x2d, lens, *tables),
+               lambda: rans_ops.encode_events_plain(x2d, lens, *tables))
+        ev, st = hold(err, "rans_encode", enc[0](), enc[1](),
+                      f"kernel F at {what}")
+        rows = rans_ops.word_rows(*rans_ops.lane_words(ev))
+        dec = (lambda: rans_kernels.decode_symbols(st, rows, lens, *tables, n,
+                                                   stride),
+               lambda: rans_ops.decode_symbols_plain(st, rows, lens, *tables,
+                                                     n, stride))
+        sym = hold(err, "rans_decode", dec[0](), dec[1](),
+                   f"kernel G at {what}")
+        if sym.cpu().numpy().tobytes() != data:
+            fail(f"kernel G did not invert kernel F at {what}")
+        return f"K={k}, stride={stride}", {"rans_encode": enc,
+                                           "rans_decode": dec}
+
+    # K in {1, 2, 64, 256, 8192}, n ragged (not a multiple of K) but at
+    # K = 1, a single-symbol run, and alice29.txt at its main-path shape
+    # (K = 64 over 2,377 steps)
+    cases = [(1, textish(2000, 300)), (2, textish(3721, 301)),
+             (64, textish(64 * 500 + 17, 302)),
+             (256, textish(256 * 300 + 5, 303)),
+             (8192, textish(8192 * 40 + 3, 304)), (64, b"\x42" * 2001),
+             (64, corpus("alice29.txt"))]
+    for k, data in cases:
+        case(data, k, f"K={k} n={len(data)}")
+
+    # held and timed at kennedy.xls's rANS shape, kernel vs plain; held
+    # there and at grammar.lsp's (K = 2 lanes over 1,861 steps), where the
+    # kernels alone are timed
+    at, ms = {}, {}
+    for name in ("kennedy.xls", "grammar.lsp"):
+        data = corpus(name)
+        shape, fns = case(data, rans_ops.pick_lanes(len(data)), name)
+        at[name] = f"{name} ({shape})"
+        ms[name] = {nm: (cuda_ms(kern, 5),
+                         name == "kennedy.xls" and cuda_ms(plain, 2, 0))
+                    for nm, (kern, plain) in fns.items()}
+    print(f"[kernels] ok {len(cases) + 2} rANS cases (F, G) equal their "
+          f"plain versions; at {at['kennedy.xls']} ms kernel/plain: "
+          + ", ".join(f"{nm} {a:.3f}/{b:.3f}"
+                      for nm, (a, b) in ms["kennedy.xls"].items())
+          + f"; at {at['grammar.lsp']} ms kernel: "
+          + ", ".join(f"{nm} {a:.3f}"
+                      for nm, (a, _) in ms["grammar.lsp"].items()),
+          flush=True)
+    return err, ms["kennedy.xls"]
+
+
+def run_corpus(codec: str):
+    """The 11 files through compress/decompress(codec, device="cuda"):
+    oracle-identical, the expected sizes, round trips. -> total bytes."""
     total = raw = 0
     enc_s = dec_s = 0.0
-    for name, want in EXPECTED_SIZES.items():
+    for name, want in EXPECTED_SIZES[codec].items():
         data = corpus(name)
         t0 = time.perf_counter()
-        blob = ctt.compress(data, codec="rcx", device="cuda")
+        blob = ctt.compress(data, codec=codec, device="cuda")
         t1 = time.perf_counter()
-        back = ctt.decompress(blob, codec="rcx", device="cuda")
+        back = ctt.decompress(blob, codec=codec, device="cuda")
         t2 = time.perf_counter()
-        ref = ctt.compress(data, codec="rcx", backend="ref")
+        ref = ctt.compress(data, codec=codec, backend="ref")
         if blob != ref:
-            fail(f"{name}: container differs from the numpy oracle")
+            fail(f"{codec} {name}: container differs from the numpy oracle")
         if len(blob) != want:
-            fail(f"{name}: {len(blob)} container bytes, expected {want}")
+            fail(f"{codec} {name}: {len(blob)} container bytes, expected "
+                 f"{want}")
         if back != data:
-            fail(f"{name}: decode did not return the input")
+            fail(f"{codec} {name}: decode did not return the input")
         total += len(blob)
         raw += len(data)
         enc_s += t1 - t0
         dec_s += t2 - t1
-        print(f"[main] {name} n={len(data)} bytes={len(blob)} "
+        print(f"[main] {codec} {name} n={len(data)} bytes={len(blob)} "
               f"ratio={len(blob) / len(data):.4f} enc_s={t1 - t0:.4f} "
               f"dec_s={t2 - t1:.4f}", flush=True)
+    if total != sum(EXPECTED_SIZES[codec].values()):
+        fail(f"{codec} corpus total {total} != "
+             f"{sum(EXPECTED_SIZES[codec].values())}")
+    return (f"11 files byte-identical, total {total} bytes (ratio "
+            f"{total / raw:.4f}), enc_s={enc_s:.4f} dec_s={dec_s:.4f}")
+
+
+def rcx_ratio_preset():
     for name in RATIO_FILES:
         data = corpus(name)
         k = rcx_params(len(data), mode="ratio")[0]
@@ -269,20 +457,50 @@ def phase_main():
             fail(f"{name} (ratio): container differs from the numpy oracle")
         if back != data:
             fail(f"{name} (ratio): decode did not return the input")
-        print(f"[main] {name} mode=ratio K={k} bytes={len(blob)} "
+        print(f"[main] rcx {name} mode=ratio K={k} bytes={len(blob)} "
               f"ratio={len(blob) / len(data):.4f} enc_s={t1 - t0:.4f} "
               f"dec_s={t2 - t1:.4f}", flush=True)
-    launches = {"rcx_encode": rcx_kernels.encode_launches,
-                "expand": expand.launches,
-                "rcx_decode": rcx_kernels.decode_launches}
-    if total != sum(EXPECTED_SIZES.values()):
-        fail(f"corpus total {total} != {sum(EXPECTED_SIZES.values())}")
+    return f"{len(RATIO_FILES)} ratio-preset files"
+
+
+def rans_default_and_wide():
+    """compress()/decompress() with no codec named write and read rANS;
+    one lane with more than 0xFFFF words (u32 count table) against the
+    oracle."""
+    data = corpus("grammar.lsp")
+    blob = ctt.compress(data, device="cuda")
+    if blob != ctt.compress(data, codec="rans", backend="ref"):
+        fail("compress() with no codec did not write the rANS container")
+    if ctt.decompress(blob, device="cuda") != data:
+        fail("decompress() with no codec did not read the rANS container")
+    wide = np.random.default_rng(7).integers(0, 256, 200_000,
+                                             np.uint8).tobytes()
+    blob = ctt.compress(wide, codec="rans", device="cuda", lanes=1)
+    if not blob[4] & 0x80:
+        fail("rANS at lanes=1 over 200,000 random bytes: wide bit not set")
+    if blob != ctt.compress(wide, codec="rans", backend="ref", lanes=1):
+        fail("wide-count rANS container differs from the numpy oracle")
+    if ctt.decompress(blob, codec="rans", device="cuda") != wide:
+        fail("wide-count rANS container did not round-trip")
+    return "default codec is rans; wide count table oracle-identical"
+
+
+EXTRAS = {"rcx": rcx_ratio_preset, "rcq": None, "rans": rans_default_and_wide}
+
+
+def phase_main(codec: str):
+    """One codec's main path, with its kernels' launch counts set to 0
+    just before and read just after. -> {kernel: launches}."""
+    for nm in PATH_KERNELS[codec]:
+        setattr(*COUNTERS[nm], 0)
+    notes = [run_corpus(codec)]
+    if EXTRAS[codec]:
+        notes.append(EXTRAS[codec]())
+    launches = {nm: getattr(*COUNTERS[nm]) for nm in PATH_KERNELS[codec]}
     idle = [nm for nm, c in launches.items() if c == 0]
     if idle:
-        fail(f"kernels never launched on the main path: {idle}")
-    print(f"[main] ok 11 files byte-identical, total {total} bytes "
-          f"(ratio {total / raw:.4f}), enc_s={enc_s:.4f} dec_s={dec_s:.4f}; "
-          f"{len(RATIO_FILES)} ratio-preset files; launches {launches}",
+        fail(f"kernels never launched on the {codec} path: {idle}")
+    print(f"[main] ok {codec}: {'; '.join(notes)}; launches {launches}",
           flush=True)
     return launches
 
@@ -294,6 +512,14 @@ KERNELS = [
      "cpprcoder_tpu/ops/expand_pallas.py:55"),
     ("rcx_decode", "cpprcoder_tpu_torch/csrc/rcx_decode.cu",
      "cpprcoder_tpu/ops/rcx_pallas.py:374"),
+    ("rcq_encode", "cpprcoder_tpu_torch/csrc/rcq_encode.cu",
+     "cpprcoder_tpu/ops/rcq_pallas.py:324"),
+    ("rcq_decode", "cpprcoder_tpu_torch/csrc/rcq_decode.cu",
+     "cpprcoder_tpu/ops/rcq_pallas.py:151"),
+    ("rans_encode", "cpprcoder_tpu_torch/csrc/rans_encode.cu",
+     "cpprcoder_tpu/ops/rans_pallas.py:76"),
+    ("rans_decode", "cpprcoder_tpu_torch/csrc/rans_decode.cu",
+     "cpprcoder_tpu/ops/rans_pallas.py:225"),
 ]
 
 
@@ -302,8 +528,16 @@ def main():
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     phase_build()
-    err, ms = phase_kernels(dev)
-    launches = phase_main()
+    err, ms = {}, {}
+    for phase in (phase_kernels, phase_kernels_rcq, phase_kernels_rans):
+        e, m = phase(dev)
+        err.update(e)
+        ms.update(m)
+    # a kernel on several paths (B) reports the sum of its paths' counts
+    launches = dict.fromkeys(COUNTERS, 0)
+    for codec in PATH_KERNELS:
+        for nm, c in phase_main(codec).items():
+            launches[nm] += c
     if "jax" in sys.modules:
         fail("jax was imported")
     print(json.dumps({"kernels": [

@@ -7,10 +7,14 @@ torch and never jax; it shares the JAX package's numpy-only host modules
 (byte utilities, the numpy oracles, the parameter policy).
 
 Public API:
-    compress(data, codec="rcx", device="cuda", **opts) -> bytes
-    decompress(blob, codec="rcx", device="cuda", **opts) -> bytes
+    compress(data, codec="rans", device="cuda", **opts) -> bytes
+    decompress(blob, codec="rans", device="cuda", **opts) -> bytes
     get_codec(name) -> Codec
+    get_codec_by_id(codec_id) -> Codec
     list_codecs() -> list[str]
+
+Codecs ported: rans (CT-ANS1 v2, the default, as in the JAX package), rcq
+(CT-RCQ) and rcx (CT-RCX).
 
 The device is explicit: the default is the card, and `device="cpu"` runs
 the plain PyTorch versions of the kernels. The kernels are compiled with
@@ -21,6 +25,7 @@ from cpprcoder_tpu_torch.codecs import (  # noqa: F401
     compress,
     decompress,
     get_codec,
+    get_codec_by_id,
     list_codecs,
 )
 

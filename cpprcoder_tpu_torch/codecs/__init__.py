@@ -1,8 +1,10 @@
 """Codec registry and top-level compress/decompress of the port
 (counterpart of cpprcoder_tpu/codecs/__init__.py; same names and ids).
 
-Only `rcx` (id 15, CT-RCX) is ported so far. Asking for another codec of
-the JAX package raises KeyError naming the ROADMAP item that ports it.
+Ported so far: `rans` (id 2, CT-ANS1 v2, the default codec, as in the JAX
+package), `rcq` (id 14, CT-RCQ) and `rcx` (id 15, CT-RCX). Asking for
+another codec of the JAX package raises KeyError naming the ROADMAP item
+that ports it.
 """
 
 from __future__ import annotations
@@ -10,11 +12,12 @@ from __future__ import annotations
 from typing import Callable
 
 _REGISTRY: dict[str, "Codec"] = {}
+_BY_ID: dict[int, "Codec"] = {}
 
 # codecs of the JAX package still to port -> ROADMAP.md queue A item
 NOT_YET_PORTED = {
-    "rcq": "A5", "static_range": "A6", "adaptive_range": "A6",
-    "stream": "A7", "rans": "A8", "huffman": "A9", "blocksort": "A10",
+    "static_range": "A6", "adaptive_range": "A6",
+    "stream": "A7", "huffman": "A9", "blocksort": "A10",
     "mtf": "A10", "mtf1": "A10", "rle0": "A10", "pipeline": "A10",
     "slz4": "A11", "adaptive_o1": "A12", "adaptive_rans": "A12",
     "ase": "A12",
@@ -40,6 +43,7 @@ def register(name: str, codec_id: int, encode: Callable,
              decode: Callable) -> Codec:
     c = Codec(name, codec_id, encode, decode)
     _REGISTRY[name] = c
+    _BY_ID[codec_id] = c
     return c
 
 
@@ -54,18 +58,23 @@ def get_codec(name: str) -> Codec:
     raise KeyError(f"unknown codec {name!r}; available: {sorted(_REGISTRY)}")
 
 
+def get_codec_by_id(codec_id: int) -> Codec:
+    _ensure_loaded()
+    return _BY_ID[codec_id]
+
+
 def list_codecs() -> list[str]:
     _ensure_loaded()
     return sorted(_REGISTRY)
 
 
-def compress(data, codec: str = "rcx", **opts) -> bytes:
+def compress(data, codec: str = "rans", **opts) -> bytes:
     return get_codec(codec).encode(data, **opts)
 
 
-def decompress(blob, codec: str = "rcx", **opts) -> bytes:
+def decompress(blob, codec: str = "rans", **opts) -> bytes:
     return get_codec(codec).decode(blob, **opts)
 
 
 def _ensure_loaded():
-    from cpprcoder_tpu_torch.codecs import rcx  # noqa: F401  (registers)
+    from cpprcoder_tpu_torch.codecs import rans, rcq, rcx  # noqa: F401

@@ -1,7 +1,8 @@
-// CT-RCX shared pieces of the encode and decode kernels: constants, the
-// range-coder shift_low, and the per-window requantization of the order-1
-// context model (models/cxmodel.py of the JAX package is the
-// specification; reference/rcx_ref.py the oracle).
+// Shared pieces of the CT-RCX and CT-RCQ range-coder kernels: constants
+// and the per-window requantization of the count model (the JAX package's
+// models/cxmodel.py and models/qmodel.py are the specification;
+// reference/rcx_ref.py and reference/rcq_ref.py the oracles). CT-RCQ is
+// the one-row case (cbits = 0) requantized every step with one halving.
 //
 // Model layout, per stream, in shared memory (or in a global scratch
 // buffer when it does not fit, cbits = 8):
@@ -24,7 +25,7 @@ constexpr uint32_t QTOTAL = 1u << QBITS;
 constexpr uint32_t QRESERVE = 256;
 constexpr uint32_t RC_TOP = 1u << 24;
 constexpr uint32_t EV_RUN_MASK = (1u << 22) - 1;
-constexpr int RESCALE_ROUNDS = 3;
+constexpr int RESCALE_ROUNDS = 3;  // CT-RCX; CT-RCQ halves once
 constexpr int MAX_THREADS = 1024;
 constexpr int MAX_LPT = 8;  // lanes per thread: K <= MAX_LPT * MAX_THREADS
 
@@ -63,11 +64,12 @@ __device__ inline void model_init(uint32_t* C, int rows) {
 
 // Window requantization of every context row, one warp per row, each lane
 // owning 8 consecutive symbols:
-//   up to 3 halvings (c >> 1) | 1 while the row total is >= climit,
+//   up to ROUNDS halvings (c >> 1) | 1 while the row total is >= climit,
 //   q = max(c * (QTOTAL - QRESERVE) / tot, 1) (64-bit product, exact),
 //   the remainder QTOTAL - sum(q) to the lowest-index maximum of q,
 //   cum = inclusive warp scan of q.
 // Callers put a __syncthreads() on both sides.
+template <int ROUNDS>
 __device__ inline void requant(uint32_t* C, uint16_t* cum, int rows, uint32_t climit) {
   const int lane = threadIdx.x & 31;
   const int nwarps = blockDim.x >> 5;
@@ -80,7 +82,7 @@ __device__ inline void requant(uint32_t* C, uint16_t* cum, int rows, uint32_t cl
 #pragma unroll
     for (int i = 0; i < 8; ++i) tot += c[i];
     tot = warp_sum(tot);
-    for (int round = 0; round < RESCALE_ROUNDS && tot >= climit; ++round) {
+    for (int round = 0; round < ROUNDS && tot >= climit; ++round) {
       uint32_t s = 0;
 #pragma unroll
       for (int i = 0; i < 8; ++i) {

@@ -1,9 +1,12 @@
-"""CT-RCX context model in plain PyTorch (counterpart of
-cpprcoder_tpu/models/cxmodel.py `rescale_rows_jnp` / `quantize_rows_jnp`).
+"""CT-RCX and CT-RCQ count models in plain PyTorch (counterpart of
+cpprcoder_tpu/models/cxmodel.py `rescale_rows_jnp` / `quantize_rows_jnp`
+and of models/qmodel.py `rescale_jnp` / `quantize_jnp`).
 
-Counts C [2^cbits, 256] are int64 tensors holding u32 values. Constants and
-the parameter policy (`rcx_params`) are the JAX package's own numpy
-definitions, so both packages derive the same (k, inc, climit, cbits).
+Counts C [2^cbits, 256] are int64 tensors holding u32 values. CT-RCQ's
+model is the one-row case (cbits = 0) with a single conditional halving
+(`rounds=1`). Constants and the parameter policies (`rcx_params`,
+`rcq_params`) are the JAX package's own numpy definitions, so both
+packages derive the same parameters.
 """
 
 from __future__ import annotations
@@ -18,12 +21,14 @@ from cpprcoder_tpu.models.cxmodel import (  # noqa: F401  (shared policy)
     WLOG_DEFAULT,
     rcx_params,
 )
+from cpprcoder_tpu.models.qmodel import rcq_params  # noqa: F401
 
 
-def rescale_rows(C: torch.Tensor, climit: int) -> torch.Tensor:
-    """Up to RESCALE_ROUNDS halvings `(c >> 1) | 1` of every row whose
-    total is >= climit."""
-    for _ in range(RESCALE_ROUNDS):
+def rescale_rows(C: torch.Tensor, climit: int,
+                 rounds: int = RESCALE_ROUNDS) -> torch.Tensor:
+    """Up to `rounds` halvings `(c >> 1) | 1` of every row whose total is
+    >= climit (CT-RCX: RESCALE_ROUNDS; CT-RCQ: 1)."""
+    for _ in range(rounds):
         hot = C.sum(dim=1, keepdim=True) >= climit
         C = torch.where(hot, (C >> 1) | 1, C)
     return C
@@ -42,8 +47,8 @@ def quantize_rows(C: torch.Tensor) -> torch.Tensor:
     return q + rem * (cols == first)
 
 
-def model_tables(C: torch.Tensor, climit: int):
+def model_tables(C: torch.Tensor, climit: int, rounds: int = RESCALE_ROUNDS):
     """Window requant: (rescaled C, q, exclusive row cumsum of q)."""
-    C = rescale_rows(C, climit)
+    C = rescale_rows(C, climit, rounds)
     q = quantize_rows(C)
     return C, q, torch.cumsum(q, dim=1) - q

@@ -3,7 +3,8 @@
 The CUDA sources are compiled with nvcc for sm_90a into one shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds),
 at first use, into `build/cuda/<source hash>/libcttorch.so` under the
-repository root. The hash covers the sources and the flags, so an edited
+repository root: one nvcc process per source, all started together, then
+one link. The hash covers the sources and the flags, so an edited
 kernel is rebuilt and an unchanged one is loaded as built. The library is
 bound with ctypes; every entry point returns `cudaGetLastError()` after its
 launch and `check` raises on a non-zero code.
@@ -25,7 +26,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "cuda"
 LIB_NAME = "libcttorch.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,6 +41,14 @@ SIGNATURES = {
     # words, lane_len, out, model scratch, streams, K, l4, stride, inc,
     # climit, cbits, wlog, stream
     "ct_rcx_decode": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, lane_len, events, K, stride, inc, climit, stream
+    "ct_rcq_encode": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # words, lane_len, out, K, l4, stride, inc, climit, stream
+    "ct_rcq_decode": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, lane_len, freq, cum, events, states, K, stride, stream
+    "ct_rans_encode": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # states, rows, lane_len, freq, cum, out, K, l2, stride, stream
+    "ct_rans_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 
@@ -69,9 +78,10 @@ def lib_path() -> Path:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu unless the library for these sources exists.
-    nvcc's output (with `-Xptxas -v` register and shared-memory counts)
-    is kept in nvcc.log beside the library."""
+    """Compile csrc/*.cu unless the library for these sources exists: one
+    nvcc per source in parallel, then one link. nvcc's output (with
+    `-Xptxas -v` register and shared-memory counts) is kept in nvcc.log
+    beside the library."""
     out = lib_path()
     if out.exists():
         return out
@@ -80,14 +90,31 @@ def build() -> Path:
         raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA "
                            "kernels are built from csrc/ at first use")
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out.parent / "nvcc.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
+    tag = f"{os.getpid()}.tmp"
+    cus = sorted(CSRC.glob("*.cu"))
+    # nvcc picks a file's role by its suffix, so the objects end in .o
+    objs = [out.parent / f"{p.stem}.{tag}.o" for p in cus]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for p, o in zip(cus, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    tmp = out.with_name(f"{LIB_NAME}.{tag}")
+    link = None
+    if all(p.returncode == 0 for p in procs):
+        link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o",
+                               str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+    (out.parent / "nvcc.log").write_text("".join(logs))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    failed = [(p.name, pr.returncode, log) for p, pr, log
+              in zip(cus, procs, logs) if pr.returncode != 0]
+    if link is not None and link.returncode != 0:
+        failed.append(("link", link.returncode, logs[-1]))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(
+            f"{name} ({rc}):\n{log[-4000:]}" for name, rc, log in failed))
     os.replace(tmp, out)
     return out
 

@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from cpprcoder_tpu_torch.native import build
-from cpprcoder_tpu_torch.ops import rcx_ops
+from cpprcoder_tpu_torch.ops import layout, rcx_ops
 
 encode_launches = 0   # kernel A
 decode_launches = 0   # kernel C
@@ -35,27 +35,14 @@ def model_bytes(cbits: int) -> int:
     return rows * 256 * 4 + ((rows * 257 * 2 + 15) & ~15)
 
 
-def _check_common(name, t, dtype, lane_len, cbits, wlog, climit, inc):
-    if t.dtype != dtype or t.dim() != 2 or not t.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous 2-D {dtype} tensor, "
-                         f"got {t.dtype} {tuple(t.shape)}")
-    k = t.shape[1]
-    if lane_len.dtype != torch.int32 or tuple(lane_len.shape) != (k,) \
-            or not lane_len.is_contiguous():
-        raise ValueError(f"lane_len must be int32 [{k}], got "
-                         f"{lane_len.dtype} {tuple(lane_len.shape)}")
-    if lane_len.device != t.device:
-        raise ValueError("lane_len and the data must be on one device")
+def check_args(name, t, dtype, lane_len, cbits, wlog, climit, inc):
+    """Raise ValueError on what the coder kernels (A, C, D, E) do not take."""
+    layout.check_lanes(name, t, dtype, lane_len, MAX_LANES)
     if not (0 <= cbits <= 8 and 0 <= wlog <= 3):
         raise ValueError(f"cbits {cbits} / wlog {wlog} out of range")
-    if t.device.type == "cuda":
-        if k > MAX_LANES:
-            raise ValueError(f"the CUDA kernels take K <= {MAX_LANES} "
-                             f"lanes, got {k}")
-        if not (0 < climit < 1 << 31 and 0 <= inc < 1 << 31):
-            raise ValueError(f"climit {climit} / inc {inc} out of range")
-    elif t.device.type != "cpu":
-        raise ValueError(f"unsupported device {t.device}")
+    if t.device.type == "cuda" and not (0 < climit < 1 << 31
+                                        and 0 <= inc < 1 << 31):
+        raise ValueError(f"climit {climit} / inc {inc} out of range")
 
 
 def _model_scratch(cbits: int, device) -> torch.Tensor | None:
@@ -69,7 +56,7 @@ def encode_events(x2d: torch.Tensor, lane_len: torch.Tensor, inc: int,
     """x2d [stride, K] uint8 (time-major chunked lanes) -> events
     [2*stride+2, K] int32 (u32 bits): 2 slots per step, then 2 flush rows."""
     global encode_launches
-    _check_common("x2d", x2d, torch.uint8, lane_len, cbits, wlog, climit, inc)
+    check_args("x2d", x2d, torch.uint8, lane_len, cbits, wlog, climit, inc)
     if x2d.device.type == "cpu":
         return rcx_ops.encode_events_plain(x2d, lane_len, inc, climit,
                                            cbits, wlog)
@@ -95,7 +82,7 @@ def decode_symbols(words: torch.Tensor, lane_len: torch.Tensor, n: int,
     """words [l4, K] int32 big-endian u32 word rows (word-major) -> the
     n decoded bytes, uint8 [n] (byte i*stride + j is lane i's step j)."""
     global decode_launches
-    _check_common("words", words, torch.int32, lane_len, cbits, wlog,
+    check_args("words", words, torch.int32, lane_len, cbits, wlog,
                   climit, inc)
     l4, k = words.shape
     if not 0 <= n <= k * stride:

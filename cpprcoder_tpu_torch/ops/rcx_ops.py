@@ -1,6 +1,6 @@
 """CT-RCX container path in PyTorch (counterpart of
 cpprcoder_tpu/ops/rcx_ops.py, with the time-major branch of
-range_ops._encode_container and the word rows of rcq_ops._rows_fn).
+range_ops._encode_container).
 
 Format: cpprcoder_tpu/reference/rcx_ref.py. Lane i owns the contiguous
 bytes x[i*stride:(i+1)*stride], stride = ceil(n/K), and codes its j-th byte
@@ -9,14 +9,16 @@ byte and requantized every 2^wlog steps.
 
 `encode_events_plain` and `decode_symbols_plain` are the plain versions of
 kernels A and C (ops/rcx_kernels.py): step loops over int64 lane vectors,
-runnable on any device. `rcx_encode`/`rcx_decode` build containers around
-the kernel wrappers, so the same code runs the kernels on a CUDA device
-and the plain versions on the CPU.
+runnable on any device. With one context, a requant every step, one
+halving and the interleaved layout they are also the plain versions of
+CT-RCQ's kernels D and E (ops/rcq_ops.py). `rcx_encode`/`rcx_decode` build
+containers around the kernel wrappers, so the same code runs the kernels
+on a CUDA device and the plain versions on the CPU; the lane layout and
+the container pieces are ops/layout.py's.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from cpprcoder_tpu.config import MASK32, RC_TOP
@@ -26,39 +28,28 @@ from cpprcoder_tpu.core.bytesutil import (
     CorruptContainerError,
     as_u8,
 )
-from cpprcoder_tpu.reference.rc_ref import _lane_desc, _parse_lane_desc, _write_sizes
+from cpprcoder_tpu.reference.rc_ref import _lane_desc, _parse_lane_desc
 from cpprcoder_tpu_torch.models.cxmodel import (
     QBITS,
     QTOTAL,
+    RESCALE_ROUNDS,
     WLOG_DEFAULT,
     model_tables,
     rcx_params,
 )
-from cpprcoder_tpu_torch.ops import compaction, rc_common
+from cpprcoder_tpu_torch.ops import layout, rc_common
 
 N_SLOTS = 2   # range_new >= t >= 2^(24-QBITS) = 2^9: <= 2 renorms a step
-
-
-def pad2d_chunked(x: torch.Tensor, k: int, stride: int) -> torch.Tensor:
-    """x [n] uint8 -> x2d [stride, k] with x2d[j, i] = x[i*stride + j]
-    (zero past the end)."""
-    buf = torch.zeros(k * stride, dtype=torch.uint8, device=x.device)
-    buf[: x.numel()] = x
-    return buf.view(k, stride).T.contiguous()
-
-
-def lane_lengths(n: int, k: int, stride: int, device) -> torch.Tensor:
-    """Bytes each lane codes: clip(n - i*stride, 0, stride), int32 [k]."""
-    lanes = torch.arange(k, dtype=torch.int64, device=device)
-    return torch.clamp(n - lanes * stride, 0, stride).to(torch.int32)
 
 
 # ------------------------------------------------------------------ encode
 
 def encode_events_plain(x2d: torch.Tensor, lane_len: torch.Tensor, inc: int,
-                        climit: int, cbits: int, wlog: int) -> torch.Tensor:
-    """Plain version of kernel A: x2d [stride, K] uint8 -> events
-    [2*stride+2, K] int32 (u32 bits)."""
+                        climit: int, cbits: int, wlog: int,
+                        rounds: int = RESCALE_ROUNDS) -> torch.Tensor:
+    """Plain version of kernels A and D: x2d [stride, K] uint8 -> events
+    [2*stride+2, K] int32 (u32 bits). Lane i codes x2d[j, i] for
+    j < lane_len[i]; `rounds` halvings at most per requant."""
     stride, k = x2d.shape
     dev = x2d.device
     st = rc_common.make_state(k, dev)
@@ -70,7 +61,7 @@ def encode_events_plain(x2d: torch.Tensor, lane_len: torch.Tensor, inc: int,
     q = cum = None
     for j in range(stride):
         if j % (1 << wlog) == 0:
-            C, q, cum = model_tables(C, climit)
+            C, q, cum = model_tables(C, climit, rounds)
         sym = xs[j]
         active = j < lens
         ctx = prev >> (8 - cbits)
@@ -87,7 +78,9 @@ def encode_events_plain(x2d: torch.Tensor, lane_len: torch.Tensor, inc: int,
     return rc_common.u32_to_i32(events)
 
 
-def _header(n, k, wide, inc, climit_log2, cbits, wlog) -> ByteWriter:
+def header(n, k, wide, inc, climit_log2, cbits, wlog) -> ByteWriter:
+    """CT-RCX header: u32 n, lane_desc, inc, climit_log2, QBITS, cbits,
+    wlog."""
     return (ByteWriter().u32(n).u8(_lane_desc(k, wide)).u8(inc)
             .u8(climit_log2).u8(QBITS).u8(cbits).u8(wlog))
 
@@ -107,7 +100,7 @@ def rcx_encode(data, lanes: int | None = None, inc: int | None = None,
     if not (0 <= cbits <= 8 and 0 <= wlog <= 3):
         raise ValueError(f"cbits {cbits} must be 0..8 and wlog {wlog} 0..3")
     if n == 0:
-        return _header(0, k, False, inc, climit_log2, cbits, wlog).getvalue()
+        return header(0, k, False, inc, climit_log2, cbits, wlog).getvalue()
     stride = -(-n // k)
     # a lane's pending run of 0xFF bytes must fit the event's 22-bit field
     if 3 * stride + 2 >= 1 << rc_common.EV_RUN_BITS:
@@ -117,34 +110,25 @@ def rcx_encode(data, lanes: int | None = None, inc: int | None = None,
 
     xt = torch.from_numpy(x.copy()).to(device)
     events = rcx_kernels.encode_events(
-        pad2d_chunked(xt, k, stride), lane_lengths(n, k, stride, xt.device),
+        layout.pad2d_chunked(xt, k, stride),
+        layout.lane_lengths(n, k, stride, xt.device),
         inc, 1 << climit_log2, cbits, wlog)
     rows, sizes = expand.materialize_rows(events)
-    return assemble((n, k, inc, climit_log2, cbits, wlog),
-                    rows.cpu().numpy(), sizes.cpu().numpy())
-
-
-def assemble(params, rows: np.ndarray, sizes: np.ndarray) -> bytes:
-    """Container for params (n, k, inc, climit_log2, cbits, wlog): header,
-    size table (u32 "wide" when a lane payload reaches 64 KiB, else u16),
-    then the first sizes[i] bytes of each row i."""
-    sizes = sizes.astype(np.int64)
-    payload = rows[np.arange(rows.shape[1])[None, :] < sizes[:, None]]
-    wide = bool(sizes.max() >= 1 << 16)
-    n, k, *rest = params
-    w = _header(n, k, wide, *rest)
-    _write_sizes(w, sizes.tolist(), wide)
-    w.raw(payload.tobytes())
-    return w.getvalue()
+    return layout.assemble(
+        lambda wide: header(n, k, wide, inc, climit_log2, cbits, wlog),
+        rows.cpu().numpy(), sizes.cpu().numpy())
 
 
 # ------------------------------------------------------------------ decode
 
 def decode_symbols_plain(words: torch.Tensor, lane_len: torch.Tensor, n: int,
                          stride: int, inc: int, climit: int, cbits: int,
-                         wlog: int) -> torch.Tensor:
-    """Plain version of kernel C: words [l4, K] int32 (big-endian u32 word
-    rows, word-major; zero past each lane's end) -> uint8 [n]."""
+                         wlog: int, rounds: int = RESCALE_ROUNDS,
+                         interleaved: bool = False) -> torch.Tensor:
+    """Plain version of kernels C and E: words [l4, K] int32 (big-endian
+    u32 word rows, word-major; zero past each lane's end) -> uint8 [n].
+    Lane i's step-j byte is byte i*stride + j, or j*K + i if
+    `interleaved`."""
     l4, k = words.shape
     dev = words.device
     w = rc_common.i32_to_u32(words)
@@ -169,7 +153,7 @@ def decode_symbols_plain(words: torch.Tensor, lane_len: torch.Tensor, n: int,
         widx = widx + need.to(torch.int64)
 
         if j % (1 << wlog) == 0:
-            C, q, cum = model_tables(C, climit)
+            C, q, cum = model_tables(C, climit, rounds)
         active = j < lens
         ctx = prev >> (8 - cbits)
         row_c = cum[ctx]                                   # [K, 256]
@@ -192,7 +176,7 @@ def decode_symbols_plain(words: torch.Tensor, lane_len: torch.Tensor, n: int,
                      accumulate=True)
         prev = torch.where(active, sym, prev)
         out[:, j] = sym.to(torch.uint8)
-    return out.reshape(-1)[:n]
+    return (out.T if interleaved else out).reshape(-1)[:n]
 
 
 def parse_rcx_header(r: ByteReader):
@@ -215,41 +199,16 @@ def parse_rcx_header(r: ByteReader):
     return n, k, wide, inc, climit_log2, cbits, wlog
 
 
-def word_rows(payload: torch.Tensor, sizes: torch.Tensor,
-              l4: int) -> torch.Tensor:
-    """Flat lane-ordered payload [P] uint8 + lane sizes [K] -> [l4, K]
-    int32 big-endian u32 word rows, word-major (word j of lane i = lane
-    bytes 4j..4j+3, zero past its end)."""
-    sizes = sizes.to(torch.int64)
-    col = torch.arange(4 * l4, device=payload.device)
-    rows = torch.zeros((sizes.numel(), 4 * l4), dtype=torch.uint8,
-                       device=payload.device)
-    if payload.numel():
-        starts = torch.cumsum(sizes, 0) - sizes
-        idx = torch.clamp(starts[:, None] + col[None, :],
-                          max=payload.numel() - 1)
-        rows = torch.where(col[None, :] < sizes[:, None], payload[idx], rows)
-    return compaction.rows_to_be_words(rows).T.contiguous()
-
-
 def rcx_decode(blob, device="cpu") -> bytes:
     r = ByteReader(blob)
     n, k, wide, inc, climit_log2, cbits, wlog = parse_rcx_header(r)
     if n == 0:
         return b""
-    sizes = (r.u32s(k) if wide else r.u16s(k)).astype(np.int64)
-    payload = r.rest()
-    if int(sizes.sum()) > len(payload):
-        raise CorruptContainerError(
-            f"size table claims {int(sizes.sum())} payload bytes, "
-            f"container has {len(payload)}")
     from cpprcoder_tpu_torch.ops import rcx_kernels
 
     stride = -(-n // k)
-    l4 = -(-int(sizes.max()) // 4) + 1
-    words = word_rows(torch.from_numpy(payload.copy()).to(device),
-                      torch.from_numpy(sizes).to(device), l4)
+    words = layout.payload_words(r, k, wide, device)
     out = rcx_kernels.decode_symbols(
-        words, lane_lengths(n, k, stride, words.device), n, stride, inc,
-        1 << climit_log2, cbits, wlog)
+        words, layout.lane_lengths(n, k, stride, words.device), n, stride,
+        inc, 1 << climit_log2, cbits, wlog)
     return out.cpu().numpy().tobytes()

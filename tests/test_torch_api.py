@@ -23,23 +23,41 @@ def _run(code, env=None):
 
 
 def test_registry():
-    assert ctt.list_codecs() == ["rcx"]
-    c = ctt.get_codec("rcx")
-    assert (c.name, c.codec_id) == ("rcx", 15)
-    with pytest.raises(KeyError, match="A8"):
-        ctt.get_codec("rans")
-    with pytest.raises(KeyError, match="A5"):
-        ctt.compress(b"abc", codec="rcq")
+    assert ctt.list_codecs() == ["rans", "rcq", "rcx"]
+    for name, cid in (("rans", 2), ("rcq", 14), ("rcx", 15)):
+        c = ctt.get_codec(name)
+        assert (c.name, c.codec_id) == (name, cid)
+        assert ctt.get_codec_by_id(cid) is c
+    with pytest.raises(KeyError, match="A9"):
+        ctt.get_codec("huffman")
+    with pytest.raises(KeyError, match="A6"):
+        ctt.compress(b"abc", codec="static_range")
     with pytest.raises(KeyError, match="unknown codec"):
         ctt.get_codec("nope")
+    with pytest.raises(KeyError):
+        ctt.get_codec_by_id(3)
+
+
+def test_default_codec_is_rans_as_in_the_jax_package():
+    """compress()/decompress() with no codec named write and read CT-ANS1,
+    as cpprcoder_tpu.compress does."""
+    import cpprcoder_tpu
+
+    data = bytes(range(256)) * 3 + b"default codec " * 40
+    blob = ctt.compress(data, device="cpu")
+    assert blob == cpprcoder_tpu.compress(data, backend="ref")
+    assert blob == ctt.compress(data, codec="rans", backend="ref")
+    assert ctt.decompress(cpprcoder_tpu.compress(data, backend="ref"),
+                          device="cpu") == data
+    assert cpprcoder_tpu.decompress(blob, backend="ref") == data
 
 
 def test_round_trip_on_cpu():
     data = bytes(range(256)) * 7
     blob = ctt.compress(data, codec="rcx", device="cpu")
     assert blob == ctt.compress(data, codec="rcx", backend="ref")
-    assert ctt.decompress(blob, backend="torch") == data
-    assert ctt.decompress(blob, backend="ref") == data
+    assert ctt.decompress(blob, codec="rcx", backend="torch") == data
+    assert ctt.decompress(blob, codec="rcx", backend="ref") == data
 
 
 def test_cuda_is_the_default_and_raises_without_it():
@@ -60,7 +78,7 @@ def test_backend_device_mismatch_and_unknowns_raise():
     with pytest.raises(ValueError):
         base.resolve("jax")
     with pytest.raises(ValueError):
-        ctt.compress(b"abc", device="cpu", mode="fast")
+        ctt.compress(b"abc", codec="rcx", device="cpu", mode="fast")
     assert base.resolve(None, "cpu") == ("torch", torch.device("cpu"))
     assert base.resolve("ref") == ("ref", None)
 
@@ -102,4 +120,8 @@ def test_build_without_nvcc_raises_clearly(monkeypatch, tmp_path):
         build.build()
     assert build.source_hash() == build.source_hash()
     assert {p.name for p in build.sources()} >= {
-        "rcx_encode.cu", "rcx_decode.cu", "expand.cu", "rcx_model.cuh"}
+        "rcx_encode.cu", "rcx_decode.cu", "expand.cu", "rcx_model.cuh",
+        "rcq_encode.cu", "rcq_decode.cu", "rans_encode.cu", "rans_decode.cu",
+        "rc_encode.cuh", "rc_decode.cuh"}
+    assert set(build.SIGNATURES) >= {"ct_rcq_encode", "ct_rcq_decode",
+                                     "ct_rans_encode", "ct_rans_decode"}

@@ -5,13 +5,25 @@ they skip where no CUDA device is present. On a GPU machine without JAX
     python -m pytest tests/test_torch_gpu.py -m gpu -q --noconftest -o addopts=
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 import cpprcoder_tpu_torch as ctt
-from cpprcoder_tpu.reference import rcx_ref
-from cpprcoder_tpu_torch.ops import compaction, expand, rcx_kernels, rcx_ops
+from cpprcoder_tpu.models.qmodel import rcq_params
+from cpprcoder_tpu.reference import rans_ref, rcx_ref
+from cpprcoder_tpu_torch.ops import (
+    compaction,
+    expand,
+    rans_kernels,
+    layout,
+    rans_ops,
+    rcq_kernels,
+    rcx_kernels,
+    rcx_ops,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -36,17 +48,15 @@ def test_coder_kernels_match_plain(dev, k, cbits, wlog):
     n = 40 * k + 7
     x = torch.from_numpy(_textish(n, k)).to(dev)
     stride = -(-n // k)
-    x2d = rcx_ops.pad2d_chunked(x, k, stride)
-    lens = rcx_ops.lane_lengths(n, k, stride, dev)
+    x2d = layout.pad2d_chunked(x, k, stride)
+    lens = layout.lane_lengths(n, k, stride, dev)
     args = (16, 1 << 16, cbits, wlog)
     ev = rcx_kernels.encode_events(x2d, lens, *args)
     assert torch.equal(ev, rcx_ops.encode_events_plain(x2d, lens, *args))
     rows, sizes = expand.materialize_rows(ev)
     prow, psizes = compaction.materialize_rows_t(ev, rows.shape[1])
     assert torch.equal(rows, prow) and torch.equal(sizes, psizes)
-    payload = rows[torch.arange(rows.shape[1], device=dev)[None, :]
-                   < sizes[:, None].long()]
-    words = rcx_ops.word_rows(payload, sizes, -(-int(sizes.max()) // 4) + 1)
+    words = layout.decode_words(rows, sizes)
     sym = rcx_kernels.decode_symbols(words, lens, n, stride, *args)
     assert torch.equal(sym, rcx_ops.decode_symbols_plain(words, lens, n,
                                                          stride, *args))
@@ -56,17 +66,92 @@ def test_coder_kernels_match_plain(dev, k, cbits, wlog):
 def test_wide_lane_round_trip(dev):
     """One lane past 64 KiB of payload: u32 size table, oracle-identical."""
     data = np.random.default_rng(1).integers(0, 256, 140_000, np.uint8).tobytes()
-    blob = ctt.compress(data, device="cuda", lanes=2)
+    blob = ctt.compress(data, codec="rcx", device="cuda", lanes=2)
     assert blob[4] & 0x80
     assert blob == rcx_ref.rcx_encode(data, lanes=2)
-    assert ctt.decompress(blob, device="cuda") == data
+    assert ctt.decompress(blob, codec="rcx", device="cuda") == data
 
 
 def test_launch_counters_move(dev):
     before = (rcx_kernels.encode_launches, expand.launches,
               rcx_kernels.decode_launches)
     data = _textish(5000, 3).tobytes()
-    assert ctt.decompress(ctt.compress(data), device="cuda") == data
+    assert ctt.decompress(ctt.compress(data, codec="rcx"), codec="rcx",
+                          device="cuda") == data
     after = (rcx_kernels.encode_launches, expand.launches,
              rcx_kernels.decode_launches)
     assert all(a == b + 1 for a, b in zip(after, before))
+    counters = [(rcq_kernels, "encode_launches"), (expand, "launches"),
+                (rcq_kernels, "decode_launches"),
+                (rans_kernels, "encode_launches"),
+                (rans_kernels, "decode_launches")]
+    before = [getattr(m, a) for m, a in counters]
+    for codec in ("rcq", None):       # None: the default codec, rans
+        blob = ctt.compress(data, device="cuda", **({"codec": codec}
+                                                    if codec else {}))
+        assert ctt.decompress(blob, codec=codec or "rans") == data
+    assert [getattr(m, a) - b for (m, a), b in zip(counters, before)] \
+        == [1] * 5
+
+
+@pytest.mark.parametrize("k", [32, 128, 2048])
+def test_rcq_kernels_match_plain(dev, k):
+    """Kernels D and E against kernel A's and C's step loops with one
+    context, a requant every step and one halving."""
+    n = 30 * k + 5
+    x = torch.from_numpy(_textish(n, k + 1)).to(dev)
+    _, inc, cl = rcq_params(n, lanes=k)
+    stride = -(-n // k)
+    x2d = layout.pad2d_interleaved(x, k, stride)
+    lens = layout.lane_lengths_interleaved(n, k, stride, dev)
+    ev = rcq_kernels.encode_events(x2d, lens, inc, 1 << cl)
+    assert torch.equal(ev, rcx_ops.encode_events_plain(x2d, lens, inc,
+                                                       1 << cl, 0, 0, 1))
+    rows, sizes = expand.materialize_rows(ev)
+    words = layout.decode_words(rows, sizes)
+    sym = rcq_kernels.decode_symbols(words, lens, n, stride, inc, 1 << cl)
+    assert torch.equal(sym, rcx_ops.decode_symbols_plain(
+        words, lens, n, stride, inc, 1 << cl, 0, 0, 1, interleaved=True))
+    assert torch.equal(sym, x)
+
+
+@pytest.mark.parametrize("k,single", [(1, False), (2, False), (64, True),
+                                      (256, False), (8192, False)])
+def test_rans_kernels_match_plain(dev, k, single):
+    """Kernels F and G against their step loops; n is not a multiple of K,
+    and one case is a single-symbol run."""
+    n = 20 * k + 3
+    data = np.full(n, 0x42, np.uint8) if single else _textish(n, k + 2)
+    x = torch.from_numpy(data).to(dev)
+    stride = -(-n // k)
+    x2d = layout.pad2d_interleaved(x, k, stride)
+    lens = layout.lane_lengths_interleaved(n, k, stride, dev)
+    tables = rans_ops.tables(rans_ops.static_freqs(x), dev)
+    ev, st = rans_kernels.encode_events(x2d, lens, *tables)
+    pev, pst = rans_ops.encode_events_plain(x2d, lens, *tables)
+    assert torch.equal(ev, pev) and torch.equal(st, pst)
+    rows = rans_ops.word_rows(*rans_ops.lane_words(ev))
+    sym = rans_kernels.decode_symbols(st, rows, lens, *tables, n, stride)
+    assert torch.equal(sym, rans_ops.decode_symbols_plain(
+        st, rows, lens, *tables, n, stride))
+    assert torch.equal(sym, x)
+
+
+@pytest.mark.parametrize("codec", ["rans", "rcq"])
+def test_corpus_file_matches_oracle(dev, codec):
+    data = (Path(__file__).resolve().parent.parent / "data"
+            / "fields.c").read_bytes()
+    blob = ctt.compress(data, codec=codec, device="cuda")
+    assert blob == ctt.compress(data, codec=codec, backend="ref")
+    assert ctt.decompress(blob, codec=codec, device="cuda") == data
+
+
+def test_rans_wide_count_table(dev):
+    """One lane with more than 0xFFFF words: u32 count table (lane_desc
+    bit 7), oracle-identical, decoded on the card."""
+    data = np.random.default_rng(7).integers(0, 256, 200_000,
+                                             np.uint8).tobytes()
+    blob = ctt.compress(data, device="cuda", lanes=1)
+    assert blob[4] & 0x80
+    assert blob == rans_ref.rans_encode(data, lanes=1)
+    assert ctt.decompress(blob, device="cuda") == data

@@ -18,8 +18,7 @@ from cpprcoder_tpu.ops import rcx_pallas
 from cpprcoder_tpu.ops.rcq_ops import _rows_fn
 from cpprcoder_tpu.reference import rcx_ref
 from cpprcoder_tpu.utils.shapes import bucket
-from cpprcoder_tpu_torch.ops import compaction, rcx_kernels
-from cpprcoder_tpu_torch.ops import rcx_ops as tops
+from cpprcoder_tpu_torch.ops import compaction, layout, rcx_kernels
 
 rcx_pallas._INTERPRET = True
 K = 128
@@ -42,8 +41,8 @@ def test_encode_events_match_pallas(n, wlog):
     jev, jsizes, _ = fn(jnp.asarray(jops._pad2d_chunked(x, steps, k, stride)), n)
     jev = np.asarray(jev).view(np.int32)
     ev = rcx_kernels.encode_events(
-        tops.pad2d_chunked(torch.from_numpy(x), k, stride),
-        tops.lane_lengths(n, k, stride, "cpu"), inc, 1 << cl, cbits, wlog)
+        layout.pad2d_chunked(torch.from_numpy(x), k, stride),
+        layout.lane_lengths(n, k, stride, "cpu"), inc, 1 << cl, cbits, wlog)
     assert ev.shape == (2 * stride + 2, k) and ev.dtype == torch.int32
     ev = ev.numpy()
     assert np.array_equal(ev[:2 * stride], jev[:2 * stride])
@@ -69,11 +68,11 @@ def test_decode_symbols_match_pallas(n, wlog):
     rows_wT = _rows_fn(k, l4, p_cap)(jnp.asarray(padded), jnp.asarray(sizes)).T
     jsym = np.asarray(rcx_pallas._decode_call(
         bucket(stride), k, k, l4, inc, cl, cbits, stride, wlog)(rows_wT, n))
-    words = tops.word_rows(torch.from_numpy(payload.copy()),
-                           torch.from_numpy(sizes), l4)
+    words = layout.word_rows(torch.from_numpy(payload.copy()),
+                             torch.from_numpy(sizes), l4)
     assert np.array_equal(words.numpy(), np.asarray(rows_wT).view(np.int32))
     sym = rcx_kernels.decode_symbols(
-        words, tops.lane_lengths(n, k, stride, "cpu"), n, stride, inc,
+        words, layout.lane_lengths(n, k, stride, "cpu"), n, stride, inc,
         1 << cl, cbits, wlog)
     want = jsym[:stride].T.reshape(-1)[:n]
     assert np.array_equal(sym.numpy(), want.astype(np.uint8))

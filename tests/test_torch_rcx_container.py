@@ -58,7 +58,7 @@ def test_ratio_mode_matches_oracle_and_jax():
     from cpprcoder_tpu.codecs import rcx as jrcx
 
     assert blob == jrcx.encode(data, mode="ratio")
-    assert ctt.decompress(blob, device="cpu") == data
+    assert ctt.decompress(blob, codec="rcx", device="cpu") == data
 
 
 @pytest.mark.parametrize("opts", [dict(wlog=w) for w in range(4)]
@@ -66,17 +66,17 @@ def test_ratio_mode_matches_oracle_and_jax():
                          + [dict(lanes=k) for k in (8, 32, 128, 256)])
 def test_sweeps_match_oracle(opts):
     data = _textish(3000, seed=len(str(opts)))
-    blob = ctt.compress(data, device="cpu", **opts)
+    blob = ctt.compress(data, codec="rcx", device="cpu", **opts)
     assert blob == rcx_ref.rcx_encode(data, **opts)
-    assert ctt.decompress(blob, device="cpu") == data
+    assert ctt.decompress(blob, codec="rcx", device="cpu") == data
 
 
 def test_empty_trailing_lanes():
     # (k-1)*stride >= n leaves lanes inactive from step 0
     data = _textish(1000, seed=4)
-    blob = ctt.compress(data, device="cpu", lanes=256)
+    blob = ctt.compress(data, codec="rcx", device="cpu", lanes=256)
     assert blob == rcx_ref.rcx_encode(data, lanes=256)
-    assert ctt.decompress(blob, device="cpu") == data
+    assert ctt.decompress(blob, codec="rcx", device="cpu") == data
 
 
 @pytest.mark.parametrize("big", [65535, 65536])
@@ -85,12 +85,14 @@ def test_size_table_goes_wide_at_64k(big):
     bit 7); the parser reads it back. (A real coded 64 KiB lane needs 64K
     steps: tests/test_torch_gpu.py covers it on the card.)"""
     from cpprcoder_tpu.core.bytesutil import ByteReader
+    from cpprcoder_tpu_torch.ops import layout
     from cpprcoder_tpu_torch.ops import rcx_ops as tops
 
     rng = np.random.default_rng(big)
     sizes = np.array([big, 3], np.int32)
     rows = rng.integers(0, 256, (2, big), dtype=np.uint8)
-    blob = tops.assemble((10, 2, 16, 16, 4, 2), rows, sizes)
+    blob = layout.assemble(lambda wide: tops.header(10, 2, wide, 16, 16, 4, 2),
+                           rows, sizes)
     r = ByteReader(blob)
     assert tops.parse_rcx_header(r) == (10, 2, big >= 1 << 16, 16, 16, 4, 2)
     got = r.u32s(2) if big >= 1 << 16 else r.u16s(2)
@@ -124,10 +126,10 @@ def test_stride_beyond_the_event_run_field_raises():
     # 3 * stride + 2 must stay below 2^22 (a pending 0xFF run's length)
     n = (1 << 22) // 3
     with pytest.raises(ValueError, match="split the input"):
-        ctt.compress(bytes(n), device="cpu", lanes=1)
+        ctt.compress(bytes(n), codec="rcx", device="cpu", lanes=1)
 
 
 def test_empty_input_header_only():
-    blob = ctt.compress(b"", device="cpu")
+    blob = ctt.compress(b"", codec="rcx", device="cpu")
     assert blob == rcx_ref.rcx_encode(b"") and len(blob) == 10
-    assert ctt.decompress(blob, device="cpu") == b""
+    assert ctt.decompress(blob, codec="rcx", device="cpu") == b""
