@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's ported paths once on one GPU: CT-RCX,
-CT-RCQ and CT-ANS1 v2 rANS (the default codec).
+CT-RCQ, CT-ANS1 v2 rANS (the default codec) and CT-HUF1 canonical Huffman.
 
     python3 chip_smoke.py
 
@@ -8,19 +8,24 @@ Phases, one line each (a failed phase exits non-zero):
   1. env      the card, torch, nvcc and `nvidia-smi` name/power limit;
   2. build    nvcc builds the kernels of cpprcoder_tpu_torch/csrc/;
   3. kernels  each kernel (A, B, C for CT-RCX; D, E for CT-RCQ; F, G for
-              rANS) against its plain PyTorch version on the card, on
-              seeded inputs at the main paths' shapes, exact equality; then
-              both timed with CUDA events at kennedy.xls's shape, and D to
-              G alone at a small file's (fields.c, grammar.lsp);
-  4. main     per codec (rcx, rcq, rans), with the launch counts set to 0
-              just before and read just after: compress/decompress(codec,
-              device="cuda") over the 11 Canterbury files, byte-identical
-              to the numpy oracle, the known container sizes, a round
-              trip; for rcx also the ratio preset on three files, for rans
-              also the default codec and a lane with a wide word count.
-              Every kernel of the path must have launched.
-Then a {"kernels": [...]} JSON line, the nvidia-smi line, and last
-{"ok": true, "device": {...}}.
+              rANS; H, I for CT-HUF1) against its plain PyTorch version on
+              the card, on seeded inputs at the main paths' shapes, exact
+              equality; then both timed with CUDA events at kennedy.xls's
+              shape, and D to I alone at a small file's (fields.c,
+              grammar.lsp); I also on random word rows;
+  4. main     per codec (rcx, rcq, rans, huffman), with the launch counts
+              set to 0 just before and read just after:
+              compress/decompress(codec, device="cuda") over the 11
+              Canterbury files, byte-identical to the numpy oracle, the
+              known container sizes, a round trip; for rcx also the ratio
+              preset on three files, for rans also the default codec and a
+              lane with a wide word count. Every kernel of the path must
+              have launched.
+Then a {"kernels": [...]} JSON line (per kernel: launches on the main
+paths, the largest difference from its plain version, its time and the
+plain version's at kennedy.xls's shape, and the bound: the larger of the
+bytes it moves over the memory rate and its operations over the peak
+rate), the nvidia-smi line, and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -40,6 +45,8 @@ from cpprcoder_tpu_torch.native import build
 from cpprcoder_tpu_torch.ops import (
     compaction,
     expand,
+    huffman_kernels,
+    huffman_ops,
     layout,
     rans_kernels,
     rans_ops,
@@ -72,6 +79,12 @@ EXPECTED_SIZES = {
         "lcet10.txt": 249921, "plrabn12.txt": 273833, "ptt5": 78748,
         "sum": 25799, "xargs.1": 2782,
     },
+    "huffman": {
+        "alice29.txt": 88135, "asyoulik.txt": 76095, "cp.html": 16373,
+        "fields.c": 7179, "grammar.lsp": 2311, "kennedy.xls": 463937,
+        "lcet10.txt": 251325, "plrabn12.txt": 276369, "ptt5": 107311,
+        "sum": 25859, "xargs.1": 2745,
+    },
 }
 RATIO_FILES = ["alice29.txt", "kennedy.xls", "ptt5"]
 
@@ -84,13 +97,41 @@ COUNTERS = {
     "rcq_decode": (rcq_kernels, "decode_launches"),
     "rans_encode": (rans_kernels, "encode_launches"),
     "rans_decode": (rans_kernels, "decode_launches"),
+    "huffman_encode": (huffman_kernels, "encode_launches"),
+    "huffman_decode": (huffman_kernels, "decode_launches"),
 }
 # the kernels each codec's main path runs
 PATH_KERNELS = {
     "rcx": ["rcx_encode", "expand", "rcx_decode"],
     "rcq": ["rcq_encode", "expand", "rcq_decode"],
     "rans": ["rans_encode", "rans_decode"],
+    "huffman": ["huffman_encode", "huffman_decode"],
 }
+
+# The bound of a kernel (bound_ms): the larger of the bytes it must move
+# (each input read once, each output written once) over the H100's
+# 3.35 TB/s and its integer operations over 67 T/s, the card's peak rate
+# outside the tensor cores (the float32 rate; no kernel here has work for
+# the tensor cores, and no int32 rate is higher). Operations are counted
+# from the function each kernel computes, per coded symbol (table reads,
+# shifts, compares, multiplies and divides as one each; the decoders'
+# symbol search included), per model cell requantized (rescale, quantize,
+# argmax and cumsum) and, for B, per event and payload byte.
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
+OPS_PER_SYMBOL = {"rcx_encode": 24, "rcx_decode": 40, "rcq_encode": 24,
+                  "rcq_decode": 40, "rans_encode": 10, "rans_decode": 11,
+                  "huffman_encode": 12, "huffman_decode": 40}
+OPS_PER_CELL = 12      # a model cell's requant
+OPS_PER_EVENT = 5      # kernel B: an event's fields and its lane cumsum
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def coder_ops(name: str, n: int, requants: int = 0, cells: int = 0) -> int:
+    return n * OPS_PER_SYMBOL[name] + requants * cells * OPS_PER_CELL
 
 
 def fail(msg: str):
@@ -204,6 +245,40 @@ def hold(err: dict, name: str, out_k, out_p, what: str):
     return out_k
 
 
+def lane_cases(seed: int):
+    """(K, data) for the thread-per-lane kernels: K in {1, 2, 64, 256,
+    8192}, n ragged (not a multiple of K) but at K = 1, and a single-symbol
+    run."""
+    return [(1, textish(2000, seed)), (2, textish(3721, seed + 1)),
+            (64, textish(64 * 500 + 17, seed + 2)),
+            (256, textish(256 * 300 + 5, seed + 3)),
+            (8192, textish(8192 * 40 + 3, seed + 4)), (64, b"\x42" * 2001)]
+
+
+def time_at(files, case, args, plain_reps: int, what: str):
+    """Hold `case` at each file's main-path shape (args(n) gives its
+    parameters) and time its kernels, 5 reps after a warm-up; the plain
+    versions only at the first file, `plain_reps` reps. Prints the line
+    `[kernels] ok {what}; ...`. -> ({kernel: (ms, plain ms)}, {kernel:
+    (bytes, ops)}) at the first file."""
+    at, ms, work = {}, {}, {}
+    for i, name in enumerate(files):
+        data = corpus(name)
+        shape, fns, w = case(data, *args(len(data)), name)
+        at[name] = f"{name} ({shape})"
+        ms[name] = {nm: (cuda_ms(kern, 5),
+                         i == 0 and cuda_ms(plain, plain_reps, 0))
+                    for nm, (kern, plain) in fns.items()}
+        work = work or w
+    big, small = files
+    print(f"[kernels] ok {what}; at {at[big]} ms kernel/plain: "
+          + ", ".join(f"{nm} {a:.3f}/{b:.3f}" for nm, (a, b) in ms[big].items())
+          + f"; at {at[small]} ms kernel: "
+          + ", ".join(f"{nm} {a:.3f}" for nm, (a, _) in ms[small].items()),
+          flush=True)
+    return ms[big], work
+
+
 def phase_kernels(dev):
     err = {"rcx_encode": 0, "expand": 0, "rcx_decode": 0}
 
@@ -283,12 +358,21 @@ def phase_kernels(dev):
             cuda_ms(lambda: rcx_ops.decode_symbols_plain(
                 words, lens, n, stride, *args), 2)),
     }
+    requants, cells = -(-stride // 4), (1 << cbits) * 256
+    work = {
+        "rcx_encode": (nbytes(x2d, lens, ev),
+                       coder_ops("rcx_encode", n, requants, cells)),
+        "expand": (nbytes(ev, rows, sizes),
+                   ev.numel() * OPS_PER_EVENT + int(sizes.sum())),
+        "rcx_decode": (nbytes(words, lens) + n,
+                       coder_ops("rcx_decode", n, requants, cells)),
+    }
     print(f"[kernels] ok {len(cases)} coder cases (A, C) and {len(grids)} "
           f"event grids (B) equal their plain versions; at kennedy.xls "
           f"(K={k}, stride={stride}, cbits={cbits}, wlog=2) ms kernel/plain: "
           + ", ".join(f"{nm} {a:.3f}/{b:.3f}" for nm, (a, b) in ms.items()),
           flush=True)
-    return err, ms
+    return err, ms, work
 
 
 def phase_kernels_rcq(dev):
@@ -298,7 +382,7 @@ def phase_kernels_rcq(dev):
 
     def case(data, k, inc, cl, what):
         """Hold D and E against their plain versions on `data`; -> (shape,
-        {kernel: (kernel call, plain call)})."""
+        {kernel: (kernel call, plain call)}, {kernel: (bytes, ops)})."""
         n, stride, x2d, lens = interleaved_inputs(data, k, dev)
         enc = (lambda: rcq_kernels.encode_events(x2d, lens, inc, 1 << cl),
                lambda: rcx_ops.encode_events_plain(x2d, lens, inc, 1 << cl,
@@ -313,8 +397,12 @@ def phase_kernels_rcq(dev):
         sym = hold(err, "rcq_decode", dec[0](), dec[1](), f"kernel E at {what}")
         if sym.cpu().numpy().tobytes() != data:
             fail(f"kernel E did not invert kernel D at {what}")
+        work = {"rcq_encode": (nbytes(x2d, lens, ev),
+                               coder_ops("rcq_encode", n, stride, 256)),
+                "rcq_decode": (nbytes(words, lens) + n,
+                               coder_ops("rcq_decode", n, stride, 256))}
         return f"K={k}, stride={stride}", {"rcq_encode": enc,
-                                           "rcq_decode": dec}
+                                           "rcq_decode": dec}, work
 
     # K in {32, 128, 1024, 2048} at rcq_params' defaults, then the
     # single-halving case (K*inc > climit; the oracle asserts there)
@@ -331,22 +419,10 @@ def phase_kernels_rcq(dev):
     # held and timed at kennedy.xls's CT-RCQ shape, kernel vs plain; held
     # there and at fields.c's (K = 32, one warp), where the per-step requant
     # sets the pace and the kernels alone are timed
-    at, ms = {}, {}
-    for name in ("kennedy.xls", "fields.c"):
-        data = corpus(name)
-        shape, fns = case(data, *rcq_params(len(data)), name)
-        at[name] = f"{name} ({shape})"
-        ms[name] = {nm: (cuda_ms(kern, 5),
-                         name == "kennedy.xls" and cuda_ms(plain, 2, 0))
-                    for nm, (kern, plain) in fns.items()}
-    print(f"[kernels] ok {len(cases) + 2} CT-RCQ cases (D, E) equal their "
-          f"plain versions; at {at['kennedy.xls']} ms kernel/plain: "
-          + ", ".join(f"{nm} {a:.3f}/{b:.3f}"
-                      for nm, (a, b) in ms["kennedy.xls"].items())
-          + f"; at {at['fields.c']} ms kernel: "
-          + ", ".join(f"{nm} {a:.3f}" for nm, (a, _) in ms["fields.c"].items()),
-          flush=True)
-    return err, ms["kennedy.xls"]
+    ms, work = time_at(("kennedy.xls", "fields.c"), case, rcq_params, 2,
+                       f"{len(cases) + 2} CT-RCQ cases (D, E) equal their "
+                       f"plain versions")
+    return err, ms, work
 
 
 def phase_kernels_rans(dev):
@@ -355,7 +431,7 @@ def phase_kernels_rans(dev):
 
     def case(data, k, what):
         """Hold F and G against their plain versions on `data`; -> (shape,
-        {kernel: (kernel call, plain call)})."""
+        {kernel: (kernel call, plain call)}, {kernel: (bytes, ops)})."""
         n, stride, x2d, lens = interleaved_inputs(data, k, dev)
         tables = rans_ops.tables(rans_ops.static_freqs(x2d.reshape(-1)[:n]),
                                  dev)
@@ -372,40 +448,96 @@ def phase_kernels_rans(dev):
                    f"kernel G at {what}")
         if sym.cpu().numpy().tobytes() != data:
             fail(f"kernel G did not invert kernel F at {what}")
+        # G also builds cum2sym[2^14] per block: 8 search steps a slot
+        work = {"rans_encode": (nbytes(x2d, lens, *tables, ev, st),
+                                coder_ops("rans_encode", n)),
+                "rans_decode": (nbytes(st, rows, lens, *tables) + n,
+                                coder_ops("rans_decode", n)
+                                + -(-k // 128) * (1 << 14) * 8 * 3)}
         return f"K={k}, stride={stride}", {"rans_encode": enc,
-                                           "rans_decode": dec}
+                                           "rans_decode": dec}, work
 
-    # K in {1, 2, 64, 256, 8192}, n ragged (not a multiple of K) but at
-    # K = 1, a single-symbol run, and alice29.txt at its main-path shape
-    # (K = 64 over 2,377 steps)
-    cases = [(1, textish(2000, 300)), (2, textish(3721, 301)),
-             (64, textish(64 * 500 + 17, 302)),
-             (256, textish(256 * 300 + 5, 303)),
-             (8192, textish(8192 * 40 + 3, 304)), (64, b"\x42" * 2001),
-             (64, corpus("alice29.txt"))]
+    # lane_cases, and alice29.txt at its main-path shape (K = 64 over
+    # 2,377 steps)
+    cases = lane_cases(300) + [(64, corpus("alice29.txt"))]
     for k, data in cases:
         case(data, k, f"K={k} n={len(data)}")
 
     # held and timed at kennedy.xls's rANS shape, kernel vs plain; held
     # there and at grammar.lsp's (K = 2 lanes over 1,861 steps), where the
     # kernels alone are timed
-    at, ms = {}, {}
-    for name in ("kennedy.xls", "grammar.lsp"):
-        data = corpus(name)
-        shape, fns = case(data, rans_ops.pick_lanes(len(data)), name)
-        at[name] = f"{name} ({shape})"
-        ms[name] = {nm: (cuda_ms(kern, 5),
-                         name == "kennedy.xls" and cuda_ms(plain, 2, 0))
-                    for nm, (kern, plain) in fns.items()}
-    print(f"[kernels] ok {len(cases) + 2} rANS cases (F, G) equal their "
-          f"plain versions; at {at['kennedy.xls']} ms kernel/plain: "
-          + ", ".join(f"{nm} {a:.3f}/{b:.3f}"
-                      for nm, (a, b) in ms["kennedy.xls"].items())
-          + f"; at {at['grammar.lsp']} ms kernel: "
-          + ", ".join(f"{nm} {a:.3f}"
-                      for nm, (a, _) in ms["grammar.lsp"].items()),
-          flush=True)
-    return err, ms["kennedy.xls"]
+    ms, work = time_at(("kennedy.xls", "grammar.lsp"), case,
+                       lambda n: (rans_ops.pick_lanes(n),), 2,
+                       f"{len(cases) + 2} rANS cases (F, G) equal their "
+                       f"plain versions")
+    return err, ms, work
+
+
+def phase_kernels_huffman(dev):
+    """H and I against their plain step loops; I also on random word rows
+    against an incomplete code, where some windows match no code."""
+    err = {"huffman_encode": 0, "huffman_decode": 0}
+
+    def case(data, k, what):
+        """Hold H and I against their plain versions on `data`; -> (shape,
+        {kernel: (kernel call, plain call)}, {kernel: (bytes, ops)})."""
+        n, stride, x2d, lens = interleaved_inputs(data, k, dev)
+        lengths, tab = huffman_ops.encoder_table(x2d.reshape(-1)[:n])
+        enc = (lambda: huffman_kernels.encode_events(x2d, lens, tab),
+               lambda: huffman_ops.encode_events_plain(x2d, lens, tab))
+        ev, flush, bits = hold(err, "huffman_encode", enc[0](), enc[1](),
+                               f"kernel H at {what}")
+        rows = rans_ops.word_rows(*huffman_ops.lane_stream(ev, flush))
+        tables = huffman_ops.decoder_tables(lengths, dev)
+        dec = (lambda: huffman_kernels.decode_symbols(rows, lens, *tables, n,
+                                                      stride),
+               lambda: huffman_ops.decode_symbols_plain(rows, lens, *tables,
+                                                        n, stride))
+        sym = hold(err, "huffman_decode", dec[0](), dec[1](),
+                   f"kernel I at {what}")
+        if sym.cpu().numpy().tobytes() != data:
+            fail(f"kernel I did not invert kernel H at {what}")
+        work = {"huffman_encode": (nbytes(x2d, lens, tab, ev, flush, bits),
+                                   coder_ops("huffman_encode", n)),
+                "huffman_decode": (nbytes(rows, lens, *tables) + n,
+                                   coder_ops("huffman_decode", n))}
+        return f"K={k}, stride={stride}", {"huffman_encode": enc,
+                                           "huffman_decode": dec}, work
+
+    # lane_cases; the single-symbol run is one code of length 1, all bits 0
+    cases = lane_cases(400)
+    for k, data in cases:
+        case(data, k, f"K={k} n={len(data)}")
+
+    # random word rows: windows that no code matches decode as perm[0]
+    # and consume 16 bits in both versions
+    rng = np.random.default_rng(405)
+    lengths = np.zeros(256, np.uint8)
+    lengths[[5, 9, 200]] = [2, 3, 3]
+    tables = huffman_ops.decoder_tables(lengths, dev)
+    k, stride = 300, 500
+    rows = torch.from_numpy(rng.integers(0, 1 << 16, (300, k),
+                                         dtype=np.int32)).to(dev)
+    lens = torch.from_numpy(rng.integers(0, stride + 1, k,
+                                         dtype=np.int32)).to(dev)
+    active = torch.arange(stride, device=dev)[:, None] < lens[None, :]
+    pick = (lambda out: out.view(stride, k)[active])
+    hold(err, "huffman_decode",
+         pick(huffman_kernels.decode_symbols(rows, lens, *tables, k * stride,
+                                             stride)),
+         pick(huffman_ops.decode_symbols_plain(rows, lens, *tables,
+                                               k * stride, stride)),
+         "kernel I on random word rows")
+
+    # held and timed at kennedy.xls's shape, kernel vs plain (the plain
+    # loops run 4,023 steps a call: one rep); held there and at
+    # grammar.lsp's (K = 2 over 1,861 steps), where the kernels alone are
+    # timed
+    ms, work = time_at(("kennedy.xls", "grammar.lsp"), case,
+                       lambda n: (rans_ops.pick_lanes(n),), 1,
+                       f"{len(cases) + 3} CT-HUF1 cases (H, I; I also on "
+                       f"random word rows) equal their plain versions")
+    return err, ms, work
 
 
 def run_corpus(codec: str):
@@ -485,7 +617,8 @@ def rans_default_and_wide():
     return "default codec is rans; wide count table oracle-identical"
 
 
-EXTRAS = {"rcx": rcx_ratio_preset, "rcq": None, "rans": rans_default_and_wide}
+EXTRAS = {"rcx": rcx_ratio_preset, "rcq": None, "rans": rans_default_and_wide,
+          "huffman": None}
 
 
 def phase_main(codec: str):
@@ -520,7 +653,20 @@ KERNELS = [
      "cpprcoder_tpu/ops/rans_pallas.py:76"),
     ("rans_decode", "cpprcoder_tpu_torch/csrc/rans_decode.cu",
      "cpprcoder_tpu/ops/rans_pallas.py:225"),
+    ("huffman_encode", "cpprcoder_tpu_torch/csrc/huffman_encode.cu",
+     "cpprcoder_tpu/ops/huffman_pallas.py:79"),
+    ("huffman_decode", "cpprcoder_tpu_torch/csrc/huffman_decode.cu",
+     "cpprcoder_tpu/ops/huffman_pallas.py:220"),
 ]
+
+
+def bound(moved: int, ops: int):
+    """-> (bound_ms, bound_by): the larger of bytes moved over the memory
+    rate and operations over the peak rate."""
+    by_bytes = moved / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                          "operations")
 
 
 def main():
@@ -528,23 +674,31 @@ def main():
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     phase_build()
-    err, ms = {}, {}
-    for phase in (phase_kernels, phase_kernels_rcq, phase_kernels_rans):
-        e, m = phase(dev)
+    err, ms, work = {}, {}, {}
+    for phase in (phase_kernels, phase_kernels_rcq, phase_kernels_rans,
+                  phase_kernels_huffman):
+        e, m, w = phase(dev)
         err.update(e)
         ms.update(m)
+        work.update(w)
     # a kernel on several paths (B) reports the sum of its paths' counts
     launches = dict.fromkeys(COUNTERS, 0)
     for codec in PATH_KERNELS:
         for nm, c in phase_main(codec).items():
             launches[nm] += c
-    if "jax" in sys.modules:
-        fail("jax was imported")
-    print(json.dumps({"kernels": [
-        {"name": nm, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[nm], "max_abs_err": err[nm],
-         "ms": ms[nm][0], "plain_ms": ms[nm][1]}
-        for nm, src, rep in KERNELS]}))
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "cpprcoder_tpu"))
+    if loaded:
+        fail(f"modules of jax or of the JAX package were imported: {loaded}")
+    rows = []
+    for nm, src, rep in KERNELS:
+        bound_ms, bound_by = bound(*work[nm])
+        rows.append({"name": nm, "route": "cuda", "source": src,
+                     "replaces": rep, "launches": launches[nm],
+                     "max_abs_err": err[nm], "ms": ms[nm][0],
+                     "plain_ms": ms[nm][1], "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None})
+    print(json.dumps({"kernels": rows}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -3,8 +3,9 @@
 A second package beside the JAX one, which stays the reference: the same
 container formats, written byte for byte alike, with each Pallas TPU kernel
 replaced by a CUDA kernel written for Hopper (sm_90a, `csrc/`). It imports
-torch and never jax; it shares the JAX package's numpy-only host modules
-(byte utilities, the numpy oracles, the parameter policy).
+torch and never jax, and nothing of the JAX package: it keeps its own
+copies of the numpy-only host modules it needs (`config`, `core/`, the
+numpy parts of `models/`, the oracles in `reference/`).
 
 Public API:
     compress(data, codec="rans", device="cuda", **opts) -> bytes

@@ -2,7 +2,8 @@
 (counterpart of cpprcoder_tpu/codecs/__init__.py; same names and ids).
 
 Ported so far: `rans` (id 2, CT-ANS1 v2, the default codec, as in the JAX
-package), `rcq` (id 14, CT-RCQ) and `rcx` (id 15, CT-RCX). Asking for
+package), `huffman` (id 3, CT-HUF1), `rcq` (id 14, CT-RCQ) and `rcx`
+(id 15, CT-RCX). Asking for
 another codec of the JAX package raises KeyError naming the ROADMAP item
 that ports it.
 """
@@ -17,7 +18,7 @@ _BY_ID: dict[int, "Codec"] = {}
 # codecs of the JAX package still to port -> ROADMAP.md queue A item
 NOT_YET_PORTED = {
     "static_range": "A6", "adaptive_range": "A6",
-    "stream": "A7", "huffman": "A9", "blocksort": "A10",
+    "stream": "A7", "blocksort": "A10",
     "mtf": "A10", "mtf1": "A10", "rle0": "A10", "pipeline": "A10",
     "slz4": "A11", "adaptive_o1": "A12", "adaptive_rans": "A12",
     "ase": "A12",
@@ -77,4 +78,4 @@ def decompress(blob, codec: str = "rans", **opts) -> bytes:
 
 
 def _ensure_loaded():
-    from cpprcoder_tpu_torch.codecs import rans, rcq, rcx  # noqa: F401
+    from cpprcoder_tpu_torch.codecs import huffman, rans, rcq, rcx  # noqa: F401

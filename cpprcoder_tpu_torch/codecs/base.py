@@ -2,7 +2,7 @@
 
   "cuda":  tensors on the card; the hand-written kernels run.
   "torch": the plain PyTorch versions, on the CPU.
-  "ref":   the JAX package's numpy oracle (cpprcoder_tpu/reference/).
+  "ref":   the numpy oracle (the port's own copy, reference/).
 
 All three write byte-identical containers. The device is explicit: with no
 backend and no device the codec runs on "cuda", and raises when CUDA is not
@@ -14,6 +14,15 @@ from __future__ import annotations
 import torch
 
 BACKENDS = ("cuda", "torch", "ref")
+
+
+def check_lane_count(lanes: int | None) -> None:
+    """Raise ValueError unless `lanes` is None or a power of two: every
+    container stores log2(K) in its lane descriptor, and the decoders read
+    back 1 << that, so any other K writes a container that does not
+    decode."""
+    if lanes is not None and (lanes < 1 or lanes & (lanes - 1)):
+        raise ValueError(f"lanes must be a power of two, got {lanes}")
 
 
 def resolve(backend: str | None, device=None):

@@ -1,17 +1,17 @@
 """CT-RCX codec of the port (counterpart of cpprcoder_tpu/codecs/rcx.py).
 
-Format: cpprcoder_tpu/reference/rcx_ref.py. Backends (codecs/base.py):
+Format: reference/rcx_ref.py. Backends (codecs/base.py):
 "cuda" (kernels A, B, C on the card), "torch" (plain versions on the CPU)
 and "ref" (the numpy oracle); all write byte-identical containers.
 """
 
 from __future__ import annotations
 
-from cpprcoder_tpu.reference import rcx_ref
 from cpprcoder_tpu_torch.codecs import register
-from cpprcoder_tpu_torch.codecs.base import resolve
+from cpprcoder_tpu_torch.codecs.base import check_lane_count, resolve
 from cpprcoder_tpu_torch.models.cxmodel import rcx_params
 from cpprcoder_tpu_torch.ops import rcx_ops
+from cpprcoder_tpu_torch.reference import rcx_ref
 
 MODES = ("balanced", "ratio")
 
@@ -21,6 +21,7 @@ def encode(data, backend: str | None = None, device=None,
            climit_log2: int | None = None, cbits: int | None = None,
            mode: str = "balanced", wlog: int | None = None) -> bytes:
     """mode "ratio": half the lanes, cbits=6 and wlog=0 (rcx_params)."""
+    check_lane_count(lanes)
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; one of {MODES}")
     if mode == "ratio" and lanes is None and cbits is None:

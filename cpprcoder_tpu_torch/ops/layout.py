@@ -17,13 +17,13 @@ from typing import Callable
 import numpy as np
 import torch
 
-from cpprcoder_tpu.core.bytesutil import (
+from cpprcoder_tpu_torch.core.bytesutil import (
     ByteReader,
     ByteWriter,
     CorruptContainerError,
 )
-from cpprcoder_tpu.reference.rc_ref import _write_sizes
 from cpprcoder_tpu_torch.ops import compaction
+from cpprcoder_tpu_torch.reference.rc_ref import _write_sizes
 
 
 def pad2d_chunked(x: torch.Tensor, k: int, stride: int) -> torch.Tensor:

@@ -3,7 +3,7 @@ cpprcoder_tpu/ops/rans_ops.py, of the wrapper code of
 rans_pallas.rans_encode_pallas / rans_decode_pallas and of
 huffman_pallas._rows16_fn).
 
-Format: cpprcoder_tpu/reference/rans_ref.py. Lane i codes x[j*K + i] at
+Format: reference/rans_ref.py. Lane i codes x[j*K + i] at
 step j against one static table of 2^14 (freq, exclusive cum), the
 counterpart of models/table_jax.py: the histogram is `torch.bincount` on
 the device, and its 256 counts go to the host for the oracle's own
@@ -21,13 +21,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from cpprcoder_tpu.config import ANS_LOW, ANS_PROB_BITS, ANS_TOTAL, pick_lanes
-from cpprcoder_tpu.core.bytesutil import ByteReader, ByteWriter, as_u8
-from cpprcoder_tpu.models import freq_header
-from cpprcoder_tpu.models.static_table import exclusive_cumsum, normalize_freqs
-from cpprcoder_tpu.reference.rans_ref import _lane_desc, _parse_lane_desc
+from cpprcoder_tpu_torch.config import ANS_LOW, ANS_PROB_BITS, ANS_TOTAL, pick_lanes
+from cpprcoder_tpu_torch.core.bytesutil import ByteReader, ByteWriter, as_u8
+from cpprcoder_tpu_torch.models import freq_header
+from cpprcoder_tpu_torch.models.static_table import exclusive_cumsum, normalize_freqs
 from cpprcoder_tpu_torch.ops import layout
 from cpprcoder_tpu_torch.ops.rc_common import i32_to_u32, u32_to_i32
+from cpprcoder_tpu_torch.reference.rans_ref import _lane_desc, _parse_lane_desc
 
 MASK = ANS_TOTAL - 1
 EMIT = 1 << 16        # event bit: the step emitted its low word

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from cpprcoder_tpu.config import MASK32, RC_TOP
+from cpprcoder_tpu_torch.config import MASK32, RC_TOP
 
 EV_RUN_BITS = 22
 EV_RUN_MASK = (1 << EV_RUN_BITS) - 1

@@ -2,7 +2,7 @@
 cpprcoder_tpu/ops/rcq_ops.py, with the interleaved branch of
 range_ops._encode_container).
 
-Format: cpprcoder_tpu/reference/rcq_ref.py. Lane i codes x[j*K + i] at step
+Format: reference/rcq_ref.py. Lane i codes x[j*K + i] at step
 j, for the stride = ceil(n/K) steps; one model C[256] is shared by all
 lanes and requantized before every step (models/qmodel.py: one halving).
 The port runs exactly `stride` steps: the JAX package's `bucket` padding
@@ -19,15 +19,15 @@ from __future__ import annotations
 
 import torch
 
-from cpprcoder_tpu.core.bytesutil import (
+from cpprcoder_tpu_torch.core.bytesutil import (
     ByteReader,
     ByteWriter,
     CorruptContainerError,
     as_u8,
 )
-from cpprcoder_tpu.reference.rc_ref import _lane_desc, _parse_lane_desc
 from cpprcoder_tpu_torch.models.cxmodel import QBITS, rcq_params
 from cpprcoder_tpu_torch.ops import layout, rc_common
+from cpprcoder_tpu_torch.reference.rc_ref import _lane_desc, _parse_lane_desc
 
 
 def header(n, k, wide, inc, climit_log2) -> ByteWriter:

@@ -2,7 +2,7 @@
 cpprcoder_tpu/ops/rcx_ops.py, with the time-major branch of
 range_ops._encode_container).
 
-Format: cpprcoder_tpu/reference/rcx_ref.py. Lane i owns the contiguous
+Format: reference/rcx_ref.py. Lane i owns the contiguous
 bytes x[i*stride:(i+1)*stride], stride = ceil(n/K), and codes its j-th byte
 at step j; the model C[2^cbits, 256] is conditioned on the lane's previous
 byte and requantized every 2^wlog steps.
@@ -21,14 +21,13 @@ from __future__ import annotations
 
 import torch
 
-from cpprcoder_tpu.config import MASK32, RC_TOP
-from cpprcoder_tpu.core.bytesutil import (
+from cpprcoder_tpu_torch.config import MASK32, RC_TOP
+from cpprcoder_tpu_torch.core.bytesutil import (
     ByteReader,
     ByteWriter,
     CorruptContainerError,
     as_u8,
 )
-from cpprcoder_tpu.reference.rc_ref import _lane_desc, _parse_lane_desc
 from cpprcoder_tpu_torch.models.cxmodel import (
     QBITS,
     QTOTAL,
@@ -38,6 +37,7 @@ from cpprcoder_tpu_torch.models.cxmodel import (
     rcx_params,
 )
 from cpprcoder_tpu_torch.ops import layout, rc_common
+from cpprcoder_tpu_torch.reference.rc_ref import _lane_desc, _parse_lane_desc
 
 N_SLOTS = 2   # range_new >= t >= 2^(24-QBITS) = 2^9: <= 2 renorms a step
 

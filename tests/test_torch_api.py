@@ -23,19 +23,33 @@ def _run(code, env=None):
 
 
 def test_registry():
-    assert ctt.list_codecs() == ["rans", "rcq", "rcx"]
-    for name, cid in (("rans", 2), ("rcq", 14), ("rcx", 15)):
+    assert ctt.list_codecs() == ["huffman", "rans", "rcq", "rcx"]
+    for name, cid in (("huffman", 3), ("rans", 2), ("rcq", 14), ("rcx", 15)):
         c = ctt.get_codec(name)
         assert (c.name, c.codec_id) == (name, cid)
         assert ctt.get_codec_by_id(cid) is c
-    with pytest.raises(KeyError, match="A9"):
-        ctt.get_codec("huffman")
+    with pytest.raises(KeyError, match="A10"):
+        ctt.get_codec("blocksort")
     with pytest.raises(KeyError, match="A6"):
         ctt.compress(b"abc", codec="static_range")
     with pytest.raises(KeyError, match="unknown codec"):
         ctt.get_codec("nope")
     with pytest.raises(KeyError):
-        ctt.get_codec_by_id(3)
+        ctt.get_codec_by_id(4)
+
+
+@pytest.mark.parametrize("codec", ["huffman", "rans", "rcq", "rcx"])
+def test_lanes_must_be_a_power_of_two(codec):
+    """A container stores log2(K) and its decoder reads back 1 << that, so
+    lanes=3 would write a container that does not decode (the JAX package's
+    oracles write one): every port codec refuses it, on every backend."""
+    data = bytes(range(256)) * 4
+    for opts in ({"device": "cpu"}, {"backend": "ref"}, {}):
+        for lanes in (3, 6, 0, -4):
+            with pytest.raises(ValueError, match="power of two"):
+                ctt.compress(data, codec=codec, lanes=lanes, **opts)
+    blob = ctt.compress(data, codec=codec, device="cpu", lanes=4)
+    assert ctt.decompress(blob, codec=codec, device="cpu") == data
 
 
 def test_default_codec_is_rans_as_in_the_jax_package():
@@ -122,6 +136,8 @@ def test_build_without_nvcc_raises_clearly(monkeypatch, tmp_path):
     assert {p.name for p in build.sources()} >= {
         "rcx_encode.cu", "rcx_decode.cu", "expand.cu", "rcx_model.cuh",
         "rcq_encode.cu", "rcq_decode.cu", "rans_encode.cu", "rans_decode.cu",
-        "rc_encode.cuh", "rc_decode.cuh"}
+        "rc_encode.cuh", "rc_decode.cuh", "huffman_encode.cu",
+        "huffman_decode.cu"}
     assert set(build.SIGNATURES) >= {"ct_rcq_encode", "ct_rcq_decode",
-                                     "ct_rans_encode", "ct_rans_decode"}
+                                     "ct_rans_encode", "ct_rans_decode",
+                                     "ct_huffman_encode", "ct_huffman_decode"}

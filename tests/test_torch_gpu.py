@@ -12,18 +12,20 @@ import pytest
 import torch
 
 import cpprcoder_tpu_torch as ctt
-from cpprcoder_tpu.models.qmodel import rcq_params
-from cpprcoder_tpu.reference import rans_ref, rcx_ref
+from cpprcoder_tpu_torch.models.qmodel import rcq_params
 from cpprcoder_tpu_torch.ops import (
     compaction,
     expand,
-    rans_kernels,
+    huffman_kernels,
+    huffman_ops,
     layout,
+    rans_kernels,
     rans_ops,
     rcq_kernels,
     rcx_kernels,
     rcx_ops,
 )
+from cpprcoder_tpu_torch.reference import rans_ref, rcx_ref
 
 pytestmark = pytest.mark.gpu
 
@@ -137,7 +139,53 @@ def test_rans_kernels_match_plain(dev, k, single):
     assert torch.equal(sym, x)
 
 
-@pytest.mark.parametrize("codec", ["rans", "rcq"])
+@pytest.mark.parametrize("k,single", [(1, False), (2, False), (64, True),
+                                      (256, False), (8192, False)])
+def test_huffman_kernels_match_plain(dev, k, single):
+    """Kernels H and I against their step loops; n is not a multiple of K,
+    and one case is a single-symbol run (one code of length 1, all 0
+    bits)."""
+    n = 20 * k + 3
+    data = np.full(n, 0x42, np.uint8) if single else _textish(n, k + 4)
+    x = torch.from_numpy(data).to(dev)
+    stride = -(-n // k)
+    x2d = layout.pad2d_interleaved(x, k, stride)
+    lens = layout.lane_lengths_interleaved(n, k, stride, dev)
+    lengths, tab = huffman_ops.encoder_table(x)
+    out = huffman_kernels.encode_events(x2d, lens, tab)
+    plain = huffman_ops.encode_events_plain(x2d, lens, tab)
+    assert all(torch.equal(a, b) for a, b in zip(out, plain))
+    words, counts = huffman_ops.lane_stream(out[0], out[1])
+    rows = rans_ops.word_rows(words, counts)
+    tables = huffman_ops.decoder_tables(lengths, dev)
+    sym = huffman_kernels.decode_symbols(rows, lens, *tables, n, stride)
+    assert torch.equal(sym, huffman_ops.decode_symbols_plain(
+        rows, lens, *tables, n, stride))
+    assert torch.equal(sym, x)
+
+
+def test_huffman_decode_random_rows_match_plain(dev):
+    """Random word rows against an incomplete code: windows no code matches
+    decode as perm[0] and consume 16 bits in the kernel as in the plain
+    version."""
+    rng = np.random.default_rng(9)
+    lengths = np.zeros(256, np.uint8)
+    lengths[[5, 9, 200]] = [2, 3, 3]
+    tables = huffman_ops.decoder_tables(lengths, dev)
+    k, stride = 300, 50
+    rows = torch.from_numpy(rng.integers(0, 1 << 16, (30, k),
+                                         dtype=np.int32)).to(dev)
+    lens = torch.from_numpy(rng.integers(0, stride + 1, k,
+                                         dtype=np.int32)).to(dev)
+    sym = huffman_kernels.decode_symbols(rows, lens, *tables, k * stride,
+                                         stride)
+    plain = huffman_ops.decode_symbols_plain(rows, lens, *tables, k * stride,
+                                             stride)
+    active = (torch.arange(stride, device=dev)[:, None] < lens[None, :])
+    assert torch.equal(sym.view(stride, k)[active], plain.view(stride, k)[active])
+
+
+@pytest.mark.parametrize("codec", ["rans", "rcq", "huffman"])
 def test_corpus_file_matches_oracle(dev, codec):
     data = (Path(__file__).resolve().parent.parent / "data"
             / "fields.c").read_bytes()

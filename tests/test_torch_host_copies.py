@@ -1,0 +1,162 @@
+"""The port's own copies of the JAX package's numpy-only modules (config,
+core/bytesutil, the numpy models, the oracles in reference/) against their
+originals, and the rule that the port imports nothing of the JAX package:
+no import statement names it, and running every codec leaves neither jax
+nor any cpprcoder_tpu module in sys.modules."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from conftest import std_cases
+
+from cpprcoder_tpu import config as jconfig
+from cpprcoder_tpu.models import cxmodel as jcx
+from cpprcoder_tpu.models import freq_header as jfh
+from cpprcoder_tpu.models import huffman as jhuf
+from cpprcoder_tpu.models import qmodel as jq
+from cpprcoder_tpu.models import static_table as jst
+from cpprcoder_tpu.reference import huffman_ref as jhuf_ref
+from cpprcoder_tpu.reference import rans_ref as jrans_ref
+from cpprcoder_tpu.reference import rcq_ref as jrcq_ref
+from cpprcoder_tpu.reference import rcx_ref as jrcx_ref
+from cpprcoder_tpu_torch import config as tconfig
+from cpprcoder_tpu_torch.models import cxmodel as tcx
+from cpprcoder_tpu_torch.models import freq_header as tfh
+from cpprcoder_tpu_torch.models import huffman as thuf
+from cpprcoder_tpu_torch.models import qmodel as tq
+from cpprcoder_tpu_torch.models import static_table as tst
+from cpprcoder_tpu_torch.reference import huffman_ref as thuf_ref
+from cpprcoder_tpu_torch.reference import rans_ref as trans_ref
+from cpprcoder_tpu_torch.reference import rcq_ref as trcq_ref
+from cpprcoder_tpu_torch.reference import rcx_ref as trcx_ref
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "cpprcoder_tpu_torch"
+
+# (JAX package's oracle, the port's copy): encode, decode
+ORACLES = {
+    "rcx": ((jrcx_ref.rcx_encode, jrcx_ref.rcx_decode),
+            (trcx_ref.rcx_encode, trcx_ref.rcx_decode)),
+    "rcq": ((jrcq_ref.rcq_encode, jrcq_ref.rcq_decode),
+            (trcq_ref.rcq_encode, trcq_ref.rcq_decode)),
+    "rans": ((jrans_ref.rans_encode, jrans_ref.rans_decode),
+             (trans_ref.rans_encode, trans_ref.rans_decode)),
+    "huffman": ((jhuf_ref.huffman_encode, jhuf_ref.huffman_decode),
+                (thuf_ref.huffman_encode, thuf_ref.huffman_decode)),
+}
+
+
+@pytest.mark.parametrize("codec", list(ORACLES))
+def test_oracle_copies_write_the_same_bytes(codec):
+    (jenc, jdec), (tenc, tdec) = ORACLES[codec]
+    for data in std_cases():
+        blob = tenc(data)
+        assert blob == jenc(data)
+        assert tdec(blob) == data == jdec(blob)
+
+
+def test_constants_and_lane_policy():
+    for name in ("RC_TOP", "MASK32", "ANS_PROB_BITS", "ANS_TOTAL", "ANS_LOW",
+                 "HUF_MAX_BITS", "MAX_LANES_LOG2"):
+        assert getattr(tconfig, name) == getattr(jconfig, name), name
+    for name in ("QBITS", "QTOTAL", "QRESERVE", "CLIMIT_LOG2", "INC_DEFAULT",
+                 "MAX_K_TIMES_INC"):
+        assert getattr(tq, name) == getattr(jq, name), name
+    for name in ("WLOG_DEFAULT", "RESCALE_ROUNDS", "CBITS_SMALL", "CBITS_MID",
+                 "CBITS_BIG", "N_SMALL", "N_MID"):
+        assert getattr(tcx, name) == getattr(jcx, name), name
+    rng = np.random.default_rng(21)
+    sizes = np.concatenate([np.arange(0, 70), 2 ** np.arange(0, 27),
+                            rng.integers(0, 1 << 26, 300)])
+    for n in map(int, sizes):
+        assert tconfig.pick_lanes(n) == jconfig.pick_lanes(n), n
+        assert tq.rcq_params(n) == jq.rcq_params(n), n
+        for mode in ("balanced", "ratio"):
+            assert tcx.rcx_params(n, mode=mode) == jcx.rcx_params(n, mode=mode)
+    for lanes in (1, 8, 32, 256, 2048):
+        for inc in (None, 1, 24):
+            assert tq.rcq_params(5000, lanes, inc) == jq.rcq_params(5000, lanes, inc)
+            for cbits in (None, 0, 8):
+                assert (tcx.rcx_params(5000, lanes, inc, cbits)
+                        == jcx.rcx_params(5000, lanes, inc, cbits))
+
+
+def _histograms(seed, count=40):
+    """Seeded 256-bin histograms: sparse, skewed, flat, one symbol, huge."""
+    rng = np.random.default_rng(seed)
+    out = [np.zeros(256, np.int64), np.eye(256, dtype=np.int64)[7] * 9999]
+    for i in range(count):
+        h = rng.integers(0, 10 ** rng.integers(1, 8), 256)
+        h[rng.random(256) < rng.random()] = 0
+        out.append(h)
+        out.append((2.0 ** -np.minimum(np.arange(256) // (i % 16 + 1), 40)
+                    * 1e9).astype(np.int64))
+    return out
+
+
+def test_freq_tables_and_headers():
+    for h in _histograms(22):
+        for bits in (14, 16):
+            if h.sum() == 0:
+                continue
+            f = tst.normalize_freqs(h, bits)
+            assert np.array_equal(f, jst.normalize_freqs(h, bits))
+            assert np.array_equal(tst.exclusive_cumsum(f),
+                                  jst.exclusive_cumsum(f))
+            assert tfh.pack_freqs(f) == jfh.pack_freqs(f)
+
+
+def test_huffman_tables():
+    for h in _histograms(23):
+        lengths = thuf.package_merge_lengths(h)
+        assert np.array_equal(lengths, jhuf.package_merge_lengths(h))
+        for t, j in zip(thuf.build_encoder_table(h),
+                        jhuf.build_encoder_table(h)):
+            assert np.array_equal(t, j)
+        for t, j in zip(thuf.build_canonical_decode_tables(lengths),
+                        jhuf.build_canonical_decode_tables(lengths)):
+            assert np.array_equal(t, j)
+        assert np.array_equal(thuf.build_decoder_lut(lengths),
+                              jhuf.build_decoder_lut(lengths))
+
+
+IMPORTS_JAX_PACKAGE = re.compile(
+    r"^\s*(import\s+cpprcoder_tpu\b(?!_)|from\s+cpprcoder_tpu(\.|\s+import\b))",
+    re.M)
+
+
+def test_no_source_imports_the_jax_package():
+    assert IMPORTS_JAX_PACKAGE.search("from cpprcoder_tpu.config import X")
+    assert IMPORTS_JAX_PACKAGE.search("  import cpprcoder_tpu as ct")
+    assert IMPORTS_JAX_PACKAGE.search("from cpprcoder_tpu import compress")
+    assert not IMPORTS_JAX_PACKAGE.search("import cpprcoder_tpu_torch as ctt")
+    assert not IMPORTS_JAX_PACKAGE.search("from cpprcoder_tpu_torch.ops import x")
+    paths = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(paths) > 20
+    for path in paths:
+        assert not IMPORTS_JAX_PACKAGE.search(path.read_text()), path
+
+
+def test_running_every_codec_loads_nothing_of_jax():
+    code = """
+import sys
+import cpprcoder_tpu_torch as ctt
+data = bytes(range(256)) * 3 + b"no jax here " * 50
+for codec in ctt.list_codecs():
+    for opts in ({"device": "cpu"}, {"backend": "ref"}):
+        blob = ctt.compress(data, codec=codec, **opts)
+        assert ctt.decompress(blob, codec=codec, **opts) == data, codec
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "cpprcoder_tpu"
+             or m.startswith("cpprcoder_tpu."))
+print(len(ctt.list_codecs()), bad)
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split(None, 1) == ["4", "[]\n"]

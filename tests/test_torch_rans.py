@@ -19,12 +19,12 @@ import torch
 from conftest import corpus_file, std_cases
 
 import cpprcoder_tpu_torch as ctt
-from cpprcoder_tpu.core.bytesutil import CorruptContainerError
 from cpprcoder_tpu.ops import rans_ops as jops
 from cpprcoder_tpu.ops import rans_pallas
 from cpprcoder_tpu.ops.huffman_pallas import _rows16_fn
 from cpprcoder_tpu.reference import rans_ref
 from cpprcoder_tpu.utils.shapes import bucket
+from cpprcoder_tpu_torch.core.bytesutil import CorruptContainerError
 from cpprcoder_tpu_torch.ops import layout, rans_kernels
 from cpprcoder_tpu_torch.ops import rans_ops as tops
 from cpprcoder_tpu_torch.ops.rc_common import i32_to_u32

@@ -18,12 +18,13 @@ import torch
 from conftest import corpus_file, std_cases
 
 import cpprcoder_tpu_torch as ctt
-from cpprcoder_tpu.core.bytesutil import ByteReader, CorruptContainerError
+from cpprcoder_tpu.core.bytesutil import ByteReader
 from cpprcoder_tpu.models.qmodel import rcq_params
 from cpprcoder_tpu.ops import rcq_ops as jops
 from cpprcoder_tpu.ops import rcq_pallas
 from cpprcoder_tpu.reference import rcq_ref
 from cpprcoder_tpu.utils.shapes import bucket
+from cpprcoder_tpu_torch.core.bytesutil import CorruptContainerError
 from cpprcoder_tpu_torch.ops import compaction, layout, rcq_kernels
 from cpprcoder_tpu_torch.ops import rcx_ops as tops
 

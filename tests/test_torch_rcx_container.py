@@ -11,10 +11,10 @@ import pytest
 from conftest import corpus_file, std_cases
 
 import cpprcoder_tpu_torch as ctt
-from cpprcoder_tpu.core.bytesutil import CorruptContainerError
 from cpprcoder_tpu.models.cxmodel import rcx_params
 from cpprcoder_tpu.ops import rcx_ops
 from cpprcoder_tpu.reference import rcx_ref
+from cpprcoder_tpu_torch.core.bytesutil import CorruptContainerError
 
 # each std case once, with options spread so that every wlog 0..3,
 # cbits {0, 2, 4, 6, 8} and lanes {8, 32, 128, 256} meets the JAX backend
