@@ -9,9 +9,13 @@ Phases, one line each (a failed phase exits non-zero):
   2. build    nvcc builds the kernels of cpprcoder_tpu_torch/csrc/;
   3. kernels  each kernel (A, B, C for CT-RCX; D, E for CT-RCQ; F, G for
               rANS; H, I for CT-HUF1) against its plain PyTorch version on
-              the card, on seeded inputs at the main paths' shapes, exact
-              equality; then both timed with CUDA events at kennedy.xls's
-              shape, and D to I alone at a small file's (fields.c,
+              the card, on seeded inputs at the main paths' shapes and on
+              hard cases for the range coders (one-byte runs, runs mixed
+              with text, K not a multiple of 32, up to 8192 lanes, rows
+              that halve at nearly every window), exact equality; then
+              both timed with CUDA events at kennedy.xls's shape, A and C
+              alone also at grammar.lsp's and at alice29.txt's under the
+              ratio preset, D to I alone at a small file's (fields.c,
               grammar.lsp); I also on random word rows;
   4. main     per codec (rcx, rcq, rans, huffman), with the launch counts
               set to 0 just before and read just after:
@@ -25,7 +29,8 @@ Then a {"kernels": [...]} JSON line (per kernel: launches on the main
 paths, the largest difference from its plain version, its time and the
 plain version's at kennedy.xls's shape, and the bound: the larger of the
 bytes it moves over the memory rate and its operations over the peak
-rate), the nvidia-smi line, and last {"ok": true, "device": {...}}.
+rate; A and C add `ms_at`, their times at the three shapes), the
+nvidia-smi line, and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -150,6 +155,20 @@ def textish(n: int, seed: int) -> bytes:
     a = rng.integers(97, 123, n // 2, dtype=np.uint8)
     b = rng.integers(0, 256, n - n // 2, dtype=np.uint8)
     return np.concatenate([a, b]).tobytes()
+
+
+def runs_and_text(n: int) -> bytes:
+    """Alternate 4 KB blocks of kennedy.xls (runs of 0x00 and 0xFF,
+    repeated records) and alice29.txt (text), n bytes."""
+    a, b = corpus("kennedy.xls"), corpus("alice29.txt")
+    out = bytearray()
+    i = 0
+    while len(out) < n:
+        src = a if (i & 1) == 0 else b
+        at = (i // 2 * 4096) % (len(src) - 4096)
+        out += src[at:at + 4096]
+        i += 1
+    return bytes(out[:n])
 
 
 def rand_events(e: int, k: int, seed: int, run_max: int = 5) -> np.ndarray:
@@ -279,40 +298,80 @@ def time_at(files, case, args, plain_reps: int, what: str):
     return ms[big], work
 
 
+def coder_inputs(data: bytes, k: int, dev):
+    """(n, stride, x2d, lane lengths) of the chunked lane layout."""
+    n = len(data)
+    stride = -(-n // k)
+    x = to_dev(data, dev)
+    return (n, stride, layout.pad2d_chunked(x, k, stride),
+            layout.lane_lengths(n, k, stride, dev))
+
+
+def coder_cases():
+    """(K, cbits, wlog, data, inc, climit) for A and C; inc and climit None
+    take rcx_params'. K from 32 to 8192 (LPT 1 to 8; 100 and 1500 are not
+    multiples of 32; from 1024 on, C runs a 4-block cluster a stream),
+    cbits 0 to 8 (8: the model in global scratch, one block), wlog 0 to 3;
+    a one-byte run (every lane on one cell; in the cluster, halvings that
+    bring a row back to its total of the window before), kennedy.xls's
+    runs mixed with text, and a row that halves at nearly every window
+    (large inc, small climit: rows stay at or above climit and are
+    redone)."""
+    t = textish
+    return [(32, 6, 2, t(3000, 100), None, None),
+            (32, 8, 0, t(2500, 101), None, None),
+            (1024, 5, 0, t(150_000, 102), None, None),
+            (1024, 8, 2, t(60_000, 103), None, None),
+            (2048, 4, 2, t(1_029_744, 104), None, None),
+            (2048, 6, 0, t(200_000, 105), None, None),
+            (2048, 8, 2, t(300_000, 106), None, None),
+            (64, 6, 2, b"\x00" * 20_000, None, None),
+            (2048, 4, 2, runs_and_text(400_000), None, None),
+            (100, 6, 1, t(100 * 97 + 13, 107), None, None),
+            (1500, 5, 2, t(1500 * 61, 108), None, None),
+            (1024, 0, 3, t(1024 * 40 + 3, 112), None, None),
+            (96, 0, 1, t(96 * 50 + 5, 113), None, None),
+            (1024, 4, 2, b"\x00" * 61_440, None, None),
+            (4096, 4, 2, t(4096 * 50 + 1, 109), None, None),
+            (8192, 7, 2, t(8192 * 30 + 7, 110), None, None),
+            (256, 6, 3, t(256 * 300, 111), 255, 1 << 10)]
+
+
 def phase_kernels(dev):
     err = {"rcx_encode": 0, "expand": 0, "rcx_decode": 0}
 
-    def coder_inputs(data, k):
-        n = len(data)
-        stride = -(-n // k)
-        x = to_dev(data, dev)
-        return (n, stride, layout.pad2d_chunked(x, k, stride),
-                layout.lane_lengths(n, k, stride, dev))
+    def case(data, k, inc, climit, cbits, wlog, what):
+        """Hold A and C against their plain versions on `data`; -> (shape,
+        {kernel: (kernel call, plain call)}, {kernel: (bytes, ops)})."""
+        n, stride, x2d, lens = coder_inputs(data, k, dev)
+        args = (inc, climit, cbits, wlog)
+        enc = (lambda: rcx_kernels.encode_events(x2d, lens, *args),
+               lambda: rcx_ops.encode_events_plain(x2d, lens, *args))
+        ev = hold(err, "rcx_encode", enc[0](), enc[1](), f"kernel A at {what}")
+        words = layout.decode_words(*expand.materialize_rows(ev))
+        dec = (lambda: rcx_kernels.decode_symbols(words, lens, n, stride,
+                                                  *args),
+               lambda: rcx_ops.decode_symbols_plain(words, lens, n, stride,
+                                                    *args))
+        sym = hold(err, "rcx_decode", dec[0](), dec[1](), f"kernel C at {what}")
+        if sym.cpu().numpy().tobytes() != data:
+            fail(f"kernel C did not invert kernel A at {what}")
+        requants, cells = -(-stride // (1 << wlog)), (1 << cbits) * 256
+        work = {"rcx_encode": (nbytes(x2d, lens, ev),
+                               coder_ops("rcx_encode", n, requants, cells)),
+                "rcx_decode": (nbytes(words, lens) + n,
+                               coder_ops("rcx_decode", n, requants, cells))}
+        return (f"K={k}, stride={stride}, cbits={cbits}, wlog={wlog}",
+                {"rcx_encode": enc, "rcx_decode": dec}, work, ev)
 
-    # A and C: K in {32, 1024, 2048}, cbits in {4, 5, 6, 8}, wlog in {0, 2}
-    cases = [(32, 6, 2, 3000), (32, 8, 0, 2500), (1024, 5, 0, 150_000),
-             (1024, 8, 2, 60_000), (2048, 4, 2, 1_029_744),
-             (2048, 6, 0, 200_000), (2048, 8, 2, 300_000)]
-    for i, (k, cbits, wlog, n) in enumerate(cases):
-        data = textish(n, seed=100 + i)
-        _, inc, cl, _ = rcx_params(n, lanes=k, cbits=cbits)
-        n, stride, x2d, lens = coder_inputs(data, k)
-        args = (inc, 1 << cl, cbits, wlog)
-        ev_k = rcx_kernels.encode_events(x2d, lens, *args)
-        ev_p = rcx_ops.encode_events_plain(x2d, lens, *args)
-        torch.cuda.synchronize()
-        err["rcx_encode"] = max(err["rcx_encode"], max_err(ev_k, ev_p))
-        if not torch.equal(ev_k, ev_p):
-            fail(f"kernel A != plain at K={k} cbits={cbits} wlog={wlog}")
-        words = layout.decode_words(*compaction.materialize_rows_t(ev_p))
-        sym_k = rcx_kernels.decode_symbols(words, lens, n, stride, *args)
-        sym_p = rcx_ops.decode_symbols_plain(words, lens, n, stride, *args)
-        torch.cuda.synchronize()
-        err["rcx_decode"] = max(err["rcx_decode"], max_err(sym_k, sym_p))
-        if not torch.equal(sym_k, sym_p):
-            fail(f"kernel C != plain at K={k} cbits={cbits} wlog={wlog}")
-        if sym_k.cpu().numpy().tobytes() != data:
-            fail(f"kernel C did not invert kernel A at K={k} cbits={cbits}")
+    cases = coder_cases()
+    for k, cbits, wlog, data, inc, climit in cases:
+        _, inc0, cl, _ = rcx_params(len(data), lanes=k, cbits=cbits)
+        inc = inc0 if inc is None else inc
+        climit = 1 << cl if climit is None else climit
+        *_, ev_p = case(data, k, inc, climit, cbits, wlog,
+                        f"K={k} cbits={cbits} wlog={wlog} n={len(data)} "
+                        f"inc={inc} climit={climit}")
 
     # B: random grids (non-aligned E/K, a may_drop mask, an empty lane)
     # and the real event grid of the last coder case
@@ -336,43 +395,45 @@ def phase_kernels(dev):
         if not (torch.equal(rows_k, rows_p) and torch.equal(sizes_k, sizes_p)):
             fail(f"kernel B != plain on a {tuple(ev.shape)} grid")
 
-    # times at kennedy.xls's shape (balanced preset), kernel vs plain
-    data = corpus("kennedy.xls")
-    k, inc, cl, cbits = rcx_params(len(data))
-    n, stride, x2d, lens = coder_inputs(data, k)
-    args = (inc, 1 << cl, cbits, 2)
-    ev = rcx_kernels.encode_events(x2d, lens, *args)
-    rows, sizes = expand.materialize_rows(ev)
-    words = layout.decode_words(rows, sizes)
-    l2 = rows.shape[1]
-    ms = {
-        "rcx_encode": (
-            cuda_ms(lambda: rcx_kernels.encode_events(x2d, lens, *args), 5),
-            cuda_ms(lambda: rcx_ops.encode_events_plain(x2d, lens, *args), 2)),
-        "expand": (
-            cuda_ms(lambda: expand.materialize_rows(ev), 5),
-            cuda_ms(lambda: compaction.materialize_rows_t(ev, l2), 2)),
-        "rcx_decode": (
-            cuda_ms(lambda: rcx_kernels.decode_symbols(
-                words, lens, n, stride, *args), 5),
-            cuda_ms(lambda: rcx_ops.decode_symbols_plain(
-                words, lens, n, stride, *args), 2)),
-    }
-    requants, cells = -(-stride // 4), (1 << cbits) * 256
-    work = {
-        "rcx_encode": (nbytes(x2d, lens, ev),
-                       coder_ops("rcx_encode", n, requants, cells)),
-        "expand": (nbytes(ev, rows, sizes),
-                   ev.numel() * OPS_PER_EVENT + int(sizes.sum())),
-        "rcx_decode": (nbytes(words, lens) + n,
-                       coder_ops("rcx_decode", n, requants, cells)),
-    }
-    print(f"[kernels] ok {len(cases)} coder cases (A, C) and {len(grids)} "
-          f"event grids (B) equal their plain versions; at kennedy.xls "
-          f"(K={k}, stride={stride}, cbits={cbits}, wlog=2) ms kernel/plain: "
-          + ", ".join(f"{nm} {a:.3f}/{b:.3f}" for nm, (a, b) in ms.items()),
-          flush=True)
-    return err, ms, work
+    # A, B and C held and timed at kennedy.xls's shape (balanced preset),
+    # kernel vs plain; A and C also at grammar.lsp's (K = 32, cbits 6) and
+    # at alice29.txt's under the ratio preset (K = 256, cbits 6, wlog 0),
+    # kernels alone
+    ms, ms_at, work = {}, {"rcx_encode": {}, "rcx_decode": {}}, {}
+    notes = []
+    for name, mode, wlog in (("kennedy.xls", "balanced", 2),
+                             ("grammar.lsp", "balanced", 2),
+                             ("alice29.txt", "ratio", 0)):
+        data = corpus(name)
+        k, inc, cl, cbits = rcx_params(len(data), mode=mode)
+        shape, fns, w, ev = case(data, k, inc, 1 << cl, cbits, wlog,
+                                 f"{name} ({mode})")
+        at = name if mode == "balanced" else f"{name} ratio"
+        big = not ms
+        if big:
+            rows, sizes = expand.materialize_rows(ev)
+            l2 = rows.shape[1]
+            fns["expand"] = (lambda: expand.materialize_rows(ev),
+                             lambda: compaction.materialize_rows_t(ev, l2))
+            w["expand"] = (nbytes(ev, rows, sizes),
+                           ev.numel() * OPS_PER_EVENT + int(sizes.sum()))
+            work = w
+        for nm, (kern, plain) in fns.items():
+            t = (cuda_ms(kern, 5), big and cuda_ms(plain, 2))
+            if big:
+                ms[nm] = t
+            if nm in ms_at:
+                ms_at[nm][at] = t[0]
+        notes.append(f"{at} ({shape})")
+    print(f"[kernels] ok {len(cases) + 3} coder cases (A, C) and {len(grids)} "
+          f"event grids (B) equal their plain versions; at {notes[0]} ms "
+          f"kernel/plain: "
+          + ", ".join(f"{nm} {a:.3f}/{b:.3f}" for nm, (a, b) in ms.items())
+          + "; ms kernel A / C at " + ", ".join(
+              f"{nm}: {ms_at['rcx_encode'][nm]:.3f} / "
+              f"{ms_at['rcx_decode'][nm]:.3f}" for nm in ms_at["rcx_encode"])
+          + f" ({'; '.join(notes[1:])})", flush=True)
+    return err, ms, work, ms_at
 
 
 def phase_kernels_rcq(dev):
@@ -404,17 +465,26 @@ def phase_kernels_rcq(dev):
         return f"K={k}, stride={stride}", {"rcq_encode": enc,
                                            "rcq_decode": dec}, work
 
-    # K in {32, 128, 1024, 2048} at rcq_params' defaults, then the
-    # single-halving case (K*inc > climit; the oracle asserts there)
-    cases = [(32, 3000, None, None), (128, 40_000, None, None),
-             (1024, 300_000, None, None), (2048, 600_001, None, None),
-             (128, 4096, 24, 10)]
-    for i, (k, n, inc, cl) in enumerate(cases):
-        _, inc0, cl0 = rcq_params(n, lanes=k)
+    # K in {32, 100, 128, 1024, 2048, 4096, 8192} at rcq_params' defaults
+    # (100 not a multiple of 32; 4096 and 8192 two to eight lanes a
+    # thread), a one-byte run (every lane on one cell), kennedy.xls's runs
+    # mixed with text, then the single-halving case, which halves at
+    # nearly every step (K*inc > climit; the oracle asserts there)
+    cases = [(32, textish(3000, 200), None, None),
+             (128, textish(40_000, 201), None, None),
+             (1024, textish(300_000, 202), None, None),
+             (2048, textish(600_001, 203), None, None),
+             (100, textish(100 * 70 + 3, 204), None, None),
+             (4096, textish(4096 * 40 + 9, 205), None, None),
+             (8192, textish(8192 * 20 + 5, 206), None, None),
+             (64, b"\x00" * 20_000, None, None),
+             (2048, runs_and_text(400_000), None, None),
+             (128, textish(4096, 207), 24, 10)]
+    for k, data, inc, cl in cases:
+        _, inc0, cl0 = rcq_params(len(data), lanes=k)
         inc = inc0 if inc is None else inc
         cl = cl0 if cl is None else cl
-        case(textish(n, seed=200 + i), k, inc, cl,
-             f"K={k} n={n} inc={inc} cl={cl}")
+        case(data, k, inc, cl, f"K={k} n={len(data)} inc={inc} cl={cl}")
 
     # held and timed at kennedy.xls's CT-RCQ shape, kernel vs plain; held
     # there and at fields.c's (K = 32, one warp), where the per-step requant
@@ -674,8 +744,8 @@ def main():
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     phase_build()
-    err, ms, work = {}, {}, {}
-    for phase in (phase_kernels, phase_kernels_rcq, phase_kernels_rans,
+    err, ms, work, ms_at = phase_kernels(dev)
+    for phase in (phase_kernels_rcq, phase_kernels_rans,
                   phase_kernels_huffman):
         e, m, w = phase(dev)
         err.update(e)
@@ -698,6 +768,8 @@ def main():
                      "max_abs_err": err[nm], "ms": ms[nm][0],
                      "plain_ms": ms[nm][1], "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": None})
+        if nm in ms_at:     # A and C: kernel ms at three shapes
+            rows[-1]["ms_at"] = ms_at[nm]
     print(json.dumps({"kernels": rows}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

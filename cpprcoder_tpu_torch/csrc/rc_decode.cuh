@@ -12,142 +12,366 @@
 // chunked lanes (CT-RCX) and to out[j * K + i] for INTERLEAVED ones
 // (CT-RCQ): the original byte order either way, so no transpose follows.
 //
-// Design: the same CTA-per-stream, registers-per-lane and shared-memory
-// model as the encoder. The symbol search is an 8-step binary search over
-// the context's cum row in shared memory (the row is strictly increasing
-// because every q >= 1). The refill is one direct load of word `widx` from
-// the word-major [l4, K] rows, coalesced across lanes that advance
-// together.
+// Design: the lanes of a stream share its model, so a stream is one CTA
+// (CT-RCQ; CT-RCX below 1024 lanes) or one cluster of G CTAs (CT-RCX from
+// 1024 lanes on, rcx_decode.cu). Lane state is in registers, the model in
+// shared memory, addressed as such (GMODEL, the global scratch of a lone
+// CTA at cbits = 8, is its own instantiation). A step is a chain per lane,
+// and a window's requant sits between two barriers, so the design shortens
+// both:
+//   - the requant (ct::requant_row) divides through an fp64 reciprocal with
+//     one exact correction, reduces with single-instruction warp reductions
+//     and reads the counts as 16-byte vectors;
+//   - a row that has not changed is not requantized: its total is the one
+//     its last requant left (counts only grow), and when that requant left
+//     it below climit, a new one would give the same C and cum. last[r]
+//     holds that total, or 0 (no total) when the row must be redone. Row r
+//     belongs to warp r mod (warps), and the block has at least a warp a
+//     row (up to 1024 threads), so at small K a window costs about one
+//     row's requant, not 2^cbits of them;
+//   - a single row (CT-RCQ's, every step) is requantized by 8 warps, one
+//     cell a thread, exchanging the totals, the first argmax and the scan
+//     through shared memory (requant_cells), and kept in the search's tree
+//     order (tree_node), where all lanes read one row and each level's
+//     nodes share a bank word; CT-RCX's rows stay sorted, as the encoders
+//     keep them;
+//   - in a cluster each CTA runs a quarter of the lanes against its own
+//     copy of every cum row, and owns a quarter of the rows: their counts
+//     sit in its shared memory, every CTA's updates to them arrive as
+//     atomics through distributed shared memory, and at each window the
+//     owner requantizes the changed ones and writes their cum rows into
+//     every copy, between two cluster barriers. That splits the lanes'
+//     shared-memory traffic, which sets a step's pace at large K, over 4
+//     SMs;
+//   - the next word of each lane is loaded as soon as the current one is
+//     taken, a step or more before a refill needs it (up to 4 lanes a
+//     thread: at 8 the register it takes would spill).
+// Lane state: pk holds prev (bits 0-7) and occ (8-10). At one lane a
+// thread q1's byte tops pk (24-31), x1 is the lane length and wx the next
+// word index. From 2 lanes a thread (a block of more than 1024 lanes), so
+// that 8 fit 64 registers, pk holds the word index instead (11-31) and x1
+// the length (0-23) under q1's byte. A lane takes a word at most every
+// other step, so its word index stays below stride / 2 + 4: exact for
+// stride <= PACKED_MAX_STRIDE, which every container meets there (n <
+// 2^32 bytes over more than 1024 lanes).
 //
-// What bounds it: like the encoder, the steps of a stream are sequential
-// on one SM; per step the search adds 8 dependent shared-memory reads.
+// What bounds it: a stream's steps are sequential. At large K a step is the
+// lanes' search reads and atomics through each SM's shared-memory pipe,
+// plus, once a window, two barriers (cluster barriers for CT-RCX) around
+// the requant; at small K it is one lane chain's latency plus, once a
+// window, the requant of the changed rows between two barriers.
 #pragma once
+
+#include <cooperative_groups.h>
 
 #include "rcx_model.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
+
+constexpr uint32_t OCC_MASK = 0x700u, OCC_ONE = 0x100u, WIDX_ONE = 0x800u;
+constexpr uint32_t LOW24 = 0xFFFFFFu;
+constexpr int PACKED_MAX_STRIDE = (1 << 22) - 8;  // packed lane state, LPT >= 2
+constexpr int CELL_THREADS = 256;           // requant_cells: one thread a cell
+
+// Threads of a decode block: one a lane (ct::block_threads), and at least a
+// warp a model row (one a cell for requant_cells), up to 1024.
+__host__ inline int decode_threads(int k, int rows, bool cells) {
+  const int need = cells ? CELL_THREADS : 32 * rows;
+  const int t = ct::block_threads(k), r = need < ct::MAX_THREADS ? need : ct::MAX_THREADS;
+  return t > r ? t : r;
+}
+
+// A tree-ordered cum row holds at node k = 1..255 (breadth-first, from 1)
+// the exclusive cum of the symbol that the binary search over 0..255 tests
+// there, so that node 2k or 2k + 1 follows node k. Symbol s = (2p + 1) <<
+// (7 - d) (1..255) is node p of level d: node 2^d + p.
+__device__ __forceinline__ int tree_node(int s) {
+  const int tz = __ffs(s) - 1;
+  return (1 << (7 - tz)) | (s >> (tz + 1));
+}
+
+// Rows r = warp, warp + warps, ...: each one requantized unless its total
+// is last[r]; last[r] then takes the new total, or 0 if it is >= climit.
+// (A requantized row may end on the total it had before: only requant_row
+// can tell that it skipped a row.)
+template <int ROUNDS>
+__device__ inline void requant_changed(uint32_t* C, uint16_t* cum, uint32_t* last, int rows,
+                                       uint32_t climit) {
+  const int lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
+  for (int r = threadIdx.x >> 5; r < rows; r += nwarps) {
+    const uint32_t tot = ct::requant_row<ROUNDS>(C + (size_t)r * 256,
+                                                 cum + (size_t)r * ct::CUM_STRIDE, climit, last[r]);
+    if (lane == 0 && tot != 0) last[r] = tot < climit ? tot : 0u;
+  }
+}
+
+// Warps 0..7 meet at named barrier 1; the other warps go on to the block's.
+__device__ __forceinline__ void cells_barrier() {
+  asm volatile("bar.sync 1, %0;" ::"n"(CELL_THREADS) : "memory");
+}
+
+// v summed over threads 0..255, through x[0..7].
+__device__ __forceinline__ uint32_t cells_sum(uint32_t* x, uint32_t v) {
+  const uint32_t w = __reduce_add_sync(ct::FULL, v);
+  if ((threadIdx.x & 31) == 0) x[threadIdx.x >> 5] = w;
+  cells_barrier();
+  uint32_t s = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) s += x[i];
+  return s;
+}
+
+// ct::requant_row's function for the single row C[256], run by threads
+// 0..255, thread t owning cell t, cum stored in tree order; x gives each
+// exchange its own 8 words, so no exchange waits for the reads of the one
+// before.
+template <int ROUNDS>
+__device__ inline void requant_cells(uint32_t* C, uint16_t* cr, uint32_t climit,
+                                     uint32_t (*x)[8]) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  uint32_t c = C[t];
+  uint32_t tot = cells_sum(x[0], c);
+  if (tot >= climit) {
+    for (int round = 0; round < ROUNDS && tot >= climit; ++round) {
+      c = (c >> 1) | 1u;
+      tot = cells_sum(x[1 + round], c);
+    }
+    C[t] = c;
+  }
+  const double scale =
+      __dmul_rn((double)(ct::QTOTAL - ct::QRESERVE), __drcp_rn(__uint2double_rn(tot)));
+  uint32_t q = ct::quant_div(c, tot, scale);
+  q = q > 1u ? q : 1u;
+  // q < 2^16 above the complement of the cell: the largest key is the
+  // largest q at its lowest cell
+  const uint32_t qs = __reduce_add_sync(ct::FULL, q);
+  const uint32_t km = __reduce_max_sync(ct::FULL, (q << 8) | (255u - (uint32_t)t));
+  uint32_t* xs = x[ROUNDS + 1];
+  uint32_t* xk = x[ROUNDS + 2];
+  if (lane == 0) {
+    xs[warp] = qs;
+    xk[warp] = km;
+  }
+  cells_barrier();
+  uint32_t qsum = 0, kmax = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    qsum += xs[i];
+    kmax = xk[i] > kmax ? xk[i] : kmax;
+  }
+  if (t == 255 - (int)(kmax & 255u)) q += ct::QTOTAL - qsum;
+  uint32_t incl = q;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const uint32_t v = __shfl_up_sync(ct::FULL, incl, off);
+    if (lane >= off) incl += v;
+  }
+  uint32_t* xw = x[ROUNDS + 3];
+  if (lane == 31) xw[warp] = incl;
+  cells_barrier();
+  uint32_t base = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) base += i < warp ? xw[i] : 0u;
+  if (t > 0) cr[tree_node(t)] = (uint16_t)(base + incl - q);
+}
+
+// CTA g of a G-CTA cluster owns the rows r = g, g + G, ..., holding row r's
+// counts in its C row r / G: warp i of the block takes the i-th of them in
+// turn and, when it changed (requant_changed's rule), requantizes it and
+// copies its cum row into every other CTA's copy of cum.
+template <int ROUNDS, int G>
+__device__ inline void requant_owned(uint32_t* C, uint16_t* cum, uint32_t* last, int rows,
+                                     uint32_t climit, int g) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
+  for (int r = g + G * (threadIdx.x >> 5); r < rows; r += G * nwarps) {
+    uint16_t* cr = cum + (size_t)r * ct::CUM_STRIDE;
+    const uint32_t tot = ct::requant_row<ROUNDS>(C + (size_t)(r / G) * 256, cr, climit, last[r]);
+    if (tot == 0) continue;  // left as it is: every copy holds this cum row
+    if (lane == 0) last[r] = tot < climit ? tot : 0u;
+    __syncwarp();  // the row's cum, stored by every lane, before the copy
+    uint32_t* src = reinterpret_cast<uint32_t*>(cr);
+#pragma unroll
+    for (int o = 1; o < G; ++o) {
+      uint32_t* dst = cluster.map_shared_rank(src, (unsigned)((g + o) % G));
+      for (int k = lane; k < ct::CUM_STRIDE / 2; k += 32) dst[k] = src[k];
+    }
+  }
+}
+
 // words [streams, l4, K] u32; lane_len [streams, K] i32;
 // out [streams, K * stride] u8 (only j < lane_len is written).
-template <int LPT, int ROUNDS, bool INTERLEAVED>
-__global__ void __launch_bounds__(ct::MAX_THREADS) rc_decode_kernel(const uint32_t* __restrict__ words,
-                                  const int32_t* __restrict__ lane_len, uint8_t* __restrict__ out,
-                                  uint8_t* gmodel, int K, int l4, int stride, uint32_t inc,
-                                  uint32_t climit, int cbits, int wlog) {
+// G > 1: stream s is the cluster of blocks s*G .. s*G + G-1, block g of it
+// taking lanes g*ceil(K/G) .. and holding the counts of the rows it owns
+// (requant_owned) and a copy of every cum row, all in shared memory.
+// INTERLEAVED (CT-RCQ) launches pass cbits = wlog = 0: one row,
+// requantized before every step, which the kernel then knows at compile
+// time.
+template <int LPT, int ROUNDS, bool INTERLEAVED, bool GMODEL, int G>
+__global__ void __launch_bounds__(ct::MAX_THREADS)
+    rc_decode_kernel(const uint32_t* __restrict__ words, const int32_t* __restrict__ lane_len,
+                     uint8_t* __restrict__ out, uint8_t* gmodel, int K, int l4, int stride,
+                     uint32_t inc, uint32_t climit, int cbits, int wlog) {
   extern __shared__ __align__(16) uint8_t smem[];
-  const int rows = 1 << cbits;
-  uint32_t* C;
-  uint16_t* cum;
-  ct::model_ptrs(smem, gmodel, rows, &C, &cum);
-
-  const size_t s = blockIdx.x;
+  __shared__ uint32_t last[256];
+  __shared__ uint32_t xch[ROUNDS + 4][8];
+  const int rows = INTERLEAVED ? 1 : 1 << cbits;
+  const int shift = INTERLEAVED ? 8 : 8 - cbits;
+  const int wmask = INTERLEAVED ? 0 : (1 << wlog) - 1;
+  const size_t s = blockIdx.x / G;
+  const int g = (int)(blockIdx.x % G);
+  const int kg = (K + G - 1) / G;        // lanes of a block
+  const int held = (rows + G - 1) / G;  // count rows of a block
+  uint8_t* base = GMODEL ? gmodel + s * ct::model_bytes(rows) : smem;
+  uint32_t* C = reinterpret_cast<uint32_t*>(base);
+  uint16_t* cum = reinterpret_cast<uint16_t*>(base + (size_t)held * 256 * 4);
   words += s * (size_t)l4 * K;
   lane_len += s * K;
   out += s * (size_t)K * stride;
 
   const int tid = threadIdx.x;
   const int bd = blockDim.x;
-  const int shift = 8 - cbits;
-  uint32_t rng[LPT], code[LPT], q0[LPT], q1[LPT],
-      occ[LPT], prev[LPT];
-  int widx[LPT], len[LPT];
+  // the look-ahead word costs a register a lane, one too many for 8 lanes
+  // a thread in 64 registers (ptxas spills there)
+  constexpr bool AHEAD = LPT < 8;
+  constexpr bool PACKED = LPT >= 2;
+  uint32_t rng[LPT], code[LPT], q0[LPT], x1[LPT], nxt[LPT], pk[LPT], wx[LPT];
 #pragma unroll
   for (int m = 0; m < LPT; ++m) {
-    const int lane = tid + m * bd;
+    const int loc = tid + m * bd, lane = g * kg + loc;
+    const bool ok = loc < kg && lane < K;
+    const int len = ok ? lane_len[lane] : 0;  // 0: not a lane
     rng[m] = 0xFFFFFFFFu;
-    code[m] = (lane < K && l4 > 0) ? words[lane] : 0u;
+    code[m] = (ok && l4 > 0) ? words[lane] : 0u;
+    nxt[m] = (AHEAD && ok && l4 > 1) ? words[K + lane] : 0u;
     q0[m] = 0;
-    q1[m] = 0;
-    occ[m] = 0;
-    widx[m] = 1;
-    prev[m] = 0;
-    len[m] = lane < K ? lane_len[lane] : 0;
+    x1[m] = len < 0 ? 0u : (uint32_t)(len < stride ? len : stride);
+    wx[m] = 2;                               // the next word
+    pk[m] = PACKED ? 2 * WIDX_ONE : 0u;      // prev 0, occ 0
   }
-  ct::model_init(C, rows);
+  ct::model_init(C, held);
+  for (int r = tid; r < rows; r += bd) last[r] = 0;
 
-  const int wmask = (1 << wlog) - 1;
   for (int j = 0; j < stride; ++j) {
     if ((j & wmask) == 0) {
-      __syncthreads();
-      ct::requant<ROUNDS>(C, cum, rows, climit);
-      __syncthreads();
+      if constexpr (G > 1) {
+        // every block's updates in, then every owner's rows out
+        cg::this_cluster().sync();
+        requant_owned<ROUNDS, G>(C, cum, last, rows, climit, g);
+        cg::this_cluster().sync();
+      } else {
+        __syncthreads();
+        if (INTERLEAVED) {
+          if (tid < CELL_THREADS) requant_cells<ROUNDS>(C, cum, climit, xch);
+        } else {
+          requant_changed<ROUNDS>(C, cum, last, rows, climit);
+        }
+        __syncthreads();
+      }
     }
 #pragma unroll
     for (int m = 0; m < LPT; ++m) {
-      const int lane = tid + m * bd;
-      if (lane < K && j < len[m]) {
-        if (occ[m] < 2u) {
-          const uint32_t w = widx[m] < l4 ? words[(size_t)widx[m] * K + lane] : 0u;
-          q0[m] |= occ[m] == 0u ? w : (w >> 8);
-          q1[m] |= occ[m] == 0u ? 0u : (w << 24);
-          occ[m] += 4u;
-          widx[m] += 1;
-        }
-        const uint32_t ctx = prev[m] >> shift;
-        const uint16_t* cr = cum + ctx * 257;
-        const uint32_t t = rng[m] >> ct::QBITS;
-        int lo = 0, hi = 256;  // invariant: cr[lo] * t <= code < cr[hi] * t
-#pragma unroll
-        for (int it = 0; it < 8; ++it) {
-          const int mid = (lo + hi) >> 1;
-          if ((uint32_t)cr[mid] * t <= code[m])
-            lo = mid;
-          else
-            hi = mid;
-        }
-        const uint32_t sym = (uint32_t)lo;
-        const uint32_t c = cr[sym];
-        const uint32_t f = cr[sym + 1] - c;
-        code[m] -= c * t;
-        rng[m] = (c + f == ct::QTOTAL) ? rng[m] - c * t : f * t;
-#pragma unroll
-        for (int slot = 0; slot < 2; ++slot) {
-          if (rng[m] < ct::RC_TOP) {
-            const uint32_t b = q0[m] >> 24;
-            q0[m] = (q0[m] << 8) | (q1[m] >> 24);
-            q1[m] <<= 8;
-            occ[m] -= 1u;
-            code[m] = (code[m] << 8) | b;
-            rng[m] <<= 8;
-          }
-        }
-        atomicAdd(&C[ctx * 256 + sym], inc);
-        prev[m] = sym;
-        const size_t at = INTERLEAVED ? (size_t)j * K + lane : (size_t)lane * stride + j;
-        out[at] = (uint8_t)sym;
+      if ((uint32_t)j >= (PACKED ? x1[m] & LOW24 : x1[m])) continue;
+      const int lane = g * kg + tid + m * bd;
+      uint32_t p = pk[m];
+      uint32_t& q1 = PACKED ? x1[m] : p;  // q1's byte is bits 24-31 of this
+      if ((p & OCC_MASK) < 2 * OCC_ONE) {
+        const uint32_t wi = PACKED ? p >> 11 : wx[m];  // the word after the one taken now
+        const uint32_t wd =
+            AHEAD ? nxt[m] : (wi - 1 < (uint32_t)l4 ? words[(size_t)(wi - 1) * K + lane] : 0u);
+        const bool empty = (p & OCC_MASK) == 0;
+        q0[m] |= empty ? wd : (wd >> 8);
+        q1 |= empty ? 0u : (wd << 24);
+        if constexpr (AHEAD) nxt[m] = wi < (uint32_t)l4 ? words[(size_t)wi * K + lane] : 0u;
+        p += 4 * OCC_ONE + (PACKED ? WIDX_ONE : 0u);
+        if constexpr (!PACKED) ++wx[m];
       }
+      const uint32_t ctx = (p & 0xFFu) >> shift;
+      const uint16_t* cr = cum + ctx * ct::CUM_STRIDE;
+      const uint32_t t = rng[m] >> ct::QBITS;
+      // invariant: cum[s] * t <= code < cum[s + 1] * t; c and h are the
+      // cum values of the last right and left turn; k is the tree node
+      // (CT-RCQ's row) or the lower end s (CT-RCX's sorted rows)
+      constexpr bool TREE = INTERLEAVED;
+      uint32_t k = TREE ? 1u : 0u, c = 0, h = ct::QTOTAL;
+#pragma unroll
+      for (int it = 0; it < 8; ++it) {
+        const uint32_t at = TREE ? k : k | (128u >> it);
+        const uint32_t v = cr[at];
+        const bool right = v * t <= code[m];
+        c = right ? v : c;
+        h = right ? h : v;
+        k = TREE ? 2 * k + (right ? 1u : 0u) : (right ? at : k);
+      }
+      const uint32_t sym = TREE ? k - 256 : k;
+      code[m] -= c * t;
+      rng[m] = (h == ct::QTOTAL) ? rng[m] - c * t : (h - c) * t;
+#pragma unroll
+      for (int slot = 0; slot < 2; ++slot) {
+        if (rng[m] < ct::RC_TOP) {
+          const uint32_t b = q0[m] >> 24;
+          q0[m] = (q0[m] << 8) | (q1 >> 24);
+          q1 &= LOW24;
+          p -= OCC_ONE;
+          code[m] = (code[m] << 8) | b;
+          rng[m] <<= 8;
+        }
+      }
+      pk[m] = (p & ~0xFFu) | sym;
+      if constexpr (G > 1) {
+        // to the owner's counts: this block's, or another's through
+        // distributed shared memory
+        uint32_t* cell = &C[(ctx / G) * 256 + sym];
+        const unsigned owner = ctx % G;
+        if (owner != (unsigned)g) cell = cg::this_cluster().map_shared_rank(cell, owner);
+        atomicAdd(cell, inc);
+      } else {
+        atomicAdd(&C[ctx * 256 + sym], inc);
+      }
+      const size_t at = INTERLEAVED ? (size_t)j * K + lane : (size_t)lane * stride + j;
+      out[at] = (uint8_t)sym;
     }
   }
+  // no block leaves while the others may still add to its counts
+  if constexpr (G > 1) cg::this_cluster().sync();
 }
 
-template <int LPT, int ROUNDS, bool INTERLEAVED>
-cudaError_t launch_decode(const void* words, const void* lane_len, void* out, void* gmodel,
+// Launches one instantiation: streams * G blocks, a cluster of G a stream;
+// returns its cudaError_t (cudaErrorInvalidValue for a stride that packed
+// lane state cannot hold).
+template <int LPT, int ROUNDS, bool INTERLEAVED, bool GMODEL, int G>
+cudaError_t launch_kernel(const void* words, const void* lane_len, void* out, void* gmodel,
                           int streams, int K, int l4, int stride, int inc, int climit, int cbits,
                           int wlog, cudaStream_t stream) {
-  const size_t smem =
-      ct::prepare_smem(rc_decode_kernel<LPT, ROUNDS, INTERLEAVED>, gmodel, 1 << cbits);
-  rc_decode_kernel<LPT, ROUNDS, INTERLEAVED><<<streams, ct::block_threads(K), smem, stream>>>(
-      (const uint32_t*)words, (const int32_t*)lane_len, (uint8_t*)out, (uint8_t*)gmodel, K, l4,
-      stride, (uint32_t)inc, (uint32_t)climit, cbits, wlog);
+  // packed: the word index, at most stride / 2 + 3, in 21 bits
+  if (LPT >= 2 && stride > PACKED_MAX_STRIDE) return cudaErrorInvalidValue;
+  auto kernel = rc_decode_kernel<LPT, ROUNDS, INTERLEAVED, GMODEL, G>;
+  const int rows = 1 << cbits, held = (rows + G - 1) / G;
+  const size_t smem = GMODEL ? 0 : ct::model_bytes(rows) - (size_t)(rows - held) * 256 * 4;
+  cudaError_t err = ct::prepare_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(streams * G);
+  cfg.blockDim = dim3(decode_threads((K + G - 1) / G, held, INTERLEAVED));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = G;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = G > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, (const uint32_t*)words, (const int32_t*)lane_len,
+                           (uint8_t*)out, (uint8_t*)gmodel, K, l4, stride, (uint32_t)inc,
+                           (uint32_t)climit, cbits, wlog);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-// Picks the lanes-per-thread instantiation for K; returns the launch's
-// cudaError_t as an int (cudaErrorInvalidValue when K is too large).
-template <int ROUNDS, bool INTERLEAVED>
-int rc_decode(const void* words, const void* lane_len, void* out, void* gmodel, int streams,
-              int K, int l4, int stride, int inc, int climit, int cbits, int wlog, void* stream) {
-  cudaError_t (*fn)(const void*, const void*, void*, void*, int, int, int, int, int, int, int,
-                    int, cudaStream_t) = nullptr;
-  switch (ct::lanes_per_thread(K)) {
-    case 1: fn = launch_decode<1, ROUNDS, INTERLEAVED>; break;
-    case 2: fn = launch_decode<2, ROUNDS, INTERLEAVED>; break;
-    case 4: fn = launch_decode<4, ROUNDS, INTERLEAVED>; break;
-    case 8: fn = launch_decode<8, ROUNDS, INTERLEAVED>; break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)fn(words, lane_len, out, gmodel, streams, K, l4, stride, inc, climit, cbits, wlog,
-                 (cudaStream_t)stream);
-}
+using LaunchFn = cudaError_t (*)(const void*, const void*, void*, void*, int, int, int, int, int,
+                                 int, int, int, cudaStream_t);
 
 }  // namespace

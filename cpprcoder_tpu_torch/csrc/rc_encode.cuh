@@ -97,7 +97,7 @@ __global__ void __launch_bounds__(ct::MAX_THREADS) rc_encode_kernel(const uint8_
         if (j < len[m]) {
           const uint32_t sym = xj[lane];
           const uint32_t ctx = prev[m] >> shift;
-          const uint16_t* cr = cum + ctx * 257;
+          const uint16_t* cr = cum + ctx * ct::CUM_STRIDE;
           const uint32_t c = cr[sym];
           const uint32_t f = cr[sym + 1] - c;
           const uint32_t t = rng[m] >> ct::QBITS;
@@ -143,7 +143,9 @@ template <int LPT, int ROUNDS>
 cudaError_t launch_encode(const void* x, const void* lane_len, void* ev, void* gmodel, int streams,
                           int K, int stride, int inc, int climit, int cbits, int wlog,
                           cudaStream_t stream) {
-  const size_t smem = ct::prepare_smem(rc_encode_kernel<LPT, ROUNDS>, gmodel, 1 << cbits);
+  const size_t smem = gmodel ? 0 : ct::model_bytes(1 << cbits);
+  const cudaError_t err = ct::prepare_smem(rc_encode_kernel<LPT, ROUNDS>, smem);
+  if (err != cudaSuccess) return err;
   rc_encode_kernel<LPT, ROUNDS><<<streams, ct::block_threads(K), smem, stream>>>(
       (const uint8_t*)x, (const int32_t*)lane_len, (uint32_t*)ev, (uint8_t*)gmodel, K, stride,
       (uint32_t)inc, (uint32_t)climit, cbits, wlog);

@@ -11,17 +11,31 @@
 //
 // Design: kernel C's kernel (rc_decode.cuh) instantiated with ROUNDS = 1
 // and interleaved output (lane i's step-j byte to out[j*K + i], K
-// consecutive bytes a step across the block), run with cbits = 0 and
-// wlog = 0. The two-level 16x16 one-hot search of the Pallas kernel
-// becomes an 8-step binary search over cum[0..256] in shared memory.
+// consecutive bytes a step across the block), for one model row requantized
+// before every step, one CTA a stream: 8 warps requantize the row, one cell
+// a thread (fp64 reciprocal division, warp reductions and a scan exchanged
+// through shared memory), and store its cum in tree order; the lanes walk
+// that tree (8 reads in shared memory, where the Pallas kernel made a
+// two-level 16x16 one-hot search) and load their next word a refill ahead.
 //
-// What bounds it: as kernel D, the sequential steps on one SM and the
-// one-warp requant between two __syncthreads at every step.
+// What bounds it: the sequential steps on one SM, and at every step the
+// requant between two __syncthreads; at K = 2048 also the lanes' search
+// reads and atomics through the SM's shared-memory pipe.
 #include "rc_decode.cuh"
 
-// words [l4, K] u32 big-endian word rows; lane_len [K] i32; out [K*stride] u8.
+// words [l4, K] u32 big-endian word rows; lane_len [K] i32; out [K*stride]
+// u8. 1, 2, 4 or 8 lanes a thread. Returns the cudaError_t as an int
+// (cudaErrorInvalidValue when K is too large).
 extern "C" int ct_rcq_decode(const void* words, const void* lane_len, void* out, int K, int l4,
                              int stride, int inc, int climit, void* stream) {
-  return rc_decode<1, true>(words, lane_len, out, nullptr, 1, K, l4, stride, inc, climit, 0, 0,
-                            stream);
+  LaunchFn fn = nullptr;
+  switch (ct::lanes_per_thread(K)) {
+    case 1: fn = launch_kernel<1, 1, true, false, 1>; break;
+    case 2: fn = launch_kernel<2, 1, true, false, 1>; break;
+    case 4: fn = launch_kernel<4, 1, true, false, 1>; break;
+    case 8: fn = launch_kernel<8, 1, true, false, 1>; break;
+  }
+  if (!fn) return (int)cudaErrorInvalidValue;
+  return (int)fn(words, lane_len, out, nullptr, 1, K, l4, stride, inc, climit, 0, 0,
+                 (cudaStream_t)stream);
 }

@@ -14,6 +14,11 @@
 // one context, a requant every step and one halving).
 #include "rc_encode.cuh"
 
+// Bytes of the global model scratch ct_rcx_encode needs a stream at cbits
+// (0: none, the model fits shared memory).
+extern "C" int ct_rcx_encode_scratch(int cbits) { return (int)ct::scratch_bytes(1 << cbits); }
+
+// gmodel: ct_rcx_encode_scratch bytes a stream, or null when that is 0.
 extern "C" int ct_rcx_encode(const void* x, const void* lane_len, void* ev, void* gmodel,
                              int streams, int K, int stride, int inc, int climit, int cbits,
                              int wlog, void* stream) {

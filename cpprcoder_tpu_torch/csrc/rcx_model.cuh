@@ -6,12 +6,17 @@
 //
 // Model layout, per stream, in shared memory (or in a global scratch
 // buffer when it does not fit, cbits = 8):
-//   C   u32 [rows, 256]  adaptive counts, +inc per coded symbol (atomics)
-//   cum u16 [rows, 257]  inclusive cumsum of the quantized table q, with a
-//                        leading 0: q[s] = cum[s+1] - cum[s], and the
-//                        exclusive cum of s is cum[s]. Sums reach
-//                        QTOTAL = 2^15, so u16 is exact.
-// 6 bytes a cell: rows = 2^cbits <= 128 fits the 227 KB a block may use.
+//   C   u32 [rows, 256]         adaptive counts, +inc per coded symbol
+//   cum u16 [rows, CUM_STRIDE]  the exclusive cumsum of the quantized table
+//                               q (sums reach QTOTAL = 2^15, so u16 is
+//                               exact): cum[s] for s = 0..256, cum[256] =
+//                               QTOTAL, so q[s] = cum[s+1] - cum[s]. Kernel
+//                               E keeps its one row in the search's tree
+//                               order instead (rc_decode.cuh).
+// A cum row is CUM_STRIDE = 258 u16 = 129 words, so rows start on
+// different banks. 6 bytes a cell: rows = 2^cbits <= 128 fits the
+// SMEM_LIMIT bytes a block may use; cbits = 8 takes global scratch (kernel
+// C's cluster blocks hold a quarter of C each, so all 256 rows fit there).
 #pragma once
 
 #include <cstddef>
@@ -28,11 +33,20 @@ constexpr uint32_t EV_RUN_MASK = (1u << 22) - 1;
 constexpr int RESCALE_ROUNDS = 3;  // CT-RCX; CT-RCQ halves once
 constexpr int MAX_THREADS = 1024;
 constexpr int MAX_LPT = 8;  // lanes per thread: K <= MAX_LPT * MAX_THREADS
+constexpr int CUM_STRIDE = 258;
+constexpr uint32_t FULL = 0xFFFFFFFFu;
+constexpr size_t SMEM_LIMIT = 232448;  // dynamic shared memory a Hopper block may use
 
 __host__ __device__ inline size_t model_bytes(int rows) {
   size_t c = (size_t)rows * 256 * 4;
-  size_t cum = ((size_t)rows * 257 * 2 + 15) & ~(size_t)15;
+  size_t cum = ((size_t)rows * CUM_STRIDE * 2 + 15) & ~(size_t)15;
   return c + cum;
+}
+
+// Bytes of global scratch a one-block stream's model needs: 0 when it fits
+// shared memory.
+__host__ inline size_t scratch_bytes(int rows) {
+  return model_bytes(rows) > SMEM_LIMIT ? model_bytes(rows) : 0;
 }
 
 // One thread per lane up to 1024 lanes, a multiple of 32 (whole warps).
@@ -51,97 +65,112 @@ __host__ inline int lanes_per_thread(int k) {
   return 0;
 }
 
-__device__ inline uint32_t warp_sum(uint32_t v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
 // C = 1 everywhere; the first window's requant fills cum.
 __device__ inline void model_init(uint32_t* C, int rows) {
   for (int i = threadIdx.x; i < rows * 256; i += blockDim.x) C[i] = 1;
 }
 
-// Window requantization of every context row, one warp per row, each lane
-// owning 8 consecutive symbols:
+// floor(c * (QTOTAL - QRESERVE) / tot) for c <= tot < 2^32, given
+// scale = RN(32512 * RN(1 / tot)), without a 64-bit divide (Hopper has
+// none: nvcc calls a software routine). Exact: with u = 2^-53, y =
+// RN(c * scale) carries three roundings, so |y - x| < 3.1 u x < 2^-36 for
+// the true x = c * 32512 / tot <= 32512. x is a multiple of 1 / tot >
+// 2^-32, so a non-integer x lies more than 2^-36 below the next integer
+// and trunc(y) = floor(x); an integer x gives trunc(y) in {x - 1, x}. The
+// candidate is thus floor(x) or one less, and one exact 64-bit product,
+// (v + 1) * tot < 2^47, against c * 32512 < 2^47 settles it.
+__device__ __forceinline__ uint32_t quant_div(uint32_t c, uint32_t tot, double scale) {
+  uint32_t v = __double2uint_rz(__dmul_rn(__uint2double_rn(c), scale));
+  if ((uint64_t)(v + 1) * tot <= (uint64_t)c * (QTOTAL - QRESERVE)) ++v;
+  return v;
+}
+
+// Requantization of one context row by one warp, each lane owning the 8
+// consecutive symbols 8*lane.. (two 16-byte loads of C):
 //   up to ROUNDS halvings (c >> 1) | 1 while the row total is >= climit,
-//   q = max(c * (QTOTAL - QRESERVE) / tot, 1) (64-bit product, exact),
+//   q = max(c * (QTOTAL - QRESERVE) / tot, 1) (quant_div, exact),
 //   the remainder QTOTAL - sum(q) to the lowest-index maximum of q,
-//   cum = inclusive warp scan of q.
-// Callers put a __syncthreads() on both sides.
+//   cum = exclusive warp scan of q.
+// A row whose total is `same` is left as it is (kernel C skips a row that
+// has not changed; 0, which no total is, skips nothing).
+// -> the row total after the halvings, or 0 for a row left as it is
+// (warp-uniform).
 template <int ROUNDS>
-__device__ inline void requant(uint32_t* C, uint16_t* cum, int rows, uint32_t climit) {
+__device__ inline uint32_t requant_row(uint32_t* crow, uint16_t* cr, uint32_t climit,
+                                       uint32_t same = 0) {
   const int lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5;
-  for (int r = threadIdx.x >> 5; r < rows; r += nwarps) {
-    uint32_t* crow = C + (size_t)r * 256 + lane * 8;
-    uint32_t c[8];
+  uint4* cv = reinterpret_cast<uint4*>(crow) + lane * 2;
+  const uint4 a = cv[0], b = cv[1];
+  uint32_t c[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  uint32_t s = 0;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) c[i] = crow[i];
-    uint32_t tot = 0;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) tot += c[i];
-    tot = warp_sum(tot);
+  for (int i = 0; i < 8; ++i) s += c[i];
+  uint32_t tot = __reduce_add_sync(FULL, s);
+  if (tot == same) return 0;
+  if (tot >= climit) {
     for (int round = 0; round < ROUNDS && tot >= climit; ++round) {
-      uint32_t s = 0;
+      s = 0;
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         c[i] = (c[i] >> 1) | 1u;
         s += c[i];
       }
-      tot = warp_sum(s);
+      tot = __reduce_add_sync(FULL, s);
     }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) crow[i] = c[i];
-
-    uint32_t q[8];
-    uint32_t qsum = 0, best = 0;
-    int besti = 256;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      uint32_t v = (uint32_t)(((uint64_t)c[i] * (QTOTAL - QRESERVE)) / tot);
-      q[i] = v > 1u ? v : 1u;
-      qsum += q[i];
-      if (q[i] > best) {  // strict: keeps the first maximum of this lane
-        best = q[i];
-        besti = lane * 8 + i;
-      }
-    }
-    const uint32_t rem = QTOTAL - warp_sum(qsum);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      uint32_t ob = __shfl_xor_sync(0xffffffffu, best, off);
-      int oi = __shfl_xor_sync(0xffffffffu, besti, off);
-      if (ob > best || (ob == best && oi < besti)) {
-        best = ob;
-        besti = oi;
-      }
-    }
-    if ((besti >> 3) == lane) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        if (i == (besti & 7)) q[i] += rem;
-    }
-
-    uint32_t run[8];
-    uint32_t acc = 0;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      acc += q[i];
-      run[i] = acc;
-    }
-    uint32_t incl = acc;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      uint32_t v = __shfl_up_sync(0xffffffffu, incl, off);
-      if (lane >= off) incl += v;
-    }
-    const uint32_t base = incl - acc;
-    uint16_t* cr = cum + (size_t)r * 257;
-    if (lane == 0) cr[0] = 0;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) cr[lane * 8 + i + 1] = (uint16_t)(base + run[i]);
+    cv[0] = make_uint4(c[0], c[1], c[2], c[3]);
+    cv[1] = make_uint4(c[4], c[5], c[6], c[7]);
   }
+
+  const double scale =
+      __dmul_rn((double)(QTOTAL - QRESERVE), __drcp_rn(__uint2double_rn(tot)));
+  uint32_t q[8];
+  uint32_t qsum = 0, key = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const uint32_t v = quant_div(c[i], tot, scale);
+    q[i] = v > 1u ? v : 1u;
+    qsum += q[i];
+    // q < 2^16 above the complement of the index: the warp's largest key
+    // is the largest q at its lowest index
+    const uint32_t k = (q[i] << 8) | (255u - (uint32_t)(lane * 8 + i));
+    key = k > key ? k : key;
+  }
+  const uint32_t rem = QTOTAL - __reduce_add_sync(FULL, qsum);
+  const int besti = 255 - (int)(__reduce_max_sync(FULL, key) & 255u);
+  if ((besti >> 3) == lane) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (i == (besti & 7)) q[i] += rem;
+  }
+
+  uint32_t ex[8];
+  uint32_t acc = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    ex[i] = acc;
+    acc += q[i];
+  }
+  uint32_t incl = acc;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const uint32_t v = __shfl_up_sync(FULL, incl, off);
+    if (lane >= off) incl += v;
+  }
+  const uint32_t base = incl - acc;
+  uint32_t* cw = reinterpret_cast<uint32_t*>(cr) + lane * 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) cw[i] = (base + ex[2 * i]) | ((base + ex[2 * i + 1]) << 16);
+  if (lane == 31) cr[256] = (uint16_t)QTOTAL;
+  return tot;
+}
+
+// Every row, one warp a row (the encoders). Callers put a __syncthreads()
+// on both sides.
+template <int ROUNDS>
+__device__ inline void requant(uint32_t* C, uint16_t* cum, int rows, uint32_t climit) {
+  const int nwarps = blockDim.x >> 5;
+  for (int r = threadIdx.x >> 5; r < rows; r += nwarps)
+    requant_row<ROUNDS>(C + (size_t)r * 256, cum + (size_t)r * CUM_STRIDE, climit);
 }
 
 // The model of stream `s`: global scratch when given, else dynamic shared.
@@ -152,15 +181,13 @@ __device__ inline void model_ptrs(uint8_t* smem, uint8_t* gmodel, int rows,
   *cum = reinterpret_cast<uint16_t*>(base + (size_t)rows * 256 * 4);
 }
 
-// Shared memory the launch asks for: none when the model is in global
-// scratch. Above 48 KB a kernel needs the opt-in attribute.
+// Opts `kernel` in to `bytes` of dynamic shared memory where that is above
+// the 48 KB a launch may take without; returns the refusal, if any.
 template <typename Kernel>
-inline size_t prepare_smem(Kernel kernel, const void* gmodel, int rows) {
-  if (gmodel) return 0;
-  size_t smem = model_bytes(rows);
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  return smem;
+inline cudaError_t prepare_smem(Kernel kernel, size_t bytes) {
+  if (bytes > 48 * 1024)
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  return cudaSuccess;
 }
 
 }  // namespace ct

@@ -34,6 +34,8 @@ SIGNATURES = {
     # x, lane_len, events, model scratch, streams, K, stride, inc,
     # climit, cbits, wlog, stream
     "ct_rcx_encode": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # cbits -> model scratch bytes a stream (0: none)
+    "ct_rcx_encode_scratch": [_I],
     # events, may_drop, sizes, E, K, stream
     "ct_expand_sizes": [_P, _P, _P, _I, _I, _P],
     # events, may_drop, rows, E, K, l2, stream
@@ -41,6 +43,8 @@ SIGNATURES = {
     # words, lane_len, out, model scratch, streams, K, l4, stride, inc,
     # climit, cbits, wlog, stream
     "ct_rcx_decode": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # K, cbits -> model scratch bytes a stream (0: none)
+    "ct_rcx_decode_scratch": [_I, _I],
     # x, lane_len, events, K, stride, inc, climit, stream
     "ct_rcq_encode": [_P, _P, _P, _I, _I, _I, _I, _P],
     # words, lane_len, out, K, l4, stride, inc, climit, stream

@@ -2,11 +2,17 @@
 
 Kernel A (`csrc/rcx_encode.cu`) replaces cpprcoder_tpu/ops/rcx_pallas.py:163
 `_encode_kernel`; kernel C (`csrc/rcx_decode.cu`) replaces
-rcx_pallas.py:374 `_decode_kernel`. Both run one CTA per stream with the
-context model in shared memory (global scratch for cbits = 8, whose 384 KB
-model exceeds a block's 227 KB), lane state in registers, shared-memory
-atomics for the model update and direct table indexing. A stream's steps
-are sequential, so one stream is latency-bound on one SM.
+rcx_pallas.py:374 `_decode_kernel`. Kernel A runs one CTA per stream with
+the context model in shared memory (global scratch for cbits = 8, whose
+model exceeds a block's 227 KB), lane state in registers and shared-memory
+atomics for the model update; a stream's steps are sequential, so one
+stream is latency-bound on one SM. Kernel C (`csrc/rc_decode.cuh`) runs one
+CTA per stream below 1024 lanes and a cluster of 4 CTAs from there on, each
+holding a quarter of the lanes, the counts of a quarter of the rows and a
+copy of every cum row (so its model fits shared memory at any cbits). It
+requantizes only the rows that changed, with at least a warp a row, and
+loads each lane's next word a refill ahead. The library says how much
+global model scratch a launch needs (`ct_rcx_*_scratch`).
 
 Their plain versions are the step loops `rcx_ops.encode_events_plain` and
 `rcx_ops.decode_symbols_plain`. On a CPU tensor a wrapper runs the plain
@@ -25,14 +31,6 @@ decode_launches = 0   # kernel C
 
 MAX_THREADS = 1024
 MAX_LANES = 8 * MAX_THREADS      # csrc/rcx_model.cuh MAX_LPT * MAX_THREADS
-SMEM_LIMIT = 232448              # dynamic shared memory a Hopper block may use
-
-
-def model_bytes(cbits: int) -> int:
-    """Bytes of one stream's model: C u32 [B,256] + cum u16 [B,257]
-    (16-byte padded), as csrc/rcx_model.cuh lays it out."""
-    rows = 1 << cbits
-    return rows * 256 * 4 + ((rows * 257 * 2 + 15) & ~15)
 
 
 def check_args(name, t, dtype, lane_len, cbits, wlog, climit, inc):
@@ -45,10 +43,11 @@ def check_args(name, t, dtype, lane_len, cbits, wlog, climit, inc):
         raise ValueError(f"climit {climit} / inc {inc} out of range")
 
 
-def _model_scratch(cbits: int, device) -> torch.Tensor | None:
-    if model_bytes(cbits) <= SMEM_LIMIT:
+def _model_scratch(nbytes: int, device) -> torch.Tensor | None:
+    """The global model scratch the library asked for (None for 0 bytes)."""
+    if nbytes == 0:
         return None
-    return torch.empty(model_bytes(cbits), dtype=torch.uint8, device=device)
+    return torch.empty(nbytes, dtype=torch.uint8, device=device)
 
 
 def encode_events(x2d: torch.Tensor, lane_len: torch.Tensor, inc: int,
@@ -65,7 +64,7 @@ def encode_events(x2d: torch.Tensor, lane_len: torch.Tensor, inc: int,
     lib = build.load()
     with torch.cuda.device(dev):
         ev = torch.empty((2 * stride + 2, k), dtype=torch.int32, device=dev)
-        scratch = _model_scratch(cbits, dev)
+        scratch = _model_scratch(lib.ct_rcx_encode_scratch(cbits), dev)
         rc = lib.ct_rcx_encode(
             x2d.data_ptr(), lane_len.data_ptr(), ev.data_ptr(),
             scratch.data_ptr() if scratch is not None else None, 1, k,
@@ -83,7 +82,7 @@ def decode_symbols(words: torch.Tensor, lane_len: torch.Tensor, n: int,
     n decoded bytes, uint8 [n] (byte i*stride + j is lane i's step j)."""
     global decode_launches
     check_args("words", words, torch.int32, lane_len, cbits, wlog,
-                  climit, inc)
+               climit, inc)
     l4, k = words.shape
     if not 0 <= n <= k * stride:
         raise ValueError(f"n={n} does not fit {k} lanes of stride {stride}")
@@ -94,7 +93,7 @@ def decode_symbols(words: torch.Tensor, lane_len: torch.Tensor, n: int,
     lib = build.load()
     with torch.cuda.device(dev):
         out = torch.empty(k * stride, dtype=torch.uint8, device=dev)
-        scratch = _model_scratch(cbits, dev)
+        scratch = _model_scratch(lib.ct_rcx_decode_scratch(k, cbits), dev)
         rc = lib.ct_rcx_decode(
             words.data_ptr(), lane_len.data_ptr(), out.data_ptr(),
             scratch.data_ptr() if scratch is not None else None, 1, k, l4,

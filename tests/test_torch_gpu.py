@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import cpprcoder_tpu_torch as ctt
+from cpprcoder_tpu_torch.models.cxmodel import rcx_params
 from cpprcoder_tpu_torch.models.qmodel import rcq_params
 from cpprcoder_tpu_torch.ops import (
     compaction,
@@ -25,7 +26,7 @@ from cpprcoder_tpu_torch.ops import (
     rcx_kernels,
     rcx_ops,
 )
-from cpprcoder_tpu_torch.reference import rans_ref, rcx_ref
+from cpprcoder_tpu_torch.reference import rans_ref, rcq_ref, rcx_ref
 
 pytestmark = pytest.mark.gpu
 
@@ -65,6 +66,93 @@ def test_coder_kernels_match_plain(dev, k, cbits, wlog):
     assert torch.equal(sym, x)
 
 
+def _runs_and_text(n):
+    """Alternate 4 KB blocks of kennedy.xls (runs, records) and
+    alice29.txt (text)."""
+    d = Path(__file__).resolve().parent.parent / "data"
+    a, b = (d / "kennedy.xls").read_bytes(), (d / "alice29.txt").read_bytes()
+    blocks = [(a if i % 2 == 0 else b)[i // 2 * 4096:(i // 2 + 1) * 4096]
+              for i in range(-(-n // 4096))]
+    return np.frombuffer(b"".join(blocks)[:n], np.uint8)
+
+
+# (data, K, cbits, wlog, inc, climit) for kernels A and C; None: rcx_params
+DECODE_CASES = {
+    "one-byte run": (lambda: np.zeros(20_000, np.uint8), 64, 6, 2, None, None),
+    "runs and text": (lambda: _runs_and_text(300_000), 2048, 4, 2, None, None),
+    "K=32 cbits=8 global model": (lambda: _textish(5000, 5), 32, 8, 2, None,
+                                  None),
+    "K=100": (lambda: _textish(100 * 90 + 11, 6), 100, 6, 1, None, None),
+    "K=1500": (lambda: _textish(1500 * 40, 7), 1500, 5, 2, None, None),
+    "K=1024 cbits=0": (lambda: _textish(1024 * 30 + 5, 11), 1024, 0, 3, None,
+                       None),
+    "cluster one-byte run": (lambda: np.zeros(1024 * 60, np.uint8), 1024, 4,
+                             2, None, None),
+    "K=4096": (lambda: _textish(4096 * 30 + 3, 8), 4096, 4, 2, None, None),
+    "K=8192 cbits=7": (lambda: _textish(8192 * 20 + 9, 9), 8192, 7, 2, None,
+                       None),
+    "halves every window": (lambda: _textish(256 * 200, 10), 256, 6, 3, 255,
+                            1 << 10),
+}
+
+
+@pytest.mark.parametrize("case", list(DECODE_CASES))
+def test_rcx_decode_hard_cases_match_plain(dev, case):
+    """Kernel C (and A) against their step loops where the decode design
+    has its edges: every lane on one cell, runs, the model in global
+    scratch, partial warps, the 4-block cluster (K >= 1024) with one row or
+    with blocks of K / 4 lanes not a multiple of 32, 2 to 8 lanes a thread,
+    rows left at or above climit by their requant, and a cluster row whose
+    halvings bring it back to the total it had at the window before."""
+    make, k, cbits, wlog, inc, climit = DECODE_CASES[case]
+    data = make()
+    n = len(data)
+    _, inc0, cl, _ = rcx_params(n, lanes=k, cbits=cbits)
+    args = (inc0 if inc is None else inc,
+            1 << cl if climit is None else climit, cbits, wlog)
+    x = torch.from_numpy(data).to(dev)
+    stride = -(-n // k)
+    x2d = layout.pad2d_chunked(x, k, stride)
+    lens = layout.lane_lengths(n, k, stride, dev)
+    ev = rcx_kernels.encode_events(x2d, lens, *args)
+    assert torch.equal(ev, rcx_ops.encode_events_plain(x2d, lens, *args))
+    words = layout.decode_words(*expand.materialize_rows(ev))
+    sym = rcx_kernels.decode_symbols(words, lens, n, stride, *args)
+    assert torch.equal(sym, rcx_ops.decode_symbols_plain(words, lens, n,
+                                                         stride, *args))
+    assert torch.equal(sym, x)
+
+
+@pytest.mark.parametrize("case", ["one-byte run", "runs and text", "K=100",
+                                  "K=4096", "K=8192", "halves every step"])
+def test_rcq_decode_hard_cases_match_plain(dev, case):
+    """Kernel E (and D) against their step loops on the same edges."""
+    data, k, inc, cl = {
+        "one-byte run": (np.full(20_000, 7, np.uint8), 64, None, None),
+        "runs and text": (_runs_and_text(300_000), 2048, None, None),
+        "K=100": (_textish(100 * 60 + 7, 11), 100, None, None),
+        "K=4096": (_textish(4096 * 25 + 1, 12), 4096, None, None),
+        "K=8192": (_textish(8192 * 12 + 3, 13), 8192, None, None),
+        "halves every step": (_textish(4096, 14), 128, 24, 10),
+    }[case]
+    n = len(data)
+    _, inc0, cl0 = rcq_params(n, lanes=k)
+    inc = inc0 if inc is None else inc
+    climit = 1 << (cl0 if cl is None else cl)
+    x = torch.from_numpy(data).to(dev)
+    stride = -(-n // k)
+    x2d = layout.pad2d_interleaved(x, k, stride)
+    lens = layout.lane_lengths_interleaved(n, k, stride, dev)
+    ev = rcq_kernels.encode_events(x2d, lens, inc, climit)
+    assert torch.equal(ev, rcx_ops.encode_events_plain(x2d, lens, inc,
+                                                       climit, 0, 0, 1))
+    words = layout.decode_words(*expand.materialize_rows(ev))
+    sym = rcq_kernels.decode_symbols(words, lens, n, stride, inc, climit)
+    assert torch.equal(sym, rcx_ops.decode_symbols_plain(
+        words, lens, n, stride, inc, climit, 0, 0, 1, interleaved=True))
+    assert torch.equal(sym, x)
+
+
 def test_wide_lane_round_trip(dev):
     """One lane past 64 KiB of payload: u32 size table, oracle-identical."""
     data = np.random.default_rng(1).integers(0, 256, 140_000, np.uint8).tobytes()
@@ -72,6 +160,21 @@ def test_wide_lane_round_trip(dev):
     assert blob[4] & 0x80
     assert blob == rcx_ref.rcx_encode(data, lanes=2)
     assert ctt.decompress(blob, codec="rcx", device="cuda") == data
+
+
+@pytest.mark.parametrize("codec", ["rcx", "rcq"])
+def test_one_lane_past_2_mib_decodes(dev, codec):
+    """The oracle's container of one lane of 2 MiB + 4099 bytes decodes on
+    the card: below 4 lanes a thread the decode kernels keep a lane's length
+    and word index at full width. (The port's encoder refuses a lane this
+    long: a pending run of 0xFF bytes must fit its events' 22-bit field.)"""
+    d = Path(__file__).resolve().parent.parent / "data"
+    src = (d / "kennedy.xls").read_bytes() + (d / "alice29.txt").read_bytes()
+    n = (2 << 20) + 4099
+    data = (src * -(-n // len(src)))[:n]
+    ref = {"rcx": rcx_ref.rcx_encode, "rcq": rcq_ref.rcq_encode}[codec]
+    blob = ref(data, lanes=1)
+    assert ctt.decompress(blob, codec=codec, device="cuda") == data
 
 
 def test_launch_counters_move(dev):

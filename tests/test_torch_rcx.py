@@ -6,6 +6,9 @@ rcx_pallas._encode_call / _decode_call, at K=128. Exact equality.
 The Pallas grid pads the steps to bucket(stride); the port runs exactly
 stride steps, so the Pallas pad rows must be zero and the flush rows equal."""
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -100,7 +103,18 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
 
 
 def test_model_bytes_matches_kernel_layout():
-    # cbits <= 7 fits a block's shared memory; cbits = 8 takes global scratch
-    assert rcx_kernels.model_bytes(7) <= rcx_kernels.SMEM_LIMIT
-    assert rcx_kernels.model_bytes(8) > rcx_kernels.SMEM_LIMIT
-    assert rcx_kernels.model_bytes(0) == 256 * 4 + 528
+    # csrc/rcx_model.cuh, whose ct::scratch_bytes the wrappers ask for: a
+    # block's model fits shared memory up to cbits = 7 and takes global
+    # scratch at cbits = 8; a block of kernel C's 4-block cluster, holding a
+    # quarter of the counts and every cum row, fits at cbits = 8
+    hdr = (Path(__file__).resolve().parent.parent / "cpprcoder_tpu_torch"
+           / "csrc" / "rcx_model.cuh").read_text()
+    stride = int(re.search(r"CUM_STRIDE = (\d+);", hdr).group(1))
+    limit = int(re.search(r"SMEM_LIMIT = (\d+);", hdr).group(1))
+
+    def model_bytes(count_rows, cum_rows):
+        return count_rows * 256 * 4 + ((cum_rows * stride * 2 + 15) & ~15)
+
+    assert model_bytes(128, 128) <= limit < model_bytes(256, 256)
+    assert model_bytes(64, 256) <= limit
+    assert model_bytes(1, 1) == 256 * 4 + 528
