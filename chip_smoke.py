@@ -29,8 +29,8 @@ Then a {"kernels": [...]} JSON line (per kernel: launches on the main
 paths, the largest difference from its plain version, its time and the
 plain version's at kennedy.xls's shape, and the bound: the larger of the
 bytes it moves over the memory rate and its operations over the peak
-rate; A and C add `ms_at`, their times at the three shapes), the
-nvidia-smi line, and last {"ok": true, "device": {...}}.
+rate; every kernel but B adds `ms_at`, its times at each shape timed),
+the nvidia-smi line, and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -279,7 +279,7 @@ def time_at(files, case, args, plain_reps: int, what: str):
     parameters) and time its kernels, 5 reps after a warm-up; the plain
     versions only at the first file, `plain_reps` reps. Prints the line
     `[kernels] ok {what}; ...`. -> ({kernel: (ms, plain ms)}, {kernel:
-    (bytes, ops)}) at the first file."""
+    (bytes, ops)}) at the first file, {kernel: {file: ms}} at both."""
     at, ms, work = {}, {}, {}
     for i, name in enumerate(files):
         data = corpus(name)
@@ -295,7 +295,8 @@ def time_at(files, case, args, plain_reps: int, what: str):
           + f"; at {at[small]} ms kernel: "
           + ", ".join(f"{nm} {a:.3f}" for nm, (a, _) in ms[small].items()),
           flush=True)
-    return ms[big], work
+    at_ms = {nm: {f: ms[f][nm][0] for f in files} for nm in ms[big]}
+    return ms[big], work, at_ms
 
 
 def coder_inputs(data: bytes, k: int, dev):
@@ -489,10 +490,10 @@ def phase_kernels_rcq(dev):
     # held and timed at kennedy.xls's CT-RCQ shape, kernel vs plain; held
     # there and at fields.c's (K = 32, one warp), where the per-step requant
     # sets the pace and the kernels alone are timed
-    ms, work = time_at(("kennedy.xls", "fields.c"), case, rcq_params, 2,
-                       f"{len(cases) + 2} CT-RCQ cases (D, E) equal their "
-                       f"plain versions")
-    return err, ms, work
+    ms, work, ms_at = time_at(("kennedy.xls", "fields.c"), case, rcq_params,
+                              2, f"{len(cases) + 2} CT-RCQ cases (D, E) equal "
+                              f"their plain versions")
+    return err, ms, work, ms_at
 
 
 def phase_kernels_rans(dev):
@@ -536,11 +537,11 @@ def phase_kernels_rans(dev):
     # held and timed at kennedy.xls's rANS shape, kernel vs plain; held
     # there and at grammar.lsp's (K = 2 lanes over 1,861 steps), where the
     # kernels alone are timed
-    ms, work = time_at(("kennedy.xls", "grammar.lsp"), case,
-                       lambda n: (rans_ops.pick_lanes(n),), 2,
-                       f"{len(cases) + 2} rANS cases (F, G) equal their "
-                       f"plain versions")
-    return err, ms, work
+    ms, work, ms_at = time_at(("kennedy.xls", "grammar.lsp"), case,
+                              lambda n: (rans_ops.pick_lanes(n),), 2,
+                              f"{len(cases) + 2} rANS cases (F, G) equal "
+                              f"their plain versions")
+    return err, ms, work, ms_at
 
 
 def phase_kernels_huffman(dev):
@@ -603,11 +604,12 @@ def phase_kernels_huffman(dev):
     # loops run 4,023 steps a call: one rep); held there and at
     # grammar.lsp's (K = 2 over 1,861 steps), where the kernels alone are
     # timed
-    ms, work = time_at(("kennedy.xls", "grammar.lsp"), case,
-                       lambda n: (rans_ops.pick_lanes(n),), 1,
-                       f"{len(cases) + 3} CT-HUF1 cases (H, I; I also on "
-                       f"random word rows) equal their plain versions")
-    return err, ms, work
+    ms, work, ms_at = time_at(("kennedy.xls", "grammar.lsp"), case,
+                              lambda n: (rans_ops.pick_lanes(n),), 1,
+                              f"{len(cases) + 3} CT-HUF1 cases (H, I; I also "
+                              f"on random word rows) equal their plain "
+                              f"versions")
+    return err, ms, work, ms_at
 
 
 def run_corpus(codec: str):
@@ -747,10 +749,11 @@ def main():
     err, ms, work, ms_at = phase_kernels(dev)
     for phase in (phase_kernels_rcq, phase_kernels_rans,
                   phase_kernels_huffman):
-        e, m, w = phase(dev)
+        e, m, w, a = phase(dev)
         err.update(e)
         ms.update(m)
         work.update(w)
+        ms_at.update(a)
     # a kernel on several paths (B) reports the sum of its paths' counts
     launches = dict.fromkeys(COUNTERS, 0)
     for codec in PATH_KERNELS:
@@ -768,7 +771,7 @@ def main():
                      "max_abs_err": err[nm], "ms": ms[nm][0],
                      "plain_ms": ms[nm][1], "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": None})
-        if nm in ms_at:     # A and C: kernel ms at three shapes
+        if nm in ms_at:     # kernel ms at each shape timed
             rows[-1]["ms_at"] = ms_at[nm]
     print(json.dumps({"kernels": rows}))
     print(smi_line)

@@ -14,12 +14,13 @@ Public API:
     get_codec_by_id(codec_id) -> Codec
     list_codecs() -> list[str]
 
-Codecs ported: rans (CT-ANS1 v2, the default, as in the JAX package), rcq
-(CT-RCQ) and rcx (CT-RCX).
+Codecs ported: huffman (CT-HUF1), rans (CT-ANS1 v2, the default, as in the
+JAX package), rcq (CT-RCQ) and rcx (CT-RCX).
 
 The device is explicit: the default is the card, and `device="cpu"` runs
-the plain PyTorch versions of the kernels. The kernels are compiled with
-nvcc at first use on the card (native/build.py).
+the plain PyTorch versions of the kernels. Below the codecs, the container
+functions of `ops/` take `device` with no default. The kernels are
+compiled with nvcc at first use on the card (native/build.py).
 """
 
 from cpprcoder_tpu_torch.codecs import (  # noqa: F401

@@ -31,10 +31,10 @@
 //     row's requant, not 2^cbits of them;
 //   - a single row (CT-RCQ's, every step) is requantized by 8 warps, one
 //     cell a thread, exchanging the totals, the first argmax and the scan
-//     through shared memory (requant_cells), and kept in the search's tree
-//     order (tree_node), where all lanes read one row and each level's
-//     nodes share a bank word; CT-RCX's rows stay sorted, as the encoders
-//     keep them;
+//     through shared memory (ct::requant_cells, which kernel D shares),
+//     and kept in the search's tree order (ct::tree_node), where all lanes
+//     read one row and each level's nodes share a bank word; CT-RCX's rows
+//     stay sorted, as the encoders keep them;
 //   - in a cluster each CTA runs a quarter of the lanes against its own
 //     copy of every cum row, and owns a quarter of the rows: their counts
 //     sit in its shared memory, every CTA's updates to them arrive as
@@ -73,24 +73,6 @@ namespace cg = cooperative_groups;
 constexpr uint32_t OCC_MASK = 0x700u, OCC_ONE = 0x100u, WIDX_ONE = 0x800u;
 constexpr uint32_t LOW24 = 0xFFFFFFu;
 constexpr int PACKED_MAX_STRIDE = (1 << 22) - 8;  // packed lane state, LPT >= 2
-constexpr int CELL_THREADS = 256;           // requant_cells: one thread a cell
-
-// Threads of a decode block: one a lane (ct::block_threads), and at least a
-// warp a model row (one a cell for requant_cells), up to 1024.
-__host__ inline int decode_threads(int k, int rows, bool cells) {
-  const int need = cells ? CELL_THREADS : 32 * rows;
-  const int t = ct::block_threads(k), r = need < ct::MAX_THREADS ? need : ct::MAX_THREADS;
-  return t > r ? t : r;
-}
-
-// A tree-ordered cum row holds at node k = 1..255 (breadth-first, from 1)
-// the exclusive cum of the symbol that the binary search over 0..255 tests
-// there, so that node 2k or 2k + 1 follows node k. Symbol s = (2p + 1) <<
-// (7 - d) (1..255) is node p of level d: node 2^d + p.
-__device__ __forceinline__ int tree_node(int s) {
-  const int tz = __ffs(s) - 1;
-  return (1 << (7 - tz)) | (s >> (tz + 1));
-}
 
 // Rows r = warp, warp + warps, ...: each one requantized unless its total
 // is last[r]; last[r] then takes the new total, or 0 if it is >= climit.
@@ -105,76 +87,6 @@ __device__ inline void requant_changed(uint32_t* C, uint16_t* cum, uint32_t* las
                                                  cum + (size_t)r * ct::CUM_STRIDE, climit, last[r]);
     if (lane == 0 && tot != 0) last[r] = tot < climit ? tot : 0u;
   }
-}
-
-// Warps 0..7 meet at named barrier 1; the other warps go on to the block's.
-__device__ __forceinline__ void cells_barrier() {
-  asm volatile("bar.sync 1, %0;" ::"n"(CELL_THREADS) : "memory");
-}
-
-// v summed over threads 0..255, through x[0..7].
-__device__ __forceinline__ uint32_t cells_sum(uint32_t* x, uint32_t v) {
-  const uint32_t w = __reduce_add_sync(ct::FULL, v);
-  if ((threadIdx.x & 31) == 0) x[threadIdx.x >> 5] = w;
-  cells_barrier();
-  uint32_t s = 0;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) s += x[i];
-  return s;
-}
-
-// ct::requant_row's function for the single row C[256], run by threads
-// 0..255, thread t owning cell t, cum stored in tree order; x gives each
-// exchange its own 8 words, so no exchange waits for the reads of the one
-// before.
-template <int ROUNDS>
-__device__ inline void requant_cells(uint32_t* C, uint16_t* cr, uint32_t climit,
-                                     uint32_t (*x)[8]) {
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  uint32_t c = C[t];
-  uint32_t tot = cells_sum(x[0], c);
-  if (tot >= climit) {
-    for (int round = 0; round < ROUNDS && tot >= climit; ++round) {
-      c = (c >> 1) | 1u;
-      tot = cells_sum(x[1 + round], c);
-    }
-    C[t] = c;
-  }
-  const double scale =
-      __dmul_rn((double)(ct::QTOTAL - ct::QRESERVE), __drcp_rn(__uint2double_rn(tot)));
-  uint32_t q = ct::quant_div(c, tot, scale);
-  q = q > 1u ? q : 1u;
-  // q < 2^16 above the complement of the cell: the largest key is the
-  // largest q at its lowest cell
-  const uint32_t qs = __reduce_add_sync(ct::FULL, q);
-  const uint32_t km = __reduce_max_sync(ct::FULL, (q << 8) | (255u - (uint32_t)t));
-  uint32_t* xs = x[ROUNDS + 1];
-  uint32_t* xk = x[ROUNDS + 2];
-  if (lane == 0) {
-    xs[warp] = qs;
-    xk[warp] = km;
-  }
-  cells_barrier();
-  uint32_t qsum = 0, kmax = 0;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    qsum += xs[i];
-    kmax = xk[i] > kmax ? xk[i] : kmax;
-  }
-  if (t == 255 - (int)(kmax & 255u)) q += ct::QTOTAL - qsum;
-  uint32_t incl = q;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const uint32_t v = __shfl_up_sync(ct::FULL, incl, off);
-    if (lane >= off) incl += v;
-  }
-  uint32_t* xw = x[ROUNDS + 3];
-  if (lane == 31) xw[warp] = incl;
-  cells_barrier();
-  uint32_t base = 0;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) base += i < warp ? xw[i] : 0u;
-  if (t > 0) cr[tree_node(t)] = (uint16_t)(base + incl - q);
 }
 
 // CTA g of a G-CTA cluster owns the rows r = g, g + G, ..., holding row r's
@@ -264,7 +176,7 @@ __global__ void __launch_bounds__(ct::MAX_THREADS)
       } else {
         __syncthreads();
         if (INTERLEAVED) {
-          if (tid < CELL_THREADS) requant_cells<ROUNDS>(C, cum, climit, xch);
+          if (tid < ct::CELL_THREADS) ct::requant_cells<ROUNDS, true>(C, cum, climit, xch);
         } else {
           requant_changed<ROUNDS>(C, cum, last, rows, climit);
         }
@@ -354,7 +266,7 @@ cudaError_t launch_kernel(const void* words, const void* lane_len, void* out, vo
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(streams * G);
-  cfg.blockDim = dim3(decode_threads((K + G - 1) / G, held, INTERLEAVED));
+  cfg.blockDim = dim3(ct::coder_threads((K + G - 1) / G, held, INTERLEAVED));
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute cluster;

@@ -9,19 +9,24 @@
 // (models/qmodel.py: rescale, quantize to a 2^15 total); the coder and its
 // packed events are kernel A's.
 //
-// Design: kernel A's kernel (rc_encode.cuh) instantiated with ROUNDS = 1
-// and run with cbits = 0 (one model row of 1.5 KB in shared memory) and
-// wlog = 0. The wrapper passes the interleaved [stride, K] grid, so each
-// step's loads are K consecutive input bytes.
+// Design: kernel A's kernel (rc_encode.cuh) in its ONE_ROW instantiation,
+// with ROUNDS = 1: one model row of 1.5 KB in shared memory, requantized
+// before every step by 8 warps, one cell a thread (kernel E's
+// ct::requant_cells, the cum row kept sorted for the coder's two reads);
+// each lane's next symbol is loaded a step ahead, and the lanes' updates
+// go to two sub-histograms that the requant folds in. The wrapper passes
+// the interleaved [stride, K] grid, so each step's loads are K consecutive
+// input bytes.
 //
-// What bounds it: the steps are sequential on one SM, and every step has a
-// __syncthreads-bracketed requant done by one warp (a 256-entry warp scan
-// and three shuffle reductions). At small K that warp's latency, not the
-// lanes' coding, sets the pace.
+// What bounds it: the steps are sequential on one SM, and every step has
+// the requant between two barriers (three named-barrier exchanges and an
+// fp64 reciprocal); at small K that chain, not the lanes' coding, sets the
+// pace, at K = 2048 also the lanes' loads, table reads, atomics and event
+// stores through the SM's memory pipe.
 #include "rc_encode.cuh"
 
 // x [stride, K] u8 interleaved; lane_len [K] i32; ev [2*stride+2, K] u32.
 extern "C" int ct_rcq_encode(const void* x, const void* lane_len, void* ev, int K, int stride,
                              int inc, int climit, void* stream) {
-  return rc_encode<1>(x, lane_len, ev, nullptr, 1, K, stride, inc, climit, 0, 0, stream);
+  return rc_encode<1, true>(x, lane_len, ev, nullptr, 1, K, stride, inc, climit, 0, 0, stream);
 }

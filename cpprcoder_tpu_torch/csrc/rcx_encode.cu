@@ -10,8 +10,8 @@
 // <= 2 packed shift_low events per lane, and 2 flush events end each lane.
 //
 // Design and what bounds it: rc_encode.cuh, whose kernel this file
-// instantiates with RESCALE_ROUNDS = 3 (kernel D is the same kernel with
-// one context, a requant every step and one halving).
+// instantiates with RESCALE_ROUNDS = 3 (kernel D is the same kernel's
+// one-row instantiation, with a requant every step and one halving).
 #include "rc_encode.cuh"
 
 // Bytes of the global model scratch ct_rcx_encode needs a stream at cbits
@@ -22,6 +22,6 @@ extern "C" int ct_rcx_encode_scratch(int cbits) { return (int)ct::scratch_bytes(
 extern "C" int ct_rcx_encode(const void* x, const void* lane_len, void* ev, void* gmodel,
                              int streams, int K, int stride, int inc, int climit, int cbits,
                              int wlog, void* stream) {
-  return rc_encode<ct::RESCALE_ROUNDS>(x, lane_len, ev, gmodel, streams, K, stride, inc, climit,
-                                       cbits, wlog, stream);
+  return rc_encode<ct::RESCALE_ROUNDS, false>(x, lane_len, ev, gmodel, streams, K, stride, inc,
+                                              climit, cbits, wlog, stream);
 }

@@ -2,7 +2,8 @@
 // and the per-window requantization of the count model (the JAX package's
 // models/cxmodel.py and models/qmodel.py are the specification;
 // reference/rcx_ref.py and reference/rcq_ref.py the oracles). CT-RCQ is
-// the one-row case (cbits = 0) requantized every step with one halving.
+// the one-row case (cbits = 0) requantized every step with one halving,
+// by 8 warps in both of its kernels (requant_cells).
 //
 // Model layout, per stream, in shared memory (or in a global scratch
 // buffer when it does not fit, cbits = 8):
@@ -164,13 +165,113 @@ __device__ inline uint32_t requant_row(uint32_t* crow, uint16_t* cr, uint32_t cl
   return tot;
 }
 
-// Every row, one warp a row (the encoders). Callers put a __syncthreads()
-// on both sides.
+// Every row, one warp a row (kernel A). Callers put a __syncthreads() on
+// both sides.
 template <int ROUNDS>
 __device__ inline void requant(uint32_t* C, uint16_t* cum, int rows, uint32_t climit) {
   const int nwarps = blockDim.x >> 5;
   for (int r = threadIdx.x >> 5; r < rows; r += nwarps)
     requant_row<ROUNDS>(C + (size_t)r * 256, cum + (size_t)r * CUM_STRIDE, climit);
+}
+
+// The one-row requant of CT-RCQ (kernels D and E), run by threads 0..255,
+// one cell a thread.
+constexpr int CELL_THREADS = 256;
+
+// Threads of a one-stream block: one a lane (block_threads), and at least
+// a warp a model row, or one a cell for requant_cells, up to 1024.
+__host__ inline int coder_threads(int k, int rows, bool cells) {
+  const int need = cells ? CELL_THREADS : 32 * rows;
+  const int t = block_threads(k), r = need < MAX_THREADS ? need : MAX_THREADS;
+  return t > r ? t : r;
+}
+
+// A tree-ordered cum row (kernel E) holds at node k = 1..255 (breadth-
+// first, from 1) the exclusive cum of the symbol that the binary search
+// over 0..255 tests there, so that node 2k or 2k + 1 follows node k.
+// Symbol s = (2p + 1) << (7 - d) (1..255) is node p of level d: node
+// 2^d + p.
+__device__ __forceinline__ int tree_node(int s) {
+  const int tz = __ffs(s) - 1;
+  return (1 << (7 - tz)) | (s >> (tz + 1));
+}
+
+// Warps 0..7 meet at named barrier 1; the other warps go on.
+__device__ __forceinline__ void cells_barrier() {
+  asm volatile("bar.sync 1, %0;" ::"n"(CELL_THREADS) : "memory");
+}
+
+// v summed over threads 0..255, through x[0..7].
+__device__ __forceinline__ uint32_t cells_sum(uint32_t* x, uint32_t v) {
+  const uint32_t w = __reduce_add_sync(FULL, v);
+  if ((threadIdx.x & 31) == 0) x[threadIdx.x >> 5] = w;
+  cells_barrier();
+  uint32_t s = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) s += x[i];
+  return s;
+}
+
+// requant_row's function for the single row C[256], run by threads 0..255,
+// thread t owning cell t, through three exchanges at named barrier 1 (the
+// total, the sum and first argmax of q, the scan); x gives each exchange
+// its own 8 words, so no exchange waits for the reads of the one before.
+// The cum row is stored in the search's tree order (TREE, kernel E: nodes
+// 1..255) or sorted (kernel D: cr[0..256], which the coder reads at s and
+// s + 1).
+template <int ROUNDS, bool TREE>
+__device__ inline void requant_cells(uint32_t* C, uint16_t* cr, uint32_t climit,
+                                     uint32_t (*x)[8]) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  uint32_t c = C[t];
+  uint32_t tot = cells_sum(x[0], c);
+  if (tot >= climit) {
+    for (int round = 0; round < ROUNDS && tot >= climit; ++round) {
+      c = (c >> 1) | 1u;
+      tot = cells_sum(x[1 + round], c);
+    }
+    C[t] = c;
+  }
+  const double scale =
+      __dmul_rn((double)(QTOTAL - QRESERVE), __drcp_rn(__uint2double_rn(tot)));
+  uint32_t q = quant_div(c, tot, scale);
+  q = q > 1u ? q : 1u;
+  // q < 2^16 above the complement of the cell: the largest key is the
+  // largest q at its lowest cell
+  const uint32_t qs = __reduce_add_sync(FULL, q);
+  const uint32_t km = __reduce_max_sync(FULL, (q << 8) | (255u - (uint32_t)t));
+  uint32_t* xs = x[ROUNDS + 1];
+  uint32_t* xk = x[ROUNDS + 2];
+  if (lane == 0) {
+    xs[warp] = qs;
+    xk[warp] = km;
+  }
+  cells_barrier();
+  uint32_t qsum = 0, kmax = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    qsum += xs[i];
+    kmax = xk[i] > kmax ? xk[i] : kmax;
+  }
+  if (t == 255 - (int)(kmax & 255u)) q += QTOTAL - qsum;
+  uint32_t incl = q;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const uint32_t v = __shfl_up_sync(FULL, incl, off);
+    if (lane >= off) incl += v;
+  }
+  uint32_t* xw = x[ROUNDS + 3];
+  if (lane == 31) xw[warp] = incl;
+  cells_barrier();
+  uint32_t base = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) base += i < warp ? xw[i] : 0u;
+  if constexpr (TREE) {
+    if (t > 0) cr[tree_node(t)] = (uint16_t)(base + incl - q);
+  } else {
+    cr[t] = (uint16_t)(base + incl - q);
+    if (t == 255) cr[256] = (uint16_t)QTOTAL;
+  }
 }
 
 // The model of stream `s`: global scratch when given, else dynamic shared.

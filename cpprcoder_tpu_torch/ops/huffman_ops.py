@@ -118,7 +118,7 @@ def assemble(n: int, k: int, lengths: np.ndarray, bits: np.ndarray,
     return w.getvalue()
 
 
-def huffman_encode(data, lanes: int | None = None, device="cpu") -> bytes:
+def huffman_encode(data, lanes: int | None = None, *, device) -> bytes:
     """CT-HUF1 container of `data`, coded on `device` (kernels on CUDA,
     plain versions on the CPU). Same parameters as
     huffman_ref.huffman_encode."""
@@ -210,7 +210,7 @@ def read_container(blob):
     return n, k, lengths, bits, counts, words
 
 
-def huffman_decode(blob, device="cpu") -> bytes:
+def huffman_decode(blob, *, device) -> bytes:
     parts = read_container(blob)
     if parts is None:
         return b""

@@ -106,7 +106,7 @@ def assemble(n: int, k: int, freqs: np.ndarray, states: np.ndarray,
     return w.getvalue()
 
 
-def rans_encode(data, lanes: int | None = None, device="cpu") -> bytes:
+def rans_encode(data, lanes: int | None = None, *, device) -> bytes:
     """CT-ANS1 v2 container of `data`, coded on `device` (kernels on CUDA,
     plain versions on the CPU). Same parameters as rans_ref.rans_encode."""
     x = as_u8(data)
@@ -179,7 +179,7 @@ def read_container(blob):
     return n, k, freqs, states, counts, words
 
 
-def rans_decode(blob, device="cpu") -> bytes:
+def rans_decode(blob, *, device) -> bytes:
     parts = read_container(blob)
     if parts is None:
         return b""

@@ -6,9 +6,11 @@ Kernel D (`csrc/rcq_encode.cu`) replaces cpprcoder_tpu/ops/rcq_pallas.py:324
 `csrc/rc_decode.cuh`) instantiated for CT-RCQ: one model row C[256] shared
 by the K interleaved lanes (1.5 KB of shared memory, so no scratch), a
 requant before every step with a single halving, and E writing lane i's
-step-j byte to j*K + i. E requantizes its one row between two barriers
-with 8 warps, one cell a thread, keeps its cum in the search's tree order
-and loads each lane's next word a refill ahead, as C does.
+step-j byte to j*K + i. Both requantize their one row between two
+barriers with 8 warps, one cell a thread (`ct::requant_cells` in
+`csrc/rcx_model.cuh`); E keeps the cum row in its search's tree order, D
+sorted. D loads each lane's next symbol a step ahead, E its next word a
+refill ahead.
 
 Their plain versions are kernel A's and C's step loops
 (`rcx_ops.encode_events_plain` / `decode_symbols_plain`) with cbits=0,

@@ -37,7 +37,7 @@ def header(n, k, wide, inc, climit_log2) -> ByteWriter:
 
 
 def rcq_encode(data, lanes: int | None = None, inc: int | None = None,
-               climit_log2: int | None = None, device="cpu") -> bytes:
+               climit_log2: int | None = None, *, device) -> bytes:
     """CT-RCQ container of `data`, coded on `device` (kernels on CUDA,
     plain versions on the CPU). Same parameters as rcq_ref.rcq_encode."""
     x = as_u8(data)
@@ -79,7 +79,7 @@ def parse_rcq_header(r: ByteReader):
     return n, k, wide, inc, climit_log2
 
 
-def rcq_decode(blob, device="cpu") -> bytes:
+def rcq_decode(blob, *, device) -> bytes:
     r = ByteReader(blob)
     n, k, wide, inc, climit_log2 = parse_rcq_header(r)
     if n == 0:

@@ -87,7 +87,7 @@ def header(n, k, wide, inc, climit_log2, cbits, wlog) -> ByteWriter:
 
 def rcx_encode(data, lanes: int | None = None, inc: int | None = None,
                climit_log2: int | None = None, cbits: int | None = None,
-               wlog: int | None = None, device="cpu") -> bytes:
+               wlog: int | None = None, *, device) -> bytes:
     """CT-RCX container of `data`, coded on `device` (kernels on CUDA,
     plain versions on the CPU). Same parameters as rcx_ref.rcx_encode."""
     x = as_u8(data)
@@ -199,7 +199,7 @@ def parse_rcx_header(r: ByteReader):
     return n, k, wide, inc, climit_log2, cbits, wlog
 
 
-def rcx_decode(blob, device="cpu") -> bytes:
+def rcx_decode(blob, *, device) -> bytes:
     r = ByteReader(blob)
     n, k, wide, inc, climit_log2, cbits, wlog = parse_rcx_header(r)
     if n == 0:

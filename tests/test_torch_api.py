@@ -52,6 +52,29 @@ def test_lanes_must_be_a_power_of_two(codec):
     assert ctt.decompress(blob, codec=codec, device="cpu") == data
 
 
+@pytest.mark.parametrize("codec", ["huffman", "rans", "rcq", "rcx"])
+def test_container_functions_need_a_device(codec):
+    """The ops-level container functions take `device` with no default:
+    codecs/base.resolve is the one place that picks the card."""
+    import importlib
+
+    ops = importlib.import_module(f"cpprcoder_tpu_torch.ops.{codec}_ops")
+    encode, decode = (getattr(ops, f"{codec}_{d}") for d in ("encode",
+                                                             "decode"))
+    data = b"explicit device " * 20
+    with pytest.raises(TypeError, match="device"):
+        encode(data)
+    blob = encode(data, device="cpu")
+    with pytest.raises(TypeError, match="device"):
+        decode(blob)
+    assert decode(blob, device="cpu") == data
+
+
+def test_docstring_names_every_codec():
+    named = re.search(r"Codecs ported:(.*?)\n\n", ctt.__doc__, re.S).group(1)
+    assert set(re.findall(r"\b([a-z]+) \(CT-", named)) == set(ctt.list_codecs())
+
+
 def test_default_codec_is_rans_as_in_the_jax_package():
     """compress()/decompress() with no codec named write and read CT-ANS1,
     as cpprcoder_tpu.compress does."""

@@ -199,12 +199,16 @@ def test_launch_counters_move(dev):
         == [1] * 5
 
 
-@pytest.mark.parametrize("k", [32, 128, 2048])
-def test_rcq_kernels_match_plain(dev, k):
+@pytest.mark.parametrize("k,run", [(32, False), (128, False), (2048, False),
+                                   (100, False), (8192, False), (64, True)])
+def test_rcq_kernels_match_plain(dev, k, run):
     """Kernels D and E against kernel A's and C's step loops with one
-    context, a requant every step and one halving."""
+    context, a requant every step and one halving: K from one warp to 8
+    lanes a thread (100 not a multiple of 32), and a one-byte run (every
+    lane's update on one cell)."""
     n = 30 * k + 5
-    x = torch.from_numpy(_textish(n, k + 1)).to(dev)
+    data = np.full(n, 0x61, np.uint8) if run else _textish(n, k + 1)
+    x = torch.from_numpy(data).to(dev)
     _, inc, cl = rcq_params(n, lanes=k)
     stride = -(-n // k)
     x2d = layout.pad2d_interleaved(x, k, stride)
@@ -240,6 +244,29 @@ def test_rans_kernels_match_plain(dev, k, single):
     assert torch.equal(sym, rans_ops.decode_symbols_plain(
         st, rows, lens, *tables, n, stride))
     assert torch.equal(sym, x)
+
+
+@pytest.mark.parametrize("k,n", [(4, 60_003), (1, 70_001)])
+def test_rans_encode_edges_match_plain(dev, k, n):
+    """Kernel F against its step loop where its quotient has its edges: a
+    table with a symbol of frequency 1 beside one of 2^14 - 1 (one rare
+    byte in a run), and one lane over a long chain (K = 1, n not a
+    multiple of the steps loaded ahead)."""
+    if k == 1:
+        data = _textish(n, 21)
+    else:
+        data = np.full(n, 0x30, np.uint8)
+        data[n // 3] = 0x31
+    x = torch.from_numpy(data).to(dev)
+    stride = -(-n // k)
+    x2d = layout.pad2d_interleaved(x, k, stride)
+    lens = layout.lane_lengths_interleaved(n, k, stride, dev)
+    tables = rans_ops.tables(rans_ops.static_freqs(x), dev)
+    if k != 1:
+        assert sorted(tables[0][tables[0] > 0].tolist()) == [1, (1 << 14) - 1]
+    ev, st = rans_kernels.encode_events(x2d, lens, *tables)
+    pev, pst = rans_ops.encode_events_plain(x2d, lens, *tables)
+    assert torch.equal(ev, pev) and torch.equal(st, pst)
 
 
 @pytest.mark.parametrize("k,single", [(1, False), (2, False), (64, True),

@@ -1,6 +1,7 @@
-"""The arithmetic of the redesigned range-coder decode kernels (kernels C and
-E, csrc/rc_decode.cuh and csrc/rcx_model.cuh), written out in numpy and held
-against the JAX package's model functions:
+"""The arithmetic of the redesigned range-coder kernels (C and E,
+csrc/rc_decode.cuh; D, csrc/rc_encode.cuh; their shared requant in
+csrc/rcx_model.cuh), written out in numpy and held against the JAX
+package's model functions:
 
 - the quantize division without a 64-bit divide (`ct::quant_div`) equals
   `c * 32512 // tot` for every c <= tot < 2^32 tried;
@@ -10,6 +11,8 @@ against the JAX package's model functions:
   above climit is not, and the kernel redoes it. Held on the JAX package's
   `rescale_rows_jnp`/`quantize_rows_jnp` (CT-RCX) and `rescale_jnp`/
   `quantize_jnp` (CT-RCQ) and on the port's `model_tables`;
+- kernel D's two sub-histograms, folded into the counts before each
+  requant, give the model that one histogram gives;
 - the search over a cum row kept in tree order (kernel E) and the bounded
   binary search over a sorted row (kernel C) find the symbol and the two
   cum values that searchsorted finds."""
@@ -160,6 +163,34 @@ def test_rcq_requant_below_climit_is_a_fixed_point(climit_log2):
         assert np.array_equal(tC1.numpy()[0], C1)
         assert np.array_equal(tq1.numpy()[0], q1)
         assert torch.equal(tC2, tC1) and torch.equal(tq2, tq1)
+
+
+@pytest.mark.parametrize("k", [32, 2048])
+def test_rcq_subhistogram_fold_gives_the_same_model(k):
+    """Kernel D's updates: lane i (thread i % 1024) adds inc to copy
+    (thread % 2) of the count row, and the requant threads fold both copies
+    into C before each requant. The counts, and so the halvings and tables,
+    equal those of one histogram that every lane updates (the JAX
+    package's rescale_jnp / quantize_jnp at each step)."""
+    rng = np.random.default_rng(k)
+    inc, climit = 24, 1 << 14
+    copy = (np.arange(k) % 1024) % 2
+    one = np.ones(256, np.uint32)
+    folded = one.copy()
+    subs = np.zeros((2, 256), np.uint32)
+    for step in range(40):
+        sym = rng.integers(0, 256, k)
+        sym[: k // 2] = 0 if step % 3 else sym[: k // 2]    # runs: one cell
+        np.add.at(one, sym, np.uint32(inc))
+        np.add.at(subs, (copy, sym), np.uint32(inc))
+        folded = folded + subs.sum(axis=0, dtype=np.uint32)
+        subs[:] = 0
+        assert np.array_equal(folded, one)
+        one = np.asarray(jq.rescale_jnp(jnp.asarray(one), climit))
+        folded = np.asarray(jq.rescale_jnp(jnp.asarray(folded), climit))
+        assert np.array_equal(np.asarray(jq.quantize_jnp(jnp.asarray(folded))),
+                              np.asarray(jq.quantize_jnp(jnp.asarray(one))))
+    assert int(one.astype(np.int64).sum()) > 256     # the model moved
 
 
 def tree_node(s):
