@@ -11,12 +11,13 @@ Phases, one line each (a failed phase exits non-zero):
               rANS; H, I for CT-HUF1) against its plain PyTorch version on
               the card, on seeded inputs at the main paths' shapes and on
               hard cases for the range coders (one-byte runs, runs mixed
-              with text, K not a multiple of 32, up to 8192 lanes, rows
+              with text, K not a multiple of 32, up to 32,768 lanes, rows
               that halve at nearly every window), exact equality; then
               both timed with CUDA events at kennedy.xls's shape, A and C
               alone also at grammar.lsp's and at alice29.txt's under the
               ratio preset, D to I alone at a small file's (fields.c,
-              grammar.lsp); I also on random word rows;
+              grammar.lsp); I also on random word rows; rcx and rcq
+              round trips at 32,768 lanes against the oracle;
   4. main     per codec (rcx, rcq, rans, huffman), with the launch counts
               set to 0 just before and read just after:
               compress/decompress(codec, device="cuda") over the 11
@@ -24,9 +25,10 @@ Phases, one line each (a failed phase exits non-zero):
               known container sizes, a round trip; for rcx also the ratio
               preset on three files, for rans also the default codec and a
               lane with a wide word count. Every kernel of the path must
-              have launched.
+              have launched. Each call of a kernel's wrapper is recorded
+              and timed again afterwards: `main_ms` is their sum.
 Then a {"kernels": [...]} JSON line (per kernel: launches on the main
-paths, the largest difference from its plain version, its time and the
+paths and main_ms, the largest difference from its plain version, its time and the
 plain version's at kennedy.xls's shape, and the bound: the larger of the
 bytes it moves over the memory rate and its operations over the peak
 rate; every kernel but B adds `ms_at`, its times at each shape timed),
@@ -92,18 +94,24 @@ EXPECTED_SIZES = {
     },
 }
 RATIO_FILES = ["alice29.txt", "kennedy.xls", "ptt5"]
+# the widest lane count (K * inc <= 49,152): alice29.txt[:40000] at K =
+# 32,768, whose containers the oracles write in these bytes
+WIDE_K = 32768
+WIDE_BYTES = {"rcx": 138314, "rcq": 131317}
 
-# the launch counter of each kernel: (wrapper module, attribute)
+# each kernel's wrapper module, its launch counter there and the wrapper
+# function through which the container paths launch it (phase_main records
+# every call of it and times it again)
 COUNTERS = {
-    "rcx_encode": (rcx_kernels, "encode_launches"),
-    "expand": (expand, "launches"),
-    "rcx_decode": (rcx_kernels, "decode_launches"),
-    "rcq_encode": (rcq_kernels, "encode_launches"),
-    "rcq_decode": (rcq_kernels, "decode_launches"),
-    "rans_encode": (rans_kernels, "encode_launches"),
-    "rans_decode": (rans_kernels, "decode_launches"),
-    "huffman_encode": (huffman_kernels, "encode_launches"),
-    "huffman_decode": (huffman_kernels, "decode_launches"),
+    "rcx_encode": (rcx_kernels, "encode_launches", "encode_events"),
+    "expand": (expand, "launches", "materialize_rows"),
+    "rcx_decode": (rcx_kernels, "decode_launches", "decode_symbols"),
+    "rcq_encode": (rcq_kernels, "encode_launches", "encode_events"),
+    "rcq_decode": (rcq_kernels, "decode_launches", "decode_symbols"),
+    "rans_encode": (rans_kernels, "encode_launches", "encode_events"),
+    "rans_decode": (rans_kernels, "decode_launches", "decode_symbols"),
+    "huffman_encode": (huffman_kernels, "encode_launches", "encode_events"),
+    "huffman_decode": (huffman_kernels, "decode_launches", "decode_symbols"),
 }
 # the kernels each codec's main path runs
 PATH_KERNELS = {
@@ -169,6 +177,24 @@ def runs_and_text(n: int) -> bytes:
         out += src[at:at + 4096]
         i += 1
     return bytes(out[:n])
+
+
+def wide_data() -> bytes:
+    return corpus("alice29.txt")[:40000]
+
+
+def wide_round_trip(codec: str) -> str:
+    """compress/decompress(codec, lanes=WIDE_K) on the card: the oracle's
+    container, and the input back."""
+    data = wide_data()
+    blob = ctt.compress(data, codec=codec, device="cuda", lanes=WIDE_K)
+    if len(blob) != WIDE_BYTES[codec] or blob != ctt.compress(
+            data, codec=codec, backend="ref", lanes=WIDE_K):
+        fail(f"{codec} at {WIDE_K} lanes: {len(blob)} bytes, not the "
+             f"oracle's {WIDE_BYTES[codec]}")
+    if ctt.decompress(blob, codec=codec, device="cuda") != data:
+        fail(f"{codec} at {WIDE_K} lanes did not round-trip")
+    return f"{codec} at {WIDE_K} lanes round-trips in {len(blob)} bytes"
 
 
 def rand_events(e: int, k: int, seed: int, run_max: int = 5) -> np.ndarray:
@@ -310,8 +336,9 @@ def coder_inputs(data: bytes, k: int, dev):
 
 def coder_cases():
     """(K, cbits, wlog, data, inc, climit) for A and C; inc and climit None
-    take rcx_params'. K from 32 to 8192 (LPT 1 to 8; 100 and 1500 are not
-    multiples of 32; from 1024 on, C runs a 4-block cluster a stream),
+    take rcx_params'. K from 32 to 32,768 (100 and 1500 are not multiples
+    of 32; from 1024 on, A and C run a 4-block cluster a stream, 1 to 8
+    lanes a thread),
     cbits 0 to 8 (8: the model in global scratch, one block), wlog 0 to 3;
     a one-byte run (every lane on one cell; in the cluster, halvings that
     bring a row back to its total of the window before), kennedy.xls's
@@ -335,7 +362,9 @@ def coder_cases():
             (1024, 4, 2, b"\x00" * 61_440, None, None),
             (4096, 4, 2, t(4096 * 50 + 1, 109), None, None),
             (8192, 7, 2, t(8192 * 30 + 7, 110), None, None),
-            (256, 6, 3, t(256 * 300, 111), 255, 1 << 10)]
+            (256, 6, 3, t(256 * 300, 111), 255, 1 << 10),
+            (16384, 6, 2, wide_data(), None, None),
+            (32768, 6, 2, wide_data(), None, None)]
 
 
 def phase_kernels(dev):
@@ -427,7 +456,8 @@ def phase_kernels(dev):
                 ms_at[nm][at] = t[0]
         notes.append(f"{at} ({shape})")
     print(f"[kernels] ok {len(cases) + 3} coder cases (A, C) and {len(grids)} "
-          f"event grids (B) equal their plain versions; at {notes[0]} ms "
+          f"event grids (B) equal their plain versions; "
+          f"{wide_round_trip('rcx')}; at {notes[0]} ms "
           f"kernel/plain: "
           + ", ".join(f"{nm} {a:.3f}/{b:.3f}" for nm, (a, b) in ms.items())
           + "; ms kernel A / C at " + ", ".join(
@@ -469,8 +499,9 @@ def phase_kernels_rcq(dev):
     # K in {32, 100, 128, 1024, 2048, 4096, 8192} at rcq_params' defaults
     # (100 not a multiple of 32; 4096 and 8192 two to eight lanes a
     # thread), a one-byte run (every lane on one cell), kennedy.xls's runs
-    # mixed with text, then the single-halving case, which halves at
-    # nearly every step (K*inc > climit; the oracle asserts there)
+    # mixed with text, the single-halving case, which halves at nearly
+    # every step (K*inc > climit; the oracle asserts there), and 16 and 32
+    # lanes a thread
     cases = [(32, textish(3000, 200), None, None),
              (128, textish(40_000, 201), None, None),
              (1024, textish(300_000, 202), None, None),
@@ -480,7 +511,9 @@ def phase_kernels_rcq(dev):
              (8192, textish(8192 * 20 + 5, 206), None, None),
              (64, b"\x00" * 20_000, None, None),
              (2048, runs_and_text(400_000), None, None),
-             (128, textish(4096, 207), 24, 10)]
+             (128, textish(4096, 207), 24, 10),
+             (16384, wide_data(), None, None),
+             (32768, wide_data(), None, None)]
     for k, data, inc, cl in cases:
         _, inc0, cl0 = rcq_params(len(data), lanes=k)
         inc = inc0 if inc is None else inc
@@ -492,7 +525,7 @@ def phase_kernels_rcq(dev):
     # sets the pace and the kernels alone are timed
     ms, work, ms_at = time_at(("kennedy.xls", "fields.c"), case, rcq_params,
                               2, f"{len(cases) + 2} CT-RCQ cases (D, E) equal "
-                              f"their plain versions")
+                              f"their plain versions; {wide_round_trip('rcq')}")
     return err, ms, work, ms_at
 
 
@@ -695,19 +728,43 @@ EXTRAS = {"rcx": rcx_ratio_preset, "rcq": None, "rans": rans_default_and_wide,
 
 def phase_main(codec: str):
     """One codec's main path, with its kernels' launch counts set to 0
-    just before and read just after. -> {kernel: launches}."""
+    just before and read just after, and every call of their wrappers
+    recorded; then each recorded call is timed again with CUDA events (3
+    reps after a warm-up) and the times are summed a kernel.
+    -> ({kernel: launches}, {kernel: main_ms})."""
+    calls = {nm: [] for nm in PATH_KERNELS[codec]}
+    wrapped = {}
     for nm in PATH_KERNELS[codec]:
-        setattr(*COUNTERS[nm], 0)
-    notes = [run_corpus(codec)]
-    if EXTRAS[codec]:
-        notes.append(EXTRAS[codec]())
-    launches = {nm: getattr(*COUNTERS[nm]) for nm in PATH_KERNELS[codec]}
+        mod, counter, attr = COUNTERS[nm]
+        fn = wrapped[nm] = getattr(mod, attr)
+
+        def record(*a, _fn=fn, _calls=calls[nm], **kw):
+            _calls.append((_fn, a, kw))
+            return _fn(*a, **kw)
+
+        setattr(mod, attr, record)
+        setattr(mod, counter, 0)
+    try:
+        notes = [run_corpus(codec)]
+        if EXTRAS[codec]:
+            notes.append(EXTRAS[codec]())
+        launches = {nm: getattr(*COUNTERS[nm][:2]) for nm in PATH_KERNELS[codec]}
+    finally:
+        for nm, fn in wrapped.items():
+            setattr(COUNTERS[nm][0], COUNTERS[nm][2], fn)
     idle = [nm for nm, c in launches.items() if c == 0]
     if idle:
         fail(f"kernels never launched on the {codec} path: {idle}")
-    print(f"[main] ok {codec}: {'; '.join(notes)}; launches {launches}",
+    if any(len(calls[nm]) != c for nm, c in launches.items()):
+        fail(f"{codec}: recorded calls {[len(c) for c in calls.values()]} "
+             f"!= launches {launches}")
+    main_ms = {nm: sum(cuda_ms(lambda: fn(*a, **kw), 3)
+                       for fn, a, kw in calls[nm]) for nm in calls}
+    print(f"[main] ok {codec}: {'; '.join(notes)}; launches {launches}; "
+          f"kernel ms summed over them "
+          + ", ".join(f"{nm} {v:.3f}" for nm, v in main_ms.items()),
           flush=True)
-    return launches
+    return launches, main_ms
 
 
 KERNELS = [
@@ -755,10 +812,14 @@ def main():
         work.update(w)
         ms_at.update(a)
     # a kernel on several paths (B) reports the sum of its paths' counts
+    # and times
     launches = dict.fromkeys(COUNTERS, 0)
+    main_ms = dict.fromkeys(COUNTERS, 0.0)
     for codec in PATH_KERNELS:
-        for nm, c in phase_main(codec).items():
+        counts, times = phase_main(codec)
+        for nm, c in counts.items():
             launches[nm] += c
+            main_ms[nm] += times[nm]
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "cpprcoder_tpu"))
     if loaded:
@@ -768,6 +829,7 @@ def main():
         bound_ms, bound_by = bound(*work[nm])
         rows.append({"name": nm, "route": "cuda", "source": src,
                      "replaces": rep, "launches": launches[nm],
+                     "main_ms": main_ms[nm],
                      "max_abs_err": err[nm], "ms": ms[nm][0],
                      "plain_ms": ms[nm][1], "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": None})

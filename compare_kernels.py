@@ -1,0 +1,397 @@
+#!/usr/bin/env python3
+"""Time the port's kernels against another tree's, and variants of them,
+on one GPU, in one process.
+
+    python3 compare_kernels.py --base DIR [--variants NAME,...] [--sass]
+                               [--reps N] [--out FILE]
+
+DIR holds another checkout of the repository (for example the parent
+commit, unpacked with `git archive` into an ignored directory such as
+build/parent). Its `cpprcoder_tpu_torch/csrc/` and this tree's, and each
+named variant of this tree's (a small edit of its sources, VARIANTS below),
+are built with the same nvcc flags into libraries of their own under
+build/compare/ (the entry points keep their names; ctypes loads each
+library apart). Inputs are made at the main paths' shapes (chip_smoke.py's
+corpus files) through this tree's wrappers; then every library runs each
+kernel on them, in turns (base, this tree, variants, then the reverse
+order; the lower of a library's two turns counts), each turn 10 launches
+after 2 warm-up ones, timed with CUDA events. Every output must equal this
+tree's: a library that differs, or refuses a shape, is reported so.
+
+--sass compares the SASS of kernel D (the one-row instantiations of
+rc_encode_kernel) in the base library with this tree's (cuobjdump; the
+instructions, the function names aside).
+
+Prints one JSON object: per kernel and shape, each library's ms.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import re
+import shutil
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from cpprcoder_tpu_torch.models.cxmodel import rcq_params, rcx_params
+from cpprcoder_tpu_torch.native import build
+from cpprcoder_tpu_torch.ops import (
+    expand,
+    huffman_kernels,
+    huffman_ops,
+    layout,
+    rans_kernels,
+    rans_ops,
+    rcq_kernels,
+    rcx_kernels,
+)
+
+ROOT = Path(__file__).resolve().parent
+OUT_ROOT = ROOT / "build" / "compare"
+
+# name -> (source file, [(text, replacement), ...]): one part of a design
+# taken out, or a parameter changed
+VARIANTS = {
+    # kernel A: every row requantized at every window
+    "a_all_rows": ("rc_encode.cuh", [(
+        "ct::requant_changed<ROUNDS, true>(C, cum, last, rows, climit, touched);",
+        "for (int r = tid >> 5; r < rows; r += bd >> 5) ct::requant_row<ROUNDS>("
+        "C + (size_t)r * 256, cum + (size_t)r * ct::CUM_STRIDE, climit);")]),
+    # kernel A: the rows that changed found by their totals alone
+    "a_no_touched": ("rc_encode.cuh", [(
+        "ct::requant_changed<ROUNDS, true>(C, cum, last, rows, climit, touched);",
+        "ct::requant_changed<ROUNDS>(C, cum, last, rows, climit);")]),
+    # kernel A: a thread a lane, no more (a block sized by lanes alone)
+    "a_block_by_lanes": ("rc_encode.cuh", [(
+        "const int threads = ct::coder_threads((K + G - 1) / G, held, ONE_ROW);",
+        "const int threads = ONE_ROW ? ct::coder_threads(K, 1, true)"
+        " : ct::block_threads((K + G - 1) / G);")]),
+    # kernel A: one block a stream at every K
+    "a_no_cluster": ("rcx_encode.cu", [
+        ("G = ct::CLUSTER_CTAS;", "G = 1;"),
+        ("if (K < ct::CLUSTER_MIN_K) {", "if (K < 0) {")]),
+    # kernel A: each step loads its own symbol
+    "a_no_ahead": ("rc_encode.cuh", [(
+        "sym = nsym[m] & 0xFFu;\n"
+        "            ctx = nsym[m] >> pshift;\n"
+        "            nsym[m] = (j + 1 < len[m] ? (uint32_t)xj[K + lane] : 0u) | (sym << 8);",
+        "sym = xj[lane];\n"
+        "            ctx = nsym[m] >> pshift;\n"
+        "            nsym[m] = sym << 8;")]),
+    # kernel A: at 8 lanes a thread, lane state unpacked and the look-ahead on
+    "a_no_pack": ("rc_encode.cuh", [
+        ("constexpr bool PACK = LPT >= 8;", "constexpr bool PACK = ONE_ROW && LPT >= 8;"),
+        ("constexpr bool AHEAD = LPT < 8;", "constexpr bool AHEAD = !ONE_ROW || LPT < 8;")]),
+    # kernel I: words in flight, table bits, block size
+    "i_ahead2": ("huffman_decode.cu", [("constexpr int AHEAD = 8;", "constexpr int AHEAD = 2;")]),
+    "i_ahead4": ("huffman_decode.cu", [("constexpr int AHEAD = 8;", "constexpr int AHEAD = 4;")]),
+    "i_ahead16": ("huffman_decode.cu", [("constexpr int AHEAD = 8;",
+                                         "constexpr int AHEAD = 16;")]),
+    "i_lut0": ("huffman_decode.cu", [("constexpr int LUT_BITS = 12;",
+                                      "constexpr int LUT_BITS = 0;")]),
+    "i_lut10": ("huffman_decode.cu", [("constexpr int LUT_BITS = 12;",
+                                       "constexpr int LUT_BITS = 10;")]),
+    "i_lut11": ("huffman_decode.cu", [("constexpr int LUT_BITS = 12;",
+                                       "constexpr int LUT_BITS = 11;")]),
+    "i_threads128": ("huffman_decode.cu", [("constexpr int THREADS = 64;",
+                                            "constexpr int THREADS = 128;")]),
+    "i_threads32": ("huffman_decode.cu", [("constexpr int THREADS = 64;",
+                                           "constexpr int THREADS = 32;")]),
+}
+
+
+# the entry point of each kernel, and the source a variant library builds
+ENTRY = {"A": "ct_rcx_encode", "B": "ct_expand_sizes", "C": "ct_rcx_decode",
+         "D": "ct_rcq_encode", "E": "ct_rcq_decode", "F": "ct_rans_encode",
+         "G": "ct_rans_decode", "H": "ct_huffman_encode", "I": "ct_huffman_decode"}
+VARIANT_SOURCE = {"a": "rcx_encode.cu", "i": "huffman_decode.cu"}
+
+
+def build_lib(name: str, csrc: Path, edits=(), only: str | None = None
+              ) -> tuple[Path, str]:
+    """Copy csrc (of its .cu files only `only`, if given) into
+    build/compare/<name>/csrc, apply the edits, build it with build.build's
+    nvcc flags. -> (library, nvcc log)."""
+    dst = OUT_ROOT / name
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(csrc, dst / "csrc")
+    if only:
+        for p in (dst / "csrc").glob("*.cu"):
+            if p.name != only:
+                p.unlink()
+    for fname, subs in edits:
+        p = dst / "csrc" / fname
+        text = p.read_text()
+        for old, new in subs:
+            if old not in text:
+                raise SystemExit(f"variant {name}: {fname} lacks {old!r}")
+            text = text.replace(old, new)
+        p.write_text(text)
+    path = build.build(dst / "csrc", dst / "lib")
+    return path, (path.parent / "nvcc.log").read_text()
+
+
+def load(path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    for name, args in build.SIGNATURES.items():
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def corpus(name: str) -> bytes:
+    return (ROOT / "data" / name).read_bytes()
+
+
+def to_dev(data: bytes, dev) -> torch.Tensor:
+    return torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(dev)
+
+
+def rcx_shape(data: bytes, mode: str, dev, lanes=None):
+    n = len(data)
+    k, inc, cl, cbits = rcx_params(n, lanes=lanes, mode=mode)
+    wlog = 0 if mode == "ratio" else 2
+    stride = -(-n // k)
+    x2d = layout.pad2d_chunked(to_dev(data, dev), k, stride)
+    lens = layout.lane_lengths(n, k, stride, dev)
+    args = (inc, 1 << cl, cbits, wlog)
+    ev = rcx_kernels.encode_events(x2d, lens, *args)
+    rows, sizes = expand.materialize_rows(ev)
+    words = layout.decode_words(rows, sizes)
+    return dict(n=n, k=k, stride=stride, x2d=x2d, lens=lens, args=args, ev=ev,
+                rows=rows, sizes=sizes, words=words)
+
+
+def interleaved(data: bytes, k: int, dev):
+    n = len(data)
+    stride = -(-n // k)
+    return (n, stride, layout.pad2d_interleaved(to_dev(data, dev), k, stride),
+            layout.lane_lengths_interleaved(n, k, stride, dev))
+
+
+def cases(dev):
+    """-> [(kernel, shape, make(lib) -> (launch, output))]: each launch
+    writes into its own output buffer."""
+    out = []
+    stream = lambda: torch.cuda.current_stream(dev).cuda_stream  # noqa: E731
+    rcx_at = [("kennedy.xls", "balanced"), ("grammar.lsp", "balanced"),
+              ("fields.c", "balanced"), ("cp.html", "balanced"),
+              ("alice29.txt", "ratio"), ("ptt5", "ratio"),
+              ("kennedy.xls", "ratio")]
+    shapes = [(f"{f} {m}", rcx_shape(corpus(f), m, dev)) for f, m in rcx_at]
+    shapes.append(("alice29.txt[:40000] K=32768",
+                   rcx_shape(corpus("alice29.txt")[:40000], "balanced", dev,
+                             lanes=32768)))
+    for label, s in shapes:
+        def enc(lib, s=s):
+            ev = torch.empty_like(s["ev"])
+            return (lambda: lib.ct_rcx_encode(
+                s["x2d"].data_ptr(), s["lens"].data_ptr(), ev.data_ptr(), None, 1,
+                s["k"], s["stride"], *s["args"], stream())), ev
+
+        def dec(lib, s=s):
+            o = torch.zeros(s["k"] * s["stride"], dtype=torch.uint8, device=dev)
+            w = s["words"]
+            return (lambda: lib.ct_rcx_decode(
+                w.data_ptr(), s["lens"].data_ptr(), o.data_ptr(), None, 1, s["k"],
+                w.shape[0], s["stride"], *s["args"], stream())), o
+
+        out += [("A", label, enc), ("C", label, dec)]
+    s = shapes[0][1]
+
+    def expand_k(lib, s=s):
+        e, k = s["ev"].shape
+        sizes = torch.empty(k, dtype=torch.int32, device=dev)
+        rows = torch.empty_like(s["rows"])
+        md = torch.ones(k, dtype=torch.uint8, device=dev)
+
+        def go():
+            rc = lib.ct_expand_sizes(s["ev"].data_ptr(), md.data_ptr(),
+                                     sizes.data_ptr(), e, k, stream())
+            return rc or lib.ct_expand_rows(s["ev"].data_ptr(), md.data_ptr(),
+                                            rows.data_ptr(), e, k,
+                                            rows.shape[1], stream())
+        return go, (rows, sizes)
+
+    out.append(("B", "kennedy.xls balanced", expand_k))
+
+    for f in ("kennedy.xls", "fields.c"):
+        data = corpus(f)
+        k, inc, cl = rcq_params(len(data))
+        n, stride, x2d, lens = interleaved(data, k, dev)
+        ev0 = rcq_kernels.encode_events(x2d, lens, inc, 1 << cl)
+        words = layout.decode_words(*expand.materialize_rows(ev0))
+
+        def enc(lib, a=(x2d, lens, ev0, k, stride, inc, 1 << cl)):
+            ev = torch.empty_like(a[2])
+            return (lambda: lib.ct_rcq_encode(a[0].data_ptr(), a[1].data_ptr(),
+                                              ev.data_ptr(), *a[3:], stream())), ev
+
+        def dec(lib, a=(words, lens, k, stride, inc, 1 << cl)):
+            o = torch.zeros(a[2] * a[3], dtype=torch.uint8, device=dev)
+            return (lambda: lib.ct_rcq_decode(a[0].data_ptr(), a[1].data_ptr(),
+                                              o.data_ptr(), a[2], a[0].shape[0],
+                                              *a[3:], stream())), o
+
+        out += [("D", f, enc), ("E", f, dec)]
+
+    for f in ("kennedy.xls", "grammar.lsp", "alice29.txt", "lcet10.txt"):
+        data = corpus(f)
+        k = rans_ops.pick_lanes(len(data))
+        n, stride, x2d, lens = interleaved(data, k, dev)
+        freq, cum = rans_ops.tables(rans_ops.static_freqs(x2d.reshape(-1)[:n]),
+                                    dev)
+        ev0, st = rans_kernels.encode_events(x2d, lens, freq, cum)
+        rrows = rans_ops.word_rows(*rans_ops.lane_words(ev0))
+        lengths, tab = huffman_ops.encoder_table(x2d.reshape(-1)[:n])
+        hev, hfl, _ = huffman_kernels.encode_events(x2d, lens, tab)
+        hrows = rans_ops.word_rows(*huffman_ops.lane_stream(hev, hfl))
+        lim, bas, perm = huffman_ops.decoder_tables(lengths, dev)
+
+        def f_enc(lib, a=(x2d, lens, freq, cum, ev0, k, stride)):
+            ev = torch.empty_like(a[4])
+            so = torch.empty(a[5], dtype=torch.int32, device=dev)
+            return (lambda: lib.ct_rans_encode(
+                a[0].data_ptr(), a[1].data_ptr(), a[2].data_ptr(), a[3].data_ptr(),
+                ev.data_ptr(), so.data_ptr(), a[5], a[6], stream())), (ev, so)
+
+        def g_dec(lib, a=(st, rrows, lens, freq, cum, k, stride)):
+            o = torch.zeros(a[5] * a[6], dtype=torch.uint8, device=dev)
+            return (lambda: lib.ct_rans_decode(
+                a[0].data_ptr(), a[1].data_ptr(), a[2].data_ptr(), a[3].data_ptr(),
+                a[4].data_ptr(), o.data_ptr(), a[5], a[1].shape[0], a[6],
+                stream())), o
+
+        def h_enc(lib, a=(x2d, lens, tab, hev, k, stride)):
+            ev = torch.empty_like(a[3])
+            fl = torch.empty(a[4], dtype=torch.int32, device=dev)
+            bits = torch.empty(a[4], dtype=torch.int32, device=dev)
+            return (lambda: lib.ct_huffman_encode(
+                a[0].data_ptr(), a[1].data_ptr(), a[2].data_ptr(), ev.data_ptr(),
+                fl.data_ptr(), bits.data_ptr(), a[4], a[5], stream())), (ev, fl, bits)
+
+        def i_dec(lib, a=(hrows, lens, lim, bas, perm, k, stride)):
+            o = torch.zeros(a[5] * a[6], dtype=torch.uint8, device=dev)
+            return (lambda: lib.ct_huffman_decode(
+                a[0].data_ptr(), a[1].data_ptr(), a[2].data_ptr(), a[3].data_ptr(),
+                a[4].data_ptr(), o.data_ptr(), a[5], a[0].shape[0], a[6],
+                stream())), o
+
+        out += [("F", f, f_enc), ("G", f, g_dec), ("H", f, h_enc), ("I", f, i_dec)]
+    return out
+
+
+def time_turn(go, reps: int) -> float | None:
+    """ms a launch (reps after 2 warm-ups), or None for a refused launch."""
+    for _ in range(2):
+        if go() != 0:
+            return None
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        go()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def same(x, y) -> bool:
+    xs = x if isinstance(x, tuple) else (x,)
+    ys = y if isinstance(y, tuple) else (y,)
+    return all(torch.equal(a, b) for a, b in zip(xs, ys))
+
+
+def sass_of_d(path: Path) -> dict:
+    """{LPT: SASS instructions} of the one-row rc_encode_kernel instantiations."""
+    cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(path)], capture_output=True,
+                          text=True).stdout
+    out = {}
+    for block in text.split("Function : ")[1:]:
+        name, body = block.split("\n", 1)
+        m = re.search(r"rc_encode_kernelILi(\d+)ELi1ELb1E", name)
+        if m:
+            out[int(m.group(1))] = [re.sub(r"/\*[0-9a-fx]+\*/|;.*$", "", ln).strip()
+                                    for ln in body.splitlines() if "/*" in ln]
+    return out
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--base", required=True, type=Path)
+    ap.add_argument("--variants", default="")
+    ap.add_argument("--sass", action="store_true")
+    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--out", type=Path)
+    a = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("compare_kernels.py needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    names = ["base", "tree"] + [v for v in a.variants.split(",") if v]
+
+    def make(nm):
+        if nm == "base":
+            return build_lib(nm, a.base / "cpprcoder_tpu_torch" / "csrc")
+        if nm == "tree":
+            return build_lib(nm, build.CSRC)
+        return build_lib(nm, build.CSRC, [VARIANTS[nm]],
+                         VARIANT_SOURCE[nm.split("_")[0]])
+
+    # every library's nvcc processes at once
+    with ThreadPoolExecutor(len(names)) as pool:
+        built = dict(zip(names, pool.map(make, names)))
+    libs = {}
+    for nm, (path, log) in built.items():
+        libs[nm] = load(path)
+        spills = sorted({ln.split(":")[-1].strip() for ln in log.splitlines()
+                         if "spill" in ln and " 0 bytes spill stores" not in ln})
+        print(f"[build] {nm}: nonzero spills: {spills}", flush=True)
+    report = {"device": torch.cuda.get_device_name(0), "ms": {}, "differs": []}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    report["nvidia_smi"] = smi.stdout.strip()
+    if a.sass:
+        old = sass_of_d(next((OUT_ROOT / "base" / "lib").rglob("*.so")))
+        new = sass_of_d(next((OUT_ROOT / "tree" / "lib").rglob("*.so")))
+        report["d_sass_same"] = {lpt: old.get(lpt) == new.get(lpt)
+                                 for lpt in sorted(set(old) | set(new))}
+        report["d_sass_lines"] = {lpt: len(v) for lpt, v in new.items()}
+    for kern, shape, make in cases(dev):
+        runs = {nm: make(lib) for nm, lib in libs.items()
+                if hasattr(lib, ENTRY[kern])}
+        order = [nm for nm in names + names[::-1] if nm in runs]
+        best = {}
+        for nm in order:
+            t = time_turn(runs[nm][0], a.reps)
+            if t is not None:
+                best[nm] = min(best.get(nm, t), t)
+        torch.cuda.synchronize()
+        for nm in runs:
+            if nm in best and nm != "tree" and not same(runs[nm][1], runs["tree"][1]):
+                report["differs"].append(f"{kern} {shape} {nm}")
+        report["ms"][f"{kern} {shape}"] = best
+        print(f"[time] {kern} {shape}: " + ", ".join(
+            f"{nm} {best[nm]:.4f}" if nm in best else f"{nm} refused" for nm in runs),
+            flush=True)
+    text = json.dumps(report)
+    if a.out:
+        a.out.parent.mkdir(parents=True, exist_ok=True)
+        a.out.write_text(text)
+    print(text)
+    if report["differs"]:
+        sys.exit(1)
+
+
+if __name__ == "__main__":
+    main()

@@ -16,6 +16,9 @@ from cpprcoder_tpu_torch.reference import rans_ref
 
 def encode(data, backend: str | None = None, device=None,
            lanes: int | None = None) -> bytes:
+    # 0 picks the default lane count, as the oracle's
+    # `lanes or pick_lanes(n)` does
+    lanes = lanes or None
     check_lane_count(lanes)
     backend, dev = resolve(backend, device)
     if backend == "ref":

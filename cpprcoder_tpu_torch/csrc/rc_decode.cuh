@@ -62,8 +62,6 @@
 // window, the requant of the changed rows between two barriers.
 #pragma once
 
-#include <cooperative_groups.h>
-
 #include "rcx_model.cuh"
 
 namespace {
@@ -73,45 +71,6 @@ namespace cg = cooperative_groups;
 constexpr uint32_t OCC_MASK = 0x700u, OCC_ONE = 0x100u, WIDX_ONE = 0x800u;
 constexpr uint32_t LOW24 = 0xFFFFFFu;
 constexpr int PACKED_MAX_STRIDE = (1 << 22) - 8;  // packed lane state, LPT >= 2
-
-// Rows r = warp, warp + warps, ...: each one requantized unless its total
-// is last[r]; last[r] then takes the new total, or 0 if it is >= climit.
-// (A requantized row may end on the total it had before: only requant_row
-// can tell that it skipped a row.)
-template <int ROUNDS>
-__device__ inline void requant_changed(uint32_t* C, uint16_t* cum, uint32_t* last, int rows,
-                                       uint32_t climit) {
-  const int lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
-  for (int r = threadIdx.x >> 5; r < rows; r += nwarps) {
-    const uint32_t tot = ct::requant_row<ROUNDS>(C + (size_t)r * 256,
-                                                 cum + (size_t)r * ct::CUM_STRIDE, climit, last[r]);
-    if (lane == 0 && tot != 0) last[r] = tot < climit ? tot : 0u;
-  }
-}
-
-// CTA g of a G-CTA cluster owns the rows r = g, g + G, ..., holding row r's
-// counts in its C row r / G: warp i of the block takes the i-th of them in
-// turn and, when it changed (requant_changed's rule), requantizes it and
-// copies its cum row into every other CTA's copy of cum.
-template <int ROUNDS, int G>
-__device__ inline void requant_owned(uint32_t* C, uint16_t* cum, uint32_t* last, int rows,
-                                     uint32_t climit, int g) {
-  cg::cluster_group cluster = cg::this_cluster();
-  const int lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
-  for (int r = g + G * (threadIdx.x >> 5); r < rows; r += G * nwarps) {
-    uint16_t* cr = cum + (size_t)r * ct::CUM_STRIDE;
-    const uint32_t tot = ct::requant_row<ROUNDS>(C + (size_t)(r / G) * 256, cr, climit, last[r]);
-    if (tot == 0) continue;  // left as it is: every copy holds this cum row
-    if (lane == 0) last[r] = tot < climit ? tot : 0u;
-    __syncwarp();  // the row's cum, stored by every lane, before the copy
-    uint32_t* src = reinterpret_cast<uint32_t*>(cr);
-#pragma unroll
-    for (int o = 1; o < G; ++o) {
-      uint32_t* dst = cluster.map_shared_rank(src, (unsigned)((g + o) % G));
-      for (int k = lane; k < ct::CUM_STRIDE / 2; k += 32) dst[k] = src[k];
-    }
-  }
-}
 
 // words [streams, l4, K] u32; lane_len [streams, K] i32;
 // out [streams, K * stride] u8 (only j < lane_len is written).
@@ -171,14 +130,14 @@ __global__ void __launch_bounds__(ct::MAX_THREADS)
       if constexpr (G > 1) {
         // every block's updates in, then every owner's rows out
         cg::this_cluster().sync();
-        requant_owned<ROUNDS, G>(C, cum, last, rows, climit, g);
+        ct::requant_owned<ROUNDS, G>(C, cum, last, rows, climit, g);
         cg::this_cluster().sync();
       } else {
         __syncthreads();
         if (INTERLEAVED) {
           if (tid < ct::CELL_THREADS) ct::requant_cells<ROUNDS, true>(C, cum, climit, xch);
         } else {
-          requant_changed<ROUNDS>(C, cum, last, rows, climit);
+          ct::requant_changed<ROUNDS>(C, cum, last, rows, climit);
         }
         __syncthreads();
       }
@@ -255,35 +214,20 @@ __global__ void __launch_bounds__(ct::MAX_THREADS)
 // lane state cannot hold).
 template <int LPT, int ROUNDS, bool INTERLEAVED, bool GMODEL, int G>
 cudaError_t launch_kernel(const void* words, const void* lane_len, void* out, void* gmodel,
-                          int streams, int K, int l4, int stride, int inc, int climit, int cbits,
-                          int wlog, cudaStream_t stream) {
+                          int streams, int K, int l4, int stride, int inc, uint32_t climit,
+                          int cbits, int wlog, cudaStream_t stream) {
   // packed: the word index, at most stride / 2 + 3, in 21 bits
   if (LPT >= 2 && stride > PACKED_MAX_STRIDE) return cudaErrorInvalidValue;
-  auto kernel = rc_decode_kernel<LPT, ROUNDS, INTERLEAVED, GMODEL, G>;
   const int rows = 1 << cbits, held = (rows + G - 1) / G;
   const size_t smem = GMODEL ? 0 : ct::model_bytes(rows) - (size_t)(rows - held) * 256 * 4;
-  cudaError_t err = ct::prepare_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(streams * G);
-  cfg.blockDim = dim3(ct::coder_threads((K + G - 1) / G, held, INTERLEAVED));
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute cluster;
-  cluster.id = cudaLaunchAttributeClusterDimension;
-  cluster.val.clusterDim.x = G;
-  cluster.val.clusterDim.y = 1;
-  cluster.val.clusterDim.z = 1;
-  cfg.attrs = &cluster;
-  cfg.numAttrs = G > 1 ? 1 : 0;
-  err = cudaLaunchKernelEx(&cfg, kernel, (const uint32_t*)words, (const int32_t*)lane_len,
-                           (uint8_t*)out, (uint8_t*)gmodel, K, l4, stride, (uint32_t)inc,
-                           (uint32_t)climit, cbits, wlog);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return ct::launch_streams<G>(rc_decode_kernel<LPT, ROUNDS, INTERLEAVED, GMODEL, G>, streams,
+                               ct::coder_threads((K + G - 1) / G, held, INTERLEAVED), smem,
+                               stream, (const uint32_t*)words, (const int32_t*)lane_len,
+                               (uint8_t*)out, (uint8_t*)gmodel, K, l4, stride, (uint32_t)inc,
+                               climit, cbits, wlog);
 }
 
 using LaunchFn = cudaError_t (*)(const void*, const void*, void*, void*, int, int, int, int, int,
-                                 int, int, int, cudaStream_t);
+                                 uint32_t, int, int, cudaStream_t);
 
 }  // namespace

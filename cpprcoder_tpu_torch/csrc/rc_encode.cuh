@@ -9,39 +9,62 @@
 // CT-RCX, interleaved for CT-RCQ) is the caller's: the kernel only sees
 // the [stride, K] grid and the lane lengths.
 //
-// Design: one CTA per stream (the model is shared by every lane, so a
-// stream cannot span blocks), each thread owns ceil(K / blockDim) lanes
-// whose coder state stays in registers. The model lives in shared memory,
-// read by direct indexing and updated with shared-memory atomicAdd (integer
-// adds commute, so the result is deterministic). Input symbols are
-// time-major [stride, K] u8 and events time-major [2*stride+2, K] u32, so
-// each step's loads and stores are coalesced across the warp.
+// Design: the model is shared by every lane of a stream, so a stream is
+// one CTA, or for CT-RCX from ct::CLUSTER_MIN_K lanes on one cluster of G
+// CTAs; each thread owns up to LPT lanes whose coder state stays in
+// registers. The model lives in shared memory, read by direct indexing and
+// updated with shared-memory atomicAdd (integer adds commute, so the
+// result is deterministic). Input symbols are time-major [stride, K] u8
+// and events time-major [2*stride+2, K] u32, so each step's loads and
+// stores are coalesced across the warp. Each lane loads its next symbol
+// during the step before, so that the load's latency overlaps the step and
+// the barriers.
+//
+// CT-RCX (kernel A) shares kernel C's model handling (rc_decode.cuh), so
+// that a window costs what the rows that changed cost:
+//   - a block has at least a warp a model row (ct::coder_threads), and a
+//     window requantizes only the rows whose total moved since their last
+//     requant left it below climit (ct::requant_changed; at small K the
+//     one warp of lanes touches a few of the 2^cbits rows in a window);
+//   - in a cluster each CTA codes a quarter of the lanes against its own
+//     copy of every cum row and holds the counts of a quarter of the rows;
+//     updates to another CTA's rows are atomics through distributed shared
+//     memory, and the owners requantize and copy out the changed rows
+//     between two cluster barriers (ct::requant_owned). That splits the
+//     lanes' shared-memory traffic over 4 SMs, and it lets 32,768 lanes run
+//     (4 x 1024 threads x 8 lanes) and cbits = 8 fit shared memory; a lone
+//     CTA at cbits = 8 keeps its model in global scratch (GMODEL);
+//   - a lone CTA's lanes also mark each row they add to (touched[r]), so
+//     that the requant passes over an unmarked row whose last requant left
+//     it below climit without reading its counts;
+//   - a lane's previous symbol rides in the register of its next one (from
+//     8 lanes a thread, with no look-ahead, in the top byte of its length).
 //
 // ONE_ROW (kernel D: one row, requantized before every step) is its own
 // instantiation, which knows that at compile time and shortens the step:
 //   - the row is requantized by 8 warps, one cell a thread
 //     (ct::requant_cells, kernel E's code, storing the cum row sorted), in
 //     a block of at least 256 threads;
-//   - each lane's next symbol is loaded during the step before, so the
-//     load's latency overlaps the barriers and the requant (below 8 lanes
-//     a thread: at 8 the registers it takes would spill);
 //   - the lanes add to two sub-histograms, even and odd threads apart, so
 //     that a warp's lanes on one symbol (runs) conflict on half as many
 //     atomics; the requant threads fold them into the counts;
-//   - the model is addressed as shared memory, and without stream offsets
-//     (a launch is always one stream).
+//   - no stream offsets (a launch is always one stream).
+// From 8 lanes a thread each lane's cache and carry ride in the top bits of
+// its csize between steps (PACK), and the look-ahead stops.
 //
 // What bounds it: the stride steps are sequential and one stream occupies
-// one SM, so a single stream is latency-bound (per step: a shared-memory
-// table read, ~20 integer ops, an atomic, two coalesced stores; plus the
-// requant between two barriers at each window start, every step for
-// kernel D). Many streams fill the card; the kernel takes a stream count
-// for that.
+// one SM (a cluster: four), so a single stream is latency-bound (per step:
+// a shared-memory table read, ~20 integer ops, an atomic, two coalesced
+// stores; plus the requant between two barriers at each window start,
+// every step for kernel D). Many streams fill the card; the kernel takes a
+// stream count for that.
 #pragma once
 
 #include "rcx_model.cuh"
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 __device__ __forceinline__ uint32_t shift_low(uint32_t& low, uint32_t& carry, uint32_t& cache,
                                               uint32_t& csize) {
@@ -72,25 +95,31 @@ __device__ __forceinline__ void unpack_lane(uint32_t& csize, uint32_t& cache, ui
 constexpr int SUBS = 2, SUB_STRIDE = 257;
 
 // x [streams, stride, K] u8; lane_len [streams, K] i32;
-// ev [streams, 2*stride+2, K] u32; gmodel: per-stream model scratch or null.
-// ONE_ROW launches pass cbits = wlog = 0, and ask for one block an SM, so
-// that ptxas may give a thread its 64 registers (at one lane a thread it
+// ev [streams, 2*stride+2, K] u32; gmodel: per-stream model scratch (the
+// GMODEL instantiation) or null. G > 1: stream s is the cluster of blocks
+// s*G .. s*G + G-1, block g of it coding lanes g*ceil(K/G) .. and holding
+// the counts of the rows it owns and a copy of every cum row. ONE_ROW
+// launches pass cbits = wlog = 0, and ask for one block an SM, so that
+// ptxas may give a thread its 64 registers (at one lane a thread it
 // otherwise stops at 32 and spills); a minimum of 0 is none, so kernel A
 // compiles as with no minimum.
-template <int LPT, int ROUNDS, bool ONE_ROW>
+template <int LPT, int ROUNDS, bool ONE_ROW, int G, bool GMODEL>
 __global__ void __launch_bounds__(ct::MAX_THREADS, ONE_ROW ? 1 : 0) rc_encode_kernel(const uint8_t* __restrict__ x, const int32_t* __restrict__ lane_len,
                                   uint32_t* __restrict__ ev, uint8_t* gmodel, int K, int stride,
                                   uint32_t inc, uint32_t climit, int cbits, int wlog) {
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ uint32_t xch[ONE_ROW ? ROUNDS + 4 : 1][8];
   __shared__ uint32_t sub[ONE_ROW ? SUBS * SUB_STRIDE : 1];
+  __shared__ uint32_t last[ONE_ROW ? 1 : 256];
+  __shared__ uint8_t touched[ONE_ROW || G > 1 ? 1 : 256];
   const int rows = ONE_ROW ? 1 : 1 << cbits;
-  uint32_t* C;
-  uint16_t* cum;
-  // ONE_ROW's model is always in shared memory, addressed as such
-  ct::model_ptrs(smem, ONE_ROW ? nullptr : gmodel, rows, &C, &cum);
-
-  const size_t s = ONE_ROW ? 0 : blockIdx.x;  // ONE_ROW: one stream
+  const size_t s = ONE_ROW ? 0 : blockIdx.x / G;  // ONE_ROW: one stream
+  const int g = ONE_ROW ? 0 : (int)(blockIdx.x % G);
+  const int kg = (K + G - 1) / G;        // lanes of a block
+  const int held = (rows + G - 1) / G;  // count rows of a block
+  uint8_t* base = GMODEL ? gmodel + s * ct::model_bytes(rows) : smem;
+  uint32_t* C = reinterpret_cast<uint32_t*>(base);
+  uint16_t* cum = reinterpret_cast<uint16_t*>(base + (size_t)held * 256 * 4);
   x += s * (size_t)stride * K;
   lane_len += s * K;
   ev += s * (size_t)(2 * stride + 2) * K;
@@ -98,33 +127,41 @@ __global__ void __launch_bounds__(ct::MAX_THREADS, ONE_ROW ? 1 : 0) rc_encode_ke
   const int tid = threadIdx.x;
   const int bd = blockDim.x;
   const int shift = 8 - cbits;  // cbits = 0: prev >> 8 == 0, one context
-  uint32_t low[LPT], carry[LPT], rng[LPT], cache[LPT],
-      csize[LPT], prev[LPT];
-  // ONE_ROW below 8 lanes a thread: each lane's symbol of the next step
-  // (at 8 the registers it takes would spill)
-  constexpr bool AHEAD = ONE_ROW && LPT < 8;
-  // ONE_ROW at 8 lanes a thread keeps each lane's cache and carry in the
-  // top bits of its csize between steps (csize stays below 2^22, as the
-  // event's run field: the wrappers check 3 * stride + 2 < 2^22), so that
-  // its lane state fits the 64 registers of a 1024-thread block
-  constexpr bool PACK = ONE_ROW && LPT == 8;
+  // CT-RCX: nsym holds the lane's next symbol (bits 0-7) above its previous
+  // one (8-15), whose top cbits bits are the context: nsym >> pshift
+  const int pshift = 16 - cbits;
+  uint32_t low[LPT], carry[LPT], rng[LPT], cache[LPT], csize[LPT];
+  // each lane's symbol of the next step, below 8 lanes a thread (at 8 the
+  // registers it takes would spill)
+  constexpr bool AHEAD = LPT < 8;
+  // from 8 lanes a thread each lane's cache and carry sit in the top bits
+  // of its csize between steps (csize stays below 2^22, as the event's run
+  // field: the wrappers check 3 * stride + 2 < 2^22), and CT-RCX's previous
+  // symbol in the top byte of its length (< 2^22 as well), so that its lane
+  // state fits the 64 registers of a 1024-thread block
+  constexpr bool PACK = LPT >= 8;
+  constexpr bool PREV_IN_LEN = PACK && !ONE_ROW;
   uint32_t nsym[LPT];
   int len[LPT];
 #pragma unroll
   for (int m = 0; m < LPT; ++m) {
-    const int lane = tid + m * bd;
+    const int loc = tid + m * bd, lane = g * kg + loc;
     low[m] = 0;
     carry[m] = 0;
     rng[m] = 0xFFFFFFFFu;
     cache[m] = 0;
     csize[m] = 1;
-    prev[m] = 0;
-    len[m] = lane < K ? lane_len[lane] : 0;
-    if constexpr (AHEAD) nsym[m] = len[m] > 0 ? x[lane] : 0u;
+    len[m] = loc < kg && lane < K ? lane_len[lane] : 0;
+    if constexpr (AHEAD) nsym[m] = len[m] > 0 ? x[lane] : 0u;  // previous symbol 0
   }
-  ct::model_init(C, rows);
+  ct::model_init(C, held);
   if constexpr (ONE_ROW)
     for (int i = tid; i < SUBS * SUB_STRIDE; i += bd) sub[i] = 0;
+  else
+    for (int r = tid; r < rows; r += bd) {
+      last[r] = 0;
+      if constexpr (G == 1) touched[r] = 0;
+    }
   uint32_t* mysub = sub + (tid % SUBS) * SUB_STRIDE;
 
   const int wmask = (1 << wlog) - 1;
@@ -136,37 +173,51 @@ __global__ void __launch_bounds__(ct::MAX_THREADS, ONE_ROW ? 1 : 0) rc_encode_ke
         // the same count as one histogram), the sub-histograms emptied
         uint32_t c = C[tid];
 #pragma unroll
-        for (int g = 0; g < SUBS; ++g) {
-          c += sub[g * SUB_STRIDE + tid];
-          sub[g * SUB_STRIDE + tid] = 0;
+        for (int h = 0; h < SUBS; ++h) {
+          c += sub[h * SUB_STRIDE + tid];
+          sub[h * SUB_STRIDE + tid] = 0;
         }
         C[tid] = c;
         ct::requant_cells<ROUNDS, false>(C, cum, climit, xch);
       }
       __syncthreads();
     } else if ((j & wmask) == 0) {
-      __syncthreads();
-      ct::requant<ROUNDS>(C, cum, rows, climit);
-      __syncthreads();
+      if constexpr (G > 1) {
+        // every block's updates in, then every owner's rows out
+        cg::this_cluster().sync();
+        ct::requant_owned<ROUNDS, G>(C, cum, last, rows, climit, g);
+        cg::this_cluster().sync();
+      } else {
+        __syncthreads();
+        ct::requant_changed<ROUNDS, true>(C, cum, last, rows, climit, touched);
+        __syncthreads();
+      }
     }
     uint32_t* ev0 = ev + (size_t)(2 * j) * K;
     uint32_t* ev1 = ev0 + K;
     const uint8_t* xj = x + (size_t)j * K;
 #pragma unroll
     for (int m = 0; m < LPT; ++m) {
-      const int lane = tid + m * bd;
-      if (lane < K) {
+      const int loc = tid + m * bd, lane = g * kg + loc;
+      if (loc < kg && lane < K) {
         uint32_t e0 = 0, e1 = 0;
-        if (j < len[m]) {
+        if (j < (PREV_IN_LEN ? len[m] & 0xFFFFFF : len[m])) {
           if constexpr (PACK) unpack_lane(csize[m], cache[m], carry[m]);
-          uint32_t sym;
-          if constexpr (AHEAD) {
+          uint32_t sym, ctx = 0;
+          if constexpr (PREV_IN_LEN) {
+            sym = xj[lane];
+            ctx = ((uint32_t)len[m] >> 24) >> shift;
+            len[m] = (len[m] & 0xFFFFFF) | (int)(sym << 24);
+          } else if constexpr (!ONE_ROW) {
+            sym = nsym[m] & 0xFFu;
+            ctx = nsym[m] >> pshift;
+            nsym[m] = (j + 1 < len[m] ? (uint32_t)xj[K + lane] : 0u) | (sym << 8);
+          } else if constexpr (AHEAD) {
             sym = nsym[m];
             if (j + 1 < len[m]) nsym[m] = xj[K + lane];
           } else {
             sym = xj[lane];
           }
-          const uint32_t ctx = ONE_ROW ? 0u : prev[m] >> shift;
           const uint16_t* cr = cum + ctx * ct::CUM_STRIDE;
           const uint32_t c = cr[sym];
           const uint32_t f = cr[sym + 1] - c;
@@ -187,9 +238,16 @@ __global__ void __launch_bounds__(ct::MAX_THREADS, ONE_ROW ? 1 : 0) rc_encode_ke
           if constexpr (PACK) csize[m] |= (cache[m] << 22) | (carry[m] << 30);
           if constexpr (ONE_ROW) {
             atomicAdd(&mysub[sym], inc);
+          } else if constexpr (G > 1) {
+            // to the owner's counts: this block's, or another's through
+            // distributed shared memory
+            uint32_t* cell = &C[(ctx / G) * 256 + sym];
+            const unsigned owner = ctx % G;
+            if (owner != (unsigned)g) cell = cg::this_cluster().map_shared_rank(cell, owner);
+            atomicAdd(cell, inc);
           } else {
             atomicAdd(&C[ctx * 256 + sym], inc);
-            prev[m] = sym;
+            touched[ctx] = 1;
           }
         }
         ev0[lane] = e0;
@@ -203,8 +261,8 @@ __global__ void __launch_bounds__(ct::MAX_THREADS, ONE_ROW ? 1 : 0) rc_encode_ke
   uint32_t* fl1 = fl0 + K;
 #pragma unroll
   for (int m = 0; m < LPT; ++m) {
-    const int lane = tid + m * bd;
-    if (lane < K) {
+    const int loc = tid + m * bd, lane = g * kg + loc;
+    if (loc < kg && lane < K) {
       if constexpr (PACK) unpack_lane(csize[m], cache[m], carry[m]);
       const uint32_t nl = low[m] + ((0u - low[m]) & 0xFFFFFFu);
       carry[m] |= nl < low[m] ? 1u : 0u;
@@ -213,38 +271,26 @@ __global__ void __launch_bounds__(ct::MAX_THREADS, ONE_ROW ? 1 : 0) rc_encode_ke
       fl1[lane] = shift_low(low[m], carry[m], cache[m], csize[m]);
     }
   }
+  // no block leaves while the others may still add to its counts
+  if constexpr (G > 1) cg::this_cluster().sync();
 }
 
-template <int LPT, int ROUNDS, bool ONE_ROW>
+// Launches one instantiation: streams * G blocks, a cluster of G a stream;
+// returns its cudaError_t.
+template <int LPT, int ROUNDS, bool ONE_ROW, int G, bool GMODEL>
 cudaError_t launch_encode(const void* x, const void* lane_len, void* ev, void* gmodel, int streams,
-                          int K, int stride, int inc, int climit, int cbits, int wlog,
+                          int K, int stride, int inc, uint32_t climit, int cbits, int wlog,
                           cudaStream_t stream) {
-  const size_t smem = gmodel ? 0 : ct::model_bytes(1 << cbits);
-  const cudaError_t err = ct::prepare_smem(rc_encode_kernel<LPT, ROUNDS, ONE_ROW>, smem);
-  if (err != cudaSuccess) return err;
-  const int threads = ONE_ROW ? ct::coder_threads(K, 1, true) : ct::block_threads(K);
-  rc_encode_kernel<LPT, ROUNDS, ONE_ROW><<<streams, threads, smem, stream>>>(
-      (const uint8_t*)x, (const int32_t*)lane_len, (uint32_t*)ev, (uint8_t*)gmodel, K, stride,
-      (uint32_t)inc, (uint32_t)climit, cbits, wlog);
-  return cudaGetLastError();
+  const int rows = 1 << cbits, held = (rows + G - 1) / G;
+  const size_t smem = GMODEL ? 0 : ct::model_bytes(rows) - (size_t)(rows - held) * 256 * 4;
+  const int threads = ct::coder_threads((K + G - 1) / G, held, ONE_ROW);
+  return ct::launch_streams<G>(rc_encode_kernel<LPT, ROUNDS, ONE_ROW, G, GMODEL>, streams,
+                               threads, smem, stream, (const uint8_t*)x,
+                               (const int32_t*)lane_len, (uint32_t*)ev, (uint8_t*)gmodel, K,
+                               stride, (uint32_t)inc, climit, cbits, wlog);
 }
 
-// Picks the lanes-per-thread instantiation for K; returns the launch's
-// cudaError_t as an int (cudaErrorInvalidValue when K is too large).
-template <int ROUNDS, bool ONE_ROW>
-int rc_encode(const void* x, const void* lane_len, void* ev, void* gmodel, int streams, int K,
-              int stride, int inc, int climit, int cbits, int wlog, void* stream) {
-  cudaError_t (*fn)(const void*, const void*, void*, void*, int, int, int, int, int, int, int,
-                    cudaStream_t) = nullptr;
-  switch (ct::lanes_per_thread(K)) {
-    case 1: fn = launch_encode<1, ROUNDS, ONE_ROW>; break;
-    case 2: fn = launch_encode<2, ROUNDS, ONE_ROW>; break;
-    case 4: fn = launch_encode<4, ROUNDS, ONE_ROW>; break;
-    case 8: fn = launch_encode<8, ROUNDS, ONE_ROW>; break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)fn(x, lane_len, ev, gmodel, streams, K, stride, inc, climit, cbits, wlog,
-                 (cudaStream_t)stream);
-}
+using EncodeFn = cudaError_t (*)(const void*, const void*, void*, void*, int, int, int, int,
+                                 uint32_t, int, int, cudaStream_t);
 
 }  // namespace

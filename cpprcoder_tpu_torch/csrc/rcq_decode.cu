@@ -24,16 +24,19 @@
 #include "rc_decode.cuh"
 
 // words [l4, K] u32 big-endian word rows; lane_len [K] i32; out [K*stride]
-// u8. 1, 2, 4 or 8 lanes a thread. Returns the cudaError_t as an int
+// u8. 1 to 32 lanes a thread (K <= 32768; from 16 lanes a thread the lane
+// state spills to local memory). Returns the cudaError_t as an int
 // (cudaErrorInvalidValue when K is too large).
 extern "C" int ct_rcq_decode(const void* words, const void* lane_len, void* out, int K, int l4,
-                             int stride, int inc, int climit, void* stream) {
+                             int stride, int inc, uint32_t climit, void* stream) {
   LaunchFn fn = nullptr;
   switch (ct::lanes_per_thread(K)) {
     case 1: fn = launch_kernel<1, 1, true, false, 1>; break;
     case 2: fn = launch_kernel<2, 1, true, false, 1>; break;
     case 4: fn = launch_kernel<4, 1, true, false, 1>; break;
     case 8: fn = launch_kernel<8, 1, true, false, 1>; break;
+    case 16: fn = launch_kernel<16, 1, true, false, 1>; break;
+    case 32: fn = launch_kernel<32, 1, true, false, 1>; break;
   }
   if (!fn) return (int)cudaErrorInvalidValue;
   return (int)fn(words, lane_len, out, nullptr, 1, K, l4, stride, inc, climit, 0, 0,

@@ -26,7 +26,21 @@
 #include "rc_encode.cuh"
 
 // x [stride, K] u8 interleaved; lane_len [K] i32; ev [2*stride+2, K] u32.
+// 1 to 32 lanes a thread (K <= 32768; from 16 lanes a thread the lane
+// state spills to local memory). Returns the cudaError_t as an int
+// (cudaErrorInvalidValue when K is too large).
 extern "C" int ct_rcq_encode(const void* x, const void* lane_len, void* ev, int K, int stride,
-                             int inc, int climit, void* stream) {
-  return rc_encode<1, true>(x, lane_len, ev, nullptr, 1, K, stride, inc, climit, 0, 0, stream);
+                             int inc, uint32_t climit, void* stream) {
+  EncodeFn fn = nullptr;
+  switch (ct::lanes_per_thread(K)) {
+    case 1: fn = launch_encode<1, 1, true, 1, false>; break;
+    case 2: fn = launch_encode<2, 1, true, 1, false>; break;
+    case 4: fn = launch_encode<4, 1, true, 1, false>; break;
+    case 8: fn = launch_encode<8, 1, true, 1, false>; break;
+    case 16: fn = launch_encode<16, 1, true, 1, false>; break;
+    case 32: fn = launch_encode<32, 1, true, 1, false>; break;
+  }
+  if (!fn) return (int)cudaErrorInvalidValue;
+  return (int)fn(x, lane_len, ev, nullptr, 1, K, stride, inc, climit, 0, 0,
+                 (cudaStream_t)stream);
 }

@@ -16,15 +16,19 @@
 //                               order instead (rc_decode.cuh).
 // A cum row is CUM_STRIDE = 258 u16 = 129 words, so rows start on
 // different banks. 6 bytes a cell: rows = 2^cbits <= 128 fits the
-// SMEM_LIMIT bytes a block may use; cbits = 8 takes global scratch (kernel
-// C's cluster blocks hold a quarter of C each, so all 256 rows fit there).
+// SMEM_LIMIT bytes a block may use; cbits = 8 takes global scratch (the
+// cluster blocks of kernels A and C hold a quarter of C each, so all 256
+// rows fit there).
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cstddef>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace ct {
+
+namespace cg = cooperative_groups;
 
 constexpr uint32_t QBITS = 15;
 constexpr uint32_t QTOTAL = 1u << QBITS;
@@ -33,7 +37,9 @@ constexpr uint32_t RC_TOP = 1u << 24;
 constexpr uint32_t EV_RUN_MASK = (1u << 22) - 1;
 constexpr int RESCALE_ROUNDS = 3;  // CT-RCX; CT-RCQ halves once
 constexpr int MAX_THREADS = 1024;
-constexpr int MAX_LPT = 8;  // lanes per thread: K <= MAX_LPT * MAX_THREADS
+// CT-RCX (kernels A and C) runs a stream of at least CLUSTER_MIN_K lanes as
+// a cluster of CLUSTER_CTAS blocks
+constexpr int CLUSTER_CTAS = 4, CLUSTER_MIN_K = 1024;
 constexpr int CUM_STRIDE = 258;
 constexpr uint32_t FULL = 0xFFFFFFFFu;
 constexpr size_t SMEM_LIMIT = 232448;  // dynamic shared memory a Hopper block may use
@@ -56,14 +62,15 @@ __host__ inline int block_threads(int k) {
   return (t + 31) & ~31;
 }
 
-// Lanes each thread owns, rounded up to the kernel instantiations 1/2/4/8
-// (0: K too large). Lane state is a register array of this length, so a
-// small count keeps a 1024-thread block within its 64 registers a thread.
+// Lanes each thread of a block of k lanes owns, rounded up to a power of
+// two (each launcher instantiates the counts it takes). Lane state is a
+// register array of this length, so a small count keeps a 1024-thread
+// block within its 64 registers a thread.
 __host__ inline int lanes_per_thread(int k) {
   const int need = (k + MAX_THREADS - 1) / MAX_THREADS;
-  for (int lpt = 1; lpt <= MAX_LPT; lpt *= 2)
-    if (need <= lpt) return lpt;
-  return 0;
+  int lpt = 1;
+  while (lpt < need) lpt *= 2;
+  return lpt;
 }
 
 // C = 1 everywhere; the first window's requant fills cum.
@@ -165,13 +172,56 @@ __device__ inline uint32_t requant_row(uint32_t* crow, uint16_t* cr, uint32_t cl
   return tot;
 }
 
-// Every row, one warp a row (kernel A). Callers put a __syncthreads() on
-// both sides.
-template <int ROUNDS>
-__device__ inline void requant(uint32_t* C, uint16_t* cum, int rows, uint32_t climit) {
-  const int nwarps = blockDim.x >> 5;
-  for (int r = threadIdx.x >> 5; r < rows; r += nwarps)
-    requant_row<ROUNDS>(C + (size_t)r * 256, cum + (size_t)r * CUM_STRIDE, climit);
+// The window's requant of a one-block stream (kernels A and C), between two
+// __syncthreads(): rows r = warp, warp + warps, ..., each one requantized
+// unless its total is last[r]; last[r] then takes the new total, or 0 if
+// it is >= climit. A row whose total is the one its last requant left below
+// climit has not changed (counts only grow), and a requant would give it
+// the same counts and cum row. (A requantized row may end on the total it
+// had before: only requant_row can tell that it skipped a row.) TOUCHED
+// (kernel A): the coding lanes set touched[r] beside each update of row r,
+// and a row whose flag is clear and whose last[r] is not 0 is passed over
+// without reading its counts; the flags read are cleared.
+template <int ROUNDS, bool TOUCHED = false>
+__device__ inline void requant_changed(uint32_t* C, uint16_t* cum, uint32_t* last, int rows,
+                                       uint32_t climit, uint8_t* touched = nullptr) {
+  const int lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
+  for (int r = threadIdx.x >> 5; r < rows; r += nwarps) {
+    if constexpr (TOUCHED) {
+      if (!touched[r] && last[r] != 0) continue;
+    }
+    const uint32_t tot = requant_row<ROUNDS>(C + (size_t)r * 256, cum + (size_t)r * CUM_STRIDE,
+                                             climit, TOUCHED ? 0u : last[r]);
+    if (lane == 0 && tot != 0) last[r] = tot < climit ? tot : 0u;
+    if constexpr (TOUCHED) {
+      if (lane == 0) touched[r] = 0;
+    }
+  }
+}
+
+// The window's requant of a G-block cluster (kernels A and C), between two
+// cluster barriers. Block g owns the rows r = g, g + G, ..., holding row
+// r's counts in its C row r / G: warp i of the block takes the i-th of them
+// in turn and, when it changed (requant_changed's rule), requantizes it and
+// copies its cum row into every other block's copy of cum.
+template <int ROUNDS, int G>
+__device__ inline void requant_owned(uint32_t* C, uint16_t* cum, uint32_t* last, int rows,
+                                     uint32_t climit, int g) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
+  for (int r = g + G * (threadIdx.x >> 5); r < rows; r += G * nwarps) {
+    uint16_t* cr = cum + (size_t)r * CUM_STRIDE;
+    const uint32_t tot = requant_row<ROUNDS>(C + (size_t)(r / G) * 256, cr, climit, last[r]);
+    if (tot == 0) continue;  // left as it is: every copy holds this cum row
+    if (lane == 0) last[r] = tot < climit ? tot : 0u;
+    __syncwarp();  // the row's cum, stored by every lane, before the copy
+    uint32_t* src = reinterpret_cast<uint32_t*>(cr);
+#pragma unroll
+    for (int o = 1; o < G; ++o) {
+      uint32_t* dst = cluster.map_shared_rank(src, (unsigned)((g + o) % G));
+      for (int k = lane; k < CUM_STRIDE / 2; k += 32) dst[k] = src[k];
+    }
+  }
 }
 
 // The one-row requant of CT-RCQ (kernels D and E), run by threads 0..255,
@@ -274,14 +324,6 @@ __device__ inline void requant_cells(uint32_t* C, uint16_t* cr, uint32_t climit,
   }
 }
 
-// The model of stream `s`: global scratch when given, else dynamic shared.
-__device__ inline void model_ptrs(uint8_t* smem, uint8_t* gmodel, int rows,
-                                  uint32_t** C, uint16_t** cum) {
-  uint8_t* base = gmodel ? gmodel + (size_t)blockIdx.x * model_bytes(rows) : smem;
-  *C = reinterpret_cast<uint32_t*>(base);
-  *cum = reinterpret_cast<uint16_t*>(base + (size_t)rows * 256 * 4);
-}
-
 // Opts `kernel` in to `bytes` of dynamic shared memory where that is above
 // the 48 KB a launch may take without; returns the refusal, if any.
 template <typename Kernel>
@@ -289,6 +331,31 @@ inline cudaError_t prepare_smem(Kernel kernel, size_t bytes) {
   if (bytes > 48 * 1024)
     return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   return cudaSuccess;
+}
+
+// Launches `kernel` as streams * G blocks of `threads`, a cluster of G
+// blocks a stream when G > 1, with `smem` bytes of dynamic shared memory;
+// returns the first refusal, else cudaGetLastError().
+template <int G, typename... Params, typename... Args>
+inline cudaError_t launch_streams(void (*kernel)(Params...), int streams, int threads,
+                                  size_t smem, cudaStream_t stream, Args... args) {
+  cudaError_t err = prepare_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(streams * G);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = G;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = G > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace ct

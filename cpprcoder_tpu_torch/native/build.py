@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -30,25 +31,26 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint32      # climit: a u32 up to 2^32 - 1
 SIGNATURES = {
     # x, lane_len, events, model scratch, streams, K, stride, inc,
     # climit, cbits, wlog, stream
-    "ct_rcx_encode": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # cbits -> model scratch bytes a stream (0: none)
-    "ct_rcx_encode_scratch": [_I],
+    "ct_rcx_encode": [_P, _P, _P, _P, _I, _I, _I, _I, _U, _I, _I, _P],
+    # K, cbits -> model scratch bytes a stream (0: none)
+    "ct_rcx_encode_scratch": [_I, _I],
     # events, may_drop, sizes, E, K, stream
     "ct_expand_sizes": [_P, _P, _P, _I, _I, _P],
     # events, may_drop, rows, E, K, l2, stream
     "ct_expand_rows": [_P, _P, _P, _I, _I, _I, _P],
     # words, lane_len, out, model scratch, streams, K, l4, stride, inc,
     # climit, cbits, wlog, stream
-    "ct_rcx_decode": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "ct_rcx_decode": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _I, _I, _P],
     # K, cbits -> model scratch bytes a stream (0: none)
     "ct_rcx_decode_scratch": [_I, _I],
     # x, lane_len, events, K, stride, inc, climit, stream
-    "ct_rcq_encode": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "ct_rcq_encode": [_P, _P, _P, _I, _I, _I, _U, _P],
     # words, lane_len, out, K, l4, stride, inc, climit, stream
-    "ct_rcq_decode": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "ct_rcq_decode": [_P, _P, _P, _I, _I, _I, _I, _U, _P],
     # x, lane_len, freq, cum, events, states, K, stride, stream
     "ct_rans_encode": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     # states, rows, lane_len, freq, cum, out, K, l2, stride, stream
@@ -69,28 +71,30 @@ def nvcc_path() -> str | None:
     return None
 
 
-def sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+def sources(csrc: Path | None = None) -> list[Path]:
+    csrc = csrc or CSRC
+    return sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
 
 
-def source_hash() -> str:
+def source_hash(csrc: Path | None = None) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sources():
+    for p in sources(csrc):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
 
 
-def lib_path() -> Path:
-    return BUILD_ROOT / source_hash() / LIB_NAME
+def lib_path(csrc: Path | None = None, root: Path | None = None) -> Path:
+    return (root or BUILD_ROOT) / source_hash(csrc) / LIB_NAME
 
 
-def build() -> Path:
-    """Compile csrc/*.cu unless the library for these sources exists: one
+def build(csrc: Path | None = None, root: Path | None = None) -> Path:
+    """Compile csrc/*.cu (default: the package's) into root/<source hash>/
+    (default: BUILD_ROOT) unless the library for these sources exists: one
     nvcc per source in parallel, then one link. nvcc's output (with
     `-Xptxas -v` register and shared-memory counts) is kept in nvcc.log
     beside the library."""
-    out = lib_path()
+    out = lib_path(csrc, root)
     if out.exists():
         return out
     nvcc = nvcc_path()
@@ -98,8 +102,8 @@ def build() -> Path:
         raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA "
                            "kernels are built from csrc/ at first use")
     out.parent.mkdir(parents=True, exist_ok=True)
-    tag = f"{os.getpid()}.tmp"
-    cus = sorted(CSRC.glob("*.cu"))
+    tag = f"{os.getpid()}.{threading.get_ident()}.tmp"
+    cus = sorted((csrc or CSRC).glob("*.cu"))
     # nvcc picks a file's role by its suffix, so the objects end in .o
     objs = [out.parent / f"{p.stem}.{tag}.o" for p in cus]
     procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)],

@@ -4,8 +4,9 @@ Kernel H (`csrc/huffman_encode.cu`) replaces
 cpprcoder_tpu/ops/huffman_pallas.py:79 `_encode_kernel`; kernel I
 (`csrc/huffman_decode.cu`) replaces huffman_pallas.py:220
 `_decode_kernel`. The code is static, so lanes are independent: one
-thread per lane, 128-thread blocks, the tables in shared memory, any K up
-to 2^16.
+thread per lane, the tables in shared memory, any K up to 2^16. Kernel I
+keeps each lane's next words in flight (cp.async into shared memory) and
+reads codes of up to 12 bits from a table of (length, symbol) entries.
 
 Their plain versions are the step loops `huffman_ops.encode_events_plain`
 and `huffman_ops.decode_symbols_plain`. On a CPU tensor a wrapper runs the

@@ -80,6 +80,23 @@ def flush(st):
     return torch.stack([ev1, ev2])
 
 
+def climit_u32(climit_log2: int, n: int, inc: int) -> int:
+    """The rescale threshold 1 << climit_log2 of a CT-RCX or CT-RCQ header
+    (byte 6, any u8 value) as the u32 that the kernels and the plain
+    versions compare a row's total with. A row's total never exceeds
+    256 + n*inc, so while that stays below 2^32 - 1 no total reaches a
+    threshold of 2^32 or more, nor 2^32 - 1: clamping to 2^32 - 1 is exact.
+    Raises ValueError past that bound."""
+    climit = 1 << climit_log2
+    if climit <= MASK32:
+        return climit
+    if 256 + n * inc >= MASK32:
+        raise ValueError(f"climit 2^{climit_log2} over {n} bytes at inc {inc}: "
+                         f"a row's total could reach 2^32 - 1, beyond the "
+                         f"u32 counts")
+    return MASK32
+
+
 def u32_to_i32(t: torch.Tensor) -> torch.Tensor:
     """int64 tensor of u32 values -> int32 tensor with the same 32 bits."""
     t = t & MASK32

@@ -58,7 +58,7 @@ def rcq_encode(data, lanes: int | None = None, inc: int | None = None,
     events = rcq_kernels.encode_events(
         layout.pad2d_interleaved(xt, k, stride),
         layout.lane_lengths_interleaved(n, k, stride, xt.device),
-        inc, 1 << climit_log2)
+        inc, rc_common.climit_u32(climit_log2, n, inc))
     rows, sizes = expand.materialize_rows(events)
     return layout.assemble(
         lambda wide: header(n, k, wide, inc, climit_log2),
@@ -90,5 +90,5 @@ def rcq_decode(blob, *, device) -> bytes:
     words = layout.payload_words(r, k, wide, device)
     out = rcq_kernels.decode_symbols(
         words, layout.lane_lengths_interleaved(n, k, stride, words.device),
-        n, stride, inc, 1 << climit_log2)
+        n, stride, inc, rc_common.climit_u32(climit_log2, n, inc))
     return out.cpu().numpy().tobytes()

@@ -2,17 +2,16 @@
 
 Kernel A (`csrc/rcx_encode.cu`) replaces cpprcoder_tpu/ops/rcx_pallas.py:163
 `_encode_kernel`; kernel C (`csrc/rcx_decode.cu`) replaces
-rcx_pallas.py:374 `_decode_kernel`. Kernel A runs one CTA per stream with
-the context model in shared memory (global scratch for cbits = 8, whose
-model exceeds a block's 227 KB), lane state in registers and shared-memory
-atomics for the model update; a stream's steps are sequential, so one
-stream is latency-bound on one SM. Kernel C (`csrc/rc_decode.cuh`) runs one
-CTA per stream below 1024 lanes and a cluster of 4 CTAs from there on, each
-holding a quarter of the lanes, the counts of a quarter of the rows and a
-copy of every cum row (so its model fits shared memory at any cbits). It
-requantizes only the rows that changed, with at least a warp a row, and
-loads each lane's next word a refill ahead. The library says how much
-global model scratch a launch needs (`ct_rcx_*_scratch`).
+rcx_pallas.py:374 `_decode_kernel`. Both (`csrc/rc_encode.cuh`,
+`csrc/rc_decode.cuh`) run one CTA per stream below 1024 lanes and a
+cluster of 4 CTAs from there on, each holding a quarter of the lanes, the
+counts of a quarter of the rows and a copy of every cum row (so the model
+fits shared memory at any cbits; a lone CTA at cbits = 8 takes global
+scratch), lane state in registers and shared-memory atomics for the model
+update. They requantize only the rows that changed, with at least a warp
+a row, and load each lane's next symbol (A) or word (C) ahead; a stream's
+steps are sequential, so one stream is latency-bound. The library says how
+much global model scratch a launch needs (`ct_rcx_*_scratch`).
 
 Their plain versions are the step loops `rcx_ops.encode_events_plain` and
 `rcx_ops.decode_symbols_plain`. On a CPU tensor a wrapper runs the plain
@@ -23,23 +22,26 @@ from __future__ import annotations
 
 import torch
 
+from cpprcoder_tpu_torch.config import MASK32
 from cpprcoder_tpu_torch.native import build
 from cpprcoder_tpu_torch.ops import layout, rcx_ops
 
 encode_launches = 0   # kernel A
 decode_launches = 0   # kernel C
 
-MAX_THREADS = 1024
-MAX_LANES = 8 * MAX_THREADS      # csrc/rcx_model.cuh MAX_LPT * MAX_THREADS
+# every power of two that K * inc <= 49,152 admits (models/qmodel.py): A and
+# C as a 4-block cluster of 1024 threads with 8 lanes each, D and E as one
+# block with 32
+MAX_LANES = 1 << 15
 
 
 def check_args(name, t, dtype, lane_len, cbits, wlog, climit, inc):
-    """Raise ValueError on what the coder kernels (A, C, D, E) do not take."""
+    """Raise ValueError on what the coder kernels (A, C, D, E) do not take:
+    climit is the u32 of rc_common.climit_u32."""
     layout.check_lanes(name, t, dtype, lane_len, MAX_LANES)
     if not (0 <= cbits <= 8 and 0 <= wlog <= 3):
         raise ValueError(f"cbits {cbits} / wlog {wlog} out of range")
-    if t.device.type == "cuda" and not (0 < climit < 1 << 31
-                                        and 0 <= inc < 1 << 31):
+    if not (0 < climit <= MASK32 and 0 <= inc < 1 << 31):
         raise ValueError(f"climit {climit} / inc {inc} out of range")
 
 
@@ -64,7 +66,7 @@ def encode_events(x2d: torch.Tensor, lane_len: torch.Tensor, inc: int,
     lib = build.load()
     with torch.cuda.device(dev):
         ev = torch.empty((2 * stride + 2, k), dtype=torch.int32, device=dev)
-        scratch = _model_scratch(lib.ct_rcx_encode_scratch(cbits), dev)
+        scratch = _model_scratch(lib.ct_rcx_encode_scratch(k, cbits), dev)
         rc = lib.ct_rcx_encode(
             x2d.data_ptr(), lane_len.data_ptr(), ev.data_ptr(),
             scratch.data_ptr() if scratch is not None else None, 1, k,

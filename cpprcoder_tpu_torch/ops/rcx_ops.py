@@ -112,7 +112,7 @@ def rcx_encode(data, lanes: int | None = None, inc: int | None = None,
     events = rcx_kernels.encode_events(
         layout.pad2d_chunked(xt, k, stride),
         layout.lane_lengths(n, k, stride, xt.device),
-        inc, 1 << climit_log2, cbits, wlog)
+        inc, rc_common.climit_u32(climit_log2, n, inc), cbits, wlog)
     rows, sizes = expand.materialize_rows(events)
     return layout.assemble(
         lambda wide: header(n, k, wide, inc, climit_log2, cbits, wlog),
@@ -210,5 +210,5 @@ def rcx_decode(blob, *, device) -> bytes:
     words = layout.payload_words(r, k, wide, device)
     out = rcx_kernels.decode_symbols(
         words, layout.lane_lengths(n, k, stride, words.device), n, stride,
-        inc, 1 << climit_log2, cbits, wlog)
+        inc, rc_common.climit_u32(climit_log2, n, inc), cbits, wlog)
     return out.cpu().numpy().tobytes()

@@ -42,14 +42,41 @@ def test_registry():
 def test_lanes_must_be_a_power_of_two(codec):
     """A container stores log2(K) and its decoder reads back 1 << that, so
     lanes=3 would write a container that does not decode (the JAX package's
-    oracles write one): every port codec refuses it, on every backend."""
+    oracles write one): every port codec refuses it, on every backend.
+    lanes=0 is refused by rcq and rcx, whose oracles fail there too; rans
+    and huffman read it as the default (test below)."""
     data = bytes(range(256)) * 4
+    refused = (3, 6, -4) + ((0,) if codec in ("rcq", "rcx") else ())
     for opts in ({"device": "cpu"}, {"backend": "ref"}, {}):
-        for lanes in (3, 6, 0, -4):
+        for lanes in refused:
             with pytest.raises(ValueError, match="power of two"):
                 ctt.compress(data, codec=codec, lanes=lanes, **opts)
     blob = ctt.compress(data, codec=codec, device="cpu", lanes=4)
     assert ctt.decompress(blob, codec=codec, device="cpu") == data
+
+
+@pytest.mark.parametrize("codec", ["huffman", "rans", "rcq", "rcx"])
+def test_lanes_zero_as_in_the_oracle(codec):
+    """rans and huffman take lanes=0 for the default lane count, as their
+    oracles' `lanes or pick_lanes(n)` does: on fields.c the containers are
+    the oracles' 7,194 (rans) and 7,179 (huffman) bytes, equal to
+    lanes=None, on both backends. The rcq and rcx oracles fail at lanes=0
+    (a division by the lane count), and the port refuses it."""
+    import cpprcoder_tpu
+
+    data = (ROOT / "data" / "fields.c").read_bytes()
+    if codec in ("rcq", "rcx"):
+        with pytest.raises(ZeroDivisionError):
+            cpprcoder_tpu.compress(data, codec=codec, backend="ref", lanes=0)
+        with pytest.raises(ValueError, match="power of two"):
+            ctt.compress(data, codec=codec, device="cpu", lanes=0)
+        return
+    want = cpprcoder_tpu.compress(data, codec=codec, backend="ref", lanes=0)
+    assert len(want) == {"rans": 7194, "huffman": 7179}[codec]
+    for opts in ({"device": "cpu"}, {"backend": "ref"}):
+        blob = ctt.compress(data, codec=codec, lanes=0, **opts)
+        assert blob == want == ctt.compress(data, codec=codec, **opts)
+    assert ctt.decompress(want, codec=codec, device="cpu") == data
 
 
 @pytest.mark.parametrize("codec", ["huffman", "rans", "rcq", "rcx"])

@@ -66,6 +66,91 @@ def test_coder_kernels_match_plain(dev, k, cbits, wlog):
     assert torch.equal(sym, x)
 
 
+@pytest.mark.parametrize("wlog", [0, 2])
+@pytest.mark.parametrize("cbits", [0, 6, 8])
+@pytest.mark.parametrize("k", [32, 256, 1024, 4096, 8192])
+def test_rcx_encode_matches_plain(dev, k, cbits, wlog):
+    """Kernel A against its step loop: one block (K = 32, 256; cbits 8 with
+    the model in global scratch) and the 4-block cluster from K = 1024 (1 to
+    2 lanes a thread), at one context, 64 and 256, with a requant every
+    step and every 4; then kernel C inverts it."""
+    n = 24 * k + 5
+    x = torch.from_numpy(_textish(n, 7 * k + cbits + wlog)).to(dev)
+    stride = -(-n // k)
+    x2d = layout.pad2d_chunked(x, k, stride)
+    lens = layout.lane_lengths(n, k, stride, dev)
+    _, inc, cl, _ = rcx_params(n, lanes=k, cbits=cbits)
+    args = (inc, 1 << cl, cbits, wlog)
+    ev = rcx_kernels.encode_events(x2d, lens, *args)
+    assert torch.equal(ev, rcx_ops.encode_events_plain(x2d, lens, *args))
+    words = layout.decode_words(*expand.materialize_rows(ev))
+    assert torch.equal(rcx_kernels.decode_symbols(words, lens, n, stride,
+                                                  *args), x)
+
+
+# alice29.txt[:40000] at the largest lane counts K * inc <= 49,152 admits:
+# the oracle's container bytes
+WIDE_K_BYTES = {("rcq", 16384): 71038, ("rcq", 32768): 131317,
+                ("rcx", 16384): 89162, ("rcx", 32768): 138314}
+
+
+@pytest.mark.parametrize("codec,k", list(WIDE_K_BYTES))
+def test_widest_lane_counts_match_the_oracle(dev, codec, k):
+    """Kernels A and C (a 4-block cluster, 4 and 8 lanes a thread) and D
+    and E (one block, 16 and 32 lanes a thread) at 16,384 and 32,768 lanes:
+    the card writes the oracle's container and decodes it, and each kernel
+    equals its plain version."""
+    data = (Path(__file__).resolve().parent.parent / "data"
+            / "alice29.txt").read_bytes()[:40000]
+    ref = {"rcx": rcx_ref.rcx_encode, "rcq": rcq_ref.rcq_encode}[codec]
+    want = ref(data, lanes=k)
+    assert len(want) == WIDE_K_BYTES[codec, k]
+    assert ctt.compress(data, codec=codec, device="cuda", lanes=k) == want
+    assert ctt.decompress(want, codec=codec, device="cuda") == data
+    n = len(data)
+    x = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(dev)
+    stride = -(-n // k)
+    if codec == "rcx":
+        _, inc, cl, cbits = rcx_params(n, lanes=k)
+        args = (inc, 1 << cl, cbits, 2)
+        x2d = layout.pad2d_chunked(x, k, stride)
+        lens = layout.lane_lengths(n, k, stride, dev)
+        ev = rcx_kernels.encode_events(x2d, lens, *args)
+        assert torch.equal(ev, rcx_ops.encode_events_plain(x2d, lens, *args))
+        words = layout.decode_words(*expand.materialize_rows(ev))
+        assert torch.equal(rcx_kernels.decode_symbols(words, lens, n, stride,
+                                                      *args),
+                           rcx_ops.decode_symbols_plain(words, lens, n,
+                                                        stride, *args))
+    else:
+        _, inc, cl = rcq_params(n, lanes=k)
+        x2d = layout.pad2d_interleaved(x, k, stride)
+        lens = layout.lane_lengths_interleaved(n, k, stride, dev)
+        ev = rcq_kernels.encode_events(x2d, lens, inc, 1 << cl)
+        assert torch.equal(ev, rcx_ops.encode_events_plain(
+            x2d, lens, inc, 1 << cl, 0, 0, 1))
+        words = layout.decode_words(*expand.materialize_rows(ev))
+        assert torch.equal(
+            rcq_kernels.decode_symbols(words, lens, n, stride, inc, 1 << cl),
+            rcx_ops.decode_symbols_plain(words, lens, n, stride, inc,
+                                         1 << cl, 0, 0, 1, interleaved=True))
+
+
+@pytest.mark.parametrize("climit_log2", [31, 32, 40, 64, 255])
+@pytest.mark.parametrize("codec", ["rcx", "rcq"])
+def test_large_climit_matches_the_oracle_on_the_card(dev, codec, climit_log2):
+    """climit = 1 << climit_log2 reaches the kernels as a u32 (clamped to
+    2^32 - 1 from 2^32 on, exact here): the card writes the oracle's
+    container and decodes it."""
+    data = (Path(__file__).resolve().parent.parent / "data"
+            / "grammar.lsp").read_bytes()
+    ref = {"rcx": rcx_ref.rcx_encode, "rcq": rcq_ref.rcq_encode}[codec]
+    want = ref(data, climit_log2=climit_log2)
+    assert ctt.compress(data, codec=codec, device="cuda",
+                        climit_log2=climit_log2) == want
+    assert ctt.decompress(want, codec=codec, device="cuda") == data
+
+
 def _runs_and_text(n):
     """Alternate 4 KB blocks of kennedy.xls (runs, records) and
     alice29.txt (text)."""
@@ -313,6 +398,37 @@ def test_huffman_decode_random_rows_match_plain(dev):
                                              stride)
     active = (torch.arange(stride, device=dev)[:, None] < lens[None, :])
     assert torch.equal(sym.view(stride, k)[active], plain.view(stride, k)[active])
+
+
+@pytest.mark.parametrize("complete", [True, False])
+def test_huffman_decode_word_counts_match_plain(dev, complete):
+    """Kernel I's words in flight at a lane's edges: lanes of 0, 1 and l2
+    words (zero past each count) and lane lengths past their bits, K = 300
+    (not a multiple of 32), under a complete code from text and under an
+    incomplete one whose unmatched windows decode as perm[0] and consume 16
+    bits; only the active steps are compared."""
+    rng = np.random.default_rng(11 + complete)
+    if complete:
+        lengths, _ = huffman_ops.encoder_table(
+            torch.from_numpy(_textish(5000, 12)))
+    else:
+        lengths = np.zeros(256, np.uint8)
+        lengths[[5, 9, 200]] = [2, 3, 3]
+    tables = huffman_ops.decoder_tables(lengths, dev)
+    k, stride, l2 = 300, 60, 24
+    words = rng.integers(0, 1 << 16, (l2, k), dtype=np.int32)
+    counts = rng.choice([0, 1, l2], k)
+    words[np.arange(l2)[:, None] >= counts[None, :]] = 0
+    rows = torch.from_numpy(words).to(dev)
+    lens = torch.from_numpy(rng.integers(0, stride + 1, k,
+                                         dtype=np.int32)).to(dev)
+    sym = huffman_kernels.decode_symbols(rows, lens, *tables, k * stride,
+                                         stride)
+    plain = huffman_ops.decode_symbols_plain(rows, lens, *tables, k * stride,
+                                             stride)
+    active = (torch.arange(stride, device=dev)[:, None] < lens[None, :])
+    assert torch.equal(sym.view(stride, k)[active],
+                       plain.view(stride, k)[active])
 
 
 @pytest.mark.parametrize("codec", ["rans", "rcq", "huffman"])

@@ -1,5 +1,5 @@
 """The arithmetic of the redesigned range-coder kernels (C and E,
-csrc/rc_decode.cuh; D, csrc/rc_encode.cuh; their shared requant in
+csrc/rc_decode.cuh; A and D, csrc/rc_encode.cuh; their shared requant in
 csrc/rcx_model.cuh), written out in numpy and held against the JAX
 package's model functions:
 
@@ -11,6 +11,9 @@ package's model functions:
   above climit is not, and the kernel redoes it. Held on the JAX package's
   `rescale_rows_jnp`/`quantize_rows_jnp` (CT-RCX) and `rescale_jnp`/
   `quantize_jnp` (CT-RCQ) and on the port's `model_tables`;
+- requantizing only the rows that changed (`ct::requant_changed`, kernels
+  A and C) gives, over a whole oracle run, the counts and tables that
+  requantizing every row at every window gives;
 - kernel D's two sub-histograms, folded into the counts before each
   requant, give the model that one histogram gives;
 - the search over a cum row kept in tree order (kernel E) and the bounded
@@ -18,6 +21,7 @@ package's model functions:
   cum values that searchsorted finds."""
 
 import math
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -163,6 +167,72 @@ def test_rcq_requant_below_climit_is_a_fixed_point(climit_log2):
         assert np.array_equal(tC1.numpy()[0], C1)
         assert np.array_equal(tq1.numpy()[0], q1)
         assert torch.equal(tC2, tC1) and torch.equal(tq2, tq1)
+
+
+def _windows(data, k, cbits, wlog, inc, climit, skip):
+    """The oracle's CT-RCX model (reference/rcx_ref.py's encode loop
+    without the coder) over chunked lanes of `data`: at each window start
+    every row requantized (skip None), or only the rows that
+    requant_changed (csrc/rcx_model.cuh) does not skip: with skip "total"
+    (kernel C) a row whose total is last[r], with skip "touched" (kernel A)
+    a row no lane added to since its last requant while last[r] is not 0;
+    a requantized row sets last[r] to its new total, or to 0 when that is
+    still >= climit. -> [(C, cum)] at each window, and the number of rows
+    skipped."""
+    x = np.frombuffer(data, np.uint8)
+    n = len(x)
+    stride = -(-n // k)
+    cols = np.zeros(k * stride, np.uint8)
+    cols[:n] = x
+    cols = cols.reshape(k, stride).T
+    rows = 1 << cbits
+    C = np.ones((rows, 256), np.uint32)
+    cum = np.zeros((rows, 256), np.uint32)
+    last = np.zeros(rows, np.int64)
+    prev = np.zeros(k, np.uint8)
+    touched = np.zeros(rows, bool)
+    out, skipped = [], 0
+    for j in range(stride):
+        if j % (1 << wlog) == 0:
+            redo = np.ones(rows, bool)
+            if skip == "total":
+                redo = (last == 0) | (C.astype(np.int64).sum(axis=1) != last)
+            elif skip == "touched":
+                redo = (last == 0) | touched
+            skipped += int((~redo).sum())
+            touched[:] = False
+            C[redo] = tcx.rescale_rows_np(C[redo], climit)
+            q = tcx.quantize_rows_np(C[redo])
+            cum[redo] = np.cumsum(q, axis=1, dtype=np.uint32) - q
+            tot = C[redo].astype(np.int64).sum(axis=1)
+            last[redo] = np.where(tot < climit, tot, 0)
+            out.append((C.copy(), cum.copy()))
+        active = -(-(n - j) // stride)
+        ctx = np.asarray(tcx.ctx_of(prev[:active], cbits), np.int64)
+        C = tcx.update_rows_np(C, ctx, cols[j, :active].astype(np.int64), inc)
+        touched[ctx] = True
+        prev[:active] = cols[j, :active]
+    return out, skipped
+
+
+@pytest.mark.parametrize("rule", ["total", "touched"])
+@pytest.mark.parametrize("wlog", [0, 2])
+@pytest.mark.parametrize("climit_log2", [9, 16])
+def test_requant_changed_rule_gives_the_full_requant(wlog, climit_log2, rule):
+    """Kernels A and C requantize only the rows requant_changed picks (C by
+    the rows' totals, a lone block of A by the rows its lanes touched); over
+    a whole oracle run (grammar.lsp's CT-RCX shape, K = 32, cbits = 6, at
+    the default climit and at one that leaves rows above it after three
+    halvings) their counts and cum rows equal a full requant's at every
+    window, while most rows are skipped."""
+    data = (Path(__file__).resolve().parent.parent / "data"
+            / "grammar.lsp").read_bytes()
+    args = (data, 32, 6, wlog, 32, 1 << climit_log2)
+    full, none = _windows(*args, skip=None)
+    part, skipped = _windows(*args, skip=rule)
+    assert none == 0 and skipped > len(part) * 64 // 2
+    for (C0, cum0), (C1, cum1) in zip(full, part):
+        assert np.array_equal(C0, C1) and np.array_equal(cum0, cum1)
 
 
 @pytest.mark.parametrize("k", [32, 2048])
