@@ -12,12 +12,19 @@ Phases, one line each (a failed phase exits non-zero):
               the card, on seeded inputs at the main paths' shapes and on
               hard cases for the range coders (one-byte runs, runs mixed
               with text, K not a multiple of 32, up to 32,768 lanes, rows
-              that halve at nearly every window), exact equality; then
-              both timed with CUDA events at kennedy.xls's shape, A and C
-              alone also at grammar.lsp's and at alice29.txt's under the
-              ratio preset, D to I alone at a small file's (fields.c,
-              grammar.lsp); I also on random word rows; rcx and rcq
-              round trips at 32,768 lanes against the oracle;
+              that halve at nearly every window), for B (a run of 2^22 - 1
+              bytes, runs at tile boundaries, first emits in later tiles
+              under a mask, K = 100 and 32,768, a given l2) and for G (a
+              table entry of f = 2^14, one lane of more than 65,535 words),
+              exact equality; then both timed with CUDA events at
+              kennedy.xls's shape, A and C alone also at grammar.lsp's and
+              at alice29.txt's under the ratio preset, D to I alone at a
+              small file's (fields.c, grammar.lsp), F and G also at the
+              200,000-byte lanes=1 lane, B through its wrapper at
+              kennedy.xls, grammar.lsp (rcx) and fields.c (rcq) and there
+              its two passes and its host round trip apart; I also on
+              random word rows; rcx and rcq round trips at 32,768 lanes
+              against the oracle;
   4. main     per codec (rcx, rcq, rans, huffman), with the launch counts
               set to 0 just before and read just after:
               compress/decompress(codec, device="cuda") over the 11
@@ -31,7 +38,7 @@ Then a {"kernels": [...]} JSON line (per kernel: launches on the main
 paths and main_ms, the largest difference from its plain version, its time and the
 plain version's at kennedy.xls's shape, and the bound: the larger of the
 bytes it moves over the memory rate and its operations over the peak
-rate; every kernel but B adds `ms_at`, its times at each shape timed),
+rate; `ms_at`, its times at each shape timed, and for B `passes_ms`),
 the nvidia-smi line, and last {"ok": true, "device": {...}}.
 """
 
@@ -208,6 +215,39 @@ def rand_events(e: int, k: int, seed: int, run_max: int = 5) -> np.ndarray:
     return np.where(emit, ev, 0).astype(np.uint32).view(np.int32)
 
 
+EV_EMIT = 1 << 31
+
+
+def expand_edge_grids():
+    """(events [E, K] int32 bits, may_drop, l2 or None) where kernel B's
+    write pass has its edges (a warp scans 32 time steps at a time, tiles
+    of 64, a warp's long-run path above 32 bytes, 16 lanes a block): one
+    lane holding a single
+    run of 2^22 - 1 bytes; long and short runs on both sides of a tile
+    boundary; lanes whose first emit falls in a later tile, under a
+    may_drop mask; K = 100 and K = 32,768; a given l2 above the largest
+    lane (not a multiple of 4)."""
+    one = np.zeros((3, 1), np.uint32)
+    one[1, 0] = EV_EMIT | (0x5A << 23) | ((1 << 22) - 1)
+    edge = rand_events(96, 40, 20, run_max=3).view(np.uint32).copy()
+    rng = np.random.default_rng(21)
+    for e in (31, 32, 63, 64):
+        edge[e] = EV_EMIT | (rng.integers(0, 512, 40, dtype=np.uint32) << 22) \
+            | rng.integers(0, 200, 40, dtype=np.uint32)
+    late = rand_events(150, 64, 22).view(np.uint32).copy()
+    for i in range(64):
+        late[:32 * (i % 4) + i % 7, i] = 0
+    md = np.zeros(64, bool)
+    md[::2] = True
+    given = rand_events(70, 50, 24, run_max=9)
+    _, sizes = compaction.materialize_rows_t(torch.from_numpy(given))
+    return [(one.view(np.int32), True, None), (edge.view(np.int32), True, None),
+            (late.view(np.int32), md, None),
+            (rand_events(300, 100, 25, run_max=40), True, None),
+            (rand_events(40, 32768, 26), True, None),
+            (given, False, int(sizes.max()) + 37)]
+
+
 def max_err(a: torch.Tensor, b: torch.Tensor) -> int:
     """Largest |a - b| of two integer tensors, int32 read as u32."""
     a, b = a.to(torch.int64), b.to(torch.int64)
@@ -222,6 +262,41 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def median_call_ms(fn, calls: int = 50) -> float:
+    """Median device ms of one call of fn, each call timed apart with CUDA
+    events after a warm-up: for a call that waits on the host inside (kernel
+    B's wrapper), whose time the host's noise spreads."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    ts = []
+    for _ in range(calls):
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        ts.append(start.elapsed_time(end))
+    return float(np.median(ts))
+
+
+def queued_ms(fn, reps: int = 20) -> float:
+    """Device ms a call of fn, its launches' host time hidden: the calls are
+    queued behind a spin of the stream (about 2.5 ms), so the card runs
+    them back to back."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(5_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -403,20 +478,23 @@ def phase_kernels(dev):
                         f"K={k} cbits={cbits} wlog={wlog} n={len(data)} "
                         f"inc={inc} climit={climit}")
 
-    # B: random grids (non-aligned E/K, a may_drop mask, an empty lane)
-    # and the real event grid of the last coder case
-    grids = [(rand_events(18, 8, 0), True), (rand_events(257, 200, 1), True),
-             (rand_events(1008, 2048, 2, run_max=40), True)]
+    # B: random grids (non-aligned E/K, a may_drop mask, an empty lane),
+    # the real event grid of the last coder case, and the write pass's
+    # edges
+    grids = [(rand_events(18, 8, 0), True, None),
+             (rand_events(257, 200, 1), True, None),
+             (rand_events(1008, 2048, 2, run_max=40), True, None)]
     masked = rand_events(130, 96, 3)
     masked[:, 5] = 0
     md = np.zeros(96, bool)
     md[::3] = True
-    grids += [(masked, md), (ev_p.cpu().numpy(), True)]
-    for ev_np, may_drop in grids:
+    grids += [(masked, md, None), (ev_p.cpu().numpy(), True, None)]
+    grids += expand_edge_grids()
+    for ev_np, may_drop, l2 in grids:
         ev = torch.from_numpy(np.ascontiguousarray(ev_np)).to(dev)
         md_t = may_drop if isinstance(may_drop, bool) else \
             torch.from_numpy(may_drop).to(dev)
-        rows_k, sizes_k = expand.materialize_rows(ev, may_drop=md_t)
+        rows_k, sizes_k = expand.materialize_rows(ev, l2, may_drop=md_t)
         rows_p, sizes_p = compaction.materialize_rows_t(ev, rows_k.shape[1],
                                                         md_t)
         torch.cuda.synchronize()
@@ -424,13 +502,15 @@ def phase_kernels(dev):
                             max_err(sizes_k, sizes_p))
         if not (torch.equal(rows_k, rows_p) and torch.equal(sizes_k, sizes_p)):
             fail(f"kernel B != plain on a {tuple(ev.shape)} grid")
+        if l2 is not None and rows_k.shape[1] != l2:
+            fail(f"kernel B took l2={rows_k.shape[1]}, not the given {l2}")
 
     # A, B and C held and timed at kennedy.xls's shape (balanced preset),
     # kernel vs plain; A and C also at grammar.lsp's (K = 32, cbits 6) and
     # at alice29.txt's under the ratio preset (K = 256, cbits 6, wlog 0),
     # kernels alone
     ms, ms_at, work = {}, {"rcx_encode": {}, "rcx_decode": {}}, {}
-    notes = []
+    notes, b_grids = [], {}
     for name, mode, wlog in (("kennedy.xls", "balanced", 2),
                              ("grammar.lsp", "balanced", 2),
                              ("alice29.txt", "ratio", 0)):
@@ -439,12 +519,13 @@ def phase_kernels(dev):
         shape, fns, w, ev = case(data, k, inc, 1 << cl, cbits, wlog,
                                  f"{name} ({mode})")
         at = name if mode == "balanced" else f"{name} ratio"
+        if mode == "balanced":
+            b_grids[f"{name} (rcx)"] = ev
         big = not ms
-        if big:
+        if big:     # B's time there is its wrapper's, from expand_times
             rows, sizes = expand.materialize_rows(ev)
             l2 = rows.shape[1]
-            fns["expand"] = (lambda: expand.materialize_rows(ev),
-                             lambda: compaction.materialize_rows_t(ev, l2))
+            b_plain = cuda_ms(lambda: compaction.materialize_rows_t(ev, l2), 2)
             w["expand"] = (nbytes(ev, rows, sizes),
                            ev.numel() * OPS_PER_EVENT + int(sizes.sum()))
             work = w
@@ -455,6 +536,13 @@ def phase_kernels(dev):
             if nm in ms_at:
                 ms_at[nm][at] = t[0]
         notes.append(f"{at} ({shape})")
+    data = corpus("fields.c")
+    k, inc, cl = rcq_params(len(data))
+    _, _, x2d, lens = interleaved_inputs(data, k, dev)
+    b_grids["fields.c (rcq)"] = rcq_kernels.encode_events(x2d, lens, inc,
+                                                          1 << cl)
+    ms_at["expand"], passes = expand_times(b_grids)
+    ms["expand"] = (ms_at["expand"]["kennedy.xls (rcx)"], b_plain)
     print(f"[kernels] ok {len(cases) + 3} coder cases (A, C) and {len(grids)} "
           f"event grids (B) equal their plain versions; "
           f"{wide_round_trip('rcx')}; at {notes[0]} ms "
@@ -463,8 +551,38 @@ def phase_kernels(dev):
           + "; ms kernel A / C at " + ", ".join(
               f"{nm}: {ms_at['rcx_encode'][nm]:.3f} / "
               f"{ms_at['rcx_decode'][nm]:.3f}" for nm in ms_at["rcx_encode"])
-          + f" ({'; '.join(notes[1:])})", flush=True)
-    return err, ms, work, ms_at
+          + f" ({'; '.join(notes[1:])}); ms B through its wrapper / sizes "
+          f"pass / rows pass / host round trip at " + ", ".join(
+              f"{nm}: {ms_at['expand'][nm]:.4f} / {p['sizes']:.4f} / "
+              f"{p['rows']:.4f} / {p['sync']:.4f}"
+              for nm, p in passes.items()), flush=True)
+    return err, ms, work, ms_at, passes
+
+
+def expand_times(grids: dict):
+    """Kernel B at each event grid (may_drop True, as the containers call
+    it): ms through its wrapper (`median_call_ms`, the host round trip
+    inside each call), and apart: the sizes pass and the rows pass (device
+    time, `queued_ms`) and the host round trip that reads the largest size
+    back (host clock, the median of 20 on an idle stream).
+    -> ({grid: wrapper ms}, {grid: {"sizes", "rows", "sync": ms}})."""
+    at, passes = {}, {}
+    for name, ev in grids.items():
+        md, drop_all = expand.drop_mask(True, ev.shape[1], ev.device)
+        _, top = expand.count_sizes(ev, md, drop_all)
+        l2 = compaction.row_width(int(top))
+        at[name] = median_call_ms(lambda: expand.materialize_rows(ev))
+        trips = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            int(top)
+            trips.append(time.perf_counter() - t0)
+        passes[name] = {
+            "sizes": queued_ms(lambda: expand.count_sizes(ev, md, drop_all)),
+            "rows": queued_ms(lambda: expand.write_rows(ev, md, drop_all, l2)),
+            "sync": float(np.median(trips)) * 1e3}
+    return at, passes
 
 
 def phase_kernels_rcq(dev):
@@ -552,29 +670,96 @@ def phase_kernels_rans(dev):
                    f"kernel G at {what}")
         if sym.cpu().numpy().tobytes() != data:
             fail(f"kernel G did not invert kernel F at {what}")
-        # G also builds cum2sym[2^14] per block: 8 search steps a slot
         work = {"rans_encode": (nbytes(x2d, lens, *tables, ev, st),
                                 coder_ops("rans_encode", n)),
                 "rans_decode": (nbytes(st, rows, lens, *tables) + n,
-                                coder_ops("rans_decode", n)
-                                + -(-k // 128) * (1 << 14) * 8 * 3)}
+                                coder_ops("rans_decode", n))}
         return f"K={k}, stride={stride}", {"rans_encode": enc,
                                            "rans_decode": dec}, work
 
-    # lane_cases, and alice29.txt at its main-path shape (K = 64 over
-    # 2,377 steps)
-    cases = lane_cases(300) + [(64, corpus("alice29.txt"))]
+    # lane_cases, alice29.txt at its main-path shape (K = 64 over 2,377
+    # steps) and the single-symbol lane at K = 48 (a partial warp): the
+    # table gives it f = 16,383 and another symbol 1
+    cases = lane_cases(300) + [(64, corpus("alice29.txt")),
+                               (48, b"\x42" * (48 * 40 + 7))]
     for k, data in cases:
         case(data, k, f"K={k} n={len(data)}")
+    full_table_case(dev, err)
+
+    # one lane over 200,000 random bytes (the main path's lanes=1 lane:
+    # more than 65,535 words), held against the plain versions on the host
+    # (200,000 steps of the plain loops on the card take minutes), then
+    # the kernels alone timed
+    lane1 = rans_lane1_case(dev, err)
 
     # held and timed at kennedy.xls's rANS shape, kernel vs plain; held
     # there and at grammar.lsp's (K = 2 lanes over 1,861 steps), where the
     # kernels alone are timed
     ms, work, ms_at = time_at(("kennedy.xls", "grammar.lsp"), case,
                               lambda n: (rans_ops.pick_lanes(n),), 2,
-                              f"{len(cases) + 2} rANS cases (F, G) equal "
-                              f"their plain versions")
+                              f"{len(cases) + 4} rANS cases (F, G) equal "
+                              f"their plain versions, one with a table "
+                              f"entry of f = 2^14; at 200,000 bytes "
+                              f"lanes=1 ms kernel F {lane1['rans_encode']:.3f},"
+                              f" G {lane1['rans_decode']:.3f}")
+    for nm, t in lane1.items():
+        ms_at[nm]["200,000 random bytes lanes=1"] = t
     return err, ms, work, ms_at
+
+
+def full_table_case(dev, err):
+    """G against its plain version under a table where one symbol owns all
+    2^14 slots (f = 2^14 needs the entry's 15 bits): random states and word
+    rows, K = 100, lane lengths ragged."""
+    rng = np.random.default_rng(310)
+    freqs = np.zeros(256, np.int64)
+    freqs[0x77] = 1 << 14
+    tables = rans_ops.tables(freqs, dev)
+    k, stride, l2 = 100, 60, 8
+    st = torch.from_numpy(rng.integers(1 << 16, 1 << 32, k, dtype=np.uint64)
+                          .astype(np.uint32).view(np.int32)).to(dev)
+    rows = torch.from_numpy(rng.integers(0, 1 << 16, (l2, k),
+                                         dtype=np.int32)).to(dev)
+    lens = torch.from_numpy(rng.integers(0, stride + 1, k,
+                                         dtype=np.int32)).to(dev)
+    active = torch.arange(stride, device=dev)[:, None] < lens[None, :]
+    pick = (lambda out: out.view(stride, k)[active])
+    sym = hold(err, "rans_decode",
+               pick(rans_kernels.decode_symbols(st, rows, lens, *tables,
+                                                k * stride, stride)),
+               pick(rans_ops.decode_symbols_plain(st, rows, lens, *tables,
+                                                  k * stride, stride)),
+               "kernel G under a table with f = 2^14")
+    if not bool((sym == 0x77).all()):
+        fail("kernel G under a table with f = 2^14 decoded another symbol")
+
+
+def rans_lane1_case(dev, err):
+    """F and G at K = 1 over 200,000 random bytes, held against their
+    plain versions run on the host; -> {kernel: ms} (3 reps after a
+    warm-up)."""
+    data = np.random.default_rng(7).integers(0, 256, 200_000,
+                                             np.uint8).tobytes()
+    n, stride, x2d, lens = interleaved_inputs(data, 1, dev)
+    tables = rans_ops.tables(rans_ops.static_freqs(x2d.reshape(-1)), dev)
+    host = [t.cpu() for t in (x2d, lens, *tables)]
+    ev, st = rans_kernels.encode_events(x2d, lens, *tables)
+    hold(err, "rans_encode", (ev.cpu(), st.cpu()),
+         rans_ops.encode_events_plain(*host), "kernel F at K=1 n=200,000")
+    rows = rans_ops.word_rows(*rans_ops.lane_words(ev))
+    if rows.shape[0] <= 0x10000:
+        fail(f"K=1 n=200,000 gave {rows.shape[0] - 1} words, not above 65,535")
+    sym = rans_kernels.decode_symbols(st, rows, lens, *tables, n, stride)
+    hold(err, "rans_decode", sym.cpu(), rans_ops.decode_symbols_plain(
+        st.cpu(), rows.cpu(), host[1], *host[2:], n, stride),
+        "kernel G at K=1 n=200,000")
+    if sym.cpu().numpy().tobytes() != data:
+        fail("kernel G did not invert kernel F at K=1 n=200,000")
+    return {"rans_encode": cuda_ms(
+                lambda: rans_kernels.encode_events(x2d, lens, *tables), 3),
+            "rans_decode": cuda_ms(
+                lambda: rans_kernels.decode_symbols(st, rows, lens, *tables,
+                                                    n, stride), 3)}
 
 
 def phase_kernels_huffman(dev):
@@ -803,7 +988,7 @@ def main():
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     phase_build()
-    err, ms, work, ms_at = phase_kernels(dev)
+    err, ms, work, ms_at, b_passes = phase_kernels(dev)
     for phase in (phase_kernels_rcq, phase_kernels_rans,
                   phase_kernels_huffman):
         e, m, w, a = phase(dev)
@@ -835,6 +1020,8 @@ def main():
                      "bound_by": bound_by, "library_ms": None})
         if nm in ms_at:     # kernel ms at each shape timed
             rows[-1]["ms_at"] = ms_at[nm]
+        if nm == "expand":  # B's passes and host round trip apart
+            rows[-1]["passes_ms"] = b_passes
     print(json.dumps({"kernels": rows}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

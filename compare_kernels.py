@@ -15,8 +15,11 @@ library apart). Inputs are made at the main paths' shapes (chip_smoke.py's
 corpus files) through this tree's wrappers; then every library runs each
 kernel on them, in turns (base, this tree, variants, then the reverse
 order; the lower of a library's two turns counts), each turn 10 launches
-after 2 warm-up ones, timed with CUDA events. Every output must equal this
-tree's: a library that differs, or refuses a shape, is reported so.
+after 2 warm-up ones, queued behind a spin of the stream (so the card runs
+them back to back) and timed with CUDA events; kernel B also through its
+wrapper, whose host round trip stays in its time (50 calls a turn, each
+timed apart, the median counts). Every output must equal
+this tree's: a library that differs, or refuses a shape, is reported so.
 
 --sass compares the SASS of kernel D (the one-row instantiations of
 rc_encode_kernel) in the base library with this tree's (cuobjdump; the
@@ -35,6 +38,7 @@ import shutil
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 from pathlib import Path
 
 import numpy as np
@@ -43,6 +47,7 @@ import torch
 from cpprcoder_tpu_torch.models.cxmodel import rcq_params, rcx_params
 from cpprcoder_tpu_torch.native import build
 from cpprcoder_tpu_torch.ops import (
+    compaction,
     expand,
     huffman_kernels,
     huffman_ops,
@@ -55,6 +60,58 @@ from cpprcoder_tpu_torch.ops import (
 
 ROOT = Path(__file__).resolve().parent
 OUT_ROOT = ROOT / "build" / "compare"
+
+# kernel G's step: its two table reads, and its ring read, copy and chain;
+# the refill as a branchy load; the table fill by runs, and by a search
+G_READS = ("const uint32_t f = u16_at(smem, off);\n"
+           "        const uint32_t b = u16_at(reinterpret_cast<const uint8_t*>(btab), off);")
+G_RING_STEP = """        const uint32_t nextw = *reinterpret_cast<const uint32_t*>(ring0 + roff);
+        const uint32_t noff = opaque((nextw << 1) & OFF_MASK);
+        copy_word_async(reinterpret_cast<uint32_t*>(ring0 + ((coff + i * SLOT) & RING_MASK)),
+                        i < left ? src : col, i < left);
+        src += K;
+        // the chain
+        const uint32_t x = f * (st >> ANS_PROB_BITS) + b;  // the state before its refill
+        const bool need = x < ANS_LOW;
+        st = need ? (x << 16) | nextw : x;
+        off = need ? noff : (x << 1) & OFF_MASK;
+        widx += need ? 1 : 0;
+        roff = need ? (roff + SLOT) & RING_MASK : roff;"""
+G_BRANCH_STEP = """        const uint32_t x = f * (st >> ANS_PROB_BITS) + b;
+        const bool need = x < ANS_LOW;
+        uint32_t w = 0;
+        if (need) {
+          w = widx < l2 ? (uint32_t)col[(size_t)widx * K] : 0u;
+          ++widx;
+        }
+        st = need ? (x << 16) | w : x;
+        off = (st << 1) & OFF_MASK;"""
+G_BY_RUNS = """  for (int s = threadIdx.x >> 5; s < 256; s += THREADS / 32) {
+    const uint32_t c = cs[s], f = fs[s];
+    const uint32_t end = c < ANS_TOTAL ? min(c + f, ANS_TOTAL) : 0u;
+    for (uint32_t slot = c + lid; slot < end; slot += 32) {
+      ftab[slot] = (uint16_t)f;
+      btab[slot] = (uint16_t)(slot - c);
+      s8[slot] = (uint8_t)s;
+    }
+  }"""
+G_SEARCH = """  (void)lid;
+  if (threadIdx.x == 0) cs[256] = cs[255] + fs[255];
+  __syncthreads();
+  for (uint32_t slot = threadIdx.x; slot < ANS_TOTAL; slot += THREADS) {
+    int lo = 0, hi = 256;  // invariant: cs[lo] <= slot < cs[hi]
+#pragma unroll
+    for (int it = 0; it < 8; ++it) {
+      const int mid = (lo + hi) >> 1;
+      if (cs[mid] <= slot)
+        lo = mid;
+      else
+        hi = mid;
+    }
+    ftab[slot] = (uint16_t)fs[lo];
+    btab[slot] = (uint16_t)(slot - cs[lo]);
+    s8[slot] = (uint8_t)lo;
+  }"""
 
 # name -> (source file, [(text, replacement), ...]): one part of a design
 # taken out, or a parameter changed
@@ -104,14 +161,56 @@ VARIANTS = {
                                             "constexpr int THREADS = 128;")]),
     "i_threads32": ("huffman_decode.cu", [("constexpr int THREADS = 64;",
                                            "constexpr int THREADS = 32;")]),
+    # kernel G: the step's reads: three dependent ones (s, then f and cum by
+    # s), or one u32 entry f | (slot - cum) << 15 in place of the two u16
+    # tables
+    "g_three_reads": ("rans_decode.cu", [
+        (G_READS, "const uint32_t f = fs[s], b = (off >> 1) - cs[s];")]),
+    "g_packed": ("rans_decode.cu", [
+        ("      ftab[slot] = (uint16_t)f;\n      btab[slot] = (uint16_t)(slot - c);",
+         "      reinterpret_cast<uint32_t*>(smem)[slot] = f | (slot - c) << 15;"),
+        (G_READS, "const uint32_t e = reinterpret_cast<const uint32_t*>(smem)[off >> 1];\n"
+                  "        const uint32_t f = e & 0x7FFFu, b = e >> 15;")]),
+    # kernel G: no words through the ring (the word loaded in the refill, in
+    # a branch; the ring's copies before the loop stay)
+    "g_no_prefetch": ("rans_decode.cu", [(G_RING_STEP, G_BRANCH_STEP)]),
+    # kernel G: a ring of 16 or 32 words a lane (4 or 8 steps a block, one
+    # block's copies in flight)
+    "g_ring16": ("rans_decode.cu", [("constexpr int RING = 64;", "constexpr int RING = 16;")]),
+    "g_ring32": ("rans_decode.cu", [("constexpr int RING = 64;", "constexpr int RING = 32;")]),
+    # kernel G: the tables built by a search a slot
+    "g_search": ("rans_decode.cu", [
+        ("__shared__ uint32_t fs[256], cs[256];", "__shared__ uint32_t fs[256], cs[257];"),
+        (G_BY_RUNS, G_SEARCH)]),
+    "g_threads32": ("rans_decode.cu", [("constexpr int THREADS = 128;",
+                                        "constexpr int THREADS = 32;")]),
+    "g_threads64": ("rans_decode.cu", [("constexpr int THREADS = 128;",
+                                        "constexpr int THREADS = 64;")]),
+    # kernel B: every run written by its own thread (no warp's long-run path)
+    "b_no_long_run": ("expand.cu", [("constexpr uint32_t LONG_RUN = 32;",
+                                     "constexpr uint32_t LONG_RUN = EV_RUN_MASK;")]),
+    # kernel B: 8 or 32 lanes a block
+    "b_lanes8": ("expand.cu", [("constexpr int LANES = 16;", "constexpr int LANES = 8;")]),
+    "b_lanes32": ("expand.cu", [("constexpr int LANES = 16;", "constexpr int LANES = 32;")]),
 }
 
 
-# the entry point of each kernel, and the source a variant library builds
-ENTRY = {"A": "ct_rcx_encode", "B": "ct_expand_sizes", "C": "ct_rcx_decode",
-         "D": "ct_rcq_encode", "E": "ct_rcq_decode", "F": "ct_rans_encode",
-         "G": "ct_rans_decode", "H": "ct_huffman_encode", "I": "ct_huffman_decode"}
-VARIANT_SOURCE = {"a": "rcx_encode.cu", "i": "huffman_decode.cu"}
+# the entry points of each kernel (any one of them: B's were renamed when
+# its passes changed), and the source a variant library builds
+ENTRY = {"A": ("ct_rcx_encode",), "B": ("ct_expand_count", "ct_expand_sizes"),
+         "C": ("ct_rcx_decode",), "D": ("ct_rcq_encode",), "E": ("ct_rcq_decode",),
+         "F": ("ct_rans_encode",), "G": ("ct_rans_decode",), "H": ("ct_huffman_encode",),
+         "I": ("ct_huffman_decode",)}
+VARIANT_SOURCE = {"a": "rcx_encode.cu", "b": "expand.cu", "g": "rans_decode.cu",
+                  "i": "huffman_decode.cu"}
+# entry points that this tree no longer has, as another tree's library
+# exports them: kernel B's two passes before ct_expand_count/ct_expand_write
+# (events, may_drop mask, sizes, E, K, stream; events, may_drop mask, rows,
+# E, K, l2, stream)
+LEGACY_SIGNATURES = {
+    "ct_expand_sizes": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+    "ct_expand_rows": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+}
 
 
 def build_lib(name: str, csrc: Path, edits=(), only: str | None = None
@@ -140,7 +239,7 @@ def build_lib(name: str, csrc: Path, edits=(), only: str | None = None
 
 def load(path: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
-    for name, args in build.SIGNATURES.items():
+    for name, args in {**LEGACY_SIGNATURES, **build.SIGNATURES}.items():
         fn = getattr(lib, name, None)
         if fn is not None:
             fn.argtypes = args
@@ -206,29 +305,21 @@ def cases(dev):
                 w.shape[0], s["stride"], *s["args"], stream())), o
 
         out += [("A", label, enc), ("C", label, dec)]
-    s = shapes[0][1]
-
-    def expand_k(lib, s=s):
-        e, k = s["ev"].shape
-        sizes = torch.empty(k, dtype=torch.int32, device=dev)
-        rows = torch.empty_like(s["rows"])
-        md = torch.ones(k, dtype=torch.uint8, device=dev)
-
-        def go():
-            rc = lib.ct_expand_sizes(s["ev"].data_ptr(), md.data_ptr(),
-                                     sizes.data_ptr(), e, k, stream())
-            return rc or lib.ct_expand_rows(s["ev"].data_ptr(), md.data_ptr(),
-                                            rows.data_ptr(), e, k,
-                                            rows.shape[1], stream())
-        return go, (rows, sizes)
-
-    out.append(("B", "kennedy.xls balanced", expand_k))
+    b_grids = {f"{f} (rcx)": s["ev"] for f, s in
+               ((label.split()[0], s) for label, s in shapes[:2])}
+    # the longest run the field holds, in one lane: the warp's long-run path
+    one = np.zeros((3, 1), np.uint32)
+    one[1, 0] = (1 << 31) | (0x5A << 23) | ((1 << 22) - 1)
+    b_grids["one lane, a run of 2^22 - 1 bytes"] = torch.from_numpy(
+        one.view(np.int32)).to(dev)
 
     for f in ("kennedy.xls", "fields.c"):
         data = corpus(f)
         k, inc, cl = rcq_params(len(data))
         n, stride, x2d, lens = interleaved(data, k, dev)
         ev0 = rcq_kernels.encode_events(x2d, lens, inc, 1 << cl)
+        if f == "fields.c":
+            b_grids[f"{f} (rcq)"] = ev0
         words = layout.decode_words(*expand.materialize_rows(ev0))
 
         def enc(lib, a=(x2d, lens, ev0, k, stride, inc, 1 << cl)):
@@ -244,9 +335,15 @@ def cases(dev):
 
         out += [("D", f, enc), ("E", f, dec)]
 
-    for f in ("kennedy.xls", "grammar.lsp", "alice29.txt", "lcet10.txt"):
-        data = corpus(f)
-        k = rans_ops.pick_lanes(len(data))
+    for label, ev in b_grids.items():
+        out += [("B", f"{label} through the wrapper", partial(b_wrapper, ev=ev)),
+                ("B", f"{label} passes", partial(b_passes, ev=ev))]
+
+    lane1 = np.random.default_rng(7).integers(0, 256, 200_000, np.uint8).tobytes()
+    for f in ("kennedy.xls", "grammar.lsp", "alice29.txt", "lcet10.txt",
+              "200,000 random bytes lanes=1"):
+        data = lane1 if f.endswith("lanes=1") else corpus(f)
+        k = 1 if f.endswith("lanes=1") else rans_ops.pick_lanes(len(data))
         n, stride, x2d, lens = interleaved(data, k, dev)
         freq, cum = rans_ops.tables(rans_ops.static_freqs(x2d.reshape(-1)[:n]),
                                     dev)
@@ -286,17 +383,89 @@ def cases(dev):
                 a[4].data_ptr(), o.data_ptr(), a[5], a[0].shape[0], a[6],
                 stream())), o
 
-        out += [("F", f, f_enc), ("G", f, g_dec), ("H", f, h_enc), ("I", f, i_dec)]
+        out += [("F", f, f_enc), ("G", f, g_dec)]
+        if k > 1:
+            out += [("H", f, h_enc), ("I", f, i_dec)]
     return out
 
 
-def time_turn(go, reps: int) -> float | None:
-    """ms a launch (reps after 2 warm-ups), or None for a refused launch."""
+def parent_materialize_rows(lib, ev):
+    """Kernel B's wrapper as it was with the entry points ct_expand_sizes and
+    ct_expand_rows (may_drop True): a uint8 mask, the sizes pass, sizes.max()
+    read back, the rows pass."""
+    e, k = ev.shape
+    dev = ev.device
+    md = compaction._drop_mask(True, k, dev).to(torch.uint8).contiguous()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        sizes = torch.empty(k, dtype=torch.int32, device=dev)
+        build.check(lib.ct_expand_sizes(ev.data_ptr(), md.data_ptr(), sizes.data_ptr(),
+                                        e, k, stream), "ct_expand_sizes")
+        l2 = compaction.row_width(int(sizes.max()))
+        rows = torch.empty((k, l2), dtype=torch.uint8, device=dev)
+        build.check(lib.ct_expand_rows(ev.data_ptr(), md.data_ptr(), rows.data_ptr(),
+                                       e, k, l2, stream), "ct_expand_rows")
+    return rows, sizes
+
+
+def b_wrapper(lib, ev):
+    """Kernel B through its wrapper (may_drop True, the host round trip
+    inside), with either library's entry points."""
+    out = []
+
+    def go():
+        out[:] = (expand._launch(ev, None, True, lib) if hasattr(lib, "ct_expand_count")
+                  else parent_materialize_rows(lib, ev))
+        return 0
+    return go, out
+
+
+def b_passes(lib, ev):
+    """Kernel B's two passes alone (may_drop True), the row width fixed."""
+    e, k = ev.shape
+    rows, sizes = expand.materialize_rows(ev)
+    rows, sizes = torch.empty_like(rows), torch.empty_like(sizes)
+    stream = torch.cuda.current_stream(ev.device).cuda_stream
+    if hasattr(lib, "ct_expand_count"):
+        top = torch.empty(1, dtype=torch.int64, device=ev.device)
+
+        def go():
+            rc = lib.ct_expand_count(ev.data_ptr(), None, 1, sizes.data_ptr(),
+                                     top.data_ptr(), e, k, stream)
+            return rc or lib.ct_expand_write(ev.data_ptr(), None, 1, rows.data_ptr(),
+                                             e, k, rows.shape[1], stream)
+    else:
+        md = torch.ones(k, dtype=torch.uint8, device=ev.device)
+
+        def go():
+            rc = lib.ct_expand_sizes(ev.data_ptr(), md.data_ptr(), sizes.data_ptr(),
+                                     e, k, stream)
+            return rc or lib.ct_expand_rows(ev.data_ptr(), md.data_ptr(),
+                                            rows.data_ptr(), e, k, rows.shape[1],
+                                            stream)
+    return go, (rows, sizes)
+
+
+def time_turn(go, reps: int, each: bool = False) -> float | None:
+    """ms a launch (reps after 2 warm-ups), or None for a refused launch:
+    the mean of reps launches queued back to back, or with `each` (a call
+    that waits on the host inside, as B's wrapper does) the median of reps
+    calls timed one by one."""
     for _ in range(2):
         if go() != 0:
             return None
     torch.cuda.synchronize()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if each:
+        ts = []
+        for _ in range(reps):
+            a.record()
+            go()
+            b.record()
+            b.synchronize()
+            ts.append(a.elapsed_time(b))
+        return float(np.median(ts))
+    torch.cuda._sleep(5_000_000)   # the launches queue behind it: no host gaps
     a.record()
     for _ in range(reps):
         go()
@@ -306,8 +475,8 @@ def time_turn(go, reps: int) -> float | None:
 
 
 def same(x, y) -> bool:
-    xs = x if isinstance(x, tuple) else (x,)
-    ys = y if isinstance(y, tuple) else (y,)
+    xs = tuple(x) if isinstance(x, (tuple, list)) else (x,)
+    ys = tuple(y) if isinstance(y, (tuple, list)) else (y,)
     return all(torch.equal(a, b) for a, b in zip(xs, ys))
 
 
@@ -369,11 +538,15 @@ def main():
         report["d_sass_lines"] = {lpt: len(v) for lpt, v in new.items()}
     for kern, shape, make in cases(dev):
         runs = {nm: make(lib) for nm, lib in libs.items()
-                if hasattr(lib, ENTRY[kern])}
+                if any(hasattr(lib, e) for e in ENTRY[kern])}
         order = [nm for nm in names + names[::-1] if nm in runs]
         best = {}
+        # a call through a wrapper waits on the host: more calls a turn,
+        # each timed apart
+        wrapper = "wrapper" in shape
+        reps = a.reps * 5 if wrapper else a.reps
         for nm in order:
-            t = time_turn(runs[nm][0], a.reps)
+            t = time_turn(runs[nm][0], reps, wrapper)
             if t is not None:
                 best[nm] = min(best.get(nm, t), t)
         torch.cuda.synchronize()

@@ -38,10 +38,11 @@ SIGNATURES = {
     "ct_rcx_encode": [_P, _P, _P, _P, _I, _I, _I, _I, _U, _I, _I, _P],
     # K, cbits -> model scratch bytes a stream (0: none)
     "ct_rcx_encode_scratch": [_I, _I],
-    # events, may_drop, sizes, E, K, stream
-    "ct_expand_sizes": [_P, _P, _P, _I, _I, _P],
-    # events, may_drop, rows, E, K, l2, stream
-    "ct_expand_rows": [_P, _P, _P, _I, _I, _I, _P],
+    # events, may_drop mask (or null: drop_all for every lane), drop_all,
+    # sizes, largest size (u64), E, K, stream
+    "ct_expand_count": [_P, _P, _I, _P, _P, _I, _I, _P],
+    # events, may_drop mask (or null), drop_all, rows, E, K, l2, stream
+    "ct_expand_write": [_P, _P, _I, _P, _I, _I, _I, _P],
     # words, lane_len, out, model scratch, streams, K, l4, stride, inc,
     # climit, cbits, wlog, stream
     "ct_rcx_decode": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _I, _I, _P],

@@ -1,12 +1,15 @@
 """Kernel B wrapper: event grid -> per-lane payload rows.
 
 Replaces cpprcoder_tpu/ops/expand_pallas.py:55 `_kernel` (wrapper
-`materialize_rows_pallas`, same contract). The kernel is
-`csrc/expand.cu`: one thread per lane walks its events, a first pass
-counts the lane sizes, the host picks the row width, and a second pass
-stores the bytes directly. It is bound by memory traffic (the event grid
-read twice, the rows written once); unlike the Pallas kernel it has no
-cap on E + l2. The plain version is `compaction.materialize_rows_t`.
+`materialize_rows_pallas`, same contract). The kernel is `csrc/expand.cu`,
+two launches a call: a first pass counts the lane sizes and the largest
+of them (`count_sizes`), the host reads that one number back and picks the
+row width, and a second pass writes the rows (`write_rows`): a block a
+group of 16 lanes, a warp reading its lane's events in place, scanning 32
+of them at a time and storing along the lane's row. It is bound by
+memory traffic (the event grid read twice, the rows written once); unlike
+the Pallas kernel it has no cap on E + l2. The plain version is
+`compaction.materialize_rows_t`.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises.
@@ -39,26 +42,63 @@ def materialize_rows(events_t: torch.Tensor, l2: int | None = None,
     return _launch(events_t, l2, may_drop)
 
 
-def _launch(events_t: torch.Tensor, l2: int | None, may_drop):
-    global launches
+def drop_mask(may_drop, k: int, device):
+    """-> (mask uint8 [K] on device, or None for a bool; drop_all: the
+    bool as 0/1), as the kernel's passes take may_drop."""
+    if isinstance(may_drop, bool):
+        return None, int(may_drop)
+    return compaction._drop_mask(may_drop, k, device).to(
+        torch.uint8).contiguous(), 0
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(dev, stream):
+    return torch.cuda.current_stream(dev).cuda_stream if stream is None else stream
+
+
+def count_sizes(events_t: torch.Tensor, md: torch.Tensor | None,
+                drop_all: int, lib=None, stream=None):
+    """Pass 1 on the card: -> (sizes [K] int32, top [1] int64: the largest
+    size), both left on the card. lib: the kernel library (default: the
+    package's build); stream: the CUDA stream (default: the current one)."""
     e, k = events_t.shape
     dev = events_t.device
-    md = compaction._drop_mask(may_drop, k, dev).to(torch.uint8).contiguous()
-    lib = build.load()
+    sizes = torch.empty(k, dtype=torch.int32, device=dev)
+    top = torch.empty(1, dtype=torch.int64, device=dev)
+    build.check((lib or build.load()).ct_expand_count(
+        events_t.data_ptr(), _ptr(md), drop_all, sizes.data_ptr(),
+        top.data_ptr(), e, k, _stream(dev, stream)), "ct_expand_count")
+    return sizes, top
+
+
+def write_rows(events_t: torch.Tensor, md: torch.Tensor | None,
+               drop_all: int, l2: int, lib=None, stream=None) -> torch.Tensor:
+    """Pass 2 on the card: -> rows [K, l2] uint8 (l2 at least every lane's
+    size)."""
+    e, k = events_t.shape
+    dev = events_t.device
+    rows = torch.empty((k, l2), dtype=torch.uint8, device=dev)
+    build.check((lib or build.load()).ct_expand_write(
+        events_t.data_ptr(), _ptr(md), drop_all, rows.data_ptr(), e, k, l2,
+        _stream(dev, stream)), "ct_expand_write")
+    return rows
+
+
+def _launch(events_t: torch.Tensor, l2: int | None, may_drop, lib=None):
+    global launches
+    dev = events_t.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        sizes = torch.empty(k, dtype=torch.int32, device=dev)
-        build.check(lib.ct_expand_sizes(events_t.data_ptr(), md.data_ptr(),
-                                        sizes.data_ptr(), e, k, stream),
-                    "ct_expand_sizes")
-        max_size = int(sizes.max())
+        md, drop_all = drop_mask(may_drop, events_t.shape[1], dev)
+        sizes, top = count_sizes(events_t, md, drop_all, lib, stream)
+        max_size = int(top)     # the host round trip that picks l2
         if l2 is None:
             l2 = compaction.row_width(max_size)
         elif l2 < max_size:
             raise ValueError(f"l2={l2} < largest lane payload {max_size}")
-        rows = torch.empty((k, l2), dtype=torch.uint8, device=dev)
-        build.check(lib.ct_expand_rows(events_t.data_ptr(), md.data_ptr(),
-                                       rows.data_ptr(), e, k, l2, stream),
-                    "ct_expand_rows")
+        rows = write_rows(events_t, md, drop_all, l2, lib, stream)
     launches += 1
     return rows, sizes

@@ -3,10 +3,12 @@
 Kernel F (`csrc/rans_encode.cu`) replaces cpprcoder_tpu/ops/rans_pallas.py:76
 `_encode_kernel`; kernel G (`csrc/rans_decode.cu`) replaces
 rans_pallas.py:225 `_decode_kernel`. The table is static, so lanes are
-independent: one thread per lane, 128-thread blocks, freq/cum (and G's
-cum2sym) in shared memory, any K up to 2^16. F divides by a multiply-high
-with a per-symbol reciprocal and one exact correction, and loads each
-lane's bytes a run of steps ahead of its state chain.
+independent: one thread per lane, tables in shared memory, any K up to
+2^16. F divides by a multiply-high with a per-symbol reciprocal and one
+exact correction, and loads each lane's bytes a run of steps ahead of its
+state chain. G reads (f, slot - cum) from one table entry a slot, so a step
+has one shared read on its chain, and keeps each lane's next words in
+flight with cp.async.
 
 Their plain versions are the step loops `rans_ops.encode_events_plain` and
 `rans_ops.decode_symbols_plain`. On a CPU tensor a wrapper runs the plain

@@ -84,6 +84,46 @@ def test_auto_row_width_and_long_runs():
     assert np.array_equal(ours, np.asarray(flat))
 
 
+def test_longest_run_matches_jax():
+    """One lane whose only event carries the longest run the 22-bit field
+    holds (2^22 - 1 bytes of 0xFF) after its dropped first byte: the write
+    pass's long-run path on the card; here the plain version against the
+    JAX materialize_rows_t at l2 = 2^22."""
+    ev = np.zeros((3, 1), np.uint32)
+    ev[1, 0] = (1 << 31) | (0x5A << 23) | ((1 << 22) - 1)
+    l2 = 1 << 22
+    jrows, jsizes = jcomp.materialize_rows_t(jnp.asarray(ev), l2, True)
+    rows, sizes = expand.materialize_rows(torch.from_numpy(ev.view(np.int32)), l2)
+    assert int(sizes[0]) == (1 << 22) - 1 == int(np.asarray(jsizes)[0])
+    assert np.array_equal(rows.numpy(), np.asarray(jrows))
+    assert int(rows[0, :(1 << 22) - 1].min()) == 0xFF and int(rows[0, -1]) == 0
+
+
+def test_first_emit_in_a_later_tile_with_mask_matches_jax():
+    """Lanes whose first emit comes only after 32, 64 or 96 silent steps
+    (the write pass's warp reads 64 steps of its lane a tile and scans
+    32 at a time), under a
+    may_drop mask: the dummy is dropped in whichever tile holds it, and
+    only where the mask allows."""
+    ev = _rand_events(130, 24, 13, run_max=40)
+    for i in range(24):
+        ev[:32 * (i % 4) + i % 5, i] = 0
+    md = np.zeros(24, bool)
+    md[1::2] = True
+    _check(ev, md)
+
+
+@pytest.mark.parametrize("may_drop,want", [(True, (None, 1)), (False, (None, 0))])
+def test_drop_mask_of_a_bool_is_a_flag(may_drop, want):
+    """The kernel's passes take a bool may_drop as a flag (no mask tensor);
+    a [K] mask goes as uint8."""
+    assert expand.drop_mask(may_drop, 5, "cpu") == want
+    md, flag = expand.drop_mask(torch.tensor([1, 0, 1, 1, 0], dtype=torch.bool),
+                                5, "cpu")
+    assert flag == 0 and md.dtype == torch.uint8
+    assert md.tolist() == [1, 0, 1, 1, 0]
+
+
 def test_layout_and_be_words_match_jax():
     ev = _rand_events(33, 20, 5)
     pcnt, pin, dropped, sizes = tcomp.payload_layout_t(

@@ -440,6 +440,108 @@ def test_corpus_file_matches_oracle(dev, codec):
     assert ctt.decompress(blob, codec=codec, device="cuda") == data
 
 
+def _events(e, k, seed, run_max=3):
+    """Random packed u32 events [e, k] (half of them emit) as uint32."""
+    rng = np.random.default_rng(seed)
+    first = rng.integers(0, 512, (e, k), dtype=np.uint32)   # byte and carry
+    run = rng.integers(0, run_max + 1, (e, k), dtype=np.uint32)
+    ev = (np.uint32(1) << 31) | (first << 22) | run
+    return np.where(rng.random((e, k)) < 0.5, ev, 0).astype(np.uint32)
+
+
+def _expand_edge(case):
+    """(events uint32 [E, K], may_drop, l2 or None) for kernel B's edges."""
+    if case == "one run of 2^22 - 1 bytes":
+        ev = np.zeros((3, 1), np.uint32)
+        ev[1, 0] = (1 << 31) | (0x5A << 23) | ((1 << 22) - 1)
+        return ev, True, None
+    if case == "long runs at tile boundaries":
+        ev = _events(96, 40, 30)
+        rng = np.random.default_rng(31)
+        for e in (31, 32, 63, 64):
+            ev[e] = (1 << 31) | (rng.integers(0, 512, 40, dtype=np.uint32) << 22) \
+                | rng.integers(0, 200, 40, dtype=np.uint32)
+        return ev, True, None
+    if case == "first emits in later tiles, masked":
+        ev = _events(150, 64, 32)
+        for i in range(64):
+            ev[:32 * (i % 4) + i % 7, i] = 0
+        md = np.zeros(64, bool)
+        md[::2] = True
+        return ev, md, None
+    if case == "K=100":
+        return _events(300, 100, 33, run_max=40), True, None
+    if case == "K=32768":
+        return _events(40, 32768, 34), True, None
+    ev = _events(70, 50, 35, run_max=9)     # a given l2 above the largest lane
+    _, sizes = compaction.materialize_rows_t(torch.from_numpy(ev.view(np.int32)))
+    return ev, False, int(sizes.max()) + 37
+
+
+@pytest.mark.parametrize("case", [
+    "one run of 2^22 - 1 bytes", "long runs at tile boundaries",
+    "first emits in later tiles, masked", "K=100", "K=32768", "given l2"])
+def test_expand_edges_match_plain(dev, case):
+    """Kernel B against its plain version where its write pass has its
+    edges: the warp's long-run path (a run of the field's largest length;
+    runs of up to 200 bytes at both sides of the 32-step scans and 64-step
+    tiles), the dummy dropped in a later tile under a mask, partial and many
+    blocks of 16 lanes, and a given row width."""
+    ev, may_drop, l2 = _expand_edge(case)
+    t = torch.from_numpy(ev.view(np.int32)).to(dev)
+    md = may_drop if isinstance(may_drop, bool) else torch.from_numpy(may_drop).to(dev)
+    rows, sizes = expand.materialize_rows(t, l2, md)
+    assert l2 is None or rows.shape[1] == l2
+    prow, psizes = compaction.materialize_rows_t(t, rows.shape[1], md)
+    assert torch.equal(sizes, psizes) and torch.equal(rows, prow)
+
+
+@pytest.mark.parametrize("case", ["one lane past 65,535 words",
+                                  "one symbol at K=48", "f = 2^14"])
+def test_rans_decode_hard_cases_match_plain(dev, case):
+    """Kernel G against its plain version: one lane of 200,000 random bytes
+    (more than 65,535 words through its words in flight; the plain loop
+    runs on the host), the single-symbol lane (f = 16,383 beside 1) at K not
+    a multiple of 32, and a hand-made table where one symbol owns all 2^14
+    slots (f needs the entry's 15 bits) over random states and rows."""
+    if case == "f = 2^14":
+        rng = np.random.default_rng(36)
+        freqs = np.zeros(256, np.int64)
+        freqs[0x77] = 1 << 14
+        tables = rans_ops.tables(freqs, dev)
+        k, stride = 100, 60
+        st = torch.from_numpy(rng.integers(1 << 16, 1 << 32, k, dtype=np.uint64)
+                              .astype(np.uint32).view(np.int32)).to(dev)
+        rows = torch.from_numpy(rng.integers(0, 1 << 16, (8, k),
+                                             dtype=np.int32)).to(dev)
+        lens = torch.full((k,), stride, dtype=torch.int32, device=dev)
+        sym = rans_kernels.decode_symbols(st, rows, lens, *tables, k * stride,
+                                          stride)
+        assert torch.equal(sym, rans_ops.decode_symbols_plain(
+            st, rows, lens, *tables, k * stride, stride))
+        assert bool((sym == 0x77).all())
+        return
+    if case == "one symbol at K=48":
+        k, data = 48, np.full(48 * 40 + 7, 0x42, np.uint8)
+    else:
+        k, data = 1, np.random.default_rng(7).integers(0, 256, 200_000, np.uint8)
+    n = len(data)
+    x = torch.from_numpy(data).to(dev)
+    stride = -(-n // k)
+    x2d = layout.pad2d_interleaved(x, k, stride)
+    lens = layout.lane_lengths_interleaved(n, k, stride, dev)
+    tables = rans_ops.tables(rans_ops.static_freqs(x), dev)
+    ev, st = rans_kernels.encode_events(x2d, lens, *tables)
+    rows = rans_ops.word_rows(*rans_ops.lane_words(ev))
+    if k == 1:
+        assert rows.shape[0] > 0x10000
+    sym = rans_kernels.decode_symbols(st, rows, lens, *tables, n, stride)
+    assert torch.equal(sym.cpu(), rans_ops.decode_symbols_plain(
+        st.cpu(), rows.cpu(), lens.cpu(), *(t.cpu() for t in tables), n,
+        stride))
+    assert torch.equal(sym, x)
+
+
 def test_rans_wide_count_table(dev):
     """One lane with more than 0xFFFF words: u32 count table (lane_desc
     bit 7), oracle-identical, decoded on the card."""

@@ -99,6 +99,54 @@ def test_decode_symbols_match_pallas(n):
     assert np.array_equal(sym.numpy(), x)
 
 
+def test_single_symbol_lane_at_ragged_k_matches_pallas():
+    """One symbol over K = 48 lanes (not a multiple of 32, so a partial
+    warp on the card): its table entry is f = 16,383 beside one of 1, the
+    largest f the encoder writes. The port's plain F and G against the
+    interpret-mode Pallas decoder (K padded to 128 lanes there)."""
+    k = 48
+    x = np.full(48 * 40 + 7, 0x42, np.uint8)
+    n = len(x)
+    stride = -(-n // k)
+    xt = torch.from_numpy(x)
+    f = tops.static_freqs(xt)
+    assert sorted(f[f > 0].tolist()) == [1, (1 << 14) - 1]
+    tables = tops.tables(f, "cpu")
+    lens = layout.lane_lengths_interleaved(n, k, stride, "cpu")
+    ev, st = rans_kernels.encode_events(layout.pad2d_interleaved(xt, k, stride),
+                                        lens, *tables)
+    rows = tops.word_rows(*tops.lane_words(ev))
+    sym = rans_kernels.decode_symbols(st, rows, lens, *tables, n, stride)
+    assert np.array_equal(sym.numpy(), x)
+    l2 = bucket(rows.shape[0])
+    rows_p = np.zeros((l2, k), np.int32)
+    rows_p[:rows.shape[0]] = rows.numpy()
+    cums = tables[1].numpy()
+    jsym = np.asarray(rans_pallas._decode_call(bucket(stride), k, 128, l2)(
+        jnp.asarray(rows_p), jnp.asarray(i32_to_u32(st).numpy(), jnp.uint32),
+        jnp.asarray(f.astype(np.int32).reshape(16, 16)),
+        jnp.asarray(cums.reshape(16, 16)), n))
+    assert np.array_equal(sym.numpy(), jsym[:stride].reshape(-1)[:n])
+
+
+def test_table_entry_of_all_slots_matches_the_oracle():
+    """A hand-made container whose table gives one symbol all 2^14 slots
+    (f = 2^14, which the decoder's entry must hold: 15 bits), over random
+    final states and words: the port decodes it as the oracle's decode
+    loop does (every step that symbol, the state unchanged)."""
+    rng = np.random.default_rng(15)
+    k, n = 4, 4 * 50 - 3
+    freqs = np.zeros(256, np.int64)
+    freqs[0x77] = 1 << 14
+    states = rng.integers(1 << 16, 1 << 32, k, dtype=np.uint64)
+    counts = rng.integers(0, 6, k)
+    words = rng.integers(0, 1 << 16, int(counts.sum()))
+    blob = tops.assemble(n, k, freqs, states, counts, words)
+    want = rans_ref.rans_decode(blob)
+    assert want == b"\x77" * n
+    assert ctt.decompress(blob, codec="rans", device="cpu") == want
+
+
 def _identity(data, **opts):
     blob = ctt.compress(data, codec="rans", device="cpu", **opts)
     assert blob == rans_ref.rans_encode(data, **opts)
