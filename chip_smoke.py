@@ -15,16 +15,20 @@ Phases, one line each (a failed phase exits non-zero):
               that halve at nearly every window), for B (a run of 2^22 - 1
               bytes, runs at tile boundaries, first emits in later tiles
               under a mask, K = 100 and 32,768, a given l2) and for G (a
-              table entry of f = 2^14, one lane of more than 65,535 words),
-              exact equality; then both timed with CUDA events at
-              kennedy.xls's shape, A and C alone also at grammar.lsp's and
-              at alice29.txt's under the ratio preset, D to I alone at a
-              small file's (fields.c, grammar.lsp), F and G also at the
-              200,000-byte lanes=1 lane, B through its wrapper at
-              kennedy.xls, grammar.lsp (rcx) and fields.c (rcq) and there
-              its two passes and its host round trip apart; I also on
-              random word rows; rcx and rcq round trips at 32,768 lanes
-              against the oracle;
+              table entry of f = 2^14, one lane of more than 65,535 words)
+              and for H (codes of 15 bits, K = 65,536, lanes of length 0,
+              strides of CHUNK - 1 and + 1, lanes whose words start
+              mid-u32), exact equality; then both timed with CUDA events
+              at kennedy.xls's shape, A and C alone also at grammar.lsp's
+              and at alice29.txt's under the ratio preset, D to I alone at
+              a small file's (fields.c, grammar.lsp), F, G and H also at
+              the 200,000-byte lanes=1 lane (H's container there against
+              the oracle's), B through its wrapper at kennedy.xls,
+              grammar.lsp (rcx) and fields.c (rcq) and there its two
+              passes and its host round trip apart, H as its launches'
+              device time and through its wrapper; I also on random word
+              rows; rcx and rcq round trips at 32,768 lanes against the
+              oracle;
   4. main     per codec (rcx, rcq, rans, huffman), with the launch counts
               set to 0 just before and read just after:
               compress/decompress(codec, device="cuda") over the 11
@@ -38,7 +42,8 @@ Then a {"kernels": [...]} JSON line (per kernel: launches on the main
 paths and main_ms, the largest difference from its plain version, its time and the
 plain version's at kennedy.xls's shape, and the bound: the larger of the
 bytes it moves over the memory rate and its operations over the peak
-rate; `ms_at`, its times at each shape timed, and for B `passes_ms`),
+rate; `ms_at`, its times at each shape timed, for B `passes_ms` and for
+H `wrapper_ms`),
 the nvidia-smi line, and last {"ok": true, "device": {...}}.
 """
 
@@ -117,7 +122,7 @@ COUNTERS = {
     "rcq_decode": (rcq_kernels, "decode_launches", "decode_symbols"),
     "rans_encode": (rans_kernels, "encode_launches", "encode_events"),
     "rans_decode": (rans_kernels, "decode_launches", "decode_symbols"),
-    "huffman_encode": (huffman_kernels, "encode_launches", "encode_events"),
+    "huffman_encode": (huffman_kernels, "encode_launches", "encode_stream"),
     "huffman_decode": (huffman_kernels, "decode_launches", "decode_symbols"),
 }
 # the kernels each codec's main path runs
@@ -162,6 +167,13 @@ def fail(msg: str):
 def corpus(name: str) -> bytes:
     with open(os.path.join(ROOT, "data", name), "rb") as f:
         return f.read()
+
+
+def skewed(n: int, seed: int) -> bytes:
+    """Bytes whose canonical Huffman code reaches 15 bits (seeded)."""
+    rng = np.random.default_rng(seed)
+    probs = np.array([2.0 ** -min(i // 16 + 1, 14) for i in range(256)])
+    return rng.choice(256, n, p=probs / probs.sum()).astype(np.uint8).tobytes()
 
 
 def textish(n: int, seed: int) -> bytes:
@@ -375,18 +387,20 @@ def lane_cases(seed: int):
             (8192, textish(8192 * 40 + 3, seed + 4)), (64, b"\x42" * 2001)]
 
 
-def time_at(files, case, args, plain_reps: int, what: str):
+def time_at(files, case, args, plain_reps: int, what: str, timers=None):
     """Hold `case` at each file's main-path shape (args(n) gives its
-    parameters) and time its kernels, 5 reps after a warm-up; the plain
-    versions only at the first file, `plain_reps` reps. Prints the line
-    `[kernels] ok {what}; ...`. -> ({kernel: (ms, plain ms)}, {kernel:
-    (bytes, ops)}) at the first file, {kernel: {file: ms}} at both."""
+    parameters) and time its kernels, 5 reps after a warm-up (or by
+    timers[kernel](call), where given); the plain versions only at the
+    first file, `plain_reps` reps. Prints the line `[kernels] ok {what};
+    ...`. -> ({kernel: (ms, plain ms)}, {kernel: (bytes, ops)}) at the
+    first file, {kernel: {file: ms}} at both."""
     at, ms, work = {}, {}, {}
+    timers = timers or {}
     for i, name in enumerate(files):
         data = corpus(name)
         shape, fns, w = case(data, *args(len(data)), name)
         at[name] = f"{name} ({shape})"
-        ms[name] = {nm: (cuda_ms(kern, 5),
+        ms[name] = {nm: (timers.get(nm, lambda f: cuda_ms(f, 5))(kern),
                          i == 0 and cuda_ms(plain, plain_reps, 0))
                     for nm, (kern, plain) in fns.items()}
         work = work or w
@@ -763,8 +777,13 @@ def rans_lane1_case(dev, err):
 
 
 def phase_kernels_huffman(dev):
-    """H and I against their plain step loops; I also on random word rows
-    against an incomplete code, where some windows match no code."""
+    """H and I against their plain versions; I also on random word rows
+    against an incomplete code, where some windows match no code; H at
+    lanes=1 on 200,000 random bytes against the oracle's container. H's
+    time is its wrapper's device time with its launches queued (`queued_ms`:
+    its three passes), and apart, through its wrapper (the median of 50
+    calls, its host enqueue inside).
+    -> (err, ms, work, ms_at, {shape: H's wrapper ms})."""
     err = {"huffman_encode": 0, "huffman_decode": 0}
 
     def case(data, k, what):
@@ -772,11 +791,12 @@ def phase_kernels_huffman(dev):
         {kernel: (kernel call, plain call)}, {kernel: (bytes, ops)})."""
         n, stride, x2d, lens = interleaved_inputs(data, k, dev)
         lengths, tab = huffman_ops.encoder_table(x2d.reshape(-1)[:n])
-        enc = (lambda: huffman_kernels.encode_events(x2d, lens, tab),
-               lambda: huffman_ops.encode_events_plain(x2d, lens, tab))
-        ev, flush, bits = hold(err, "huffman_encode", enc[0](), enc[1](),
-                               f"kernel H at {what}")
-        rows = rans_ops.word_rows(*huffman_ops.lane_stream(ev, flush))
+        enc = (lambda: huffman_kernels.encode_stream(x2d, lens, tab),
+               lambda: huffman_ops.encode_stream_plain(x2d, lens, tab))
+        payload, counts, bits = hold(err, "huffman_encode", enc[0](),
+                                     enc[1](), f"kernel H at {what}")
+        words = huffman_ops.stream_words(payload, counts)
+        rows = rans_ops.word_rows(words, counts)
         tables = huffman_ops.decoder_tables(lengths, dev)
         dec = (lambda: huffman_kernels.decode_symbols(rows, lens, *tables, n,
                                                       stride),
@@ -786,15 +806,26 @@ def phase_kernels_huffman(dev):
                    f"kernel I at {what}")
         if sym.cpu().numpy().tobytes() != data:
             fail(f"kernel I did not invert kernel H at {what}")
-        work = {"huffman_encode": (nbytes(x2d, lens, tab, ev, flush, bits),
+        # H moves x, the lane lengths and the table in, the counts, the
+        # bits and the payload's 2P bytes out
+        work = {"huffman_encode": (nbytes(x2d, lens, tab, counts, bits)
+                                   + 2 * words.numel(),
                                    coder_ops("huffman_encode", n)),
                 "huffman_decode": (nbytes(rows, lens, *tables) + n,
                                    coder_ops("huffman_decode", n))}
         return f"K={k}, stride={stride}", {"huffman_encode": enc,
                                            "huffman_decode": dec}, work
 
-    # lane_cases; the single-symbol run is one code of length 1, all bits 0
-    cases = lane_cases(400)
+    # lane_cases; the single-symbol run is one code of length 1, all bits
+    # 0; then kernel H's edges: codes of 15 bits, K = 65,536, lanes of
+    # length 0, strides of CHUNK - 1 and + 1, lanes whose words start
+    # mid-u32 (one symbol a lane, 40 bits, 3 words)
+    c = huffman_kernels.CHUNK
+    cases = lane_cases(400) + [
+        (64, skewed(20_000, 401)), (65536, textish(65536 * 3 + 5, 402)),
+        (4096, textish(4096 - 100, 403)), (16, textish(16 * (c - 1) - 3, 404)),
+        (16, textish(16 * (c + 1) - 3, 405)),
+        (128, bytes(np.resize(np.array([0x61, 0x62], np.uint8), 128 * 40)))]
     for k, data in cases:
         case(data, k, f"K={k} n={len(data)}")
 
@@ -818,16 +849,43 @@ def phase_kernels_huffman(dev):
                                                k * stride, stride)),
          "kernel I on random word rows")
 
+    # one lane over 200,000 random bytes: the container against the
+    # oracle's (the plain step loop over 200,000 steps is too slow), a round
+    # trip, then H alone timed
+    lane1 = "200,000 random bytes lanes=1"
+    data = np.random.default_rng(7).integers(0, 256, 200_000,
+                                             np.uint8).tobytes()
+    blob = ctt.compress(data, codec="huffman", device="cuda", lanes=1)
+    if blob != ctt.compress(data, codec="huffman", backend="ref", lanes=1):
+        fail(f"huffman at {lane1}: container differs from the numpy oracle")
+    if ctt.decompress(blob, codec="huffman", device="cuda") != data:
+        fail(f"huffman at {lane1} did not round-trip")
+    n, _, x2d, lens = interleaved_inputs(data, 1, dev)
+    _, tab = huffman_ops.encoder_table(x2d.reshape(-1)[:n])
+    h1 = lambda: huffman_kernels.encode_stream(x2d, lens, tab)  # noqa: E731
+
     # held and timed at kennedy.xls's shape, kernel vs plain (the plain
     # loops run 4,023 steps a call: one rep); held there and at
     # grammar.lsp's (K = 2 over 1,861 steps), where the kernels alone are
-    # timed
+    # timed; H's wrapper also as the median of 50 calls
+    wrapper = []
+
+    def time_h(fn):
+        wrapper.append(median_call_ms(fn))
+        return queued_ms(fn)
+
     ms, work, ms_at = time_at(("kennedy.xls", "grammar.lsp"), case,
                               lambda n: (rans_ops.pick_lanes(n),), 1,
                               f"{len(cases) + 3} CT-HUF1 cases (H, I; I also "
                               f"on random word rows) equal their plain "
-                              f"versions")
-    return err, ms, work, ms_at
+                              f"versions; H at {lane1} writes the oracle's "
+                              f"container", {"huffman_encode": time_h})
+    ms_at["huffman_encode"][lane1] = time_h(h1)
+    wrapper = dict(zip(("kennedy.xls", "grammar.lsp", lane1), wrapper))
+    print(f"[kernels] H at {lane1}: {ms_at['huffman_encode'][lane1]:.4f} ms; "
+          "through its wrapper (median of 50) " + ", ".join(
+              f"{nm} {t:.4f}" for nm, t in wrapper.items()), flush=True)
+    return err, ms, work, ms_at, wrapper
 
 
 def run_corpus(codec: str):
@@ -989,9 +1047,10 @@ def main():
     torch.cuda.set_device(dev)
     phase_build()
     err, ms, work, ms_at, b_passes = phase_kernels(dev)
-    for phase in (phase_kernels_rcq, phase_kernels_rans,
-                  phase_kernels_huffman):
-        e, m, w, a = phase(dev)
+    rcq, rans, (*huffman, h_wrapper) = (phase_kernels_rcq(dev),
+                                        phase_kernels_rans(dev),
+                                        phase_kernels_huffman(dev))
+    for e, m, w, a in (rcq, rans, huffman):
         err.update(e)
         ms.update(m)
         work.update(w)
@@ -1022,6 +1081,8 @@ def main():
             rows[-1]["ms_at"] = ms_at[nm]
         if nm == "expand":  # B's passes and host round trip apart
             rows[-1]["passes_ms"] = b_passes
+        if nm == "huffman_encode":  # H through its wrapper
+            rows[-1]["wrapper_ms"] = h_wrapper
     print(json.dumps({"kernels": rows}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,7 @@
 on one GPU, in one process.
 
     python3 compare_kernels.py --base DIR [--variants NAME,...] [--sass]
-                               [--reps N] [--out FILE]
+                               [--profile KERNEL] [--reps N] [--out FILE]
 
 DIR holds another checkout of the repository (for example the parent
 commit, unpacked with `git archive` into an ignored directory such as
@@ -16,14 +16,22 @@ corpus files) through this tree's wrappers; then every library runs each
 kernel on them, in turns (base, this tree, variants, then the reverse
 order; the lower of a library's two turns counts), each turn 10 launches
 after 2 warm-up ones, queued behind a spin of the stream (so the card runs
-them back to back) and timed with CUDA events; kernel B also through its
-wrapper, whose host round trip stays in its time (50 calls a turn, each
-timed apart, the median counts). Every output must equal
+them back to back) and timed with CUDA events; kernels B and H also
+through their wrappers, whose host work stays in their time (50 calls a
+turn, each timed apart, the median counts). Every output must equal
 this tree's: a library that differs, or refuses a shape, is reported so.
+A base tree whose kernel H is the one that wrote an event grid
+(`ct_huffman_encode`) runs through one fork, PARENT_H: that kernel alone,
+and through its wrapper with the compaction `lane_stream` after it, its
+words compared as this tree's payload.
 
 --sass compares the SASS of kernel D (the one-row instantiations of
 rc_encode_kernel) in the base library with this tree's (cuobjdump; the
 instructions, the function names aside).
+
+--profile KERNEL (a letter) runs that kernel's cases through this tree's
+library under torch.profiler and reports each of its launches' mean device
+time by name (a kernel's passes, and a memset, apart).
 
 Prints one JSON object: per kernel and shape, each library's ms.
 """
@@ -47,7 +55,6 @@ import torch
 from cpprcoder_tpu_torch.models.cxmodel import rcq_params, rcx_params
 from cpprcoder_tpu_torch.native import build
 from cpprcoder_tpu_torch.ops import (
-    compaction,
     expand,
     huffman_kernels,
     huffman_ops,
@@ -192,25 +199,44 @@ VARIANTS = {
     # kernel B: 8 or 32 lanes a block
     "b_lanes8": ("expand.cu", [("constexpr int LANES = 16;", "constexpr int LANES = 8;")]),
     "b_lanes32": ("expand.cu", [("constexpr int LANES = 16;", "constexpr int LANES = 32;")]),
+    # kernel H: 8, 32 or 64 steps a chunk; 8 or 16 KB tiles; the words a
+    # chunk owns whole by plain stores; the payload zeroed by a memset
+    # launch, not by the lengths pass
+    "h_chunk8": ("huffman_encode.cu", [("constexpr int CHUNK = 16;", "constexpr int CHUNK = 8;")]),
+    "h_chunk32": ("huffman_encode.cu", [("constexpr int CHUNK = 16;",
+                                         "constexpr int CHUNK = 32;")]),
+    "h_chunk64": ("huffman_encode.cu", [("constexpr int CHUNK = 16;",
+                                         "constexpr int CHUNK = 64;")]),
+    "h_tile8k": ("huffman_encode.cu", [("constexpr int TILE = 4096;",
+                                        "constexpr int TILE = 8192;")]),
+    "h_tile16k": ("huffman_encode.cu", [("constexpr int TILE = 4096;",
+                                         "constexpr int TILE = 16384;")]),
+    "h_stores": ("huffman_encode.cu", [(
+        "      if (nb >= 32) {\n        atomicOr(w, (uint32_t)acc);\n",
+        "      if (nb >= 32) {\n        if (lo)\n          atomicOr(w, (uint32_t)acc);\n"
+        "        else\n          *w = (uint32_t)acc;\n")]),
+    "h_memset": ("huffman_encode.cu", [
+        ("  for (size_t q = block * THREADS + threadIdx.x; q < nzero / 4; q += nthreads)\n"
+         "    reinterpret_cast<uint4*>(zero)[q] = make_uint4(0, 0, 0, 0);\n"
+         "  if (block == 0 && threadIdx.x < (nzero & 3)) "
+         "zero[(nzero & ~(size_t)3) + threadIdx.x] = 0;\n", "  (void)block, (void)nthreads;\n"),
+        ("  const Geo g = {K, stride, kb, tsteps, nch};",
+         "  cudaMemsetAsync(pw, 0, ((size_t)payload_words + 1) * 4, st);\n"
+         "  const Geo g = {K, stride, kb, tsteps, nch};")]),
 }
 
 
-# the entry points of each kernel (any one of them: B's were renamed when
-# its passes changed), and the source a variant library builds
-ENTRY = {"A": ("ct_rcx_encode",), "B": ("ct_expand_count", "ct_expand_sizes"),
-         "C": ("ct_rcx_decode",), "D": ("ct_rcq_encode",), "E": ("ct_rcq_decode",),
-         "F": ("ct_rans_encode",), "G": ("ct_rans_decode",), "H": ("ct_huffman_encode",),
-         "I": ("ct_huffman_decode",)}
+# the entry point of each kernel, and the source a variant library builds
+ENTRY = {"A": "ct_rcx_encode", "B": "ct_expand_count", "C": "ct_rcx_decode",
+         "D": "ct_rcq_encode", "E": "ct_rcq_decode", "F": "ct_rans_encode",
+         "G": "ct_rans_decode", "H": "ct_huffman_encode_stream", "I": "ct_huffman_decode"}
 VARIANT_SOURCE = {"a": "rcx_encode.cu", "b": "expand.cu", "g": "rans_decode.cu",
-                  "i": "huffman_decode.cu"}
-# entry points that this tree no longer has, as another tree's library
-# exports them: kernel B's two passes before ct_expand_count/ct_expand_write
-# (events, may_drop mask, sizes, E, K, stream; events, may_drop mask, rows,
-# E, K, l2, stream)
-LEGACY_SIGNATURES = {
-    "ct_expand_sizes": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
-    "ct_expand_rows": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
-}
+                  "h": "huffman_encode.cu", "i": "huffman_decode.cu"}
+# kernel H as a base tree may have it, which this tree no longer has: x,
+# lane_len, table, events [stride, K], flush [K], bits [K], K, stride,
+# stream. The fork goes once no base has it.
+PARENT_H = "ct_huffman_encode"
+PARENT_H_SIGNATURE = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 
 
 def build_lib(name: str, csrc: Path, edits=(), only: str | None = None
@@ -238,13 +264,26 @@ def build_lib(name: str, csrc: Path, edits=(), only: str | None = None
 
 
 def load(path: Path) -> ctypes.CDLL:
+    """The library at build/compare/<name>/lib/<hash>/, its entry points
+    typed; lib.h_geometry: kernel H's CHUNK and TILE as its sources have
+    them (encode_geometry's arguments), where it has that kernel."""
     lib = ctypes.CDLL(str(path))
-    for name, args in {**LEGACY_SIGNATURES, **build.SIGNATURES}.items():
+    for name, args in {**build.SIGNATURES, PARENT_H: PARENT_H_SIGNATURE}.items():
         fn = getattr(lib, name, None)
         if fn is not None:
             fn.argtypes = args
             fn.restype = ctypes.c_int
+    src = path.parents[2] / "csrc" / "huffman_encode.cu"
+    src = src.read_text() if src.exists() else ""
+    found = {key: re.search(rf"constexpr int {key.upper()} = (\d+);", src)
+             for key in ("chunk", "tile")}
+    if all(found.values()):
+        lib.h_geometry = {key: int(m.group(1)) for key, m in found.items()}
     return lib
+
+
+def has_kernel(lib, kern: str) -> bool:
+    return hasattr(lib, ENTRY[kern]) or (kern == "H" and hasattr(lib, PARENT_H))
 
 
 def corpus(name: str) -> bytes:
@@ -350,8 +389,9 @@ def cases(dev):
         ev0, st = rans_kernels.encode_events(x2d, lens, freq, cum)
         rrows = rans_ops.word_rows(*rans_ops.lane_words(ev0))
         lengths, tab = huffman_ops.encoder_table(x2d.reshape(-1)[:n])
-        hev, hfl, _ = huffman_kernels.encode_events(x2d, lens, tab)
-        hrows = rans_ops.word_rows(*huffman_ops.lane_stream(hev, hfl))
+        payload, counts, _ = huffman_kernels.encode_stream(x2d, lens, tab)
+        hrows = rans_ops.word_rows(huffman_ops.stream_words(payload, counts),
+                                   counts)
         lim, bas, perm = huffman_ops.decoder_tables(lengths, dev)
 
         def f_enc(lib, a=(x2d, lens, freq, cum, ev0, k, stride)):
@@ -368,14 +408,6 @@ def cases(dev):
                 a[4].data_ptr(), o.data_ptr(), a[5], a[1].shape[0], a[6],
                 stream())), o
 
-        def h_enc(lib, a=(x2d, lens, tab, hev, k, stride)):
-            ev = torch.empty_like(a[3])
-            fl = torch.empty(a[4], dtype=torch.int32, device=dev)
-            bits = torch.empty(a[4], dtype=torch.int32, device=dev)
-            return (lambda: lib.ct_huffman_encode(
-                a[0].data_ptr(), a[1].data_ptr(), a[2].data_ptr(), ev.data_ptr(),
-                fl.data_ptr(), bits.data_ptr(), a[4], a[5], stream())), (ev, fl, bits)
-
         def i_dec(lib, a=(hrows, lens, lim, bas, perm, k, stride)):
             o = torch.zeros(a[5] * a[6], dtype=torch.uint8, device=dev)
             return (lambda: lib.ct_huffman_decode(
@@ -383,39 +415,20 @@ def cases(dev):
                 a[4].data_ptr(), o.data_ptr(), a[5], a[0].shape[0], a[6],
                 stream())), o
 
-        out += [("F", f, f_enc), ("G", f, g_dec)]
-        if k > 1:
-            out += [("H", f, h_enc), ("I", f, i_dec)]
+        out += [("F", f, f_enc), ("G", f, g_dec),
+                ("H", f"{f} through the wrapper", partial(h_wrapper, a=(x2d, lens, tab))),
+                ("H", f"{f} passes", partial(h_passes, a=(x2d, lens, tab))),
+                ("I", f, i_dec)]
     return out
-
-
-def parent_materialize_rows(lib, ev):
-    """Kernel B's wrapper as it was with the entry points ct_expand_sizes and
-    ct_expand_rows (may_drop True): a uint8 mask, the sizes pass, sizes.max()
-    read back, the rows pass."""
-    e, k = ev.shape
-    dev = ev.device
-    md = compaction._drop_mask(True, k, dev).to(torch.uint8).contiguous()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        sizes = torch.empty(k, dtype=torch.int32, device=dev)
-        build.check(lib.ct_expand_sizes(ev.data_ptr(), md.data_ptr(), sizes.data_ptr(),
-                                        e, k, stream), "ct_expand_sizes")
-        l2 = compaction.row_width(int(sizes.max()))
-        rows = torch.empty((k, l2), dtype=torch.uint8, device=dev)
-        build.check(lib.ct_expand_rows(ev.data_ptr(), md.data_ptr(), rows.data_ptr(),
-                                       e, k, l2, stream), "ct_expand_rows")
-    return rows, sizes
 
 
 def b_wrapper(lib, ev):
     """Kernel B through its wrapper (may_drop True, the host round trip
-    inside), with either library's entry points."""
+    inside)."""
     out = []
 
     def go():
-        out[:] = (expand._launch(ev, None, True, lib) if hasattr(lib, "ct_expand_count")
-                  else parent_materialize_rows(lib, ev))
+        out[:] = expand._launch(ev, None, True, lib)
         return 0
     return go, out
 
@@ -426,24 +439,69 @@ def b_passes(lib, ev):
     rows, sizes = expand.materialize_rows(ev)
     rows, sizes = torch.empty_like(rows), torch.empty_like(sizes)
     stream = torch.cuda.current_stream(ev.device).cuda_stream
-    if hasattr(lib, "ct_expand_count"):
-        top = torch.empty(1, dtype=torch.int64, device=ev.device)
+    top = torch.empty(1, dtype=torch.int64, device=ev.device)
 
-        def go():
-            rc = lib.ct_expand_count(ev.data_ptr(), None, 1, sizes.data_ptr(),
-                                     top.data_ptr(), e, k, stream)
-            return rc or lib.ct_expand_write(ev.data_ptr(), None, 1, rows.data_ptr(),
-                                             e, k, rows.shape[1], stream)
-    else:
-        md = torch.ones(k, dtype=torch.uint8, device=ev.device)
-
-        def go():
-            rc = lib.ct_expand_sizes(ev.data_ptr(), md.data_ptr(), sizes.data_ptr(),
-                                     e, k, stream)
-            return rc or lib.ct_expand_rows(ev.data_ptr(), md.data_ptr(),
-                                            rows.data_ptr(), e, k, rows.shape[1],
-                                            stream)
+    def go():
+        rc = lib.ct_expand_count(ev.data_ptr(), None, 1, sizes.data_ptr(),
+                                 top.data_ptr(), e, k, stream)
+        return rc or lib.ct_expand_write(ev.data_ptr(), None, 1, rows.data_ptr(),
+                                         e, k, rows.shape[1], stream)
     return go, (rows, sizes)
+
+
+def parent_h_launch(lib, a, ev, fl, bits):
+    """PARENT_H's one launch: the event grid ev [stride, K], flush and bits."""
+    x2d, lens, tab = a
+    stride, k = x2d.shape
+    return lib.ct_huffman_encode(x2d.data_ptr(), lens.data_ptr(), tab.data_ptr(),
+                                 ev.data_ptr(), fl.data_ptr(), bits.data_ptr(), k,
+                                 stride, torch.cuda.current_stream(x2d.device).cuda_stream)
+
+
+def parent_h_output(a, words, counts, bits):
+    """PARENT_H's compacted words as this tree's (payload, counts, bits)."""
+    stride, k = a[0].shape
+    return (huffman_ops.pack_words(words, huffman_ops.payload_words(stride, k)),
+            counts.to(torch.int32), bits)
+
+
+def h_passes(lib, a):
+    """Kernel H alone: PARENT_H's one launch into buffers made once (its
+    output compacted for the comparison, untimed), or this tree's three
+    launches through encode_launch (its allocations are host work, which
+    the queued timing does not see)."""
+    x2d, lens, tab = a
+    stride, k = x2d.shape
+    if not hasattr(lib, PARENT_H):
+        return h_wrapper(lib, a)
+    ev = torch.empty((stride, k), dtype=torch.int32, device=x2d.device)
+    fl, bits = torch.empty((2, k), dtype=torch.int32, device=x2d.device)
+    return (lambda: parent_h_launch(lib, a, ev, fl, bits),
+            lambda: parent_h_output(a, *huffman_ops.lane_stream(ev, fl), bits))
+
+
+def h_wrapper(lib, a):
+    """Kernel H through its wrapper: this tree's (huffman_kernels.
+    encode_launch, the buffers made in each call), or PARENT_H's launch
+    with its buffers and the compaction lane_stream, which waits on the
+    card to size its output."""
+    x2d, lens, tab = a
+    stride, k = x2d.shape
+    out = []
+    if hasattr(lib, PARENT_H):
+        def go():
+            ev = torch.empty((stride, k), dtype=torch.int32, device=x2d.device)
+            fl, bits = torch.empty((2, k), dtype=torch.int32, device=x2d.device)
+            rc = parent_h_launch(lib, a, ev, fl, bits)
+            out[:] = (*huffman_ops.lane_stream(ev, fl), bits)
+            return rc
+        return go, lambda: parent_h_output(a, *out)
+    geo = huffman_kernels.encode_geometry(stride, k, **lib.h_geometry)
+
+    def go():
+        out[:] = huffman_kernels.encode_launch(x2d, lens, tab, geo, lib)
+        return 0
+    return go, out
 
 
 def time_turn(go, reps: int, each: bool = False) -> float | None:
@@ -475,6 +533,8 @@ def time_turn(go, reps: int, each: bool = False) -> float | None:
 
 
 def same(x, y) -> bool:
+    """Equal outputs; an output given as a callable is computed first."""
+    x, y = (v() if callable(v) else v for v in (x, y))
     xs = tuple(x) if isinstance(x, (tuple, list)) else (x,)
     ys = tuple(y) if isinstance(y, (tuple, list)) else (y,)
     return all(torch.equal(a, b) for a, b in zip(xs, ys))
@@ -495,11 +555,31 @@ def sass_of_d(path: Path) -> dict:
     return out
 
 
+def profile_launches(go, reps: int = 20) -> dict:
+    """{device launch name: mean device ms a call} over reps calls of go,
+    from torch.profiler's trace of the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    go()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            go()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            name = ev.name.replace("(anonymous namespace)::", "").split("(")[0]
+            out[name] = out.get(name, 0.0) + ev.time_range.elapsed_us() / 1e3 / reps
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--base", required=True, type=Path)
     ap.add_argument("--variants", default="")
     ap.add_argument("--sass", action="store_true")
+    ap.add_argument("--profile", default="")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--out", type=Path)
     a = ap.parse_args()
@@ -537,8 +617,12 @@ def main():
                                  for lpt in sorted(set(old) | set(new))}
         report["d_sass_lines"] = {lpt: len(v) for lpt, v in new.items()}
     for kern, shape, make in cases(dev):
-        runs = {nm: make(lib) for nm, lib in libs.items()
-                if any(hasattr(lib, e) for e in ENTRY[kern])}
+        if kern == a.profile and "wrapper" not in shape:
+            launches = profile_launches(make(libs["tree"])[0])
+            report.setdefault("profile", {})[f"{kern} {shape}"] = launches
+            print(f"[profile] {kern} {shape}: " + ", ".join(
+                f"{nm} {t:.4f}" for nm, t in launches.items()), flush=True)
+        runs = {nm: make(lib) for nm, lib in libs.items() if has_kernel(lib, kern)}
         order = [nm for nm in names + names[::-1] if nm in runs]
         best = {}
         # a call through a wrapper waits on the host: more calls a turn,

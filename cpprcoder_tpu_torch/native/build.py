@@ -56,8 +56,11 @@ SIGNATURES = {
     "ct_rans_encode": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     # states, rows, lane_len, freq, cum, out, K, l2, stride, stream
     "ct_rans_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # x, lane_len, table, events, flush, bits, K, stride, stream
-    "ct_huffman_encode": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # x, lane_len, table, scratch, payload, counts, bits, K, stride, and the
+    # geometry: lanes a block, steps a tile, chunks a lane, tiles, scan
+    # lanes a block, scan blocks, payload words; stream
+    "ct_huffman_encode_stream": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _I, _I, _I, _I, _I, _P],
     # rows, lane_len, limits, bases, perm, out, K, l2, stride, stream
     "ct_huffman_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }

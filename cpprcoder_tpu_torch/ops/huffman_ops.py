@@ -9,14 +9,15 @@ is `torch.bincount` on the device; its 256 counts go to the host for
 package-merge (models/huffman.py), and the 256-entry (length, code) table
 goes back to the device (one synchronisation per encode, as for rANS).
 
-`encode_events_plain` and `decode_symbols_plain` are the plain versions of
-kernels H and I (ops/huffman_kernels.py): step loops over int64 lane
-vectors. Kernel H's events have kernel F's layout (bit 16 emit, bits 15:0
-the word), so the lane word stream is `rans_ops.lane_words`, with each
-lane's flush word appended as one more step; decode reads rANS's word rows.
-`huffman_encode`/`huffman_decode` build containers around the kernel
-wrappers, so the same code runs the kernels on a CUDA device and the plain
-versions on the CPU.
+`encode_stream_plain` and `decode_symbols_plain` are the plain versions of
+kernels H and I (ops/huffman_kernels.py). The encode one is the step loop
+`encode_events_plain` over int64 lane vectors, whose events have kernel
+F's layout (bit 16 emit, bits 15:0 the word), then the compaction
+`lane_stream` (`rans_ops.lane_words`, each lane's flush word appended as
+one more step), its words packed into the payload buffer kernel H writes.
+Decode reads rANS's word rows. `huffman_encode`/`huffman_decode` build
+containers around the kernel wrappers, so the same code runs the kernels
+on a CUDA device and the plain versions on the CPU.
 
 A window that no code matches (only an incomplete code, i.e. a
 single-symbol table, or a corrupt container, can give one) decodes as
@@ -36,7 +37,7 @@ from cpprcoder_tpu_torch.models.huffman import (
     build_encoder_table,
 )
 from cpprcoder_tpu_torch.ops import layout, rans_ops
-from cpprcoder_tpu_torch.ops.rc_common import i32_to_u32
+from cpprcoder_tpu_torch.ops.rc_common import i32_to_u32, u32_to_i32
 from cpprcoder_tpu_torch.reference.huffman_ref import (
     _lane_desc,
     pack_nibbles,
@@ -106,22 +107,64 @@ def lane_stream(ev: torch.Tensor, flush: torch.Tensor):
     return rans_ops.lane_words(torch.cat([ev, flush[None]]))
 
 
+def payload_words(stride: int, k: int) -> int:
+    """u32 words of the payload buffer for K lanes of `stride` steps: the
+    u16 words of codes of at most 15 bits, ceil(15 * stride * K / 16) + K
+    (a lane's last word may be partial), in pairs."""
+    return -(-(-(-15 * stride * k // 16) + k) // 2)
+
+
+def encode_stream_plain(x2d: torch.Tensor, lane_len: torch.Tensor,
+                        tab: torch.Tensor):
+    """Plain version of kernel H, the same outputs as
+    huffman_kernels.encode_stream: (payload int32 [payload_words(stride,
+    K)], counts [K] int32, bits [K] int32). A length is taken in 0..15 and
+    a code to its length, as the kernel takes them (the tables that
+    encoder_table builds are unchanged); then encode_events_plain, the
+    compaction lane_stream, and the u16 words two to a u32 word."""
+    stride, k = x2d.shape
+    lens = tab[0].clamp(0, HUF_MAX_BITS)
+    codes = tab[1] & ((torch.ones_like(lens) << lens) - 1)
+    ev, flush, bits = encode_events_plain(x2d, lane_len,
+                                          torch.stack([lens, codes]))
+    words, counts = lane_stream(ev, flush)
+    return pack_words(words, payload_words(stride, k)), counts.to(
+        torch.int32), bits
+
+
+def pack_words(words: torch.Tensor, n_words: int) -> torch.Tensor:
+    """u16 words [P] int32 -> the payload buffer, int32 [n_words]: word 2m
+    in bits 15:0 of u32 m, word 2m + 1 in bits 31:16, zero past P."""
+    w16 = torch.zeros(2 * n_words, dtype=torch.int64, device=words.device)
+    w16[:words.numel()] = words
+    return u32_to_i32(w16[0::2] | w16[1::2] << 16)
+
+
+def stream_words(payload: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """Kernel H's payload and word counts -> the u16 words [P] int32, lane
+    after lane (what lane_stream gives)."""
+    p = int(counts.to(torch.int64).sum())
+    return payload.view(torch.int16)[:p].to(torch.int32) & 0xFFFF
+
+
 def assemble(n: int, k: int, lengths: np.ndarray, bits: np.ndarray,
-             words: np.ndarray) -> bytes:
+             payload: np.ndarray) -> bytes:
     """CT-HUF1 container: u32 n, lane_desc, the 128-byte nibble-packed code
-    lengths, K u32 bit counts, then each lane's u16 words, lane after
-    lane."""
+    lengths, K u32 bit counts, then the payload bytes (each lane's u16
+    words, lane after lane)."""
     w = ByteWriter().u32(n).u8(_lane_desc(k))
     w.raw(pack_nibbles(lengths).tobytes())
     w.u32s(bits)
-    w.u16s(words)
+    w.raw(payload.tobytes())
     return w.getvalue()
 
 
 def huffman_encode(data, lanes: int | None = None, *, device) -> bytes:
     """CT-HUF1 container of `data`, coded on `device` (kernels on CUDA,
     plain versions on the CPU). Same parameters as
-    huffman_ref.huffman_encode."""
+    huffman_ref.huffman_encode. The bit counts come to the host (the
+    header needs them; they give the payload's size), then the payload's
+    bytes, once."""
     x = as_u8(data)
     n = len(x)
     k = lanes or pick_lanes(n)
@@ -132,11 +175,13 @@ def huffman_encode(data, lanes: int | None = None, *, device) -> bytes:
     stride = -(-n // k)
     xt = torch.from_numpy(x.copy()).to(device)
     lengths, tab = encoder_table(xt)
-    ev, flush, bits = huffman_kernels.encode_events(
+    payload, _, bits = huffman_kernels.encode_stream(
         layout.pad2d_interleaved(xt, k, stride),
         layout.lane_lengths_interleaved(n, k, stride, xt.device), tab)
-    words, _ = lane_stream(ev, flush)
-    return assemble(n, k, lengths, bits.cpu().numpy(), words.cpu().numpy())
+    bits = bits.cpu().numpy()
+    p = int(((bits.astype(np.int64) + 15) // 16).sum())
+    return assemble(n, k, lengths, bits,
+                    payload.view(torch.uint8)[:2 * p].cpu().numpy())
 
 
 # ------------------------------------------------------------------ decode

@@ -190,4 +190,5 @@ def test_build_without_nvcc_raises_clearly(monkeypatch, tmp_path):
         "huffman_decode.cu"}
     assert set(build.SIGNATURES) >= {"ct_rcq_encode", "ct_rcq_decode",
                                      "ct_rans_encode", "ct_rans_decode",
-                                     "ct_huffman_encode", "ct_huffman_decode"}
+                                     "ct_huffman_encode_stream",
+                                     "ct_huffman_decode"}

@@ -357,8 +357,8 @@ def test_rans_encode_edges_match_plain(dev, k, n):
 @pytest.mark.parametrize("k,single", [(1, False), (2, False), (64, True),
                                       (256, False), (8192, False)])
 def test_huffman_kernels_match_plain(dev, k, single):
-    """Kernels H and I against their step loops; n is not a multiple of K,
-    and one case is a single-symbol run (one code of length 1, all 0
+    """Kernels H and I against their plain versions; n is not a multiple of
+    K, and one case is a single-symbol run (one code of length 1, all 0
     bits)."""
     n = 20 * k + 3
     data = np.full(n, 0x42, np.uint8) if single else _textish(n, k + 4)
@@ -367,16 +367,96 @@ def test_huffman_kernels_match_plain(dev, k, single):
     x2d = layout.pad2d_interleaved(x, k, stride)
     lens = layout.lane_lengths_interleaved(n, k, stride, dev)
     lengths, tab = huffman_ops.encoder_table(x)
-    out = huffman_kernels.encode_events(x2d, lens, tab)
-    plain = huffman_ops.encode_events_plain(x2d, lens, tab)
-    assert all(torch.equal(a, b) for a, b in zip(out, plain))
-    words, counts = huffman_ops.lane_stream(out[0], out[1])
-    rows = rans_ops.word_rows(words, counts)
+    payload, counts, bits = huffman_kernels.encode_stream(x2d, lens, tab)
+    plain = huffman_ops.encode_stream_plain(x2d, lens, tab)
+    assert all(torch.equal(a, b) for a, b in zip((payload, counts, bits), plain))
+    rows = rans_ops.word_rows(huffman_ops.stream_words(payload, counts), counts)
     tables = huffman_ops.decoder_tables(lengths, dev)
     sym = huffman_kernels.decode_symbols(rows, lens, *tables, n, stride)
     assert torch.equal(sym, huffman_ops.decode_symbols_plain(
         rows, lens, *tables, n, stride))
     assert torch.equal(sym, x)
+
+
+def _long_codes(n, seed):
+    """Bytes whose canonical code reaches 15 bits (test_huffman_pallas.py's
+    skewed case)."""
+    rng = np.random.default_rng(seed)
+    probs = np.array([2.0 ** -min(i // 16 + 1, 14) for i in range(256)])
+    return rng.choice(256, n, p=probs / probs.sum()).astype(np.uint8)
+
+
+def _huffman_edge(case):
+    """(data, K, table or None, lane lengths or None) of kernel H's edge
+    cases."""
+    c = huffman_kernels.CHUNK
+    if case == "15-bit codes":
+        return _long_codes(20_000, 3), 64, None, None
+    if case == "all codes 15 bits":
+        tab = np.zeros((2, 256), np.int32)
+        tab[0] = 15
+        tab[1] = np.arange(256) * 97 % (1 << 15)
+        return _textish(64 * 51 + 7, 4), 64, tab, None
+    if case == "K=65536":
+        return _textish(65536 * 3 + 5, 5), 65536, None, None
+    if case == "lanes of length 0":
+        return _textish(3, 6), 4, None, None
+    if case == "lanes of length 0, K=4096":
+        return _textish(4096 - 100, 7), 4096, None, None
+    if case.startswith("stride "):
+        stride = c + int(case.removeprefix("stride C"))
+        return _textish(16 * stride - 3, 8 + stride), 16, None, None
+    if case == "odd lane offsets":
+        # one-symbol lanes of a 2-code table: every lane 40 bits in 3 u16
+        # words, so lane i starts at word 3 * i, mid-u32 for odd i
+        return np.resize(np.array([0x61, 0x62], np.uint8), 128 * 40), 128, None, None
+    if case == "ragged lane lengths":
+        return _textish(256 * 70, 9), 256, None, "random"
+    raise KeyError(case)
+
+
+HUFFMAN_EDGES = ["15-bit codes", "all codes 15 bits", "K=65536",
+                 "lanes of length 0", "lanes of length 0, K=4096",
+                 "stride C-1", "stride C+0", "stride C+1", "odd lane offsets",
+                 "ragged lane lengths"]
+
+
+@pytest.mark.parametrize("case", HUFFMAN_EDGES)
+def test_huffman_encode_edges_match_plain(dev, case):
+    """Kernel H against its plain version where its chunks and words have
+    their edges: codes of 15 bits (and a table of nothing else), K = 65,536,
+    lanes of length 0, strides of CHUNK - 1, CHUNK and CHUNK + 1, lanes
+    whose words start mid-u32, and lane lengths drawn at random."""
+    data, k, tab, lens = _huffman_edge(case)
+    n = len(data)
+    stride = -(-n // k)
+    x = torch.from_numpy(data).to(dev)
+    x2d = layout.pad2d_interleaved(x, k, stride)
+    if lens == "random":
+        lens = torch.from_numpy(np.random.default_rng(10).integers(
+            0, stride + 1, k, dtype=np.int32)).to(dev)
+    else:
+        lens = layout.lane_lengths_interleaved(n, k, stride, dev)
+    if tab is None:
+        _, tab = huffman_ops.encoder_table(x)
+    else:
+        tab = torch.from_numpy(tab).to(dev)
+    out = huffman_kernels.encode_stream(x2d, lens, tab)
+    plain = huffman_ops.encode_stream_plain(x2d, lens, tab)
+    assert all(torch.equal(a, b) for a, b in zip(out, plain))
+    if case == "odd lane offsets":
+        assert (out[1] == 3).all() and (out[2] == 40).all()
+
+
+def test_huffman_one_lane_matches_the_oracle(dev):
+    """200,000 random bytes in one lane (about 12,500 chunks of one lane,
+    held to the oracle: the plain step loop over 200,000 steps is too
+    slow), and the round trip."""
+    data = np.random.default_rng(7).integers(0, 256, 200_000,
+                                             np.uint8).tobytes()
+    blob = ctt.compress(data, codec="huffman", device="cuda", lanes=1)
+    assert blob == ctt.compress(data, codec="huffman", backend="ref", lanes=1)
+    assert ctt.decompress(blob, codec="huffman", device="cuda") == data
 
 
 def test_huffman_decode_random_rows_match_plain(dev):

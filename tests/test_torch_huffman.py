@@ -8,11 +8,17 @@ kernels huffman_pallas._encode_call / _decode_call, at K=128 and at K < 128
 (grammar.lsp, K=2, where Pallas pads the lanes to 128) and on skewed input
 with codes near the 15-bit limit. The Pallas grid pads the steps to
 bucket(stride) and the lanes to max(K, 128); the port runs exactly stride
-steps and K lanes, so the Pallas pad slots must emit nothing.
+steps and K lanes, so the Pallas pad slots must emit nothing. H's step
+loop (`encode_events_plain`, half of its plain version) is held against
+the Pallas events, and its wrapper (payload, word counts, bit counts)
+against the Pallas call's compacted words; kernel H's launch geometry,
+which its wrapper computes, is checked to cover every step of every lane.
 
 For the codec: containers equal huffman_ops.huffman_encode_jax and the
 JAX package's oracle huffman_ref.huffman_encode, and the port decodes the
 JAX package's containers."""
+
+from functools import lru_cache
 
 import jax.numpy as jnp
 import numpy as np
@@ -68,12 +74,14 @@ def _inputs(case):
     return x, n, k, -(-n // k)
 
 
-@pytest.mark.parametrize("case", list(KERNEL_CASES))
-def test_encode_events_match_pallas(case):
+@lru_cache(maxsize=None)
+def _pallas_encode(case):
+    """The interpret-mode Pallas encode call at `case` -> (its words [K,
+    steps+1], its emit flags [K, steps+1] (the last slot the flush), its bit
+    counts): lane-major slots."""
     x, n, k, stride = _inputs(case)
     steps = bucket(stride)
-    xt = torch.from_numpy(x.copy())
-    lengths, tab = tops.encoder_table(xt)
+    _, tab = tops.encoder_table(torch.from_numpy(x.copy()))
     jtab = np.zeros((8, 256), np.int32)
     jtab[0] = tab[0].numpy()
     jtab[1] = tab[1].numpy() & 255
@@ -85,12 +93,26 @@ def test_encode_events_match_pallas(case):
     jpstart = np.asarray(jpstart)
     jemit = (np.append(jpstart[1:], int(jn)) > jpstart).reshape(k, steps + 1)
     jwords = np.asarray(jwords).astype(np.int64).reshape(k, steps + 1)
+    return jwords, jemit, np.asarray(jbits)
 
-    lens = layout.lane_lengths_interleaved(n, k, stride, "cpu")
-    ev, flush, bits = huffman_kernels.encode_events(
-        layout.pad2d_interleaved(xt, k, stride), lens, tab)
+
+def _port_inputs(case):
+    x, n, k, stride = _inputs(case)
+    xt = torch.from_numpy(x.copy())
+    _, tab = tops.encoder_table(xt)
+    return (layout.pad2d_interleaved(xt, k, stride),
+            layout.lane_lengths_interleaved(n, k, stride, "cpu"), tab)
+
+
+@pytest.mark.parametrize("case", list(KERNEL_CASES))
+def test_encode_events_match_pallas(case):
+    x, n, k, stride = _inputs(case)
+    steps = bucket(stride)
+    jwords, jemit, jbits = _pallas_encode(case)
+    x2d, lens, tab = _port_inputs(case)
+    ev, flush, bits = tops.encode_events_plain(x2d, lens, tab)
     assert ev.shape == (stride, k) and ev.dtype == torch.int32
-    assert np.array_equal(bits.numpy(), np.asarray(jbits))
+    assert np.array_equal(bits.numpy(), jbits)
     # every active slot: the same emit bit and word; the port's inactive
     # slots are 0 and the Pallas ones (pad steps included) emit nothing
     ev = ev.numpy().T                                  # lane-major [K, stride]
@@ -108,6 +130,81 @@ def test_encode_events_match_pallas(case):
                                      torch.from_numpy(flush))
     assert np.array_equal(words.numpy(), jwords[jemit])
     assert np.array_equal(counts.numpy(), jemit.sum(axis=1))
+
+
+@pytest.mark.parametrize("case", list(KERNEL_CASES))
+def test_encode_stream_match_pallas(case):
+    """Kernel H's wrapper on CPU tensors (its plain version) against the
+    Pallas call: the bit counts, the payload's u16 words (the Pallas call's
+    emitted words, lane after lane, then zeros to the buffer's end) and the
+    word counts."""
+    _, _, k, stride = _inputs(case)
+    jwords, jemit, jbits = _pallas_encode(case)
+    payload, counts, bits = huffman_kernels.encode_stream(*_port_inputs(case))
+    assert payload.dtype == counts.dtype == bits.dtype == torch.int32
+    assert payload.shape == (tops.payload_words(stride, k),)
+    assert np.array_equal(bits.numpy(), jbits)
+    assert np.array_equal(counts.numpy(), jemit.sum(axis=1))
+    w16 = payload.numpy().view(np.uint16)
+    p = int(jemit.sum())
+    assert np.array_equal(w16[:p], jwords[jemit])
+    assert not w16[p:].any()
+    assert np.array_equal(tops.stream_words(payload, counts).numpy(),
+                          jwords[jemit])
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 64, 65536])
+def test_encode_geometry_covers_every_step(k):
+    """Kernel H's launch geometry, as its wrapper computes it, at a stride
+    that is not a multiple of CHUNK: each (chunk, lane) has one thread of
+    one block; a block's chunks lie in its tile of TILE bytes; the tiles
+    cover the stride; the scan blocks cover the lanes. K = 3 is refused
+    (not a power of two)."""
+    c, stride = huffman_kernels.CHUNK, 3 * huffman_kernels.CHUNK + 5
+    if k == 3:
+        with pytest.raises(ValueError, match="power of two"):
+            huffman_kernels.encode_geometry(stride, k)
+        return
+    g = huffman_kernels.encode_geometry(stride, k)
+    kb, steps = g.lanes_a_block, g.steps_a_tile
+    assert kb * steps == huffman_kernels.TILE and steps % c == 0
+    assert k % kb == 0 and (kb == k or kb % 16 == 0)
+    assert (g.chunks - 1) * c < stride <= g.chunks * c
+    assert (g.tiles - 1) * steps < stride <= g.tiles * steps
+    assert (g.scan_blocks - 1) * g.scan_lanes < k <= g.scan_blocks * g.scan_lanes
+    assert g.scan_lanes == 1 or g.scan_lanes * g.chunks <= huffman_kernels.SCAN_ROUND
+    # the thread mapping: thread t of block (r, grp) codes chunk
+    # (r * steps + (t // kb) * c) // c of lane grp * kb + t % kb
+    t = np.arange(huffman_kernels.TILE // c)
+    r, grp = np.meshgrid(np.arange(g.tiles), np.arange(k // kb), indexing="ij")
+    s0 = (r[..., None] * steps + (t // kb) * c).ravel()
+    lane = (grp[..., None] * kb + t % kb).ravel()
+    assert ((t // kb) * c + c <= steps).all()
+    keep = s0 < stride
+    hits = np.zeros((g.chunks, k), np.int64)
+    np.add.at(hits, (s0[keep] // c, lane[keep]), 1)
+    assert (hits == 1).all()
+
+
+def test_payload_bound_holds_for_15_bit_codes():
+    """Every symbol a 15-bit code (the most the format has) and every step
+    active: the word counts fit the wrapper's payload buffer, at strides
+    around multiples of 16 and at K = 1, 4 and 64."""
+    tab = torch.zeros((2, 256), dtype=torch.int32)
+    tab[0] = 15
+    tab[1] = torch.arange(256) * 97 % (1 << 15)
+    rng = np.random.default_rng(16)
+    for k in (1, 4, 64):
+        for stride in (1, 15, 16, 17, 33):
+            x2d = torch.from_numpy(rng.integers(0, 256, (stride, k),
+                                                dtype=np.uint8))
+            lens = torch.full((k,), stride, dtype=torch.int32)
+            payload, counts, bits = huffman_kernels.encode_stream(x2d, lens,
+                                                                  tab)
+            assert (bits == 15 * stride).all()
+            assert 2 * payload.numel() >= int(counts.sum()) \
+                == k * -(-15 * stride // 16)
+            assert payload.numel() == tops.payload_words(stride, k)
 
 
 @pytest.mark.parametrize("case", list(KERNEL_CASES))
@@ -209,12 +306,18 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     lens = torch.full((8,), 4, dtype=torch.int32)
     tab = torch.zeros((2, 256), dtype=torch.int32)
     with pytest.raises(ValueError):
-        huffman_kernels.encode_events(x2d.to(torch.int32), lens, tab)
+        huffman_kernels.encode_stream(x2d.to(torch.int32), lens, tab)
     with pytest.raises(ValueError):
-        huffman_kernels.encode_events(x2d, lens, tab[:, :128].contiguous())
+        huffman_kernels.encode_stream(x2d, lens, tab[:, :128].contiguous())
     with pytest.raises(ValueError):    # not a CPU tensor: no silent plain path
-        huffman_kernels.encode_events(x2d.to("meta"), lens.to("meta"),
+        huffman_kernels.encode_stream(x2d.to("meta"), lens.to("meta"),
                                       tab.to("meta"))
+    with pytest.raises(ValueError, match="power of two"):   # K = 6
+        huffman_kernels.encode_stream(torch.zeros((4, 6), dtype=torch.uint8),
+                                      torch.full((6,), 4, dtype=torch.int32),
+                                      tab)
+    with pytest.raises(ValueError):    # a lane length a lane short
+        huffman_kernels.encode_stream(x2d, lens[:7], tab)
     rows = torch.zeros((3, 8), dtype=torch.int32)
     t16 = torch.zeros(16, dtype=torch.int32)
     perm = torch.zeros(256, dtype=torch.int32)
