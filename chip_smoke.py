@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's ported paths once on one GPU: CT-RCX,
-CT-RCQ, CT-ANS1 v2 rANS (the default codec) and CT-HUF1 canonical Huffman.
+CT-RCQ, CT-ANS1 v2 rANS (the default codec), CT-HUF1 canonical Huffman,
+and the Config-4 BWT pipeline (CT-PIPE: blocksort, mtf1, rle0,
+adaptive_range) with its stages and CT-RC1.
 
     python3 chip_smoke.py
 
@@ -28,23 +30,37 @@ Phases, one line each (a failed phase exits non-zero):
               passes and its host round trip apart, H as its launches'
               device time and through its wrapper; I also on random word
               rows; rcx and rcq round trips at 32,768 lanes against the
-              oracle;
-  4. main     per codec (rcx, rcq, rans, huffman), with the launch counts
-              set to 0 just before and read just after:
+              oracle; J and L (CT-RC1/CT-RC2 encode, decode) at one lane to
+              8 lanes a thread, three slots a step (limit_log2 > 16), a
+              one-byte run, n not a multiple of K and the static table,
+              then timed at kennedy.xls's adaptive_range shape, the
+              pipeline's coder stage there, grammar.lsp, static_range at
+              kennedy.xls and the 11 files concatenated (K = 1,024, three
+              slots); M and N (MTF, MTF-1 encode, decode) at one byte to
+              several blocks, a block cut inside a chunk, a one-byte run
+              and random bytes, then timed at the pipeline's mtf1 stage at
+              kennedy.xls, mtf alone there and grammar.lsp;
+  4. main     per codec (rcx, rcq, rans, huffman, static_range,
+              adaptive_range, blocksort, mtf, mtf1, rle0, pipeline), with
+              the launch counts set to 0 just before and read just after:
               compress/decompress(codec, device="cuda") over the 11
               Canterbury files, byte-identical to the numpy oracle, the
               known container sizes, a round trip; for rcx also the ratio
               preset on three files, for rans also the default codec and a
-              lane with a wide word count. Every kernel of the path must
-              have launched. Each call of a kernel's wrapper is recorded
-              and timed again afterwards: `main_ms` is their sum.
+              lane with a wide word count, for static_range and
+              adaptive_range also the 11 files concatenated (2,810,784
+              bytes: K = 1,024, limit_log2 17). Every kernel of the path
+              must have launched. Each call of a kernel's wrapper is
+              recorded and timed again afterwards: `main_ms` is their sum.
 Then a {"kernels": [...]} JSON line (per kernel: launches on the main
 paths and main_ms, the largest difference from its plain version, its time and the
 plain version's at kennedy.xls's shape, and the bound: the larger of the
 bytes it moves over the memory rate and its operations over the peak
 rate; `ms_at`, its times at each shape timed, for B `passes_ms` and for
-H `wrapper_ms`),
-the nvidia-smi line, and last {"ok": true, "device": {...}}.
+H `wrapper_ms`; `launches_by_path`, its launches on each codec's path;
+`tpu_kernel`, the Pallas kernel it replaces, null for J, L, M and N, which
+replace the JAX package's lax.scan loops), the nvidia-smi line, and last
+{"ok": true, "device": {...}}. Each phase prints its seconds.
 """
 
 from __future__ import annotations
@@ -59,7 +75,9 @@ import numpy as np
 import torch
 
 import cpprcoder_tpu_torch as ctt
+from cpprcoder_tpu_torch.config import adaptive_params_for, pick_lanes
 from cpprcoder_tpu_torch.models.cxmodel import rcq_params, rcx_params
+from cpprcoder_tpu_torch.models.static_table import normalize_freqs
 from cpprcoder_tpu_torch.native import build
 from cpprcoder_tpu_torch.ops import (
     compaction,
@@ -67,6 +85,10 @@ from cpprcoder_tpu_torch.ops import (
     huffman_kernels,
     huffman_ops,
     layout,
+    mtf_kernels,
+    mtf_ops,
+    range_kernels,
+    range_ops,
     rans_kernels,
     rans_ops,
     rcq_kernels,
@@ -104,7 +126,49 @@ EXPECTED_SIZES = {
         "lcet10.txt": 251325, "plrabn12.txt": 276369, "ptt5": 107311,
         "sum": 25859, "xargs.1": 2745,
     },
+    "static_range": {
+        "alice29.txt": 87213, "asyoulik.txt": 75516, "cp.html": 16314,
+        "fields.c": 7205, "grammar.lsp": 2362, "kennedy.xls": 460981,
+        "lcet10.txt": 249621, "plrabn12.txt": 273530, "ptt5": 78467,
+        "sum": 25810, "xargs.1": 2793,
+    },
+    "adaptive_range": {
+        "alice29.txt": 87115, "asyoulik.txt": 75413, "cp.html": 16188,
+        "fields.c": 6986, "grammar.lsp": 2221, "kennedy.xls": 428581,
+        "lcet10.txt": 248323, "plrabn12.txt": 274027, "ptt5": 71426,
+        "sum": 22818, "xargs.1": 2658,
+    },
+    "blocksort": {
+        "alice29.txt": 152122, "asyoulik.txt": 125208, "cp.html": 24616,
+        "fields.c": 11171, "grammar.lsp": 3738, "kennedy.xls": 1029889,
+        "lcet10.txt": 426819, "plrabn12.txt": 481938, "ptt5": 513293,
+        "sum": 38261, "xargs.1": 4236,
+    },
+    "mtf": {
+        "alice29.txt": 152094, "asyoulik.txt": 125184, "cp.html": 24608,
+        "fields.c": 11155, "grammar.lsp": 3726, "kennedy.xls": 1029749,
+        "lcet10.txt": 426759, "plrabn12.txt": 481866, "ptt5": 513221,
+        "sum": 38245, "xargs.1": 4232,
+    },
+    "rle0": {
+        "alice29.txt": 152093, "asyoulik.txt": 125183, "cp.html": 24607,
+        "fields.c": 11154, "grammar.lsp": 3725, "kennedy.xls": 948314,
+        "lcet10.txt": 426758, "plrabn12.txt": 481865, "ptt5": 125733,
+        "sum": 32380, "xargs.1": 4231,
+    },
+    # the default stages: blocksort (2^19-byte blocks), mtf1, rle0,
+    # adaptive_range
+    "pipeline": {
+        "alice29.txt": 45925, "asyoulik.txt": 44969, "cp.html": 8613,
+        "fields.c": 3597, "grammar.lsp": 1422, "kennedy.xls": 136984,
+        "lcet10.txt": 119107, "plrabn12.txt": 159953, "ptt5": 48569,
+        "sum": 14046, "xargs.1": 1803,
+    },
 }
+EXPECTED_SIZES["mtf1"] = EXPECTED_SIZES["mtf"]   # one container size
+# the 11 files concatenated in name order (2,810,784 bytes: K = 1,024,
+# limit_log2 17, three slots a step), in the oracles' bytes
+CONCAT_BYTES = {"static_range": 1658645, "adaptive_range": 1257925}
 RATIO_FILES = ["alice29.txt", "kennedy.xls", "ptt5"]
 # the widest lane count (K * inc <= 49,152): alice29.txt[:40000] at K =
 # 32,768, whose containers the oracles write in these bytes
@@ -124,13 +188,23 @@ COUNTERS = {
     "rans_decode": (rans_kernels, "decode_launches", "decode_symbols"),
     "huffman_encode": (huffman_kernels, "encode_launches", "encode_stream"),
     "huffman_decode": (huffman_kernels, "decode_launches", "decode_symbols"),
+    "rc_exact_encode": (range_kernels, "encode_launches", "encode_events"),
+    "rc_exact_decode": (range_kernels, "decode_launches", "decode_symbols"),
+    "mtf_encode": (mtf_kernels, "encode_launches", "encode_ranks"),
+    "mtf_decode": (mtf_kernels, "decode_launches", "decode_bytes"),
 }
-# the kernels each codec's main path runs
+# the kernels each codec's main path runs (blocksort and rle0 are tensor
+# code: no kernel of their own)
+RC_EXACT = ["rc_exact_encode", "expand", "rc_exact_decode"]
+MTF = ["mtf_encode", "mtf_decode"]
 PATH_KERNELS = {
     "rcx": ["rcx_encode", "expand", "rcx_decode"],
     "rcq": ["rcq_encode", "expand", "rcq_decode"],
     "rans": ["rans_encode", "rans_decode"],
     "huffman": ["huffman_encode", "huffman_decode"],
+    "static_range": RC_EXACT, "adaptive_range": RC_EXACT,
+    "blocksort": [], "mtf": MTF, "mtf1": MTF, "rle0": [],
+    "pipeline": MTF + RC_EXACT,
 }
 
 # The bound of a kernel (bound_ms): the larger of the bytes it must move
@@ -146,9 +220,13 @@ HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
 OPS_PER_SYMBOL = {"rcx_encode": 24, "rcx_decode": 40, "rcq_encode": 24,
                   "rcq_decode": 40, "rans_encode": 10, "rans_decode": 11,
-                  "huffman_encode": 12, "huffman_decode": 40}
+                  "huffman_encode": 12, "huffman_decode": 40,
+                  "rc_exact_encode": 24, "rc_exact_decode": 40}
 OPS_PER_CELL = 12      # a model cell's requant
+OPS_PER_TABLE_CELL = 5  # CT-RC2's table before a step: sum, halve, scan
 OPS_PER_EVENT = 5      # kernel B: an event's fields and its lane cumsum
+# M and N: a byte at rank r compares r + 1 entries and moves r of them,
+# plus the rank's own bookkeeping: 2r + 4 (counted from this run's ranks)
 
 
 def nbytes(*ts) -> int:
@@ -888,6 +966,175 @@ def phase_kernels_huffman(dev):
     return err, ms, work, ms_at, wrapper
 
 
+def zipf(n: int, seed: int) -> bytes:
+    """Zipf-distributed bytes (seeded): rare symbols keep a count of 1
+    while CT-RC2's total nears 2^17, so some lanes take a third slot."""
+    rng = np.random.default_rng(seed)
+    return np.minimum(rng.zipf(1.3, n) - 1, 255).astype(np.uint8).tobytes()
+
+
+def concat_corpus() -> bytes:
+    """The 11 Canterbury files concatenated in name order."""
+    return b"".join(corpus(nm) for nm in sorted(EXPECTED_SIZES["rcx"]))
+
+
+def pipeline_stages(data: bytes, dev):
+    """The bytes the default pipeline's mtf1 stage and its coder stage
+    (adaptive_range) take for `data`, made on the card."""
+    bwt = ctt.compress(data, codec="blocksort", device=dev, block_log2=19)
+    return bwt, ctt.compress(ctt.compress(bwt, codec="mtf1", device=dev),
+                             codec="rle0", device=dev)
+
+
+def exact_args(n: int, k: int | None = None, static: bool = False):
+    """(K, static, inc, limit_log2) at the codecs' defaults for n bytes."""
+    k = k or pick_lanes(n)
+    return (k, static, 0, 16) if static else (k, False,
+                                              *adaptive_params_for(k))
+
+
+def phase_kernels_exact(dev):
+    """J and L against their plain step loops (range_ops)."""
+    err = {"rc_exact_encode": 0, "rc_exact_decode": 0}
+
+    def case(data, k, static, inc, limit_log2, what):
+        """Hold J and L against their plain versions on `data`; -> (shape,
+        {kernel: (kernel call, plain call)}, {kernel: (bytes, ops)})."""
+        n, stride, x2d, lens = interleaved_inputs(data, k, dev)
+        freqs = torch.from_numpy(normalize_freqs(np.bincount(
+            np.frombuffer(data, np.uint8), minlength=256), 16).astype(
+                np.int32)).to(dev) if static else None
+        args = (freqs, inc, limit_log2)
+        enc = (lambda: range_kernels.encode_events(x2d, lens, *args),
+               lambda: range_ops.encode_events_plain(x2d, lens, *args))
+        ev = hold(err, "rc_exact_encode", enc[0](), enc[1](),
+                  f"kernel J at {what}")
+        words = layout.decode_words(*expand.materialize_rows(ev))
+        dec = (lambda: range_kernels.decode_symbols(words, lens, n, stride,
+                                                    *args),
+               lambda: range_ops.decode_symbols_plain(words, lens, n, stride,
+                                                      *args))
+        sym = hold(err, "rc_exact_decode", dec[0](), dec[1](),
+                   f"kernel L at {what}")
+        if sym.cpu().numpy().tobytes() != data:
+            fail(f"kernel L did not invert kernel J at {what}")
+        table = (0 if static else stride) * 256 * OPS_PER_TABLE_CELL
+        extra = 0 if static else 1024      # the static table in
+        work = {"rc_exact_encode": (nbytes(x2d, lens, ev) + extra,
+                                    coder_ops("rc_exact_encode", n) + table),
+                "rc_exact_decode": (nbytes(words, lens) + n + extra,
+                                    coder_ops("rc_exact_decode", n) + table)}
+        slots = (ev.shape[0] - 2) // stride
+        return (f"K={k}, stride={stride}, {slots} slots"
+                + (", static" if static else f", limit_log2 {limit_log2}"),
+                {"rc_exact_encode": enc, "rc_exact_decode": dec}, work)
+
+    # CT-RC2 at one lane, 8 lanes (limit_log2 18: three slots), 256 lanes
+    # with n not a multiple of K, 1,024 lanes (limit_log2 17, three slots,
+    # Zipf bytes taking the third), 8,192 lanes (8 a thread), a one-byte
+    # run (every lane's update on one count); CT-RC1 at one lane, 2,048
+    # lanes (2 a thread) and a one-byte run
+    cases = [(textish(3000, 400), 1, False, 24, 16),
+             (textish(8 * 400 + 3, 401), 8, False, 24, 18),
+             (textish(256 * 50 + 7, 402), 256, False, 24, 16),
+             (zipf(1024 * 40 + 9, 403), 1024, False, 24, 17),
+             (textish(8192 * 20 + 5, 404), *exact_args(0, 8192)),
+             (b"\x61" * (64 * 90 + 1), 64, False, 24, 16),
+             (textish(2500, 405), 1, True, 0, 16),
+             (zipf(2048 * 30 + 3, 406), 2048, True, 0, 16),
+             (b"\x61" * (64 * 90 + 1), 64, True, 0, 16)]
+    for data, *args in cases:
+        case(data, *args, f"K={args[0]} n={len(data)} static={args[1]} "
+                          f"inc={args[2]} limit_log2={args[3]}")
+
+    # held and timed at kennedy.xls's adaptive_range shape (K = 256, 4,023
+    # steps), kernel vs plain; held there and at grammar.lsp's (K = 2, 1,861
+    # steps), the kernels alone timed; then, kernels alone, the
+    # pipeline's coder stage at kennedy.xls, static_range at kennedy.xls
+    # and the 11 files concatenated (K = 1,024, three slots)
+    ms, work, ms_at = time_at(
+        ("kennedy.xls", "grammar.lsp"), case, exact_args, 1,
+        f"{len(cases) + 2} CT-RC1/CT-RC2 cases (J, L) equal their plain "
+        f"versions")
+    rc_in = pipeline_stages(corpus("kennedy.xls"), dev)[1]
+    for what, data, args in (
+            ("kennedy.xls pipeline coder stage", rc_in, exact_args(len(rc_in))),
+            ("kennedy.xls static_range", corpus("kennedy.xls"),
+             exact_args(1_029_744, static=True)),
+            ("11 files concatenated", concat_corpus(),
+             exact_args(2_810_784))):
+        shape, fns, _ = case(data, *args, what)
+        for nm, (kern, _) in fns.items():
+            ms_at[nm][f"{what} ({shape})"] = cuda_ms(kern, 3)
+    print("[kernels] J / L ms at " + ", ".join(
+        f"{at}: {ms_at['rc_exact_encode'][at]:.3f} / "
+        f"{ms_at['rc_exact_decode'][at]:.3f}"
+        for at in ms_at["rc_exact_encode"]), flush=True)
+    return err, ms, work, ms_at
+
+
+def phase_kernels_mtf(dev):
+    """M and N against their plain step loop (mtf_ops.transform_plain)."""
+    err = {"mtf_encode": 0, "mtf_decode": 0}
+
+    def case(data, mtf1, what):
+        n = len(data)
+        blocks = mtf_ops.pad_blocks(to_dev(data, dev))
+        enc = (lambda: mtf_kernels.encode_ranks(blocks, n, mtf1),
+               lambda: mtf_ops.transform_plain(blocks, n, mtf1, False))
+        ranks = hold(err, "mtf_encode", enc[0](), enc[1](),
+                     f"kernel M at {what}")
+        rblocks = mtf_ops.pad_blocks(ranks)
+        dec = (lambda: mtf_kernels.decode_bytes(rblocks, n, mtf1),
+               lambda: mtf_ops.transform_plain(rblocks, n, mtf1, True))
+        out = hold(err, "mtf_decode", dec[0](), dec[1](),
+                   f"kernel N at {what}")
+        if out.cpu().numpy().tobytes() != data:
+            fail(f"kernel N did not invert kernel M at {what}")
+        ops = int((2 * ranks.to(torch.int64) + 4).sum())
+        work = {"mtf_encode": (2 * n, ops), "mtf_decode": (2 * n, ops)}
+        return (f"n={n}, {blocks.shape[0]} blocks, "
+                f"{'MTF-1' if mtf1 else 'MTF'}",
+                {"mtf_encode": enc, "mtf_decode": dec}, work)
+
+    # one byte, a block cut inside its first 128-byte chunk, one whole
+    # block, a block and a bit, three blocks and a bit; a one-byte run and
+    # random bytes (ranks up to 255: the longest moves); both variants
+    cases = [(textish(n, 500 + n % 97), m)
+             for n in (1, 100, 32768, 32768 + 129, 3 * 32768 + 5)
+             for m in (False, True)]
+    cases += [(b"\x07" * 40_000, True), (b"\x07" * 40_000, False),
+              (np.random.default_rng(501).integers(
+                  0, 256, 50_000, np.uint8).tobytes(), True)]
+    for data, mtf1 in cases:
+        case(data, mtf1, f"n={len(data)} mtf1={mtf1}")
+
+    # held and timed at the pipeline's mtf1 stage at kennedy.xls (32
+    # blocks), kernel vs plain; kernels alone at mtf alone there and at
+    # grammar.lsp's pipeline stage (one block)
+    ms, work, ms_at = {}, {}, {"mtf_encode": {}, "mtf_decode": {}}
+    for i, (what, data, mtf1) in enumerate((
+            ("kennedy.xls pipeline mtf1 stage",
+             pipeline_stages(corpus("kennedy.xls"), dev)[0], True),
+            ("kennedy.xls mtf", corpus("kennedy.xls"), False),
+            ("grammar.lsp pipeline mtf1 stage",
+             pipeline_stages(corpus("grammar.lsp"), dev)[0], True))):
+        shape, fns, w = case(data, mtf1, what)
+        for nm, (kern, plain) in fns.items():
+            ms_at[nm][f"{what} ({shape})"] = t = cuda_ms(kern, 5)
+            if i == 0:
+                ms[nm] = (t, cuda_ms(plain, 1, 0))
+        work = work or w
+    print(f"[kernels] ok {len(cases) + 3} MTF cases (M, N) equal their plain "
+          f"versions; ms kernel/plain at the kennedy.xls mtf1 stage: "
+          + ", ".join(f"{nm} {a:.3f}/{b:.3f}" for nm, (a, b) in ms.items())
+          + "; M / N ms at " + ", ".join(
+              f"{at}: {ms_at['mtf_encode'][at]:.3f} / "
+              f"{ms_at['mtf_decode'][at]:.3f}" for at in ms_at["mtf_encode"]),
+          flush=True)
+    return err, ms, work, ms_at
+
+
 def run_corpus(codec: str):
     """The 11 files through compress/decompress(codec, device="cuda"):
     oracle-identical, the expected sizes, round trips. -> total bytes."""
@@ -965,8 +1212,32 @@ def rans_default_and_wide():
     return "default codec is rans; wide count table oracle-identical"
 
 
+def concatenated(codec: str):
+    """The 11 files concatenated (2,810,784 bytes: K = 1,024, limit_log2
+    17, three slots a step for CT-RC2) against the oracle, and back."""
+    data = concat_corpus()
+    t0 = time.perf_counter()
+    blob = ctt.compress(data, codec=codec, device="cuda")
+    t1 = time.perf_counter()
+    back = ctt.decompress(blob, codec=codec, device="cuda")
+    t2 = time.perf_counter()
+    if blob != ctt.compress(data, codec=codec, backend="ref"):
+        fail(f"{codec} over the concatenated corpus: container differs "
+             f"from the numpy oracle")
+    if len(blob) != CONCAT_BYTES[codec] or back != data:
+        fail(f"{codec} over the concatenated corpus: {len(blob)} bytes (not "
+             f"{CONCAT_BYTES[codec]}) or no round trip")
+    print(f"[main] {codec} 11 files concatenated n={len(data)} "
+          f"bytes={len(blob)} enc_s={t1 - t0:.4f} dec_s={t2 - t1:.4f}",
+          flush=True)
+    return f"the concatenated corpus in {len(blob)} bytes"
+
+
 EXTRAS = {"rcx": rcx_ratio_preset, "rcq": None, "rans": rans_default_and_wide,
-          "huffman": None}
+          "huffman": None, "static_range": lambda: concatenated("static_range"),
+          "adaptive_range": lambda: concatenated("adaptive_range"),
+          "blocksort": None, "mtf": None, "mtf1": None, "rle0": None,
+          "pipeline": None}
 
 
 def phase_main(codec: str):
@@ -1030,6 +1301,18 @@ KERNELS = [
     ("huffman_decode", "cpprcoder_tpu_torch/csrc/huffman_decode.cu",
      "cpprcoder_tpu/ops/huffman_pallas.py:220"),
 ]
+# kernels for the JAX package's lax.scan loops (no Pallas kernel): the
+# scan each replaces
+SCAN_KERNELS = [
+    ("rc_exact_encode", "cpprcoder_tpu_torch/csrc/rc_exact.cu",
+     "cpprcoder_tpu/ops/range_ops.py:94"),
+    ("rc_exact_decode", "cpprcoder_tpu_torch/csrc/rc_exact.cu",
+     "cpprcoder_tpu/ops/range_ops.py:314"),
+    ("mtf_encode", "cpprcoder_tpu_torch/csrc/mtf.cu",
+     "cpprcoder_tpu/ops/mtf_ops.py:45"),
+    ("mtf_decode", "cpprcoder_tpu_torch/csrc/mtf.cu",
+     "cpprcoder_tpu/ops/mtf_ops.py:64"),
+]
 
 
 def bound(moved: int, ops: int):
@@ -1041,38 +1324,56 @@ def bound(moved: int, ops: int):
                                                           "operations")
 
 
+def timed(label: str, fn, *args):
+    """fn(*args), then a line with the phase's seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"[time] {label} {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main():
-    name, smi_line = phase_env()
+    t_start = time.perf_counter()
+    name, smi_line = timed("env", phase_env)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    phase_build()
-    err, ms, work, ms_at, b_passes = phase_kernels(dev)
-    rcq, rans, (*huffman, h_wrapper) = (phase_kernels_rcq(dev),
-                                        phase_kernels_rans(dev),
-                                        phase_kernels_huffman(dev))
-    for e, m, w, a in (rcq, rans, huffman):
+    timed("build", phase_build)
+    err, ms, work, ms_at, b_passes = timed("kernels A, B, C", phase_kernels,
+                                           dev)
+    rcq, rans, (*huffman, h_wrapper), exact, mtf = (
+        timed("kernels D, E", phase_kernels_rcq, dev),
+        timed("kernels F, G", phase_kernels_rans, dev),
+        timed("kernels H, I", phase_kernels_huffman, dev),
+        timed("kernels J, L", phase_kernels_exact, dev),
+        timed("kernels M, N", phase_kernels_mtf, dev))
+    for e, m, w, a in (rcq, rans, huffman, exact, mtf):
         err.update(e)
         ms.update(m)
         work.update(w)
         ms_at.update(a)
     # a kernel on several paths (B) reports the sum of its paths' counts
-    # and times
+    # and times, and each path's count apart
     launches = dict.fromkeys(COUNTERS, 0)
     main_ms = dict.fromkeys(COUNTERS, 0.0)
+    by_path = {nm: {} for nm in COUNTERS}
     for codec in PATH_KERNELS:
-        counts, times = phase_main(codec)
+        counts, times = timed(f"main {codec}", phase_main, codec)
         for nm, c in counts.items():
             launches[nm] += c
             main_ms[nm] += times[nm]
+            by_path[nm][codec] = c
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "cpprcoder_tpu"))
     if loaded:
         fail(f"modules of jax or of the JAX package were imported: {loaded}")
     rows = []
-    for nm, src, rep in KERNELS:
+    for nm, src, rep in KERNELS + SCAN_KERNELS:
         bound_ms, bound_by = bound(*work[nm])
         rows.append({"name": nm, "route": "cuda", "source": src,
-                     "replaces": rep, "launches": launches[nm],
+                     "replaces": rep,
+                     "tpu_kernel": rep if (nm, src, rep) in KERNELS else None,
+                     "launches": launches[nm],
+                     "launches_by_path": by_path[nm],
                      "main_ms": main_ms[nm],
                      "max_abs_err": err[nm], "ms": ms[nm][0],
                      "plain_ms": ms[nm][1], "bound_ms": bound_ms,
@@ -1083,6 +1384,7 @@ def main():
             rows[-1]["passes_ms"] = b_passes
         if nm == "huffman_encode":  # H through its wrapper
             rows[-1]["wrapper_ms"] = h_wrapper
+    print(f"[time] all {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

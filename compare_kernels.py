@@ -20,10 +20,6 @@ them back to back) and timed with CUDA events; kernels B and H also
 through their wrappers, whose host work stays in their time (50 calls a
 turn, each timed apart, the median counts). Every output must equal
 this tree's: a library that differs, or refuses a shape, is reported so.
-A base tree whose kernel H is the one that wrote an event grid
-(`ct_huffman_encode`) runs through one fork, PARENT_H: that kernel alone,
-and through its wrapper with the compaction `lane_stream` after it, its
-words compared as this tree's payload.
 
 --sass compares the SASS of kernel D (the one-row instantiations of
 rc_encode_kernel) in the base library with this tree's (cuobjdump; the
@@ -232,11 +228,6 @@ ENTRY = {"A": "ct_rcx_encode", "B": "ct_expand_count", "C": "ct_rcx_decode",
          "G": "ct_rans_decode", "H": "ct_huffman_encode_stream", "I": "ct_huffman_decode"}
 VARIANT_SOURCE = {"a": "rcx_encode.cu", "b": "expand.cu", "g": "rans_decode.cu",
                   "h": "huffman_encode.cu", "i": "huffman_decode.cu"}
-# kernel H as a base tree may have it, which this tree no longer has: x,
-# lane_len, table, events [stride, K], flush [K], bits [K], K, stride,
-# stream. The fork goes once no base has it.
-PARENT_H = "ct_huffman_encode"
-PARENT_H_SIGNATURE = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 
 
 def build_lib(name: str, csrc: Path, edits=(), only: str | None = None
@@ -268,7 +259,7 @@ def load(path: Path) -> ctypes.CDLL:
     typed; lib.h_geometry: kernel H's CHUNK and TILE as its sources have
     them (encode_geometry's arguments), where it has that kernel."""
     lib = ctypes.CDLL(str(path))
-    for name, args in {**build.SIGNATURES, PARENT_H: PARENT_H_SIGNATURE}.items():
+    for name, args in build.SIGNATURES.items():
         fn = getattr(lib, name, None)
         if fn is not None:
             fn.argtypes = args
@@ -283,7 +274,7 @@ def load(path: Path) -> ctypes.CDLL:
 
 
 def has_kernel(lib, kern: str) -> bool:
-    return hasattr(lib, ENTRY[kern]) or (kern == "H" and hasattr(lib, PARENT_H))
+    return hasattr(lib, ENTRY[kern])
 
 
 def corpus(name: str) -> bytes:
@@ -417,7 +408,9 @@ def cases(dev):
 
         out += [("F", f, f_enc), ("G", f, g_dec),
                 ("H", f"{f} through the wrapper", partial(h_wrapper, a=(x2d, lens, tab))),
-                ("H", f"{f} passes", partial(h_passes, a=(x2d, lens, tab))),
+                # its three launches alone: the queued timing does not see
+                # the wrapper's allocations
+                ("H", f"{f} passes", partial(h_wrapper, a=(x2d, lens, tab))),
                 ("I", f, i_dec)]
     return out
 
@@ -449,53 +442,12 @@ def b_passes(lib, ev):
     return go, (rows, sizes)
 
 
-def parent_h_launch(lib, a, ev, fl, bits):
-    """PARENT_H's one launch: the event grid ev [stride, K], flush and bits."""
-    x2d, lens, tab = a
-    stride, k = x2d.shape
-    return lib.ct_huffman_encode(x2d.data_ptr(), lens.data_ptr(), tab.data_ptr(),
-                                 ev.data_ptr(), fl.data_ptr(), bits.data_ptr(), k,
-                                 stride, torch.cuda.current_stream(x2d.device).cuda_stream)
-
-
-def parent_h_output(a, words, counts, bits):
-    """PARENT_H's compacted words as this tree's (payload, counts, bits)."""
-    stride, k = a[0].shape
-    return (huffman_ops.pack_words(words, huffman_ops.payload_words(stride, k)),
-            counts.to(torch.int32), bits)
-
-
-def h_passes(lib, a):
-    """Kernel H alone: PARENT_H's one launch into buffers made once (its
-    output compacted for the comparison, untimed), or this tree's three
-    launches through encode_launch (its allocations are host work, which
-    the queued timing does not see)."""
-    x2d, lens, tab = a
-    stride, k = x2d.shape
-    if not hasattr(lib, PARENT_H):
-        return h_wrapper(lib, a)
-    ev = torch.empty((stride, k), dtype=torch.int32, device=x2d.device)
-    fl, bits = torch.empty((2, k), dtype=torch.int32, device=x2d.device)
-    return (lambda: parent_h_launch(lib, a, ev, fl, bits),
-            lambda: parent_h_output(a, *huffman_ops.lane_stream(ev, fl), bits))
-
-
 def h_wrapper(lib, a):
-    """Kernel H through its wrapper: this tree's (huffman_kernels.
-    encode_launch, the buffers made in each call), or PARENT_H's launch
-    with its buffers and the compaction lane_stream, which waits on the
-    card to size its output."""
+    """Kernel H through its wrapper (huffman_kernels.encode_launch, the
+    buffers made in each call)."""
     x2d, lens, tab = a
     stride, k = x2d.shape
     out = []
-    if hasattr(lib, PARENT_H):
-        def go():
-            ev = torch.empty((stride, k), dtype=torch.int32, device=x2d.device)
-            fl, bits = torch.empty((2, k), dtype=torch.int32, device=x2d.device)
-            rc = parent_h_launch(lib, a, ev, fl, bits)
-            out[:] = (*huffman_ops.lane_stream(ev, fl), bits)
-            return rc
-        return go, lambda: parent_h_output(a, *out)
     geo = huffman_kernels.encode_geometry(stride, k, **lib.h_geometry)
 
     def go():

@@ -14,11 +14,14 @@ Public API:
     get_codec_by_id(codec_id) -> Codec
     list_codecs() -> list[str]
 
-Codecs ported: huffman (CT-HUF1), rans (CT-ANS1 v2, the default, as in the
-JAX package), rcq (CT-RCQ) and rcx (CT-RCX).
+Codecs ported: static_range (CT-RC1), adaptive_range (CT-RC2),
+rans (CT-ANS1 v2, the default, as in the JAX package), huffman (CT-HUF1),
+blocksort (CT-BWT1), mtf (CT-MTF1), mtf1 (CT-MTF1), pipeline (CT-PIPE),
+rle0 (CT-RLE0), rcq (CT-RCQ) and rcx (CT-RCX).
 
 The device is explicit: the default is the card, and `device="cpu"` runs
-the plain PyTorch versions of the kernels. Below the codecs, the container
+the plain PyTorch versions of the kernels (and the tensor code of the
+transforms on the CPU). Below the codecs, the container
 functions of `ops/` take `device` with no default. The kernels are
 compiled with nvcc at first use on the card (native/build.py).
 """

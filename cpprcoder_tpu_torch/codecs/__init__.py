@@ -1,11 +1,13 @@
 """Codec registry and top-level compress/decompress of the port
 (counterpart of cpprcoder_tpu/codecs/__init__.py; same names and ids).
 
-Ported so far: `rans` (id 2, CT-ANS1 v2, the default codec, as in the JAX
-package), `huffman` (id 3, CT-HUF1), `rcq` (id 14, CT-RCQ) and `rcx`
-(id 15, CT-RCX). Asking for
-another codec of the JAX package raises KeyError naming the ROADMAP item
-that ports it.
+Ported so far: `static_range` (id 0, CT-RC1), `adaptive_range` (1,
+CT-RC2), `rans` (2, CT-ANS1 v2, the default codec, as in the JAX package),
+`huffman` (3, CT-HUF1), `blocksort` (4, CT-BWT1), `mtf` (5) and `mtf1` (8)
+(CT-MTF1), `pipeline` (9, CT-PIPE), `rle0` (12, CT-RLE0), `rcq` (14,
+CT-RCQ) and `rcx` (15, CT-RCX). Asking for another codec of the JAX
+package, by name or by id (a pipeline stage), raises KeyError naming the
+ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -17,12 +19,12 @@ _BY_ID: dict[int, "Codec"] = {}
 
 # codecs of the JAX package still to port -> ROADMAP.md queue A item
 NOT_YET_PORTED = {
-    "static_range": "A6", "adaptive_range": "A6",
-    "stream": "A7", "blocksort": "A10",
-    "mtf": "A10", "mtf1": "A10", "rle0": "A10", "pipeline": "A10",
-    "slz4": "A11", "adaptive_o1": "A12", "adaptive_rans": "A12",
-    "ase": "A12",
+    "stream": "A7", "slz4": "A11", "adaptive_o1": "A12",
+    "adaptive_rans": "A12", "ase": "A12",
 }
+# their codec ids in the JAX package
+NOT_YET_PORTED_IDS = {10: "stream", 6: "slz4", 11: "adaptive_o1",
+                      13: "adaptive_rans", 7: "ase"}
 
 
 class Codec:
@@ -61,7 +63,11 @@ def get_codec(name: str) -> Codec:
 
 def get_codec_by_id(codec_id: int) -> Codec:
     _ensure_loaded()
-    return _BY_ID[codec_id]
+    if codec_id in _BY_ID:
+        return _BY_ID[codec_id]
+    if codec_id in NOT_YET_PORTED_IDS:
+        return get_codec(NOT_YET_PORTED_IDS[codec_id])   # raises KeyError
+    raise KeyError(f"unknown codec id {codec_id}")
 
 
 def list_codecs() -> list[str]:
@@ -78,4 +84,15 @@ def decompress(blob, codec: str = "rans", **opts) -> bytes:
 
 
 def _ensure_loaded():
-    from cpprcoder_tpu_torch.codecs import huffman, rans, rcq, rcx  # noqa: F401
+    from cpprcoder_tpu_torch.codecs import (  # noqa: F401
+        adaptive_range,
+        blocksort,
+        huffman,
+        mtf,
+        pipeline,
+        rans,
+        rcq,
+        rcx,
+        rle0,
+        static_range,
+    )

@@ -32,6 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint32      # climit: a u32 up to 2^32 - 1
+_L = ctypes.c_longlong    # a byte count past 2^31
 SIGNATURES = {
     # x, lane_len, events, model scratch, streams, K, stride, inc,
     # climit, cbits, wlog, stream
@@ -63,6 +64,15 @@ SIGNATURES = {
                                  _I, _I, _I, _I, _I, _P],
     # rows, lane_len, limits, bases, perm, out, K, l2, stride, stream
     "ct_huffman_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # x, lane_len, static freqs (or null: CT-RC2), events, K, stride, inc,
+    # limit_log2, slots, stream
+    "ct_rc_exact_encode": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # words, lane_len, static freqs (or null), out, K, l4, stride, inc,
+    # limit_log2, slots, stream
+    "ct_rc_exact_decode": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # in, out, n, blocks, mtf1, stream
+    "ct_mtf_encode": [_P, _P, _L, _I, _I, _P],
+    "ct_mtf_decode": [_P, _P, _L, _I, _I, _P],
 }
 
 

@@ -1,6 +1,7 @@
-"""The scalar range-coder lane and the lane-descriptor and size-table helpers
-shared by the port's CT-RCX and CT-RCQ oracles (its own copy of the parts of
-cpprcoder_tpu/reference/rc_ref.py it uses).
+"""Oracle (host, exact) CT-RC1 / CT-RC2, and the scalar range-coder lane and
+the lane-descriptor and size-table helpers that the port's CT-RCX and
+CT-RCQ oracles share (its own copy of cpprcoder_tpu/reference/rc_ref.py;
+the CT-RC1/CT-RC2 functions are its lines 118-244, as they are there).
 
 LZMA-style carry-delayed range coder: 32-bit low/range, renormalization at
 2^24, carry through a cache byte plus a 0xFF run; flush rounds low up to a
@@ -11,8 +12,22 @@ from __future__ import annotations
 
 import numpy as np
 
-from cpprcoder_tpu_torch.config import MASK32, RC_TOP
-from cpprcoder_tpu_torch.core.bytesutil import ByteWriter, CorruptContainerError
+from cpprcoder_tpu_torch.config import (
+    MASK32,
+    RC_TOP,
+    STATIC_TOTAL,
+    STATIC_TOTAL_BITS,
+    adaptive_params_for,
+    pick_lanes,
+)
+from cpprcoder_tpu_torch.core.bytesutil import (
+    ByteReader,
+    ByteWriter,
+    CorruptContainerError,
+    as_u8,
+)
+from cpprcoder_tpu_torch.models.freq_header import pack_freqs, read_freqs
+from cpprcoder_tpu_torch.models.static_table import exclusive_cumsum, normalize_freqs
 
 
 class LaneEncoder:
@@ -70,6 +85,9 @@ class LaneDecoder:
         self.pos += 1
         return b
 
+    def decode_target(self, total: int, t: int) -> int:
+        return min(self.code // t, total - 1)
+
     def consume(self, cum: int, freq: int, total: int, t: int):
         self.code -= t * cum
         if cum + freq == total:
@@ -97,3 +115,134 @@ def _write_sizes(w: ByteWriter, sizes: list[int], wide: bool):
         w.u32s(sizes)
     else:
         w.u16s(sizes)
+
+
+# ---------------------------------------------------------------- CT-RC1
+
+def static_encode(data, lanes: int | None = None) -> bytes:
+    x = as_u8(data)
+    n = len(x)
+    k = lanes or pick_lanes(n)
+    w = ByteWriter().u32(n)
+    if n == 0:
+        return w.u8(_lane_desc(k, False)).getvalue()
+    counts = np.bincount(x, minlength=256)
+    freqs = normalize_freqs(counts, STATIC_TOTAL_BITS)
+    cums = exclusive_cumsum(freqs)
+    encs = [LaneEncoder() for _ in range(k)]
+    for i in range(n):
+        e = encs[i % k]
+        s = int(x[i])
+        e.encode(int(cums[s]), int(freqs[s]), STATIC_TOTAL, e.range >> STATIC_TOTAL_BITS)
+    payloads = [e.finish() for e in encs]
+    sizes = [len(p) for p in payloads]
+    wide = max(sizes) >= 1 << 16
+    w.u8(_lane_desc(k, wide)).raw(pack_freqs(freqs))
+    _write_sizes(w, sizes, wide)
+    for p in payloads:
+        w.raw(p)
+    return w.getvalue()
+
+
+def static_decode(blob) -> bytes:
+    r = ByteReader(blob)
+    n = r.u32()
+    k, wide = _parse_lane_desc(r.u8())
+    if n == 0:
+        return b""
+    freqs = read_freqs(r, STATIC_TOTAL)
+    cums = exclusive_cumsum(freqs)
+    sizes = (r.u32s(k) if wide else r.u16s(k)).astype(np.int64)
+    payload = r.rest()
+    offsets = np.concatenate(([0], np.cumsum(sizes)))
+    decs = [LaneDecoder(payload[offsets[j]:offsets[j + 1]]) for j in range(k)]
+    out = bytearray(n)
+    # symbol lookup table: 2^16 → symbol (static total is small enough)
+    sym_of = np.repeat(np.arange(256, dtype=np.uint8), freqs)
+    for i in range(n):
+        d = decs[i % k]
+        t = d.range >> STATIC_TOTAL_BITS
+        v = d.decode_target(STATIC_TOTAL, t)
+        s = int(sym_of[v])
+        out[i] = s
+        d.consume(int(cums[s]), int(freqs[s]), STATIC_TOTAL, t)
+    return bytes(out)
+
+
+# ---------------------------------------------------------------- CT-RC2
+
+def adaptive_encode(data, lanes: int | None = None, inc: int | None = None,
+                    limit_log2: int | None = None) -> bytes:
+    x = as_u8(data)
+    n = len(x)
+    k = lanes or pick_lanes(n)
+    inc0, limit0 = adaptive_params_for(k)
+    inc = inc if inc is not None else inc0
+    limit_log2 = limit_log2 if limit_log2 is not None else limit0
+    limit = 1 << limit_log2
+    w = ByteWriter().u32(n)
+    if n == 0:
+        return w.u8(_lane_desc(k, False)).u8(inc).u8(limit_log2).getvalue()
+    freqs = np.ones(256, dtype=np.int64)
+    total = 256
+    encs = [LaneEncoder() for _ in range(k)]
+    steps = (n + k - 1) // k
+    for tstep in range(steps):
+        if total >= limit:
+            freqs = (freqs >> 1) | 1
+            total = int(freqs.sum())
+        cums = np.concatenate(([0], np.cumsum(freqs[:-1])))
+        base = tstep * k
+        active = min(k, n - base)
+        for j in range(active):
+            e = encs[j]
+            s = int(x[base + j])
+            e.encode(int(cums[s]), int(freqs[s]), total, e.range // total)
+        hist = np.bincount(x[base:base + active], minlength=256)
+        freqs = freqs + hist.astype(np.int64) * inc
+        total += active * inc
+    payloads = [e.finish() for e in encs]
+    sizes = [len(p) for p in payloads]
+    wide = max(sizes) >= 1 << 16
+    w.u8(_lane_desc(k, wide)).u8(inc).u8(limit_log2)
+    _write_sizes(w, sizes, wide)
+    for p in payloads:
+        w.raw(p)
+    return w.getvalue()
+
+
+def adaptive_decode(blob) -> bytes:
+    r = ByteReader(blob)
+    n = r.u32()
+    k, wide = _parse_lane_desc(r.u8())
+    inc = r.u8()
+    limit = 1 << r.u8()
+    if n == 0:
+        return b""
+    sizes = (r.u32s(k) if wide else r.u16s(k)).astype(np.int64)
+    payload = r.rest()
+    offsets = np.concatenate(([0], np.cumsum(sizes)))
+    decs = [LaneDecoder(payload[offsets[j]:offsets[j + 1]]) for j in range(k)]
+    out = bytearray(n)
+    freqs = np.ones(256, dtype=np.int64)
+    total = 256
+    steps = (n + k - 1) // k
+    for tstep in range(steps):
+        if total >= limit:
+            freqs = (freqs >> 1) | 1
+            total = int(freqs.sum())
+        cums = np.concatenate(([0], np.cumsum(freqs[:-1])))
+        base = tstep * k
+        active = min(k, n - base)
+        for j in range(active):
+            d = decs[j]
+            t = d.range // total
+            v = d.decode_target(total, t)
+            s = int(np.searchsorted(cums, v, side="right")) - 1
+            out[base + j] = s
+            d.consume(int(cums[s]), int(freqs[s]), total, t)
+        hist = np.bincount(np.frombuffer(out, dtype=np.uint8, count=active, offset=base),
+                           minlength=256)
+        freqs = freqs + hist.astype(np.int64) * inc
+        total += active * inc
+    return bytes(out)

@@ -22,20 +22,41 @@ def _run(code, env=None):
                           capture_output=True, text=True, timeout=120)
 
 
+IDS = {"static_range": 0, "adaptive_range": 1, "rans": 2, "huffman": 3,
+       "blocksort": 4, "mtf": 5, "mtf1": 8, "pipeline": 9, "rle0": 12,
+       "rcq": 14, "rcx": 15}
+
+
 def test_registry():
-    assert ctt.list_codecs() == ["huffman", "rans", "rcq", "rcx"]
-    for name, cid in (("huffman", 3), ("rans", 2), ("rcq", 14), ("rcx", 15)):
+    assert ctt.list_codecs() == sorted(IDS)
+    for name, cid in IDS.items():
         c = ctt.get_codec(name)
         assert (c.name, c.codec_id) == (name, cid)
         assert ctt.get_codec_by_id(cid) is c
-    with pytest.raises(KeyError, match="A10"):
-        ctt.get_codec("blocksort")
-    with pytest.raises(KeyError, match="A6"):
-        ctt.compress(b"abc", codec="static_range")
+    with pytest.raises(KeyError, match="A11"):
+        ctt.get_codec("slz4")
+    with pytest.raises(KeyError, match="A7"):
+        ctt.compress(b"abc", codec="stream")
     with pytest.raises(KeyError, match="unknown codec"):
         ctt.get_codec("nope")
-    with pytest.raises(KeyError):
-        ctt.get_codec_by_id(4)
+    with pytest.raises(KeyError, match="A11"):
+        ctt.get_codec_by_id(6)
+    with pytest.raises(KeyError, match="unknown codec id"):
+        ctt.get_codec_by_id(99)
+
+
+def test_ids_and_names_are_the_jax_packages():
+    """Every ported codec has its name and id in the JAX package, and
+    every codec of the JAX package is ported or names its ROADMAP item."""
+    import cpprcoder_tpu
+    from cpprcoder_tpu_torch.codecs import NOT_YET_PORTED, NOT_YET_PORTED_IDS
+
+    for name in cpprcoder_tpu.list_codecs():
+        cid = cpprcoder_tpu.get_codec(name).codec_id
+        if name in NOT_YET_PORTED:
+            assert NOT_YET_PORTED_IDS[cid] == name
+        else:
+            assert IDS[name] == cid
 
 
 @pytest.mark.parametrize("codec", ["huffman", "rans", "rcq", "rcx"])
@@ -99,7 +120,8 @@ def test_container_functions_need_a_device(codec):
 
 def test_docstring_names_every_codec():
     named = re.search(r"Codecs ported:(.*?)\n\n", ctt.__doc__, re.S).group(1)
-    assert set(re.findall(r"\b([a-z]+) \(CT-", named)) == set(ctt.list_codecs())
+    assert set(re.findall(r"\b([a-z0-9_]+) \(CT-", named)) \
+        == set(ctt.list_codecs())
 
 
 def test_default_codec_is_rans_as_in_the_jax_package():

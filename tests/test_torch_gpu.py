@@ -14,12 +14,17 @@ import torch
 import cpprcoder_tpu_torch as ctt
 from cpprcoder_tpu_torch.models.cxmodel import rcx_params
 from cpprcoder_tpu_torch.models.qmodel import rcq_params
+from cpprcoder_tpu_torch.models.static_table import normalize_freqs
 from cpprcoder_tpu_torch.ops import (
     compaction,
     expand,
     huffman_kernels,
     huffman_ops,
     layout,
+    mtf_kernels,
+    mtf_ops,
+    range_kernels,
+    range_ops,
     rans_kernels,
     rans_ops,
     rcq_kernels,
@@ -631,3 +636,114 @@ def test_rans_wide_count_table(dev):
     assert blob[4] & 0x80
     assert blob == rans_ref.rans_encode(data, lanes=1)
     assert ctt.decompress(blob, device="cuda") == data
+
+
+# ------------------------------------------ kernels J, L (CT-RC1/CT-RC2)
+
+def _zipf(n, seed):
+    rng = np.random.default_rng(seed)
+    return np.minimum(rng.zipf(1.3, n) - 1, 255).astype(np.uint8)
+
+
+@pytest.mark.parametrize("k,static,limit_log2,data", [
+    (1, False, 16, "text"), (8, False, 18, "text"), (256, False, 16, "text"),
+    (1024, False, 17, "zipf"), (8192, False, 18, "text"),
+    (64, False, 16, "run"), (100, False, 16, "text"),
+    (1, True, 16, "text"), (2048, True, 16, "zipf"), (64, True, 16, "run")])
+def test_range_kernels_match_plain(dev, k, static, limit_log2, data):
+    """Kernels J and L against their plain step loops: one lane to 8 lanes
+    a thread, three slots a step (limit_log2 > 16; Zipf bytes take the
+    third slot at K = 1,024), a one-byte run (every lane's update on one
+    count), n not a multiple of K, CT-RC1's static table. K = 100 is not a
+    power of two: the card refuses it."""
+    n = (400 if k < 64 else 30) * k + 7
+    x_np = {"text": lambda: _textish(n, k), "zipf": lambda: _zipf(n, k),
+            "run": lambda: np.full(n, 0x61, np.uint8)}[data]()
+    x = torch.from_numpy(x_np).to(dev)
+    stride = -(-n // k)
+    x2d = layout.pad2d_interleaved(x, k, stride)
+    lens = layout.lane_lengths_interleaved(n, k, stride, dev)
+    freqs = torch.from_numpy(normalize_freqs(np.bincount(
+        x_np, minlength=256), 16).astype(np.int32)).to(dev) if static else None
+    args = (freqs, 24 if k < 8192 else 12, limit_log2)
+    if k & (k - 1):
+        with pytest.raises(ValueError, match="power of two"):
+            range_kernels.encode_events(x2d, lens, *args)
+        return
+    ev = range_kernels.encode_events(x2d, lens, *args)
+    assert torch.equal(ev, range_ops.encode_events_plain(x2d, lens, *args))
+    words = layout.decode_words(*expand.materialize_rows(ev))
+    out = range_kernels.decode_symbols(words, lens, n, stride, *args)
+    assert torch.equal(out, range_ops.decode_symbols_plain(
+        words, lens, n, stride, *args))
+    assert torch.equal(out, x)
+
+
+@pytest.mark.parametrize("codec", ["static_range", "adaptive_range"])
+def test_range_codecs_at_three_slots_match_the_oracle(dev, codec):
+    """K = 1,024 (2 MiB and more pick it; limit_log2 17, three slots) and a
+    one-lane stream, against the numpy oracle."""
+    data = _zipf(1024 * 40 + 9, 3).tobytes()
+    for lanes in (1024, 1):
+        blob = ctt.compress(data[:20_000] if lanes == 1 else data,
+                            codec=codec, device="cuda", lanes=lanes)
+        want = ctt.compress(data[:20_000] if lanes == 1 else data,
+                            codec=codec, backend="ref", lanes=lanes)
+        assert blob == want
+        assert ctt.decompress(blob, codec=codec, device="cuda") \
+            == (data[:20_000] if lanes == 1 else data)
+
+
+# ------------------------------------------------ kernels M, N (CT-MTF1)
+
+@pytest.mark.parametrize("n", [1, 100, 32768, 32768 + 129, 3 * 32768 + 5])
+@pytest.mark.parametrize("mtf1", [False, True])
+def test_mtf_kernels_match_plain(dev, n, mtf1):
+    """Kernels M and N against their plain loop: a block cut inside a
+    128-byte chunk, whole blocks, blocks after the first."""
+    x = torch.from_numpy(_textish(n, n)).to(dev)
+    blocks = mtf_ops.pad_blocks(x)
+    ranks = mtf_kernels.encode_ranks(blocks, n, mtf1)
+    assert torch.equal(ranks, mtf_ops.transform_plain(blocks, n, mtf1, False))
+    rblocks = mtf_ops.pad_blocks(ranks)
+    out = mtf_kernels.decode_bytes(rblocks, n, mtf1)
+    assert torch.equal(out, mtf_ops.transform_plain(rblocks, n, mtf1, True))
+    assert torch.equal(out, x)
+
+
+# ------------------------------------------------ the seven codecs
+
+NEW_CODEC_CASES = {
+    "static_range": {}, "adaptive_range": {}, "blocksort": {},
+    "mtf": {}, "mtf1": {}, "rle0": {}, "pipeline": {},
+    "blocksort tied rotations": {"block_log2": 12},
+    "pipeline named stages": {"stages": [("blocksort", {"block_log2": 12}),
+                                         "mtf", "rle0",
+                                         ("static_range", {"lanes": 8})]},
+}
+
+
+@pytest.mark.parametrize("case", list(NEW_CODEC_CASES))
+def test_new_codecs_match_the_oracle_on_the_card(dev, case):
+    root = Path(__file__).resolve().parent.parent / "data"
+    data = (root / "fields.c").read_bytes()
+    if "tied" in case:
+        data = b"abcd" * 1024 + b"\x00" * 4096 + data
+    codec = case.split()[0]
+    opts = NEW_CODEC_CASES[case]
+    blob = ctt.compress(data, codec=codec, device="cuda", **opts)
+    assert blob == ctt.compress(data, codec=codec, backend="ref", **opts)
+    assert ctt.decompress(blob, codec=codec, device="cuda") == data
+
+
+def test_new_launch_counters_move(dev):
+    counters = [(range_kernels, "encode_launches"), (expand, "launches"),
+                (range_kernels, "decode_launches"),
+                (mtf_kernels, "encode_launches"),
+                (mtf_kernels, "decode_launches")]
+    before = [getattr(m, a) for m, a in counters]
+    data = _textish(5000, 4).tobytes()
+    blob = ctt.compress(data, codec="pipeline")
+    assert ctt.decompress(blob, codec="pipeline") == data
+    assert [getattr(m, a) - b for (m, a), b in zip(counters, before)] \
+        == [1] * 5

@@ -20,20 +20,28 @@ from cpprcoder_tpu.models import freq_header as jfh
 from cpprcoder_tpu.models import huffman as jhuf
 from cpprcoder_tpu.models import qmodel as jq
 from cpprcoder_tpu.models import static_table as jst
+from cpprcoder_tpu.reference import bwt_ref as jbwt_ref
 from cpprcoder_tpu.reference import huffman_ref as jhuf_ref
+from cpprcoder_tpu.reference import mtf_ref as jmtf_ref
 from cpprcoder_tpu.reference import rans_ref as jrans_ref
+from cpprcoder_tpu.reference import rc_ref as jrc_ref
 from cpprcoder_tpu.reference import rcq_ref as jrcq_ref
 from cpprcoder_tpu.reference import rcx_ref as jrcx_ref
+from cpprcoder_tpu.reference import rle0_ref as jrle0_ref
 from cpprcoder_tpu_torch import config as tconfig
 from cpprcoder_tpu_torch.models import cxmodel as tcx
 from cpprcoder_tpu_torch.models import freq_header as tfh
 from cpprcoder_tpu_torch.models import huffman as thuf
 from cpprcoder_tpu_torch.models import qmodel as tq
 from cpprcoder_tpu_torch.models import static_table as tst
+from cpprcoder_tpu_torch.reference import bwt_ref as tbwt_ref
 from cpprcoder_tpu_torch.reference import huffman_ref as thuf_ref
+from cpprcoder_tpu_torch.reference import mtf_ref as tmtf_ref
 from cpprcoder_tpu_torch.reference import rans_ref as trans_ref
+from cpprcoder_tpu_torch.reference import rc_ref as trc_ref
 from cpprcoder_tpu_torch.reference import rcq_ref as trcq_ref
 from cpprcoder_tpu_torch.reference import rcx_ref as trcx_ref
+from cpprcoder_tpu_torch.reference import rle0_ref as trle0_ref
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "cpprcoder_tpu_torch"
@@ -48,6 +56,20 @@ ORACLES = {
              (trans_ref.rans_encode, trans_ref.rans_decode)),
     "huffman": ((jhuf_ref.huffman_encode, jhuf_ref.huffman_decode),
                 (thuf_ref.huffman_encode, thuf_ref.huffman_decode)),
+    "static_range": ((jrc_ref.static_encode, jrc_ref.static_decode),
+                     (trc_ref.static_encode, trc_ref.static_decode)),
+    "adaptive_range": ((jrc_ref.adaptive_encode, jrc_ref.adaptive_decode),
+                       (trc_ref.adaptive_encode, trc_ref.adaptive_decode)),
+    "blocksort": ((lambda d: jbwt_ref.bwt_encode(d, block_log2=9),
+                   jbwt_ref.bwt_decode),
+                  (lambda d: tbwt_ref.bwt_encode(d, block_log2=9),
+                   tbwt_ref.bwt_decode)),
+    "mtf": ((jmtf_ref.mtf_encode, jmtf_ref.mtf_decode),
+            (tmtf_ref.mtf_encode, tmtf_ref.mtf_decode)),
+    "mtf1": ((lambda d: jmtf_ref.mtf_encode(d, True), jmtf_ref.mtf_decode),
+             (lambda d: tmtf_ref.mtf_encode(d, True), tmtf_ref.mtf_decode)),
+    "rle0": ((jrle0_ref.rle0_encode, jrle0_ref.rle0_decode),
+             (trle0_ref.rle0_encode, trle0_ref.rle0_decode)),
 }
 
 
@@ -62,7 +84,9 @@ def test_oracle_copies_write_the_same_bytes(codec):
 
 def test_constants_and_lane_policy():
     for name in ("RC_TOP", "MASK32", "ANS_PROB_BITS", "ANS_TOTAL", "ANS_LOW",
-                 "HUF_MAX_BITS", "MAX_LANES_LOG2"):
+                 "HUF_MAX_BITS", "MAX_LANES_LOG2", "STATIC_TOTAL_BITS",
+                 "STATIC_TOTAL", "ADAPTIVE_INC_DEFAULT",
+                 "ADAPTIVE_LIMIT_LOG2_DEFAULT"):
         assert getattr(tconfig, name) == getattr(jconfig, name), name
     for name in ("QBITS", "QTOTAL", "QRESERVE", "CLIMIT_LOG2", "INC_DEFAULT",
                  "MAX_K_TIMES_INC"):
@@ -78,6 +102,11 @@ def test_constants_and_lane_policy():
         assert tq.rcq_params(n) == jq.rcq_params(n), n
         for mode in ("balanced", "ratio"):
             assert tcx.rcx_params(n, mode=mode) == jcx.rcx_params(n, mode=mode)
+    for k in 2 ** np.arange(0, 17):
+        for inc in (1, 24, 255):
+            for limit_log2 in (8, 16, 20):
+                assert (tconfig.adaptive_params_for(int(k), inc, limit_log2)
+                        == jconfig.adaptive_params_for(int(k), inc, limit_log2))
     for lanes in (1, 8, 32, 256, 2048):
         for inc in (None, 1, 24):
             assert tq.rcq_params(5000, lanes, inc) == jq.rcq_params(5000, lanes, inc)
@@ -97,6 +126,19 @@ def _histograms(seed, count=40):
         out.append((2.0 ** -np.minimum(np.arange(256) // (i % 16 + 1), 40)
                     * 1e9).astype(np.int64))
     return out
+
+
+def test_transform_layouts():
+    """CT-BWT1's block layout and CT-MTF1's block size, as in the
+    originals."""
+    assert tmtf_ref.MTF_BLOCK == jmtf_ref.MTF_BLOCK
+    assert tbwt_ref.MIN_TAIL_LOG2 == jbwt_ref.MIN_TAIL_LOG2
+    rng = np.random.default_rng(24)
+    for n in map(int, np.concatenate([np.arange(0, 600, 7),
+                                      rng.integers(0, 1 << 24, 50)])):
+        for block_log2 in (8, 9, 15, 19):
+            assert (tbwt_ref.block_layout(n, block_log2)
+                    == jbwt_ref.block_layout(n, block_log2))
 
 
 def test_freq_tables_and_headers():
@@ -159,4 +201,4 @@ print(len(ctt.list_codecs()), bad)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split(None, 1) == ["4", "[]\n"]
+    assert out.stdout.split(None, 1) == ["11", "[]\n"]
