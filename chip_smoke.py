@@ -37,9 +37,12 @@ Phases, one line each (a failed phase exits non-zero):
               pipeline's coder stage there, grammar.lsp, static_range at
               kennedy.xls and the 11 files concatenated (K = 1,024, three
               slots); M and N (MTF, MTF-1 encode, decode) at one byte to
-              several blocks, a block cut inside a chunk, a one-byte run
-              and random bytes, then timed at the pipeline's mtf1 stage at
-              kennedy.xls, mtf alone there and grammar.lsp;
+              several blocks, a block cut inside a chunk, a one-byte run,
+              random bytes, and segment edges (a swap, and a rank 1 that
+              does not move, on every segment's first byte; runs, all 256
+              values, a BWT across a block and one byte, short blocks of
+              1,023 and 1,025 bytes), then timed at the pipeline's mtf1
+              stage at kennedy.xls, mtf alone there and grammar.lsp;
   4. main     per codec (rcx, rcq, rans, huffman, static_range,
               adaptive_range, blocksort, mtf, mtf1, rle0, pipeline), with
               the launch counts set to 0 just before and read just after:
@@ -1106,6 +1109,18 @@ def phase_kernels_mtf(dev):
     cases += [(b"\x07" * 40_000, True), (b"\x07" * 40_000, False),
               (np.random.default_rng(501).integers(
                   0, 256, 50_000, np.uint8).tobytes(), True)]
+    # segment edges (a block of v bytes runs as 128 segments of
+    # ceil(v / 128) rounded up to a multiple of 4): under MTF-1 "aabb" then
+    # "ab"... puts a swap on every segment's first byte, "aab" then "ab"...
+    # a rank 1 after a rank 0 (no move); runs, all 256 values, the BWT of
+    # text across a block and one byte, and short blocks of 1,023 and 1,025
+    # bytes
+    bwt = pipeline_stages(corpus("alice29.txt"), dev)[0][:32768 + 1]
+    edges = [b"aabb" + b"ab" * 4094 + b"a", b"aab" + b"ab" * 4095,
+             b"\x07" * 8193, np.random.default_rng(502).integers(
+                 0, 256, 8193, np.uint8).tobytes(), bwt, bwt[:1023],
+             bwt[:1025]]
+    cases += [(data, m) for data in edges for m in (False, True)]
     for data, mtf1 in cases:
         case(data, mtf1, f"n={len(data)} mtf1={mtf1}")
 

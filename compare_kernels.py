@@ -29,6 +29,12 @@ instructions, the function names aside).
 library under torch.profiler and reports each of its launches' mean device
 time by name (a kernel's passes, and a memset, apart).
 
+Kernels M and N (CT-MTF1 encode and decode) are timed at the pipeline's
+mtf1 stage of kennedy.xls (its BWT, made on the card by this tree's
+blocksort: 32 blocks), plain MTF over kennedy.xls, and the mtf1 stage of
+grammar.lsp (one block of 3,738 bytes); their outputs are compared over
+the n bytes that carry data.
+
 Prints one JSON object: per kernel and shape, each library's ms.
 """
 
@@ -48,6 +54,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+import cpprcoder_tpu_torch as ctt
 from cpprcoder_tpu_torch.models.cxmodel import rcq_params, rcx_params
 from cpprcoder_tpu_torch.native import build
 from cpprcoder_tpu_torch.ops import (
@@ -55,6 +62,8 @@ from cpprcoder_tpu_torch.ops import (
     huffman_kernels,
     huffman_ops,
     layout,
+    mtf_kernels,
+    mtf_ops,
     rans_kernels,
     rans_ops,
     rcq_kernels,
@@ -115,6 +124,14 @@ G_SEARCH = """  (void)lid;
     btab[slot] = (uint16_t)(slot - cs[lo]);
     s8[slot] = (uint8_t)lo;
   }"""
+
+# kernel M under MTF-1: the head machine's walk over the segments made
+# serial (one thread runs every byte of the block: no pairs found, no
+# continuations, no jumps over pair-free stretches, no tails)
+M_PAIRS = "    if (MTF1 && len > 0) {\n      // the segment's first pair"
+M_PAIR = "const int s0 = seg * j, e = min(s0 + seg, valid), p = w.pairs[j];"
+M_JUMP = "        if (end - i > 2) {"
+M_TAIL = "if ((p >= 0 ? p : e) - s0 > 3 &&"
 
 # name -> (source file, [(text, replacement), ...]): one part of a design
 # taken out, or a parameter changed
@@ -219,15 +236,30 @@ VARIANTS = {
         ("  const Geo g = {K, stride, kb, tsteps, nch};",
          "  cudaMemsetAsync(pw, 0, ((size_t)payload_words + 1) * 4, st);\n"
          "  const Geo g = {K, stride, kb, tsteps, nch};")]),
+    "m_serial_machine": ("mtf.cu", [
+        (M_PAIRS, M_PAIRS.replace("MTF1 && len > 0", "false")),
+        (M_PAIR, M_PAIR.replace("w.pairs[j]", "-1")),
+        (M_JUMP, M_JUMP.replace("end - i > 2", "false")),
+        (M_TAIL, "if (false &&")]),
+    # kernels M and N: 16 warps a CTA (64 segments a block, 512 threads);
+    # one CTA a block, or a cluster of two
+    "mn_warps16": ("mtf.cu", [("constexpr int WARPS = 32;", "constexpr int WARPS = 16;")]),
+    "mn_cluster1": ("mtf.cu", [("constexpr int CLUSTER = 4;", "constexpr int CLUSTER = 1;")]),
+    "mn_cluster2": ("mtf.cu", [("constexpr int CLUSTER = 4;", "constexpr int CLUSTER = 2;")]),
+    # kernels M and N: a cluster of 8 CTAs of 16 warps (128 segments a block)
+    "mn_cluster8_warps16": ("mtf.cu", [("constexpr int CLUSTER = 4;", "constexpr int CLUSTER = 8;"),
+                                       ("constexpr int WARPS = 32;", "constexpr int WARPS = 16;")]),
 }
 
 
 # the entry point of each kernel, and the source a variant library builds
 ENTRY = {"A": "ct_rcx_encode", "B": "ct_expand_count", "C": "ct_rcx_decode",
          "D": "ct_rcq_encode", "E": "ct_rcq_decode", "F": "ct_rans_encode",
-         "G": "ct_rans_decode", "H": "ct_huffman_encode_stream", "I": "ct_huffman_decode"}
+         "G": "ct_rans_decode", "H": "ct_huffman_encode_stream", "I": "ct_huffman_decode",
+         "M": "ct_mtf_encode", "N": "ct_mtf_decode"}
 VARIANT_SOURCE = {"a": "rcx_encode.cu", "b": "expand.cu", "g": "rans_decode.cu",
-                  "h": "huffman_encode.cu", "i": "huffman_decode.cu"}
+                  "h": "huffman_encode.cu", "i": "huffman_decode.cu", "m": "mtf.cu",
+                  "mn": "mtf.cu"}
 
 
 def build_lib(name: str, csrc: Path, edits=(), only: str | None = None
@@ -412,6 +444,23 @@ def cases(dev):
                 # the wrapper's allocations
                 ("H", f"{f} passes", partial(h_wrapper, a=(x2d, lens, tab))),
                 ("I", f, i_dec)]
+
+    def bwt(f):
+        return ctt.compress(corpus(f), codec="blocksort", device=dev, block_log2=19)
+
+    for label, data, mtf1 in (("kennedy.xls pipeline mtf1 stage", bwt("kennedy.xls"), True),
+                              ("kennedy.xls mtf", corpus("kennedy.xls"), False),
+                              ("grammar.lsp pipeline mtf1 stage", bwt("grammar.lsp"), True)):
+        n = len(data)
+        x = mtf_ops.pad_blocks(to_dev(data, dev))
+        ranks = mtf_ops.pad_blocks(mtf_kernels.encode_ranks(x, n, mtf1))
+        for kern, src in (("M", x), ("N", ranks)):
+            def mtf(lib, a=(src, n, mtf1), entry=ENTRY[kern]):
+                o = torch.zeros_like(a[0])
+                return (lambda: getattr(lib, entry)(
+                    a[0].data_ptr(), o.data_ptr(), a[1], a[0].shape[0], int(a[2]),
+                    stream())), o.view(-1)[:a[1]]
+            out.append((kern, label, mtf))
     return out
 
 

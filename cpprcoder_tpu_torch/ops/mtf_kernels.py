@@ -4,10 +4,12 @@ The JAX package has no Pallas kernel here: it runs MTF as one compiled
 `lax.scan` of 2^15 steps a block on the device
 (cpprcoder_tpu/ops/mtf_ops.py:45-81). A PyTorch step loop on the card
 would launch about ten kernels a step, so the scan is a kernel
-(`csrc/mtf.cu`): one warp a 2^15-byte block, the 256-entry list in the
-warp's registers (8 entries a lane), the rank found by a warp ballot
-(M) or the entry read by a shuffle (N), the move done by the warp. A
-block's steps are sequential: latency-bound.
+(`csrc/mtf.cu`): one CTA a 2^15-byte block, cut into 32 segments that run
+side by side, a warp each, each from the exact list it starts with (N
+decodes against placeholders and composes the segments' permutations; M
+builds each start list from the last touch of every byte before it, and
+under MTF-1 walks the head machine over the segments). Within a segment
+the steps are sequential: latency- and issue-bound. One launch a call.
 
 Their plain version is `mtf_ops.transform_plain`. On a CPU tensor a wrapper
 runs the plain version; on a CUDA tensor it launches the kernel or raises.

@@ -31,7 +31,7 @@ from cpprcoder_tpu_torch.ops import (
     rcx_kernels,
     rcx_ops,
 )
-from cpprcoder_tpu_torch.reference import rans_ref, rcq_ref, rcx_ref
+from cpprcoder_tpu_torch.reference import bwt_ref, rans_ref, rcq_ref, rcx_ref
 
 pytestmark = pytest.mark.gpu
 
@@ -702,6 +702,47 @@ def test_mtf_kernels_match_plain(dev, n, mtf1):
     """Kernels M and N against their plain loop: a block cut inside a
     128-byte chunk, whole blocks, blocks after the first."""
     x = torch.from_numpy(_textish(n, n)).to(dev)
+    blocks = mtf_ops.pad_blocks(x)
+    ranks = mtf_kernels.encode_ranks(blocks, n, mtf1)
+    assert torch.equal(ranks, mtf_ops.transform_plain(blocks, n, mtf1, False))
+    rblocks = mtf_ops.pad_blocks(ranks)
+    out = mtf_kernels.decode_bytes(rblocks, n, mtf1)
+    assert torch.equal(out, mtf_ops.transform_plain(rblocks, n, mtf1, True))
+    assert torch.equal(out, x)
+
+
+def _bwt_of_text(n):
+    x = _textish(n, 13)
+    return np.concatenate([bwt_ref.bwt_forward_block(x[i:i + 32768])[0]
+                           for i in range(0, n, 32768)])
+
+
+# the segments of a full block are 256 bytes (of a block of v bytes,
+# ceil(v / 128) rounded up to a multiple of 4): under MTF-1 "aabb" then
+# "ab"... puts a swap (rank 1 after a nonzero rank) on every segment's first
+# byte, "aab" then "ab"... a rank 1 after a rank 0 (no move)
+MTF_EDGES = {
+    "bwt": _bwt_of_text,
+    "one byte": lambda n: np.full(n, 7, np.uint8),
+    "swaps at segment starts": lambda n: np.frombuffer(
+        (b"aabb" + b"ab" * n)[:n], np.uint8),
+    "rank 1 after rank 0 at segment starts": lambda n: np.frombuffer(
+        (b"aab" + b"ab" * n)[:n], np.uint8),
+    "all 256 values": lambda n: np.random.default_rng(14).integers(
+        0, 256, n, np.uint8),
+}
+
+
+@pytest.mark.parametrize("case,n", [(c, 32768 + 1) for c in MTF_EDGES]
+                         + [("bwt", n) for n in (1, 1023, 1025, 32768)])
+@pytest.mark.parametrize("mtf1", [False, True])
+def test_mtf_kernels_at_segment_edges(dev, case, n, mtf1):
+    """Kernels M and N (each block's segments side by side, each from its
+    computed start list) against their plain loop where a segment starts
+    on a swap, on a rank 1 that does not move, in runs, on all 256 values,
+    and at lengths of one byte, a short block's segments, a block and a
+    block and one byte."""
+    x = torch.from_numpy(np.array(MTF_EDGES[case](n))).to(dev)
     blocks = mtf_ops.pad_blocks(x)
     ranks = mtf_kernels.encode_ranks(blocks, n, mtf1)
     assert torch.equal(ranks, mtf_ops.transform_plain(blocks, n, mtf1, False))
