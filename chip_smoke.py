@@ -31,9 +31,13 @@ Phases, one line each (a failed phase exits non-zero):
               device time and through its wrapper; I also on random word
               rows; rcx and rcq round trips at 32,768 lanes against the
               oracle; J and L (CT-RC1/CT-RC2 encode, decode) at one lane to
-              8 lanes a thread, three slots a step (limit_log2 > 16), a
-              one-byte run, n not a multiple of K and the static table,
-              then timed at kennedy.xls's adaptive_range shape, the
+              65,536 lanes (across J's and L's CTA and cluster edges), three
+              slots a step (limit_log2 > 16, and inc 255 at limit_log2 16,
+              where the total passes 2^16), one-byte runs (also over 65,536
+              lanes), n not a multiple of K and the static table, the
+              containers of those cases and of fields.c at 16,384 to 65,536
+              lanes against the oracle, then timed at kennedy.xls's
+              adaptive_range shape, the
               pipeline's coder stage there, grammar.lsp, static_range at
               kennedy.xls and the 11 files concatenated (K = 1,024, three
               slots); M and N (MTF, MTF-1 encode, decode) at one byte to
@@ -172,6 +176,13 @@ EXPECTED_SIZES["mtf1"] = EXPECTED_SIZES["mtf"]   # one container size
 # the 11 files concatenated in name order (2,810,784 bytes: K = 1,024,
 # limit_log2 17, three slots a step), in the oracles' bytes
 CONCAT_BYTES = {"static_range": 1658645, "adaptive_range": 1257925}
+# fields.c at the widest lane counts J and L take (the oracle's sizes)
+RANGE_WIDE_BYTES = {("static_range", 16384): 50193,
+                    ("static_range", 32768): 99345,
+                    ("static_range", 65536): 197649,
+                    ("adaptive_range", 16384): 60309,
+                    ("adaptive_range", 32768): 109461,
+                    ("adaptive_range", 65536): 207765}
 RATIO_FILES = ["alice29.txt", "kennedy.xls", "ptt5"]
 # the widest lane count (K * inc <= 49,152): alice29.txt[:40000] at K =
 # 32,768, whose containers the oracles write in these bytes
@@ -1034,21 +1045,47 @@ def phase_kernels_exact(dev):
 
     # CT-RC2 at one lane, 8 lanes (limit_log2 18: three slots), 256 lanes
     # with n not a multiple of K, 1,024 lanes (limit_log2 17, three slots,
-    # Zipf bytes taking the third), 8,192 lanes (8 a thread), a one-byte
-    # run (every lane's update on one count); CT-RC1 at one lane, 2,048
-    # lanes (2 a thread) and a one-byte run
+    # Zipf bytes taking the third), 8,192 lanes (L a cluster of 2), a
+    # one-byte run (every lane's update on one count), inc 255 at
+    # limit_log2 16 (the total passes 2^16: three slots), 512 lanes (J over
+    # 8 CTAs), 16,384 lanes (L a cluster of 4) and a one-byte run over
+    # 65,536 (J over 256 CTAs, L a cluster of 8); CT-RC1 at one lane, 128
+    # lanes (J over two CTAs), 2,048 lanes and one-byte runs over 64 and
+    # 65,536 lanes
     cases = [(textish(3000, 400), 1, False, 24, 16),
              (textish(8 * 400 + 3, 401), 8, False, 24, 18),
              (textish(256 * 50 + 7, 402), 256, False, 24, 16),
              (zipf(1024 * 40 + 9, 403), 1024, False, 24, 17),
              (textish(8192 * 20 + 5, 404), *exact_args(0, 8192)),
              (b"\x61" * (64 * 90 + 1), 64, False, 24, 16),
+             (corpus("grammar.lsp"), 1024, False, 255, 16),
+             (zipf(512 * 30 + 7, 407), 512, False, 24, 16),
+             (textish(16384 * 3 + 5, 408), *exact_args(0, 16384)),
+             (b"\x61" * (65536 * 3 + 1), *exact_args(0, 65536)),
              (textish(2500, 405), 1, True, 0, 16),
+             (textish(128 * 40 + 3, 409), 128, True, 0, 16),
              (zipf(2048 * 30 + 3, 406), 2048, True, 0, 16),
-             (b"\x61" * (64 * 90 + 1), 64, True, 0, 16)]
+             (b"\x61" * (64 * 90 + 1), 64, True, 0, 16),
+             (b"\x61" * (65536 * 3 + 1), 65536, True, 0, 16)]
     for data, *args in cases:
         case(data, *args, f"K={args[0]} n={len(data)} static={args[1]} "
                           f"inc={args[2]} limit_log2={args[3]}")
+    # that case's container and the widest lane counts' against the
+    # oracle, and back
+    wide = [("adaptive_range", corpus("grammar.lsp"),
+             dict(lanes=1024, inc=255, limit_log2=16), None)] + [
+        (codec, corpus("fields.c"), dict(lanes=k), RANGE_WIDE_BYTES[codec, k])
+        for codec, k in RANGE_WIDE_BYTES]
+    for codec, data, opts, size in wide:
+        blob = ctt.compress(data, codec=codec, device="cuda", **opts)
+        if blob != ctt.compress(data, codec=codec, backend="ref", **opts) \
+                or size not in (None, len(blob)) \
+                or ctt.decompress(blob, codec=codec, device="cuda") != data:
+            fail(f"{codec} {opts}: {len(blob)} bytes, not the oracle's "
+                 f"container ({size}) or no round trip")
+    print(f"[kernels] ok {len(wide)} CT-RC1/CT-RC2 containers (inc 255 at "
+          f"limit_log2 16; fields.c at 16,384 to 65,536 lanes) equal the "
+          f"oracle's and round-trip", flush=True)
 
     # held and timed at kennedy.xls's adaptive_range shape (K = 256, 4,023
     # steps), kernel vs plain; held there and at grammar.lsp's (K = 2, 1,861

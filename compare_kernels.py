@@ -3,7 +3,8 @@
 on one GPU, in one process.
 
     python3 compare_kernels.py --base DIR [--variants NAME,...] [--sass]
-                               [--profile KERNEL] [--reps N] [--out FILE]
+                               [--profile KERNEL] [--only LETTERS] [--reps N]
+                               [--out FILE]
 
 DIR holds another checkout of the repository (for example the parent
 commit, unpacked with `git archive` into an ignored directory such as
@@ -25,6 +26,8 @@ this tree's: a library that differs, or refuses a shape, is reported so.
 rc_encode_kernel) in the base library with this tree's (cuobjdump; the
 instructions, the function names aside).
 
+--only LETTERS (for example JL) times those kernels alone.
+
 --profile KERNEL (a letter) runs that kernel's cases through this tree's
 library under torch.profiler and reports each of its launches' mean device
 time by name (a kernel's passes, and a memset, apart).
@@ -34,6 +37,14 @@ mtf1 stage of kennedy.xls (its BWT, made on the card by this tree's
 blocksort: 32 blocks), plain MTF over kennedy.xls, and the mtf1 stage of
 grammar.lsp (one block of 3,738 bytes); their outputs are compared over
 the n bytes that carry data.
+
+Kernels J and L (CT-RC1/CT-RC2 encode and decode) are timed at
+adaptive_range and static_range over kennedy.xls (K = 256), the
+pipeline's coder stage there (K = 64), the 11 files concatenated (K =
+1,024, three slots), grammar.lsp (K = 2), adaptive_range over kennedy.xls
+at 8,192 lanes (L a cluster of 2, or one CTA where a variant says so) and at
+65,536 (a tree from before the lane cap was lifted refuses it), each at
+the codec's defaults and the slot count of this tree's `range_ops.slots`.
 
 Prints one JSON object: per kernel and shape, each library's ms.
 """
@@ -55,7 +66,9 @@ import numpy as np
 import torch
 
 import cpprcoder_tpu_torch as ctt
+from cpprcoder_tpu_torch.config import adaptive_params_for, pick_lanes
 from cpprcoder_tpu_torch.models.cxmodel import rcq_params, rcx_params
+from cpprcoder_tpu_torch.models.static_table import normalize_freqs
 from cpprcoder_tpu_torch.native import build
 from cpprcoder_tpu_torch.ops import (
     expand,
@@ -64,6 +77,8 @@ from cpprcoder_tpu_torch.ops import (
     layout,
     mtf_kernels,
     mtf_ops,
+    range_kernels,
+    range_ops,
     rans_kernels,
     rans_ops,
     rcq_kernels,
@@ -72,6 +87,9 @@ from cpprcoder_tpu_torch.ops import (
 
 ROOT = Path(__file__).resolve().parent
 OUT_ROOT = ROOT / "build" / "compare"
+# the corpus in name order (concatenated, chip_smoke.py's 2,810,784 bytes)
+CANTERBURY = ("alice29.txt", "asyoulik.txt", "cp.html", "fields.c", "grammar.lsp",
+              "kennedy.xls", "lcet10.txt", "plrabn12.txt", "ptt5", "sum", "xargs.1")
 
 # kernel G's step: its two table reads, and its ring read, copy and chain;
 # the refill as a branchy load; the table fill by runs, and by a search
@@ -132,6 +150,25 @@ M_PAIRS = "    if (MTF1 && len > 0) {\n      // the segment's first pair"
 M_PAIR = "const int s0 = seg * j, e = min(s0 + seg, valid), p = w.pairs[j];"
 M_JUMP = "        if (end - i > 2) {"
 M_TAIL = "if ((p >= 0 ? p : e) - s0 > 3 &&"
+
+# kernel L: the words a CT-RC2 lane loads early; the table build after a
+# step's barrier
+L_AH = "constexpr int AH = MAXT <= SMALL_THREADS ? 0 : LPT == 1 ? 2 : LPT == 2 ? 1 : 0;"
+L_BUILD = """    uint32_t sum[8] = {}, a = 0;
+    for (int r = 0; r < G; ++r) {
+      const uint32_t* hr = G > 1 ? cg::this_cluster().map_shared_rank(h, r) : h;
+      uint32_t hc[8];
+      load_split(hr, hc);
+      a += hr[HIST_ACTIVE];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) sum[i] += hc[i];
+    }
+    if (j & 1)
+      grow(fc, total, sum, a, seen1, act1, inc);
+    else
+      grow(fc, total, sum, a, seen0, act0, inc);
+    publish();
+"""
 
 # name -> (source file, [(text, replacement), ...]): one part of a design
 # taken out, or a parameter changed
@@ -249,6 +286,37 @@ VARIANTS = {
     # kernels M and N: a cluster of 8 CTAs of 16 warps (128 segments a block)
     "mn_cluster8_warps16": ("mtf.cu", [("constexpr int CLUSTER = 4;", "constexpr int CLUSTER = 8;"),
                                        ("constexpr int WARPS = 32;", "constexpr int WARPS = 16;")]),
+    # kernel J: CT-RC2 CTAs of 256 lanes at every K (not 64 up to 1,024);
+    # a histogram warp for each 256 lanes, not 64 (8 bytes of a row a
+    # lane); symbols in groups of 8 steps in CTAs of 64 lanes too, not 16
+    "j_coders256": ("rc_exact.cu", [("constexpr int ENC_ADAPTIVE_SMALL = 64;",
+                                     "constexpr int ENC_ADAPTIVE_SMALL = 256;")]),
+    "j_hist_fewer": ("rc_exact.cu", [(
+        "const int H = K <= 64 ? 1 : K <= 128 ? 2 : K <= 256 ? 4 : MAX_HIST_WARPS;",
+        "const int H = K <= 256 ? 1 : K <= 512 ? 2 : K <= 1024 ? 4 : MAX_HIST_WARPS;")]),
+    "j_group8": ("rc_exact.cu", [("constexpr int AHEAD_SMALL = 16;", "constexpr int AHEAD_SMALL = 8;")]),
+    # kernel L: CT-RC2's search by 8 halvings at every lane count; no word
+    # loaded early in any CTA, or words loaded early in small CTAs too; one
+    # CTA up to 8,192 lanes (a cluster of 2 there by default)
+    "l_search8": ("rc_exact.cu", [("constexpr int PIVOT_THREADS = 128;",
+                                   "constexpr int PIVOT_THREADS = 0;")]),
+    "l_words0": ("rc_exact.cu", [(L_AH, "constexpr int AH = 0;")]),
+    "l_words_early": ("rc_exact.cu", [(L_AH, "constexpr int AH = LPT == 1 ? 2 : LPT == 2 ? 1 : 0;")]),
+    "l_cta8192": ("rc_exact.cu", [("constexpr int DEC_CTA_LANES = 4096;",
+                                   "constexpr int DEC_CTA_LANES = 8192;")]),
+    # kernel L, diagnostics: one part of a CT-RC2 step taken out (the table
+    # build after the barrier, the barrier, the symbol's atomic, the
+    # search), so their outputs differ and are reported so; their times
+    # say what each part costs in place
+    "ldiag_nobuild": ("rc_exact.cu", [(L_BUILD, "")]),
+    "ldiag_nosync": ("rc_exact.cu", [("    if (G > 1)\n      cg::this_cluster().sync();\n"
+                                      "    else\n      __syncthreads();\n", "")]),
+    "ldiag_noatomic": ("rc_exact.cu", [("      if (on) atomicAdd(&h[s], 1u);\n", "")]),
+    "ldiag_nosearch": ("rc_exact.cu", [
+        ("        if (PIVOTS) {\n          uint32_t cnt = 0;",
+         "        if (false) {\n          uint32_t cnt = 0;"),
+        ("          for (uint32_t b = 128; b; b >>= 1)\n            if (t * row[s + b] <= cd) s += b;",
+         "          s = cd & 0xFFu;")]),
 }
 
 
@@ -256,10 +324,11 @@ VARIANTS = {
 ENTRY = {"A": "ct_rcx_encode", "B": "ct_expand_count", "C": "ct_rcx_decode",
          "D": "ct_rcq_encode", "E": "ct_rcq_decode", "F": "ct_rans_encode",
          "G": "ct_rans_decode", "H": "ct_huffman_encode_stream", "I": "ct_huffman_decode",
+         "J": "ct_rc_exact_encode", "L": "ct_rc_exact_decode",
          "M": "ct_mtf_encode", "N": "ct_mtf_decode"}
 VARIANT_SOURCE = {"a": "rcx_encode.cu", "b": "expand.cu", "g": "rans_decode.cu",
-                  "h": "huffman_encode.cu", "i": "huffman_decode.cu", "m": "mtf.cu",
-                  "mn": "mtf.cu"}
+                  "h": "huffman_encode.cu", "i": "huffman_decode.cu", "j": "rc_exact.cu",
+                  "l": "rc_exact.cu", "ldiag": "rc_exact.cu", "m": "mtf.cu", "mn": "mtf.cu"}
 
 
 def build_lib(name: str, csrc: Path, edits=(), only: str | None = None
@@ -448,6 +517,19 @@ def cases(dev):
     def bwt(f):
         return ctt.compress(corpus(f), codec="blocksort", device=dev, block_log2=19)
 
+    stage = ctt.compress(ctt.compress(bwt("kennedy.xls"), codec="mtf1", device=dev),
+                         codec="rle0", device=dev)
+    concat = b"".join(corpus(f) for f in CANTERBURY)
+    for label, data, k, static in (
+            ("kennedy.xls adaptive_range", corpus("kennedy.xls"), None, False),
+            ("kennedy.xls static_range", corpus("kennedy.xls"), None, True),
+            ("kennedy.xls pipeline coder stage", stage, None, False),
+            ("11 files concatenated", concat, None, False),
+            ("grammar.lsp adaptive_range", corpus("grammar.lsp"), None, False),
+            ("kennedy.xls adaptive_range K=8192", corpus("kennedy.xls"), 8192, False),
+            ("kennedy.xls adaptive_range K=65536", corpus("kennedy.xls"), 65536, False)):
+        out += range_cases(label, data, k, static, dev, stream)
+
     for label, data, mtf1 in (("kennedy.xls pipeline mtf1 stage", bwt("kennedy.xls"), True),
                               ("kennedy.xls mtf", corpus("kennedy.xls"), False),
                               ("grammar.lsp pipeline mtf1 stage", bwt("grammar.lsp"), True)):
@@ -462,6 +544,36 @@ def cases(dev):
                     stream())), o.view(-1)[:a[1]]
             out.append((kern, label, mtf))
     return out
+
+
+def range_cases(label: str, data: bytes, k: int | None, static: bool, dev, stream):
+    """J and L at one shape: the codec's defaults for n bytes over k lanes
+    (pick_lanes(n) when None), made through this tree's wrappers."""
+    k = k or pick_lanes(len(data))
+    n, stride, x2d, lens = interleaved(data, k, dev)
+    x = np.frombuffer(data, np.uint8)
+    freqs = torch.from_numpy(normalize_freqs(np.bincount(x, minlength=256), 16).astype(
+        np.int32)).to(dev) if static else None
+    inc, limit_log2 = (0, 16) if static else adaptive_params_for(k)
+    slots = range_ops.slots(freqs, limit_log2, k, inc)
+    ev0 = range_kernels.encode_events(x2d, lens, freqs, inc, limit_log2)
+    words = layout.decode_words(*expand.materialize_rows(ev0))
+    fp = None if freqs is None else freqs.data_ptr()
+    shape = f"{label} (K={k}, stride {stride}, {slots} slots)"
+
+    def enc(lib):
+        ev = torch.empty_like(ev0)
+        return (lambda: lib.ct_rc_exact_encode(
+            x2d.data_ptr(), lens.data_ptr(), fp, ev.data_ptr(), k, stride, inc, limit_log2,
+            slots, stream())), ev
+
+    def dec(lib):
+        o = torch.zeros(k * stride, dtype=torch.uint8, device=dev)
+        return (lambda: lib.ct_rc_exact_decode(
+            words.data_ptr(), lens.data_ptr(), fp, o.data_ptr(), k, words.shape[0], stride,
+            inc, limit_log2, slots, stream())), o
+
+    return [("J", shape, enc), ("L", shape, dec)]
 
 
 def b_wrapper(lib, ev):
@@ -581,6 +693,7 @@ def main():
     ap.add_argument("--variants", default="")
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--profile", default="")
+    ap.add_argument("--only", default="")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--out", type=Path)
     a = ap.parse_args()
@@ -618,6 +731,8 @@ def main():
                                  for lpt in sorted(set(old) | set(new))}
         report["d_sass_lines"] = {lpt: len(v) for lpt, v in new.items()}
     for kern, shape, make in cases(dev):
+        if a.only and kern not in a.only:
+            continue
         if kern == a.profile and "wrapper" not in shape:
             launches = profile_launches(make(libs["tree"])[0])
             report.setdefault("profile", {})[f"{kern} {shape}"] = launches

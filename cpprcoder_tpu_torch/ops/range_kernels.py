@@ -5,21 +5,34 @@ compiled `lax.scan` on the device (cpprcoder_tpu/ops/range_ops.py:51-91
 CT-RC1 encode, :94-132 CT-RC2 encode, :273-311 and :314-366 the decodes).
 A PyTorch step loop on the card would launch about ten kernels a step, so
 each scan is a kernel (`csrc/rc_exact.cu`): kernel J encodes, kernel L
-decodes. One CTA codes one stream, its K interleaved lanes at up to 8 a
-thread (K <= 8,192, the most `pick_lanes` gives); the model, freqs[256]
-and its exclusive cum, sits in shared memory. For CT-RC2 one warp rescales
-the table and scans it before each step between two barriers, the lanes
-code against it (t = range / total, an integer divide) and add inc to
-their symbol's count with shared-memory atomics; CT-RC1 takes the static
-table once (t = range >> 16). J writes time-major events [n_slots*stride
-+ 2, K] that kernel B expands; L feeds each lane from its word row through
-a 64-bit byte queue and finds the symbol by a binary search over the cum
-row. A stream's steps are sequential, so one stream is latency-bound.
+decodes, one launch a call, every power of two up to 65,536 lanes.
 
-Their plain versions are `range_ops.encode_events_plain` and
-`range_ops.decode_symbols_plain`. On a CPU tensor a wrapper runs the plain
-version; on a CUDA tensor it launches the kernel or raises. Neither wrapper
-reads anything back from the card before its launch.
+J: CT-RC1's lanes share only a constant table, so they spread over CTAs
+of 64 lanes. CT-RC2's model depends only on the input, so each CTA (64 lanes
+up to K = 1,024, else 256) has producer warps that run ahead of its lanes: histogram warps
+count the rows of x (staged in shared memory by cp.async), and a table
+warp turns each row's histogram into the next table (counts, cum, total
+and its magic number) in a ring in shared memory; the lanes wait only for
+their step's table, never for each other. Every lane loads its symbols a
+group of 8 steps early, divides range by the total with a multiply-high
+and one correction, and writes time-major events [n_slots*stride + 2, K]
+that kernel B expands.
+
+L: CT-RC1's lanes spread over CTAs of 128, each CTA with a 2^16-entry
+symbol table in shared memory (64 KiB, behind the opt-in); each lane
+keeps its next words in registers. CT-RC2's step j+1 needs every lane's
+step-j symbol: one barrier a step, after which every warp builds its own
+copy of the table from the step's histogram; a lane finds its symbol as
+the largest s with t*cum[s] <= code (no divide). Up to 4,096 lanes a CTA;
+more run a cluster of up to 8 CTAs that read each other's histograms
+through distributed shared memory.
+
+n_slots comes from `range_ops.slots` (K, inc and limit_log2; the bound on
+CT-RC2's total is proved there). Their plain versions are
+`range_ops.encode_events_plain` and `range_ops.decode_symbols_plain`. On a
+CPU tensor a wrapper runs the plain version; on a CUDA tensor it launches
+the kernel or raises. Neither wrapper reads anything back from the card
+before its launch.
 """
 
 from __future__ import annotations
@@ -32,7 +45,7 @@ from cpprcoder_tpu_torch.ops import layout, range_ops
 encode_launches = 0   # kernel J
 decode_launches = 0   # kernel L
 
-MAX_LANES = 8192      # 1024 threads, 8 lanes each
+MAX_LANES = 1 << 16   # CT-RC2 decode: a cluster of 8 CTAs of 8,192 lanes at most
 
 
 def _check(name, t, dtype, lane_len, freqs, inc, limit_log2):
@@ -41,6 +54,9 @@ def _check(name, t, dtype, lane_len, freqs, inc, limit_log2):
     if t.device.type == "cuda" and k & (k - 1):
         raise ValueError(f"kernels J and L take a power of two up to "
                          f"{MAX_LANES} lanes, got {k}")
+    if t.device.type == "cuda" and dtype == torch.uint8 and t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary on the "
+                         f"card (kernel J reads rows in 16-byte loads)")
     if freqs is not None:
         if freqs.dtype != torch.int32 or tuple(freqs.shape) != (256,) \
                 or freqs.device != t.device or not freqs.is_contiguous():
@@ -62,7 +78,7 @@ def encode_events(x2d: torch.Tensor, lane_len: torch.Tensor,
         return range_ops.encode_events_plain(x2d, lane_len, freqs, inc,
                                              limit_log2)
     stride, k = x2d.shape
-    slots = range_ops.slots(freqs, limit_log2)
+    slots = range_ops.slots(freqs, limit_log2, k, inc)
     dev = x2d.device
     lib = build.load()
     with torch.cuda.device(dev):
@@ -93,7 +109,7 @@ def decode_symbols(words: torch.Tensor, lane_len: torch.Tensor, n: int,
     if words.device.type == "cpu":
         return range_ops.decode_symbols_plain(words, lane_len, n, stride,
                                               freqs, inc, limit_log2)
-    slots = range_ops.slots(freqs, limit_log2)
+    slots = range_ops.slots(freqs, limit_log2, k, inc)
     dev = words.device
     lib = build.load()
     with torch.cuda.device(dev):

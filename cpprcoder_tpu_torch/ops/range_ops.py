@@ -20,11 +20,14 @@ The coder is kernel J (encode, ops/range_kernels.py) and kernel L
 plain versions: on CPU tensors the wrappers run them.
 
 Events: time-major [n_slots*stride + 2, K], n_slots shift_low slots a
-step (2, or 3 when limit_log2 > 16: a total above 2^16 leaves t*f as small
-as 2^6, three bytes short of 2^24), then 2 flush rows. The decoder feeds
-each lane from its big-endian word row through a byte queue (bytes past
-the lane's end read as zero, as `_queue_refill` does): a whole word joins
-the queue whenever fewer than n_slots bytes are buffered.
+step, then 2 flush rows. `slots` gives n_slots: 2 for CT-RC1, and for
+CT-RC2 2 only where its coding total provably stays at or below 2^16
+(max(2^limit_log2 - 1, K*inc + 512) <= 2^16), else 3. The JAX package's
+rule, 2 whenever limit_log2 <= 16, writes wrong bytes once K*inc passes
+about 2^16 (ROADMAP C6). The decoder feeds each lane from its big-endian
+word row through a byte queue (bytes past the lane's end read as zero, as
+`_queue_refill` does): a whole word joins the queue whenever fewer than
+n_slots bytes are buffered.
 """
 
 from __future__ import annotations
@@ -49,12 +52,33 @@ from cpprcoder_tpu_torch.reference.rc_ref import _lane_desc, _parse_lane_desc
 STATIC_SLOTS = 2   # total 2^16: t >= 2^8, so at most 2 shifts a symbol
 
 
-def slots(freqs, limit_log2: int) -> int:
-    """shift_low slots a step: 2 for CT-RC1 (freqs given); for CT-RC2 2,
-    or 3 from limit_log2 17 on (range_ops.py:96)."""
+def total_bound(k: int, inc: int, limit_log2: int) -> int:
+    """B = max(2^limit_log2 - 1, K*inc + 512): no CT-RC2 step of K lanes
+    codes against a total above B.
+
+    By induction over the steps. Step 0 codes against 256 <= B. Before step
+    j + 1 the total is P = T + a*inc, with T <= B the total of step j and
+    a <= K its active lanes. If P < 2^limit it is kept, and P <= 2^limit - 1
+    <= B. Else every count f becomes (f >> 1) | 1 <= f/2 + 1, so the new
+    total is at most P/2 + 256 <= (B + K*inc)/2 + 256 <= B, since K*inc +
+    512 <= B."""
+    return max((1 << limit_log2) - 1, k * inc + 512)
+
+
+def slots(freqs, limit_log2: int, k: int, inc: int) -> int:
+    """shift_low slots a step for K lanes: 2 for CT-RC1 (freqs given: total
+    2^16); for CT-RC2 2 where total_bound(K, inc, limit_log2) <= 2^16,
+    else 3.
+
+    A step leaves range >= t*f with t = floor(range/total) and f >= 1 (the
+    top symbol keeps range - t*c >= t*f too). With range >= 2^24 and total
+    <= 2^16, t >= 2^8, so two shifts bring range back to 2^24; with total
+    < 2^24, t >= 1 and three shifts do. A total of 2^24 or more (B >= 2^24
+    needs limit_log2 >= 25) can give t = 0, where the oracle never ends
+    (ROADMAP C7): 3 there too, and nothing is claimed."""
     if freqs is not None:
         return STATIC_SLOTS
-    return 2 if limit_log2 <= 16 else 3
+    return 2 if total_bound(k, inc, limit_log2) <= 1 << 16 else 3
 
 
 def _step_model(freqs: torch.Tensor, limit: int):
@@ -74,7 +98,7 @@ def encode_events_plain(x2d: torch.Tensor, lane_len: torch.Tensor,
     (int32 [256], total 2^16), or None for CT-RC2's adaptive model."""
     stride, k = x2d.shape
     dev = x2d.device
-    n_slots = slots(freqs, limit_log2)
+    n_slots = slots(freqs, limit_log2, k, inc)
     st = rc_common.make_state(k, dev)
     lens = lane_len.to(torch.int64)
     xs = x2d.to(torch.int64)
@@ -110,7 +134,7 @@ def decode_symbols_plain(words: torch.Tensor, lane_len: torch.Tensor, n: int,
     j*K + i is lane i's step j). freqs as for encode_events_plain."""
     l4, k = words.shape
     dev = words.device
-    n_slots = slots(freqs, limit_log2)
+    n_slots = slots(freqs, limit_log2, k, inc)
     w = rc_common.i32_to_u32(words)
     zero = torch.zeros(k, dtype=torch.int64, device=dev)
     rng = torch.full((k,), MASK32, dtype=torch.int64, device=dev)

@@ -694,6 +694,91 @@ def test_range_codecs_at_three_slots_match_the_oracle(dev, codec):
             == (data[:20_000] if lanes == 1 else data)
 
 
+@pytest.mark.parametrize("name,lanes,cut", [
+    ("grammar.lsp", 512, None), ("grammar.lsp", 1024, None),
+    ("alice29.txt", 1024, 30000)])
+def test_range_totals_past_2_16_match_plain_and_the_oracle(dev, name, lanes, cut):
+    """CT-RC2 at inc 255 and limit_log2 16, where the total passes 2^16
+    and a step takes three slots: J and L equal their plain versions, the
+    container the oracle's, and L decodes the oracle's container."""
+    data = (Path(__file__).resolve().parent.parent / "data" / name
+            ).read_bytes()[:cut]
+    x_np = np.frombuffer(data, np.uint8)
+    n, k = len(data), lanes
+    stride = -(-n // k)
+    x2d = layout.pad2d_interleaved(torch.from_numpy(x_np.copy()).to(dev), k,
+                                   stride)
+    lens = layout.lane_lengths_interleaved(n, k, stride, dev)
+    args = (None, 255, 16)
+    ev = range_kernels.encode_events(x2d, lens, *args)
+    assert ev.shape[0] == 3 * stride + 2
+    assert torch.equal(ev, range_ops.encode_events_plain(x2d, lens, *args))
+    words = layout.decode_words(*expand.materialize_rows(ev))
+    out = range_kernels.decode_symbols(words, lens, n, stride, *args)
+    assert torch.equal(out, range_ops.decode_symbols_plain(
+        words, lens, n, stride, *args))
+    opts = dict(lanes=lanes, inc=255, limit_log2=16)
+    want = ctt.compress(data, codec="adaptive_range", backend="ref", **opts)
+    assert ctt.compress(data, codec="adaptive_range", device="cuda",
+                        **opts) == want
+    assert ctt.decompress(want, codec="adaptive_range", device="cuda") == data
+
+
+RANGE_WIDE_BYTES = {("static_range", 16384): 50193,
+                    ("static_range", 32768): 99345,
+                    ("static_range", 65536): 197649,
+                    ("adaptive_range", 16384): 60309,
+                    ("adaptive_range", 32768): 109461,
+                    ("adaptive_range", 65536): 207765}
+
+
+@pytest.mark.parametrize("codec,lanes", list(RANGE_WIDE_BYTES))
+def test_range_widest_lanes_match_the_oracle(dev, codec, lanes):
+    """fields.c at 16,384 to 65,536 lanes (L's CT-RC2 a cluster of 4 to 8
+    CTAs): the oracle's sizes and bytes, and a round trip on the card."""
+    data = (Path(__file__).resolve().parent.parent / "data" / "fields.c"
+            ).read_bytes()
+    blob = ctt.compress(data, codec=codec, device="cuda", lanes=lanes)
+    assert len(blob) == RANGE_WIDE_BYTES[codec, lanes]
+    assert blob == ctt.compress(data, codec=codec, backend="ref", lanes=lanes)
+    assert ctt.decompress(blob, codec=codec, device="cuda") == data
+
+
+@pytest.mark.parametrize("k,static,data", [
+    (65536, False, "run"), (65536, True, "run"), (16384, False, "text"),
+    (512, False, "zipf"), (256, False, "ragged"), (128, True, "text"),
+    (256, True, "ragged"), (32, False, "ragged")])
+def test_range_kernels_at_edges_match_plain(dev, k, static, data):
+    """J and L at their geometry's edges: a one-byte run over 65,536 lanes
+    (every lane's update on one count; L's CT-RC2 a cluster of 8), 16,384
+    lanes (a cluster of 4), J's CT-RC2 over 8 CTAs of 64 lanes, CT-RC1
+    over two CTAs (J: 64 lanes a CTA; L: 128), and lanes of unequal length
+    (each 0 to stride steps), against the plain step loops."""
+    stride = 3 if k >= 16384 else 50
+    n = k * stride - 1
+    rng = np.random.default_rng(k)
+    x_np = {"run": lambda: np.full(n, 0x61, np.uint8),
+            "text": lambda: _textish(n, k), "zipf": lambda: _zipf(n, k),
+            "ragged": lambda: _zipf(n, k)}[data]()
+    x2d = layout.pad2d_interleaved(torch.from_numpy(x_np).to(dev), k, stride)
+    lens = layout.lane_lengths_interleaved(n, k, stride, dev)
+    if data == "ragged":
+        lens = torch.from_numpy(rng.integers(0, stride + 1, k).astype(
+            np.int32)).to(dev)
+    freqs = torch.from_numpy(normalize_freqs(np.bincount(
+        x_np, minlength=256), 16).astype(np.int32)).to(dev) if static else None
+    inc, limit_log2 = (0, 16) if static else (24, 16 if k <= 512 else 21)
+    args = (freqs, inc, limit_log2)
+    ev = range_kernels.encode_events(x2d, lens, *args)
+    assert torch.equal(ev, range_ops.encode_events_plain(x2d, lens, *args))
+    words = layout.decode_words(*expand.materialize_rows(ev))
+    out = range_kernels.decode_symbols(words, lens, n, stride, *args)
+    assert torch.equal(out, range_ops.decode_symbols_plain(
+        words, lens, n, stride, *args))
+    if data != "ragged":
+        assert torch.equal(out, torch.from_numpy(x_np).to(dev))
+
+
 # ------------------------------------------------ kernels M, N (CT-MTF1)
 
 @pytest.mark.parametrize("n", [1, 100, 32768, 32768 + 129, 3 * 32768 + 5])
