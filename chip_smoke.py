@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's ported paths once on one GPU: CT-RCX,
 CT-RCQ, CT-ANS1 v2 rANS (the default codec), CT-HUF1 canonical Huffman,
-and the Config-4 BWT pipeline (CT-PIPE: blocksort, mtf1, rle0,
-adaptive_range) with its stages and CT-RC1.
+the Config-4 BWT pipeline (CT-PIPE: blocksort, mtf1, rle0,
+adaptive_range) with its stages and CT-RC1, the resumable CT-RCQ encoder
+and CT-SB streaming over every ported codec, up to a stream of 2^30 +
+12,345 bytes.
 
     python3 chip_smoke.py
 
@@ -46,7 +48,13 @@ Phases, one line each (a failed phase exits non-zero):
               does not move, on every segment's first byte; runs, all 256
               values, a BWT across a block and one byte, short blocks of
               1,023 and 1,025 bytes), then timed at the pipeline's mtf1
-              stage at kennedy.xls, mtf alone there and grammar.lsp;
+              stage at kennedy.xls, mtf alone there and grammar.lsp; O
+              (kernel D from a saved state, the flush only when asked) in
+              chunks of 1, 63, 64 and 65 steps at K = 1 to 32,768 (8 and
+              32 lanes a thread), lanes that first emit chunks later, a
+              0xFF-heavy input from a state with pending runs, a
+              flush-only launch, and kennedy.xls in 64-step chunks joined
+              to D's events, then timed there beside D's one-shot time;
   4. main     per codec (rcx, rcq, rans, huffman, static_range,
               adaptive_range, blocksort, mtf, mtf1, rle0, pipeline), with
               the launch counts set to 0 just before and read just after:
@@ -56,32 +64,50 @@ Phases, one line each (a failed phase exits non-zero):
               preset on three files, for rans also the default codec and a
               lane with a wide word count, for static_range and
               adaptive_range also the 11 files concatenated (2,810,784
-              bytes: K = 1,024, limit_log2 17). Every kernel of the path
-              must have launched. Each call of a kernel's wrapper is
-              recorded and timed again afterwards: `main_ms` is their sum.
+              bytes: K = 1,024, limit_log2 17); then the `resume` path
+              (kennedy.xls and fields.c through RCQResumableEncoder,
+              checkpointed half-way through pickle and resumed: one-shot
+              rcq's container and the oracle's, a round trip) and the
+              `stream` path (every ported codec through CT-SB at sb_log2
+              14 over the 11 files concatenated, held to the oracle's
+              container, which worker processes compute meanwhile, with a
+              stream_decode_range across superblock edges; then
+              bench/synth.py's stream of 2^30 + 12,345 bytes over rcx and
+              rans at sb_log2 25, 33 superblocks: round trips, the tail
+              superblock against the oracle's, for rcx the first one too,
+              and encode/decode seconds and GB/s). Every kernel of the
+              path must have launched. Each call of a kernel's wrapper is
+              recorded and timed again afterwards (on the stream path
+              timed where it ran): `main_ms` is their sum.
 Then a {"kernels": [...]} JSON line (per kernel: launches on the main
 paths and main_ms, the largest difference from its plain version, its time and the
 plain version's at kennedy.xls's shape, and the bound: the larger of the
 bytes it moves over the memory rate and its operations over the peak
 rate; `ms_at`, its times at each shape timed, for B `passes_ms` and for
 H `wrapper_ms`; `launches_by_path`, its launches on each codec's path;
-`tpu_kernel`, the Pallas kernel it replaces, null for J, L, M and N, which
-replace the JAX package's lax.scan loops), the nvidia-smi line, and last
+`tpu_kernel`, the Pallas kernel it replaces, null for J, L, M, N and O,
+which replace the JAX package's lax.scan loops), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Each phase prints its seconds.
 """
 
 from __future__ import annotations
 
 import json
+import multiprocessing
 import os
+import pickle
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 import torch
 
 import cpprcoder_tpu_torch as ctt
+from cpprcoder_tpu_torch.bench.synth import synth_stream
+from cpprcoder_tpu_torch.codecs import stream
+from cpprcoder_tpu_torch.codecs.resume import RCQResumableEncoder
 from cpprcoder_tpu_torch.config import adaptive_params_for, pick_lanes
 from cpprcoder_tpu_torch.models.cxmodel import rcq_params, rcx_params
 from cpprcoder_tpu_torch.models.static_table import normalize_freqs
@@ -99,6 +125,7 @@ from cpprcoder_tpu_torch.ops import (
     rans_kernels,
     rans_ops,
     rcq_kernels,
+    rcq_ops,
     rcx_kernels,
     rcx_ops,
 )
@@ -188,6 +215,21 @@ RATIO_FILES = ["alice29.txt", "kennedy.xls", "ptt5"]
 # 32,768, whose containers the oracles write in these bytes
 WIDE_K = 32768
 WIDE_BYTES = {"rcx": 138314, "rcq": 131317}
+# the resumable CT-RCQ encoder's files (K = 2,048 over 503 steps: 8
+# chunks; K = 32 over 349: 6)
+RESUME_FILES = ["kennedy.xls", "fields.c"]
+# CT-SB: every ported codec over the concatenated corpus in superblocks of
+# 2^14 bytes; then a large stream (bench/synth.py's mix of text, records,
+# runs and random bytes) of 2^30 + 12,345 bytes at the default 2^25 (33
+# superblocks, the last 12,345 bytes) over rcx and rans
+STREAM_CODECS = sorted(EXPECTED_SIZES)
+STREAM_SB_LOG2 = 14
+LARGE_N = (1 << 30) + 12_345
+LARGE_SB_LOG2 = 25
+SYNTH_SEED = 2026
+# the stream path's wrapper calls, each a (start, end) pair of CUDA events
+# around it, by kernel (phase_main fills it; stream_large reads it)
+TIMED_CALLS: dict[str, list] = {}
 
 # each kernel's wrapper module, its launch counter there and the wrapper
 # function through which the container paths launch it (phase_main records
@@ -197,6 +239,7 @@ COUNTERS = {
     "expand": (expand, "launches", "materialize_rows"),
     "rcx_decode": (rcx_kernels, "decode_launches", "decode_symbols"),
     "rcq_encode": (rcq_kernels, "encode_launches", "encode_events"),
+    "rcq_encode_chunk": (rcq_kernels, "chunk_launches", "encode_chunk"),
     "rcq_decode": (rcq_kernels, "decode_launches", "decode_symbols"),
     "rans_encode": (rans_kernels, "encode_launches", "encode_events"),
     "rans_decode": (rans_kernels, "decode_launches", "decode_symbols"),
@@ -219,7 +262,13 @@ PATH_KERNELS = {
     "static_range": RC_EXACT, "adaptive_range": RC_EXACT,
     "blocksort": [], "mtf": MTF, "mtf1": MTF, "rle0": [],
     "pipeline": MTF + RC_EXACT,
+    # the resumable CT-RCQ encoder (O, B), one-shot rcq (D) and the
+    # decode (E) that it is held to
+    "resume": ["rcq_encode_chunk", "expand", "rcq_encode", "rcq_decode"],
 }
+# CT-SB over every ported codec: every kernel but O
+PATH_KERNELS["stream"] = sorted({nm for ks in PATH_KERNELS.values()
+                                 for nm in ks} - {"rcq_encode_chunk"})
 
 # The bound of a kernel (bound_ms): the larger of the bytes it must move
 # (each input read once, each output written once) over the H100's
@@ -235,7 +284,8 @@ OPS_PER_S = 67e12
 OPS_PER_SYMBOL = {"rcx_encode": 24, "rcx_decode": 40, "rcq_encode": 24,
                   "rcq_decode": 40, "rans_encode": 10, "rans_decode": 11,
                   "huffman_encode": 12, "huffman_decode": 40,
-                  "rc_exact_encode": 24, "rc_exact_decode": 40}
+                  "rc_exact_encode": 24, "rc_exact_decode": 40,
+                  "rcq_encode_chunk": 24}
 OPS_PER_CELL = 12      # a model cell's requant
 OPS_PER_TABLE_CELL = 5  # CT-RC2's table before a step: sum, halve, scan
 OPS_PER_EVENT = 5      # kernel B: an event's fields and its lane cumsum
@@ -751,6 +801,124 @@ def phase_kernels_rcq(dev):
                               2, f"{len(cases) + 2} CT-RCQ cases (D, E) equal "
                               f"their plain versions; {wide_round_trip('rcq')}")
     return err, ms, work, ms_at
+
+
+def chunk_start(k: int, pending: bool, seed: int, dev):
+    """(state [5, K] int32, C [256] int32) for kernel O: the fresh
+    encoder's, or a saved state whose lanes hold pending runs (low at
+    0xFF......, cache_size up to 4,000, carry on some lanes) and a model
+    with a history (seeded)."""
+    if pending:
+        rng = np.random.default_rng(seed)
+
+        def u32(lo, hi):
+            return rng.integers(lo, hi, k, dtype=np.uint64)
+        st = np.stack([u32(0xFF000000, 1 << 32), u32(0, 2),
+                       u32(1 << 24, 1 << 32), u32(0, 256), u32(1, 4000)])
+        C = rng.integers(1, 60, 256)
+    else:
+        st = np.stack([np.full(k, v) for v in (0, 0, MASK32, 0, 1)])
+        C = np.ones(256)
+    return tuple(torch.from_numpy(a.astype(np.uint32).view(np.int32)).to(dev)
+                 for a in (st, C))
+
+
+def phase_kernels_chunk(dev):
+    """O (D from a saved state, the flush when asked) against its plain
+    version (rcq_ops.encode_chunk_plain), three chunks then a flush-only
+    launch a case; timed at kennedy.xls's CT-RCQ shape (K = 2,048, 64-step
+    chunks: 7 of 64 steps, then 55 and the flush) beside D's one-shot time
+    there and at fields.c's (K = 32, 349 steps)."""
+    err = {"rcq_encode_chunk": 0}
+
+    def run(x2d, lens, st, C, inc, climit, steps, what, plain=True,
+            flush_alone=True):
+        """x2d's rows in chunks of `steps` through O (and its plain
+        version), the flush with the last chunk or in a launch of its own
+        (no rows); -> the events of every launch."""
+        pst, pC = st, C
+        evs = []
+        starts = list(range(0, x2d.shape[0], steps))
+        for t0 in starts + ([x2d.shape[0]] if flush_alone else []):
+            rows = x2d[t0:t0 + steps].contiguous()
+            flush = t0 == (x2d.shape[0] if flush_alone else starts[-1])
+            ev, st, C = rcq_kernels.encode_chunk(rows, lens, t0, st, C, inc,
+                                                 climit, flush)
+            if plain:
+                hold(err, "rcq_encode_chunk", (ev, st, C),
+                     rcq_ops.encode_chunk_plain(rows, lens, t0, pst, pC, inc,
+                                                climit, flush),
+                     f"kernel O at {what}, step {t0}")
+                pst, pC = st, C
+            evs.append(ev)
+        return evs
+
+    # chunks of 1, 63, 64 and 65 steps; K = 1, 100 (not a multiple of 32),
+    # 8,192 (8 lanes a thread: PACK) and 32,768 (32); zeros, whose lanes
+    # first emit chunks later; 0xFF-heavy input from a state with pending
+    # runs (a run crossing chunk edges); n not a multiple of a chunk
+    cases = [(1, 1, "text", False), (64, 63, "text", False),
+             (256, 64, "zeros", False), (100, 65, "text", True),
+             (8192, 64, "ff", True), (32768, 1, "text", False),
+             (32768, 65, "zeros", True), (2048, 64, "ff", True)]
+    for k, steps, kind, pending in cases:
+        n = 3 * steps * k - k // 2 - 1 if k > 1 else 3 * steps
+        data = {"text": textish(n, k), "zeros": bytes(n),
+                "ff": bytes(np.where(np.arange(n) % 7 < 5, 0xFF, np.frombuffer(
+                    textish(n, k + 5), np.uint8)).astype(np.uint8))}[kind]
+        _, inc, cl = rcq_params(n, lanes=k)
+        _, _, x2d, lens = interleaved_inputs(data, k, dev)
+        run(x2d, lens, *chunk_start(k, pending, k, dev), inc, 1 << cl, steps,
+            f"K={k} chunk={steps} {kind} pending={pending}")
+
+    # kennedy.xls as the resumable encoder runs it: O's 8 launches held
+    # against the plain version, their events against D's one-shot grid;
+    # one 64-step chunk timed (ms, plain ms), the 8 launches and D timed
+    data = corpus("kennedy.xls")
+    k, inc, cl = rcq_params(len(data))
+    n, stride, x2d, lens = interleaved_inputs(data, k, dev)
+    fresh = chunk_start(k, False, 0, dev)
+    evs = run(x2d, lens, *fresh, inc, 1 << cl, 64, "kennedy.xls",
+              flush_alone=False)
+    d_ev = rcq_kernels.encode_events(x2d, lens, inc, 1 << cl)
+    if not torch.equal(torch.cat(evs), d_ev):
+        fail("kernel O's chunks at kennedy.xls do not join to kernel D's "
+             "events")
+    rows = x2d[:64].contiguous()
+    one = (lambda: rcq_kernels.encode_chunk(rows, lens, 0, *fresh, inc,
+                                            1 << cl),
+           lambda: rcq_ops.encode_chunk_plain(rows, lens, 0, *fresh, inc,
+                                              1 << cl, False))
+    ms = {"rcq_encode_chunk": (cuda_ms(one[0], 5), cuda_ms(one[1], 2))}
+    chunked = f"kennedy.xls in {len(evs)} launches (K={k}, 64-step chunks)"
+    ms_at = {"kennedy.xls one 64-step chunk": ms["rcq_encode_chunk"][0],
+             chunked: cuda_ms(lambda: run(x2d, lens, *fresh, inc, 1 << cl, 64,
+                                          "", False, False), 5),
+             f"kennedy.xls kernel D one-shot ({stride} steps)": cuda_ms(
+                 lambda: rcq_kernels.encode_events(x2d, lens, inc, 1 << cl), 5)}
+    small = corpus("fields.c")
+    ks, incs, cls = rcq_params(len(small))
+    _, strides, x2ds, lenss = interleaved_inputs(small, ks, dev)
+    fresh_s = chunk_start(ks, False, 0, dev)
+    ms_at[f"fields.c in {-(-strides // 64)} launches (K={ks})"] = cuda_ms(
+        lambda: run(x2ds, lenss, *fresh_s, incs, 1 << cls, 64, "", False,
+                    False), 5)
+    ms_at[f"fields.c kernel D one-shot ({strides} steps)"] = cuda_ms(
+        lambda: rcq_kernels.encode_events(x2ds, lenss, incs, 1 << cls), 5)
+    # one 64-step chunk moves its rows in, the lane lengths, the state in
+    # and out, C in and out and its events out; every lane is active
+    ev = one[0]()[0]
+    work = {"rcq_encode_chunk": (nbytes(rows, lens) + 2 * nbytes(*fresh)
+                                 + nbytes(ev),
+                                 coder_ops("rcq_encode_chunk", rows.numel(),
+                                           64, 256))}
+    print(f"[kernels] ok {len(cases) + 1} kernel O cases (3 chunks then a "
+          f"flush-only launch each; kennedy.xls's 8 launches join to D's "
+          f"events) equal the plain version; ms kernel/plain at one 64-step "
+          f"chunk of kennedy.xls (K={k}): {ms['rcq_encode_chunk'][0]:.4f}/"
+          f"{ms['rcq_encode_chunk'][1]:.3f}; ms at " + ", ".join(
+              f"{nm} {t:.4f}" for nm, t in ms_at.items()), flush=True)
+    return err, ms, work, {"rcq_encode_chunk": ms_at}
 
 
 def phase_kernels_rans(dev):
@@ -1285,6 +1453,165 @@ def concatenated(codec: str):
     return f"the concatenated corpus in {len(blob)} bytes"
 
 
+def resumable(name: str) -> str:
+    """`name` through RCQResumableEncoder on the card (64-step chunks),
+    checkpointed half-way, pickled and resumed: one-shot rcq's container
+    and the oracle's, and back through decompress."""
+    data = corpus(name)
+    t0 = time.perf_counter()
+    enc = RCQResumableEncoder(len(data))
+    half = len(data) // 2 + 17
+    enc.feed(data[:half])
+    ckpt = pickle.dumps(enc.checkpoint())
+    enc = RCQResumableEncoder.resume(pickle.loads(ckpt))
+    enc.feed(data[half:])
+    blob = enc.finish()
+    t1 = time.perf_counter()
+    if blob != ctt.compress(data, codec="rcq", device="cuda"):
+        fail(f"resumable rcq {name}: container differs from one-shot rcq")
+    if blob != ctt.compress(data, codec="rcq", backend="ref") \
+            or len(blob) != EXPECTED_SIZES["rcq"][name]:
+        fail(f"resumable rcq {name}: container differs from the oracle's")
+    if ctt.decompress(blob, codec="rcq", device="cuda") != data:
+        fail(f"resumable rcq {name} did not round-trip")
+    print(f"[main] resume {name} n={len(data)} bytes={len(blob)} "
+          f"checkpoint={len(ckpt)} bytes enc_s={t1 - t0:.4f}", flush=True)
+    return name
+
+
+def run_resume():
+    return [f"resumable rcq over {', '.join(map(resumable, RESUME_FILES))} "
+            f"equals one-shot rcq and the oracle, and round-trips"]
+
+
+def synth_exact(n: int, seed: int) -> np.ndarray:
+    """n bytes of bench/synth.py's stream: synth_stream(n, seed), and where
+    it comes out short (a run section whose size is not a multiple of 512
+    gives fewer bytes than it counts) synth_stream of the rest at the next
+    seeds."""
+    parts, have = [], 0
+    while have < n:
+        parts.append(synth_stream(n - have, seed + len(parts)))
+        have += len(parts[-1])
+    return parts[0] if len(parts) == 1 else np.concatenate(parts)
+
+
+def oracle_stream(codec: str) -> bytes:
+    """The oracle's CT-SB container of the concatenated corpus (run in a
+    worker process while the card works)."""
+    return stream.stream_encode(concat_corpus(), codec=codec,
+                                sb_log2=STREAM_SB_LOG2, backend="ref")
+
+
+def oracle_first_superblock() -> bytes:
+    """The oracle's CT-RCX container of the large stream's first superblock
+    (the stream made again in a worker process)."""
+    data = synth_exact(LARGE_N, SYNTH_SEED)[:1 << LARGE_SB_LOG2]
+    return ctt.compress(data, codec="rcx", backend="ref")
+
+
+def superblocks(blob: bytes) -> list[bytes]:
+    """The containers of a CT-SB container, in order."""
+    n_sb = int.from_bytes(blob[2:6], "little")
+    sizes = np.frombuffer(blob, "<u4", n_sb, 6).astype(np.int64)
+    ends = 6 + 4 * n_sb + np.cumsum(sizes)
+    return [blob[e - s:e] for s, e in zip(sizes, ends)]
+
+
+def stream_corpus(codec: str, oracle) -> int:
+    """The concatenated corpus through CT-SB over `codec` at sb_log2
+    STREAM_SB_LOG2 on the card: the oracle's container (oracle: its
+    future), a round trip, and a range across superblock edges. -> bytes."""
+    data = concat_corpus()
+    t0 = time.perf_counter()
+    blob = stream.stream_encode(data, codec=codec, sb_log2=STREAM_SB_LOG2)
+    t1 = time.perf_counter()
+    back = stream.stream_decode(blob)
+    t2 = time.perf_counter()
+    sb = 1 << STREAM_SB_LOG2
+    lo, hi = 3 * sb - 100, 5 * sb + 100
+    if back != data or stream.stream_decode_range(blob, lo, hi) != data[lo:hi]:
+        fail(f"CT-SB over {codec}: no round trip, or range [{lo}, {hi}) wrong")
+    if blob != oracle.result():
+        fail(f"CT-SB over {codec}: a superblock differs from the oracle's")
+    print(f"[main] stream {codec} n={len(data)} sb_log2={STREAM_SB_LOG2} "
+          f"superblocks={len(superblocks(blob))} bytes={len(blob)} "
+          f"enc_s={t1 - t0:.4f} dec_s={t2 - t1:.4f}", flush=True)
+    return len(blob)
+
+
+def stream_large(codec: str, data: np.ndarray, first=None) -> str:
+    """The large stream through CT-SB over `codec` at the default sb_log2
+    (25) on the card, host clock around encode and decode (bytes in, bytes
+    out); the tail superblock's container against the oracle's, and the
+    first one's where `first` (a future of it) is given."""
+    marks = [{nm: len(c) for nm, c in TIMED_CALLS.items()}]
+    t0 = time.perf_counter()
+    blob = stream.stream_encode(data, codec=codec, sb_log2=LARGE_SB_LOG2)
+    t1 = time.perf_counter()
+    marks.append({nm: len(c) for nm, c in TIMED_CALLS.items()})
+    back = stream.stream_decode(blob)
+    t2 = time.perf_counter()
+    marks.append({nm: len(c) for nm, c in TIMED_CALLS.items()})
+    torch.cuda.synchronize()
+    # the kernels' device time inside encode and inside decode
+    kernel_s = [{nm: sum(a.elapsed_time(b) for a, b in c[lo[nm]:hi[nm]]) / 1e3
+                 for nm, c in TIMED_CALLS.items() if hi[nm] > lo[nm]}
+                for lo, hi in zip(marks, marks[1:])]
+    if not np.array_equal(np.frombuffer(back, np.uint8), data):
+        fail(f"CT-SB over {codec} at {len(data)} bytes did not round-trip")
+    del back
+    sbs = superblocks(blob)
+    sb = 1 << LARGE_SB_LOG2
+    if len(sbs) != -(-len(data) // sb):
+        fail(f"CT-SB over {codec}: {len(sbs)} superblocks")
+    tail = data[(len(sbs) - 1) * sb:]
+    if sbs[-1] != ctt.compress(tail, codec=codec, backend="ref"):
+        fail(f"CT-SB over {codec}: the tail superblock ({len(tail)} bytes) "
+             f"differs from the oracle's")
+    if first is not None and sbs[0] != first.result():
+        fail(f"CT-SB over {codec}: the first superblock differs from the "
+             f"oracle's")
+    gb = len(data) / 1e9
+    print(f"[main] stream large {codec} n={len(data)} superblocks={len(sbs)} "
+          f"(last {len(tail)} bytes) bytes={len(blob)} "
+          f"ratio={len(blob) / len(data):.4f} enc_s={t1 - t0:.3f} "
+          f"dec_s={t2 - t1:.3f} enc_GBps={gb / (t1 - t0):.4f} "
+          f"dec_GBps={gb / (t2 - t1):.4f}; kernel s in encode "
+          + ", ".join(f"{nm} {t:.4f}" for nm, t in kernel_s[0].items())
+          + "; in decode "
+          + ", ".join(f"{nm} {t:.4f}" for nm, t in kernel_s[1].items()),
+          flush=True)
+    return (f"{codec}: enc {t1 - t0:.3f} s, dec {t2 - t1:.3f} s"
+            + (", first and tail superblocks" if first else ", tail superblock")
+            + " equal the oracle's")
+
+
+def run_stream(oracles):
+    """Every ported codec through CT-SB over the concatenated corpus, then
+    the large stream over rcx and rans."""
+    total = sum(stream_corpus(codec, oracles[codec]) for codec in STREAM_CODECS)
+    notes = [f"{len(STREAM_CODECS)} codecs through CT-SB over the "
+             f"concatenated corpus equal the oracle ({total} bytes in all)"]
+    t0 = time.perf_counter()
+    data = synth_exact(LARGE_N, SYNTH_SEED)
+    print(f"[main] stream large input: synth_stream({LARGE_N}, "
+          f"{SYNTH_SEED}) made in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    notes += [stream_large("rcx", data, oracles["large rcx"]),
+              stream_large("rans", data)]
+    return notes
+
+
+def start_oracles(pool):
+    """The oracle containers the stream path is held to, computed in
+    worker processes from the start: {codec or "large rcx": future}."""
+    futures = {codec: pool.submit(oracle_stream, codec)
+               for codec in STREAM_CODECS}
+    futures["large rcx"] = pool.submit(oracle_first_superblock)
+    return futures
+
+
 EXTRAS = {"rcx": rcx_ratio_preset, "rcq": None, "rans": rans_default_and_wide,
           "huffman": None, "static_range": lambda: concatenated("static_range"),
           "adaptive_range": lambda: concatenated("adaptive_range"),
@@ -1292,28 +1619,47 @@ EXTRAS = {"rcx": rcx_ratio_preset, "rcq": None, "rans": rans_default_and_wide,
           "pipeline": None}
 
 
-def phase_main(codec: str):
-    """One codec's main path, with its kernels' launch counts set to 0
-    just before and read just after, and every call of their wrappers
-    recorded; then each recorded call is timed again with CUDA events (3
-    reps after a warm-up) and the times are summed a kernel.
+def phase_main(codec: str, oracles):
+    """One path (a codec's, "resume" or "stream"), with its kernels' launch
+    counts set to 0 just before and read just after, and every call of
+    their wrappers recorded; then each recorded call is timed again with
+    CUDA events (3 reps after a warm-up) and the times are summed a kernel.
+    The stream path's calls are timed where they run instead (CUDA events
+    around each call, one sample): their inputs (a 2^25-byte superblock's
+    event grid is 268 MB) are not kept for timing again.
     -> ({kernel: launches}, {kernel: main_ms})."""
+    in_place = codec == "stream"
     calls = {nm: [] for nm in PATH_KERNELS[codec]}
+    if in_place:
+        TIMED_CALLS.clear()
+        TIMED_CALLS.update(calls)
     wrapped = {}
     for nm in PATH_KERNELS[codec]:
         mod, counter, attr = COUNTERS[nm]
         fn = wrapped[nm] = getattr(mod, attr)
 
         def record(*a, _fn=fn, _calls=calls[nm], **kw):
-            _calls.append((_fn, a, kw))
-            return _fn(*a, **kw)
+            if not in_place:
+                _calls.append((_fn, a, kw))
+                return _fn(*a, **kw)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = _fn(*a, **kw)
+            ev[1].record()
+            _calls.append(ev)
+            return out
 
         setattr(mod, attr, record)
         setattr(mod, counter, 0)
     try:
-        notes = [run_corpus(codec)]
-        if EXTRAS[codec]:
-            notes.append(EXTRAS[codec]())
+        if codec == "resume":
+            notes = run_resume()
+        elif codec == "stream":
+            notes = run_stream(oracles)
+        else:
+            notes = [run_corpus(codec)]
+            if EXTRAS[codec]:
+                notes.append(EXTRAS[codec]())
         launches = {nm: getattr(*COUNTERS[nm][:2]) for nm in PATH_KERNELS[codec]}
     finally:
         for nm, fn in wrapped.items():
@@ -1324,8 +1670,13 @@ def phase_main(codec: str):
     if any(len(calls[nm]) != c for nm, c in launches.items()):
         fail(f"{codec}: recorded calls {[len(c) for c in calls.values()]} "
              f"!= launches {launches}")
-    main_ms = {nm: sum(cuda_ms(lambda: fn(*a, **kw), 3)
-                       for fn, a, kw in calls[nm]) for nm in calls}
+    torch.cuda.synchronize()
+    if in_place:
+        main_ms = {nm: sum(start.elapsed_time(end) for start, end in calls[nm])
+                   for nm in calls}
+    else:
+        main_ms = {nm: sum(cuda_ms(lambda: fn(*a, **kw), 3)
+                           for fn, a, kw in calls[nm]) for nm in calls}
     print(f"[main] ok {codec}: {'; '.join(notes)}; launches {launches}; "
           f"kernel ms summed over them "
           + ", ".join(f"{nm} {v:.3f}" for nm, v in main_ms.items()),
@@ -1364,6 +1715,8 @@ SCAN_KERNELS = [
      "cpprcoder_tpu/ops/mtf_ops.py:45"),
     ("mtf_decode", "cpprcoder_tpu_torch/csrc/mtf.cu",
      "cpprcoder_tpu/ops/mtf_ops.py:64"),
+    ("rcq_encode_chunk", "cpprcoder_tpu_torch/csrc/rcq_encode.cu",
+     "cpprcoder_tpu/codecs/resume.py:44"),
 ]
 
 
@@ -1390,30 +1743,39 @@ def main():
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     timed("build", phase_build)
-    err, ms, work, ms_at, b_passes = timed("kernels A, B, C", phase_kernels,
-                                           dev)
-    rcq, rans, (*huffman, h_wrapper), exact, mtf = (
-        timed("kernels D, E", phase_kernels_rcq, dev),
-        timed("kernels F, G", phase_kernels_rans, dev),
-        timed("kernels H, I", phase_kernels_huffman, dev),
-        timed("kernels J, L", phase_kernels_exact, dev),
-        timed("kernels M, N", phase_kernels_mtf, dev))
-    for e, m, w, a in (rcq, rans, huffman, exact, mtf):
-        err.update(e)
-        ms.update(m)
-        work.update(w)
-        ms_at.update(a)
-    # a kernel on several paths (B) reports the sum of its paths' counts
-    # and times, and each path's count apart
-    launches = dict.fromkeys(COUNTERS, 0)
-    main_ms = dict.fromkeys(COUNTERS, 0.0)
-    by_path = {nm: {} for nm in COUNTERS}
-    for codec in PATH_KERNELS:
-        counts, times = timed(f"main {codec}", phase_main, codec)
-        for nm, c in counts.items():
-            launches[nm] += c
-            main_ms[nm] += times[nm]
-            by_path[nm][codec] = c
+    # the oracle containers of the stream path, made by worker processes
+    # while the card works (spawned: they use no CUDA)
+    pool = ProcessPoolExecutor(3, mp_context=multiprocessing.get_context(
+        "spawn"))
+    try:
+        oracles = start_oracles(pool)
+        err, ms, work, ms_at, b_passes = timed("kernels A, B, C",
+                                               phase_kernels, dev)
+        rcq, rans, (*huffman, h_wrapper), exact, mtf, chunk = (
+            timed("kernels D, E", phase_kernels_rcq, dev),
+            timed("kernels F, G", phase_kernels_rans, dev),
+            timed("kernels H, I", phase_kernels_huffman, dev),
+            timed("kernels J, L", phase_kernels_exact, dev),
+            timed("kernels M, N", phase_kernels_mtf, dev),
+            timed("kernel O", phase_kernels_chunk, dev))
+        for e, m, w, a in (rcq, rans, huffman, exact, mtf, chunk):
+            err.update(e)
+            ms.update(m)
+            work.update(w)
+            ms_at.update(a)
+        # a kernel on several paths (B) reports the sum of its paths' counts
+        # and times, and each path's count apart
+        launches = dict.fromkeys(COUNTERS, 0)
+        main_ms = dict.fromkeys(COUNTERS, 0.0)
+        by_path = {nm: {} for nm in COUNTERS}
+        for codec in PATH_KERNELS:
+            counts, times = timed(f"main {codec}", phase_main, codec, oracles)
+            for nm, c in counts.items():
+                launches[nm] += c
+                main_ms[nm] += times[nm]
+                by_path[nm][codec] = c
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "cpprcoder_tpu"))
     if loaded:

@@ -661,7 +661,9 @@ def sass_of_d(path: Path) -> dict:
     out = {}
     for block in text.split("Function : ")[1:]:
         name, body = block.split("\n", 1)
-        m = re.search(r"rc_encode_kernelILi(\d+)ELi1ELb1E", name)
+        # D: LPT, ROUNDS 1, ONE_ROW, G 1, no GMODEL, and RESUME clear where
+        # the template has it (kernel O is the same template with it set)
+        m = re.search(r"rc_encode_kernelILi(\d+)ELi1ELb1ELi1ELb0E(Lb0E)?E", name)
         if m:
             out[int(m.group(1))] = [re.sub(r"/\*[0-9a-fx]+\*/|;.*$", "", ln).strip()
                                     for ln in body.splitlines() if "/*" in ln]

@@ -17,7 +17,13 @@ Public API:
 Codecs ported: static_range (CT-RC1), adaptive_range (CT-RC2),
 rans (CT-ANS1 v2, the default, as in the JAX package), huffman (CT-HUF1),
 blocksort (CT-BWT1), mtf (CT-MTF1), mtf1 (CT-MTF1), pipeline (CT-PIPE),
-rle0 (CT-RLE0), rcq (CT-RCQ) and rcx (CT-RCX).
+stream (CT-SB), rle0 (CT-RLE0), rcq (CT-RCQ) and rcx (CT-RCX).
+
+Streaming and resume (the JAX package's surface, checkpoints that cross
+between the packages): `codecs.stream.SuperblockEncoder` and
+`stream_decode_range` (CT-SB), and `codecs.resume.RCQResumableEncoder`
+(CT-RCQ resumable mid-stream, kernel O on the card); each takes
+`backend` and `device` as the codecs do.
 
 The device is explicit: the default is the card, and `device="cpu"` runs
 the plain PyTorch versions of the kernels (and the tensor code of the

@@ -4,10 +4,12 @@
 Ported so far: `static_range` (id 0, CT-RC1), `adaptive_range` (1,
 CT-RC2), `rans` (2, CT-ANS1 v2, the default codec, as in the JAX package),
 `huffman` (3, CT-HUF1), `blocksort` (4, CT-BWT1), `mtf` (5) and `mtf1` (8)
-(CT-MTF1), `pipeline` (9, CT-PIPE), `rle0` (12, CT-RLE0), `rcq` (14,
-CT-RCQ) and `rcx` (15, CT-RCX). Asking for another codec of the JAX
-package, by name or by id (a pipeline stage), raises KeyError naming the
-ROADMAP item that ports it.
+(CT-MTF1), `pipeline` (9, CT-PIPE), `stream` (10, CT-SB: superblocks of
+any ported codec; codecs/stream.py, with `SuperblockEncoder` and
+`stream_decode_range`), `rle0` (12, CT-RLE0), `rcq` (14, CT-RCQ; its
+resumable encoder is codecs/resume.py) and `rcx` (15, CT-RCX). Asking for
+another codec of the JAX package, by name or by id (a pipeline stage or a
+CT-SB header), raises KeyError naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -19,12 +21,11 @@ _BY_ID: dict[int, "Codec"] = {}
 
 # codecs of the JAX package still to port -> ROADMAP.md queue A item
 NOT_YET_PORTED = {
-    "stream": "A7", "slz4": "A11", "adaptive_o1": "A12",
-    "adaptive_rans": "A12", "ase": "A12",
+    "slz4": "A11", "adaptive_o1": "A12", "adaptive_rans": "A12", "ase": "A12",
 }
 # their codec ids in the JAX package
-NOT_YET_PORTED_IDS = {10: "stream", 6: "slz4", 11: "adaptive_o1",
-                      13: "adaptive_rans", 7: "ase"}
+NOT_YET_PORTED_IDS = {6: "slz4", 11: "adaptive_o1", 13: "adaptive_rans",
+                      7: "ase"}
 
 
 class Codec:
@@ -95,4 +96,5 @@ def _ensure_loaded():
         rcx,
         rle0,
         static_range,
+        stream,
     )

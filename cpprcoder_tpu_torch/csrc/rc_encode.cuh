@@ -52,6 +52,17 @@
 // From 8 lanes a thread each lane's cache and carry ride in the top bits of
 // its csize between steps (PACK), and the look-ahead stops.
 //
+// RESUME (kernel O, ONE_ROW only) runs a chunk of a stream's steps from a
+// saved state: each lane's five state words and the model's counts are
+// loaded at the start (the lane's cache and carry packed into its csize
+// there under PACK) and stored at the end, unpacked; the counts stored are
+// the last step's updates folded into its requantized counts, with no
+// requant after them, so that the next chunk's first step requantizes them
+// as the one-shot kernel's next step would. A lane codes row j of the
+// chunk iff t0 + j < lane_len (its length in the whole stream), clamped to
+// the chunk's rows, so the look-ahead load stops at the last row. The
+// flush runs only where asked, after the state is stored.
+//
 // What bounds it: the stride steps are sequential and one stream occupies
 // one SM (a cluster: four), so a single stream is latency-bound (per step:
 // a shared-memory table read, ~20 integer ops, an atomic, two coalesced
@@ -94,6 +105,19 @@ __device__ __forceinline__ void unpack_lane(uint32_t& csize, uint32_t& cache, ui
 // copies sit on different banks.
 constexpr int SUBS = 2, SUB_STRIDE = 257;
 
+// Kernel O's state in and out: st [5, K] u32 (low, carry, range, cache,
+// cache_size) and the counts C[256]; t0, the stream step of the chunk's
+// first row; flush, whether the two flush rows follow the steps. The
+// one-shot instantiations take none of it.
+struct Resume {
+  const uint32_t* st_in;
+  uint32_t* st_out;
+  const uint32_t* c_in;
+  uint32_t* c_out;
+  int t0;
+  int flush;
+};
+
 // x [streams, stride, K] u8; lane_len [streams, K] i32;
 // ev [streams, 2*stride+2, K] u32; gmodel: per-stream model scratch (the
 // GMODEL instantiation) or null. G > 1: stream s is the cluster of blocks
@@ -103,10 +127,12 @@ constexpr int SUBS = 2, SUB_STRIDE = 257;
 // ptxas may give a thread its 64 registers (at one lane a thread it
 // otherwise stops at 32 and spills); a minimum of 0 is none, so kernel A
 // compiles as with no minimum.
-template <int LPT, int ROUNDS, bool ONE_ROW, int G, bool GMODEL>
+template <int LPT, int ROUNDS, bool ONE_ROW, int G, bool GMODEL, bool RESUME = false>
 __global__ void __launch_bounds__(ct::MAX_THREADS, ONE_ROW ? 1 : 0) rc_encode_kernel(const uint8_t* __restrict__ x, const int32_t* __restrict__ lane_len,
                                   uint32_t* __restrict__ ev, uint8_t* gmodel, int K, int stride,
-                                  uint32_t inc, uint32_t climit, int cbits, int wlog) {
+                                  uint32_t inc, uint32_t climit, int cbits, int wlog,
+                                  Resume rs) {
+  static_assert(!RESUME || (ONE_ROW && G == 1 && !GMODEL), "kernel O is D's one-row kernel");
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ uint32_t xch[ONE_ROW ? ROUNDS + 4 : 1][8];
   __shared__ uint32_t sub[ONE_ROW ? SUBS * SUB_STRIDE : 1];
@@ -122,7 +148,7 @@ __global__ void __launch_bounds__(ct::MAX_THREADS, ONE_ROW ? 1 : 0) rc_encode_ke
   uint16_t* cum = reinterpret_cast<uint16_t*>(base + (size_t)held * 256 * 4);
   x += s * (size_t)stride * K;
   lane_len += s * K;
-  ev += s * (size_t)(2 * stride + 2) * K;
+  ev += s * (size_t)(2 * stride + (RESUME ? 2 * rs.flush : 2)) * K;
 
   const int tid = threadIdx.x;
   const int bd = blockDim.x;
@@ -146,15 +172,31 @@ __global__ void __launch_bounds__(ct::MAX_THREADS, ONE_ROW ? 1 : 0) rc_encode_ke
 #pragma unroll
   for (int m = 0; m < LPT; ++m) {
     const int loc = tid + m * bd, lane = g * kg + loc;
-    low[m] = 0;
-    carry[m] = 0;
-    rng[m] = 0xFFFFFFFFu;
-    cache[m] = 0;
-    csize[m] = 1;
-    len[m] = loc < kg && lane < K ? lane_len[lane] : 0;
+    const bool mine = loc < kg && lane < K;
+    if constexpr (RESUME) {
+      low[m] = mine ? rs.st_in[lane] : 0u;
+      carry[m] = mine ? rs.st_in[K + lane] : 0u;
+      rng[m] = mine ? rs.st_in[2 * K + lane] : 0u;
+      cache[m] = mine ? rs.st_in[3 * K + lane] : 0u;
+      csize[m] = mine ? rs.st_in[4 * K + lane] : 0u;
+      if constexpr (PACK) csize[m] |= (cache[m] << 22) | (carry[m] << 30);
+      const int left = mine ? lane_len[lane] - rs.t0 : 0;
+      len[m] = left < 0 ? 0 : (left < stride ? left : stride);
+    } else {
+      low[m] = 0;
+      carry[m] = 0;
+      rng[m] = 0xFFFFFFFFu;
+      cache[m] = 0;
+      csize[m] = 1;
+      len[m] = mine ? lane_len[lane] : 0;
+    }
     if constexpr (AHEAD) nsym[m] = len[m] > 0 ? x[lane] : 0u;  // previous symbol 0
   }
-  ct::model_init(C, held);
+  if constexpr (RESUME) {
+    for (int i = tid; i < 256; i += bd) C[i] = rs.c_in[i];
+  } else {
+    ct::model_init(C, held);
+  }
   if constexpr (ONE_ROW)
     for (int i = tid; i < SUBS * SUB_STRIDE; i += bd) sub[i] = 0;
   else
@@ -256,6 +298,17 @@ __global__ void __launch_bounds__(ct::MAX_THREADS, ONE_ROW ? 1 : 0) rc_encode_ke
     }
   }
 
+  if constexpr (RESUME) {
+    // the counts after the last step: its updates folded in, no requant
+    __syncthreads();
+    if (tid < ct::CELL_THREADS) {
+      uint32_t c = C[tid];
+#pragma unroll
+      for (int h = 0; h < SUBS; ++h) c += sub[h * SUB_STRIDE + tid];
+      rs.c_out[tid] = c;
+    }
+  }
+
   // flush: round low up to a multiple of 2^24, then shift_low twice
   uint32_t* fl0 = ev + (size_t)(2 * stride) * K;
   uint32_t* fl1 = fl0 + K;
@@ -264,6 +317,14 @@ __global__ void __launch_bounds__(ct::MAX_THREADS, ONE_ROW ? 1 : 0) rc_encode_ke
     const int loc = tid + m * bd, lane = g * kg + loc;
     if (loc < kg && lane < K) {
       if constexpr (PACK) unpack_lane(csize[m], cache[m], carry[m]);
+      if constexpr (RESUME) {
+        rs.st_out[lane] = low[m];
+        rs.st_out[K + lane] = carry[m];
+        rs.st_out[2 * K + lane] = rng[m];
+        rs.st_out[3 * K + lane] = cache[m];
+        rs.st_out[4 * K + lane] = csize[m];
+        if (!rs.flush) continue;
+      }
       const uint32_t nl = low[m] + ((0u - low[m]) & 0xFFFFFFu);
       carry[m] |= nl < low[m] ? 1u : 0u;
       low[m] = nl;
@@ -277,20 +338,30 @@ __global__ void __launch_bounds__(ct::MAX_THREADS, ONE_ROW ? 1 : 0) rc_encode_ke
 
 // Launches one instantiation: streams * G blocks, a cluster of G a stream;
 // returns its cudaError_t.
+template <int LPT, int ROUNDS, bool ONE_ROW, int G, bool GMODEL, bool RESUME = false>
+cudaError_t launch_encode_resume(const void* x, const void* lane_len, void* ev, void* gmodel,
+                                 int streams, int K, int stride, int inc, uint32_t climit,
+                                 int cbits, int wlog, Resume rs, cudaStream_t stream) {
+  const int rows = 1 << cbits, held = (rows + G - 1) / G;
+  const size_t smem = GMODEL ? 0 : ct::model_bytes(rows) - (size_t)(rows - held) * 256 * 4;
+  const int threads = ct::coder_threads((K + G - 1) / G, held, ONE_ROW);
+  return ct::launch_streams<G>(rc_encode_kernel<LPT, ROUNDS, ONE_ROW, G, GMODEL, RESUME>,
+                               streams, threads, smem, stream, (const uint8_t*)x,
+                               (const int32_t*)lane_len, (uint32_t*)ev, (uint8_t*)gmodel, K,
+                               stride, (uint32_t)inc, climit, cbits, wlog, rs);
+}
+
 template <int LPT, int ROUNDS, bool ONE_ROW, int G, bool GMODEL>
 cudaError_t launch_encode(const void* x, const void* lane_len, void* ev, void* gmodel, int streams,
                           int K, int stride, int inc, uint32_t climit, int cbits, int wlog,
                           cudaStream_t stream) {
-  const int rows = 1 << cbits, held = (rows + G - 1) / G;
-  const size_t smem = GMODEL ? 0 : ct::model_bytes(rows) - (size_t)(rows - held) * 256 * 4;
-  const int threads = ct::coder_threads((K + G - 1) / G, held, ONE_ROW);
-  return ct::launch_streams<G>(rc_encode_kernel<LPT, ROUNDS, ONE_ROW, G, GMODEL>, streams,
-                               threads, smem, stream, (const uint8_t*)x,
-                               (const int32_t*)lane_len, (uint32_t*)ev, (uint8_t*)gmodel, K,
-                               stride, (uint32_t)inc, climit, cbits, wlog);
+  return launch_encode_resume<LPT, ROUNDS, ONE_ROW, G, GMODEL>(
+      x, lane_len, ev, gmodel, streams, K, stride, inc, climit, cbits, wlog, Resume{}, stream);
 }
 
 using EncodeFn = cudaError_t (*)(const void*, const void*, void*, void*, int, int, int, int,
                                  uint32_t, int, int, cudaStream_t);
+using ResumeFn = cudaError_t (*)(const void*, const void*, void*, void*, int, int, int, int,
+                                 uint32_t, int, int, Resume, cudaStream_t);
 
 }  // namespace

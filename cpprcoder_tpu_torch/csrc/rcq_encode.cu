@@ -18,6 +18,13 @@
 // the interleaved [stride, K] grid, so each step's loads are K consecutive
 // input bytes.
 //
+// Kernel O (ct_rcq_encode_chunk below) is the same kernel run from a saved
+// state (RESUME in rc_encode.cuh): it replaces no Pallas kernel but the
+// lax.scan of cpprcoder_tpu/codecs/resume.py:44 `_chunk_fn` and its
+// `_flush_fn` (:89), for the resumable CT-RCQ encoder; a launch is a chunk
+// of steps, and its launch costs what D's costs for that many steps plus
+// the state's load and store.
+//
 // What bounds it: the steps are sequential on one SM, and every step has
 // the requant between two barriers (three named-barrier exchanges and an
 // fp64 reciprocal); at small K that chain, not the lanes' coding, sets the
@@ -42,5 +49,33 @@ extern "C" int ct_rcq_encode(const void* x, const void* lane_len, void* ev, int 
   }
   if (!fn) return (int)cudaErrorInvalidValue;
   return (int)fn(x, lane_len, ev, nullptr, 1, K, stride, inc, climit, 0, 0,
+                 (cudaStream_t)stream);
+}
+
+// Kernel O. x [steps, K] u8, the chunk's interleaved rows (steps may be 0);
+// lane_len [K] i32, each lane's steps in the whole stream (lane i codes row
+// j iff t0 + j < lane_len[i]); ev [2*steps + 2*flush, K] u32; st_in /
+// st_out [5, K] u32 (low, carry, range, cache, cache_size); c_in / c_out
+// [256] u32. The state out is the state after the steps; the flush rows
+// follow where flush is set. Cache sizes must stay below 2^22 over the
+// whole stream (the caller checks 3 * stride + 2 < 2^22). Returns the
+// cudaError_t as an int (cudaErrorInvalidValue when K is too large).
+extern "C" int ct_rcq_encode_chunk(const void* x, const void* lane_len, void* ev,
+                                   const void* st_in, void* st_out, const void* c_in,
+                                   void* c_out, int K, int steps, int t0, int flush, int inc,
+                                   uint32_t climit, void* stream) {
+  ResumeFn fn = nullptr;
+  switch (ct::lanes_per_thread(K)) {
+    case 1: fn = launch_encode_resume<1, 1, true, 1, false, true>; break;
+    case 2: fn = launch_encode_resume<2, 1, true, 1, false, true>; break;
+    case 4: fn = launch_encode_resume<4, 1, true, 1, false, true>; break;
+    case 8: fn = launch_encode_resume<8, 1, true, 1, false, true>; break;
+    case 16: fn = launch_encode_resume<16, 1, true, 1, false, true>; break;
+    case 32: fn = launch_encode_resume<32, 1, true, 1, false, true>; break;
+  }
+  if (!fn) return (int)cudaErrorInvalidValue;
+  const Resume rs{(const uint32_t*)st_in, (uint32_t*)st_out, (const uint32_t*)c_in,
+                  (uint32_t*)c_out, t0, flush ? 1 : 0};
+  return (int)fn(x, lane_len, ev, nullptr, 1, K, steps, inc, climit, 0, 0, rs,
                  (cudaStream_t)stream);
 }

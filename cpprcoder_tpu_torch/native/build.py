@@ -51,6 +51,10 @@ SIGNATURES = {
     "ct_rcx_decode_scratch": [_I, _I],
     # x, lane_len, events, K, stride, inc, climit, stream
     "ct_rcq_encode": [_P, _P, _P, _I, _I, _I, _U, _P],
+    # x, lane_len, events, state in, state out, C in, C out, K, steps, t0,
+    # flush, inc, climit, stream
+    "ct_rcq_encode_chunk": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _U, _P],
     # words, lane_len, out, K, l4, stride, inc, climit, stream
     "ct_rcq_decode": [_P, _P, _P, _I, _I, _I, _I, _U, _P],
     # x, lane_len, freq, cum, events, states, K, stride, stream

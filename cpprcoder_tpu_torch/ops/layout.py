@@ -123,7 +123,14 @@ def assemble(head: Callable[[bool], ByteWriter], rows: np.ndarray,
     table (u32 "wide" when a lane payload reaches 64 KiB, else u16), then
     the first sizes[i] bytes of each row i."""
     sizes = sizes.astype(np.int64)
-    payload = rows[np.arange(rows.shape[1])[None, :] < sizes[:, None]]
+    return assemble_payload(
+        head, rows[np.arange(rows.shape[1])[None, :] < sizes[:, None]], sizes)
+
+
+def assemble_payload(head: Callable[[bool], ByteWriter], payload: np.ndarray,
+                     sizes: np.ndarray) -> bytes:
+    """assemble's container from the lane-major payload (lane after lane,
+    sizes[i] bytes each) instead of rows."""
     wide = bool(sizes.max() >= 1 << 16)
     w = head(wide)
     _write_sizes(w, sizes.tolist(), wide)

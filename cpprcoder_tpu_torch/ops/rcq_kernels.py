@@ -12,7 +12,14 @@ barriers with 8 warps, one cell a thread (`ct::requant_cells` in
 sorted. D loads each lane's next symbol a step ahead, E its next word a
 refill ahead.
 
-Their plain versions are kernel A's and C's step loops
+Kernel O (`ct_rcq_encode_chunk`, in `csrc/rcq_encode.cu` beside D) is D
+run from a given coder state and model, returning both, with the flush
+only when asked: the steps of cpprcoder_tpu/codecs/resume.py:44
+`_chunk_fn` (a lax.scan, no Pallas kernel) and its `_flush_fn`, for the
+resumable encoder (codecs/resume.py). Its plain version is
+`rcq_ops.encode_chunk_plain`.
+
+D's and E's plain versions are kernel A's and C's step loops
 (`rcx_ops.encode_events_plain` / `decode_symbols_plain`) with cbits=0,
 wlog=0, rounds=1 and the interleaved output. On a CPU tensor a wrapper
 runs the plain version; on a CUDA tensor it launches the kernel or raises.
@@ -23,13 +30,13 @@ from __future__ import annotations
 import torch
 
 from cpprcoder_tpu_torch.native import build
-from cpprcoder_tpu_torch.ops import rcx_ops
+from cpprcoder_tpu_torch.ops import rcq_ops, rcx_ops
+from cpprcoder_tpu_torch.ops.rcq_ops import ROUNDS
 from cpprcoder_tpu_torch.ops.rcx_kernels import check_args
 
 encode_launches = 0   # kernel D
 decode_launches = 0   # kernel E
-
-ROUNDS = 1            # CT-RCQ halves once (models/qmodel.py rescale)
+chunk_launches = 0    # kernel O
 
 
 def encode_events(x2d: torch.Tensor, lane_len: torch.Tensor, inc: int,
@@ -78,3 +85,43 @@ def decode_symbols(words: torch.Tensor, lane_len: torch.Tensor, n: int,
         build.check(rc, "ct_rcq_decode")
     decode_launches += 1
     return out[:n]
+
+
+def encode_chunk(x2d: torch.Tensor, lane_len: torch.Tensor, t0: int,
+                 state: torch.Tensor, C: torch.Tensor, inc: int, climit: int,
+                 flush: bool = False):
+    """Kernel O: steps t0 .. t0 + steps - 1 of a CT-RCQ stream from a saved
+    state. x2d [steps, K] uint8 (the chunk's interleaved rows; steps may be
+    0); lane_len [K] int32, the steps each lane codes in the whole stream;
+    state [5, K] int32 (u32 low, carry, range, cache, cache_size); C [256]
+    int32. -> (events [2*steps + 2*flush, K] int32, state [5, K], C [256]),
+    new tensors (rcq_ops.encode_chunk_plain has the contract)."""
+    global chunk_launches
+    check_args("x2d", x2d, torch.uint8, lane_len, 0, 0, climit, inc)
+    steps, k = x2d.shape
+    dev = x2d.device
+    for name, t, shape in (("state", state, (5, k)), ("C", C, (256,))):
+        if t.dtype != torch.int32 or tuple(t.shape) != shape \
+                or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"{name} must be a contiguous int32 {shape} "
+                             f"tensor on {dev}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if not 0 <= t0 < 1 << 31:
+        raise ValueError(f"t0 {t0} out of range")
+    if dev.type == "cpu":
+        return rcq_ops.encode_chunk_plain(x2d, lane_len, t0, state, C, inc,
+                                          climit, flush)
+    lib = build.load()
+    with torch.cuda.device(dev):
+        ev = torch.empty((2 * steps + 2 * bool(flush), k), dtype=torch.int32,
+                         device=dev)
+        st_out = torch.empty_like(state)
+        c_out = torch.empty_like(C)
+        rc = lib.ct_rcq_encode_chunk(
+            x2d.data_ptr(), lane_len.data_ptr(), ev.data_ptr(),
+            state.data_ptr(), st_out.data_ptr(), C.data_ptr(),
+            c_out.data_ptr(), k, steps, t0, int(bool(flush)), inc, climit,
+            torch.cuda.current_stream(dev).cuda_stream)
+        build.check(rc, "ct_rcq_encode_chunk")
+    chunk_launches += 1
+    return ev, st_out, c_out

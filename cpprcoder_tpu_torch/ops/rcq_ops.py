@@ -26,8 +26,11 @@ from cpprcoder_tpu_torch.core.bytesutil import (
     as_u8,
 )
 from cpprcoder_tpu_torch.models.cxmodel import QBITS, rcq_params
-from cpprcoder_tpu_torch.ops import layout, rc_common
+from cpprcoder_tpu_torch.ops import layout, rc_common, rcx_ops
 from cpprcoder_tpu_torch.reference.rc_ref import _lane_desc, _parse_lane_desc
+
+
+ROUNDS = 1   # CT-RCQ halves once (models/qmodel.py rescale)
 
 
 def header(n, k, wide, inc, climit_log2) -> ByteWriter:
@@ -63,6 +66,35 @@ def rcq_encode(data, lanes: int | None = None, inc: int | None = None,
     return layout.assemble(
         lambda wide: header(n, k, wide, inc, climit_log2),
         rows.cpu().numpy(), sizes.cpu().numpy())
+
+
+def encode_chunk_plain(x2d: torch.Tensor, lane_len: torch.Tensor, t0: int,
+                       state: torch.Tensor, C: torch.Tensor, inc: int,
+                       climit: int, flush: bool):
+    """Plain version of kernel O (ops/rcq_kernels.encode_chunk): steps t0 ..
+    t0 + steps - 1 of CT-RCQ's encode from a saved coder state, as
+    cpprcoder_tpu/codecs/resume.py `_chunk_fn` (and `_flush_fn` where
+    `flush`) computes them.
+
+    x2d [steps, K] uint8 (the chunk's interleaved rows); lane_len [K] int32,
+    the steps each lane codes in the whole stream (lane i codes row j iff
+    t0 + j < lane_len[i]); state [5, K] int32 (u32 bits of low, carry,
+    range, cache, cache_size); C [256] int32, the counts after the last
+    step before the chunk. -> (events [2*steps (+2 flush rows), K] int32,
+    state [5, K] int32, C [256] int32): C after the chunk's last step's
+    updates, not requantized, so that the next chunk's first step
+    requantizes it as the one-shot encode would; the state after the steps
+    (the flush ends the stream and leaves no state to resume from)."""
+    steps = x2d.shape[0]
+    lens = torch.clamp(lane_len.to(torch.int64) - t0, 0, steps)
+    st = tuple(rc_common.i32_to_u32(state))
+    st, C2, ev = rcx_ops.encode_steps_plain(
+        x2d, lens, st, rc_common.i32_to_u32(C)[None, :], inc, climit, 0, 0,
+        ROUNDS)
+    if flush:
+        ev = torch.cat([ev, rc_common.flush(st)])
+    return (rc_common.u32_to_i32(ev), rc_common.u32_to_i32(torch.stack(st)),
+            rc_common.u32_to_i32(C2[0]))
 
 
 def parse_rcq_header(r: ByteReader):

@@ -50,14 +50,28 @@ def encode_events_plain(x2d: torch.Tensor, lane_len: torch.Tensor, inc: int,
     """Plain version of kernels A and D: x2d [stride, K] uint8 -> events
     [2*stride+2, K] int32 (u32 bits). Lane i codes x2d[j, i] for
     j < lane_len[i]; `rounds` halvings at most per requant."""
+    k = x2d.shape[1]
+    dev = x2d.device
+    C = torch.ones((1 << cbits, 256), dtype=torch.int64, device=dev)
+    st, _, events = encode_steps_plain(x2d, lane_len, rc_common.make_state(
+        k, dev), C, inc, climit, cbits, wlog, rounds)
+    return rc_common.u32_to_i32(torch.cat([events, rc_common.flush(st)]))
+
+
+def encode_steps_plain(x2d: torch.Tensor, lane_len: torch.Tensor, st, C,
+                       inc: int, climit: int, cbits: int, wlog: int,
+                       rounds: int):
+    """The step loop of encode_events_plain from a given coder state (the
+    five int64 lane vectors of rc_common.make_state) and model C [2^cbits,
+    256] int64, with no flush: -> (state, C, events [2*stride, K] int64).
+    The C returned is the counts after the last step's updates, not
+    requantized (a requant opens each window)."""
     stride, k = x2d.shape
     dev = x2d.device
-    st = rc_common.make_state(k, dev)
-    C = torch.ones((1 << cbits, 256), dtype=torch.int64, device=dev)
     prev = torch.zeros(k, dtype=torch.int64, device=dev)
     lens = lane_len.to(torch.int64)
     xs = x2d.to(torch.int64)
-    events = torch.empty((2 * stride + 2, k), dtype=torch.int64, device=dev)
+    events = torch.empty((2 * stride, k), dtype=torch.int64, device=dev)
     q = cum = None
     for j in range(stride):
         if j % (1 << wlog) == 0:
@@ -74,8 +88,7 @@ def encode_events_plain(x2d: torch.Tensor, lane_len: torch.Tensor, inc: int,
         C.index_put_((ctx, sym), torch.where(active, inc, 0),
                      accumulate=True)
         prev = torch.where(active, sym, prev)
-    events[2 * stride:] = rc_common.flush(st)
-    return rc_common.u32_to_i32(events)
+    return st, C, events
 
 
 def header(n, k, wide, inc, climit_log2, cbits, wlog) -> ByteWriter:

@@ -23,8 +23,8 @@ def _run(code, env=None):
 
 
 IDS = {"static_range": 0, "adaptive_range": 1, "rans": 2, "huffman": 3,
-       "blocksort": 4, "mtf": 5, "mtf1": 8, "pipeline": 9, "rle0": 12,
-       "rcq": 14, "rcx": 15}
+       "blocksort": 4, "mtf": 5, "mtf1": 8, "pipeline": 9, "stream": 10,
+       "rle0": 12, "rcq": 14, "rcx": 15}
 
 
 def test_registry():
@@ -35,8 +35,8 @@ def test_registry():
         assert ctt.get_codec_by_id(cid) is c
     with pytest.raises(KeyError, match="A11"):
         ctt.get_codec("slz4")
-    with pytest.raises(KeyError, match="A7"):
-        ctt.compress(b"abc", codec="stream")
+    with pytest.raises(KeyError, match="A12"):
+        ctt.compress(b"abc", codec="adaptive_o1")
     with pytest.raises(KeyError, match="unknown codec"):
         ctt.get_codec("nope")
     with pytest.raises(KeyError, match="A11"):
@@ -182,7 +182,10 @@ def test_import_pulls_in_no_jax():
 def test_sources_never_import_jax_or_jax_ops():
     pattern = re.compile(r"^\s*(from|import)\s+(jax\b|cpprcoder_tpu\.(ops|codecs|utils\.cache)\b)",
                          re.M)
-    for path in list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+    paths = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert {PKG / "codecs" / "stream.py", PKG / "codecs" / "resume.py",
+            PKG / "bench" / "synth.py"} <= set(paths)
+    for path in paths:
         assert not pattern.search(path.read_text()), path
 
 
@@ -211,6 +214,7 @@ def test_build_without_nvcc_raises_clearly(monkeypatch, tmp_path):
         "rc_encode.cuh", "rc_decode.cuh", "huffman_encode.cu",
         "huffman_decode.cu"}
     assert set(build.SIGNATURES) >= {"ct_rcq_encode", "ct_rcq_decode",
+                                     "ct_rcq_encode_chunk",
                                      "ct_rans_encode", "ct_rans_decode",
                                      "ct_huffman_encode_stream",
                                      "ct_huffman_decode"}

@@ -28,6 +28,7 @@ from cpprcoder_tpu_torch.ops import (
     rans_kernels,
     rans_ops,
     rcq_kernels,
+    rcq_ops,
     rcx_kernels,
     rcx_ops,
 )
@@ -873,3 +874,132 @@ def test_new_launch_counters_move(dev):
     assert ctt.decompress(blob, codec="pipeline") == data
     assert [getattr(m, a) - b for (m, a), b in zip(counters, before)] \
         == [1] * 5
+
+
+# ------------------------------------- kernel O, CT-SB and the resumable encoder
+
+def _chunk_start(k, pending, seed, dev):
+    """(state [5, K] int32, C [256] int32): the fresh encoder's, or a saved
+    state whose lanes hold pending runs (low at 0xFF......, cache_size up to
+    4,000, carry on some lanes) and a model with a history."""
+    if pending:
+        rng = np.random.default_rng(seed)
+        u32 = lambda lo, hi: rng.integers(lo, hi, k, dtype=np.uint64)  # noqa: E731
+        st = np.stack([u32(0xFF000000, 1 << 32), u32(0, 2),
+                       u32(1 << 24, 1 << 32), u32(0, 256), u32(1, 4000)])
+        C = rng.integers(1, 60, 256)
+    else:
+        st = np.stack([np.full(k, v) for v in (0, 0, 0xFFFFFFFF, 0, 1)])
+        C = np.ones(256)
+    to = lambda a: torch.from_numpy(a.astype(np.uint32).view(np.int32)).to(dev)  # noqa: E731
+    return to(st), to(C)
+
+
+# (K, chunk steps, input, pending runs at the start): chunks of 1, 63, 64
+# and 65 steps; K = 1, 8 lanes a thread (8,192) and 32,768 (32 a thread);
+# zeros, whose lanes first emit chunks later; 0xFF-heavy input after a
+# state with pending runs; n not a multiple of a chunk
+CHUNK_CASES = [(1, 1, "text", False), (64, 63, "text", False),
+               (256, 64, "zeros", False), (100, 65, "text", True),
+               (8192, 64, "ff", True), (32768, 1, "text", False),
+               (2048, 64, "ff", True)]
+
+
+@pytest.mark.parametrize("case", CHUNK_CASES)
+def test_rcq_encode_chunk_matches_plain(dev, case):
+    """Kernel O against its plain version chunk after chunk (3 chunks, the
+    last partly active), then a flush-only launch: events, state and C
+    exactly equal."""
+    k, steps, kind, pending = case
+    n = 3 * steps * k - k // 2 - 1 if k > 1 else 3 * steps
+    data = {"text": _textish(n, k), "zeros": np.zeros(n, np.uint8),
+            "ff": np.where(np.arange(n) % 7 < 5, 0xFF, _textish(n, k + 5))
+            .astype(np.uint8)}[kind]
+    _, inc, cl = rcq_params(n, lanes=k)
+    stride = -(-n // k)
+    x2d = layout.pad2d_interleaved(torch.from_numpy(data).to(dev), k,
+                                   3 * steps)
+    lens = layout.lane_lengths_interleaved(n, k, stride, dev)
+    st, C = _chunk_start(k, pending, k, dev)
+    pst, pC = st, C
+    for t0 in range(0, 3 * steps, steps):
+        rows = x2d[t0:t0 + steps].contiguous()
+        ev, st, C = rcq_kernels.encode_chunk(rows, lens, t0, st, C, inc,
+                                             1 << cl)
+        pev, pst, pC = rcq_ops.encode_chunk_plain(rows, lens, t0, pst, pC,
+                                                  inc, 1 << cl, False)
+        assert torch.equal(ev, pev) and torch.equal(st, pst) \
+            and torch.equal(C, pC)
+    empty = x2d[:0]
+    outs = rcq_kernels.encode_chunk(empty, lens, 3 * steps, st, C, inc,
+                                    1 << cl, flush=True)
+    pouts = rcq_ops.encode_chunk_plain(empty, lens, 3 * steps, pst, pC, inc,
+                                       1 << cl, True)
+    assert outs[0].shape == (2, k)
+    assert all(torch.equal(a, b) for a, b in zip(outs, pouts))
+
+
+def test_encode_chunk_equals_kernel_d(dev):
+    """Kernel O run from the fresh state over the whole stream, with the
+    flush, writes kernel D's events."""
+    n, k = 20_000 + 37, 64
+    _, inc, cl = rcq_params(n, lanes=k)
+    stride = -(-n // k)
+    x2d = layout.pad2d_interleaved(torch.from_numpy(_textish(n, 9)).to(dev),
+                                   k, stride)
+    lens = layout.lane_lengths_interleaved(n, k, stride, dev)
+    st, C = _chunk_start(k, False, 0, dev)
+    ev, _, _ = rcq_kernels.encode_chunk(x2d, lens, 0, st, C, inc, 1 << cl,
+                                        flush=True)
+    assert torch.equal(ev, rcq_kernels.encode_events(x2d, lens, inc, 1 << cl))
+
+
+@pytest.mark.parametrize("name,chunk_steps", [("fields.c", 64),
+                                              ("kennedy.xls", 64),
+                                              ("grammar.lsp", 7)])
+def test_resumable_container_matches_one_shot_and_the_oracle(dev, name,
+                                                             chunk_steps):
+    """RCQResumableEncoder on the card, checkpointed mid-way through
+    pickle and resumed: one-shot rcq's container and the oracle's, and it
+    decodes back; kernel O launched once a chunk."""
+    import pickle
+
+    from cpprcoder_tpu_torch.codecs.resume import RCQResumableEncoder
+
+    data = (Path(__file__).resolve().parent.parent / "data" / name).read_bytes()
+    before = rcq_kernels.chunk_launches
+    enc = RCQResumableEncoder(len(data), chunk_steps=chunk_steps)
+    half = len(data) // 2 + 17
+    enc.feed(data[:half])
+    enc = RCQResumableEncoder.resume(pickle.loads(pickle.dumps(
+        enc.checkpoint())))
+    enc.feed(data[half:])
+    blob = enc.finish()
+    assert blob == ctt.compress(data, codec="rcq", device="cuda")
+    assert blob == rcq_ref.rcq_encode(data)
+    assert ctt.decompress(blob, codec="rcq", device="cuda") == data
+    k = rcq_params(len(data))[0]
+    chunks = len(data) // (chunk_steps * k) + 1
+    assert rcq_kernels.chunk_launches - before == chunks
+
+
+@pytest.mark.parametrize("codec", ["rcx", "rans", "rcq", "huffman"])
+def test_stream_matches_the_oracle_on_the_card(dev, codec):
+    """CT-SB over 2^16-byte superblocks of kennedy.xls (16 superblocks, the
+    last short) on the card: the oracle codec's container, a round trip,
+    and a range across a superblock edge; SuperblockEncoder fed in pieces
+    gives the same bytes."""
+    from cpprcoder_tpu_torch.codecs import stream
+
+    data = (Path(__file__).resolve().parent.parent / "data"
+            / "kennedy.xls").read_bytes()
+    blob = stream.stream_encode(data, codec=codec, sb_log2=16)
+    assert blob == stream.stream_encode(data, codec=codec, sb_log2=16,
+                                        backend="ref")
+    assert stream.stream_decode(blob) == data
+    assert stream.stream_decode_range(blob, 65_000, 140_000) \
+        == data[65_000:140_000]
+    enc = stream.SuperblockEncoder(codec, sb_log2=16)
+    for i in range(0, len(data), 100_003):
+        enc.feed(data[i:i + 100_003])
+    assert enc.finish() == blob

@@ -15,6 +15,7 @@ import pytest
 from conftest import std_cases
 
 from cpprcoder_tpu import config as jconfig
+from cpprcoder_tpu.bench import synth as jsynth
 from cpprcoder_tpu.models import cxmodel as jcx
 from cpprcoder_tpu.models import freq_header as jfh
 from cpprcoder_tpu.models import huffman as jhuf
@@ -29,6 +30,7 @@ from cpprcoder_tpu.reference import rcq_ref as jrcq_ref
 from cpprcoder_tpu.reference import rcx_ref as jrcx_ref
 from cpprcoder_tpu.reference import rle0_ref as jrle0_ref
 from cpprcoder_tpu_torch import config as tconfig
+from cpprcoder_tpu_torch.bench import synth as tsynth
 from cpprcoder_tpu_torch.models import cxmodel as tcx
 from cpprcoder_tpu_torch.models import freq_header as tfh
 from cpprcoder_tpu_torch.models import huffman as thuf
@@ -167,6 +169,18 @@ def test_huffman_tables():
                               jhuf.build_decoder_lut(lengths))
 
 
+@pytest.mark.parametrize("n,seed", [(1, 3), (50_000, 0), (300_000, 7),
+                                    (2_000_000, 11)])
+def test_synth_stream_copy(n, seed):
+    """bench/synth.py makes the large CT-SB input on machines without JAX:
+    the same bytes as the original for every size and seed. (Both return
+    fewer than n bytes where a run section's size is not a multiple of
+    512: 1,999,608 of 2,000,000 at seed 11.)"""
+    got = tsynth.synth_stream(n, seed)
+    assert got.dtype == np.uint8 and 0 < len(got) <= n
+    assert np.array_equal(got, jsynth.synth_stream(n, seed))
+
+
 IMPORTS_JAX_PACKAGE = re.compile(
     r"^\s*(import\s+cpprcoder_tpu\b(?!_)|from\s+cpprcoder_tpu(\.|\s+import\b))",
     re.M)
@@ -180,6 +194,8 @@ def test_no_source_imports_the_jax_package():
     assert not IMPORTS_JAX_PACKAGE.search("from cpprcoder_tpu_torch.ops import x")
     paths = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(paths) > 20
+    assert {PKG / "codecs" / "stream.py", PKG / "codecs" / "resume.py",
+            PKG / "bench" / "synth.py"} <= set(paths)
     for path in paths:
         assert not IMPORTS_JAX_PACKAGE.search(path.read_text()), path
 
@@ -188,11 +204,24 @@ def test_running_every_codec_loads_nothing_of_jax():
     code = """
 import sys
 import cpprcoder_tpu_torch as ctt
+from cpprcoder_tpu_torch.bench.synth import synth_stream
+from cpprcoder_tpu_torch.codecs import resume, stream
 data = bytes(range(256)) * 3 + b"no jax here " * 50
 for codec in ctt.list_codecs():
     for opts in ({"device": "cpu"}, {"backend": "ref"}):
         blob = ctt.compress(data, codec=codec, **opts)
         assert ctt.decompress(blob, codec=codec, **opts) == data, codec
+enc = stream.SuperblockEncoder("rcq", sb_log2=9, device="cpu")
+enc.feed(data)
+blob = enc.finish()
+assert stream.stream_decode_range(blob, 500, 900, device="cpu") == data[500:900]
+enc = resume.RCQResumableEncoder(len(data), lanes=8, chunk_steps=8,
+                                 device="cpu")
+enc.feed(data[:700])
+enc = resume.RCQResumableEncoder.resume(enc.checkpoint(), device="cpu")
+enc.feed(data[700:])
+assert enc.finish() == ctt.compress(data, codec="rcq", lanes=8, backend="ref")
+assert 0 < len(synth_stream(5000, 1)) <= 5000
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "cpprcoder_tpu"
              or m.startswith("cpprcoder_tpu."))
@@ -201,4 +230,4 @@ print(len(ctt.list_codecs()), bad)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split(None, 1) == ["11", "[]\n"]
+    assert out.stdout.split(None, 1) == ["12", "[]\n"]
