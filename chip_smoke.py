@@ -2,9 +2,9 @@
 """Drive the PyTorch/CUDA port's ported paths once on one GPU: CT-RCX,
 CT-RCQ, CT-ANS1 v2 rANS (the default codec), CT-HUF1 canonical Huffman,
 the Config-4 BWT pipeline (CT-PIPE: blocksort, mtf1, rle0,
-adaptive_range) with its stages and CT-RC1, the resumable CT-RCQ encoder
-and CT-SB streaming over every ported codec, up to a stream of 2^30 +
-12,345 bytes.
+adaptive_range) with its stages and CT-RC1, CT-LZ4 (slz4), the resumable
+CT-RCQ encoder and CT-SB streaming over every ported codec, up to a
+stream of 2^30 + 12,345 bytes.
 
     python3 chip_smoke.py
 
@@ -55,16 +55,29 @@ Phases, one line each (a failed phase exits non-zero):
               0xFF-heavy input from a state with pending runs, a
               flush-only launch, and kennedy.xls in 64-step chunks joined
               to D's events, then timed there beside D's one-shot time;
+              P, Q and R (CT-LZ4's v2 walk, serializer and decode) at
+              kennedy.xls (8 segments of 2^17), grammar.lsp, fields.c at
+              seg_log2 7 (88 segments), 70,000 zero bytes and 200,000
+              random bytes, and at edges (1 and 13 bytes, seg_log2 0, 3
+              and 9, lazy=False, a match of 600 bytes), each container
+              also against the v2 oracle's; R on 5 malformed blocks, with
+              its plain version's error code; timed at those five shapes,
+              the plain versions at kennedy.xls;
   4. main     per codec (rcx, rcq, rans, huffman, static_range,
-              adaptive_range, blocksort, mtf, mtf1, rle0, pipeline), with
-              the launch counts set to 0 just before and read just after:
+              adaptive_range, blocksort, mtf, mtf1, rle0, pipeline, slz4),
+              with the launch counts set to 0 just before and read just
+              after:
               compress/decompress(codec, device="cuda") over the 11
               Canterbury files, byte-identical to the numpy oracle, the
               known container sizes, a round trip; for rcx also the ratio
               preset on three files, for rans also the default codec and a
               lane with a wide word count, for static_range and
               adaptive_range also the 11 files concatenated (2,810,784
-              bytes: K = 1,024, limit_log2 17); then the `resume` path
+              bytes: K = 1,024, limit_log2 17), for slz4 (held to the v2
+              oracle, which its card path writes; its backend="ref" is the
+              v1 parse) also the 11 files concatenated (22 segments: the
+              C1 row) and the v1 oracle's containers decoded; then the
+              `resume` path
               (kennedy.xls and fields.c through RCQResumableEncoder,
               checkpointed half-way through pickle and resumed: one-shot
               rcq's container and the oracle's, a round trip) and the
@@ -85,8 +98,8 @@ plain version's at kennedy.xls's shape, and the bound: the larger of the
 bytes it moves over the memory rate and its operations over the peak
 rate; `ms_at`, its times at each shape timed, for B `passes_ms` and for
 H `wrapper_ms`; `launches_by_path`, its launches on each codec's path;
-`tpu_kernel`, the Pallas kernel it replaces, null for J, L, M, N and O,
-which replace the JAX package's lax.scan loops), the nvidia-smi line, and last
+`tpu_kernel`, the Pallas kernel it replaces, null for J, L, M, N, O, P,
+Q and R, which replace the JAX package's lax.scan loops and XLA code), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Each phase prints its seconds.
 """
 
@@ -118,6 +131,8 @@ from cpprcoder_tpu_torch.ops import (
     huffman_kernels,
     huffman_ops,
     layout,
+    lz_kernels,
+    lz_ops,
     mtf_kernels,
     mtf_ops,
     range_kernels,
@@ -129,6 +144,7 @@ from cpprcoder_tpu_torch.ops import (
     rcx_kernels,
     rcx_ops,
 )
+from cpprcoder_tpu_torch.reference import slz4_ref
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 MASK32 = 0xFFFFFFFF
@@ -200,6 +216,19 @@ EXPECTED_SIZES = {
     },
 }
 EXPECTED_SIZES["mtf1"] = EXPECTED_SIZES["mtf"]   # one container size
+# CT-LZ4 at seg_log2 17, lazy: the v2 parse the card writes (the oracle's
+# slz4_encode(parse="v2"); its backend="ref" writes the v1 parse)
+EXPECTED_SIZES["slz4"] = {
+    "alice29.txt": 71996, "asyoulik.txt": 63239, "cp.html": 11200,
+    "fields.c": 4698, "grammar.lsp": 1844, "kennedy.xls": 328159,
+    "lcet10.txt": 194547, "plrabn12.txt": 255487, "ptt5": 82237,
+    "sum": 17377, "xargs.1": 2505,
+}
+# the 11 files concatenated at seg_log2 17 (22 segments): past the JAX
+# serializer's 2^18-token packing (C1), in the v2 oracle's bytes; and the
+# v1 oracle's containers of the 11 files, which the card decodes
+SLZ4_CONCAT_BYTES = 1034684
+SLZ4_V1_BYTES = 1140737
 # the 11 files concatenated in name order (2,810,784 bytes: K = 1,024,
 # limit_log2 17, three slots a step), in the oracles' bytes
 CONCAT_BYTES = {"static_range": 1658645, "adaptive_range": 1257925}
@@ -249,6 +278,9 @@ COUNTERS = {
     "rc_exact_decode": (range_kernels, "decode_launches", "decode_symbols"),
     "mtf_encode": (mtf_kernels, "encode_launches", "encode_ranks"),
     "mtf_decode": (mtf_kernels, "decode_launches", "decode_bytes"),
+    "lz_walk": (lz_kernels, "walk_launches", "walk"),
+    "lz_serialize": (lz_kernels, "serialize_launches", "serialize"),
+    "lz_decode": (lz_kernels, "decode_launches", "decode"),
 }
 # the kernels each codec's main path runs (blocksort and rle0 are tensor
 # code: no kernel of their own)
@@ -262,6 +294,7 @@ PATH_KERNELS = {
     "static_range": RC_EXACT, "adaptive_range": RC_EXACT,
     "blocksort": [], "mtf": MTF, "mtf1": MTF, "rle0": [],
     "pipeline": MTF + RC_EXACT,
+    "slz4": ["lz_walk", "lz_serialize", "lz_decode"],
     # the resumable CT-RCQ encoder (O, B), one-shot rcq (D) and the
     # decode (E) that it is held to
     "resume": ["rcq_encode_chunk", "expand", "rcq_encode", "rcq_decode"],
@@ -1355,6 +1388,151 @@ def phase_kernels_mtf(dev):
     return err, ms, work, ms_at
 
 
+def lz_malformed(dev):
+    """Containers kernel R must refuse, from grammar.lsp's v2 container at
+    seg_log2 12: (what, payload, bases, sizes, n, s, expected error)."""
+    data = corpus("grammar.lsp")
+    blob = bytearray(slz4_ref.slz4_encode(data, seg_log2=12, parse="v2"))
+    block = bytes(blob[13:])
+    # segment 0's first match: its offset bytes follow the first literals
+    lit = block[0] >> 4
+    p = 1
+    if lit == 15:
+        while block[p] == 255:
+            lit += 255
+            p += 1
+        lit += block[p]
+        p += 1
+    p += lit
+    out = []
+    for what, edit, n, code in (
+            ("offset 0", {p: 0, p + 1: 0}, len(data), lz_kernels.OFFSET_ZERO),
+            ("offset before the start", {p: 255, p + 1: 255}, len(data),
+             lz_kernels.OFFSET_BEFORE),
+            ("one byte too many", {}, len(data) - 1,
+             lz_kernels.WRITE_OVERRUN),
+            ("one byte short", {}, len(data) + 1, lz_kernels.BAD_LENGTH),
+            ("block cut 3 bytes short", None, len(data),
+             lz_kernels.READ_OVERRUN)):
+        b = bytearray(block[:-3] if edit is None else block)
+        for i, v in (edit or {}).items():
+            b[i] = v
+        sizes = torch.tensor([len(b)], dtype=torch.int64, device=dev)
+        out.append((what, to_dev(bytes(b), dev),
+                    torch.zeros(1, dtype=torch.int64, device=dev), sizes, n,
+                    1 << 12, code))
+    return out
+
+
+def phase_kernels_lz(dev):
+    """P, Q and R against their plain versions (lz_kernels.walk_plain,
+    serialize_plain, decode_plain) and the payload against the v2 oracle's
+    container, at the main path's shapes and at edges; R also on malformed
+    blocks (the same error code as its plain version's). Times at each
+    shape; the plain versions at kennedy.xls."""
+    err = {"lz_walk": 0, "lz_serialize": 0, "lz_decode": 0}
+    rng = np.random.default_rng(601)
+    text = corpus("fields.c")
+    shapes = [("kennedy.xls", corpus("kennedy.xls"), 17, True),
+              ("grammar.lsp", corpus("grammar.lsp"), 17, True),
+              ("fields.c at seg_log2 7", text, 7, True),
+              ("70,000 zero bytes", bytes(70_000), 17, True),
+              ("200,000 random bytes", rng.integers(
+                  0, 256, 200_000, np.uint8).tobytes(), 17, True)]
+    edges = [("1 byte", b"z", 17, True), ("13 bytes", b"q" * 13, 17, True),
+             ("seg_log2 0", text[:300], 0, True),
+             ("seg_log2 3", text[:2000], 3, True),
+             ("a tail run at seg_log2 9", text[:3000] + b"\x07" * 1200, 9,
+              True),
+             ("lazy=False", text, 12, False),
+             ("a match of 600", b"xyz0" + b"abcdefgh" * 75 + b"tail!", 17,
+              True)]
+    ms, work, ms_at, plain_ms = {}, {}, {nm: {} for nm in err}, {}
+
+    def plain(nm, fn, timed):
+        """fn(), the plain version of kernel nm; timed: its ms by CUDA
+        events into plain_ms (one call: the plain loops take seconds)."""
+        if not timed:
+            return fn()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        plain_ms[nm] = start.elapsed_time(end)
+        return out
+
+    for i, (what, data, sl, lazy) in enumerate(shapes + edges):
+        n = len(data)
+        rows, lens = lz_ops.segment_rows(to_dev(data, dev), sl)
+        step, off = lz_ops.walk_inputs(rows, lens, lazy)
+        fns = {"lz_walk": (lambda: lz_kernels.walk(step, off),
+                           lambda: lz_kernels.walk_plain(step, off))}
+        tokens = hold(err, "lz_walk", fns["lz_walk"][0](),
+                      plain("lz_walk", fns["lz_walk"][1], i == 0),
+                      f"kernel P at {what}")
+        fns["lz_serialize"] = (
+            lambda: lz_kernels.serialize(rows, lens, *tokens),
+            lambda: lz_kernels.serialize_plain(rows, lens, *tokens))
+        payload, sizes = hold(err, "lz_serialize", fns["lz_serialize"][0](),
+                              plain("lz_serialize", fns["lz_serialize"][1],
+                                    i == 0), f"kernel Q at {what}")
+        want = slz4_ref.slz4_encode(data, seg_log2=sl, lazy=lazy, parse="v2")
+        n_segs = rows.shape[0]
+        head = 9 + 4 * n_segs
+        if (want[9:head] != sizes.cpu().numpy().astype("<u4").tobytes()
+                or want[head:] != payload.cpu().numpy().tobytes()):
+            fail(f"kernels P and Q at {what}: not the v2 oracle's container")
+        bases = sizes.cumsum(0) - sizes
+        fns["lz_decode"] = (
+            lambda: lz_kernels.decode(payload, bases, sizes, n, 1 << sl),
+            lambda: lz_kernels.decode_plain(payload, bases, sizes, n, 1 << sl))
+        out, codes = hold(err, "lz_decode", fns["lz_decode"][0](),
+                          plain("lz_decode", fns["lz_decode"][1], i == 0),
+                          f"kernel R at {what}")
+        if codes.any() or out.cpu().numpy().tobytes() != data:
+            fail(f"kernel R at {what} did not return the input")
+        if i >= len(shapes):
+            continue
+        mpos, mlen, moff, count = tokens
+        matches = int(count.sum())
+        covered = int(mlen.to(torch.int64).sum())
+        visited = rows.numel() - covered + matches
+        total = payload.numel()
+        shape = f"{what}: {n_segs} segments, {matches} matches"
+        for nm, (kern, _) in fns.items():
+            ms_at[nm][shape] = cuda_ms(kern, 5)
+        if i == 0:
+            # P reads step where the walk goes and off at its matches, and
+            # writes 3 words a match; Q reads each input byte and a match's
+            # fields once and writes the payload; R reads the payload and
+            # writes the bytes (each with the segments' int64 bounds)
+            work = {"lz_walk": (4 * visited + 16 * matches + 4 * n_segs,
+                                2 * visited),
+                    "lz_serialize": (n + 12 * matches + 16 * n_segs + total,
+                                     covered + total),
+                    "lz_decode": (total + n + 16 * n_segs, n)}
+            ms = {nm: (ms_at[nm][shape], plain_ms[nm]) for nm in fns}
+    for what, payload, bases, sizes, n, s, code in lz_malformed(dev):
+        _, codes = hold(err, "lz_decode",
+                        lz_kernels.decode(payload, bases, sizes, n, s),
+                        lz_kernels.decode_plain(payload, bases, sizes, n, s),
+                        f"kernel R on a block with {what}")
+        if codes.tolist() != [code]:
+            fail(f"kernel R on a block with {what}: error {codes.tolist()}, "
+                 f"expected {code}")
+    print(f"[kernels] ok {len(shapes) + len(edges)} CT-LZ4 cases (P, Q, R) "
+          f"equal their plain versions and the v2 oracle, and 5 malformed "
+          f"blocks R refuses as its plain version does; ms kernel/plain at "
+          f"kennedy.xls: " + ", ".join(
+              f"{nm} {a:.3f}/{b:.3f}" for nm, (a, b) in ms.items())
+          + "; ms at " + "; ".join(
+              f"{at}: " + " / ".join(f"{ms_at[nm][at]:.3f}" for nm in err)
+              for at in ms_at["lz_walk"]), flush=True)
+    return err, ms, work, ms_at
+
+
 def run_corpus(codec: str):
     """The 11 files through compress/decompress(codec, device="cuda"):
     oracle-identical, the expected sizes, round trips. -> total bytes."""
@@ -1367,9 +1545,10 @@ def run_corpus(codec: str):
         t1 = time.perf_counter()
         back = ctt.decompress(blob, codec=codec, device="cuda")
         t2 = time.perf_counter()
-        ref = ctt.compress(data, codec=codec, backend="ref")
+        ref = oracle(data, codec)
         if blob != ref:
-            fail(f"{codec} {name}: container differs from the numpy oracle")
+            fail(f"{codec} {name}: container differs from the numpy oracle "
+                 f"from byte {first_difference(blob, ref)}")
         if len(blob) != want:
             fail(f"{codec} {name}: {len(blob)} container bytes, expected "
                  f"{want}")
@@ -1496,11 +1675,40 @@ def synth_exact(n: int, seed: int) -> np.ndarray:
     return parts[0] if len(parts) == 1 else np.concatenate(parts)
 
 
+def oracle(data: bytes, codec: str) -> bytes:
+    """The numpy oracle's container of `data` at the codec's defaults:
+    backend="ref", but for slz4, whose card path writes the v2 parse, the
+    oracle's v2 parse (its backend="ref" writes the v1 parse, as the JAX
+    codec's does)."""
+    if codec == "slz4":
+        return slz4_ref.slz4_encode(data, parse="v2")
+    return ctt.compress(data, codec=codec, backend="ref")
+
+
+def first_difference(a: bytes, b: bytes) -> int:
+    """The first byte at which a and b differ (or the shorter length)."""
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                min(len(a), len(b)))
+
+
 def oracle_stream(codec: str) -> bytes:
     """The oracle's CT-SB container of the concatenated corpus (run in a
-    worker process while the card works)."""
-    return stream.stream_encode(concat_corpus(), codec=codec,
-                                sb_log2=STREAM_SB_LOG2, backend="ref")
+    worker process while the card works); for slz4 its superblocks are the
+    v2 oracle's (`oracle`)."""
+    data = concat_corpus()
+    if codec != "slz4":
+        return stream.stream_encode(data, codec=codec,
+                                    sb_log2=STREAM_SB_LOG2, backend="ref")
+    sb = 1 << STREAM_SB_LOG2
+    return stream._container(
+        ctt.get_codec(codec).codec_id, STREAM_SB_LOG2,
+        [oracle(data[i:i + sb], codec) for i in range(0, len(data), sb)])
+
+
+def oracle_slz4_v1() -> list[bytes]:
+    """The v1 oracle's containers of the 11 files (slz4's backend="ref")."""
+    return [ctt.compress(corpus(nm), codec="slz4", backend="ref")
+            for nm in EXPECTED_SIZES["slz4"]]
 
 
 def oracle_first_superblock() -> bytes:
@@ -1609,14 +1817,54 @@ def start_oracles(pool):
     futures = {codec: pool.submit(oracle_stream, codec)
                for codec in STREAM_CODECS}
     futures["large rcx"] = pool.submit(oracle_first_superblock)
+    futures["slz4 concatenated"] = pool.submit(oracle, concat_corpus(), "slz4")
+    futures["slz4 v1"] = pool.submit(oracle_slz4_v1)
     return futures
 
 
-EXTRAS = {"rcx": rcx_ratio_preset, "rcq": None, "rans": rans_default_and_wide,
-          "huffman": None, "static_range": lambda: concatenated("static_range"),
-          "adaptive_range": lambda: concatenated("adaptive_range"),
+def slz4_whole_inputs(oracles):
+    """The 11 files concatenated (2,810,784 bytes, 22 segments of 2^17:
+    the C1 row, where the JAX package's serializer wraps) against the v2
+    oracle's container, and back; then the v1 oracle's containers of the
+    11 files decoded on the card."""
+    data = concat_corpus()
+    t0 = time.perf_counter()
+    blob = ctt.compress(data, codec="slz4", device="cuda")
+    t1 = time.perf_counter()
+    back = ctt.decompress(blob, codec="slz4", device="cuda")
+    t2 = time.perf_counter()
+    ref = oracles["slz4 concatenated"].result()
+    if blob != ref:
+        fail(f"slz4 over the concatenated corpus: container differs from the "
+             f"v2 oracle's from byte {first_difference(blob, ref)}")
+    if len(blob) != SLZ4_CONCAT_BYTES or back != data:
+        fail(f"slz4 over the concatenated corpus: {len(blob)} bytes (not "
+             f"{SLZ4_CONCAT_BYTES}) or no round trip")
+    print(f"[main] slz4 11 files concatenated n={len(data)} "
+          f"bytes={len(blob)} enc_s={t1 - t0:.4f} dec_s={t2 - t1:.4f}",
+          flush=True)
+    v1 = oracles["slz4 v1"].result()
+    t0 = time.perf_counter()
+    for name, v1_blob in zip(EXPECTED_SIZES["slz4"], v1):
+        if ctt.decompress(v1_blob, codec="slz4",
+                          device="cuda") != corpus(name):
+            fail(f"slz4: the v1 oracle's container of {name} did not decode")
+    if sum(map(len, v1)) != SLZ4_V1_BYTES:
+        fail(f"slz4: the v1 oracle wrote {sum(map(len, v1))} bytes, not "
+             f"{SLZ4_V1_BYTES}")
+    print(f"[main] slz4 v1 oracle containers of the 11 files "
+          f"({SLZ4_V1_BYTES} bytes) decoded in "
+          f"{time.perf_counter() - t0:.4f} s", flush=True)
+    return (f"the concatenated corpus in {len(blob)} bytes (the v2 "
+            f"oracle's); the v1 oracle's containers decode")
+
+
+EXTRAS = {"rcx": lambda _: rcx_ratio_preset(), "rcq": None,
+          "rans": lambda _: rans_default_and_wide(), "huffman": None,
+          "static_range": lambda _: concatenated("static_range"),
+          "adaptive_range": lambda _: concatenated("adaptive_range"),
           "blocksort": None, "mtf": None, "mtf1": None, "rle0": None,
-          "pipeline": None}
+          "pipeline": None, "slz4": slz4_whole_inputs}
 
 
 def phase_main(codec: str, oracles):
@@ -1659,7 +1907,7 @@ def phase_main(codec: str, oracles):
         else:
             notes = [run_corpus(codec)]
             if EXTRAS[codec]:
-                notes.append(EXTRAS[codec]())
+                notes.append(EXTRAS[codec](oracles))
         launches = {nm: getattr(*COUNTERS[nm][:2]) for nm in PATH_KERNELS[codec]}
     finally:
         for nm, fn in wrapped.items():
@@ -1717,6 +1965,13 @@ SCAN_KERNELS = [
      "cpprcoder_tpu/ops/mtf_ops.py:64"),
     ("rcq_encode_chunk", "cpprcoder_tpu_torch/csrc/rcq_encode.cu",
      "cpprcoder_tpu/codecs/resume.py:44"),
+    # CT-LZ4: the v2 walk (P) and serializer (Q), and the decode (R)
+    ("lz_walk", "cpprcoder_tpu_torch/csrc/lz_encode.cu",
+     "cpprcoder_tpu/ops/lz_ops.py:644"),
+    ("lz_serialize", "cpprcoder_tpu_torch/csrc/lz_encode.cu",
+     "cpprcoder_tpu/ops/lz_ops.py:396"),
+    ("lz_decode", "cpprcoder_tpu_torch/csrc/lz_decode.cu",
+     "cpprcoder_tpu/ops/lz_ops.py:756"),
 ]
 
 
@@ -1751,14 +2006,15 @@ def main():
         oracles = start_oracles(pool)
         err, ms, work, ms_at, b_passes = timed("kernels A, B, C",
                                                phase_kernels, dev)
-        rcq, rans, (*huffman, h_wrapper), exact, mtf, chunk = (
+        rcq, rans, (*huffman, h_wrapper), exact, mtf, chunk, lz = (
             timed("kernels D, E", phase_kernels_rcq, dev),
             timed("kernels F, G", phase_kernels_rans, dev),
             timed("kernels H, I", phase_kernels_huffman, dev),
             timed("kernels J, L", phase_kernels_exact, dev),
             timed("kernels M, N", phase_kernels_mtf, dev),
-            timed("kernel O", phase_kernels_chunk, dev))
-        for e, m, w, a in (rcq, rans, huffman, exact, mtf, chunk):
+            timed("kernel O", phase_kernels_chunk, dev),
+            timed("kernels P, Q, R", phase_kernels_lz, dev))
+        for e, m, w, a in (rcq, rans, huffman, exact, mtf, chunk, lz):
             err.update(e)
             ms.update(m)
             work.update(w)

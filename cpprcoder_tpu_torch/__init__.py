@@ -16,8 +16,13 @@ Public API:
 
 Codecs ported: static_range (CT-RC1), adaptive_range (CT-RC2),
 rans (CT-ANS1 v2, the default, as in the JAX package), huffman (CT-HUF1),
-blocksort (CT-BWT1), mtf (CT-MTF1), mtf1 (CT-MTF1), pipeline (CT-PIPE),
-stream (CT-SB), rle0 (CT-RLE0), rcq (CT-RCQ) and rcx (CT-RCX).
+blocksort (CT-BWT1), mtf (CT-MTF1), slz4 (CT-LZ4), mtf1 (CT-MTF1),
+pipeline (CT-PIPE), stream (CT-SB), rle0 (CT-RLE0), rcq (CT-RCQ) and
+rcx (CT-RCX).
+
+slz4 writes the v2 parse on the card and the CPU and, like the JAX codec,
+the v1 parse under backend="ref" (the oracle's default) and "native" (the
+host library built from native/ctrc.cpp).
 
 Streaming and resume (the JAX package's surface, checkpoints that cross
 between the packages): `codecs.stream.SuperblockEncoder` and

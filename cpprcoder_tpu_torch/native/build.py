@@ -77,6 +77,20 @@ SIGNATURES = {
     # in, out, n, blocks, mtf1, stream
     "ct_mtf_encode": [_P, _P, _L, _I, _I, _P],
     "ct_mtf_decode": [_P, _P, _L, _I, _I, _P],
+    # lz_encode.cu, kernel P: step, off, exits scratch, mpos, mlen, moff,
+    # count, n, w, tcap, stream
+    "ct_lz_walk": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # kernel Q's launches: rows, mpos, mlen, moff, count, clamped, n, w,
+    # tcap, tmax, stream
+    "ct_lz_clamp": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # mpos, clamped, count, lens, size, n, tcap, tmax, stream
+    "ct_lz_sizes": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # rows, mpos, clamped, moff, count, lens, ends, size, payload, n, w,
+    # tcap, tmax, stream
+    "ct_lz_write": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # lz_decode.cu, kernel R: comp, bases, sizes, out, err, n_segs, n, s,
+    # stream
+    "ct_lz_decode": [_P, _P, _P, _P, _P, _I, _L, _L, _P],
 }
 
 

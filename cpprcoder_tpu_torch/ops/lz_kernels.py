@@ -1,0 +1,353 @@
+"""Kernel P, Q and R wrappers: CT-LZ4 (SLZ4) parse walk, token serializer
+and decode on the card, each with its plain PyTorch version beside it.
+
+The JAX package has no Pallas kernel here. It runs these steps as XLA code
+shaped by Mosaic's limits (cpprcoder_tpu/ops/lz_ops.py):
+  - P replaces `_greedy_membership` (:644-692: jump tables built from
+    one-hot MXU dots, one lax.scan over 128-position blocks) and the sort
+    that lists the walk's matches (:730-742). `csrc/lz_encode.cu`, one CTA
+    a segment: each thread scans one block backwards for its exits, one
+    thread hops the blocks' entries, each thread walks its block from its
+    entry and writes its matches at a scanned offset.
+  - Q replaces the byte-exact clamp (:716-728) and `_serialize_fn_v2`
+    (:396-500). `csrc/lz_encode.cu`, three launches: a warp a match clamps
+    it at its first mismatch, a thread a token sizes it, and after a
+    cumsum of the sizes a warp a token writes its bytes.
+  - R replaces the decode's `_walk_v2_fn` and `_resolve_v2_fn`
+    (:756-866). `csrc/lz_decode.cu`, one warp a segment: the warp parses
+    each token from a 128-byte window its lanes hold and copies 32 bytes
+    at a time, checking every read and write.
+
+On a CPU tensor a wrapper runs the plain version; on a CUDA tensor it
+launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cpprcoder_tpu_torch.native import build
+from cpprcoder_tpu_torch.reference.slz4_ref import MIN_MATCH
+
+walk_launches = 0        # kernel P
+serialize_launches = 0   # kernel Q
+decode_launches = 0      # kernel R
+
+# R's error codes, a segment each (0: decoded)
+ERRORS = {1: "offset 0", 2: "offset before the segment's start",
+          3: "read past the segment's payload",
+          4: "write past the segment's length",
+          5: "decoded length differs from the segment's"}
+OFFSET_ZERO, OFFSET_BEFORE, READ_OVERRUN, WRITE_OVERRUN, BAD_LENGTH = 1, 2, 3, 4, 5
+
+
+def token_cap(width: int) -> int:
+    """Matches a segment of `width` positions can hold: each covers at
+    least MIN_MATCH of them."""
+    return width // MIN_MATCH + 1
+
+
+def _check(name: str, t: torch.Tensor, dtype, dim: int) -> None:
+    if t.dtype != dtype or t.dim() != dim or not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous {dtype} of {dim} dims, "
+                         f"got {t.dtype} {tuple(t.shape)}")
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+
+
+def _same_device(dev, **ts) -> None:
+    for nm, t in ts.items():
+        if t.device != dev:
+            raise ValueError(f"{nm} is on {t.device}, not {dev}")
+
+
+# ------------------------------------------------------------- P: the walk
+
+def walk_plain(step: torch.Tensor, off: torch.Tensor):
+    """Plain version of kernel P. From position 0 of each segment the walk
+    goes to p + step[p]; a position with step > 1 is a match. Vectorised
+    across segments: an iteration moves every segment to its next match
+    (the first position at or after it with step > 1, from a reverse
+    cummin) and past it. -> mpos, mlen, moff int32 [n, token_cap(W)] (the
+    walk's matches in order, their step and offset; zero past the count)
+    and count int32 [n]."""
+    n, w = step.shape
+    dev = step.device
+    tcap = token_cap(w)
+    pos = torch.arange(w, device=dev)
+    nxt = torch.where(step > 1, pos, w).flip(1).cummin(1).values.flip(1)
+    nxt = torch.cat([nxt, torch.full((n, 1), w, device=dev)], 1)
+    mpos, mlen, moff = (torch.zeros((n, tcap), dtype=torch.int32, device=dev)
+                        for _ in range(3))
+    count = torch.zeros(n, dtype=torch.int64, device=dev)
+    cur = torch.zeros(n, dtype=torch.int64, device=dev)
+    rows = torch.arange(n, device=dev)
+    while True:
+        q = nxt.gather(1, cur[:, None])[:, 0]
+        act = q < w
+        if not bool(act.any()):
+            break
+        r, qa, c = rows[act], q[act], count[act]
+        st = step[r, qa]
+        mpos[r, c] = qa.to(torch.int32)
+        mlen[r, c] = st
+        moff[r, c] = off[r, qa]
+        count += act
+        cur = torch.where(act, q + step.gather(1, q.clamp(max=w - 1)[:, None])
+                          [:, 0], w)
+    return mpos, mlen, moff, count.to(torch.int32)
+
+
+def walk(step: torch.Tensor, off: torch.Tensor):
+    """step, off int32 [n, W] (step >= 1, and p + step[p] <= W; off the
+    match's distance where step > 1) -> walk_plain's outputs."""
+    global walk_launches
+    _check("step", step, torch.int32, 2)
+    _check("off", off, torch.int32, 2)
+    _same_device(step.device, off=off)
+    if off.shape != step.shape:
+        raise ValueError(f"off {tuple(off.shape)} != step {tuple(step.shape)}")
+    n, w = step.shape
+    if not 0 < w <= 1 << 30 or not 0 < n < 1 << 31:
+        raise ValueError(f"{n} segments of width {w}: the kernels take "
+                         f"1 to 2^31 - 1 segments of 1 to 2^30 positions")
+    if step.device.type == "cpu":
+        return walk_plain(step, off)
+    dev = step.device
+    tcap = token_cap(w)
+    lib = build.load()
+    with torch.cuda.device(dev):
+        exits = torch.empty((n, w), dtype=torch.int32, device=dev)
+        mpos, mlen, moff = (torch.zeros((n, tcap), dtype=torch.int32,
+                                        device=dev) for _ in range(3))
+        count = torch.empty(n, dtype=torch.int32, device=dev)
+        rc = lib.ct_lz_walk(step.data_ptr(), off.data_ptr(), exits.data_ptr(),
+                            mpos.data_ptr(), mlen.data_ptr(), moff.data_ptr(),
+                            count.data_ptr(), n, w, tcap,
+                            torch.cuda.current_stream(dev).cuda_stream)
+        build.check(rc, "ct_lz_walk")
+    walk_launches += 1
+    return mpos, mlen, moff, count
+
+
+# ------------------------------------------------------- Q: the serializer
+
+def _ext_len(v: torch.Tensor) -> torch.Tensor:
+    """LZ4's extension bytes for a length field of v (15 and more)."""
+    return torch.where(v >= 15, (v - 15) // 255 + 1, 0)
+
+
+def serialize_plain(rows, lens, mpos, mlen, moff, count):
+    """Plain version of kernel Q: slz4_ref.serialize_tokens from tensors.
+    Each match is clamped at its first mismatch; token t's literals start
+    at match t - 1's clamped end, and a last token holds the literals up
+    to the segment's length. -> payload uint8 [total] (the segments'
+    blocks in order), sizes int64 [n]."""
+    n, w = rows.shape
+    dev = rows.device
+    tcap = mpos.shape[1]
+    cnt = count.to(torch.int64)
+    flat = rows.reshape(-1)
+    real = torch.arange(tcap, device=dev)[None, :] < cnt[:, None]
+    seg_r = torch.arange(n, device=dev)[:, None].expand(n, tcap)[real]
+    pos_r, len_r, off_r = (t[real].to(torch.int64) for t in (mpos, mlen, moff))
+    # the clamp: the first byte of each match that differs from its source
+    tok = torch.repeat_interleave(torch.arange(len_r.numel(), device=dev),
+                                  len_r)
+    j = torch.arange(tok.numel(), device=dev) - (len_r.cumsum(0) - len_r)[tok]
+    a = seg_r[tok] * w + pos_r[tok] + j
+    neq = flat[a] != flat[a - off_r[tok]]
+    clamped = len_r.scatter_reduce(0, tok, torch.where(neq, j, len_r[tok]),
+                                   "amin")
+
+    def full(v):
+        out = torch.zeros((n, tcap + 1), dtype=torch.int64, device=dev)
+        out[:, :tcap][real] = v
+        return out
+
+    mp, mc, mo = full(pos_r), full(clamped), full(off_r)
+    tix = torch.arange(tcap + 1, device=dev)[None, :]
+    final = tix == cnt[:, None]
+    active = tix <= cnt[:, None]
+    lit_start = torch.cat([torch.zeros((n, 1), dtype=torch.int64, device=dev),
+                           (mp + mc)[:, :-1]], 1)
+    lit_len = torch.where(final, lens.to(torch.int64)[:, None], mp) - lit_start
+    m = torch.where(final, 0, mc)
+    off = torch.where(final, 0, mo)
+    el = _ext_len(lit_len)
+    em = torch.where(m > 0, _ext_len(m - MIN_MATCH), 0)
+    size = torch.where(active, 1 + el + lit_len
+                       + torch.where(m > 0, 2 + em, 0), 0)
+    sizes = size.sum(1)
+    seg = torch.arange(n, device=dev)[:, None].expand(n, tcap + 1)[active]
+    ls, ll, m, off, el, size = (t[active] for t in (lit_start, lit_len, m, off,
+                                                    el, size))
+    start = size.cumsum(0) - size
+    # every payload byte from its token's fields
+    tb = torch.repeat_interleave(torch.arange(size.numel(), device=dev), size)
+    u = torch.arange(tb.numel(), device=dev) - start[tb]
+    ll, m, off, el = ll[tb], m[tb], off[tb], el[tb]
+    mx = (m - MIN_MATCH).clamp(min=0)
+    head = (ll.clamp(max=15) << 4) | torch.where(m > 0, mx.clamp(max=15), 0)
+    lrem = ll - 15
+    lext = torch.where(u - 1 < lrem // 255, 255, lrem % 255)
+    lit = flat[(seg[tb] * w + ls[tb] + u - 1 - el).clamp(0, n * w - 1)]
+    o = u - 1 - el - ll
+    mrem = mx - 15
+    mext = torch.where(o - 2 < mrem // 255, 255, mrem % 255)
+    val = torch.where(
+        u == 0, head, torch.where(
+            u < 1 + el, lext, torch.where(
+                u < 1 + el + ll, lit.to(torch.int64), torch.where(
+                    o == 0, off & 0xFF, torch.where(o == 1, off >> 8, mext)))))
+    return val.to(torch.uint8), sizes
+
+
+def serialize(rows, lens, mpos, mlen, moff, count):
+    """rows uint8 [n, W] (segment i's L_i = lens[i] bytes, zero past them),
+    lens int64 [n], and kernel P's outputs -> serialize_plain's outputs."""
+    global serialize_launches
+    _check("rows", rows, torch.uint8, 2)
+    _check("lens", lens, torch.int64, 1)
+    for nm, t in (("mpos", mpos), ("mlen", mlen), ("moff", moff)):
+        _check(nm, t, torch.int32, 2)
+    _check("count", count, torch.int32, 1)
+    _same_device(rows.device, lens=lens, mpos=mpos, mlen=mlen, moff=moff,
+                 count=count)
+    n, w = rows.shape
+    if tuple(mpos.shape) != (n, token_cap(w)) or mlen.shape != mpos.shape \
+            or moff.shape != mpos.shape or count.numel() != n \
+            or lens.numel() != n:
+        raise ValueError("tokens do not match rows [n, W]")
+    if rows.device.type == "cpu":
+        return serialize_plain(rows, lens, mpos, mlen, moff, count)
+    dev = rows.device
+    tcap = mpos.shape[1]
+    lib = build.load()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        # a token a real match and one last token: the grid's width
+        tmax = int(count.max()) + 1
+        clamped = torch.empty_like(mlen)
+        rc = lib.ct_lz_clamp(rows.data_ptr(), mpos.data_ptr(), mlen.data_ptr(),
+                             moff.data_ptr(), count.data_ptr(),
+                             clamped.data_ptr(), n, w, tcap, tmax, stream)
+        build.check(rc, "ct_lz_clamp")
+        size = torch.empty((n, tmax), dtype=torch.int64, device=dev)
+        rc = lib.ct_lz_sizes(mpos.data_ptr(), clamped.data_ptr(),
+                             count.data_ptr(), lens.data_ptr(), size.data_ptr(),
+                             n, tcap, tmax, stream)
+        build.check(rc, "ct_lz_sizes")
+        ends = size.view(-1).cumsum(0)
+        total = int(ends[-1])
+        payload = torch.empty(total, dtype=torch.uint8, device=dev)
+        rc = lib.ct_lz_write(rows.data_ptr(), mpos.data_ptr(),
+                             clamped.data_ptr(), moff.data_ptr(),
+                             count.data_ptr(), lens.data_ptr(),
+                             ends.data_ptr(), size.data_ptr(),
+                             payload.data_ptr(), n, w, tcap, tmax, stream)
+        build.check(rc, "ct_lz_write")
+    serialize_launches += 1
+    return payload, size.sum(1)
+
+
+# ------------------------------------------------------------ R: the decode
+
+def _decode_segment(comp: bytes, payload, out, pos: int, size: int, d: int,
+                    length: int) -> int:
+    """One segment's LZ4 block comp[pos:pos + size] into out[d:d + length]
+    (comp: the payload's bytes on the host, for the parse; the copies are
+    tensor slices). -> 0 or an error code of ERRORS."""
+    end, d0, dend = pos + size, d, d + length
+    while pos < end:
+        tok = comp[pos]
+        pos += 1
+        lit = tok >> 4
+        if lit == 15:
+            while True:
+                if pos >= end:
+                    return READ_OVERRUN
+                lit += comp[pos]
+                pos += 1
+                if comp[pos - 1] != 255:
+                    break
+        if pos + lit > end:
+            return READ_OVERRUN
+        if d + lit > dend:
+            return WRITE_OVERRUN
+        out[d:d + lit] = payload[pos:pos + lit]
+        pos += lit
+        d += lit
+        if pos >= end:
+            break
+        if pos + 2 > end:
+            return READ_OVERRUN
+        off = comp[pos] | comp[pos + 1] << 8
+        pos += 2
+        if off == 0:
+            return OFFSET_ZERO
+        mlen = (tok & 15) + MIN_MATCH
+        if tok & 15 == 15:
+            while True:
+                if pos >= end:
+                    return READ_OVERRUN
+                mlen += comp[pos]
+                pos += 1
+                if comp[pos - 1] != 255:
+                    break
+        if d - off < d0:
+            return OFFSET_BEFORE
+        if d + mlen > dend:
+            return WRITE_OVERRUN
+        # the source repeats with period off: copy one period, then double
+        k = min(off, mlen)
+        out[d:d + k] = out[d - off:d - off + k]
+        while k < mlen:
+            c = min(k, mlen - k)
+            out[d + k:d + k + c] = out[d:d + c]
+            k += c
+        d += mlen
+    return 0 if d == dend else BAD_LENGTH
+
+
+def decode_plain(payload, bases, sizes, n: int, s: int):
+    """Plain version of kernel R: a token loop a segment, its literal runs
+    and matches copied as tensor slices. -> out uint8 [n] (segment i at
+    i * s, its min(s, n - i * s) bytes; zero where a segment failed) and
+    err int32 [n_segs] (ERRORS' codes)."""
+    dev = payload.device
+    comp = payload.cpu().numpy().tobytes()
+    out = torch.zeros(n, dtype=torch.uint8, device=dev)
+    err = [_decode_segment(comp, payload, out, b, z, i * s, min(s, n - i * s))
+           for i, (b, z) in enumerate(zip(bases.tolist(), sizes.tolist()))]
+    return out, torch.tensor(err, dtype=torch.int32, device=dev)
+
+
+def decode(payload, bases, sizes, n: int, s: int):
+    """payload uint8 [total], bases and sizes int64 [n_segs] (segment i's
+    block is payload[bases[i]:bases[i] + sizes[i]], inside the payload),
+    n_segs == ceil(n / s) -> decode_plain's outputs."""
+    global decode_launches
+    _check("payload", payload, torch.uint8, 1)
+    _check("bases", bases, torch.int64, 1)
+    _check("sizes", sizes, torch.int64, 1)
+    _same_device(payload.device, bases=bases, sizes=sizes)
+    n_segs = bases.numel()
+    if sizes.numel() != n_segs or n_segs != -(-n // s) or n < 1 \
+            or n_segs >= 1 << 31:
+        raise ValueError(f"{n_segs} segments do not cover n={n} at s={s}, "
+                         f"or are 2^31 or more")
+    if payload.device.type == "cpu":
+        return decode_plain(payload, bases, sizes, n, s)
+    dev = payload.device
+    lib = build.load()
+    with torch.cuda.device(dev):
+        out = torch.zeros(n, dtype=torch.uint8, device=dev)
+        err = torch.empty(n_segs, dtype=torch.int32, device=dev)
+        rc = lib.ct_lz_decode(payload.data_ptr(), bases.data_ptr(),
+                              sizes.data_ptr(), out.data_ptr(), err.data_ptr(),
+                              n_segs, n, min(s, n),
+                              torch.cuda.current_stream(dev).cuda_stream)
+        build.check(rc, "ct_lz_decode")
+    decode_launches += 1
+    return out, err

@@ -23,8 +23,8 @@ def _run(code, env=None):
 
 
 IDS = {"static_range": 0, "adaptive_range": 1, "rans": 2, "huffman": 3,
-       "blocksort": 4, "mtf": 5, "mtf1": 8, "pipeline": 9, "stream": 10,
-       "rle0": 12, "rcq": 14, "rcx": 15}
+       "blocksort": 4, "mtf": 5, "slz4": 6, "mtf1": 8, "pipeline": 9,
+       "stream": 10, "rle0": 12, "rcq": 14, "rcx": 15}
 
 
 def test_registry():
@@ -33,14 +33,14 @@ def test_registry():
         c = ctt.get_codec(name)
         assert (c.name, c.codec_id) == (name, cid)
         assert ctt.get_codec_by_id(cid) is c
-    with pytest.raises(KeyError, match="A11"):
-        ctt.get_codec("slz4")
+    with pytest.raises(KeyError, match="A12"):
+        ctt.get_codec("ase")
     with pytest.raises(KeyError, match="A12"):
         ctt.compress(b"abc", codec="adaptive_o1")
     with pytest.raises(KeyError, match="unknown codec"):
         ctt.get_codec("nope")
-    with pytest.raises(KeyError, match="A11"):
-        ctt.get_codec_by_id(6)
+    with pytest.raises(KeyError, match="A12"):
+        ctt.get_codec_by_id(7)
     with pytest.raises(KeyError, match="unknown codec id"):
         ctt.get_codec_by_id(99)
 

@@ -223,11 +223,11 @@ def test_named_stage_pipeline():
 def test_pipeline_stage_not_yet_ported():
     """A container with a stage the port lacks raises the KeyError that
     names its ROADMAP item, on encode and on decode."""
-    with pytest.raises(KeyError, match="A11"):
+    with pytest.raises(KeyError, match="A12"):
         ctt.compress(b"abc" * 50, codec="pipeline", device="cpu",
-                     stages=["slz4"])
-    blob = bytes([1, 6]) + b"whatever"
-    with pytest.raises(KeyError, match="A11"):
+                     stages=["adaptive_o1"])
+    blob = bytes([1, 11]) + b"whatever"
+    with pytest.raises(KeyError, match="A12"):
         ctt.decompress(blob, codec="pipeline", device="cpu")
 
 

@@ -21,6 +21,8 @@ from cpprcoder_tpu_torch.ops import (
     huffman_kernels,
     huffman_ops,
     layout,
+    lz_kernels,
+    lz_ops,
     mtf_kernels,
     mtf_ops,
     range_kernels,
@@ -32,7 +34,13 @@ from cpprcoder_tpu_torch.ops import (
     rcx_kernels,
     rcx_ops,
 )
-from cpprcoder_tpu_torch.reference import bwt_ref, rans_ref, rcq_ref, rcx_ref
+from cpprcoder_tpu_torch.reference import (
+    bwt_ref,
+    rans_ref,
+    rcq_ref,
+    rcx_ref,
+    slz4_ref,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -1003,3 +1011,134 @@ def test_stream_matches_the_oracle_on_the_card(dev, codec):
     for i in range(0, len(data), 100_003):
         enc.feed(data[i:i + 100_003])
     assert enc.finish() == blob
+
+
+def _corpus(name):
+    return (Path(__file__).resolve().parent.parent / "data" / name).read_bytes()
+
+
+def _lz_input(name):
+    rng = np.random.default_rng(61)
+    text = _corpus("fields.c")
+    return {"grammar.lsp": _corpus("grammar.lsp"),
+            "kennedy.xls": _corpus("kennedy.xls"), "fields.c": text,
+            "zeros": bytes(70_000),
+            "random": rng.integers(0, 256, 200_000, np.uint8).tobytes(),
+            "1 byte": b"z", "13 bytes": b"q" * 13,
+            "text 300": text[:300], "text 2000": text[:2000],
+            "tail run": text[:3000] + b"\x07" * 1200,
+            "tail zeros": text[:3000] + bytes(1200),
+            "match 600": b"xyz0" + b"abcdefgh" * 75 + b"tail!",
+            "C1": b"".join(_corpus(nm) for nm in sorted(SLZ4_BYTES))
+            [:1_200_000]}[name]
+
+
+@pytest.mark.parametrize("name,seg_log2,lazy", [
+    ("grammar.lsp", 17, True), ("kennedy.xls", 17, True),
+    ("fields.c", 7, True), ("zeros", 17, True), ("random", 17, True),
+    ("1 byte", 17, True), ("13 bytes", 17, True), ("text 300", 0, True),
+    ("text 2000", 3, True), ("tail run", 9, True), ("tail zeros", 12, True),
+    ("fields.c", 12, False), ("match 600", 17, True), ("C1", 17, True)])
+def test_lz_kernels_match_plain_and_the_oracle(dev, name, seg_log2, lazy):
+    """Kernels P, Q and R against their plain versions (P and R on the card
+    at up to 2^17 positions a segment), and the container against the v2
+    oracle's: one segment and eight of 2^17, 88 of 2^7, runs, random
+    bytes, inputs of 1 and 13 bytes, seg_log2 0 to 17, partial last
+    segments ending in runs, lazy=False, a match past 15 + 255, and the C1
+    input (10 segments)."""
+    data = _lz_input(name)
+    n = len(data)
+    x = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(dev)
+    rows, lens = lz_ops.segment_rows(x, seg_log2)
+    step, off = lz_ops.walk_inputs(rows, lens, lazy)
+    tokens = lz_kernels.walk(step, off)
+    for a, b in zip(tokens, lz_kernels.walk_plain(step, off)):
+        assert torch.equal(a, b)
+    payload, sizes = lz_kernels.serialize(rows, lens, *tokens)
+    pp, ps = lz_kernels.serialize_plain(rows, lens, *tokens)
+    assert torch.equal(payload, pp) and torch.equal(sizes, ps)
+    want = slz4_ref.slz4_encode(data, seg_log2=seg_log2, lazy=lazy,
+                                parse="v2")
+    assert want[9 + 4 * rows.shape[0]:] == payload.cpu().numpy().tobytes()
+    assert ctt.compress(data, codec="slz4", seg_log2=seg_log2,
+                        lazy=lazy) == want
+    bases = sizes.cumsum(0) - sizes
+    out, err = lz_kernels.decode(payload, bases, sizes, n, 1 << seg_log2)
+    if name not in ("kennedy.xls", "C1"):   # the plain loop: ~40 us a token
+        po, pe = lz_kernels.decode_plain(payload, bases, sizes, n,
+                                         1 << seg_log2)
+        assert torch.equal(out, po) and torch.equal(err, pe)
+    assert not err.any() and out.cpu().numpy().tobytes() == data
+    assert ctt.decompress(want, codec="slz4") == data
+
+
+def _lz_block(edit):
+    """grammar.lsp's v2 block at seg_log2 12 with `edit` applied to the
+    offset of its first match ("offset0", "before") or its length ("cut")."""
+    data = _corpus("grammar.lsp")
+    block = bytearray(slz4_ref.slz4_encode(data, seg_log2=12,
+                                           parse="v2")[13:])
+    lit = block[0] >> 4
+    p = 1
+    if lit == 15:
+        while block[p] == 255:
+            lit += 255
+            p += 1
+        lit += block[p]
+        p += 1
+    p += lit
+    if edit == "offset0":
+        block[p] = block[p + 1] = 0
+    elif edit == "before":
+        block[p] = block[p + 1] = 255
+    elif edit == "cut":
+        block = block[:-3]
+    return data, bytes(block)
+
+
+@pytest.mark.parametrize("edit,dn,code", [
+    ("offset0", 0, lz_kernels.OFFSET_ZERO),
+    ("before", 0, lz_kernels.OFFSET_BEFORE),
+    ("none", -1, lz_kernels.WRITE_OVERRUN),
+    ("none", 1, lz_kernels.BAD_LENGTH),
+    ("cut", 0, lz_kernels.READ_OVERRUN)])
+def test_lz_decode_refuses_as_plain(dev, edit, dn, code):
+    """Kernel R sets its plain version's error code on a malformed block,
+    and the codec raises CorruptContainerError."""
+    from cpprcoder_tpu_torch.core.bytesutil import (
+        ByteWriter,
+        CorruptContainerError,
+    )
+
+    data, block = _lz_block(edit)
+    n = len(data) + dn
+    payload = torch.from_numpy(np.frombuffer(block, np.uint8).copy()).to(dev)
+    bases = torch.zeros(1, dtype=torch.int64, device=dev)
+    sizes = torch.tensor([len(block)], dtype=torch.int64, device=dev)
+    _, err = lz_kernels.decode(payload, bases, sizes, n, 1 << 12)
+    _, perr = lz_kernels.decode_plain(payload, bases, sizes, n, 1 << 12)
+    assert err.tolist() == perr.tolist() == [code]
+    blob = ByteWriter().u32(n).u8(12).u32(1).u32(len(block)).raw(block)
+    with pytest.raises(CorruptContainerError):
+        ctt.decompress(blob.getvalue(), codec="slz4")
+
+
+# CT-LZ4 at seg_log2 17: the v2 oracle's container sizes
+SLZ4_BYTES = {"alice29.txt": 71996, "asyoulik.txt": 63239, "cp.html": 11200,
+              "fields.c": 4698, "grammar.lsp": 1844, "kennedy.xls": 328159,
+              "lcet10.txt": 194547, "plrabn12.txt": 255487, "ptt5": 82237,
+              "sum": 17377, "xargs.1": 2505}
+
+
+@pytest.mark.parametrize("name", sorted(SLZ4_BYTES))
+def test_slz4_corpus_on_the_card(dev, name):
+    """compress(codec="slz4") on the card (kernels P and Q) writes the v2
+    oracle's container of each file; decompress (kernel R) reads it and
+    the v1 oracle's (backend="ref")."""
+    data = _corpus(name)
+    blob = ctt.compress(data, codec="slz4")
+    assert len(blob) == SLZ4_BYTES[name]
+    assert blob == slz4_ref.slz4_encode(data, parse="v2")
+    assert ctt.decompress(blob, codec="slz4") == data
+    v1 = ctt.compress(data, codec="slz4", backend="ref")
+    assert ctt.decompress(v1, codec="slz4") == data

@@ -1,6 +1,6 @@
 """The port's own copies of the JAX package's numpy-only modules (config,
-core/bytesutil, the numpy models, the oracles in reference/) against their
-originals, and the rule that the port imports nothing of the JAX package:
+core/bytesutil, core/hashing, the numpy models, the oracles in reference/)
+against their originals, and the rule that the port imports nothing of the JAX package:
 no import statement names it, and running every codec leaves neither jax
 nor any cpprcoder_tpu module in sys.modules."""
 
@@ -11,11 +11,13 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from conftest import std_cases
 
 from cpprcoder_tpu import config as jconfig
 from cpprcoder_tpu.bench import synth as jsynth
+from cpprcoder_tpu.core import hashing as jhash
 from cpprcoder_tpu.models import cxmodel as jcx
 from cpprcoder_tpu.models import freq_header as jfh
 from cpprcoder_tpu.models import huffman as jhuf
@@ -29,8 +31,10 @@ from cpprcoder_tpu.reference import rc_ref as jrc_ref
 from cpprcoder_tpu.reference import rcq_ref as jrcq_ref
 from cpprcoder_tpu.reference import rcx_ref as jrcx_ref
 from cpprcoder_tpu.reference import rle0_ref as jrle0_ref
+from cpprcoder_tpu.reference import slz4_ref as jslz4_ref
 from cpprcoder_tpu_torch import config as tconfig
 from cpprcoder_tpu_torch.bench import synth as tsynth
+from cpprcoder_tpu_torch.core import hashing as thash
 from cpprcoder_tpu_torch.models import cxmodel as tcx
 from cpprcoder_tpu_torch.models import freq_header as tfh
 from cpprcoder_tpu_torch.models import huffman as thuf
@@ -44,6 +48,7 @@ from cpprcoder_tpu_torch.reference import rc_ref as trc_ref
 from cpprcoder_tpu_torch.reference import rcq_ref as trcq_ref
 from cpprcoder_tpu_torch.reference import rcx_ref as trcx_ref
 from cpprcoder_tpu_torch.reference import rle0_ref as trle0_ref
+from cpprcoder_tpu_torch.reference import slz4_ref as tslz4_ref
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "cpprcoder_tpu_torch"
@@ -72,6 +77,15 @@ ORACLES = {
              (lambda d: tmtf_ref.mtf_encode(d, True), tmtf_ref.mtf_decode)),
     "rle0": ((jrle0_ref.rle0_encode, jrle0_ref.rle0_decode),
              (trle0_ref.rle0_encode, trle0_ref.rle0_decode)),
+    # the v1 parse (the oracle's default) and the v2 parse, both seg_log2
+    "slz4": ((lambda d: jslz4_ref.slz4_encode(d, seg_log2=9),
+              jslz4_ref.slz4_decode),
+             (lambda d: tslz4_ref.slz4_encode(d, seg_log2=9),
+              tslz4_ref.slz4_decode)),
+    "slz4_v2": ((lambda d: jslz4_ref.slz4_encode(d, parse="v2"),
+                 jslz4_ref.slz4_decode),
+                (lambda d: tslz4_ref.slz4_encode(d, parse="v2"),
+                 tslz4_ref.slz4_decode)),
 }
 
 
@@ -128,6 +142,51 @@ def _histograms(seed, count=40):
         out.append((2.0 ** -np.minimum(np.arange(256) // (i % 16 + 1), 40)
                     * 1e9).astype(np.int64))
     return out
+
+
+def test_slz4_constants_and_tables():
+    """The oracle's constants, and its v2 match table and token lists, as
+    the original's."""
+    for name in ("MAX_DISTANCE", "MIN_MATCH", "END_LITERALS",
+                 "LAST_MATCH_GUARD", "LCP_CAP", "D_UP", "D_DN", "W_EXACT",
+                 "LADDER_LO"):
+        assert getattr(tslz4_ref, name) == getattr(jslz4_ref, name), name
+    for data in std_cases():
+        seg = np.frombuffer(data, np.uint8)
+        for t, j in zip(tslz4_ref.match_table_v2(seg),
+                        jslz4_ref.match_table_v2(seg)):
+            assert np.array_equal(t, j)
+        for lazy in (True, False):
+            assert (tslz4_ref.parse_segment_v2(seg, lazy)
+                    == jslz4_ref.parse_segment_v2(seg, lazy))
+            assert (tslz4_ref.parse_segment(seg, lazy)
+                    == jslz4_ref.parse_segment(seg, lazy))
+
+
+def test_xxh32_copies():
+    """core/hashing: the scalar and numpy twins are the original's, and the
+    torch twin (any device; the JAX package's jnp twin's place) equals
+    them and the jnp twin."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(25)
+    v = np.concatenate([np.array([0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF],
+                                 np.uint32),
+                        rng.integers(0, 1 << 32, 4000, dtype=np.uint64)
+                        .astype(np.uint32)])
+    for name in ("P1", "P2", "P3", "P4", "P5", "M"):
+        assert getattr(thash, name) == getattr(jhash, name), name
+    for seed in (0, 1, 12345, 0x7FFF0000):
+        want = jhash.xxh32_u32_np(v, seed)
+        assert np.array_equal(thash.xxh32_u32_np(v, seed), want)
+        assert np.array_equal(np.asarray(jhash.xxh32_u32_jnp(jnp.asarray(v),
+                                                             seed)), want)
+        got = thash.xxh32_u32_torch(torch.from_numpy(v.astype(np.int64)),
+                                    seed)
+        assert got.dtype == torch.int64
+        assert np.array_equal(got.numpy(), want.astype(np.int64))
+        for x in v[:50].tolist():
+            assert thash.xxh32_u32(x, seed) == jhash.xxh32_u32(x, seed)
 
 
 def test_transform_layouts():
@@ -195,7 +254,10 @@ def test_no_source_imports_the_jax_package():
     paths = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(paths) > 20
     assert {PKG / "codecs" / "stream.py", PKG / "codecs" / "resume.py",
-            PKG / "bench" / "synth.py"} <= set(paths)
+            PKG / "bench" / "synth.py", PKG / "codecs" / "slz4.py",
+            PKG / "ops" / "lz_ops.py", PKG / "ops" / "lz_kernels.py",
+            PKG / "native" / "ctrc.py", PKG / "core" / "hashing.py",
+            PKG / "reference" / "slz4_ref.py"} <= set(paths)
     for path in paths:
         assert not IMPORTS_JAX_PACKAGE.search(path.read_text()), path
 
@@ -230,4 +292,4 @@ print(len(ctt.list_codecs()), bad)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split(None, 1) == ["12", "[]\n"]
+    assert out.stdout.split(None, 1) == ["13", "[]\n"]
