@@ -59,10 +59,15 @@ Phases, one line each (a failed phase exits non-zero):
               kennedy.xls (8 segments of 2^17), grammar.lsp, fields.c at
               seg_log2 7 (88 segments), 70,000 zero bytes and 200,000
               random bytes, and at edges (1 and 13 bytes, seg_log2 0, 3
-              and 9, lazy=False, a match of 600 bytes), each container
-              also against the v2 oracle's; R on 5 malformed blocks, with
-              its plain version's error code; timed at those five shapes,
-              the plain versions at kennedy.xls;
+              and 9, lazy=False, a match of 600 bytes, 300,000 random
+              bytes at seg_log2 18, whose blocks R reads from global
+              memory), each container also against the v2 oracle's (Q's
+              payload zero past its blocks, of the worst-case length); R
+              on 5 malformed blocks, with its plain version's error code
+              and a zero segment, on 8 segments with segment 3 corrupted
+              and on the longest chain of matches; timed at those five
+              shapes and R at the last two, the plain versions at
+              kennedy.xls;
   4. main     per codec (rcx, rcq, rans, huffman, static_range,
               adaptive_range, blocksort, mtf, mtf1, rle0, pipeline, slz4),
               with the launch counts set to 0 just before and read just
@@ -122,6 +127,7 @@ from cpprcoder_tpu_torch.bench.synth import synth_stream
 from cpprcoder_tpu_torch.codecs import stream
 from cpprcoder_tpu_torch.codecs.resume import RCQResumableEncoder
 from cpprcoder_tpu_torch.config import adaptive_params_for, pick_lanes
+from cpprcoder_tpu_torch.core.bytesutil import ByteReader
 from cpprcoder_tpu_torch.models.cxmodel import rcq_params, rcx_params
 from cpprcoder_tpu_torch.models.static_table import normalize_freqs
 from cpprcoder_tpu_torch.native import build
@@ -1424,6 +1430,42 @@ def lz_malformed(dev):
     return out
 
 
+def lz_decode_cases():
+    """Containers for kernel R alone: (what, container, the bytes it holds
+    (a failed segment zero), the error codes). kennedy.xls's first 32,768
+    bytes at seg_log2 12 with segment 3's first match at offset 0, and a
+    block whose every match copies the previous token's match (26,211
+    tokens: the longest chain of pointers, the most rounds)."""
+    data = corpus("kennedy.xls")[:8 << 12]
+    blob = bytearray(slz4_ref.slz4_encode(data, seg_log2=12, parse="v2"))
+    sizes = np.frombuffer(bytes(blob[9:41]), "<u4").astype(np.int64)
+    head = 41 + int(sizes[:3].sum())
+    tok = blob[head]
+    p = head + 1
+    lit = tok >> 4
+    if lit == 15:
+        while blob[p] == 255:
+            lit += 255
+            p += 1
+        lit += blob[p]
+        p += 1
+    p += lit
+    blob[p] = blob[p + 1] = 0
+    zeroed = data[:3 << 12] + bytes(1 << 12) + data[4 << 12:]
+    chain = bytearray([0x50]) + b"abcde" + bytes([4, 0])
+    tokens = (131_072 - 14) // 5
+    for i in range(tokens):
+        chain += bytes([0x10, 97 + i % 26, 5, 0])
+    chain += bytes([0x50]) + b"vwxyz"
+    n = 14 + 5 * tokens
+    chain_blob = (n.to_bytes(4, "little") + bytes([17]) + (1).to_bytes(
+        4, "little") + len(chain).to_bytes(4, "little") + bytes(chain))
+    return [("8 segments with segment 3 corrupted", bytes(blob), zeroed,
+             [0, 0, 0, lz_kernels.OFFSET_ZERO, 0, 0, 0, 0]),
+            ("the longest match chain", chain_blob,
+             slz4_ref.decode_block(bytes(chain), n), [0])]
+
+
 def phase_kernels_lz(dev):
     """P, Q and R against their plain versions (lz_kernels.walk_plain,
     serialize_plain, decode_plain) and the payload against the v2 oracle's
@@ -1439,6 +1481,9 @@ def phase_kernels_lz(dev):
               ("70,000 zero bytes", bytes(70_000), 17, True),
               ("200,000 random bytes", rng.integers(
                   0, 256, 200_000, np.uint8).tobytes(), 17, True)]
+    # 300,000 random bytes at seg_log2 18: blocks past shared memory, which
+    # R reads from global memory in place
+    big = rng.integers(0, 256, 300_000, np.uint8).tobytes()
     edges = [("1 byte", b"z", 17, True), ("13 bytes", b"q" * 13, 17, True),
              ("seg_log2 0", text[:300], 0, True),
              ("seg_log2 3", text[:2000], 3, True),
@@ -1446,7 +1491,8 @@ def phase_kernels_lz(dev):
               True),
              ("lazy=False", text, 12, False),
              ("a match of 600", b"xyz0" + b"abcdefgh" * 75 + b"tail!", 17,
-              True)]
+              True),
+             ("300,000 random bytes at seg_log2 18", big, 18, True)]
     ms, work, ms_at, plain_ms = {}, {}, {nm: {} for nm in err}, {}
 
     def plain(nm, fn, timed):
@@ -1481,9 +1527,13 @@ def phase_kernels_lz(dev):
         want = slz4_ref.slz4_encode(data, seg_log2=sl, lazy=lazy, parse="v2")
         n_segs = rows.shape[0]
         head = 9 + 4 * n_segs
+        total = int(sizes.sum())
         if (want[9:head] != sizes.cpu().numpy().astype("<u4").tobytes()
-                or want[head:] != payload.cpu().numpy().tobytes()):
-            fail(f"kernels P and Q at {what}: not the v2 oracle's container")
+                or want[head:] != payload[:total].cpu().numpy().tobytes()
+                or payload.numel() != n_segs * lz_kernels.payload_bound(
+                    rows.shape[1]) or payload[total:].any()):
+            fail(f"kernels P and Q at {what}: not the v2 oracle's container "
+                 f"in a zero-padded payload of the worst-case length")
         bases = sizes.cumsum(0) - sizes
         fns["lz_decode"] = (
             lambda: lz_kernels.decode(payload, bases, sizes, n, 1 << sl),
@@ -1499,37 +1549,57 @@ def phase_kernels_lz(dev):
         matches = int(count.sum())
         covered = int(mlen.to(torch.int64).sum())
         visited = rows.numel() - covered + matches
-        total = payload.numel()
         shape = f"{what}: {n_segs} segments, {matches} matches"
         for nm, (kern, _) in fns.items():
             ms_at[nm][shape] = cuda_ms(kern, 5)
         if i == 0:
             # P reads step where the walk goes and off at its matches, and
             # writes 3 words a match; Q reads each input byte and a match's
-            # fields once and writes the payload; R reads the payload and
-            # writes the bytes (each with the segments' int64 bounds)
+            # fields once and writes the payload (its worst-case length,
+            # zeros past the blocks); R reads the payload and writes the
+            # bytes (each with the segments' int64 bounds)
             work = {"lz_walk": (4 * visited + 16 * matches + 4 * n_segs,
                                 2 * visited),
-                    "lz_serialize": (n + 12 * matches + 16 * n_segs + total,
-                                     covered + total),
+                    "lz_serialize": (n + 12 * matches + 16 * n_segs
+                                     + payload.numel(), covered + total),
                     "lz_decode": (total + n + 16 * n_segs, n)}
             ms = {nm: (ms_at[nm][shape], plain_ms[nm]) for nm in fns}
     for what, payload, bases, sizes, n, s, code in lz_malformed(dev):
-        _, codes = hold(err, "lz_decode",
-                        lz_kernels.decode(payload, bases, sizes, n, s),
-                        lz_kernels.decode_plain(payload, bases, sizes, n, s),
-                        f"kernel R on a block with {what}")
-        if codes.tolist() != [code]:
+        out, codes = hold(err, "lz_decode",
+                          lz_kernels.decode(payload, bases, sizes, n, s),
+                          lz_kernels.decode_plain(payload, bases, sizes, n, s),
+                          f"kernel R on a block with {what}")
+        if codes.tolist() != [code] or out.any():
             fail(f"kernel R on a block with {what}: error {codes.tolist()}, "
-                 f"expected {code}")
+                 f"expected {code}, and a zero segment")
+    for what, blob, want, codes_want in lz_decode_cases():
+        r = ByteReader(blob)
+        n, sl, n_segs = r.u32(), r.u8(), r.u32()
+        sizes = r.u32s(n_segs).astype(np.int64)
+        payload = to_dev(r.raw(int(sizes.sum())).tobytes(), dev)
+        bases = torch.from_numpy(np.cumsum(sizes) - sizes).to(dev)
+        sizes = torch.from_numpy(sizes).to(dev)
+        out, codes = hold(err, "lz_decode",
+                          lz_kernels.decode(payload, bases, sizes, n, 1 << sl),
+                          lz_kernels.decode_plain(payload, bases, sizes, n,
+                                                  1 << sl),
+                          f"kernel R on {what}")
+        if codes.tolist() != codes_want or out.cpu().numpy().tobytes() != want:
+            fail(f"kernel R on {what}: errors {codes.tolist()}, or the bytes "
+                 f"differ")
+        ms_at["lz_decode"][what] = cuda_ms(
+            lambda: lz_kernels.decode(payload, bases, sizes, n, 1 << sl), 5)
     print(f"[kernels] ok {len(shapes) + len(edges)} CT-LZ4 cases (P, Q, R) "
           f"equal their plain versions and the v2 oracle, and 5 malformed "
-          f"blocks R refuses as its plain version does; ms kernel/plain at "
+          f"blocks, 8 segments with one corrupted and the longest match "
+          f"chain R decodes as its plain version does; ms kernel/plain at "
           f"kennedy.xls: " + ", ".join(
               f"{nm} {a:.3f}/{b:.3f}" for nm, (a, b) in ms.items())
           + "; ms at " + "; ".join(
               f"{at}: " + " / ".join(f"{ms_at[nm][at]:.3f}" for nm in err)
-              for at in ms_at["lz_walk"]), flush=True)
+              for at in ms_at["lz_walk"]) + "; R at " + ", ".join(
+              f"{at} {v:.3f}" for at, v in ms_at["lz_decode"].items()
+              if at not in ms_at["lz_walk"]), flush=True)
     return err, ms, work, ms_at
 
 

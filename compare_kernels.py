@@ -46,6 +46,17 @@ at 8,192 lanes (L a cluster of 2, or one CTA where a variant says so) and at
 65,536 (a tree from before the lane cap was lifted refuses it), each at
 the codec's defaults and the slot count of this tree's `range_ops.slots`.
 
+Kernels Q and R (CT-LZ4's serializer and decode) are timed at kennedy.xls,
+grammar.lsp, fields.c at seg_log2 7, 70,000 zero bytes, 200,000 random
+bytes and the first 2^14-byte superblock of CT-SB over the concatenated
+corpus, their inputs made by this tree's kernels P and Q. A library whose Q
+is three launches with a cumsum between them (ct_lz_clamp, ct_lz_sizes,
+ct_lz_write) and whose R is one launch is called through those entry
+points (OLD_LZ_SIGNATURES). Q is timed as its launches alone (that
+library's grid width and payload length read beforehand) and through a
+wrapper of each interface (its host reads inside; 50 calls, each timed
+apart); the blocks and sizes are compared, not the padding.
+
 Prints one JSON object: per kernel and shape, each library's ms.
 """
 
@@ -75,6 +86,8 @@ from cpprcoder_tpu_torch.ops import (
     huffman_kernels,
     huffman_ops,
     layout,
+    lz_kernels,
+    lz_ops,
     mtf_kernels,
     mtf_ops,
     range_kernels,
@@ -325,7 +338,19 @@ ENTRY = {"A": "ct_rcx_encode", "B": "ct_expand_count", "C": "ct_rcx_decode",
          "D": "ct_rcq_encode", "E": "ct_rcq_decode", "F": "ct_rans_encode",
          "G": "ct_rans_decode", "H": "ct_huffman_encode_stream", "I": "ct_huffman_decode",
          "J": "ct_rc_exact_encode", "L": "ct_rc_exact_decode",
-         "M": "ct_mtf_encode", "N": "ct_mtf_decode"}
+         "M": "ct_mtf_encode", "N": "ct_mtf_decode",
+         # Q: the two-launch entry, or the three-launch one of an older tree
+         "Q": ("ct_lz_serialize", "ct_lz_clamp"), "R": "ct_lz_decode"}
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# the CT-LZ4 entry points of a tree whose Q is three launches with a cumsum
+# and host reads between them (ct_lz_clamp, ct_lz_sizes, ct_lz_write) and
+# whose R is one launch (comp, bases, sizes, out, err, n_segs, n, s, stream)
+OLD_LZ_SIGNATURES = {
+    "ct_lz_clamp": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "ct_lz_sizes": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "ct_lz_write": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "ct_lz_decode": [_P, _P, _P, _P, _P, _I, _L, _L, _P],
+}
 VARIANT_SOURCE = {"a": "rcx_encode.cu", "b": "expand.cu", "g": "rans_decode.cu",
                   "h": "huffman_encode.cu", "i": "huffman_decode.cu", "j": "rc_exact.cu",
                   "l": "rc_exact.cu", "ldiag": "rc_exact.cu", "m": "mtf.cu", "mn": "mtf.cu"}
@@ -360,7 +385,10 @@ def load(path: Path) -> ctypes.CDLL:
     typed; lib.h_geometry: kernel H's CHUNK and TILE as its sources have
     them (encode_geometry's arguments), where it has that kernel."""
     lib = ctypes.CDLL(str(path))
-    for name, args in build.SIGNATURES.items():
+    sigs = dict(build.SIGNATURES)
+    if hasattr(lib, "ct_lz_clamp"):
+        sigs.update(OLD_LZ_SIGNATURES)
+    for name, args in sigs.items():
         fn = getattr(lib, name, None)
         if fn is not None:
             fn.argtypes = args
@@ -375,7 +403,13 @@ def load(path: Path) -> ctypes.CDLL:
 
 
 def has_kernel(lib, kern: str) -> bool:
-    return hasattr(lib, ENTRY[kern])
+    entry = ENTRY[kern]
+    return any(hasattr(lib, e) for e in (entry if isinstance(entry, tuple) else (entry,)))
+
+
+def old_lz(lib) -> bool:
+    """The library has the three-launch Q and the one-launch R."""
+    return hasattr(lib, "ct_lz_clamp")
 
 
 def corpus(name: str) -> bytes:
@@ -543,7 +577,116 @@ def cases(dev):
                     a[0].data_ptr(), o.data_ptr(), a[1], a[0].shape[0], int(a[2]),
                     stream())), o.view(-1)[:a[1]]
             out.append((kern, label, mtf))
+    rng = np.random.default_rng(601)
+    for label, data, sl in (
+            ("kennedy.xls", corpus("kennedy.xls"), 17),
+            ("grammar.lsp", corpus("grammar.lsp"), 17),
+            ("fields.c at seg_log2 7", corpus("fields.c"), 7),
+            ("70,000 zero bytes", bytes(70_000), 17),
+            ("200,000 random bytes", rng.integers(0, 256, 200_000, np.uint8).tobytes(), 17),
+            ("a 2^14-byte CT-SB superblock", concat[:1 << 14], 17)):
+        out += lz_cases(label, data, sl, dev)
     return out
+
+
+def lz_cases(label: str, data: bytes, seg_log2: int, dev):
+    """Q and R at one shape, their inputs made through this tree's wrappers
+    (P's tokens, Q's payload). Q is timed as its launches alone (a library
+    with host reads inside gets its grid width and payload length read
+    beforehand) and through a wrapper of each interface, host reads
+    included; its outputs compared are the blocks and the sizes."""
+    n = len(data)
+    rows, lens = lz_ops.segment_rows(to_dev(data, dev), seg_log2)
+    mpos, mlen, moff, count = lz_kernels.walk(*lz_ops.walk_inputs(rows, lens))
+    ns, w = rows.shape
+    tcap = mpos.shape[1]
+    payload, sizes = lz_kernels.serialize(rows, lens, mpos, mlen, moff, count)
+    bases = sizes.cumsum(0) - sizes
+    s = min(1 << seg_log2, n)
+    shape = f"{label} ({ns} segments, {int(count.sum())} matches)"
+    stream = lambda: torch.cuda.current_stream(dev).cuda_stream  # noqa: E731
+    args = (rows, mpos, mlen, moff, count, lens)   # the closures keep them alive
+
+    def q_launches(lib, old: bool):
+        """-> (launch, output callable) of Q's launches into fresh buffers."""
+        p = [t.data_ptr() for t in args]
+        if old:
+            tmax = int(count.max()) + 1
+            clamped = torch.empty_like(mlen)
+            size = torch.empty((ns, tmax), dtype=torch.int64, device=dev)
+            ends = torch.empty(ns * tmax, dtype=torch.int64, device=dev)
+            total = int(sizes.sum())
+            pay = torch.empty(total, dtype=torch.uint8, device=dev)
+
+            def go():
+                rc = lib.ct_lz_clamp(p[0], p[1], p[2], p[3], p[4], clamped.data_ptr(), ns, w,
+                                     tcap, tmax, stream())
+                rc = rc or lib.ct_lz_sizes(p[1], clamped.data_ptr(), p[4], p[5],
+                                           size.data_ptr(), ns, tcap, tmax, stream())
+                torch.cumsum(size.view(-1), 0, out=ends)
+                return rc or lib.ct_lz_write(p[0], p[1], clamped.data_ptr(), p[3], p[4], p[5],
+                                             ends.data_ptr(), size.data_ptr(), pay.data_ptr(),
+                                             ns, w, tcap, tmax, stream())
+            return go, lambda: (pay, size.sum(1))
+        clamped = torch.empty_like(mlen)
+        tstart = torch.empty((ns, tcap + 1), dtype=torch.int32, device=dev)
+        sz = torch.empty(ns, dtype=torch.int64, device=dev)
+        pay = torch.empty(ns * lz_kernels.payload_bound(w), dtype=torch.uint8, device=dev)
+
+        def go():
+            return lib.ct_lz_serialize(p[0], p[5], p[1], p[2], p[3], p[4], clamped.data_ptr(),
+                                       tstart.data_ptr(), sz.data_ptr(), pay.data_ptr(), ns, w,
+                                       tcap, stream())
+        return go, lambda: (pay[:int(sz.sum())], sz)
+
+    def q_passes(lib):
+        return q_launches(lib, old_lz(lib))
+
+    def q_wrapper(lib):
+        """Q as its wrapper runs it: an older tree's reads count.max() and
+        the payload's length on the host between its launches."""
+        res = []
+        old = old_lz(lib)
+        p = [t.data_ptr() for t in args]
+
+        def go():
+            if old:
+                tmax = int(count.max()) + 1
+                clamped = torch.empty_like(mlen)
+                rc = lib.ct_lz_clamp(p[0], p[1], p[2], p[3], p[4], clamped.data_ptr(), ns, w,
+                                     tcap, tmax, stream())
+                size = torch.empty((ns, tmax), dtype=torch.int64, device=dev)
+                rc = rc or lib.ct_lz_sizes(p[1], clamped.data_ptr(), p[4], p[5],
+                                           size.data_ptr(), ns, tcap, tmax, stream())
+                ends = size.view(-1).cumsum(0)
+                pay = torch.empty(int(ends[-1]), dtype=torch.uint8, device=dev)
+                rc = rc or lib.ct_lz_write(p[0], p[1], clamped.data_ptr(), p[3], p[4], p[5],
+                                           ends.data_ptr(), size.data_ptr(), pay.data_ptr(), ns,
+                                           w, tcap, tmax, stream())
+                res[:] = [pay, size.sum(1)]
+                return rc
+            launch, outs = q_launches(lib, False)
+            rc = launch()
+            res[:] = [outs]
+            return rc
+        return go, lambda: res[0]() if callable(res[0]) else tuple(res)
+
+    def r_launch(lib):
+        out = torch.empty(n, dtype=torch.uint8, device=dev)
+        err = torch.empty(ns, dtype=torch.int32, device=dev)
+        q = [t.data_ptr() for t in (payload, bases, sizes)]
+        if old_lz(lib):
+            return (lambda: lib.ct_lz_decode(q[0], q[1], q[2], out.data_ptr(), err.data_ptr(),
+                                             ns, n, s, stream())), (out, err)
+        tc, rounds = lz_kernels.decode_geometry(n, s)
+        scratch = lz_kernels.decode_scratch(payload.numel(), ns, n, s, dev)
+        sp = [t.data_ptr() for t in scratch]
+        return (lambda: lib.ct_lz_decode(q[0], q[1], q[2], *sp, out.data_ptr(), err.data_ptr(),
+                                         ns, n, s, tc, rounds, lz_kernels.HOPS,
+                                         stream())), (out, err)
+
+    return [("Q", f"{shape} passes", q_passes), ("Q", f"{shape} through the wrapper", q_wrapper),
+            ("R", shape, r_launch)]
 
 
 def range_cases(label: str, data: bytes, k: int | None, static: bool, dev, stream):

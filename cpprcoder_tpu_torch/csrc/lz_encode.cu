@@ -29,20 +29,35 @@
 // back: the dependent loads of the scan and of thread 0's hops (at most
 // 1024 a segment), and one CTA a segment.
 //
-// Q. Three launches over the tokens (a match, and one last token of
-// literals a segment), with a cumsum of their sizes between the last two:
-//   1. clamp: a warp a match compares it with its source 32 bytes at a time
-//      (a ballot finds the first mismatch): its clamped length;
-//   2. sizes: a thread a token. Token t's literals run from match t - 1's
-//      clamped end to match t (the last token's to the segment's length):
-//      the header byte, the 255-runs of both lengths, the literals, the u16
-//      offset;
-//   3. write: after an exclusive cumsum (in int64, across all segments) a
-//      warp a token writes its bytes, each lane every 32nd.
-// Bound: bytes (the input read once, the payload written once).
+// Q. Two launches, no host read and no cumsum between them (a first design
+// had three, a cumsum and two host reads, int(count.max()) to size a grid
+// and int(ends[-1]) to size the payload, which set a floor of 0.15-0.2 ms
+// at any shape):
+//   1. size_kernel, a CTA a segment (its row in shared memory where it
+//      fits): every match starts at its walk length, each thread compares
+//      the positions of its share of the row that matches cover with their
+//      sources and lowers a match's length to its first mismatch
+//      (atomicMin), so a long match is clamped by many threads; then a
+//      thread a run of consecutive tokens sizes them (token t's literals run
+//      from match t - 1's clamped end to match t, the last token's to the
+//      segment's length: the header byte, the 255-runs of both lengths, the
+//      literals, the u16 offset) and a CTA scan gives each token its start
+//      in the segment's block and the block's size;
+//   2. place_kernel, a CTA a 4,096-byte chunk of a segment's worst-case
+//      block (w + w/255 + 16 bytes: ops/lz_kernels.py payload_bound): the
+//      CTA sums the blocks' sizes before its segment (its base in the
+//      payload) and all of them (the total), each thread writes 16
+//      consecutive bytes of the block (its token by a binary search of the
+//      starts) and zeroes its share of the payload past the total.
+// The payload is n * (w + w/255 + 16) bytes, its blocks at their exact
+// offsets. Bound: bytes (the input read once, the payload written once).
+// What holds it back: one CTA a segment in launch 1, and each CTA of
+// launch 2 reading all n sizes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "lz_common.cuh"
 
 namespace {
 
@@ -50,6 +65,11 @@ constexpr int WALK_BLOCK = 128;    // positions a block up to W = 2^17
 constexpr int MAX_BLOCKS = 1024;   // blocks a segment: a thread each
 constexpr int MIN_MATCH = 4;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int Q_MAX_THREADS = 1024;     // Q's first launch: a CTA a segment
+constexpr int Q_SMEM_MAX = 220 * 1024;  // the most dynamic shared memory launch 1 takes
+constexpr int PLACE_THREADS = 256;      // Q's second launch
+constexpr int PLACE_BYTES = 16;         // payload bytes a thread
+constexpr int CHUNK = PLACE_THREADS * PLACE_BYTES;
 
 __global__ void __launch_bounds__(MAX_BLOCKS)
 walk_kernel(const int32_t* __restrict__ step, const int32_t* __restrict__ off,
@@ -129,17 +149,17 @@ struct Token {
   int ls, ll, m, off;   // literal start, literal length, match length, offset
 };
 
-// Token t of a segment with c matches (t == c: the last, literals only);
-// moff null: the offset is not read.
+// Token t of a segment with c matches (t == c: the last, literals only).
+// clamped is read past L1: the clamp launch writes it with atomics.
 __device__ __forceinline__ Token token_at(const int32_t* mpos, const int32_t* clamped,
                                           const int32_t* moff, long long rowk, int t, int c,
                                           int len) {
   Token tk;
-  tk.ls = t == 0 ? 0 : mpos[rowk + t - 1] + clamped[rowk + t - 1];
+  tk.ls = t == 0 ? 0 : mpos[rowk + t - 1] + __ldcg(clamped + rowk + t - 1);
   const bool last = t == c;
   tk.ll = (last ? len : mpos[rowk + t]) - tk.ls;
-  tk.m = last ? 0 : clamped[rowk + t];
-  tk.off = last || moff == nullptr ? 0 : moff[rowk + t];
+  tk.m = last ? 0 : __ldcg(clamped + rowk + t);
+  tk.off = last ? 0 : moff[rowk + t];
   return tk;
 }
 
@@ -147,82 +167,219 @@ __device__ __forceinline__ int token_size(const Token& tk) {
   return 1 + ext_len(tk.ll) + tk.ll + (tk.m > 0 ? 2 + ext_len(tk.m - MIN_MATCH) : 0);
 }
 
-__global__ void clamp_kernel(const uint8_t* __restrict__ rows, const int32_t* __restrict__ mpos,
-                             const int32_t* __restrict__ mlen, const int32_t* __restrict__ moff,
-                             const int32_t* __restrict__ count, int32_t* __restrict__ clamped,
-                             int n, int w, int tcap, int tmax) {
-  const long long g = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (g >= (long long)n * tmax) return;
-  const int seg = (int)(g / tmax), t = (int)(g % tmax);
-  if (t >= count[seg]) return;
-  const long long k = (long long)seg * tcap + t;
-  const int p = mpos[k], m = mlen[k], o = moff[k];
-  const uint8_t* x = rows + (long long)seg * w;
-  int j = m;
-  for (int j0 = 0; j0 < m; j0 += 32) {
-    const int jj = j0 + lane;
-    const unsigned ne = __ballot_sync(FULL, jj < m && x[p + jj] != x[p - o + jj]);
-    if (ne) {
-      j = j0 + __ffs(ne) - 1;
-      break;
-    }
-  }
-  if (lane == 0) clamped[k] = j;
-}
-
-__global__ void sizes_kernel(const int32_t* __restrict__ mpos, const int32_t* __restrict__ clamped,
-                             const int32_t* __restrict__ count, const long long* __restrict__ lens,
-                             long long* __restrict__ size, int n, int tcap, int tmax) {
-  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= (long long)n * tmax) return;
-  const int seg = (int)(g / tmax), t = (int)(g % tmax);
-  const int c = count[seg];
-  if (t > c) {
-    size[g] = 0;
-    return;
-  }
-  const Token tk = token_at(mpos, clamped, nullptr, (long long)seg * tcap, t, c, (int)lens[seg]);
-  size[g] = token_size(tk);
-}
-
-__global__ void write_kernel(const uint8_t* __restrict__ rows, const int32_t* __restrict__ mpos,
-                             const int32_t* __restrict__ clamped, const int32_t* __restrict__ moff,
-                             const int32_t* __restrict__ count, const long long* __restrict__ lens,
-                             const long long* __restrict__ ends, const long long* __restrict__ size,
-                             uint8_t* __restrict__ payload, int n, int w, int tcap, int tmax) {
-  const long long g = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (g >= (long long)n * tmax) return;
-  const int seg = (int)(g / tmax), t = (int)(g % tmax);
-  const int c = count[seg];
-  if (t > c) return;
-  const Token tk = token_at(mpos, clamped, moff, (long long)seg * tcap, t, c, (int)lens[seg]);
-  const int sz = (int)size[g];
-  uint8_t* dst = payload + (ends[g] - sz);
-  const uint8_t* x = rows + (long long)seg * w + tk.ls;
+// Byte u of token tk's serialization (x: the segment's bytes).
+__device__ __forceinline__ uint8_t token_byte(const Token& tk, const uint8_t* x, int u) {
   const int el = ext_len(tk.ll), mx = tk.m - MIN_MATCH;
-  const int lrem = tk.ll - 15, mrem = mx - 15;
-  for (int u = lane; u < sz; u += 32) {
-    int v;
-    if (u == 0) {
-      v = (min(tk.ll, 15) << 4) | (tk.m > 0 ? min(mx, 15) : 0);
-    } else if (u < 1 + el) {
-      v = u - 1 < lrem / 255 ? 255 : lrem % 255;
-    } else if (u < 1 + el + tk.ll) {
-      v = x[u - 1 - el];
-    } else {
-      const int o = u - 1 - el - tk.ll;
-      if (o == 0) v = tk.off & 255;
-      else if (o == 1) v = tk.off >> 8;
-      else v = o - 2 < mrem / 255 ? 255 : mrem % 255;
-    }
-    dst[u] = (uint8_t)v;
+  if (u == 0) return (uint8_t)((min(tk.ll, 15) << 4) | (tk.m > 0 ? min(mx, 15) : 0));
+  if (u < 1 + el) {
+    const int lrem = tk.ll - 15;
+    return (uint8_t)(u - 1 < lrem / 255 ? 255 : lrem % 255);
   }
+  if (u < 1 + el + tk.ll) return x[tk.ls + u - 1 - el];
+  const int o = u - 1 - el - tk.ll;
+  if (o == 0) return (uint8_t)(tk.off & 255);
+  if (o == 1) return (uint8_t)(tk.off >> 8);
+  const int mrem = mx - 15;
+  return (uint8_t)(o - 2 < mrem / 255 ? 255 : mrem % 255);
 }
 
-int warp_blocks(long long warps, int threads) {
-  return (int)((warps * 32 + threads - 1) / threads);
+// Exclusive scan of v over the CTA (blockDim.x a multiple of 32) -> (its
+// exclusive prefix, the CTA's total).
+__device__ int2 cta_scan(int v, int* warp_sum) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  int x = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int u = __shfl_up_sync(FULL, x, o);
+    if (lane >= o) x += u;
+  }
+  if (lane == 31) warp_sum[wid] = x;
+  __syncthreads();
+  if (wid == 0) {
+    int y = lane < nw ? warp_sum[lane] : 0;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(FULL, y, o);
+      if (lane >= o) y += u;
+    }
+    warp_sum[lane] = y;
+  }
+  __syncthreads();
+  return make_int2(x - v + (wid > 0 ? warp_sum[wid - 1] : 0), warp_sum[nw - 1]);
+}
+
+// Q, launch 1, one segment: the clamp, then the sizes and their scan. x:
+// the row; pos, cl: the matches' positions and their clamped lengths (in
+// shared memory with SMEM, where cl starts as the walk's lengths; else
+// global, cl already the walk's lengths and read past L1).
+template <bool SMEM>
+__device__ __forceinline__ void size_segment(const uint8_t* x, const int32_t* pos, int32_t* cl,
+                                             const int32_t* __restrict__ moff, int32_t* ts,
+                                             int32_t* sz, int c, int w, int len, int& total,
+                                             int* warp_sum) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  auto clamp_of = [&](int t) { return SMEM ? cl[t] : __ldcg(cl + t); };
+  // a share of 4 * odd positions: the lanes' bytes in step on 32 banks
+  const int per = ((w + nt - 1) / nt + 3) / 4 * 4 | 4;
+  const int a = (int)min((long long)tid * per, (long long)w), z = min(a + per, w);
+  if (a < z && c > 0) {
+    int lo = 0, hi = c - 1;   // the last match starting at or before a (or 0)
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (pos[mid] <= a) lo = mid;
+      else hi = mid - 1;
+    }
+    int o_next = moff[lo];   // a match's offset loaded a match ahead
+    for (int t = lo; t < c; ++t) {
+      const int p = pos[t];
+      if (p >= z) break;
+      const int o = o_next;
+      if (t + 1 < c) o_next = moff[t + 1];
+      // the match's length so far: its first mismatch is at or before it
+      const int e = min(z, p + clamp_of(t));
+      for (int q = max(a, p); q < e; ++q) {
+        if (x[q] != x[q - o]) {
+          atomicMin(cl + t, q - p);
+          break;
+        }
+      }
+    }
+  }
+  __syncthreads();
+  // each token's size into sz (a match's end carried to the next token),
+  // then, after the scan, its start into ts
+  const int tper = (c + nt) / nt;   // c + 1 tokens
+  const int ta = min(tid * tper, c + 1), tz = min(ta + tper, c + 1);
+  int sum = 0;
+  int ls = ta == 0 ? 0 : pos[ta - 1] + clamp_of(ta - 1);
+  for (int t = ta; t < tz; ++t) {
+    Token tk;
+    tk.ls = ls;
+    tk.m = t == c ? 0 : clamp_of(t);
+    const int p = t == c ? len : pos[t];
+    tk.ll = p - ls;
+    ls = p + tk.m;
+    const int s = token_size(tk);
+    sz[t] = s;
+    sum += s;
+  }
+  const int2 sc = cta_scan(sum, warp_sum);
+  int at = sc.x;
+  for (int t = ta; t < tz; ++t) {
+    const int s = sz[t];
+    ts[t] = at;
+    at += s;
+  }
+  total = sc.y;
+}
+
+// Q, launch 1: one CTA a segment. The row, and the matches' positions and
+// lengths, are staged in shared memory where they fit (else read in
+// place). Every match starts at its unclamped length; each thread compares
+// the positions [a, z) of its share that matches cover with their sources,
+// and takes the first mismatch of each match to its clamped length
+// (atomicMin). Then a thread a run of consecutive tokens sizes them; a CTA
+// scan gives each token its start in the segment's block and the block's
+// size.
+__global__ void __launch_bounds__(Q_MAX_THREADS)
+size_kernel(const uint8_t* __restrict__ rows, const int32_t* __restrict__ mpos,
+            const int32_t* __restrict__ mlen, const int32_t* __restrict__ moff,
+            const int32_t* __restrict__ count, const long long* __restrict__ lens,
+            int32_t* clamped, int32_t* __restrict__ tstart, long long* __restrict__ seg_size, int w,
+            int tcap, int smem_bytes) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ int warp_sum[32];
+  const int seg = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+  const long long k0 = (long long)seg * tcap;
+  const int c = count[seg], len = (int)lens[seg];
+  const int w16 = (w + 31) & ~15;   // the row, then (after the clamp) c + 1 <= w / 4 + 2 sizes
+  const uint8_t* x = rows + (long long)seg * w;
+  int32_t* ts = tstart + (long long)seg * (tcap + 1);
+  int total;
+  const int c4 = (c + 3) & ~3;
+  if (w16 + 8LL * c4 <= smem_bytes) {
+    int32_t* pos = reinterpret_cast<int32_t*>(smem + w16);
+    int32_t* cl = pos + c4;
+    ct::stage(smem, x, w);
+    ct::stage(reinterpret_cast<uint8_t*>(pos), reinterpret_cast<const uint8_t*>(mpos + k0),
+              4 * c);
+    ct::stage(reinterpret_cast<uint8_t*>(cl), reinterpret_cast<const uint8_t*>(mlen + k0),
+              4 * c);
+    __syncthreads();
+    size_segment<true>(smem, pos, cl, moff + k0, ts, reinterpret_cast<int32_t*>(smem), c, w,
+                       len, total, warp_sum);
+    for (int t = tid; t < c; t += nt) clamped[k0 + t] = cl[t];
+  } else {
+    const bool staged = w <= smem_bytes;
+    if (staged) ct::stage(smem, x, w);
+    for (int t = tid; t < c; t += nt) clamped[k0 + t] = mlen[k0 + t];
+    __syncthreads();
+    size_segment<false>(staged ? smem : x, mpos + k0, clamped + k0, moff + k0, ts, ts, c, w,
+                        len, total, warp_sum);
+  }
+  if (tid == 0) seg_size[seg] = total;
+}
+
+// Q, launch 2: a CTA a CHUNK of a segment's block. Its base in the payload
+// is the sum of the blocks before it, its total the sum of all (the
+// CTA reads the n sizes); each thread writes PLACE_BYTES consecutive bytes
+// of the block (its token by a binary search of the starts, then a step
+// forward) and zeroes its share of the payload past the total.
+__global__ void __launch_bounds__(PLACE_THREADS)
+place_kernel(const uint8_t* __restrict__ rows, const int32_t* __restrict__ mpos,
+             const int32_t* __restrict__ clamped, const int32_t* __restrict__ moff,
+             const int32_t* __restrict__ count, const long long* __restrict__ lens,
+             const int32_t* __restrict__ tstart, const long long* __restrict__ seg_size,
+             uint8_t* __restrict__ payload, int n, int w, int tcap, int chunks, long long cap) {
+  __shared__ long long part[2][PLACE_THREADS / 32];
+  const long long blk = blockIdx.x;
+  const int seg = (int)(blk / chunks), ch = (int)(blk % chunks);
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  long long before = 0, total = 0;
+  for (int i = tid; i < n; i += PLACE_THREADS) {
+    const long long z = seg_size[i];
+    total += z;
+    if (i < seg) before += z;
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    before += __shfl_down_sync(FULL, before, o);
+    total += __shfl_down_sync(FULL, total, o);
+  }
+  if (lane == 0) {
+    part[0][wid] = before;
+    part[1][wid] = total;
+  }
+  __syncthreads();
+  before = total = 0;
+  for (int k = 0; k < PLACE_THREADS / 32; ++k) {
+    before += part[0][k];
+    total += part[1][k];
+  }
+  const long long z0 = total + blk * CHUNK, z1 = min(z0 + CHUNK, cap);
+  for (long long q = z0 + tid; q < z1; q += PLACE_THREADS) payload[q] = 0;
+  const long long size = seg_size[seg];
+  const int u0 = ch * CHUNK + tid * PLACE_BYTES;
+  if (u0 >= size) return;
+  const int c = count[seg], len = (int)lens[seg];
+  const long long k0 = (long long)seg * tcap;
+  const int32_t* ts = tstart + (long long)seg * (tcap + 1);
+  int lo = 0, hi = c;   // the last token starting at or before u0
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (ts[mid] <= u0) lo = mid;
+    else hi = mid - 1;
+  }
+  int t = lo, start = ts[t];
+  Token tk = token_at(mpos, clamped, moff, k0, t, c, len);
+  int sz = token_size(tk);
+  const uint8_t* x = rows + (long long)seg * w;
+  uint8_t* dst = payload + before;
+  for (int u = u0; u < u0 + PLACE_BYTES && u < size; ++u) {
+    while (u >= start + sz) {
+      start += sz;
+      tk = token_at(mpos, clamped, moff, k0, ++t, c, len);
+      sz = token_size(tk);
+    }
+    dst[u] = token_byte(tk, x, u - start);
+  }
 }
 
 }  // namespace
@@ -242,38 +399,30 @@ extern "C" int ct_lz_walk(const void* step, const void* off, void* exits, void* 
   return (int)cudaGetLastError();
 }
 
-// rows uint8 [n, w] and P's matches -> clamped int32 [n, tcap]; tmax - 1 is
-// the largest count.
-extern "C" int ct_lz_clamp(const void* rows, const void* mpos, const void* mlen, const void* moff,
-                           const void* count, void* clamped, int n, int w, int tcap, int tmax,
-                           void* stream) {
-  const int threads = 256;
-  clamp_kernel<<<warp_blocks((long long)n * tmax, threads), threads, 0, (cudaStream_t)stream>>>(
+// rows uint8 [n, w], lens int64 [n] and P's matches -> payload uint8
+// [n * (w + w / 255 + 16)] (the segments' blocks in order, zero past them)
+// and sizes int64 [n]; clamped int32 [n, tcap] and tstart int32
+// [n, tcap + 1] are scratch. Two launches, no host read.
+extern "C" int ct_lz_serialize(const void* rows, const void* lens, const void* mpos,
+                               const void* mlen, const void* moff, const void* count,
+                               void* clamped, void* tstart, void* sizes, void* payload, int n,
+                               int w, int tcap, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  // the row and two int32 a match, up to the most shared memory a CTA may use
+  const int smem = (int)min((long long)Q_SMEM_MAX, ((w + 31) & ~15) + 8LL * ((tcap + 3) & ~3));
+  const cudaError_t e =
+      cudaFuncSetAttribute(size_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int threads = (int)min(1024LL, ((long long)w + 1023) / 1024 * 32);
+  size_kernel<<<n, threads, smem, st>>>(
       (const uint8_t*)rows, (const int32_t*)mpos, (const int32_t*)mlen, (const int32_t*)moff,
-      (const int32_t*)count, (int32_t*)clamped, n, w, tcap, tmax);
-  return (int)cudaGetLastError();
-}
-
-// -> size int64 [n, tmax]: token t's bytes (0 past the last token).
-extern "C" int ct_lz_sizes(const void* mpos, const void* clamped, const void* count,
-                           const void* lens, void* size, int n, int tcap, int tmax, void* stream) {
-  const int threads = 256;
-  const long long tokens = (long long)n * tmax;
-  sizes_kernel<<<(int)((tokens + threads - 1) / threads), threads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)mpos, (const int32_t*)clamped, (const int32_t*)count,
-      (const long long*)lens, (long long*)size, n, tcap, tmax);
-  return (int)cudaGetLastError();
-}
-
-// ends int64 [n * tmax]: the inclusive cumsum of size -> payload bytes.
-extern "C" int ct_lz_write(const void* rows, const void* mpos, const void* clamped,
-                           const void* moff, const void* count, const void* lens, const void* ends,
-                           const void* size, void* payload, int n, int w, int tcap, int tmax,
-                           void* stream) {
-  const int threads = 256;
-  write_kernel<<<warp_blocks((long long)n * tmax, threads), threads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)count, (const long long*)lens, (int32_t*)clamped, (int32_t*)tstart,
+      (long long*)sizes, w, tcap, smem);
+  const long long bound = (long long)w + w / 255 + 16;
+  const int chunks = (int)((bound + CHUNK - 1) / CHUNK);
+  place_kernel<<<(unsigned)((long long)n * chunks), PLACE_THREADS, 0, st>>>(
       (const uint8_t*)rows, (const int32_t*)mpos, (const int32_t*)clamped, (const int32_t*)moff,
-      (const int32_t*)count, (const long long*)lens, (const long long*)ends,
-      (const long long*)size, (uint8_t*)payload, n, w, tcap, tmax);
+      (const int32_t*)count, (const long long*)lens, (const int32_t*)tstart,
+      (const long long*)sizes, (uint8_t*)payload, n, w, tcap, chunks, (long long)n * bound);
   return (int)cudaGetLastError();
 }

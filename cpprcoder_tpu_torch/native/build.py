@@ -80,17 +80,14 @@ SIGNATURES = {
     # lz_encode.cu, kernel P: step, off, exits scratch, mpos, mlen, moff,
     # count, n, w, tcap, stream
     "ct_lz_walk": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # kernel Q's launches: rows, mpos, mlen, moff, count, clamped, n, w,
-    # tcap, tmax, stream
-    "ct_lz_clamp": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # mpos, clamped, count, lens, size, n, tcap, tmax, stream
-    "ct_lz_sizes": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # rows, mpos, clamped, moff, count, lens, ends, size, payload, n, w,
-    # tcap, tmax, stream
-    "ct_lz_write": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # lz_decode.cu, kernel R: comp, bases, sizes, out, err, n_segs, n, s,
-    # stream
-    "ct_lz_decode": [_P, _P, _P, _P, _P, _I, _L, _L, _P],
+    # kernel Q (two launches): rows, lens, mpos, mlen, moff, count, clamped
+    # and tstart scratch, sizes, payload, n, w, tcap, stream
+    "ct_lz_serialize": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # lz_decode.cu, kernel R: comp, bases, sizes, the next starts, exits,
+    # token table, token count, byte source and round flag scratch, out,
+    # err, n_segs, n, s, tcap, rounds, hops a round, stream
+    "ct_lz_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _I,
+                     _I, _I, _P],
 }
 
 

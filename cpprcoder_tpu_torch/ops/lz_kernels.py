@@ -10,13 +10,21 @@ shaped by Mosaic's limits (cpprcoder_tpu/ops/lz_ops.py):
     thread hops the blocks' entries, each thread walks its block from its
     entry and writes its matches at a scanned offset.
   - Q replaces the byte-exact clamp (:716-728) and `_serialize_fn_v2`
-    (:396-500). `csrc/lz_encode.cu`, three launches: a warp a match clamps
-    it at its first mismatch, a thread a token sizes it, and after a
-    cumsum of the sizes a warp a token writes its bytes.
+    (:396-500). `csrc/lz_encode.cu`, two launches and no host read: a CTA
+    a segment clamps every match (its share of the row's positions each
+    thread, the first mismatch by atomicMin), sizes the tokens and scans
+    them; then a CTA a 4,096-byte chunk of a segment's block finds its
+    base from the blocks' sizes and writes the bytes, and the payload past
+    the total is zeroed. The payload has the worst-case length
+    `payload_bound(W)` a segment.
   - R replaces the decode's `_walk_v2_fn` and `_resolve_v2_fn`
-    (:756-866). `csrc/lz_decode.cu`, one warp a segment: the warp parses
-    each token from a 128-byte window its lanes hold and copies 32 bytes
-    at a time, checking every read and write.
+    (:756-866). `csrc/lz_decode.cu`: each position's next token start over
+    the whole card, then a CTA a segment finds the token starts in
+    parallel (block exits, one thread's hops, a re-walk that writes the
+    token table and each token's first failing check); then launches as
+    wide as the output give each byte its token, resolve literal bytes,
+    point match bytes back by the mod-hop and follow the pointers in place
+    until every byte reaches a literal (`decode_geometry`'s rounds).
 
 On a CPU tensor a wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises.
@@ -39,6 +47,7 @@ ERRORS = {1: "offset 0", 2: "offset before the segment's start",
           4: "write past the segment's length",
           5: "decoded length differs from the segment's"}
 OFFSET_ZERO, OFFSET_BEFORE, READ_OVERRUN, WRITE_OVERRUN, BAD_LENGTH = 1, 2, 3, 4, 5
+HOPS = 7   # pointer hops a byte takes in one of R's rounds
 
 
 def token_cap(width: int) -> int:
@@ -137,12 +146,35 @@ def _ext_len(v: torch.Tensor) -> torch.Tensor:
     return torch.where(v >= 15, (v - 15) // 255 + 1, 0)
 
 
+def payload_bound(width: int) -> int:
+    """Bytes the serializer can write for a segment of at most `width`
+    bytes: width + width // 255 + 16.
+
+    Proof. Let ext(v) = (v - 15) // 255 + 1 for v >= 15, else 0: the 255-run
+    bytes of a length field v. A segment of L <= width bytes is tokens t,
+    each of ll_t literals and a match of m_t >= MIN_MATCH bytes, and one
+    last token of literals, with sum(ll_t + m_t) = L. (Kernel P's matches
+    are at least MIN_MATCH long and their first min(length, 32) bytes
+    compare exactly, by the v2 spec's words, so the clamp keeps m_t >=
+    MIN_MATCH.) A match token writes 1 + ext(ll) + ll + 2 + ext(m - 4)
+    bytes for its ll + m output bytes: an excess of 3 + ext(ll) + ext(m -
+    4) - m, which is at most ext(ll) - 1, since ext(m - 4) = 0 for m < 19
+    (and m >= 4), and ext(m - 4) <= (m - 4 + 240) / 255 <= m - 4 for m >=
+    19. And ext(ll) - 1 <= (ll - 15) // 255 <= ll // 255 for ll >= 15 (-1
+    below). The last token writes 1 + ext(ll) + ll: an excess of at most
+    2 + ll // 255. The excesses sum to at most 2 + sum(ll // 255) <= 2 +
+    L // 255, so a segment's block has at most L + L // 255 + 2 bytes; the
+    bound rounds the 2 up to 16."""
+    return width + width // 255 + 16
+
+
 def serialize_plain(rows, lens, mpos, mlen, moff, count):
     """Plain version of kernel Q: slz4_ref.serialize_tokens from tensors.
     Each match is clamped at its first mismatch; token t's literals start
     at match t - 1's clamped end, and a last token holds the literals up
-    to the segment's length. -> payload uint8 [total] (the segments'
-    blocks in order), sizes int64 [n]."""
+    to the segment's length. -> payload uint8 [n * payload_bound(W)] (the
+    segments' blocks in order from byte 0, zero past them), sizes int64
+    [n]: the caller keeps payload[:sizes.sum()]."""
     n, w = rows.shape
     dev = rows.device
     tcap = mpos.shape[1]
@@ -200,12 +232,15 @@ def serialize_plain(rows, lens, mpos, mlen, moff, count):
             u < 1 + el, lext, torch.where(
                 u < 1 + el + ll, lit.to(torch.int64), torch.where(
                     o == 0, off & 0xFF, torch.where(o == 1, off >> 8, mext)))))
-    return val.to(torch.uint8), sizes
+    payload = torch.zeros(n * payload_bound(w), dtype=torch.uint8, device=dev)
+    payload[:val.numel()] = val
+    return payload, sizes
 
 
 def serialize(rows, lens, mpos, mlen, moff, count):
     """rows uint8 [n, W] (segment i's L_i = lens[i] bytes, zero past them),
-    lens int64 [n], and kernel P's outputs -> serialize_plain's outputs."""
+    lens int64 [n], and kernel P's outputs -> serialize_plain's outputs.
+    On the card: two launches and no host read."""
     global serialize_launches
     _check("rows", rows, torch.uint8, 2)
     _check("lens", lens, torch.int64, 1)
@@ -224,31 +259,21 @@ def serialize(rows, lens, mpos, mlen, moff, count):
     dev = rows.device
     tcap = mpos.shape[1]
     lib = build.load()
-    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        # a token a real match and one last token: the grid's width
-        tmax = int(count.max()) + 1
-        clamped = torch.empty_like(mlen)
-        rc = lib.ct_lz_clamp(rows.data_ptr(), mpos.data_ptr(), mlen.data_ptr(),
-                             moff.data_ptr(), count.data_ptr(),
-                             clamped.data_ptr(), n, w, tcap, tmax, stream)
-        build.check(rc, "ct_lz_clamp")
-        size = torch.empty((n, tmax), dtype=torch.int64, device=dev)
-        rc = lib.ct_lz_sizes(mpos.data_ptr(), clamped.data_ptr(),
-                             count.data_ptr(), lens.data_ptr(), size.data_ptr(),
-                             n, tcap, tmax, stream)
-        build.check(rc, "ct_lz_sizes")
-        ends = size.view(-1).cumsum(0)
-        total = int(ends[-1])
-        payload = torch.empty(total, dtype=torch.uint8, device=dev)
-        rc = lib.ct_lz_write(rows.data_ptr(), mpos.data_ptr(),
-                             clamped.data_ptr(), moff.data_ptr(),
-                             count.data_ptr(), lens.data_ptr(),
-                             ends.data_ptr(), size.data_ptr(),
-                             payload.data_ptr(), n, w, tcap, tmax, stream)
-        build.check(rc, "ct_lz_write")
+        clamped, tstart = torch.empty(n * (2 * tcap + 1), dtype=torch.int32,
+                                      device=dev).split([n * tcap,
+                                                         n * (tcap + 1)])
+        sizes = torch.empty(n, dtype=torch.int64, device=dev)
+        payload = torch.empty(n * payload_bound(w), dtype=torch.uint8,
+                              device=dev)
+        rc = lib.ct_lz_serialize(
+            rows.data_ptr(), lens.data_ptr(), mpos.data_ptr(), mlen.data_ptr(),
+            moff.data_ptr(), count.data_ptr(), clamped.data_ptr(),
+            tstart.data_ptr(), sizes.data_ptr(), payload.data_ptr(), n, w,
+            tcap, torch.cuda.current_stream(dev).cuda_stream)
+        build.check(rc, "ct_lz_serialize")
     serialize_launches += 1
-    return payload, size.sum(1)
+    return payload, sizes
 
 
 # ------------------------------------------------------------ R: the decode
@@ -313,20 +338,59 @@ def _decode_segment(comp: bytes, payload, out, pos: int, size: int, d: int,
 def decode_plain(payload, bases, sizes, n: int, s: int):
     """Plain version of kernel R: a token loop a segment, its literal runs
     and matches copied as tensor slices. -> out uint8 [n] (segment i at
-    i * s, its min(s, n - i * s) bytes; zero where a segment failed) and
-    err int32 [n_segs] (ERRORS' codes)."""
+    i * s, its min(s, n - i * s) bytes; all zero where the segment failed)
+    and err int32 [n_segs] (ERRORS' codes)."""
     dev = payload.device
     comp = payload.cpu().numpy().tobytes()
     out = torch.zeros(n, dtype=torch.uint8, device=dev)
-    err = [_decode_segment(comp, payload, out, b, z, i * s, min(s, n - i * s))
-           for i, (b, z) in enumerate(zip(bases.tolist(), sizes.tolist()))]
+    err = []
+    for i, (b, z) in enumerate(zip(bases.tolist(), sizes.tolist())):
+        d, length = i * s, min(s, n - i * s)
+        err.append(_decode_segment(comp, payload, out, b, z, d, length))
+        if err[-1]:
+            out[d:d + length] = 0
     return out, torch.tensor(err, dtype=torch.int32, device=dev)
+
+
+def decode_geometry(n: int, s: int):
+    """Kernel R's geometry for n bytes in segments of s -> (tcap, rounds).
+    tcap = min(s, n) // 4 + 2 token entries a segment: every token but the
+    last adds at least MIN_MATCH output bytes, so the first failing token,
+    or the last one of a segment that decodes, has index <= len // 4 + 1.
+    A match byte points into an earlier token's match or its own token's
+    literals, so a chain of pointers has at most one hop a token with a
+    match: at most min(s, n) // 4. Each round follows every pointer up to
+    HOPS times, reading the pointers it meets as at least the round before
+    left them, which multiplies every chain's reach by HOPS + 1: rounds is
+    the least r >= 1 with (HOPS + 1)^r >= min(s, n) // 4."""
+    tcap = min(s, n) // MIN_MATCH + 2
+    rounds, reach = 1, HOPS + 1
+    while reach < min(s, n) // MIN_MATCH:
+        rounds += 1
+        reach *= HOPS + 1
+    return tcap, rounds
+
+
+def decode_scratch(total: int, n_segs: int, n: int, s: int, device):
+    """Kernel R's scratch for a payload of `total` bytes, in one int32
+    allocation -> (nxt, exits, rec, ntok, src, pending): next() and the
+    exits a payload byte, the token table [n_segs * tcap, 4], the token
+    counts, the byte sources (n rounded up to 16) and the round flags; rec
+    and src 16-byte aligned."""
+    tcap, rounds = decode_geometry(n, s)
+    parts = [4 * n_segs * tcap, -(-n // 16) * 16, max(total, 1), max(total, 1),
+             n_segs, rounds + 1]
+    rec, src, nxt, exits, ntok, pending = torch.empty(
+        sum(parts), dtype=torch.int32, device=device).split(parts)
+    return nxt, exits, rec, ntok, src, pending
 
 
 def decode(payload, bases, sizes, n: int, s: int):
     """payload uint8 [total], bases and sizes int64 [n_segs] (segment i's
-    block is payload[bases[i]:bases[i] + sizes[i]], inside the payload),
-    n_segs == ceil(n / s) -> decode_plain's outputs."""
+    block is payload[bases[i]:bases[i] + sizes[i]], inside the payload,
+    the blocks apart from one another), n_segs == ceil(n / s) ->
+    decode_plain's outputs. On the card: min(s, n) < 2^31 and a payload
+    of fewer than 2^31 - 1 bytes; no host read."""
     global decode_launches
     _check("payload", payload, torch.uint8, 1)
     _check("bases", bases, torch.int64, 1)
@@ -339,14 +403,22 @@ def decode(payload, bases, sizes, n: int, s: int):
                          f"or are 2^31 or more")
     if payload.device.type == "cpu":
         return decode_plain(payload, bases, sizes, n, s)
+    if min(s, n) >= 1 << 31 or payload.numel() >= (1 << 31) - 1:
+        raise ValueError(f"segments of {min(s, n)} bytes, a payload of "
+                         f"{payload.numel()}: kernel R takes segments below "
+                         f"2^31 bytes and a payload below 2^31 - 1")
     dev = payload.device
+    tcap, rounds = decode_geometry(n, s)
     lib = build.load()
     with torch.cuda.device(dev):
-        out = torch.zeros(n, dtype=torch.uint8, device=dev)
+        out = torch.empty(n, dtype=torch.uint8, device=dev)
         err = torch.empty(n_segs, dtype=torch.int32, device=dev)
+        scratch = decode_scratch(payload.numel(), n_segs, n, s, dev)
         rc = lib.ct_lz_decode(payload.data_ptr(), bases.data_ptr(),
-                              sizes.data_ptr(), out.data_ptr(), err.data_ptr(),
-                              n_segs, n, min(s, n),
+                              sizes.data_ptr(),
+                              *(t.data_ptr() for t in scratch),
+                              out.data_ptr(), err.data_ptr(), n_segs, n,
+                              min(s, n), tcap, rounds, HOPS,
                               torch.cuda.current_stream(dev).cuda_stream)
         build.check(rc, "ct_lz_decode")
     decode_launches += 1

@@ -13,7 +13,8 @@ batched over the segments as rows [n_segs, W] on one device:
      capped at END_LITERALS before the end, the position-local lazy rule,
      and step = the length at a match, else 1;
   3. kernel P, the walk, then kernel Q, the clamp and the bytes
-     (ops/lz_kernels.py); the payload and the sizes go to the host.
+     (ops/lz_kernels.py), into a payload of the worst-case length; the
+     sizes go to the host, then the payload's first sum(sizes) bytes.
 Decode parses the header on the host, copies the payload to the device
 once and runs kernel R, which checks every segment; a segment it refuses
 raises CorruptContainerError.
@@ -240,8 +241,9 @@ def slz4_encode(data, seg_log2: int = 17, lazy: bool = True,
     step, off = walk_inputs(rows, lens, lazy)
     tokens = lz_kernels.walk(step, off)
     payload, sizes = lz_kernels.serialize(rows, lens, *tokens)
-    w.u32s(sizes.cpu().numpy())
-    w.raw(payload.cpu().numpy().tobytes())
+    sizes = sizes.cpu().numpy()
+    w.u32s(sizes)
+    w.raw(payload[:int(sizes.sum())].cpu().numpy().tobytes())
     return w.getvalue()
 
 

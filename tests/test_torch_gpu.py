@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import cpprcoder_tpu_torch as ctt
+from cpprcoder_tpu_torch.core import bytesutil as ctt_bytes
 from cpprcoder_tpu_torch.models.cxmodel import rcx_params
 from cpprcoder_tpu_torch.models.qmodel import rcq_params
 from cpprcoder_tpu_torch.models.static_table import normalize_freqs
@@ -1059,7 +1060,11 @@ def test_lz_kernels_match_plain_and_the_oracle(dev, name, seg_log2, lazy):
     assert torch.equal(payload, pp) and torch.equal(sizes, ps)
     want = slz4_ref.slz4_encode(data, seg_log2=seg_log2, lazy=lazy,
                                 parse="v2")
-    assert want[9 + 4 * rows.shape[0]:] == payload.cpu().numpy().tobytes()
+    total = int(sizes.sum())
+    assert want[9 + 4 * rows.shape[0]:] == payload[:total].cpu().numpy() \
+        .tobytes()
+    assert payload.numel() == rows.shape[0] * lz_kernels.payload_bound(
+        rows.shape[1]) and not payload[total:].any()
     assert ctt.compress(data, codec="slz4", seg_log2=seg_log2,
                         lazy=lazy) == want
     bases = sizes.cumsum(0) - sizes
@@ -1115,9 +1120,10 @@ def test_lz_decode_refuses_as_plain(dev, edit, dn, code):
     payload = torch.from_numpy(np.frombuffer(block, np.uint8).copy()).to(dev)
     bases = torch.zeros(1, dtype=torch.int64, device=dev)
     sizes = torch.tensor([len(block)], dtype=torch.int64, device=dev)
-    _, err = lz_kernels.decode(payload, bases, sizes, n, 1 << 12)
-    _, perr = lz_kernels.decode_plain(payload, bases, sizes, n, 1 << 12)
+    out, err = lz_kernels.decode(payload, bases, sizes, n, 1 << 12)
+    pout, perr = lz_kernels.decode_plain(payload, bases, sizes, n, 1 << 12)
     assert err.tolist() == perr.tolist() == [code]
+    assert torch.equal(out, pout) and not out.any()
     blob = ByteWriter().u32(n).u8(12).u32(1).u32(len(block)).raw(block)
     with pytest.raises(CorruptContainerError):
         ctt.decompress(blob.getvalue(), codec="slz4")
@@ -1142,3 +1148,89 @@ def test_slz4_corpus_on_the_card(dev, name):
     assert ctt.decompress(blob, codec="slz4") == data
     v1 = ctt.compress(data, codec="slz4", backend="ref")
     assert ctt.decompress(v1, codec="slz4") == data
+
+
+def _lz_container_args(blob, dev):
+    r = ctt_bytes.ByteReader(blob)
+    n, sl, ns = r.u32(), r.u8(), r.u32()
+    sizes = r.u32s(ns).astype(np.int64)
+    payload = torch.from_numpy(r.raw(int(sizes.sum())).copy()).to(dev)
+    bases = torch.from_numpy(np.cumsum(sizes) - sizes).to(dev)
+    return payload, bases, torch.from_numpy(sizes).to(dev), n, 1 << sl
+
+
+def _lz_chain(tokens=(131_072 - 14) // 5):
+    """A block whose every match copies the previous token's match."""
+    block = bytearray([0x50]) + b"abcde" + bytes([4, 0])
+    for i in range(tokens):
+        block += bytes([0x10, 97 + i % 26, 5, 0])
+    block += bytes([0x50]) + b"vwxyz"
+    n = 14 + 5 * tokens
+    blob = ctt_bytes.ByteWriter().u32(n).u8(17).u32(1).u32(len(block)).raw(
+        bytes(block)).getvalue()
+    return blob, slz4_ref.decode_block(bytes(block), n), [0]
+
+
+def _lz_corrupt_segment():
+    """kennedy.xls's first 32,768 bytes at seg_log2 12, segment 3's first
+    match at offset 0."""
+    data = _corpus("kennedy.xls")[:8 << 12]
+    blob = bytearray(slz4_ref.slz4_encode(data, seg_log2=12, parse="v2"))
+    sizes = np.frombuffer(bytes(blob[9:41]), "<u4")
+    p = 41 + int(sizes[:3].sum())
+    lit = blob[p] >> 4
+    p += 1
+    if lit == 15:
+        while blob[p] == 255:
+            lit += 255
+            p += 1
+        lit += blob[p]
+        p += 1
+    p += lit
+    blob[p] = blob[p + 1] = 0
+    return (bytes(blob), data[:3 << 12] + bytes(1 << 12) + data[4 << 12:],
+            [0, 0, 0, lz_kernels.OFFSET_ZERO, 0, 0, 0, 0])
+
+
+@pytest.mark.parametrize("case", ["corrupt segment", "chain", "seg_log2 18"])
+def test_lz_decode_cases_as_plain(dev, case):
+    """Kernel R against its plain version: 8 segments with segment 3
+    corrupted (zero, its code), the longest chain of matches (26,211
+    tokens, each a pointer hop past the one before), and 300,000 random
+    bytes at seg_log2 18 (blocks past shared memory, read in place)."""
+    if case == "seg_log2 18":
+        data = np.random.default_rng(18).integers(0, 256, 300_000,
+                                                  np.uint8).tobytes()
+        blob = slz4_ref.slz4_encode(data, seg_log2=18, parse="v2")
+        assert ctt.compress(data, codec="slz4", seg_log2=18) == blob
+        want, codes = data, [0, 0]
+    else:
+        blob, want, codes = (_lz_corrupt_segment() if case == "corrupt segment"
+                             else _lz_chain())
+    args = _lz_container_args(blob, dev)
+    out, err = lz_kernels.decode(*args)
+    pout, perr = lz_kernels.decode_plain(*args)
+    assert err.tolist() == perr.tolist() == codes
+    assert torch.equal(out, pout) and out.cpu().numpy().tobytes() == want
+
+
+def test_lz_serialize_and_decode_do_not_synchronize(dev):
+    """Kernels Q and R at kennedy.xls, their inputs on the card, after a
+    warm-up: no call synchronizes with the host."""
+    data = _corpus("kennedy.xls")
+    x = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(dev)
+    rows, lens = lz_ops.segment_rows(x, 17)
+    tokens = lz_kernels.walk(*lz_ops.walk_inputs(rows, lens))
+    payload, sizes = lz_kernels.serialize(rows, lens, *tokens)
+    bases = sizes.cumsum(0) - sizes
+    lz_kernels.decode(payload, bases, sizes, len(data), 1 << 17)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        payload2, sizes2 = lz_kernels.serialize(rows, lens, *tokens)
+        out, err = lz_kernels.decode(payload, bases, sizes, len(data),
+                                     1 << 17)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(payload2, payload) and torch.equal(sizes2, sizes)
+    assert not err.any() and out.cpu().numpy().tobytes() == data

@@ -20,7 +20,11 @@ from conftest import CANTERBURY, corpus_file
 from cpprcoder_tpu.codecs import stream as jstream
 from cpprcoder_tpu.ops import lz_ops as jlz
 from cpprcoder_tpu_torch.codecs import stream as tstream
-from cpprcoder_tpu_torch.core.bytesutil import ByteReader, CorruptContainerError
+from cpprcoder_tpu_torch.core.bytesutil import (
+    ByteReader,
+    ByteWriter,
+    CorruptContainerError,
+)
 from cpprcoder_tpu_torch.ops import lz_kernels, lz_ops
 from cpprcoder_tpu_torch.reference import slz4_ref
 from test_slz4 import _cases
@@ -366,3 +370,431 @@ def test_registry_has_slz4():
     assert "slz4" in ctt.list_codecs()
     with pytest.raises(NotImplementedError, match="A11b"):
         lz_ops.slz4_encode(b"abc" * 9, parse="v1", device="cpu")
+
+
+# ------------------------------------------------- kernel R's failed segments
+
+def _payload(blob):
+    """A container's (payload, bases, sizes, n, s) as CPU tensors."""
+    r = ByteReader(bytes(blob))
+    n, sl, ns = r.u32(), r.u8(), r.u32()
+    sizes = r.u32s(ns).astype(np.int64)
+    payload = torch.from_numpy(r.raw(int(sizes.sum())).copy())
+    sizes = torch.from_numpy(sizes)
+    return payload, sizes.cumsum(0) - sizes, sizes, n, 1 << sl
+
+
+@pytest.mark.parametrize("kind,code", [
+    ("offset_zero", lz_kernels.OFFSET_ZERO),
+    ("offset_before_start", lz_kernels.OFFSET_BEFORE),
+    ("segment_too_long", lz_kernels.WRITE_OVERRUN),
+    ("segment_too_short", lz_kernels.BAD_LENGTH),
+    ("size_cut", lz_kernels.READ_OVERRUN)])
+def test_failed_segment_is_zero(kind, code):
+    """A segment whose code is not 0 is all zero in decode_plain's output
+    (kernel R's contract), with its code."""
+    out, err = lz_kernels.decode(*_payload(_malformed(kind)))
+    assert err.tolist() == [code]
+    assert not out.any()
+
+
+def _eight_segments(bad=3):
+    """kennedy.xls's first 32,768 bytes at seg_log2 12 (8 segments), with
+    the offset of segment `bad`'s first match set to 0."""
+    data = corpus_file("kennedy.xls")[:8 << 12]
+    blob = bytearray(v2(data, 12))
+    sizes = np.frombuffer(bytes(blob[9:41]), "<u4").astype(np.int64)
+    head = 41 + int(sizes[:bad].sum())
+    seg = blob[head:head + int(sizes[bad])]
+    p, _ = _first_match(bytes(9) + bytes(seg))
+    p -= 9
+    blob[head + p] = blob[head + p + 1] = 0
+    return data, bytes(blob)
+
+
+def test_one_corrupted_segment_of_eight():
+    """Segment 3 of 8 is zero and has its code; the others decode."""
+    data, blob = _eight_segments()
+    args = _payload(blob)
+    for out, err in (lz_kernels.decode(*args), _r_model(*args)[:2]):
+        assert err.tolist() == [0, 0, 0, lz_kernels.OFFSET_ZERO, 0, 0, 0, 0]
+        got = bytes(out.numpy())
+        assert got[3 << 12:4 << 12] == bytes(1 << 12)
+        assert got[:3 << 12] == data[:3 << 12]
+        assert got[4 << 12:] == data[4 << 12:]
+    with pytest.raises(CorruptContainerError, match="segment 3 of 8"):
+        ctt.decompress(blob, codec="slz4", **CPU)
+
+
+# --------------------------------------- a numpy model of kernel R's design
+
+MAX_THREADS, MIN_LB, PROBE = 512, 4, 32
+GOES_ON, LIT_EXT, LIT_DATA, OFF_BYTES, OFF_ZERO, MATCH_EXT = range(6)
+RESOLVED = 1 << 31
+
+
+def _r_next(b):
+    """The token at every position p of a block b (csrc/lz_decode.cu
+    `parse`), as arrays over p: lit, lsrc, off, mlen, nx (the next token
+    start; size + 1 where a check that needs no output position fails),
+    stop (the check, GOES_ON where none)."""
+    size = len(b)
+    x = np.concatenate([b.astype(np.int64), np.zeros(4, np.int64)])
+    pos = np.arange(size + 1)
+    # first position at or after q whose byte is not 255 (size: none)
+    nn = np.minimum.accumulate(
+        np.where(np.append(b != 255, True), pos, size)[::-1])[::-1]
+    p = np.arange(size)
+    tok = x[p]
+    q = p + 1
+    lit = tok >> 4
+    stop = np.zeros(size, np.int64)
+    e = nn[q]
+    ext = lit == 15
+    stop[ext & (e >= size)] = LIT_EXT
+    lit = np.where(ext, 15 + 255 * (e - q) + x[np.minimum(e, size)], lit)
+    q = np.where(ext, e + 1, q)
+    stop[(stop == 0) & (q + lit > size)] = LIT_DATA
+    r = q + lit
+    last = (stop == 0) & (r == size)
+    stop[(stop == 0) & ~last & (r + 2 > size)] = OFF_BYTES
+    rc = np.minimum(r, size)
+    off = x[rc] | x[np.minimum(rc + 1, size)] << 8
+    stop[(stop == 0) & ~last & (off == 0)] = OFF_ZERO
+    r2 = np.minimum(r + 2, size)
+    e2 = nn[r2]
+    mext = (tok & 15) == 15
+    stop[(stop == 0) & ~last & mext & (e2 >= size)] = MATCH_EXT
+    mlen = np.where(mext, 19 + 255 * (e2 - r2) + x[np.minimum(e2, size)],
+                    (tok & 15) + slz4_ref.MIN_MATCH)
+    nx = np.where(mext, e2 + 1, r2)
+    ok = stop == 0
+    mlen = np.where(ok & ~last, mlen, 0)
+    off = np.where(ok & ~last, off, 0)
+    nx = np.where(ok, np.where(last, size, nx), size + 1)
+    return dict(lit=lit, lsrc=q, off=off, mlen=mlen, nx=nx, stop=stop)
+
+
+def _token_code(stop, lit, mlen, off, d, length):
+    """csrc/lz_decode.cu `token_code`: a token's first failing check."""
+    if stop in (LIT_EXT, LIT_DATA):
+        return lz_kernels.READ_OVERRUN
+    if d + lit > length:
+        return lz_kernels.WRITE_OVERRUN
+    if stop in (OFF_BYTES, MATCH_EXT):
+        return lz_kernels.READ_OVERRUN
+    if stop == OFF_ZERO:
+        return lz_kernels.OFFSET_ZERO
+    if mlen == 0:
+        return 0
+    if d + lit < off:
+        return lz_kernels.OFFSET_BEFORE
+    return lz_kernels.WRITE_OVERRUN if d + lit + mlen > length else 0
+
+
+def _r_geometry(s, size):
+    """(threads, blen): the token kernel's CTA for segments of s bytes and
+    a block's positions a thread (2^lb + 4), as ct_lz_decode picks them."""
+    cap = s + s // 255 + 16
+    threads = min(MAX_THREADS, -(-cap // 512) * 32)
+    lb = MIN_LB
+    while threads * ((1 << lb) + 4) < size or (1 << 2 * lb) < size // 3:
+        lb += 1
+    return threads, (1 << lb) + 4
+
+
+def _r_tokens(b, s, length, tcap):
+    """Kernel R's token kernel on one block: the next table, thread 0's
+    first PROBE tokens, then (where the block goes on) each block's exits
+    (scanned backwards) and thread 0's hops, the re-walks from the
+    entries, the first-error rule. -> (code, token table [k, 4]: output
+    start, literal length, literal source, offset; the walk's tokens in
+    order for the checks)."""
+    t = _r_next(b)
+    size = len(b)
+    _, blen = _r_geometry(s, size)
+    nb = -(-size // blen)
+    his = np.minimum((np.arange(nb) + 1) * blen, size)
+    entry = np.full(nb, -1)
+    p = 0
+    for _ in range(PROBE):               # thread 0's first tokens
+        if p >= size:
+            break
+        if entry[p // blen] < 0:
+            entry[p // blen] = p
+        p = int(t["nx"][p])
+    if p < size:
+        ex = np.zeros(size, np.int64)
+        for k in range(blen - 1, -1, -1):     # every block's scan, in step
+            q = np.arange(nb) * blen + k
+            act = q < his
+            q, hi = q[act], his[act]
+            nx = t["nx"][q]
+            ex[q] = np.where(nx >= hi, nx, ex[np.minimum(nx, size - 1)])
+        hops = 0
+        while p < size:
+            if entry[p // blen] < 0:
+                entry[p // blen] = p
+            p = int(ex[p])
+            hops += 1
+        assert hops <= nb
+    walk = []
+    for blk in range(nb):                 # the re-walks, in block order
+        p = int(entry[blk])
+        while 0 <= p < his[blk]:
+            walk.append(p)
+            p = int(t["nx"][p])
+    code, d, table = 0, 0, []
+    for k, p in enumerate(walk):
+        lit, mlen, off = int(t["lit"][p]), int(t["mlen"][p]), int(t["off"][p])
+        c = _token_code(int(t["stop"][p]), lit, mlen, off, d, length)
+        if c:
+            code = c
+            break
+        if k < tcap:
+            table.append((d, lit, int(t["lsrc"][p]), off))
+        d += lit + mlen
+    if not code and d != length:
+        code = lz_kernels.BAD_LENGTH
+    return code, np.array(table, np.int64).reshape(-1, 4), walk
+
+
+def _serial_walk(b):
+    """Token starts from 0 by next(p), one after another."""
+    nx = _r_next(b)["nx"]
+    p, out = 0, []
+    while p < len(b):
+        out.append(p)
+        p = int(nx[p])
+    return out
+
+
+def _r_model(payload, bases, sizes, n, s):
+    """Kernel R's design in numpy -> (out, err, rounds it needed): the token
+    kernel a segment, then every byte's owner token, the literal bytes and
+    the match bytes' mod-hop pointers, and rounds of HOPS hops a byte read
+    from the array as the round found it (the least that a round of the
+    kernel, which hops in place, achieves)."""
+    comp = payload.numpy()
+    s = min(s, n)
+    n_segs = len(bases)
+    tcap, rounds = lz_kernels.decode_geometry(n, s)
+    err = np.zeros(n_segs, np.int32)
+    src = np.zeros(n, np.int64)
+    for i in range(n_segs):
+        b = comp[int(bases[i]):int(bases[i]) + int(sizes[i])]
+        length = min(s, n - i * s)
+        code, table, walk = _r_tokens(b, s, length, tcap)
+        if code != lz_kernels.READ_OVERRUN:
+            assert walk == _serial_walk(b)[:len(walk)]
+        err[i] = code
+        d = np.arange(length)
+        if code:
+            src[i * s:i * s + length] = RESOLVED
+            continue
+        start, lit, lsrc, off = table.T
+        own = np.searchsorted(start, d, "right") - 1
+        j = d - start[own]
+        in_lit = j < lit[own]
+        byte = comp[np.minimum(int(bases[i]) + lsrc[own] + j,
+                               len(comp) - 1)].astype(np.int64)
+        mj = j - lit[own]
+        ptr = start[own] + lit[own] - off[own] + mj % np.maximum(off[own], 1)
+        src[i * s:i * s + length] = np.where(in_lit, RESOLVED | byte, ptr)
+    base = np.arange(n) // s * s
+    used = 0
+    while (src < RESOLVED).any():
+        used += 1
+        assert used <= rounds, "pointers left after the rounds"
+        snap = src.copy()
+        for _ in range(lz_kernels.HOPS):
+            ptr = src < RESOLVED
+            src[ptr] = snap[base[ptr] + src[ptr]]
+    out = torch.from_numpy((src & 255).astype(np.uint8))
+    return out, torch.from_numpy(err), used
+
+
+def _chain_block(tokens):
+    """An LZ4 block whose every match copies the previous token's match:
+    5 literals and a match of 4 at offset 4, then `tokens` tokens of one
+    literal and a match of 4 at offset 5, then 5 literals. -> (block, n)."""
+    block = bytearray([0x50]) + b"abcde" + bytes([4, 0])
+    for i in range(tokens):
+        block += bytes([0x10, 97 + i % 26, 5, 0])
+    block += bytes([0x50]) + b"vwxyz"
+    return bytes(block), 14 + 5 * tokens
+
+
+def _run_block(n, byte=ord("q")):
+    """One literal and a match at offset 1 of n - 1 bytes."""
+    m = n - 1 - slz4_ref.MIN_MATCH - 15
+    return (bytes([0x1F, byte, 1, 0]) + b"\xff" * (m // 255)
+            + bytes([m % 255]))
+
+
+def _block_container(block, n):
+    return (ByteWriter().u32(n).u8(17).u32(1).u32(len(block)).raw(block)
+            .getvalue())
+
+
+MODEL_CASES = [*(f"text at seg_log2 {sl}" for sl in (0, 3, 7, 12, 17)),
+               "grammar.lsp", "kennedy.xls[:200000] at 16",
+               "alice29.txt v1 at 12", "offset-1 run of 2^17",
+               "longest chain", "tail zeros at 9"]
+
+
+def _model_case(name):
+    """The container of a MODEL_CASES entry."""
+    text = corpus_file("fields.c")
+    if name.startswith("text at seg_log2"):
+        sl = int(name.split()[-1])
+        return v2(text[:3000] if sl < 7 else text, sl)
+    if name == "grammar.lsp":
+        return v2(corpus_file("grammar.lsp"))
+    if name == "kennedy.xls[:200000] at 16":
+        return v2(corpus_file("kennedy.xls")[:200_000], 16)
+    if name == "alice29.txt v1 at 12":
+        return slz4_ref.slz4_encode(corpus_file("alice29.txt")[:60_000],
+                                    seg_log2=12)
+    if name == "offset-1 run of 2^17":
+        return _block_container(_run_block(1 << 17), 1 << 17)
+    if name == "longest chain":
+        return _block_container(*_chain_block((131_072 - 14) // 5))
+    return v2(_edge_cases()["tail_zeros"], 9)
+
+
+@pytest.mark.parametrize("name", MODEL_CASES)
+def test_r_model_equals_plain_and_the_oracle(name):
+    """The numpy model of kernel R's design decodes each container as
+    decode_plain does and to the oracle's bytes."""
+    blob = _model_case(name)
+    args = _payload(blob)
+    out, err, used = _r_model(*args)
+    pout, perr = lz_kernels.decode_plain(*args)
+    assert err.tolist() == perr.tolist() == [0] * len(err)
+    assert torch.equal(out, pout)
+    assert bytes(out.numpy()) == slz4_ref.slz4_decode(blob)
+    if name == "longest chain":
+        # 26,211 tokens, each match a hop past the one before: 8^4 < 26,212
+        # <= 8^5 (HOPS = 7), the most of any case
+        assert used == 5
+
+
+@pytest.mark.parametrize("kind", ["offset_zero", "offset_before_start",
+                                  "segment_too_long", "segment_too_short",
+                                  "size_cut"])
+def test_r_model_on_malformed_blocks(kind):
+    """The model's first-error rule gives decode_plain's code and zeros."""
+    args = _payload(_malformed(kind))
+    out, err, _ = _r_model(*args)
+    pout, perr = lz_kernels.decode_plain(*args)
+    assert err.tolist() == perr.tolist() and torch.equal(out, pout)
+
+
+@pytest.mark.parametrize("name", ["grammar.lsp", "text at seg_log2 7",
+                                  "offset-1 run of 2^17"])
+def test_r_model_equals_the_jax_package(name):
+    """The model's token table is the JAX package's `_walk_v2_fn` records
+    (literal source, literal length, output start, match length, offset)
+    and its bytes `_resolve_v2_fn`'s (slz4_decode_jax_v2), below C1."""
+    blob = _model_case(name)
+    payload, bases, sizes, n, s = _payload(blob)
+    assert _jax_ok(n, s.bit_length() - 1)
+    n_segs = len(sizes)
+    cmax = -(-(int(sizes.max()) + 8) // jlz.WALK_B) * jlz.WALK_B
+    t_eff = min(jlz._t_cap(s), cmax)
+    comp = np.zeros(int(sizes.sum()) + 16, np.uint8)
+    comp[:int(sizes.sum())] = payload.numpy()
+    b32, e32 = bases.numpy().astype(np.int32), (bases + sizes).numpy().astype(
+        np.int32)
+    recs = [np.asarray(r).T for r in jlz._walk_v2_cached(n_segs, t_eff, cmax)(
+        comp, b32, e32)]
+    tcap, _ = lz_kernels.decode_geometry(n, s)
+    for i in range(n_segs):
+        b = payload.numpy()[int(bases[i]):int(bases[i] + sizes[i])]
+        code, table, walk = _r_tokens(b, s, min(s, n - i * s), tcap)
+        nxt = _r_next(b)
+        k = len(table)
+        assert code == 0 and k <= t_eff
+        start, lit, lsrc, off = table.T
+        mlen = nxt["mlen"][walk]
+        assert recs[0][i, :k].tolist() == (lsrc + int(bases[i])).tolist()
+        assert recs[1][i, :k].tolist() == lit.tolist()
+        assert recs[2][i, :k].tolist() == start.tolist()
+        assert recs[3][i, :k].tolist() == mlen.tolist()
+        assert recs[4][i, :k].tolist() == off.tolist()
+        assert not recs[1][i, k:].any() and not recs[3][i, k:].any()
+    out, _, _ = _r_model(payload, bases, sizes, n, s)
+    assert bytes(out.numpy()) == jlz.slz4_decode_jax_v2(blob)
+
+
+def test_decode_geometry():
+    """tcap holds every token of a segment that decodes, and the rounds
+    reach across the longest chain a segment can hold: a hop a token with a
+    match, min(s, n) // 4 of them."""
+    for n, s in ((1, 1), (300, 1), (2000, 8), (11_150, 128), (70_000, 1 << 17),
+                 (1 << 20, 1 << 14), (1 << 20, 1 << 17), (1 << 20, 1 << 18)):
+        tcap, rounds = lz_kernels.decode_geometry(n, s)
+        hops = min(n, s) // 4
+        assert tcap == hops + 2
+        assert (lz_kernels.HOPS + 1) ** rounds >= hops
+        assert rounds == 1 or (lz_kernels.HOPS + 1) ** (rounds - 1) < hops
+    assert lz_kernels.decode_geometry(131_069, 1 << 17)[1] == 5
+    scratch = lz_kernels.decode_scratch(1000, 3, 300_000, 1 << 17, "cpu")
+    assert [t.numel() for t in scratch] == [1000, 1000, 3 * 4 * 32_770, 3,
+                                            300_000, 6]
+    assert all(t.data_ptr() % 16 == 0 for t in scratch[2:5:2])
+
+
+# ------------------------------------------- kernel Q's worst-case payload
+
+def _match_dense(n, seed=5):
+    """Words of 4 to 8 bytes drawn from 40: short matches everywhere."""
+    rng = _rng(seed)
+    words = [bytes(rng.integers(97, 123, int(k), dtype=np.uint8))
+             for k in rng.integers(4, 9, 40)]
+    out = b""
+    while len(out) < n:
+        out += words[int(rng.integers(0, 40))]
+    return out[:n]
+
+
+@pytest.mark.parametrize("name", ["all literals", "zero run", "match dense",
+                                  "kennedy.xls"])
+def test_payload_bound_holds(name):
+    """Each segment's block is at most L + L // 255 + 2 bytes (the proof in
+    payload_bound), so within payload_bound(L) and payload_bound(W)."""
+    data = {"all literals": _rng(8).integers(0, 256, 300_000, np.uint8)
+            .tobytes(),
+            "zero run": bytes(140_000),
+            "match dense": _match_dense(140_000),
+            "kennedy.xls": corpus_file("kennedy.xls")[:300_000]}[name]
+    for sl in (7, 12, 17):
+        blob = v2(data, sl)
+        r = ByteReader(blob)
+        n, _, ns = r.u32(), r.u8(), r.u32()
+        sizes = r.u32s(ns)
+        w = min(1 << sl, n)
+        for i, z in enumerate(sizes.tolist()):
+            length = min(w, n - i * w)
+            assert z <= length + length // 255 + 2
+            assert z <= lz_kernels.payload_bound(length) \
+                <= lz_kernels.payload_bound(w)
+    if name == "all literals":   # the bound is nearly met: one literal run
+        assert sizes[0] == (1 << 17) + ((1 << 17) - 15) // 255 + 2
+
+
+@pytest.mark.parametrize("name,seg_log2", [("grammar.lsp", 17),
+                                           ("fields.c", 7), ("zeros", 12)])
+def test_serialize_plain_is_padded(name, seg_log2):
+    """serialize_plain returns n_segs * payload_bound(W) bytes: the blocks
+    in order from byte 0, the oracle's, and zeros past them."""
+    data = bytes(20_000) if name == "zeros" else corpus_file(name)
+    rows, lens, tokens = _tokens(data, seg_log2)
+    payload, sizes = lz_kernels.serialize(rows, lens, *tokens)
+    n_segs, w = rows.shape
+    total = int(sizes.sum())
+    assert payload.numel() == n_segs * lz_kernels.payload_bound(w)
+    assert not payload[total:].any()
+    assert bytes(payload[:total].numpy()) == v2(data, seg_log2)[
+        9 + 4 * n_segs:]
