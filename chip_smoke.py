@@ -1469,9 +1469,10 @@ def lz_decode_cases():
 def phase_kernels_lz(dev):
     """P, Q and R against their plain versions (lz_kernels.walk_plain,
     serialize_plain, decode_plain) and the payload against the v2 oracle's
-    container, at the main path's shapes and at edges; R also on malformed
-    blocks (the same error code as its plain version's). Times at each
-    shape; the plain versions at kennedy.xls."""
+    container, at the main path's shapes (P from the match table of each,
+    lz_ops.match_table) and at edges; R also on malformed blocks (the same
+    error code as its plain version's). Times at each shape; the plain
+    versions at kennedy.xls."""
     err = {"lz_walk": 0, "lz_serialize": 0, "lz_decode": 0}
     rng = np.random.default_rng(601)
     text = corpus("fields.c")
@@ -1480,9 +1481,16 @@ def phase_kernels_lz(dev):
               ("fields.c at seg_log2 7", text, 7, True),
               ("70,000 zero bytes", bytes(70_000), 17, True),
               ("200,000 random bytes", rng.integers(
-                  0, 256, 200_000, np.uint8).tobytes(), 17, True)]
+                  0, 256, 200_000, np.uint8).tobytes(), 17, True),
+              # runs of 300 to 5,000 bytes between text: P's exits 256 or
+              # more past their block's end, its step bytes 255
+              ("runs between text", b"".join(
+                  text[k * 1000:(k + 1) * 1000] + bytes([k + 1]) * r
+                  for k, r in enumerate((300, 700, 1500, 5000, 2600, 4097))),
+               17, True)]
     # 300,000 random bytes at seg_log2 18: blocks past shared memory, which
-    # R reads from global memory in place
+    # R reads from global memory in place (as P its exits and steps: above
+    # 2^17 positions, also kennedy.xls as one segment of 1,029,744)
     big = rng.integers(0, 256, 300_000, np.uint8).tobytes()
     edges = [("1 byte", b"z", 17, True), ("13 bytes", b"q" * 13, 17, True),
              ("seg_log2 0", text[:300], 0, True),
@@ -1492,7 +1500,8 @@ def phase_kernels_lz(dev):
              ("lazy=False", text, 12, False),
              ("a match of 600", b"xyz0" + b"abcdefgh" * 75 + b"tail!", 17,
               True),
-             ("300,000 random bytes at seg_log2 18", big, 18, True)]
+             ("300,000 random bytes at seg_log2 18", big, 18, True),
+             ("kennedy.xls at seg_log2 20", corpus("kennedy.xls"), 20, True)]
     ms, work, ms_at, plain_ms = {}, {}, {nm: {} for nm in err}, {}
 
     def plain(nm, fn, timed):
@@ -1512,9 +1521,10 @@ def phase_kernels_lz(dev):
     for i, (what, data, sl, lazy) in enumerate(shapes + edges):
         n = len(data)
         rows, lens = lz_ops.segment_rows(to_dev(data, dev), sl)
-        step, off = lz_ops.walk_inputs(rows, lens, lazy)
-        fns = {"lz_walk": (lambda: lz_kernels.walk(step, off),
-                           lambda: lz_kernels.walk_plain(step, off))}
+        lcp, cand = lz_ops.match_table(rows, lens)
+        fns = {"lz_walk": (
+            lambda: lz_kernels.walk(lcp, cand, lens, lazy),
+            lambda: lz_kernels.walk_plain(lcp, cand, lens, lazy))}
         tokens = hold(err, "lz_walk", fns["lz_walk"][0](),
                       plain("lz_walk", fns["lz_walk"][1], i == 0),
                       f"kernel P at {what}")
@@ -1553,13 +1563,16 @@ def phase_kernels_lz(dev):
         for nm, (kern, _) in fns.items():
             ms_at[nm][shape] = cuda_ms(kern, 5)
         if i == 0:
-            # P reads step where the walk goes and off at its matches, and
-            # writes 3 words a match; Q reads each input byte and a match's
-            # fields once and writes the payload (its worst-case length,
-            # zeros past the blocks); R reads the payload and writes the
-            # bytes (each with the segments' int64 bounds)
-            work = {"lz_walk": (4 * visited + 16 * matches + 4 * n_segs,
-                                2 * visited),
+            # P reads lcp and cand (int64) where the walk goes and at the
+            # position after each match (the lazy rule), and lens, and
+            # writes its three [n, tcap] int32 outputs whole (zeros past
+            # the count) and the counts; Q reads each input byte and a
+            # match's fields once and writes the payload (its worst-case
+            # length, zeros past the blocks); R reads the payload and
+            # writes the bytes (each with the segments' int64 bounds)
+            work = {"lz_walk": (16 * (visited + matches) + 8 * n_segs
+                                + 12 * mpos.numel() + 4 * n_segs,
+                                8 * (visited + matches)),
                     "lz_serialize": (n + 12 * matches + 16 * n_segs
                                      + payload.numel(), covered + total),
                     "lz_decode": (total + n + 16 * n_segs, n)}
@@ -1600,7 +1613,41 @@ def phase_kernels_lz(dev):
               for at in ms_at["lz_walk"]) + "; R at " + ", ".join(
               f"{at} {v:.3f}" for at, v in ms_at["lz_decode"].items()
               if at not in ms_at["lz_walk"]), flush=True)
+    slz4_encode_parts(dev)
     return err, ms, work, ms_at
+
+
+def slz4_encode_parts(dev, reps: int = 5):
+    """kennedy.xls's slz4 encode (8 segments of 2^17) in its three parts,
+    each ending in a synchronize, host clock, the median of reps after a
+    warm-up: the match table (lz_ops.match_table's tensor code), the walk
+    (kernel P), the serializer and the copies (kernel Q, then the sizes and
+    the payload to the host); and the whole compress() call."""
+    data = corpus("kennedy.xls")
+    rows, lens = lz_ops.segment_rows(to_dev(data, dev), 17)
+    names = ["match table", "walk (P)", "serializer and copies (Q)",
+             "whole compress()"]
+    runs = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        lcp, cand = lz_ops.match_table(rows, lens)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        tokens = lz_kernels.walk(lcp, cand, lens)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        payload, sizes = lz_kernels.serialize(rows, lens, *tokens)
+        sizes = sizes.cpu().numpy()
+        payload[:int(sizes.sum())].cpu().numpy().tobytes()
+        t.append(time.perf_counter())
+        ctt.compress(data, codec="slz4", device="cuda")
+        t.append(time.perf_counter())
+        runs.append(np.diff(t) * 1e3)
+    med = np.median(runs[1:], axis=0)
+    print("[kernels] slz4 encode parts at kennedy.xls (ms, host clock, median "
+          f"of {reps}): " + ", ".join(f"{nm} {v:.3f}" for nm, v in
+                                     zip(names, med)), flush=True)
 
 
 def run_corpus(codec: str):

@@ -46,6 +46,15 @@ at 8,192 lanes (L a cluster of 2, or one CTA where a variant says so) and at
 65,536 (a tree from before the lane cap was lifted refuses it), each at
 the codec's defaults and the slot count of this tree's `range_ops.slots`.
 
+Kernel P (CT-LZ4's parse walk) is timed at the same six shapes as Q and R
+below, from this tree's match table: as its device work queued back to
+back and through a wrapper of each interface (50 calls, each timed apart,
+allocations included). A library whose P takes step and off (one launch,
+int32 exits in global memory; its source says `ct_lz_walk(const void*
+step`) is called with lz_ops.walk_inputs' tensors made inside each call and
+its outputs zeroed, as its wrapper did (OLD_WALK_SIGNATURE); the matches,
+offsets, lengths, zeros past the counts and the counts are compared.
+
 Kernels Q and R (CT-LZ4's serializer and decode) are timed at kennedy.xls,
 grammar.lsp, fields.c at seg_log2 7, 70,000 zero bytes, 200,000 random
 bytes and the first 2^14-byte superblock of CT-SB over the concatenated
@@ -339,6 +348,7 @@ ENTRY = {"A": "ct_rcx_encode", "B": "ct_expand_count", "C": "ct_rcx_decode",
          "G": "ct_rans_decode", "H": "ct_huffman_encode_stream", "I": "ct_huffman_decode",
          "J": "ct_rc_exact_encode", "L": "ct_rc_exact_decode",
          "M": "ct_mtf_encode", "N": "ct_mtf_decode",
+         "P": "ct_lz_walk",
          # Q: the two-launch entry, or the three-launch one of an older tree
          "Q": ("ct_lz_serialize", "ct_lz_clamp"), "R": "ct_lz_decode"}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -351,6 +361,10 @@ OLD_LZ_SIGNATURES = {
     "ct_lz_write": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "ct_lz_decode": [_P, _P, _P, _P, _P, _I, _L, _L, _P],
 }
+# kernel P of a tree whose walk takes step and off (int32 [n, w], built by
+# lz_ops.walk_inputs) and an int32 exits scratch, one launch: step, off,
+# exits, mpos, mlen, moff, count, n, w, tcap, stream
+OLD_WALK_SIGNATURE = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]
 VARIANT_SOURCE = {"a": "rcx_encode.cu", "b": "expand.cu", "g": "rans_decode.cu",
                   "h": "huffman_encode.cu", "i": "huffman_decode.cu", "j": "rc_exact.cu",
                   "l": "rc_exact.cu", "ldiag": "rc_exact.cu", "m": "mtf.cu", "mn": "mtf.cu"}
@@ -388,6 +402,10 @@ def load(path: Path) -> ctypes.CDLL:
     sigs = dict(build.SIGNATURES)
     if hasattr(lib, "ct_lz_clamp"):
         sigs.update(OLD_LZ_SIGNATURES)
+    lz = path.parents[2] / "csrc" / "lz_encode.cu"
+    lib.old_walk = lz.exists() and "ct_lz_walk(const void* step" in lz.read_text()
+    if lib.old_walk:
+        sigs["ct_lz_walk"] = OLD_WALK_SIGNATURE
     for name, args in sigs.items():
         fn = getattr(lib, name, None)
         if fn is not None:
@@ -590,22 +608,62 @@ def cases(dev):
 
 
 def lz_cases(label: str, data: bytes, seg_log2: int, dev):
-    """Q and R at one shape, their inputs made through this tree's wrappers
-    (P's tokens, Q's payload). Q is timed as its launches alone (a library
-    with host reads inside gets its grid width and payload length read
-    beforehand) and through a wrapper of each interface, host reads
-    included; its outputs compared are the blocks and the sizes."""
+    """P, Q and R at one shape, their inputs made through this tree's
+    wrappers (the match table, P's tokens, Q's payload). P is timed as its
+    device work queued back to back (an older tree's: lz_ops.walk_inputs'
+    tensor ops, the zero fill of its outputs and its launch) and through a
+    wrapper of each interface (allocations included). Q is timed as its
+    launches alone (a library with host reads inside gets its grid width
+    and payload length read beforehand) and through a wrapper of each
+    interface, host reads included; its outputs compared are the blocks and
+    the sizes."""
     n = len(data)
     rows, lens = lz_ops.segment_rows(to_dev(data, dev), seg_log2)
-    mpos, mlen, moff, count = lz_kernels.walk(*lz_ops.walk_inputs(rows, lens))
+    lcp, cand = lz_ops.match_table(rows, lens)
+    mpos, mlen, moff, count = lz_kernels.walk(lcp, cand, lens)
     ns, w = rows.shape
     tcap = mpos.shape[1]
+    geo = lz_kernels.walk_geometry(w)
     payload, sizes = lz_kernels.serialize(rows, lens, mpos, mlen, moff, count)
     bases = sizes.cumsum(0) - sizes
     s = min(1 << seg_log2, n)
     shape = f"{label} ({ns} segments, {int(count.sum())} matches)"
     stream = lambda: torch.cuda.current_stream(dev).cuda_stream  # noqa: E731
     args = (rows, mpos, mlen, moff, count, lens)   # the closures keep them alive
+
+    def p_call(lib, fresh: bool):
+        """-> (call, outputs) of P into buffers allocated once, or (fresh) a
+        call as its wrapper makes it, allocations included."""
+        res = {}
+
+        def alloc():
+            if lib.old_walk:
+                return (torch.empty((ns, w), dtype=torch.int32, device=dev),
+                        *(torch.zeros((ns, tcap), dtype=torch.int32, device=dev)
+                          for _ in range(3)),
+                        torch.empty(ns, dtype=torch.int32, device=dev))
+            return (torch.empty(ns * geo.row_bytes, dtype=torch.uint8, device=dev),
+                    torch.empty(1 if geo.staged else ns * geo.blocks, dtype=torch.int32,
+                                device=dev),
+                    *torch.empty((3, ns, tcap), dtype=torch.int32, device=dev).unbind(0),
+                    torch.empty(ns, dtype=torch.int32, device=dev))
+        kept = alloc()
+
+        def go():
+            b = alloc() if fresh else kept
+            if lib.old_walk:
+                step, off = lz_ops.walk_inputs(lcp, cand, lens)
+                if not fresh:
+                    for t in b[1:4]:
+                        t.zero_()
+                res["out"] = b[1:5]
+                return lib.ct_lz_walk(step.data_ptr(), off.data_ptr(),
+                                      *(t.data_ptr() for t in b), ns, w, tcap, stream())
+            res["out"] = b[2:6]
+            return lib.ct_lz_walk(lcp.data_ptr(), cand.data_ptr(), lens.data_ptr(),
+                                  *(t.data_ptr() for t in b), ns, w, geo.lb, 1, tcap,
+                                  stream())
+        return go, lambda: res["out"]
 
     def q_launches(lib, old: bool):
         """-> (launch, output callable) of Q's launches into fresh buffers."""
@@ -685,7 +743,9 @@ def lz_cases(label: str, data: bytes, seg_log2: int, dev):
                                          ns, n, s, tc, rounds, lz_kernels.HOPS,
                                          stream())), (out, err)
 
-    return [("Q", f"{shape} passes", q_passes), ("Q", f"{shape} through the wrapper", q_wrapper),
+    return [("P", f"{shape} launches", lambda lib: p_call(lib, False)),
+            ("P", f"{shape} through the wrapper", lambda lib: p_call(lib, True)),
+            ("Q", f"{shape} passes", q_passes), ("Q", f"{shape} through the wrapper", q_wrapper),
             ("R", shape, r_launch)]
 
 

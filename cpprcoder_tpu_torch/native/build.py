@@ -77,9 +77,9 @@ SIGNATURES = {
     # in, out, n, blocks, mtf1, stream
     "ct_mtf_encode": [_P, _P, _L, _I, _I, _P],
     "ct_mtf_decode": [_P, _P, _L, _I, _I, _P],
-    # lz_encode.cu, kernel P: step, off, exits scratch, mpos, mlen, moff,
-    # count, n, w, tcap, stream
-    "ct_lz_walk": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # lz_encode.cu, kernel P (two launches): lcp, cand, lens, the scratch
+    # rows and entries, mpos, mlen, moff, count, n, w, lb, lazy, tcap, stream
+    "ct_lz_walk": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # kernel Q (two launches): rows, lens, mpos, mlen, moff, count, clamped
     # and tstart scratch, sizes, payload, n, w, tcap, stream
     "ct_lz_serialize": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],

@@ -3,12 +3,20 @@ and decode on the card, each with its plain PyTorch version beside it.
 
 The JAX package has no Pallas kernel here. It runs these steps as XLA code
 shaped by Mosaic's limits (cpprcoder_tpu/ops/lz_ops.py):
-  - P replaces `_greedy_membership` (:644-692: jump tables built from
-    one-hot MXU dots, one lax.scan over 128-position blocks) and the sort
-    that lists the walk's matches (:730-742). `csrc/lz_encode.cu`, one CTA
-    a segment: each thread scans one block backwards for its exits, one
-    thread hops the blocks' entries, each thread walks its block from its
-    entry and writes its matches at a scanned offset.
+  - P replaces the walk's inputs (:700-709), `_greedy_membership`
+    (:644-692: jump tables built from one-hot MXU dots, one lax.scan over
+    128-position blocks) and the sort that lists the walk's matches
+    (:730-742). `csrc/lz_encode.cu`, two launches and no host read: over
+    the whole card, the walk's inputs from the match table and each
+    position's exit from its block (blocks of 2^lb positions, pointer
+    jumping in shared memory), into a scratch row of 2.5 bytes a
+    position; then a CTA a segment stages the exits in shared memory (up
+    to 2^17 positions), one thread hops the blocks' entries, each thread
+    walks its block once from its entry and stages its matches, and after
+    a scan the warps write them 32 at a time; the CTA zeroes the rows past
+    the count. Bound: bytes (lcp and cand where the walk goes, the outputs
+    whole); what holds it back is thread 0's hop chain and each block's
+    walk, in one CTA a segment (walk_geometry).
   - Q replaces the byte-exact clamp (:716-728) and `_serialize_fn_v2`
     (:396-500). `csrc/lz_encode.cu`, two launches and no host read: a CTA
     a segment clamps every match (its share of the row's positions each
@@ -32,9 +40,12 @@ launches the kernel or raises.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from cpprcoder_tpu_torch.native import build
+from cpprcoder_tpu_torch.ops import lz_ops
 from cpprcoder_tpu_torch.reference.slz4_ref import MIN_MATCH
 
 walk_launches = 0        # kernel P
@@ -72,14 +83,55 @@ def _same_device(dev, **ts) -> None:
 
 # ------------------------------------------------------------- P: the walk
 
-def walk_plain(step: torch.Tensor, off: torch.Tensor):
-    """Plain version of kernel P. From position 0 of each segment the walk
-    goes to p + step[p]; a position with step > 1 is a match. Vectorised
-    across segments: an iteration moves every segment to its next match
-    (the first position at or after it with step > 1, from a reverse
-    cummin) and past it. -> mpos, mlen, moff int32 [n, token_cap(W)] (the
-    walk's matches in order, their step and offset; zero past the count)
-    and count int32 [n]."""
+WALK_MIN_LB, WALK_MAX_LB = 4, 12   # blocks of 16 to 4,096 positions
+WALK_STAGED_W = 1 << 17            # the widest segment staged in shared memory
+WALK_THREADS = 1024                # the most threads of a segment's CTA
+STEP_TILE = 4096                   # positions of launch 1's CTA
+
+
+class WalkGeometry(NamedTuple):
+    lb: int          # blocks of 2^lb positions
+    blocks: int      # blocks a segment
+    threads: int     # launch 2's CTA
+    per_thread: int  # blocks a thread (1 where staged)
+    staged: bool     # exits, steps and matches in shared memory
+    row_bytes: int   # launch 1's scratch a segment
+
+
+def walk_geometry(width: int) -> WalkGeometry:
+    """Kernel P's geometry for segments of `width` positions: blocks of
+    2^lb positions, lb in [4, 12], weighing the hop chains (W / 2^lb hops
+    of ~80 cycles) against each thread's walk of its block. Staged (up to
+    2^17 positions: the hops in shared memory, in up to 8 regions side by
+    side), lb is the least with 4^lb >= W / 8 (2^7 at 2^17: 1,024 blocks);
+    above (each hop a global load, one chain), the least with 4^lb >= 2W.
+    The scratch row: the exits' low bytes and high nibbles, then the step
+    bytes (each part 16-byte aligned). Staged, launch 2 runs 1,024 threads
+    and holds the exits, then the step bytes (blocks 2^lb + 4 apart) and
+    2^lb / 4 + 1 u16 match slots a block; else up to 1,024 threads,
+    several blocks each where there are more."""
+    staged = width <= WALK_STAGED_W
+    lb = WALK_MIN_LB
+    while lb < WALK_MAX_LB and (4 ** lb * 8 < width if staged
+                                else 4 ** lb < 2 * width):
+        lb += 1
+    nb = -(-width // (1 << lb))
+    threads = WALK_THREADS if staged else min(WALK_THREADS, -(-nb // 32) * 32)
+    w16 = -(-width // 16) * 16
+    h16 = -(-((width + 1) // 2) // 16) * 16
+    return WalkGeometry(lb, nb, threads, -(-nb // threads), staged,
+                        2 * w16 + h16)
+
+
+def _walk_steps_plain(step: torch.Tensor, off: torch.Tensor):
+    """The walk over given inputs (step >= 1, p + step[p] <= W; off the
+    match's distance where step > 1). From position 0 of each segment the
+    walk goes to p + step[p]; a position with step > 1 is a match.
+    Vectorised across segments: an iteration moves every segment to its
+    next match (the first position at or after it with step > 1, from a
+    reverse cummin) and past it. -> mpos, mlen, moff int32 [n,
+    token_cap(W)] (the walk's matches in order, their step and offset; zero
+    past the count) and count int32 [n]."""
     n, w = step.shape
     dev = step.device
     tcap = token_cap(w)
@@ -107,32 +159,53 @@ def walk_plain(step: torch.Tensor, off: torch.Tensor):
     return mpos, mlen, moff, count.to(torch.int32)
 
 
-def walk(step: torch.Tensor, off: torch.Tensor):
-    """step, off int32 [n, W] (step >= 1, and p + step[p] <= W; off the
-    match's distance where step > 1) -> walk_plain's outputs."""
+def walk_plain(lcp: torch.Tensor, cand: torch.Tensor, lens: torch.Tensor,
+               lazy: bool = True):
+    """Plain version of kernel P: lz_ops.walk_inputs, then
+    _walk_steps_plain. -> mpos, mlen, moff int32 [n, token_cap(W)] (the
+    walk's matches in order: position, unclamped length, offset; zero past
+    the count) and count int32 [n]."""
+    return _walk_steps_plain(*lz_ops.walk_inputs(lcp, cand, lens, lazy))
+
+
+def walk(lcp: torch.Tensor, cand: torch.Tensor, lens: torch.Tensor,
+         lazy: bool = True):
+    """lcp, cand int64 [n, W] (lz_ops.match_table's: lcp <= LCP_CAP, cand
+    -1 or an earlier position) and lens int64 [n] -> walk_plain's outputs.
+    On the card: two launches (the walk's inputs and the blocks' exits
+    over the whole card, then a CTA a segment), no host read."""
     global walk_launches
-    _check("step", step, torch.int32, 2)
-    _check("off", off, torch.int32, 2)
-    _same_device(step.device, off=off)
-    if off.shape != step.shape:
-        raise ValueError(f"off {tuple(off.shape)} != step {tuple(step.shape)}")
-    n, w = step.shape
+    _check("lcp", lcp, torch.int64, 2)
+    _check("cand", cand, torch.int64, 2)
+    _check("lens", lens, torch.int64, 1)
+    _same_device(lcp.device, cand=cand, lens=lens)
+    n, w = lcp.shape
+    if cand.shape != lcp.shape or lens.numel() != n:
+        raise ValueError(f"cand {tuple(cand.shape)} and lens "
+                         f"{tuple(lens.shape)} do not match lcp {(n, w)}")
     if not 0 < w <= 1 << 30 or not 0 < n < 1 << 31:
         raise ValueError(f"{n} segments of width {w}: the kernels take "
                          f"1 to 2^31 - 1 segments of 1 to 2^30 positions")
-    if step.device.type == "cpu":
-        return walk_plain(step, off)
-    dev = step.device
+    if lcp.device.type == "cpu":
+        return walk_plain(lcp, cand, lens, lazy)
+    dev = lcp.device
     tcap = token_cap(w)
+    geo = walk_geometry(w)
     lib = build.load()
     with torch.cuda.device(dev):
-        exits = torch.empty((n, w), dtype=torch.int32, device=dev)
-        mpos, mlen, moff = (torch.zeros((n, tcap), dtype=torch.int32,
-                                        device=dev) for _ in range(3))
-        count = torch.empty(n, dtype=torch.int32, device=dev)
-        rc = lib.ct_lz_walk(step.data_ptr(), off.data_ptr(), exits.data_ptr(),
+        # two allocations: the scratch rows with the entries behind them,
+        # and the outputs with the counts behind them
+        planes = torch.empty(n * geo.row_bytes + (0 if geo.staged else
+                                                  4 * n * geo.blocks),
+                             dtype=torch.uint8, device=dev)
+        out = torch.empty(3 * n * tcap + n, dtype=torch.int32, device=dev)
+        mpos, mlen, moff = out[:3 * n * tcap].view(3, n, tcap).unbind(0)
+        count = out[3 * n * tcap:]
+        rc = lib.ct_lz_walk(lcp.data_ptr(), cand.data_ptr(), lens.data_ptr(),
+                            planes.data_ptr(),
+                            planes.data_ptr() + n * geo.row_bytes,
                             mpos.data_ptr(), mlen.data_ptr(), moff.data_ptr(),
-                            count.data_ptr(), n, w, tcap,
+                            count.data_ptr(), n, w, geo.lb, int(lazy), tcap,
                             torch.cuda.current_stream(dev).cuda_stream)
         build.check(rc, "ct_lz_walk")
     walk_launches += 1

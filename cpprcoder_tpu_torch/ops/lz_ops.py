@@ -9,12 +9,14 @@ batched over the segments as rows [n_segs, W] on one device:
      position) in three passes of torch.sort, the adjacent ranks' lcp, the
      best of the up-to-4-up and up-to-2-down rank neighbours, scattered
      back to position order;
-  2. the walk's inputs: `valid` (LAST_MATCH_GUARD, MIN_MATCH), the length
+  2. kernel P, the walk (ops/lz_kernels.py): from the match table it
+     applies the walk's rule a position (`walk_inputs`: `valid`, the length
      capped at END_LITERALS before the end, the position-local lazy rule,
-     and step = the length at a match, else 1;
-  3. kernel P, the walk, then kernel Q, the clamp and the bytes
-     (ops/lz_kernels.py), into a payload of the worst-case length; the
-     sizes go to the host, then the payload's first sum(sizes) bytes.
+     step = the length at a match, else 1) and lists each segment's
+     matches;
+  3. kernel Q, the clamp and the bytes, into a payload of the worst-case
+     length; the sizes go to the host, then the payload's first sum(sizes)
+     bytes.
 Decode parses the header on the host, copies the payload to the device
 once and runs kernel R, which checks every segment; a segment it refuses
 raises CorruptContainerError.
@@ -181,14 +183,16 @@ def match_table(rows: torch.Tensor, lens: torch.Tensor):
     return lcp, cand
 
 
-def walk_inputs(rows: torch.Tensor, lens: torch.Tensor, lazy: bool = True):
-    """-> step, off int32 [n, W]: kernel P's inputs. A match at p (valid,
-    and not deferred by the lazy rule) has step = its length (capped
-    END_LITERALS before the segment's end, unclamped) and off = p - its
-    candidate; every other position has step 1 and off 0."""
-    n, w = rows.shape
-    lcp, cand = match_table(rows, lens)
-    pos = torch.arange(w, device=rows.device)[None, :]
+def walk_inputs(lcp: torch.Tensor, cand: torch.Tensor, lens: torch.Tensor,
+                lazy: bool = True):
+    """The match table's lcp, cand int64 [n, W] and lens int64 [n] -> step,
+    off int32 [n, W]: the walk's inputs, the first step of kernel P's plain
+    version (kernel P applies the same rule a position). A match at p
+    (valid, and not deferred by the lazy rule) has step = its length
+    (capped END_LITERALS before the segment's end, unclamped) and off = p -
+    its candidate; every other position has step 1 and off 0."""
+    w = lcp.shape[1]
+    pos = torch.arange(w, device=lcp.device)[None, :]
     ln = lens[:, None]
     mlen = torch.minimum(lcp, ln - END_LITERALS - pos)
     valid = (cand >= 0) & (pos <= ln - LAST_MATCH_GUARD) & (mlen >= MIN_MATCH)
@@ -238,8 +242,7 @@ def slz4_encode(data, seg_log2: int = 17, lazy: bool = True,
     if n_segs == 0:
         return w.getvalue()
     rows, lens = segment_rows(torch.from_numpy(x.copy()).to(device), seg_log2)
-    step, off = walk_inputs(rows, lens, lazy)
-    tokens = lz_kernels.walk(step, off)
+    tokens = lz_kernels.walk(*match_table(rows, lens), lens, lazy)
     payload, sizes = lz_kernels.serialize(rows, lens, *tokens)
     sizes = sizes.cpu().numpy()
     w.u32s(sizes)

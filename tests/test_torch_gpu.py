@@ -1021,6 +1021,7 @@ def _corpus(name):
 def _lz_input(name):
     rng = np.random.default_rng(61)
     text = _corpus("fields.c")
+    concat = b"".join(_corpus(nm) for nm in sorted(SLZ4_BYTES))
     return {"grammar.lsp": _corpus("grammar.lsp"),
             "kennedy.xls": _corpus("kennedy.xls"), "fields.c": text,
             "zeros": bytes(70_000),
@@ -1030,8 +1031,13 @@ def _lz_input(name):
             "tail run": text[:3000] + b"\x07" * 1200,
             "tail zeros": text[:3000] + bytes(1200),
             "match 600": b"xyz0" + b"abcdefgh" * 75 + b"tail!",
-            "C1": b"".join(_corpus(nm) for nm in sorted(SLZ4_BYTES))
-            [:1_200_000]}[name]
+            "runs": b"".join(text[k * 1000:(k + 1) * 1000] + bytes([k + 1]) * n
+                             for k, n in enumerate((300, 700, 1500, 5000,
+                                                    2600, 4097))),
+            "2^17 - 1": (text * 12)[:(1 << 17) - 1],
+            "superblock": concat[:1 << 14],
+            "2^18": concat[:1 << 18], "2^20": concat[:1 << 20],
+            "C1": concat[:1_200_000]}[name]
 
 
 @pytest.mark.parametrize("name,seg_log2,lazy", [
@@ -1039,21 +1045,27 @@ def _lz_input(name):
     ("fields.c", 7, True), ("zeros", 17, True), ("random", 17, True),
     ("1 byte", 17, True), ("13 bytes", 17, True), ("text 300", 0, True),
     ("text 2000", 3, True), ("tail run", 9, True), ("tail zeros", 12, True),
-    ("fields.c", 12, False), ("match 600", 17, True), ("C1", 17, True)])
+    ("fields.c", 12, False), ("match 600", 17, True), ("C1", 17, True),
+    ("runs", 17, True), ("2^17 - 1", 17, True), ("superblock", 17, True),
+    ("2^18", 18, True), ("2^20", 20, True)])
 def test_lz_kernels_match_plain_and_the_oracle(dev, name, seg_log2, lazy):
-    """Kernels P, Q and R against their plain versions (P and R on the card
-    at up to 2^17 positions a segment), and the container against the v2
-    oracle's: one segment and eight of 2^17, 88 of 2^7, runs, random
-    bytes, inputs of 1 and 13 bytes, seg_log2 0 to 17, partial last
-    segments ending in runs, lazy=False, a match past 15 + 255, and the C1
-    input (10 segments)."""
+    """Kernels P, Q and R against their plain versions, and the container
+    against the v2 oracle's: one segment and eight of 2^17, 88 of 2^7, runs,
+    random bytes, inputs of 1 and 13 bytes, seg_log2 0 to 17, partial last
+    segments ending in runs, lazy=False, a match past 15 + 255, the C1
+    input (10 segments); for P also runs of up to 5,000 bytes between text
+    (exits 256 or more past their block's end, step bytes of 255), 2^17 - 1
+    positions (a partial last block), a 2^14-byte CT-SB superblock and one
+    segment of 2^18 and of 2^20 positions (P's global-memory branch)."""
     data = _lz_input(name)
     n = len(data)
     x = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(dev)
     rows, lens = lz_ops.segment_rows(x, seg_log2)
-    step, off = lz_ops.walk_inputs(rows, lens, lazy)
-    tokens = lz_kernels.walk(step, off)
-    for a, b in zip(tokens, lz_kernels.walk_plain(step, off)):
+    lcp, cand = lz_ops.match_table(rows, lens)
+    tokens = lz_kernels.walk(lcp, cand, lens, lazy)
+    assert lz_kernels.walk_geometry(rows.shape[1]).staged == (
+        rows.shape[1] <= 1 << 17)
+    for a, b in zip(tokens, lz_kernels.walk_plain(lcp, cand, lens, lazy)):
         assert torch.equal(a, b)
     payload, sizes = lz_kernels.serialize(rows, lens, *tokens)
     pp, ps = lz_kernels.serialize_plain(rows, lens, *tokens)
@@ -1069,7 +1081,8 @@ def test_lz_kernels_match_plain_and_the_oracle(dev, name, seg_log2, lazy):
                         lazy=lazy) == want
     bases = sizes.cumsum(0) - sizes
     out, err = lz_kernels.decode(payload, bases, sizes, n, 1 << seg_log2)
-    if name not in ("kennedy.xls", "C1"):   # the plain loop: ~40 us a token
+    # the plain loop takes ~40 us a token on an H100
+    if name not in ("kennedy.xls", "C1", "2^20"):
         po, pe = lz_kernels.decode_plain(payload, bases, sizes, n,
                                          1 << seg_log2)
         assert torch.equal(out, po) and torch.equal(err, pe)
@@ -1215,22 +1228,25 @@ def test_lz_decode_cases_as_plain(dev, case):
 
 
 def test_lz_serialize_and_decode_do_not_synchronize(dev):
-    """Kernels Q and R at kennedy.xls, their inputs on the card, after a
+    """Kernels P, Q and R at kennedy.xls, their inputs on the card, after a
     warm-up: no call synchronizes with the host."""
     data = _corpus("kennedy.xls")
     x = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(dev)
     rows, lens = lz_ops.segment_rows(x, 17)
-    tokens = lz_kernels.walk(*lz_ops.walk_inputs(rows, lens))
+    lcp, cand = lz_ops.match_table(rows, lens)
+    tokens = lz_kernels.walk(lcp, cand, lens)
     payload, sizes = lz_kernels.serialize(rows, lens, *tokens)
     bases = sizes.cumsum(0) - sizes
     lz_kernels.decode(payload, bases, sizes, len(data), 1 << 17)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
+        tokens2 = lz_kernels.walk(lcp, cand, lens)
         payload2, sizes2 = lz_kernels.serialize(rows, lens, *tokens)
         out, err = lz_kernels.decode(payload, bases, sizes, len(data),
                                      1 << 17)
     finally:
         torch.cuda.set_sync_debug_mode("default")
+    assert all(torch.equal(a, b) for a, b in zip(tokens2, tokens))
     assert torch.equal(payload2, payload) and torch.equal(sizes2, sizes)
     assert not err.any() and out.cpu().numpy().tobytes() == data

@@ -296,8 +296,8 @@ def test_decode_error_codes(kind, code):
 def _tokens(data, seg_log2, lazy=True):
     x = torch.from_numpy(np.frombuffer(data, np.uint8).copy())
     rows, lens = lz_ops.segment_rows(x, seg_log2)
-    step, off = lz_ops.walk_inputs(rows, lens, lazy)
-    return rows, lens, lz_kernels.walk(step, off)
+    lcp, cand = lz_ops.match_table(rows, lens)
+    return rows, lens, lz_kernels.walk(lcp, cand, lens, lazy)
 
 
 @pytest.mark.parametrize("name,seg_log2", [
@@ -332,11 +332,14 @@ def test_plain_versions_against_the_oracles_tokens(name, seg_log2):
 
 
 def test_wrappers_check_their_inputs():
-    step = torch.ones((2, 8), dtype=torch.int32)
-    with pytest.raises(ValueError, match="int32"):
-        lz_kernels.walk(step.to(torch.int64), step)
-    with pytest.raises(ValueError, match="off"):
-        lz_kernels.walk(step, step[:, :4].contiguous())
+    lcp = torch.ones((2, 8), dtype=torch.int64)
+    lens = torch.full((2,), 8, dtype=torch.int64)
+    with pytest.raises(ValueError, match="int64"):
+        lz_kernels.walk(lcp.to(torch.int32), lcp, lens)
+    with pytest.raises(ValueError, match="cand"):
+        lz_kernels.walk(lcp, lcp[:, :4].contiguous(), lens)
+    with pytest.raises(ValueError, match="lens"):
+        lz_kernels.walk(lcp, lcp, lens[:1].contiguous())
     with pytest.raises(ValueError, match="segments"):
         lz_kernels.decode(torch.zeros(4, dtype=torch.uint8),
                           torch.zeros(1, dtype=torch.int64),
