@@ -2,9 +2,9 @@
 """Drive the PyTorch/CUDA port's ported paths once on one GPU: CT-RCX,
 CT-RCQ, CT-ANS1 v2 rANS (the default codec), CT-HUF1 canonical Huffman,
 the Config-4 BWT pipeline (CT-PIPE: blocksort, mtf1, rle0,
-adaptive_range) with its stages and CT-RC1, CT-LZ4 (slz4), the resumable
-CT-RCQ encoder and CT-SB streaming over every ported codec, up to a
-stream of 2^30 + 12,345 bytes.
+adaptive_range) with its stages and CT-RC1, CT-LZ4 (slz4), CT-ASE1 (ase),
+CT-RC3 (adaptive_o1), the resumable CT-RCQ encoder and CT-SB streaming
+over every ported codec, up to a stream of 2^30 + 12,345 bytes.
 
     python3 chip_smoke.py
 
@@ -67,9 +67,19 @@ Phases, one line each (a failed phase exits non-zero):
               and a zero segment, on 8 segments with segment 3 corrupted
               and on the longest chain of matches; timed at those five
               shapes and R at the last two, the plain versions at
-              kennedy.xls;
+              kennedy.xls; S and T (CT-ASE1 encode, decode) on runs
+              (every hit at distance 0), all 256 values cycled (a full
+              table evicting every step), exactly 64 and 65 distinct
+              symbols, n not a multiple of K, K = 1 and K = 65,536; U and
+              V (CT-RC3 encode, decode) at limit1_log2 9 (rows halving
+              nearly every step), t0 rescaling, n < K, a one-byte run,
+              the u32 table (blend 0, limit1_log2 17) at one and four
+              lanes, 2,048 and 65,536 lanes; each case's container
+              against the oracle's; then timed at kennedy.xls's shapes
+              (K = 256) and grammar.lsp's (K = 2);
   4. main     per codec (rcx, rcq, rans, huffman, static_range,
-              adaptive_range, blocksort, mtf, mtf1, rle0, pipeline, slz4),
+              adaptive_range, blocksort, mtf, mtf1, rle0, pipeline, slz4,
+              ase, adaptive_o1),
               with the launch counts set to 0 just before and read just
               after:
               compress/decompress(codec, device="cuda") over the 11
@@ -104,7 +114,8 @@ bytes it moves over the memory rate and its operations over the peak
 rate; `ms_at`, its times at each shape timed, for B `passes_ms` and for
 H `wrapper_ms`; `launches_by_path`, its launches on each codec's path;
 `tpu_kernel`, the Pallas kernel it replaces, null for J, L, M, N, O, P,
-Q and R, which replace the JAX package's lax.scan loops and XLA code), the nvidia-smi line, and last
+Q, R, S, T, U and V, which replace the JAX package's lax.scan loops and
+XLA code), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Each phase prints its seconds.
 """
 
@@ -132,6 +143,8 @@ from cpprcoder_tpu_torch.models.cxmodel import rcq_params, rcx_params
 from cpprcoder_tpu_torch.models.static_table import normalize_freqs
 from cpprcoder_tpu_torch.native import build
 from cpprcoder_tpu_torch.ops import (
+    ase_kernels,
+    ase_ops,
     compaction,
     expand,
     huffman_kernels,
@@ -141,6 +154,8 @@ from cpprcoder_tpu_torch.ops import (
     lz_ops,
     mtf_kernels,
     mtf_ops,
+    o1_kernels,
+    o1_ops,
     range_kernels,
     range_ops,
     rans_kernels,
@@ -150,7 +165,7 @@ from cpprcoder_tpu_torch.ops import (
     rcx_kernels,
     rcx_ops,
 )
-from cpprcoder_tpu_torch.reference import slz4_ref
+from cpprcoder_tpu_torch.reference import ase_ref, o1_ref, slz4_ref
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 MASK32 = 0xFFFFFFFF
@@ -222,6 +237,20 @@ EXPECTED_SIZES = {
     },
 }
 EXPECTED_SIZES["mtf1"] = EXPECTED_SIZES["mtf"]   # one container size
+# CT-ASE1 and CT-RC3 at their defaults (K = pick_lanes(n), inc =
+# pick_inc(K)), in the oracles' bytes: 2,436,173 and 1,089,675 in all
+EXPECTED_SIZES["ase"] = {
+    "alice29.txt": 133011, "asyoulik.txt": 109915, "cp.html": 21707,
+    "fields.c": 9865, "grammar.lsp": 3285, "kennedy.xls": 923819,
+    "lcet10.txt": 374375, "plrabn12.txt": 421243, "ptt5": 401601,
+    "sum": 33615, "xargs.1": 3737,
+}
+EXPECTED_SIZES["adaptive_o1"] = {
+    "alice29.txt": 74057, "asyoulik.txt": 61491, "cp.html": 12706,
+    "fields.c": 5246, "grammar.lsp": 1761, "kennedy.xls": 406471,
+    "lcet10.txt": 211119, "plrabn12.txt": 230303, "ptt5": 64885,
+    "sum": 19421, "xargs.1": 2215,
+}
 # CT-LZ4 at seg_log2 17, lazy: the v2 parse the card writes (the oracle's
 # slz4_encode(parse="v2"); its backend="ref" writes the v1 parse)
 EXPECTED_SIZES["slz4"] = {
@@ -287,6 +316,10 @@ COUNTERS = {
     "lz_walk": (lz_kernels, "walk_launches", "walk"),
     "lz_serialize": (lz_kernels, "serialize_launches", "serialize"),
     "lz_decode": (lz_kernels, "decode_launches", "decode"),
+    "ase_encode": (ase_kernels, "encode_launches", "encode_words"),
+    "ase_decode": (ase_kernels, "decode_launches", "decode_symbols"),
+    "o1_encode": (o1_kernels, "encode_launches", "encode_events"),
+    "o1_decode": (o1_kernels, "decode_launches", "decode_symbols"),
 }
 # the kernels each codec's main path runs (blocksort and rle0 are tensor
 # code: no kernel of their own)
@@ -301,6 +334,8 @@ PATH_KERNELS = {
     "blocksort": [], "mtf": MTF, "mtf1": MTF, "rle0": [],
     "pipeline": MTF + RC_EXACT,
     "slz4": ["lz_walk", "lz_serialize", "lz_decode"],
+    "ase": ["ase_encode", "ase_decode"],
+    "adaptive_o1": ["o1_encode", "expand", "o1_decode"],
     # the resumable CT-RCQ encoder (O, B), one-shot rcq (D) and the
     # decode (E) that it is held to
     "resume": ["rcq_encode_chunk", "expand", "rcq_encode", "rcq_decode"],
@@ -324,12 +359,20 @@ OPS_PER_SYMBOL = {"rcx_encode": 24, "rcx_decode": 40, "rcq_encode": 24,
                   "rcq_decode": 40, "rans_encode": 10, "rans_decode": 11,
                   "huffman_encode": 12, "huffman_decode": 40,
                   "rc_exact_encode": 24, "rc_exact_decode": 40,
-                  "rcq_encode_chunk": 24}
+                  "rcq_encode_chunk": 24, "ase_encode": 8, "ase_decode": 8,
+                  "o1_encode": 35, "o1_decode": 50}
 OPS_PER_CELL = 12      # a model cell's requant
 OPS_PER_TABLE_CELL = 5  # CT-RC2's table before a step: sum, halve, scan
 OPS_PER_EVENT = 5      # kernel B: an event's fields and its lane cumsum
 # M and N: a byte at rank r compares r + 1 entries and moves r of them,
 # plus the rank's own bookkeeping: 2r + 4 (counted from this run's ranks)
+# S and T: a symbol compares and moves the table's entries, `size` of them
+# for a hit or a literal, 63 more for a literal into a full table (counted
+# from this run's tables by the plain version), plus 8 for its bits.
+# U and V: a symbol's coder and blend (35 to encode, 50 to decode, the
+# search included), plus its prefix sums in t1 and t0, (s >> 4) + (s & 15)
+# adds each (from this run's bytes); a step checks the 256 rows, and a
+# halved row costs OPS_PER_TABLE_CELL a count (this run's halvings)
 
 
 def nbytes(*ts) -> int:
@@ -481,6 +524,18 @@ def median_call_ms(fn, calls: int = 50) -> float:
     return float(np.median(ts))
 
 
+def run_ms(fn):
+    """fn() once, timed with CUDA events: -> (its output, ms)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def queued_ms(fn, reps: int = 20) -> float:
     """Device ms a call of fn, its launches' host time hidden: the calls are
     queued behind a spin of the stream (about 2.5 ms), so the card runs
@@ -568,21 +623,27 @@ def lane_cases(seed: int):
             (8192, textish(8192 * 40 + 3, seed + 4)), (64, b"\x42" * 2001)]
 
 
-def time_at(files, case, args, plain_reps: int, what: str, timers=None):
+def time_at(files, case, args, plain_reps: int, what: str, timers=None,
+            plain_done=None):
     """Hold `case` at each file's main-path shape (args(n) gives its
     parameters) and time its kernels, 5 reps after a warm-up (or by
     timers[kernel](call), where given); the plain versions only at the
-    first file, `plain_reps` reps. Prints the line `[kernels] ok {what};
-    ...`. -> ({kernel: (ms, plain ms)}, {kernel: (bytes, ops)}) at the
-    first file, {kernel: {file: ms}} at both."""
+    first file, `plain_reps` reps, or the one run the case timed while it
+    held the kernel (plain_done[kernel], where the case fills it). Prints
+    the line `[kernels] ok {what}; ...`. -> ({kernel: (ms, plain ms)},
+    {kernel: (bytes, ops)}) at the first file, {kernel: {file: ms}} at
+    both."""
     at, ms, work = {}, {}, {}
     timers = timers or {}
+    plain_done = {} if plain_done is None else plain_done
     for i, name in enumerate(files):
         data = corpus(name)
+        plain_done.clear()
         shape, fns, w = case(data, *args(len(data)), name)
         at[name] = f"{name} ({shape})"
         ms[name] = {nm: (timers.get(nm, lambda f: cuda_ms(f, 5))(kern),
-                         i == 0 and cuda_ms(plain, plain_reps, 0))
+                         i == 0 and (plain_done.get(nm)
+                                     or cuda_ms(plain, plain_reps, 0)))
                     for nm, (kern, plain) in fns.items()}
         work = work or w
     big, small = files
@@ -1185,6 +1246,145 @@ def phase_kernels_huffman(dev):
           "through its wrapper (median of 50) " + ", ".join(
               f"{nm} {t:.4f}" for nm, t in wrapper.items()), flush=True)
     return err, ms, work, ms_at, wrapper
+
+
+def o1_params(k: int, opts: dict) -> tuple:
+    """(inc, limit1_log2, limit0_log2, blend_log2) of CT-RC3 at `opts`,
+    the codec's defaults elsewhere."""
+    return (opts.get("inc", o1_ref.pick_inc(k)),
+            opts.get("limit1_log2", o1_ref.LIMIT1_LOG2),
+            opts.get("limit0_log2", o1_ref.LIMIT0_LOG2),
+            opts.get("blend_log2", o1_ref.BLEND_LOG2))
+
+
+def phase_kernels_ase_o1(dev):
+    """S, T (CT-ASE1) and U, V (CT-RC3) against their plain step loops,
+    and the containers of their cases against the oracles."""
+    err = dict.fromkeys(("ase_encode", "ase_decode", "o1_encode",
+                         "o1_decode"), 0)
+    # each plain version runs once a case, timed (time_at reads it at
+    # kennedy.xls rather than running the plain loop again)
+    plain_done = {}
+
+    def plain(nm, fn):
+        out, plain_done[nm] = run_ms(fn)
+        return out
+
+    def ase_case(data, k, what):
+        """Hold S and T against their plain versions on `data`; -> (shape,
+        {kernel: (kernel call, plain call)}, {kernel: (bytes, ops)})."""
+        n, stride, x2d, lens = interleaved_inputs(data, k, dev)
+        stats = {}
+        enc = (lambda: ase_kernels.encode_words(x2d, lens),
+               lambda: ase_ops.encode_words_plain(x2d, lens))
+        payload, bits = hold(err, "ase_encode", enc[0](), plain(
+            "ase_encode", lambda: ase_ops.encode_words_plain(x2d, lens,
+                                                             stats)),
+            f"kernel S at {what}")
+        counts = (bits.to(torch.int64) + 15) // 16
+        words = payload[:int(counts.sum())].contiguous()
+        bases = (torch.cumsum(counts, 0) - counts).to(torch.int32)
+        args = (words, bases, counts.to(torch.int32), lens, n, stride)
+        dec = (lambda: ase_kernels.decode_symbols(*args),
+               lambda: ase_ops.decode_symbols_plain(*args))
+        sym = hold(err, "ase_decode", dec[0](), plain("ase_decode", dec[1]),
+                   f"kernel T at {what}")
+        if sym.cpu().numpy().tobytes() != data:
+            fail(f"kernel T did not invert kernel S at {what}")
+        table = stats["table_ops"]
+        work = {"ase_encode": (nbytes(x2d, lens, words, bits),
+                               table + coder_ops("ase_encode", n)),
+                "ase_decode": (nbytes(*args[:4]) + n,
+                               table + coder_ops("ase_decode", n))}
+        return f"K={k}, stride={stride}", {"ase_encode": enc,
+                                           "ase_decode": dec}, work
+
+    def o1_case(data, k, what, **opts):
+        """Hold U and V against their plain versions on `data`."""
+        n, steps, x2d, lens = coder_inputs(data, k, dev)
+        params = o1_params(k, opts)
+        stats = {}
+        enc = (lambda: o1_kernels.encode_events(x2d, lens, *params),
+               lambda: o1_ops.encode_events_plain(x2d, lens, *params))
+        ev = hold(err, "o1_encode", enc[0](), plain(
+            "o1_encode", lambda: o1_ops.encode_events_plain(x2d, lens,
+                                                            *params, stats)),
+            f"kernel U at {what}")
+        words = layout.decode_words(*expand.materialize_rows(ev))
+        dec = (lambda: o1_kernels.decode_symbols(words, lens, n, steps,
+                                                 *params),
+               lambda: o1_ops.decode_symbols_plain(words, lens, n, steps,
+                                                   *params))
+        sym = hold(err, "o1_decode", dec[0](), plain("o1_decode", dec[1]),
+                   f"kernel V at {what}")
+        if sym.cpu().numpy().tobytes() != data:
+            fail(f"kernel V did not invert kernel U at {what}")
+        x = np.frombuffer(data, np.uint8).astype(np.int64)
+        model = (2 * int(((x >> 4) + (x & 15)).sum()) + steps * 256
+                 + stats["rows_halved"] * 256 * OPS_PER_TABLE_CELL)
+        work = {"o1_encode": (nbytes(x2d, lens, ev),
+                              model + coder_ops("o1_encode", n)),
+                "o1_decode": (nbytes(words, lens) + n,
+                              model + coder_ops("o1_decode", n))}
+        wide = " u32 table" if o1_ops.table_wide(k, *params[:2]) else ""
+        return (f"K={k}, L={steps}{wide}", {"o1_encode": enc,
+                                            "o1_decode": dec}, work)
+
+    def containers(codec, cases, oracle_fn):
+        for data, k, opts in cases:
+            blob = ctt.compress(data, codec=codec, device="cuda", lanes=k,
+                                **opts)
+            if blob != oracle_fn(data, lanes=k, **opts) \
+                    or ctt.decompress(blob, codec=codec, device="cuda") != data:
+                fail(f"{codec} K={k} n={len(data)} {opts}: not the oracle's "
+                     f"container, or no round trip")
+
+    # CT-ASE1: runs (every hit at d = 0), all 256 values cycled (a full
+    # table evicting every step), exactly 64 and 65 distinct symbols, n not
+    # a multiple of K, K = 1 and K = 65,536 (lanes of length 0 too)
+    rng = np.random.default_rng(600)
+    seeded = lambda n, a: rng.integers(0, a, n, dtype=np.uint8).tobytes()  # noqa: E731
+    ase_cases = [(b"\x33" * 3000 + b"\x44" * 3000, 2, {}),
+                 (bytes(range(256)) * 40, 4, {}),
+                 (seeded(4000, 64), 1, {}), (seeded(4000, 65), 1, {}),
+                 (seeded(256 * 40 + 7, 90), 256, {}),
+                 (textish(4000, 601), 1, {}),
+                 (b"\x05" * 70_000 + seeded(60_000, 256), 65536, {})]
+    for data, k, _ in ase_cases:
+        ase_case(data, k, f"K={k} n={len(data)}")
+    containers("ase", ase_cases, ase_ref.ase_encode)
+    # CT-RC3: rows that halve nearly every step (limit1_log2 9), t0
+    # rescales, n < K (empty lanes), one-byte runs (every update on one
+    # cell), the u32 table (blend 0, limit1_log2 17: t1[7][7] passes 2^16)
+    # at one and four lanes, 2,048 lanes (two a thread) and K = 65,536
+    u32 = b"\x07" * 6000 + bytes(range(256)) * 4
+    o1_cases = [(textish(3000, 602), 2, dict(limit1_log2=9)),
+                (seeded(6000, 50), 4, dict(limit0_log2=10, inc=16)),
+                (b"abcde", 8, {}), (b"\x61" * 20_000, 64, dict(inc=255)),
+                (u32, 1, dict(blend_log2=0, limit1_log2=17)),
+                (u32, 4, dict(blend_log2=0, limit1_log2=17)),
+                (textish(2048 * 6 + 5, 603), 2048, {}),
+                (seeded(65536 * 2 + 100, 256), 65536, {})]
+    for data, k, opts in o1_cases:
+        o1_case(data, k, f"K={k} n={len(data)} {opts}", **opts)
+    containers("adaptive_o1", o1_cases, o1_ref.o1_encode)
+    print(f"[kernels] ok {len(ase_cases)} CT-ASE1 and {len(o1_cases)} CT-RC3 "
+          f"containers equal the oracle's and round-trip", flush=True)
+
+    # held and timed at kennedy.xls's shapes (ase K = 256, stride 4,023;
+    # CT-RC3 K = 256, L = 4,023), kernel vs plain; held there and at
+    # grammar.lsp's (K = 2), the kernels alone timed
+    lanes = lambda n: (pick_lanes(n),)  # noqa: E731
+    ms, work, ms_at = time_at(
+        ("kennedy.xls", "grammar.lsp"), ase_case, lanes, 1,
+        f"{len(ase_cases) + 2} CT-ASE1 cases (S, T) equal their plain "
+        f"versions", plain_done=plain_done)
+    o1 = time_at(("kennedy.xls", "grammar.lsp"), o1_case, lanes, 1,
+                 f"{len(o1_cases) + 2} CT-RC3 cases (U, V) equal their plain "
+                 f"versions", plain_done=plain_done)
+    for d, more in zip((ms, work, ms_at), o1):
+        d.update(more)
+    return err, ms, work, ms_at
 
 
 def zipf(n: int, seed: int) -> bytes:
@@ -1981,7 +2181,8 @@ EXTRAS = {"rcx": lambda _: rcx_ratio_preset(), "rcq": None,
           "static_range": lambda _: concatenated("static_range"),
           "adaptive_range": lambda _: concatenated("adaptive_range"),
           "blocksort": None, "mtf": None, "mtf1": None, "rle0": None,
-          "pipeline": None, "slz4": slz4_whole_inputs}
+          "pipeline": None, "slz4": slz4_whole_inputs, "ase": None,
+          "adaptive_o1": None}
 
 
 def phase_main(codec: str, oracles):
@@ -2089,6 +2290,15 @@ SCAN_KERNELS = [
      "cpprcoder_tpu/ops/lz_ops.py:396"),
     ("lz_decode", "cpprcoder_tpu_torch/csrc/lz_decode.cu",
      "cpprcoder_tpu/ops/lz_ops.py:756"),
+    # CT-ASE1 (S, T) and CT-RC3 (U, V)
+    ("ase_encode", "cpprcoder_tpu_torch/csrc/ase.cu",
+     "cpprcoder_tpu/ops/ase_ops.py:47"),
+    ("ase_decode", "cpprcoder_tpu_torch/csrc/ase.cu",
+     "cpprcoder_tpu/ops/ase_ops.py:103"),
+    ("o1_encode", "cpprcoder_tpu_torch/csrc/o1_encode.cu",
+     "cpprcoder_tpu/ops/o1_ops.py:132"),
+    ("o1_decode", "cpprcoder_tpu_torch/csrc/o1_decode.cu",
+     "cpprcoder_tpu/ops/o1_ops.py:169"),
 ]
 
 
@@ -2123,15 +2333,16 @@ def main():
         oracles = start_oracles(pool)
         err, ms, work, ms_at, b_passes = timed("kernels A, B, C",
                                                phase_kernels, dev)
-        rcq, rans, (*huffman, h_wrapper), exact, mtf, chunk, lz = (
+        rcq, rans, (*huffman, h_wrapper), exact, mtf, chunk, lz, stuv = (
             timed("kernels D, E", phase_kernels_rcq, dev),
             timed("kernels F, G", phase_kernels_rans, dev),
             timed("kernels H, I", phase_kernels_huffman, dev),
             timed("kernels J, L", phase_kernels_exact, dev),
             timed("kernels M, N", phase_kernels_mtf, dev),
             timed("kernel O", phase_kernels_chunk, dev),
-            timed("kernels P, Q, R", phase_kernels_lz, dev))
-        for e, m, w, a in (rcq, rans, huffman, exact, mtf, chunk, lz):
+            timed("kernels P, Q, R", phase_kernels_lz, dev),
+            timed("kernels S, T, U, V", phase_kernels_ase_o1, dev))
+        for e, m, w, a in (rcq, rans, huffman, exact, mtf, chunk, lz, stuv):
             err.update(e)
             ms.update(m)
             work.update(w)

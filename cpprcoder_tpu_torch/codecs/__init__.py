@@ -5,9 +5,10 @@ Ported so far: `static_range` (id 0, CT-RC1), `adaptive_range` (1,
 CT-RC2), `rans` (2, CT-ANS1 v2, the default codec, as in the JAX package),
 `huffman` (3, CT-HUF1), `blocksort` (4, CT-BWT1), `mtf` (5) and `mtf1` (8)
 (CT-MTF1), `slz4` (6, CT-LZ4: the v2 parse on the card and the CPU, the
-v1 parse under `backend="ref"` and `"native"`), `pipeline` (9, CT-PIPE),
-`stream` (10, CT-SB: superblocks of any ported codec; codecs/stream.py,
-with `SuperblockEncoder` and `stream_decode_range`), `rle0` (12, CT-RLE0),
+v1 parse under `backend="ref"` and `"native"`), `ase` (7, CT-ASE1),
+`pipeline` (9, CT-PIPE), `stream` (10, CT-SB: superblocks of any ported
+codec; codecs/stream.py, with `SuperblockEncoder` and
+`stream_decode_range`), `adaptive_o1` (11, CT-RC3), `rle0` (12, CT-RLE0),
 `rcq` (14, CT-RCQ; its resumable encoder is codecs/resume.py) and `rcx`
 (15, CT-RCX). Asking for another codec of the JAX package, by name or by
 id (a pipeline stage or a CT-SB header), raises KeyError naming the
@@ -22,9 +23,9 @@ _REGISTRY: dict[str, "Codec"] = {}
 _BY_ID: dict[int, "Codec"] = {}
 
 # codecs of the JAX package still to port -> ROADMAP.md queue A item
-NOT_YET_PORTED = {"adaptive_o1": "A12", "adaptive_rans": "A12", "ase": "A12"}
+NOT_YET_PORTED = {"adaptive_rans": "A12"}
 # their codec ids in the JAX package
-NOT_YET_PORTED_IDS = {11: "adaptive_o1", 13: "adaptive_rans", 7: "ase"}
+NOT_YET_PORTED_IDS = {13: "adaptive_rans"}
 
 
 class Codec:
@@ -85,7 +86,9 @@ def decompress(blob, codec: str = "rans", **opts) -> bytes:
 
 def _ensure_loaded():
     from cpprcoder_tpu_torch.codecs import (  # noqa: F401
+        adaptive_o1,
         adaptive_range,
+        ase,
         blocksort,
         huffman,
         mtf,

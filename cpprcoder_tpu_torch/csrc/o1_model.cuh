@@ -1,0 +1,337 @@
+// CT-RC3's shared model and coder steps, for kernels U (o1_encode.cu) and V
+// (o1_decode.cu). What they compute is in those files and in
+// ops/o1_ops.py's docstring; this header holds the model's layout and the
+// three phases of a step that both kernels run the same way.
+//
+// The model, one copy a stream (one CTA):
+//   t1      order-1 counts [256][256]: u16 pairs in shared memory (128 KiB,
+//           count e of row r in half e & 1 of word r*128 + e/2) where every
+//           count stays below 2^16 (WIDE false), else u32 in global memory
+//           (256 KiB of scratch, L2-resident, read with ld.global.cg so that
+//           no stale L1 line is read after another thread's atomic);
+//   bsum1   per row the 16 sums of counts 16b..16b+15, u32 [256][16];
+//   rowtot  the row totals, u32 [256];
+//   t0      order-0 counts, u32 [256], with bsum0 [16] and tot0.
+// Every count starts at 1 (row totals 256, block sums 16).
+//
+// A step, between barriers:
+//   rescale  each warp takes 256 / warps rows; a row whose total has reached
+//            limit1 is halved, (f >> 1) | 1, by the warp (8 counts a lane),
+//            which rebuilds its block sums (lanes 2b, 2b+1: block b) and
+//            total; the last warp does t0 the same way once tot0 has reached
+//            limit0. Every row is checked every step: a halved row can still
+//            be at its limit.
+//   code     each lane reads f and the exclusive prefix of its symbol in its
+//            context's row (the block sums before its block, then the counts
+//            before it in the block: 16-byte loads), and t0's likewise.
+//   update   each active lane adds inc to t1[ctx][s] (a u16 half through an
+//            atomic add on its word: no carry, the count stays below 2^16),
+//            the block sums, rowtot[ctx], t0[s] and bsum0; each warp adds
+//            inc times its active lanes to tot0.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace o1 {
+
+constexpr uint32_t RC_TOP = 1u << 24;
+constexpr uint32_t EV_RUN_MASK = (1u << 22) - 1;
+constexpr uint32_t FULL = 0xFFFFFFFFu;
+constexpr int SLOTS = 3;           // shift_low slots a step (o1_ops.N_SLOTS)
+constexpr int MAX_THREADS = 1024;  // lanes a CTA codes one a thread
+constexpr int MIN_THREADS = 256;   // a CTA has at least 8 warps for the rescale
+
+// dynamic shared memory: bsum1, rowtot, t0, bsum0, tot0 (padded to 16 B),
+// then t1 when it is kept there
+constexpr int BSUM1_WORDS = 256 * 16;
+constexpr int MODEL_WORDS = BSUM1_WORDS + 256 + 256 + 16 + 4;
+constexpr int T1_NARROW_WORDS = 256 * 128;
+constexpr int smem_bytes(bool wide) { return 4 * (MODEL_WORDS + (wide ? 0 : T1_NARROW_WORDS)); }
+
+struct Model {
+  uint32_t* t1;
+  uint32_t* bsum1;
+  uint32_t* rowtot;
+  uint32_t* t0;
+  uint32_t* bsum0;
+  uint32_t* tot0;
+};
+
+__device__ __forceinline__ Model carve(uint32_t* smem, uint32_t* t1_global, bool wide) {
+  Model m;
+  m.bsum1 = smem;
+  m.rowtot = m.bsum1 + BSUM1_WORDS;
+  m.t0 = m.rowtot + 256;
+  m.bsum0 = m.t0 + 256;
+  m.tot0 = m.bsum0 + 16;
+  m.t1 = wide ? t1_global : smem + MODEL_WORDS;
+  return m;
+}
+
+// Every count 1; barrier after.
+template <bool WIDE>
+__device__ void init_model(const Model& m) {
+  const int tid = threadIdx.x, bd = blockDim.x;
+  for (int i = tid; i < BSUM1_WORDS; i += bd) m.bsum1[i] = 16;
+  for (int i = tid; i < 256; i += bd) m.rowtot[i] = 256, m.t0[i] = 1;
+  if (tid < 16) m.bsum0[tid] = 16;
+  if (tid == 0) *m.tot0 = 256;
+  if (WIDE) {
+    for (int i = tid; i < 256 * 256; i += bd) __stcg(m.t1 + i, 1u);
+  } else {
+    for (int i = tid; i < T1_NARROW_WORDS; i += bd) m.t1[i] = 0x00010001u;
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ uint32_t halve(uint32_t f) { return (f >> 1) | 1u; }
+__device__ __forceinline__ uint32_t halve2(uint32_t w) { return ((w >> 1) & 0x7FFF7FFFu) | 0x00010001u; }
+__device__ __forceinline__ uint32_t sum2(uint32_t w) { return (w & 0xFFFFu) + (w >> 16); }
+
+// Warp: the 8 halved counts of a lane sum to s; the block sums (lanes 2b,
+// 2b+1) and the total follow.
+__device__ __forceinline__ void publish_sums(uint32_t s, uint32_t* bsum, uint32_t* total) {
+  const int ln = threadIdx.x & 31;
+  const uint32_t b = s + __shfl_xor_sync(FULL, s, 1);
+  if (!(ln & 1)) bsum[ln >> 1] = b;
+  const uint32_t t = __reduce_add_sync(FULL, s);
+  if (ln == 0) *total = t;
+}
+
+// Warp: row r of t1 halved (counts 8l..8l+7 a lane).
+template <bool WIDE>
+__device__ __forceinline__ void halve_row(const Model& m, int r) {
+  const int ln = threadIdx.x & 31;
+  uint32_t s;
+  if (WIDE) {
+    uint4* p = reinterpret_cast<uint4*>(m.t1 + r * 256) + 2 * ln;
+    uint4 a = __ldcg(p), b = __ldcg(p + 1);
+    a = make_uint4(halve(a.x), halve(a.y), halve(a.z), halve(a.w));
+    b = make_uint4(halve(b.x), halve(b.y), halve(b.z), halve(b.w));
+    __stcg(p, a);
+    __stcg(p + 1, b);
+    s = a.x + a.y + a.z + a.w + b.x + b.y + b.z + b.w;
+  } else {
+    uint4* p = reinterpret_cast<uint4*>(m.t1 + r * 128) + ln;
+    uint4 a = *p;
+    a = make_uint4(halve2(a.x), halve2(a.y), halve2(a.z), halve2(a.w));
+    *p = a;
+    s = sum2(a.x) + sum2(a.y) + sum2(a.z) + sum2(a.w);
+  }
+  publish_sums(s, m.bsum1 + r * 16, m.rowtot + r);
+}
+
+// Warp: t0 halved.
+__device__ __forceinline__ void halve_t0(const Model& m) {
+  const int ln = threadIdx.x & 31;
+  uint4* p = reinterpret_cast<uint4*>(m.t0) + 2 * ln;
+  uint4 a = p[0], b = p[1];
+  a = make_uint4(halve(a.x), halve(a.y), halve(a.z), halve(a.w));
+  b = make_uint4(halve(b.x), halve(b.y), halve(b.z), halve(b.w));
+  p[0] = a;
+  p[1] = b;
+  publish_sums(a.x + a.y + a.z + a.w + b.x + b.y + b.z + b.w, m.bsum0, m.tot0);
+}
+
+// The rescale phase (every warp; blockDim.x a power of two, 256..1024);
+// barrier after.
+template <bool WIDE>
+__device__ void rescale(const Model& m, uint32_t limit1, uint32_t limit0) {
+  const int ln = threadIdx.x & 31, w = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const int rows = 256 / nw, r0 = w * rows;
+  uint32_t over = __ballot_sync(FULL, ln < rows && m.rowtot[r0 + ln] >= limit1);
+  while (over) {
+    const int i = __ffs(over) - 1;
+    over &= over - 1;
+    halve_row<WIDE>(m, r0 + i);
+  }
+  if (w == nw - 1 && *m.tot0 >= limit0) halve_t0(m);
+  __syncthreads();
+}
+
+__device__ __forceinline__ uint32_t u4_at(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// The 16 counts of block b of row r of t1.
+template <bool WIDE>
+__device__ __forceinline__ void t1_block(const Model& m, int r, int b, uint32_t (&e)[16]) {
+  if (WIDE) {
+    const uint4* p = reinterpret_cast<const uint4*>(m.t1 + r * 256 + b * 16);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const uint4 v = __ldcg(p + q);
+      e[4 * q] = v.x, e[4 * q + 1] = v.y, e[4 * q + 2] = v.z, e[4 * q + 3] = v.w;
+    }
+  } else {
+    const uint4* p = reinterpret_cast<const uint4*>(m.t1 + r * 128 + b * 8);
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const uint4 v = p[q];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint32_t w = u4_at(v, i);
+        e[8 * q + 2 * i] = w & 0xFFFFu;
+        e[8 * q + 2 * i + 1] = w >> 16;
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void t0_block(const Model& m, int b, uint32_t (&e)[16]) {
+  const uint4* p = reinterpret_cast<const uint4*>(m.t0 + b * 16);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const uint4 v = p[q];
+    e[4 * q] = v.x, e[4 * q + 1] = v.y, e[4 * q + 2] = v.z, e[4 * q + 3] = v.w;
+  }
+}
+
+// The encoder's read: (c, f, tot) of symbol s in context r, blended.
+template <bool WIDE>
+__device__ __forceinline__ void lookup(const Model& m, uint32_t r, uint32_t s, int blend,
+                                       uint32_t tot0, uint32_t& c, uint32_t& f, uint32_t& tot) {
+  const int b = s >> 4, i = s & 15;
+  uint32_t c1 = 0, c0 = 0;
+  const uint4* b1 = reinterpret_cast<const uint4*>(m.bsum1 + r * 16);
+  const uint4* b0 = reinterpret_cast<const uint4*>(m.bsum0);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const uint4 v1 = b1[q], v0 = b0[q];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const bool before = 4 * q + k < b;
+      c1 += before ? u4_at(v1, k) : 0u;
+      c0 += before ? u4_at(v0, k) : 0u;
+    }
+  }
+  uint32_t e1[16], e0[16];
+  t1_block<WIDE>(m, r, b, e1);
+  t0_block(m, b, e0);
+  uint32_t f1 = 0, f0 = 0;
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    c1 += k < i ? e1[k] : 0u;
+    c0 += k < i ? e0[k] : 0u;
+    f1 = k == i ? e1[k] : f1;
+    f0 = k == i ? e0[k] : f0;
+  }
+  c = (c1 << blend) + c0;
+  f = (f1 << blend) + f0;
+  tot = (m.rowtot[r] << blend) + tot0;
+}
+
+// The decoder's search in context r: the symbol s with the blended
+// inclusive prefix of s - 1 at or below v and that of s above it (v <
+// tot_eff); c its exclusive prefix, f its blended count.
+template <bool WIDE>
+__device__ __forceinline__ uint32_t search(const Model& m, uint32_t r, uint32_t v, int blend,
+                                           uint32_t& c, uint32_t& f) {
+  const uint4* b1 = reinterpret_cast<const uint4*>(m.bsum1 + r * 16);
+  const uint4* b0 = reinterpret_cast<const uint4*>(m.bsum0);
+  uint32_t acc = 0;
+  int b = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const uint4 v1 = b1[q], v0 = b0[q];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const uint32_t blk = (u4_at(v1, k) << blend) + u4_at(v0, k);
+      if (b == 4 * q + k && acc + blk <= v) acc += blk, ++b;
+    }
+  }
+  b = b < 15 ? b : 15;
+  uint32_t e1[16], e0[16];
+  t1_block<WIDE>(m, r, b, e1);
+  t0_block(m, b, e0);
+  int cnt = 0;
+  f = 0;
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    const uint32_t e = (e1[k] << blend) + e0[k];
+    if (cnt == k) {
+      if (acc + e <= v)
+        acc += e, ++cnt;
+      else
+        f = e;
+    }
+  }
+  c = acc;
+  return (uint32_t)(16 * b + (cnt < 15 ? cnt : 15));
+}
+
+// One active lane's update (atomics: the sum does not depend on the order).
+template <bool WIDE>
+__device__ __forceinline__ void update(const Model& m, uint32_t r, uint32_t s, uint32_t inc) {
+  if (WIDE)
+    atomicAdd(m.t1 + r * 256 + s, inc);
+  else
+    atomicAdd(m.t1 + r * 128 + (s >> 1), inc << (16 * (s & 1)));
+  atomicAdd(m.bsum1 + r * 16 + (s >> 4), inc);
+  atomicAdd(m.rowtot + r, inc);
+  atomicAdd(m.t0 + s, inc);
+  atomicAdd(m.bsum0 + (s >> 4), inc);
+}
+
+// tot0 grows by inc for each active lane of the warp.
+__device__ __forceinline__ void count_active(const Model& m, bool active, uint32_t inc) {
+  const uint32_t a = __popc(__ballot_sync(FULL, active));
+  if ((threadIdx.x & 31) == 0 && a) atomicAdd(m.tot0, inc * a);
+}
+
+// ------------------------------------------------------- the coder's steps
+// (kernel J's, csrc/rc_exact.cu, copied so that J and L stay as they are)
+
+// One shift_low, as selects: -> its packed event, 0 when it emits nothing.
+__device__ __forceinline__ uint32_t shift_low(uint32_t& low, uint32_t& carry, uint32_t& cache,
+                                              uint32_t& csize) {
+  const bool out = low < 0xFF000000u || carry != 0;
+  const uint32_t ev = 0x80000000u | (((cache + carry) & 0xFFu) << 23) | ((carry & 1u) << 22) |
+                      ((csize - 1u) & EV_RUN_MASK);
+  cache = out ? low >> 24 : cache;
+  csize = out ? 1u : csize + 1u;
+  carry = out ? 0u : carry;
+  low <<= 8;
+  return out ? ev : 0u;
+}
+
+// Up to SLOTS shift_lows while range < 2^24; e[] gets the events.
+__device__ __forceinline__ void renorm_encode(uint32_t& low, uint32_t& carry, uint32_t& rng,
+                                              uint32_t& cache, uint32_t& csize,
+                                              uint32_t (&e)[SLOTS]) {
+#pragma unroll
+  for (int sl = 0; sl < SLOTS; ++sl) {
+    const bool d = rng < RC_TOP;
+    uint32_t l2 = low, c2 = carry, a2 = cache, s2 = csize;
+    const uint32_t ev = shift_low(l2, c2, a2, s2);
+    e[sl] = d ? ev : 0u;
+    low = d ? l2 : low;
+    carry = d ? c2 : carry;
+    cache = d ? a2 : cache;
+    csize = d ? s2 : csize;
+    rng = d ? rng << 8 : rng;
+  }
+}
+
+// The decoder's side: up to SLOTS bytes from the queue q (occ bytes, the
+// oldest highest) into code while range < 2^24.
+__device__ __forceinline__ void renorm_decode(uint32_t& code, uint32_t& rng, uint32_t& occ,
+                                              uint64_t q) {
+#pragma unroll
+  for (int sl = 0; sl < SLOTS; ++sl) {
+    const bool d = rng < RC_TOP;
+    const uint32_t o = d ? occ - 1 : occ;
+    const uint32_t byte = (uint32_t)(q >> (8 * o)) & 0xFFu;
+    code = d ? (code << 8) | byte : code;
+    rng = d ? rng << 8 : rng;
+    occ = o;
+  }
+}
+
+// The CTA's threads for K lanes: K rounded up to 256, at most 1,024.
+__host__ __device__ inline int cta_threads(int K) {
+  return K <= MIN_THREADS ? MIN_THREADS : K >= MAX_THREADS ? MAX_THREADS : K;
+}
+
+}  // namespace o1

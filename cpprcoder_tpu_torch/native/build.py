@@ -88,6 +88,18 @@ SIGNATURES = {
     # err, n_segs, n, s, tcap, rounds, hops a round, stream
     "ct_lz_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _I,
                      _I, _I, _P],
+    # ase.cu, kernel S (three launches): x, lane_len, scratch, counts,
+    # offsets, bits, payload, K, stride, cap, stream
+    "ct_ase_encode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # kernel T: words, P, bases, counts, lane_len, out, K, stride, stream
+    "ct_ase_decode": [_P, _L, _P, _P, _P, _P, _I, _I, _P],
+    # o1_encode.cu, kernel U: x, lane_len, events, t1 and state scratch (or
+    # null), K, L, inc, limit1_log2, limit0_log2, blend_log2, wide, stream
+    "ct_o1_encode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # o1_decode.cu, kernel V: words, lane_len, out, t1 and state scratch (or
+    # null), K, l4, L, inc, limit1_log2, limit0_log2, blend_log2, wide,
+    # stream
+    "ct_o1_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -1,0 +1,114 @@
+"""Kernel S and T wrappers: CT-ASE1 encode and decode on the card.
+
+The JAX package has no Pallas kernel here: it runs each direction as one
+compiled `lax.scan` (cpprcoder_tpu/ops/ase_ops.py:47 `_encode_fn`, scan
+:89, whose words `rans_ops._stream_fn` places, :165-167; :103
+`_decode_fn`, scan :148). Both kernels are in `csrc/ase.cu`, a thread a
+lane: every lane has its own 64-entry recency table, so lanes share
+nothing.
+
+S: each thread keeps its lane's table in 16 registers (4 entries a u32
+word), finds a symbol with a zero-byte test a word, and moves entries with
+byte masks and funnel shifts; its words go to a padded word-major area
+[words_cap(stride), K]. A one-CTA scan turns the lanes' word counts into
+offsets, and a warp a lane copies its words to their place in lane order
+(three launches and a memset, counted as one). Nothing is read back.
+
+T: the same table; each lane reads a 32-bit window of its words, taking a
+word whenever 16 bits or fewer are left, and writes out[j*K + i]
+(coalesced over the lanes).
+
+Their plain versions are `ase_ops.encode_words_plain` and
+`ase_ops.decode_symbols_plain`. On a CPU tensor a wrapper runs the plain
+version; on a CUDA tensor it launches the kernel or raises. Both take
+every power of two up to 65,536 lanes.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cpprcoder_tpu_torch.native import build
+from cpprcoder_tpu_torch.ops import ase_ops, layout
+
+encode_launches = 0   # kernel S (its launches count as one)
+decode_launches = 0   # kernel T
+
+MAX_LANES = 1 << 16   # the lane descriptor's largest log2 K that decodes
+
+
+def _check_lane_count(k: int):
+    if not 1 <= k <= MAX_LANES or k & (k - 1):
+        raise ValueError(f"kernels S and T take a power of two of "
+                         f"1..{MAX_LANES} lanes, got {k}")
+
+
+def encode_words(x2d: torch.Tensor, lane_len: torch.Tensor):
+    """x2d [stride, K] uint8 (interleaved: x2d[j, i] = x[j*K + i]; K a
+    power of two) -> (payload int16 [K * ase_ops.words_cap(stride)]: the
+    lanes' u16 words lane after lane, zero past them; bits [K] int32, each
+    lane's bit count)."""
+    global encode_launches
+    layout.check_lanes("x2d", x2d, torch.uint8, lane_len, MAX_LANES)
+    stride, k = x2d.shape
+    _check_lane_count(k)
+    if x2d.device.type == "cpu":
+        return ase_ops.encode_words_plain(x2d, lane_len)
+    cap = ase_ops.words_cap(stride)
+    if k * cap >= 1 << 31:
+        raise ValueError(f"{k} lanes of {stride} steps exceed the kernel's "
+                         f"31-bit word offsets")
+    dev = x2d.device
+    lib = build.load()
+    with torch.cuda.device(dev):
+        scratch = torch.empty(k * cap, dtype=torch.int16, device=dev)
+        payload = torch.empty(k * cap, dtype=torch.int16, device=dev)
+        counts, offsets, bits = torch.empty((3, k), dtype=torch.int32,
+                                            device=dev)
+        rc = lib.ct_ase_encode(
+            x2d.data_ptr(), lane_len.data_ptr(), scratch.data_ptr(),
+            counts.data_ptr(), offsets.data_ptr(), bits.data_ptr(),
+            payload.data_ptr(), k, stride, cap,
+            torch.cuda.current_stream(dev).cuda_stream)
+        build.check(rc, "ct_ase_encode")
+    encode_launches += 1
+    return payload, bits
+
+
+def decode_symbols(words: torch.Tensor, bases: torch.Tensor,
+                   counts: torch.Tensor, lane_len: torch.Tensor, n: int,
+                   stride: int) -> torch.Tensor:
+    """words [P] int16 (the container's u16 words, lane after lane), bases
+    and counts [K] int32 (each lane's first word and word count) -> uint8
+    [n] (byte j*K + i is lane i's step j)."""
+    global decode_launches
+    k = lane_len.numel()
+    for name, t in (("bases", bases), ("counts", counts),
+                    ("lane_len", lane_len)):
+        if t.dtype != torch.int32 or tuple(t.shape) != (k,) \
+                or not t.is_contiguous() or t.device != words.device:
+            raise ValueError(f"{name} must be int32 [{k}] beside the words, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if words.dtype != torch.int16 or words.dim() != 1 \
+            or not words.is_contiguous():
+        raise ValueError(f"words must be a contiguous 1-D int16 tensor, got "
+                         f"{words.dtype} {tuple(words.shape)}")
+    _check_lane_count(k)
+    if not 0 <= n <= k * stride:
+        raise ValueError(f"n={n} does not fit {k} lanes of stride {stride}")
+    if words.device.type == "cpu":
+        return ase_ops.decode_symbols_plain(words, bases, counts, lane_len, n,
+                                            stride)
+    if words.device.type != "cuda":
+        raise ValueError(f"unsupported device {words.device}")
+    dev = words.device
+    lib = build.load()
+    with torch.cuda.device(dev):
+        out = torch.empty(n, dtype=torch.uint8, device=dev)
+        rc = lib.ct_ase_decode(
+            words.data_ptr(), words.numel(), bases.data_ptr(),
+            counts.data_ptr(), lane_len.data_ptr(), out.data_ptr(), k,
+            stride, torch.cuda.current_stream(dev).cuda_stream)
+        build.check(rc, "ct_ase_decode")
+    decode_launches += 1
+    return out

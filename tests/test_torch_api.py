@@ -23,8 +23,8 @@ def _run(code, env=None):
 
 
 IDS = {"static_range": 0, "adaptive_range": 1, "rans": 2, "huffman": 3,
-       "blocksort": 4, "mtf": 5, "slz4": 6, "mtf1": 8, "pipeline": 9,
-       "stream": 10, "rle0": 12, "rcq": 14, "rcx": 15}
+       "blocksort": 4, "mtf": 5, "slz4": 6, "ase": 7, "mtf1": 8, "pipeline": 9,
+       "stream": 10, "adaptive_o1": 11, "rle0": 12, "rcq": 14, "rcx": 15}
 
 
 def test_registry():
@@ -34,13 +34,13 @@ def test_registry():
         assert (c.name, c.codec_id) == (name, cid)
         assert ctt.get_codec_by_id(cid) is c
     with pytest.raises(KeyError, match="A12"):
-        ctt.get_codec("ase")
+        ctt.get_codec("adaptive_rans")
     with pytest.raises(KeyError, match="A12"):
-        ctt.compress(b"abc", codec="adaptive_o1")
+        ctt.compress(b"abc", codec="adaptive_rans")
     with pytest.raises(KeyError, match="unknown codec"):
         ctt.get_codec("nope")
     with pytest.raises(KeyError, match="A12"):
-        ctt.get_codec_by_id(7)
+        ctt.get_codec_by_id(13)
     with pytest.raises(KeyError, match="unknown codec id"):
         ctt.get_codec_by_id(99)
 
@@ -59,7 +59,8 @@ def test_ids_and_names_are_the_jax_packages():
             assert IDS[name] == cid
 
 
-@pytest.mark.parametrize("codec", ["huffman", "rans", "rcq", "rcx"])
+@pytest.mark.parametrize("codec", ["huffman", "rans", "rcq", "rcx", "ase",
+                                   "adaptive_o1"])
 def test_lanes_must_be_a_power_of_two(codec):
     """A container stores log2(K) and its decoder reads back 1 << that, so
     lanes=3 would write a container that does not decode (the JAX package's
@@ -100,7 +101,7 @@ def test_lanes_zero_as_in_the_oracle(codec):
     assert ctt.decompress(want, codec=codec, device="cpu") == data
 
 
-@pytest.mark.parametrize("codec", ["huffman", "rans", "rcq", "rcx"])
+@pytest.mark.parametrize("codec", ["huffman", "rans", "rcq", "rcx", "ase"])
 def test_container_functions_need_a_device(codec):
     """The ops-level container functions take `device` with no default:
     codecs/base.resolve is the one place that picks the card."""

@@ -225,8 +225,8 @@ def test_pipeline_stage_not_yet_ported():
     names its ROADMAP item, on encode and on decode."""
     with pytest.raises(KeyError, match="A12"):
         ctt.compress(b"abc" * 50, codec="pipeline", device="cpu",
-                     stages=["adaptive_o1"])
-    blob = bytes([1, 11]) + b"whatever"
+                     stages=["adaptive_rans"])
+    blob = bytes([1, 13]) + b"whatever"
     with pytest.raises(KeyError, match="A12"):
         ctt.decompress(blob, codec="pipeline", device="cpu")
 

@@ -17,6 +17,8 @@ from cpprcoder_tpu_torch.models.cxmodel import rcx_params
 from cpprcoder_tpu_torch.models.qmodel import rcq_params
 from cpprcoder_tpu_torch.models.static_table import normalize_freqs
 from cpprcoder_tpu_torch.ops import (
+    ase_kernels,
+    ase_ops,
     compaction,
     expand,
     huffman_kernels,
@@ -26,6 +28,8 @@ from cpprcoder_tpu_torch.ops import (
     lz_ops,
     mtf_kernels,
     mtf_ops,
+    o1_kernels,
+    o1_ops,
     range_kernels,
     range_ops,
     rans_kernels,
@@ -36,7 +40,9 @@ from cpprcoder_tpu_torch.ops import (
     rcx_ops,
 )
 from cpprcoder_tpu_torch.reference import (
+    ase_ref,
     bwt_ref,
+    o1_ref,
     rans_ref,
     rcq_ref,
     rcx_ref,
@@ -1250,3 +1256,132 @@ def test_lz_serialize_and_decode_do_not_synchronize(dev):
     assert all(torch.equal(a, b) for a, b in zip(tokens2, tokens))
     assert torch.equal(payload2, payload) and torch.equal(sizes2, sizes)
     assert not err.any() and out.cpu().numpy().tobytes() == data
+
+
+# ------------------------------------- kernels S, T (CT-ASE1) and U, V (CT-RC3)
+
+def _seeded(n, seed, alphabet=256):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, alphabet, n, dtype=np.uint8).tobytes()
+
+
+# (data, K): runs (every hit at d = 0), all 256 values cycled (a full table
+# evicting every step), exactly 64 and 65 distinct symbols, n not a
+# multiple of K, K = 1, and K = 65,536 (the top, with lanes of length 0)
+ASE_CASES = {
+    "runs": (b"\x33" * 3000 + b"\x44" * 3000, 2),
+    "cycle": (bytes(range(256)) * 40, 4),
+    "64 distinct": (_seeded(8000, 31, 64), 1),
+    "65 distinct": (_seeded(8000, 32, 65), 1),
+    "ragged": (_seeded(256 * 40 + 7, 33, 90), 256),
+    "K=1": (_seeded(10_000, 34, 200), 1),
+    "K=65536": (b"\x05" * 70_000 + _seeded(60_000, 35), 65536),
+}
+
+
+@pytest.mark.parametrize("case", list(ASE_CASES))
+def test_ase_kernels_match_plain_and_the_oracle(dev, case):
+    data, k = ASE_CASES[case]
+    n = len(data)
+    stride = -(-n // k)
+    x = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(dev)
+    x2d = layout.pad2d_interleaved(x, k, stride)
+    lens = layout.lane_lengths_interleaved(n, k, stride, dev)
+    payload, bits = ase_kernels.encode_words(x2d, lens)
+    p_plain, b_plain = ase_ops.encode_words_plain(x2d, lens)
+    assert torch.equal(payload, p_plain) and torch.equal(bits, b_plain)
+    counts = (bits.to(torch.int64) + 15) // 16
+    p = int(counts.sum())
+    bases = (torch.cumsum(counts, 0) - counts).to(torch.int32)
+    args = (payload[:p].contiguous(), bases, counts.to(torch.int32), lens, n,
+            stride)
+    out = ase_kernels.decode_symbols(*args)
+    assert torch.equal(out, ase_ops.decode_symbols_plain(*args))
+    assert out.cpu().numpy().tobytes() == data
+    blob = ctt.compress(data, codec="ase", device="cuda", lanes=k)
+    assert blob == ase_ref.ase_encode(data, lanes=k)
+    assert ctt.decompress(blob, codec="ase", device="cuda") == data
+
+
+def test_ase_decode_random_words_match_plain(dev):
+    """T and its plain version agree on words that no encoder wrote
+    (hits past a table's end, counts that claim more words than there
+    are)."""
+    rng = np.random.default_rng(36)
+    k, stride = 64, 300
+    words = torch.from_numpy(rng.integers(-(1 << 15), 1 << 15, 5000,
+                                          dtype=np.int16)).to(dev)
+    counts = torch.from_numpy(rng.integers(0, 120, k).astype(np.int32)).to(dev)
+    bases = (torch.cumsum(counts, 0) - counts).to(torch.int32)
+    lens = torch.full((k,), stride, dtype=torch.int32, device=dev)
+    args = (words, bases, counts, lens, k * stride, stride)
+    assert torch.equal(ase_kernels.decode_symbols(*args),
+                       ase_ops.decode_symbols_plain(*args))
+
+
+# (data, K, options): rows that halve nearly every step (limit1_log2 9),
+# t0 rescales, n < K (empty lanes), a one-byte run (every lane's update on
+# one cell), the u32 table (blend 0, limit1_log2 17: t1[7][7] passes 2^16)
+# at one and four lanes, a large inc, 2,048 lanes (two a thread) and
+# K = 65,536 (64 a thread, the u32 table)
+O1_CASES = {
+    "limit1 9": (_textish(3000, 41).tobytes(), 2, dict(limit1_log2=9)),
+    "t0 rescales": (_seeded(6000, 42, 50), 4, dict(limit0_log2=10, inc=16)),
+    "n < K": (b"abcde", 8, {}),
+    "one-byte run": (b"\x61" * 20_000, 64, dict(inc=255)),
+    "u32 lanes 1": (b"\x07" * 6000 + bytes(range(256)) * 4, 1,
+                    dict(blend_log2=0, limit1_log2=17)),
+    "u32 lanes 4": (b"\x07" * 6000 + bytes(range(256)) * 4, 4,
+                    dict(blend_log2=0, limit1_log2=17)),
+    "large inc": (_textish(8000, 43).tobytes(), 8,
+                  dict(inc=200, blend_log2=0, limit1_log2=13)),
+    "K=2048": (_textish(2048 * 6 + 5, 44).tobytes(), 2048, {}),
+    "K=65536": (_seeded(65536 * 2 + 100, 45), 65536, {}),
+}
+
+
+@pytest.mark.parametrize("case", list(O1_CASES))
+def test_o1_kernels_match_plain_and_the_oracle(dev, case):
+    data, k, opts = O1_CASES[case]
+    n = len(data)
+    steps = -(-n // k)
+    params = (opts.get("inc", o1_ref.pick_inc(k)), opts.get("limit1_log2", 11),
+              opts.get("limit0_log2", 15), opts.get("blend_log2", 5))
+    x = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(dev)
+    x2d = layout.pad2d_chunked(x, k, steps)
+    lens = layout.lane_lengths(n, k, steps, dev)
+    ev = o1_kernels.encode_events(x2d, lens, *params)
+    assert torch.equal(ev, o1_ops.encode_events_plain(x2d, lens, *params))
+    words = layout.decode_words(*expand.materialize_rows(ev))
+    out = o1_kernels.decode_symbols(words, lens, n, steps, *params)
+    assert torch.equal(out, o1_ops.decode_symbols_plain(words, lens, n, steps,
+                                                        *params))
+    assert out.cpu().numpy().tobytes() == data
+    blob = ctt.compress(data, codec="adaptive_o1", device="cuda", lanes=k,
+                        **opts)
+    assert blob == o1_ref.o1_encode(data, lanes=k, **opts)
+    assert ctt.decompress(blob, codec="adaptive_o1", device="cuda") == data
+
+
+def test_o1_outside_the_bound_raises_on_the_card(dev):
+    x2d = torch.zeros((4, 1), dtype=torch.uint8, device=dev)
+    lens = torch.ones(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="C8"):
+        o1_kernels.encode_events(x2d, lens, 32, 11, 15, 14)
+    words = torch.zeros((2, 1), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="C8"):
+        o1_kernels.decode_symbols(words, lens, 1, 4, 32, 11, 15, 14)
+
+
+@pytest.mark.parametrize("codec", ["ase", "adaptive_o1"])
+def test_s_t_u_v_launch_counters_move(dev, codec):
+    counters = ([(ase_kernels, "encode_launches"),
+                 (ase_kernels, "decode_launches")] if codec == "ase" else
+                [(o1_kernels, "encode_launches"), (expand, "launches"),
+                 (o1_kernels, "decode_launches")])
+    before = [getattr(m, a) for m, a in counters]
+    data = _textish(5000, 46).tobytes()
+    blob = ctt.compress(data, codec=codec)
+    assert ctt.decompress(blob, codec=codec) == data
+    assert [getattr(m, a) - b for (m, a), b in zip(counters, before)] \
+        == [1] * len(counters)

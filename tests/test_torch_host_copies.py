@@ -23,9 +23,11 @@ from cpprcoder_tpu.models import freq_header as jfh
 from cpprcoder_tpu.models import huffman as jhuf
 from cpprcoder_tpu.models import qmodel as jq
 from cpprcoder_tpu.models import static_table as jst
+from cpprcoder_tpu.reference import ase_ref as jase_ref
 from cpprcoder_tpu.reference import bwt_ref as jbwt_ref
 from cpprcoder_tpu.reference import huffman_ref as jhuf_ref
 from cpprcoder_tpu.reference import mtf_ref as jmtf_ref
+from cpprcoder_tpu.reference import o1_ref as jo1_ref
 from cpprcoder_tpu.reference import rans_ref as jrans_ref
 from cpprcoder_tpu.reference import rc_ref as jrc_ref
 from cpprcoder_tpu.reference import rcq_ref as jrcq_ref
@@ -40,9 +42,11 @@ from cpprcoder_tpu_torch.models import freq_header as tfh
 from cpprcoder_tpu_torch.models import huffman as thuf
 from cpprcoder_tpu_torch.models import qmodel as tq
 from cpprcoder_tpu_torch.models import static_table as tst
+from cpprcoder_tpu_torch.reference import ase_ref as tase_ref
 from cpprcoder_tpu_torch.reference import bwt_ref as tbwt_ref
 from cpprcoder_tpu_torch.reference import huffman_ref as thuf_ref
 from cpprcoder_tpu_torch.reference import mtf_ref as tmtf_ref
+from cpprcoder_tpu_torch.reference import o1_ref as to1_ref
 from cpprcoder_tpu_torch.reference import rans_ref as trans_ref
 from cpprcoder_tpu_torch.reference import rc_ref as trc_ref
 from cpprcoder_tpu_torch.reference import rcq_ref as trcq_ref
@@ -77,6 +81,10 @@ ORACLES = {
              (lambda d: tmtf_ref.mtf_encode(d, True), tmtf_ref.mtf_decode)),
     "rle0": ((jrle0_ref.rle0_encode, jrle0_ref.rle0_decode),
              (trle0_ref.rle0_encode, trle0_ref.rle0_decode)),
+    "ase": ((jase_ref.ase_encode, jase_ref.ase_decode),
+            (tase_ref.ase_encode, tase_ref.ase_decode)),
+    "adaptive_o1": ((jo1_ref.o1_encode, jo1_ref.o1_decode),
+                    (to1_ref.o1_encode, to1_ref.o1_decode)),
     # the v1 parse (the oracle's default) and the v2 parse, both seg_log2
     "slz4": ((lambda d: jslz4_ref.slz4_encode(d, seg_log2=9),
               jslz4_ref.slz4_decode),
@@ -292,4 +300,4 @@ print(len(ctt.list_codecs()), bad)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split(None, 1) == ["13", "[]\n"]
+    assert out.stdout.split(None, 1) == ["15", "[]\n"]

@@ -1,0 +1,226 @@
+"""CT-RC3 (adaptive_o1) in the port, on the CPU (the plain versions of
+kernels U and V, and kernel B's), with exact equality throughout (integer
+codec: tolerance 0).
+
+The same seeded inputs go through the JAX package's
+o1_ops.o1_encode_jax / o1_decode_jax (XLA scans on the CPU, no Pallas
+kernel; at pick_inc's defaults only, where its byte-split row extraction
+is exact) and through the port's `device="cpu"`: the containers must be
+byte-identical, equal to the oracle (the port's copy of
+reference/o1_ref.py), and decode on both sides. Inside C8's bound
+(ops/o1_ops.py) the port is held to the oracle at other parameters too;
+outside it both directions raise ValueError."""
+
+import numpy as np
+import pytest
+import torch
+
+from conftest import corpus_file, std_cases
+
+import cpprcoder_tpu_torch as ctt
+from cpprcoder_tpu.codecs.pipeline import pipeline_decode, pipeline_encode
+from cpprcoder_tpu.ops import o1_ops as jops
+from cpprcoder_tpu.reference import o1_ref as jref
+from cpprcoder_tpu_torch.core.bytesutil import ByteWriter
+from cpprcoder_tpu_torch.ops import expand, layout, o1_kernels, o1_ops
+from cpprcoder_tpu_torch.reference import o1_ref as tref
+
+CPU = {"device": "cpu"}
+
+
+def _seeded(n, seed, alphabet=256):
+    rng = np.random.default_rng(seed)
+    return bytes(rng.integers(0, alphabet, n, dtype=np.uint8))
+
+
+def _cases():
+    cases = {f"std {i}": d for i, d in enumerate(std_cases())}
+    cases["grammar.lsp"] = corpus_file("grammar.lsp")
+    cases["seeded text"] = bytes(
+        np.random.default_rng(6).choice(np.frombuffer(b"etaoin shrdlu\n",
+                                                      np.uint8), 2000))
+    return cases
+
+
+CASES = _cases()
+# lanes 1 and 2 run one step a byte or two: the largest inputs there are
+# cut, so that no plain loop runs more than 1,000 steps
+CUT = {1: 1000, 2: 2000}
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 8, 64])
+@pytest.mark.parametrize("case", list(CASES))
+def test_o1_matches_jax_and_oracle(case, lanes):
+    data = CASES[case][:CUT.get(lanes)]
+    blob = ctt.compress(data, codec="adaptive_o1", lanes=lanes, **CPU)
+    assert blob == jops.o1_encode_jax(data, lanes=lanes)
+    assert blob == tref.o1_encode(data, lanes=lanes)
+    assert ctt.decompress(blob, codec="adaptive_o1", **CPU) == data
+    assert jops.o1_decode_jax(blob) == data
+
+
+# (data, lanes, options) for the oracle: the hard cases of chip_smoke.py's
+# phase 3, at a few thousand steps, and parameters inside C8's bound
+HARD = {
+    "limit1_log2 9: rows halve nearly every step":
+        (corpus_file("xargs.1")[:2000], 1, dict(limit1_log2=9)),
+    "t0 rescales (limit0_log2 10)":
+        (_seeded(3000, 12, 50), 2, dict(limit0_log2=10, inc=16)),
+    "n < K: empty lanes": (b"abcde", 8, {}),
+    "one-byte run: every update on one cell":
+        (b"\x61" * 3000, 16, dict(inc=255)),
+    "u32 table, lanes 1 (t1[7][7] passes 2^16)":
+        (b"\x07" * 2200 + bytes(range(256)) * 2, 1,
+         dict(blend_log2=0, limit1_log2=17)),
+    "u32 table, lanes 4":
+        (b"\x07" * 6000 + bytes(range(256)) * 4, 4,
+         dict(blend_log2=0, limit1_log2=17)),
+    "blend 12 (8.4 M total)": (b"abracadabra" * 50, 1,
+                               dict(inc=32, blend_log2=12)),
+    "blend 0, large inc": (_seeded(2000, 13, 20), 4,
+                           dict(inc=200, blend_log2=0, limit1_log2=13)),
+    "limit1 and limit0 past 2^16": (_seeded(2500, 14, 9), 2,
+                                    dict(limit1_log2=18, limit0_log2=20,
+                                         blend_log2=2)),
+    "inc 0: a static model": (corpus_file("xargs.1")[:1200], 2, dict(inc=0)),
+}
+
+
+@pytest.mark.parametrize("case", list(HARD))
+def test_o1_hard_cases_match_the_oracle(case):
+    data, lanes, opts = HARD[case]
+    blob = ctt.compress(data, codec="adaptive_o1", lanes=lanes, **CPU,
+                        **opts)
+    assert blob == tref.o1_encode(data, lanes=lanes, **opts)
+    assert ctt.decompress(blob, codec="adaptive_o1", **CPU) == data
+    assert tref.o1_decode(blob) == data
+
+
+def test_u32_table_sizes_and_choice():
+    """The u32 cases write the oracle's 1,223 and 1,302 bytes, and the
+    table choice follows B1 + K*inc < 2^16."""
+    data = b"\x07" * 6000 + bytes(range(256)) * 4
+    sizes = [len(tref.o1_encode(data, lanes=k, blend_log2=0, limit1_log2=17))
+             for k in (1, 4)]
+    assert sizes == [1223, 1302]
+    assert o1_ops.table_wide(1, 32, 17)
+    assert not o1_ops.table_wide(256, 32, 11)    # kennedy.xls's defaults
+    assert not o1_ops.table_wide(8192, 1, 11)
+    assert o1_ops.table_wide(65536, 1, 11)        # K*inc + 512 > 2^16
+
+
+def test_c8_bound_values():
+    """2^blend * B1 + B0 at the re-anchor's observation: "abracadabra" x
+    50 at one lane, inc 32: blend 12 gives 8,417,279 (inside), blend 14
+    33.6 M (outside)."""
+    assert o1_ops.model_bound(1, 32, 11, 15, 12) == 4096 * 2047 + 32767
+    assert o1_ops.model_bound(1, 32, 11, 15, 14) == 16384 * 2047 + 32767
+    assert o1_ops.model_bound(1, 32, 11, 15, 14) > o1_ops.TOTAL_LIMIT
+    # pick_inc's defaults stay inside at every lane count
+    for k in 2 ** np.arange(0, 17):
+        k = int(k)
+        o1_ops.check_params(k, tref.pick_inc(k), tref.LIMIT1_LOG2,
+                            tref.LIMIT0_LOG2, tref.BLEND_LOG2)
+
+
+@pytest.mark.parametrize("opts", [dict(blend_log2=14), dict(limit1_log2=24),
+                                  dict(limit0_log2=25),
+                                  dict(limit1_log2=14, blend_log2=11)])
+def test_outside_the_bound_raises(opts):
+    """Encode raises ValueError outside C8's bound, as does decode of a
+    header that names such parameters (crafted: the oracle would never
+    end on it), on the CPU path and in the kernels' wrappers."""
+    data = b"abracadabra" * 50
+    with pytest.raises(ValueError, match="C8"):
+        ctt.compress(data, codec="adaptive_o1", lanes=1, **CPU, **opts)
+    p = {**dict(inc=32, limit1_log2=11, limit0_log2=15, blend_log2=5), **opts}
+    head = o1_ops.header(len(data), 1, False, p["inc"], p["limit1_log2"],
+                         p["limit0_log2"], p["blend_log2"])
+    blob = head.u16s([20]).getvalue() + bytes(20)
+    with pytest.raises(ValueError, match="C8"):
+        ctt.decompress(blob, codec="adaptive_o1", **CPU)
+    x2d = torch.zeros((4, 1), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="C8"):
+        o1_kernels.encode_events(x2d, torch.ones(1, dtype=torch.int32),
+                                 p["inc"], p["limit1_log2"],
+                                 p["limit0_log2"], p["blend_log2"])
+
+
+def test_each_side_decodes_the_others_containers():
+    """The port decodes the JAX package's and the oracles' containers, and
+    the JAX package and both oracles decode the port's."""
+    for data, lanes in ((corpus_file("grammar.lsp")[:1600], 4),
+                        (_seeded(700, 3, 70), 2), (b"z", 8)):
+        mine = ctt.compress(data, codec="adaptive_o1", lanes=lanes, **CPU)
+        for blob in (jops.o1_encode_jax(data, lanes=lanes),
+                     jref.o1_encode(data, lanes=lanes),
+                     tref.o1_encode(data, lanes=lanes)):
+            assert ctt.decompress(blob, codec="adaptive_o1", **CPU) == data
+        for dec in (jops.o1_decode_jax, jref.o1_decode, tref.o1_decode):
+            assert dec(mine) == data
+
+
+def test_lane_counts_and_empty_input():
+    """lanes 0 and None pick pick_lanes(n); a lane count that is not a
+    power of two, or above 65,536, raises ValueError; n = 0 writes the
+    oracle's 9-byte container."""
+    data = b"lane policy " * 30
+    assert ctt.compress(data, codec="adaptive_o1", lanes=0, **CPU) \
+        == ctt.compress(data, codec="adaptive_o1", **CPU) \
+        == tref.o1_encode(data)
+    for lanes in (3, 6, 100):
+        with pytest.raises(ValueError, match="power of two"):
+            ctt.compress(data, codec="adaptive_o1", lanes=lanes, **CPU)
+    x2d = torch.zeros((1, 1 << 17), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="lanes"):
+        o1_kernels.encode_events(x2d, torch.ones(1 << 17, dtype=torch.int32),
+                                 1, 11, 15, 5)
+    for lanes in (None, 1, 64):
+        blob = ctt.compress(b"", codec="adaptive_o1", lanes=lanes, **CPU)
+        assert blob == tref.o1_encode(b"", lanes=lanes) \
+            == jops.o1_encode_jax(b"", lanes=lanes)
+        assert ctt.decompress(blob, codec="adaptive_o1", **CPU) == b""
+
+
+def test_run_field_guard():
+    """A lane's pending 0xFF run must fit the event's 22-bit field: 3*L + 2
+    < 2^22, else ValueError, as for CT-RC1 and CT-RC2."""
+    with pytest.raises(ValueError, match="split the input"):
+        o1_ops.o1_encode(np.zeros(1 << 21, np.uint8), lanes=1, device="cpu")
+
+
+def test_plain_versions_keep_the_kernels_contract():
+    """encode_events_plain writes 3 slots a step and two flush rows, which
+    kernel B's plain version expands into the oracle's payload; the
+    decoder's plain version inverts it."""
+    data = corpus_file("grammar.lsp")[:1200]
+    n, k = len(data), 4
+    steps = -(-n // k)
+    x = torch.from_numpy(np.frombuffer(data, np.uint8).copy())
+    lens = layout.lane_lengths(n, k, steps, "cpu")
+    params = (tref.pick_inc(k), 11, 15, 5)
+    stats = {}
+    ev = o1_ops.encode_events_plain(layout.pad2d_chunked(x, k, steps), lens,
+                                    *params, stats=stats)
+    assert ev.shape == (3 * steps + 2, k) and ev.dtype == torch.int32
+    assert stats["rows_halved"] > 0
+    blob = ctt.compress(data, codec="adaptive_o1", lanes=k, **CPU)
+    assert blob == tref.o1_encode(data, lanes=k)
+    words = layout.decode_words(*expand.materialize_rows(ev))
+    out = o1_kernels.decode_symbols(words, lens, n, steps, *params)
+    assert out.numpy().tobytes() == data
+
+
+def test_pipeline_with_an_adaptive_o1_stage_matches_jax():
+    data = corpus_file("grammar.lsp")[:2000]
+    stages = [("blocksort", {"block_log2": 9}), "mtf1",
+              ("adaptive_o1", {"lanes": 2})]
+    blob = ctt.compress(data, codec="pipeline", stages=stages, **CPU)
+    assert blob[:4] == bytes([3, 4, 8, 11])
+    assert blob == pipeline_encode(data, stages=stages)
+    assert ctt.decompress(blob, codec="pipeline", **CPU) == data
+    assert pipeline_decode(blob) == data
+    assert ctt.get_codec_by_id(11) is ctt.get_codec("adaptive_o1")
+    head = ByteWriter().u8(1).u8(11).getvalue()
+    assert ctt.decompress(head + tref.o1_encode(b"stage"), codec="pipeline",
+                          **CPU) == b"stage"
