@@ -3,8 +3,9 @@
 CT-RCQ, CT-ANS1 v2 rANS (the default codec), CT-HUF1 canonical Huffman,
 the Config-4 BWT pipeline (CT-PIPE: blocksort, mtf1, rle0,
 adaptive_range) with its stages and CT-RC1, CT-LZ4 (slz4), CT-ASE1 (ase),
-CT-RC3 (adaptive_o1), the resumable CT-RCQ encoder and CT-SB streaming
-over every ported codec, up to a stream of 2^30 + 12,345 bytes.
+CT-RC3 (adaptive_o1), CT-ANS2 (adaptive_rans), the resumable CT-RCQ
+encoder and CT-SB streaming over every codec, up to a stream of
+2^30 + 12,345 bytes.
 
     python3 chip_smoke.py
 
@@ -76,10 +77,19 @@ Phases, one line each (a failed phase exits non-zero):
               the u32 table (blend 0, limit1_log2 17) at one and four
               lanes, 2,048 and 65,536 lanes; each case's container
               against the oracle's; then timed at kennedy.xls's shapes
-              (K = 256) and grammar.lsp's (K = 2);
+              (K = 256) and grammar.lsp's (K = 2); W, X and Y (CT-ANS2's
+              model, coder and decode) and the normalize W and Y share
+              (alone, at 255 count vectors against the oracle's) at
+              refresh_log2 0 and past bitlen(steps), limit_log2 9, n < K,
+              n not a multiple of K, a one-byte run, all 256 values,
+              K = 1 and K = 65,536, each container against the oracle's,
+              and the model past 2^32 (8,192 lanes x 4,100 steps of one
+              byte at inc 255: W's tables against the oracle's model pass
+              at limit_log2 40, 33, 32, X and Y round trips); then timed
+              at kennedy.xls's and grammar.lsp's shapes;
   4. main     per codec (rcx, rcq, rans, huffman, static_range,
               adaptive_range, blocksort, mtf, mtf1, rle0, pipeline, slz4,
-              ase, adaptive_o1),
+              ase, adaptive_o1, adaptive_rans),
               with the launch counts set to 0 just before and read just
               after:
               compress/decompress(codec, device="cuda") over the 11
@@ -114,8 +124,8 @@ bytes it moves over the memory rate and its operations over the peak
 rate; `ms_at`, its times at each shape timed, for B `passes_ms` and for
 H `wrapper_ms`; `launches_by_path`, its launches on each codec's path;
 `tpu_kernel`, the Pallas kernel it replaces, null for J, L, M, N, O, P,
-Q, R, S, T, U and V, which replace the JAX package's lax.scan loops and
-XLA code), the nvidia-smi line, and last
+Q, R, S, T, U, V, W, X and Y, which replace the JAX package's lax.scan
+loops and XLA code), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Each phase prints its seconds.
 """
 
@@ -143,6 +153,8 @@ from cpprcoder_tpu_torch.models.cxmodel import rcq_params, rcx_params
 from cpprcoder_tpu_torch.models.static_table import normalize_freqs
 from cpprcoder_tpu_torch.native import build
 from cpprcoder_tpu_torch.ops import (
+    ans2_kernels,
+    ans2_ops,
     ase_kernels,
     ase_ops,
     compaction,
@@ -165,7 +177,7 @@ from cpprcoder_tpu_torch.ops import (
     rcx_kernels,
     rcx_ops,
 )
-from cpprcoder_tpu_torch.reference import ase_ref, o1_ref, slz4_ref
+from cpprcoder_tpu_torch.reference import ans2_ref, ase_ref, o1_ref, slz4_ref
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 MASK32 = 0xFFFFFFFF
@@ -245,6 +257,15 @@ EXPECTED_SIZES["ase"] = {
     "lcet10.txt": 374375, "plrabn12.txt": 421243, "ptt5": 401601,
     "sum": 33615, "xargs.1": 3737,
 }
+# CT-ANS2 at its defaults (K = pick_lanes(n), inc 8, limit_log2 18,
+# refresh_log2 default_refresh_log2(K, n)), in the oracle's bytes:
+# 1,297,962 in all
+EXPECTED_SIZES["adaptive_rans"] = {
+    "alice29.txt": 87700, "asyoulik.txt": 75902, "cp.html": 16308,
+    "fields.c": 7148, "grammar.lsp": 2246, "kennedy.xls": 474744,
+    "lcet10.txt": 250746, "plrabn12.txt": 275128, "ptt5": 78846,
+    "sum": 26496, "xargs.1": 2698,
+}
 EXPECTED_SIZES["adaptive_o1"] = {
     "alice29.txt": 74057, "asyoulik.txt": 61491, "cp.html": 12706,
     "fields.c": 5246, "grammar.lsp": 1761, "kennedy.xls": 406471,
@@ -320,6 +341,9 @@ COUNTERS = {
     "ase_decode": (ase_kernels, "decode_launches", "decode_symbols"),
     "o1_encode": (o1_kernels, "encode_launches", "encode_events"),
     "o1_decode": (o1_kernels, "decode_launches", "decode_symbols"),
+    "ans2_model": (ans2_kernels, "model_launches", "window_tables"),
+    "ans2_encode": (ans2_kernels, "encode_launches", "encode_events"),
+    "ans2_decode": (ans2_kernels, "decode_launches", "decode_symbols"),
 }
 # the kernels each codec's main path runs (blocksort and rle0 are tensor
 # code: no kernel of their own)
@@ -336,6 +360,7 @@ PATH_KERNELS = {
     "slz4": ["lz_walk", "lz_serialize", "lz_decode"],
     "ase": ["ase_encode", "ase_decode"],
     "adaptive_o1": ["o1_encode", "expand", "o1_decode"],
+    "adaptive_rans": ["ans2_model", "ans2_encode", "ans2_decode"],
     # the resumable CT-RCQ encoder (O, B), one-shot rcq (D) and the
     # decode (E) that it is held to
     "resume": ["rcq_encode_chunk", "expand", "rcq_encode", "rcq_decode"],
@@ -360,7 +385,8 @@ OPS_PER_SYMBOL = {"rcx_encode": 24, "rcx_decode": 40, "rcq_encode": 24,
                   "huffman_encode": 12, "huffman_decode": 40,
                   "rc_exact_encode": 24, "rc_exact_decode": 40,
                   "rcq_encode_chunk": 24, "ase_encode": 8, "ase_decode": 8,
-                  "o1_encode": 35, "o1_decode": 50}
+                  "o1_encode": 35, "o1_decode": 50, "ans2_model": 1,
+                  "ans2_encode": 10, "ans2_decode": 12}
 OPS_PER_CELL = 12      # a model cell's requant
 OPS_PER_TABLE_CELL = 5  # CT-RC2's table before a step: sum, halve, scan
 OPS_PER_EVENT = 5      # kernel B: an event's fields and its lane cumsum
@@ -373,6 +399,12 @@ OPS_PER_EVENT = 5      # kernel B: an event's fields and its lane cumsum
 # search included), plus its prefix sums in t1 and t0, (s >> 4) + (s & 15)
 # adds each (from this run's bytes); a step checks the 256 rows, and a
 # halved row costs OPS_PER_TABLE_CELL a count (this run's halvings)
+# W, X and Y: W a histogram add a byte, X and Y their coder steps (Y's with
+# the cum2sym read and the refill's offset), and W and Y OPS_PER_ANS2_CELL
+# a table cell (this run's windows): the walk's update and rescale, the
+# normalize's pre-scale, divide, remainder, a rank from a sort of 256 (8
+# compares) and the scan, and Y's cum2sym
+OPS_PER_ANS2_CELL = 20
 
 
 def nbytes(*ts) -> int:
@@ -1387,6 +1419,167 @@ def phase_kernels_ase_o1(dev):
     return err, ms, work, ms_at
 
 
+def ans2_params(k: int, n: int, opts: dict) -> tuple:
+    """(inc, limit_log2, refresh_log2) of CT-ANS2 at `opts`, the codec's
+    defaults elsewhere."""
+    return (opts.get("inc", ans2_ref.ANS2_INC_DEFAULT),
+            opts.get("limit_log2", ans2_ref.ANS2_LIMIT_LOG2_DEFAULT),
+            opts.get("refresh_log2", ans2_ref.default_refresh_log2(k, n)))
+
+
+def normalize_cases() -> np.ndarray:
+    """Count vectors [B, 256] for the normalize alone (seeded): random at
+    every scale to past 2^32, sparse, one dominant symbol, one symbol alone
+    (rule 5), all equal, all zero."""
+    rng = np.random.default_rng(710)
+    rows = [rng.integers(0, 10 ** int(rng.integers(1, 12)), 256)
+            for _ in range(200)]
+    for _ in range(50):
+        h = rng.integers(1, 1000, 256)
+        h[rng.random(256) < 0.9] = 0
+        rows.append(h)
+    dominant = np.ones(256, np.int64)
+    dominant[9] = 1 << 40
+    alone = np.zeros(256, np.int64)
+    alone[255] = 12345
+    rows += [dominant, alone, np.full(256, 777), np.full(256, 1 << 33),
+             np.zeros(256)]
+    return np.stack(rows).astype(np.int64)
+
+
+def phase_kernels_ans2(dev):
+    """W, X and Y (CT-ANS2) against their plain versions, the normalize
+    they share against the oracle's, the cases' containers against the
+    oracle's, and the model past 2^32."""
+    err = dict.fromkeys(("ans2_model", "ans2_encode", "ans2_decode"), 0)
+    plain_done = {}
+
+    def plain(nm, fn):
+        out, plain_done[nm] = run_ms(fn)
+        return out
+
+    def case(data, k, what, **opts):
+        """Hold W, X and Y against their plain versions on `data`; ->
+        (shape, {kernel: (kernel call, plain call)}, {kernel: (bytes,
+        ops)})."""
+        n, steps, x2d, lens = interleaved_inputs(data, k, dev)
+        params = ans2_params(k, n, opts)
+        r_log2 = params[2]
+        mdl = (lambda: ans2_kernels.window_tables(x2d, n, *params),
+               lambda: ans2_ops.window_tables_plain(x2d, n, *params))
+        freqs, cums = hold(err, "ans2_model", mdl[0](),
+                           plain("ans2_model", mdl[1]), f"kernel W at {what}")
+        enc = (lambda: ans2_kernels.encode_events(x2d, lens, freqs, cums,
+                                                  r_log2),
+               lambda: ans2_ops.encode_events_plain(x2d, lens, freqs, cums,
+                                                    r_log2))
+        ev, st = hold(err, "ans2_encode", enc[0](),
+                      plain("ans2_encode", enc[1]), f"kernel X at {what}")
+        words = ans2_ops.stream_words(ev).to(torch.int16)
+        dec = (lambda: ans2_kernels.decode_symbols(words, st, n, *params),
+               lambda: ans2_ops.decode_symbols_plain(words, st, n, *params))
+        sym = hold(err, "ans2_decode", dec[0](),
+                   plain("ans2_decode", dec[1]), f"kernel Y at {what}")
+        if sym.cpu().numpy().tobytes() != data:
+            fail(f"kernel Y did not invert kernel X at {what}")
+        cells = freqs.shape[0] * 256 * OPS_PER_ANS2_CELL
+        work = {"ans2_model": (n + nbytes(freqs, cums),
+                               coder_ops("ans2_model", n) + cells),
+                "ans2_encode": (nbytes(x2d, lens, freqs, cums, ev, st),
+                                coder_ops("ans2_encode", n)),
+                "ans2_decode": (nbytes(words, st) + n,
+                                coder_ops("ans2_decode", n) + cells)}
+        return (f"K={k}, steps={steps}, {freqs.shape[0]} windows",
+                {"ans2_model": mdl, "ans2_encode": enc, "ans2_decode": dec},
+                work)
+
+    # the normalize alone, on count vectors that no CT-ANS2 model reaches
+    # (absent symbols, rule 5) as well as ones it does
+    counts = normalize_cases()
+    f, c = ans2_kernels.normalize_tables(torch.from_numpy(counts).to(dev))
+    want = ans2_ops.normalize_tables_plain(torch.from_numpy(counts))
+    hold(err, "ans2_model", (f.cpu(), c.cpu()), want,
+         f"the normalize at {len(counts)} count vectors")
+    for row, fw in zip(counts, want[0].numpy()):
+        if row.sum() and not np.array_equal(fw, normalize_freqs(row, 14)):
+            fail("normalize_tables_plain is not the oracle's normalize")
+
+    # a table every step (refresh_log2 0), warm-up windows only
+    # (refresh_log2 past bitlen(steps)), a rescale at nearly every window
+    # (limit_log2 9), n < K, n not a multiple of K, a one-byte run, all
+    # 256 values, K = 1 and K = 65,536
+    rng = np.random.default_rng(700)
+    seeded = lambda n, a: rng.integers(0, a, n, dtype=np.uint8).tobytes()  # noqa: E731
+    cases = [(textish(4000, 701), 4, dict(refresh_log2=0)),
+             (textish(6000, 702), 8, dict(refresh_log2=40)),
+             (textish(9000, 703), 16, dict(limit_log2=9, inc=255)),
+             (b"abcde", 8, {}),
+             (seeded(256 * 30 + 7, 90), 256, dict(limit_log2=12)),
+             (b"\x61" * 20_000, 64, dict(inc=255, limit_log2=200)),
+             (bytes(range(256)) * 40, 32, dict(refresh_log2=2)),
+             (seeded(6000, 200), 1, {}),
+             (b"\x05" * 70_000 + seeded(70_000, 256), 65536, {})]
+    for data, k, opts in cases:
+        case(data, k, f"K={k} n={len(data)} {opts}", **opts)
+        blob = ctt.compress(data, codec="adaptive_rans", device="cuda",
+                            lanes=k, **opts)
+        if blob != ans2_ref.ans2_encode(data, lanes=k, **opts) or \
+                ctt.decompress(blob, codec="adaptive_rans",
+                               device="cuda") != data:
+            fail(f"adaptive_rans K={k} n={len(data)} {opts}: not the "
+                 f"oracle's container, or no round trip")
+    wide = wide_model_case(dev, err)
+    print(f"[kernels] ok the normalize at {len(counts)} count vectors and "
+          f"{len(cases)} CT-ANS2 containers equal the oracle's and "
+          f"round-trip; {wide}", flush=True)
+
+    # held and timed at kennedy.xls's shape (K = 256, 4,023 steps, 69
+    # windows), kernel vs plain; held there and at grammar.lsp's (K = 2,
+    # 1,861 steps, 35 windows), the kernels alone timed
+    ms, work, ms_at = time_at(
+        ("kennedy.xls", "grammar.lsp"), case, lambda n: (pick_lanes(n),), 1,
+        f"{len(cases) + 2} CT-ANS2 cases (W, X, Y) equal their plain "
+        f"versions", plain_done=plain_done)
+    return err, ms, work, ms_at
+
+
+def wide_model_case(dev, err) -> str:
+    """8,192 lanes of 4,100 steps of one byte at inc 255, refresh_log2 13:
+    the counts pass 2^32. W's tables against the oracle's model pass
+    (`_snapshots_and_counts`) at limit_log2 40, 33 and 32 (32 rescales at
+    step 4,096), X and Y round trips; at 32 also X and Y against their
+    plain versions."""
+    k, steps, inc, r_log2 = 8192, 4100, 255, 13
+    data = b"\x07" * (k * steps)
+    n, steps, x2d, lens = interleaved_inputs(data, k, dev)
+    x_host = np.frombuffer(data, np.uint8).reshape(steps, k)
+    for limit_log2 in (40, 33, 32):
+        params = (inc, limit_log2, r_log2)
+        freqs, cums = ans2_kernels.window_tables(x2d, n, *params)
+        snaps = ans2_ref._snapshots_and_counts(x_host, n, k, inc,
+                                               1 << limit_log2, 1 << r_log2)
+        want = (torch.from_numpy(np.stack([f for f, _ in snaps])
+                                 .astype(np.int32)),
+                torch.from_numpy(np.stack([c for _, c in snaps])
+                                 .astype(np.int32)))
+        hold(err, "ans2_model", (freqs.cpu(), cums.cpu()), want,
+             f"kernel W past 2^32 at limit_log2 {limit_log2}")
+        ev, st = ans2_kernels.encode_events(x2d, lens, freqs, cums, r_log2)
+        words = ans2_ops.stream_words(ev).to(torch.int16)
+        if limit_log2 == 32:
+            hold(err, "ans2_encode", (ev, st), ans2_ops.encode_events_plain(
+                x2d, lens, freqs, cums, r_log2), "kernel X past 2^32")
+        sym = ans2_kernels.decode_symbols(words, st, n, *params)
+        if limit_log2 == 32:
+            hold(err, "ans2_decode", sym, ans2_ops.decode_symbols_plain(
+                words, st, n, *params), "kernel Y past 2^32")
+        if not bool((sym == 7).all()) or sym.numel() != n:
+            fail(f"X and Y past 2^32 at limit_log2 {limit_log2}: no round "
+                 f"trip")
+    return (f"the model past 2^32 ({k} lanes x {steps} steps, inc {inc}) "
+            f"equals the oracle's at limit_log2 40, 33, 32 and round-trips")
+
+
 def zipf(n: int, seed: int) -> bytes:
     """Zipf-distributed bytes (seeded): rare symbols keep a count of 1
     while CT-RC2's total nears 2^17, so some lanes take a third slot."""
@@ -2182,7 +2375,7 @@ EXTRAS = {"rcx": lambda _: rcx_ratio_preset(), "rcq": None,
           "adaptive_range": lambda _: concatenated("adaptive_range"),
           "blocksort": None, "mtf": None, "mtf1": None, "rle0": None,
           "pipeline": None, "slz4": slz4_whole_inputs, "ase": None,
-          "adaptive_o1": None}
+          "adaptive_o1": None, "adaptive_rans": None}
 
 
 def phase_main(codec: str, oracles):
@@ -2299,6 +2492,14 @@ SCAN_KERNELS = [
      "cpprcoder_tpu/ops/o1_ops.py:132"),
     ("o1_decode", "cpprcoder_tpu_torch/csrc/o1_decode.cu",
      "cpprcoder_tpu/ops/o1_ops.py:169"),
+    # CT-ANS2: W the model (pass A), X the coder (pass C, pass B folded
+    # in), Y the decode
+    ("ans2_model", "cpprcoder_tpu_torch/csrc/ans2_encode.cu",
+     "cpprcoder_tpu/ops/ans2_ops.py:99"),
+    ("ans2_encode", "cpprcoder_tpu_torch/csrc/ans2_encode.cu",
+     "cpprcoder_tpu/ops/ans2_ops.py:153"),
+    ("ans2_decode", "cpprcoder_tpu_torch/csrc/ans2_decode.cu",
+     "cpprcoder_tpu/ops/ans2_ops.py:183"),
 ]
 
 
@@ -2333,7 +2534,7 @@ def main():
         oracles = start_oracles(pool)
         err, ms, work, ms_at, b_passes = timed("kernels A, B, C",
                                                phase_kernels, dev)
-        rcq, rans, (*huffman, h_wrapper), exact, mtf, chunk, lz, stuv = (
+        rcq, rans, (*huffman, h_wrapper), exact, mtf, chunk, lz, stuv, wxy = (
             timed("kernels D, E", phase_kernels_rcq, dev),
             timed("kernels F, G", phase_kernels_rans, dev),
             timed("kernels H, I", phase_kernels_huffman, dev),
@@ -2341,8 +2542,10 @@ def main():
             timed("kernels M, N", phase_kernels_mtf, dev),
             timed("kernel O", phase_kernels_chunk, dev),
             timed("kernels P, Q, R", phase_kernels_lz, dev),
-            timed("kernels S, T, U, V", phase_kernels_ase_o1, dev))
-        for e, m, w, a in (rcq, rans, huffman, exact, mtf, chunk, lz, stuv):
+            timed("kernels S, T, U, V", phase_kernels_ase_o1, dev),
+            timed("kernels W, X, Y", phase_kernels_ans2, dev))
+        for e, m, w, a in (rcq, rans, huffman, exact, mtf, chunk, lz, stuv,
+                           wxy):
             err.update(e)
             ms.update(m)
             work.update(w)

@@ -18,8 +18,8 @@ Codecs ported: static_range (CT-RC1), adaptive_range (CT-RC2),
 rans (CT-ANS1 v2, the default, as in the JAX package), huffman (CT-HUF1),
 blocksort (CT-BWT1), mtf (CT-MTF1), slz4 (CT-LZ4), ase (CT-ASE1),
 mtf1 (CT-MTF1), pipeline (CT-PIPE), stream (CT-SB), adaptive_o1 (CT-RC3),
-rle0 (CT-RLE0), rcq (CT-RCQ) and rcx (CT-RCX). The JAX package's
-adaptive_rans is still to port: ROADMAP A12 (CT-ANS2).
+rle0 (CT-RLE0), adaptive_rans (CT-ANS2), rcq (CT-RCQ) and rcx (CT-RCX):
+every codec of the JAX package.
 
 slz4 writes the v2 parse on the card and the CPU and, like the JAX codec,
 the v1 parse under backend="ref" (the oracle's default) and "native" (the

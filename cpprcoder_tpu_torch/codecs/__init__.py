@@ -1,18 +1,17 @@
 """Codec registry and top-level compress/decompress of the port
 (counterpart of cpprcoder_tpu/codecs/__init__.py; same names and ids).
 
-Ported so far: `static_range` (id 0, CT-RC1), `adaptive_range` (1,
-CT-RC2), `rans` (2, CT-ANS1 v2, the default codec, as in the JAX package),
-`huffman` (3, CT-HUF1), `blocksort` (4, CT-BWT1), `mtf` (5) and `mtf1` (8)
-(CT-MTF1), `slz4` (6, CT-LZ4: the v2 parse on the card and the CPU, the
-v1 parse under `backend="ref"` and `"native"`), `ase` (7, CT-ASE1),
-`pipeline` (9, CT-PIPE), `stream` (10, CT-SB: superblocks of any ported
-codec; codecs/stream.py, with `SuperblockEncoder` and
+Every codec of the JAX package is ported: `static_range` (id 0, CT-RC1),
+`adaptive_range` (1, CT-RC2), `rans` (2, CT-ANS1 v2, the default codec, as
+in the JAX package), `huffman` (3, CT-HUF1), `blocksort` (4, CT-BWT1),
+`mtf` (5) and `mtf1` (8) (CT-MTF1), `slz4` (6, CT-LZ4: the v2 parse on the
+card and the CPU, the v1 parse under `backend="ref"` and `"native"`), `ase`
+(7, CT-ASE1), `pipeline` (9, CT-PIPE), `stream` (10, CT-SB: superblocks of
+any codec; codecs/stream.py, with `SuperblockEncoder` and
 `stream_decode_range`), `adaptive_o1` (11, CT-RC3), `rle0` (12, CT-RLE0),
-`rcq` (14, CT-RCQ; its resumable encoder is codecs/resume.py) and `rcx`
-(15, CT-RCX). Asking for another codec of the JAX package, by name or by
-id (a pipeline stage or a CT-SB header), raises KeyError naming the
-ROADMAP item that ports it.
+`adaptive_rans` (13, CT-ANS2), `rcq` (14, CT-RCQ; its resumable encoder is
+codecs/resume.py) and `rcx` (15, CT-RCX). An unknown name or id (a
+pipeline stage or a CT-SB header) raises KeyError.
 """
 
 from __future__ import annotations
@@ -21,11 +20,6 @@ from typing import Callable
 
 _REGISTRY: dict[str, "Codec"] = {}
 _BY_ID: dict[int, "Codec"] = {}
-
-# codecs of the JAX package still to port -> ROADMAP.md queue A item
-NOT_YET_PORTED = {"adaptive_rans": "A12"}
-# their codec ids in the JAX package
-NOT_YET_PORTED_IDS = {13: "adaptive_rans"}
 
 
 class Codec:
@@ -55,10 +49,6 @@ def get_codec(name: str) -> Codec:
     _ensure_loaded()
     if name in _REGISTRY:
         return _REGISTRY[name]
-    if name in NOT_YET_PORTED:
-        raise KeyError(f"codec {name!r} is not ported to PyTorch yet "
-                       f"(ROADMAP.md item {NOT_YET_PORTED[name]}); "
-                       f"available: {sorted(_REGISTRY)}")
     raise KeyError(f"unknown codec {name!r}; available: {sorted(_REGISTRY)}")
 
 
@@ -66,8 +56,6 @@ def get_codec_by_id(codec_id: int) -> Codec:
     _ensure_loaded()
     if codec_id in _BY_ID:
         return _BY_ID[codec_id]
-    if codec_id in NOT_YET_PORTED_IDS:
-        return get_codec(NOT_YET_PORTED_IDS[codec_id])   # raises KeyError
     raise KeyError(f"unknown codec id {codec_id}")
 
 
@@ -88,6 +76,7 @@ def _ensure_loaded():
     from cpprcoder_tpu_torch.codecs import (  # noqa: F401
         adaptive_o1,
         adaptive_range,
+        adaptive_rans,
         ase,
         blocksort,
         huffman,

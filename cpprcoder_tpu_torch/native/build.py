@@ -100,6 +100,16 @@ SIGNATURES = {
     # null), K, l4, L, inc, limit1_log2, limit0_log2, blend_log2, wide,
     # stream
     "ct_o1_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # ans2_encode.cu, kernel W (a memset and three launches): x, hist,
+    # counts, freq, cum, n, K, steps, inc, limit_log2, r, n_snap, stream
+    "ct_ans2_model": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P],
+    # W's and Y's normalize alone: counts, freq, cum, B, stream
+    "ct_ans2_normalize": [_P, _P, _P, _I, _P],
+    # kernel X: x, lane_len, freq, cum, events, states, K, stride, r, stream
+    "ct_ans2_encode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # ans2_decode.cu, kernel Y: words, n_words, states, state scratch (or
+    # null), out, n, K, steps, inc, limit_log2, r, stream
+    "ct_ans2_decode": [_P, _L, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -1,0 +1,194 @@
+"""Kernel W, X and Y wrappers: CT-ANS2 (the adaptive interleaved rANS) on
+the card.
+
+The JAX package has no Pallas kernel here: it runs the encode as three
+passes in one jit (cpprcoder_tpu/ops/ans2_ops.py:86 `_encode_fn`: pass A
+the model windows, `:99-137`, a scan at `:126`; pass B each position's
+(f, c) by one-hot products, `:139-151`; pass C the coder's scan,
+`:153-177`) and the decode as scans over windows and steps (`:183`
+`_decode_fn`, scans `:220`, `:236`).
+
+W (`csrc/ans2_encode.cu`, three launches and a memset) is pass A: each
+window's histogram over the card, the rescale walk over the windows in
+one CTA (256 counts wide), then a CTA a window for the normalize
+(`csrc/ans2_model.cuh`, exact to models/static_table.normalize_freqs).
+X (the same file) is pass C with pass B folded in: kernel F's coder, a
+thread a lane, step t reading table snapshot_index(t) from global memory
+a run of steps ahead of its chain. Y (`csrc/ans2_decode.cu`) is one CTA a
+stream: at each window start the rescale, the shared normalize and a
+2^14-byte cum2sym in shared memory; each step a prefix count of the
+refilling lanes over the CTA (a thread owns a contiguous run of lanes, so
+lane order is thread order) and shared atomics for the model's update.
+
+Their plain versions are `ans2_ops.window_tables_plain`,
+`ans2_ops.encode_events_plain` and `ans2_ops.decode_symbols_plain`
+(`normalize_tables` is the normalize alone, for tests). On a CPU tensor a
+wrapper runs the plain version; on a CUDA tensor it launches the kernel or
+raises. Every power of two up to 65,536 lanes.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cpprcoder_tpu_torch.native import build
+from cpprcoder_tpu_torch.ops import ans2_ops, layout
+
+model_launches = 0    # kernel W
+encode_launches = 0   # kernel X
+decode_launches = 0   # kernel Y
+
+MAX_LANES = 1 << 16
+# Y keeps its lanes' states in shared memory up to this many lanes, in
+# global scratch above
+SHARED_STATE_LANES = 1 << 15
+
+
+def _check_k(k: int):
+    if k < 1 or k & (k - 1) or k > MAX_LANES:
+        raise ValueError(f"kernels W, X and Y take a power of two up to "
+                         f"{MAX_LANES} lanes, got {k}")
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _check_tables(freqs, cums, dev):
+    for nm, v in (("freqs", freqs), ("cums", cums)):
+        if v.dtype != torch.int32 or v.dim() != 2 or v.shape[1] != 256 \
+                or not v.is_contiguous() or v.device != dev:
+            raise ValueError(f"{nm} must be contiguous int32 [n_snap, 256] "
+                             f"on {dev}, got {v.dtype} {tuple(v.shape)}")
+    if freqs.shape != cums.shape:
+        raise ValueError("freqs and cums differ in shape")
+
+
+def normalize_tables(counts: torch.Tensor):
+    """counts [B, 256] int64 (each >= 0) -> (freqs, exclusive cums) int32
+    [B, 256]: each row normalize_freqs(row, 14), by the device function W
+    and Y share (a CTA a row)."""
+    if counts.dtype != torch.int64 or counts.dim() != 2 \
+            or counts.shape[1] != 256 or not counts.is_contiguous():
+        raise ValueError(f"counts must be contiguous int64 [B, 256], got "
+                         f"{counts.dtype} {tuple(counts.shape)}")
+    if counts.device.type == "cpu":
+        return ans2_ops.normalize_tables_plain(counts)
+    dev = counts.device
+    lib = build.load()
+    with torch.cuda.device(dev):
+        freqs = torch.empty(counts.shape, dtype=torch.int32, device=dev)
+        cums = torch.empty_like(freqs)
+        if counts.shape[0]:
+            rc = lib.ct_ans2_normalize(counts.data_ptr(), freqs.data_ptr(),
+                                       cums.data_ptr(), counts.shape[0],
+                                       _stream(dev))
+            build.check(rc, "ct_ans2_normalize")
+    return freqs, cums
+
+
+def window_tables(x2d: torch.Tensor, n: int, inc: int, limit_log2: int,
+                  refresh_log2: int):
+    """x2d [steps, K] uint8 (interleaved, zero past n) -> (freqs, exclusive
+    cums) int32 [n_snap, 256], window w's table in row w."""
+    global model_launches
+    steps, k = x2d.shape
+    if x2d.dtype != torch.uint8 or x2d.dim() != 2 \
+            or not x2d.is_contiguous():
+        raise ValueError(f"x2d must be a contiguous 2-D uint8 tensor, got "
+                         f"{x2d.dtype} {tuple(x2d.shape)}")
+    if not (k * (steps - 1) < n <= k * steps):
+        raise ValueError(f"n={n} is not {steps} steps of {k} lanes")
+    ans2_ops.check_params(inc, limit_log2, refresh_log2)
+    if x2d.device.type == "cpu":
+        return ans2_ops.window_tables_plain(x2d, n, inc, limit_log2,
+                                            refresh_log2)
+    _check_k(k)
+    r = ans2_ops.refresh_eff(refresh_log2, steps)
+    n_snap = ans2_ops.n_snapshots(steps, r)
+    dev = x2d.device
+    lib = build.load()
+    with torch.cuda.device(dev):
+        hist = torch.empty((n_snap, 256), dtype=torch.int32, device=dev)
+        counts = torch.empty((n_snap, 256), dtype=torch.int64, device=dev)
+        freqs = torch.empty((n_snap, 256), dtype=torch.int32, device=dev)
+        cums = torch.empty_like(freqs)
+        rc = lib.ct_ans2_model(
+            x2d.data_ptr(), hist.data_ptr(), counts.data_ptr(),
+            freqs.data_ptr(), cums.data_ptr(), n, k, steps, inc,
+            min(limit_log2, ans2_ops.LIMIT_LOG2_NEVER), r, n_snap,
+            _stream(dev))
+        build.check(rc, "ct_ans2_model")
+    model_launches += 1
+    return freqs, cums
+
+
+def encode_events(x2d: torch.Tensor, lane_len: torch.Tensor,
+                  freqs: torch.Tensor, cums: torch.Tensor, refresh_log2: int):
+    """x2d [steps, K] uint8 (interleaved) and W's tables -> (events [steps,
+    K] int32: bit 16 emit, bits 15:0 the state's low word, 0 where
+    inactive; final states [K] int32 holding u32 bits)."""
+    global encode_launches
+    layout.check_lanes("x2d", x2d, torch.uint8, lane_len, MAX_LANES)
+    _check_tables(freqs, cums, x2d.device)
+    steps, k = x2d.shape
+    r = ans2_ops.refresh_eff(refresh_log2, steps)
+    if freqs.shape[0] != (ans2_ops.n_snapshots(steps, r) if steps else 0):
+        raise ValueError(f"{freqs.shape[0]} tables for {steps} steps at "
+                         f"refresh_log2 {refresh_log2}")
+    if x2d.device.type == "cpu":
+        return ans2_ops.encode_events_plain(x2d, lane_len, freqs, cums,
+                                            refresh_log2)
+    _check_k(k)
+    dev = x2d.device
+    lib = build.load()
+    with torch.cuda.device(dev):
+        ev = torch.empty((steps, k), dtype=torch.int32, device=dev)
+        states = torch.empty(k, dtype=torch.int32, device=dev)
+        rc = lib.ct_ans2_encode(
+            x2d.data_ptr(), lane_len.data_ptr(), freqs.data_ptr(),
+            cums.data_ptr(), ev.data_ptr(), states.data_ptr(), k, steps, r,
+            _stream(dev))
+        build.check(rc, "ct_ans2_encode")
+    encode_launches += 1
+    return ev, states
+
+
+def decode_symbols(words: torch.Tensor, states: torch.Tensor, n: int,
+                   inc: int, limit_log2: int,
+                   refresh_log2: int) -> torch.Tensor:
+    """words [n_words] int16 (u16 bits, the decoder's read order), states
+    [K] int32 (u32 bits) -> uint8 [n] (byte t*K + j is lane j's step t)."""
+    global decode_launches
+    if words.dtype != torch.int16 or words.dim() != 1 \
+            or not words.is_contiguous():
+        raise ValueError(f"words must be a contiguous int16 vector, got "
+                         f"{words.dtype} {tuple(words.shape)}")
+    if states.dtype != torch.int32 or states.dim() != 1 \
+            or not states.is_contiguous() or states.device != words.device:
+        raise ValueError(f"states must be an int32 vector on "
+                         f"{words.device}, got {states.dtype} "
+                         f"{tuple(states.shape)}")
+    k = states.numel()
+    if k < 1 or not 0 < n < 1 << 32:
+        raise ValueError(f"n={n} bytes over {k} lanes")
+    ans2_ops.check_params(inc, limit_log2, refresh_log2)
+    if words.device.type == "cpu":
+        return ans2_ops.decode_symbols_plain(words, states, n, inc,
+                                             limit_log2, refresh_log2)
+    _check_k(k)
+    steps = -(-n // k)
+    dev = words.device
+    lib = build.load()
+    with torch.cuda.device(dev):
+        out = torch.empty(n, dtype=torch.uint8, device=dev)
+        scratch = (torch.empty(k, dtype=torch.int32, device=dev)
+                   if k > SHARED_STATE_LANES else None)
+        rc = lib.ct_ans2_decode(
+            words.data_ptr(), words.numel(), states.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), out.data_ptr(),
+            n, k, steps, inc, min(limit_log2, ans2_ops.LIMIT_LOG2_NEVER),
+            ans2_ops.refresh_eff(refresh_log2, steps), _stream(dev))
+        build.check(rc, "ct_ans2_decode")
+    decode_launches += 1
+    return out

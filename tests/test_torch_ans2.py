@@ -1,0 +1,284 @@
+"""CT-ANS2 (adaptive_rans) in the port, on the CPU (the plain versions of
+kernels W, X and Y), with exact equality throughout (integer codec:
+tolerance 0).
+
+The same seeded inputs go through the JAX package's
+ans2_ops.ans2_encode_jax / ans2_decode_jax (XLA on the CPU, no Pallas
+kernel), through the port's `device="cpu"` and through the port's copy of
+the oracle (reference/ans2_ref.py): the containers must be byte-identical
+and each side must decode the others'. Away from the defaults (inc,
+limit_log2 up to 255, refresh_log2 past the stream's steps, counts past
+2^32) the port is held to the oracle alone: the JAX package keeps counts
+and totals as u32 and raises at limit_log2 >= 32 (ROADMAP C10)."""
+
+import numpy as np
+import pytest
+import torch
+
+from conftest import corpus_file, std_cases
+
+import cpprcoder_tpu_torch as ctt
+from cpprcoder_tpu.ops import ans2_ops as jops
+from cpprcoder_tpu.reference import ans2_ref as jref
+from cpprcoder_tpu_torch.codecs import stream as tstream
+from cpprcoder_tpu_torch.core.bytesutil import ByteReader
+from cpprcoder_tpu_torch.ops import ans2_kernels, ans2_ops, layout
+from cpprcoder_tpu_torch.reference import ans2_ref as tref
+
+CPU = {"device": "cpu"}
+
+
+def _seeded(n, seed, alphabet=256):
+    rng = np.random.default_rng(seed)
+    return bytes(rng.integers(0, alphabet, n, dtype=np.uint8))
+
+
+def _cases():
+    cases = {f"std {i}": d for i, d in enumerate(std_cases())}
+    cases["grammar.lsp"] = corpus_file("grammar.lsp")
+    cases["seeded text"] = bytes(
+        np.random.default_rng(6).choice(np.frombuffer(b"etaoin shrdlu\n",
+                                                      np.uint8), 2000))
+    return cases
+
+
+CASES = _cases()
+# lanes 1 and 2 run one step a byte or two: the largest inputs there are
+# cut, so that no plain loop runs more than 2,000 steps
+CUT = {1: 1000, 2: 2000}
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 8, 64])
+@pytest.mark.parametrize("case", list(CASES))
+def test_ans2_matches_jax_and_oracle(case, lanes):
+    data = CASES[case][:CUT.get(lanes)]
+    blob = ctt.compress(data, codec="adaptive_rans", lanes=lanes, **CPU)
+    assert blob == jops.ans2_encode_jax(data, lanes=lanes)
+    assert blob == tref.ans2_encode(data, lanes=lanes)
+    assert ctt.decompress(blob, codec="adaptive_rans", **CPU) == data
+    assert jops.ans2_decode_jax(blob) == data
+
+
+@pytest.mark.parametrize("refresh_log2", [0, 1, 2, 3])
+@pytest.mark.parametrize("case,lanes", [("grammar.lsp", 2), ("std 7", 8)])
+def test_ans2_refresh_matches_jax_and_oracle(case, lanes, refresh_log2):
+    """A table every 1, 2, 4 and 8 steps (after the warm-up windows)."""
+    data = CASES[case][:CUT.get(lanes)]
+    opts = dict(lanes=lanes, refresh_log2=refresh_log2)
+    blob = ctt.compress(data, codec="adaptive_rans", **opts, **CPU)
+    assert blob == jops.ans2_encode_jax(data, **opts)
+    assert blob == tref.ans2_encode(data, **opts)
+    assert ctt.decompress(blob, codec="adaptive_rans", **CPU) == data
+    assert jops.ans2_decode_jax(blob) == data
+
+
+def test_each_side_decodes_the_others_containers():
+    """The port decodes the JAX package's and both oracles' containers, and
+    the JAX package and both oracles decode the port's."""
+    for data, lanes in ((corpus_file("xargs.1")[:1600], 4),
+                        (_seeded(700, 3, 70), 2), (b"z", 8)):
+        mine = ctt.compress(data, codec="adaptive_rans", lanes=lanes, **CPU)
+        for blob in (jops.ans2_encode_jax(data, lanes=lanes),
+                     jref.ans2_encode(data, lanes=lanes),
+                     tref.ans2_encode(data, lanes=lanes)):
+            assert ctt.decompress(blob, codec="adaptive_rans", **CPU) == data
+        for dec in (jops.ans2_decode_jax, jref.ans2_decode, tref.ans2_decode):
+            assert dec(mine) == data
+
+
+# (data, lanes, options) for the oracle alone: the hard cases of
+# chip_smoke.py's phase 3 at a few thousand steps, and header values the
+# JAX package does not take
+HARD = {
+    "limit_log2 9: a rescale at nearly every window":
+        (corpus_file("xargs.1")[:2000], 2, dict(limit_log2=9, inc=255)),
+    "refresh_log2 past bitlen(steps): warm-up windows only":
+        (_seeded(3000, 12, 40), 4, dict(refresh_log2=12)),
+    "refresh_log2 255": (_seeded(1500, 13, 40), 2, dict(refresh_log2=255)),
+    "limit_log2 255 (never rescales)":
+        (b"\x61" * 3000, 8, dict(limit_log2=255, inc=255)),
+    "limit_log2 32: past the JAX package's u32":
+        (corpus_file("fields.c")[:3000], 4, dict(limit_log2=32)),
+    "limit_log2 40": (_seeded(2000, 14, 5), 2, dict(limit_log2=40, inc=200)),
+    "inc 0: a static uniform model": (_seeded(1000, 15, 20), 1, dict(inc=0)),
+    "inc 1, limit_log2 0 (rescale at every window)":
+        (corpus_file("grammar.lsp")[:2400], 2, dict(inc=1, limit_log2=0)),
+    "n < K": (b"abcde", 8, {}),
+    "n not a multiple of K": (_seeded(64 * 20 + 13, 16, 90), 64,
+                              dict(refresh_log2=1)),
+    "one-byte run": (b"\x42" * 4000, 16, dict(inc=255)),
+    "all 256 values": (bytes(range(256)) * 12, 4, dict(refresh_log2=0)),
+}
+
+
+@pytest.mark.parametrize("case", list(HARD))
+def test_ans2_hard_cases_match_the_oracle(case):
+    data, lanes, opts = HARD[case]
+    blob = ctt.compress(data, codec="adaptive_rans", lanes=lanes, **CPU,
+                        **opts)
+    assert blob == tref.ans2_encode(data, lanes=lanes, **opts)
+    assert ctt.decompress(blob, codec="adaptive_rans", **CPU) == data
+    assert tref.ans2_decode(blob) == data
+
+
+def test_c10_the_jax_package_refuses_limit_log2_32():
+    """C10: at limit_log2 >= 32 the JAX package's u32 model raises on
+    encode (`U32(1 << limit_log2)`) and on decode, where the oracle and the
+    port write and read the same container."""
+    data = b"abracadabra" * 20
+    for limit_log2 in (32, 33):
+        blob = tref.ans2_encode(data, limit_log2=limit_log2)
+        assert ctt.compress(data, codec="adaptive_rans", **CPU,
+                            limit_log2=limit_log2) == blob
+        assert ctt.decompress(blob, codec="adaptive_rans", **CPU) == data
+        with pytest.raises(OverflowError):
+            jops.ans2_encode_jax(data, limit_log2=limit_log2)
+        with pytest.raises(OverflowError):
+            jops.ans2_decode_jax(blob)
+
+
+@pytest.mark.parametrize("limit_log2", [40, 33, 32])
+def test_window_tables_past_2_32_match_the_oracles_model(limit_log2):
+    """8,192 lanes of 4,100 steps of one byte at inc 255, refresh_log2 13:
+    the counts pass 2^32 (at limit_log2 32 the model rescales at step
+    4,096, once they have). W's plain version equals the oracle's model
+    pass, window for window."""
+    k, steps, inc, r_log2 = 8192, 4100, 255, 13
+    x = np.full((steps, k), 7, np.uint8)
+    n = k * steps
+    freqs, cums = ans2_ops.window_tables_plain(torch.from_numpy(x), n, inc,
+                                               limit_log2, r_log2)
+    counts = ans2_ops.window_counts_plain(torch.from_numpy(x), n, inc,
+                                          limit_log2, r_log2)
+    assert int(counts[-1, 7]) > 1 << 32 or limit_log2 == 32
+    snaps = tref._snapshots_and_counts(x, n, k, inc, 1 << limit_log2,
+                                       1 << r_log2)
+    assert freqs.shape == (len(snaps), 256) == (14, 256)
+    for w, (f, c) in enumerate(snaps):
+        assert np.array_equal(freqs[w].numpy(), f)
+        assert np.array_equal(cums[w].numpy(), c)
+
+
+def test_stream_words_are_the_decoders_read_order():
+    """The events are time-major, so the emitted words masked out of them
+    row after row are the container's words: step-major, then lane-major
+    (the oracle's emitted[::-1]), at K > 1 and several emits a step."""
+    data = _seeded(8 * 300, 18)   # random bytes: most steps emit
+    k = 8
+    n, steps = len(data), 300
+    x2d = layout.pad2d_interleaved(torch.from_numpy(
+        np.frombuffer(data, np.uint8).copy()), k, steps)
+    lens = layout.lane_lengths_interleaved(n, k, steps, "cpu")
+    r_log2 = tref.default_refresh_log2(k, n)
+    freqs, cums = ans2_ops.window_tables_plain(x2d, n, 8, 18, r_log2)
+    ev, states = ans2_ops.encode_events_plain(x2d, lens, freqs, cums, r_log2)
+    emits = ((ev & ans2_ops.EMIT) != 0).sum(dim=1)
+    assert int(emits.max()) >= 4
+    r = ByteReader(tref.ans2_encode(data, lanes=k))
+    r.u32(), r.u8(), r.u8(), r.u8(), r.u8()
+    assert np.array_equal(r.u32s(k), ans2_ops.i32_to_u32(states).numpy())
+    n_words = r.u32()
+    assert np.array_equal(r.u16s(n_words),
+                          ans2_ops.stream_words(ev).numpy())
+
+
+def test_window_schedule():
+    """window_start and n_snapshots against the oracle's is_boundary, and
+    the refresh_log2 clamp against its snapshot_index."""
+    for r in range(0, 7):
+        for steps in (1, 2, 3, 5, 64, 100, 257):
+            starts = [t for t in range(steps) if tref.is_boundary(t, 1 << r)]
+            assert [ans2_ops.window_start(w, r) for w in range(len(starts))] \
+                == starts
+            assert ans2_ops.n_snapshots(steps, r) == len(starts)
+    for steps in (1, 2, 5, 4023, 1 << 20):
+        re = ans2_ops.refresh_eff(255, steps)
+        assert re <= 31 and (1 << re) > steps - 1
+        for t in (0, steps // 3, steps - 1):
+            assert tref.snapshot_index(t, 1 << 255) \
+                == tref.snapshot_index(t, 1 << re)
+
+
+def test_normalize_tables_plain_is_the_oracles():
+    """The normalize's plain version (the one W's and Y's device function
+    is held to on the card) at count vectors past 2^32, one dominant
+    symbol, one symbol alone, all equal and all zero."""
+    rng = np.random.default_rng(19)
+    rows = [rng.integers(0, 10 ** int(rng.integers(1, 12)), 256)
+            for _ in range(20)]
+    rows.append(np.eye(256, dtype=np.int64)[3] * (1 << 40) + 1)
+    rows.append(np.eye(256, dtype=np.int64)[255] * 99)
+    rows += [np.full(256, 1 << 33), np.zeros(256)]
+    counts = torch.from_numpy(np.stack(rows).astype(np.int64))
+    f, c = ans2_kernels.normalize_tables(counts)
+    for i, row in enumerate(counts.numpy()):
+        want = (tref.normalize_freqs(row, 14) if row.sum()
+                else np.zeros(256, np.uint32))
+        assert np.array_equal(f[i].numpy(), want)
+        assert np.array_equal(c[i].numpy(), tref.exclusive_cumsum(want))
+    # rule 5: the one symbol gives 1 to the next (255's to 0)
+    assert int(f[-3][255]) == (1 << 14) - 1 and int(f[-3][0]) == 1
+
+
+def test_lane_counts_header_bytes_and_empty_input():
+    """lanes 0 and None pick pick_lanes(n); a lane count that is not a
+    power of two raises ValueError (C4), as does a parameter past its
+    header byte; n = 0 writes the oracle's 8-byte container."""
+    data = b"lane policy " * 30
+    assert ctt.compress(data, codec="adaptive_rans", lanes=0, **CPU) \
+        == ctt.compress(data, codec="adaptive_rans", **CPU) \
+        == tref.ans2_encode(data)
+    for opts in (CPU, {"backend": "ref"}):
+        for lanes in (3, 6, 100):
+            with pytest.raises(ValueError, match="power of two"):
+                ctt.compress(data, codec="adaptive_rans", lanes=lanes, **opts)
+    for bad in (dict(inc=256), dict(limit_log2=-1), dict(refresh_log2=300)):
+        with pytest.raises(ValueError, match="header"):
+            ctt.compress(data, codec="adaptive_rans", **bad, **CPU)
+    for lanes in (None, 1, 64):
+        blob = ctt.compress(b"", codec="adaptive_rans", lanes=lanes, **CPU)
+        assert blob == tref.ans2_encode(b"", lanes=lanes) \
+            == jops.ans2_encode_jax(b"", lanes=lanes)
+        assert len(blob) == 8
+        assert ctt.decompress(blob, codec="adaptive_rans", **CPU) == b""
+
+
+def test_wrappers_check_their_inputs():
+    """The kernels' wrappers refuse what the kernels do not take, on the
+    CPU as on the card (above 65,536 lanes only on the card: the plain
+    versions take any lane count)."""
+    x2d = torch.zeros((4, 2), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="steps"):
+        ans2_kernels.window_tables(x2d, 3, 8, 18, 2)
+    with pytest.raises(ValueError, match="uint8"):
+        ans2_kernels.window_tables(x2d.to(torch.int32), 8, 8, 18, 2)
+    freqs, cums = ans2_kernels.window_tables(x2d, 8, 8, 18, 2)
+    lens = torch.full((2,), 4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="tables"):
+        ans2_kernels.encode_events(x2d, lens, freqs[:1], cums[:1], 2)
+    with pytest.raises(ValueError, match="int16"):
+        ans2_kernels.decode_symbols(torch.zeros(3, dtype=torch.int32),
+                                    torch.zeros(2, dtype=torch.int32), 8, 8,
+                                    18, 2)
+    assert ans2_kernels.MAX_LANES == 1 << 16
+
+
+def test_superblocks_and_pipeline_stage_match_the_jax_package():
+    """CT-SB over adaptive_rans (id 13) is the JAX package's container and
+    the oracle's, and id 13 works as a pipeline stage."""
+    import cpprcoder_tpu
+    from cpprcoder_tpu.codecs import stream as jstream
+
+    data = corpus_file("fields.c")[:3000]
+    blob = tstream.stream_encode(data, codec="adaptive_rans", sb_log2=10,
+                                 **CPU)
+    assert blob == jstream.stream_encode(data, codec="adaptive_rans",
+                                         sb_log2=10)
+    assert blob == tstream.stream_encode(data, codec="adaptive_rans",
+                                         sb_log2=10, backend="ref")
+    assert tstream.stream_decode(blob, **CPU) == data
+    stages = ["rle0", "adaptive_rans"]
+    blob = ctt.compress(data, codec="pipeline", stages=stages, **CPU)
+    assert blob == cpprcoder_tpu.compress(data, codec="pipeline",
+                                          stages=stages)
+    assert ctt.decompress(blob, codec="pipeline", **CPU) == data

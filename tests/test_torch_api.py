@@ -24,7 +24,8 @@ def _run(code, env=None):
 
 IDS = {"static_range": 0, "adaptive_range": 1, "rans": 2, "huffman": 3,
        "blocksort": 4, "mtf": 5, "slz4": 6, "ase": 7, "mtf1": 8, "pipeline": 9,
-       "stream": 10, "adaptive_o1": 11, "rle0": 12, "rcq": 14, "rcx": 15}
+       "stream": 10, "adaptive_o1": 11, "rle0": 12, "adaptive_rans": 13,
+       "rcq": 14, "rcx": 15}
 
 
 def test_registry():
@@ -33,30 +34,28 @@ def test_registry():
         c = ctt.get_codec(name)
         assert (c.name, c.codec_id) == (name, cid)
         assert ctt.get_codec_by_id(cid) is c
-    with pytest.raises(KeyError, match="A12"):
-        ctt.get_codec("adaptive_rans")
-    with pytest.raises(KeyError, match="A12"):
-        ctt.compress(b"abc", codec="adaptive_rans")
+    # adaptive_rans (CT-ANS2, id 13), the last codec ported, resolves by
+    # name and by id and round-trips on the CPU
+    assert ctt.get_codec_by_id(13) is ctt.get_codec("adaptive_rans")
+    blob = ctt.compress(b"abc" * 40, codec="adaptive_rans", device="cpu")
+    assert ctt.decompress(blob, codec="adaptive_rans",
+                          device="cpu") == b"abc" * 40
     with pytest.raises(KeyError, match="unknown codec"):
         ctt.get_codec("nope")
-    with pytest.raises(KeyError, match="A12"):
-        ctt.get_codec_by_id(13)
+    with pytest.raises(KeyError, match="unknown codec"):
+        ctt.compress(b"abc", codec="adaptive_ranz")
     with pytest.raises(KeyError, match="unknown codec id"):
         ctt.get_codec_by_id(99)
 
 
 def test_ids_and_names_are_the_jax_packages():
     """Every ported codec has its name and id in the JAX package, and
-    every codec of the JAX package is ported or names its ROADMAP item."""
+    every codec of the JAX package is ported."""
     import cpprcoder_tpu
-    from cpprcoder_tpu_torch.codecs import NOT_YET_PORTED, NOT_YET_PORTED_IDS
 
+    assert sorted(cpprcoder_tpu.list_codecs()) == sorted(IDS)
     for name in cpprcoder_tpu.list_codecs():
-        cid = cpprcoder_tpu.get_codec(name).codec_id
-        if name in NOT_YET_PORTED:
-            assert NOT_YET_PORTED_IDS[cid] == name
-        else:
-            assert IDS[name] == cid
+        assert IDS[name] == cpprcoder_tpu.get_codec(name).codec_id
 
 
 @pytest.mark.parametrize("codec", ["huffman", "rans", "rcq", "rcx", "ase",

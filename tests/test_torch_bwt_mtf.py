@@ -221,13 +221,24 @@ def test_named_stage_pipeline():
 
 
 def test_pipeline_stage_not_yet_ported():
-    """A container with a stage the port lacks raises the KeyError that
-    names its ROADMAP item, on encode and on decode."""
-    with pytest.raises(KeyError, match="A12"):
-        ctt.compress(b"abc" * 50, codec="pipeline", device="cpu",
-                     stages=["adaptive_rans"])
-    blob = bytes([1, 13]) + b"whatever"
-    with pytest.raises(KeyError, match="A12"):
+    """adaptive_rans (id 13), the last codec ported, is a pipeline stage:
+    its container is the JAX package's and the oracle's and decodes; a
+    stage the registry lacks still raises KeyError, on encode (by name)
+    and on decode (by id)."""
+    data = b"abc" * 50
+    stages = ["adaptive_rans"]
+    blob = ctt.compress(data, codec="pipeline", device="cpu", stages=stages)
+    assert blob[:2] == bytes([1, 13])
+    assert blob == pipeline_encode(data, stages=stages)
+    assert blob == ctt.compress(data, codec="pipeline", backend="ref",
+                                stages=stages)
+    assert ctt.decompress(blob, codec="pipeline", device="cpu") == data
+    assert pipeline_decode(blob) == data
+    with pytest.raises(KeyError, match="unknown codec"):
+        ctt.compress(data, codec="pipeline", device="cpu",
+                     stages=["adaptive_ranz"])
+    blob = bytes([1, 99]) + b"whatever"
+    with pytest.raises(KeyError, match="unknown codec id"):
         ctt.decompress(blob, codec="pipeline", device="cpu")
 
 

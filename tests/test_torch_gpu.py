@@ -17,6 +17,8 @@ from cpprcoder_tpu_torch.models.cxmodel import rcx_params
 from cpprcoder_tpu_torch.models.qmodel import rcq_params
 from cpprcoder_tpu_torch.models.static_table import normalize_freqs
 from cpprcoder_tpu_torch.ops import (
+    ans2_kernels,
+    ans2_ops,
     ase_kernels,
     ase_ops,
     compaction,
@@ -40,6 +42,7 @@ from cpprcoder_tpu_torch.ops import (
     rcx_ops,
 )
 from cpprcoder_tpu_torch.reference import (
+    ans2_ref,
     ase_ref,
     bwt_ref,
     o1_ref,
@@ -1385,3 +1388,147 @@ def test_s_t_u_v_launch_counters_move(dev, codec):
     assert ctt.decompress(blob, codec=codec) == data
     assert [getattr(m, a) - b for (m, a), b in zip(counters, before)] \
         == [1] * len(counters)
+
+
+# ------------------------------------------- kernels W, X, Y (CT-ANS2)
+
+def _corpus(name):
+    return (Path(__file__).resolve().parent.parent / "data" / name).read_bytes()
+
+
+def _ans2_counts():
+    """Count vectors [B, 256] for the normalize: random at every scale (to
+    past 2^32), sparse, one dominant symbol, one symbol alone (rule 5), all
+    equal, all zero."""
+    rng = np.random.default_rng(51)
+    rows = [rng.integers(0, 10 ** int(rng.integers(1, 12)), 256)
+            for _ in range(60)]
+    for i in range(20):
+        h = rng.integers(1, 1000, 256)
+        h[rng.random(256) < 0.9] = 0
+        rows.append(h)
+    dominant = np.ones(256, np.int64)
+    dominant[9] = 1 << 40
+    alone = np.zeros(256, np.int64)
+    alone[255] = 12345
+    rows += [dominant, alone, np.full(256, 777, np.int64),
+             np.full(256, 1 << 33, np.int64), np.zeros(256, np.int64),
+             (2.0 ** -np.minimum(np.arange(256) // 3, 60) * 1e15)
+             .astype(np.int64)]
+    return np.stack(rows).astype(np.int64)
+
+
+def test_ans2_normalize_matches_the_oracle(dev):
+    counts = _ans2_counts()
+    f, c = ans2_kernels.normalize_tables(torch.from_numpy(counts).to(dev))
+    for i, row in enumerate(counts):
+        want = normalize_freqs(row, 14) if row.sum() else np.zeros(256)
+        assert np.array_equal(f[i].cpu().numpy(), want), i
+        assert np.array_equal(c[i].cpu().numpy(),
+                              np.concatenate([[0], np.cumsum(want)[:-1]])), i
+
+
+# (data, K, options): kennedy.xls's and grammar.lsp's shapes, a table every
+# step (refresh_log2 0), every window a warm-up window (refresh_log2 past
+# bitlen(steps)), a rescale at nearly every window (limit_log2 9), n < K,
+# n not a multiple of K, a one-byte run, all 256 values, K = 1 and the top,
+# K = 65,536
+ANS2_CASES = {
+    "kennedy.xls": (_corpus("kennedy.xls"), 256, {}),
+    "grammar.lsp": (_corpus("grammar.lsp"), 2, {}),
+    "refresh 0": (_textish(4000, 52).tobytes(), 4, dict(refresh_log2=0)),
+    "refresh past steps": (_textish(6000, 53).tobytes(), 8,
+                           dict(refresh_log2=40)),
+    "limit 9": (_textish(9000, 54).tobytes(), 16,
+                dict(limit_log2=9, inc=255)),
+    "n < K": (b"abcde", 8, {}),
+    "ragged": (_seeded(256 * 30 + 7, 55, 90), 256, dict(limit_log2=12)),
+    "one-byte run": (b"\x61" * 20_000, 64, dict(inc=255, limit_log2=200)),
+    "all 256 values": (bytes(range(256)) * 40, 32, dict(refresh_log2=2)),
+    "K=1": (_seeded(6000, 56, 200), 1, {}),
+    "K=65536": (b"\x05" * 70_000 + _seeded(70_000, 57), 65536, {}),
+}
+
+
+def _ans2_inputs(data, k, dev):
+    n = len(data)
+    steps = -(-n // k)
+    x = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(dev)
+    return (n, steps, layout.pad2d_interleaved(x, k, steps),
+            layout.lane_lengths_interleaved(n, k, steps, dev))
+
+
+def _ans2_params(k, n, opts):
+    return (opts.get("inc", ans2_ref.ANS2_INC_DEFAULT),
+            opts.get("limit_log2", ans2_ref.ANS2_LIMIT_LOG2_DEFAULT),
+            opts.get("refresh_log2", ans2_ref.default_refresh_log2(k, n)))
+
+
+@pytest.mark.parametrize("case", list(ANS2_CASES))
+def test_ans2_kernels_match_plain_and_the_oracle(dev, case):
+    data, k, opts = ANS2_CASES[case]
+    n, steps, x2d, lens = _ans2_inputs(data, k, dev)
+    inc, limit_log2, r_log2 = _ans2_params(k, n, opts)
+    freqs, cums = ans2_kernels.window_tables(x2d, n, inc, limit_log2, r_log2)
+    for a, b in zip((freqs, cums), ans2_ops.window_tables_plain(
+            x2d, n, inc, limit_log2, r_log2)):
+        assert torch.equal(a, b)
+    ev, states = ans2_kernels.encode_events(x2d, lens, freqs, cums, r_log2)
+    ev_p, states_p = ans2_ops.encode_events_plain(x2d, lens, freqs, cums,
+                                                  r_log2)
+    assert torch.equal(ev, ev_p) and torch.equal(states, states_p)
+    words = ans2_ops.stream_words(ev).to(torch.int16)
+    out = ans2_kernels.decode_symbols(words, states, n, inc, limit_log2,
+                                      r_log2)
+    if steps <= 4100:
+        assert torch.equal(out, ans2_ops.decode_symbols_plain(
+            words, states, n, inc, limit_log2, r_log2))
+    assert out.cpu().numpy().tobytes() == data
+    blob = ctt.compress(data, codec="adaptive_rans", device="cuda", lanes=k,
+                        **opts)
+    assert blob == ans2_ref.ans2_encode(data, lanes=k, **opts)
+    assert ctt.decompress(blob, codec="adaptive_rans", device="cuda") == data
+
+
+@pytest.mark.parametrize("limit_log2", [40, 33, 32])
+def test_ans2_model_past_2_32(dev, limit_log2):
+    """8,192 lanes of 4,100 steps of one byte at inc 255: the counts pass
+    2^32 (at limit_log2 32 the model rescales there). W's tables equal the
+    oracle's model pass, and X and Y round-trip."""
+    k, steps, inc, r_log2 = 8192, 4100, 255, 13
+    data = b"\x07" * (k * steps)
+    n, steps, x2d, lens = _ans2_inputs(data, k, dev)
+    freqs, cums = ans2_kernels.window_tables(x2d, n, inc, limit_log2, r_log2)
+    snaps = ans2_ref._snapshots_and_counts(
+        np.frombuffer(data, np.uint8).reshape(steps, k), n, k, inc,
+        1 << limit_log2, 1 << r_log2)
+    assert freqs.shape[0] == len(snaps)
+    for w, (f, c) in enumerate(snaps):
+        assert np.array_equal(freqs[w].cpu().numpy(), f)
+        assert np.array_equal(cums[w].cpu().numpy(), c)
+    ev, states = ans2_kernels.encode_events(x2d, lens, freqs, cums, r_log2)
+    out = ans2_kernels.decode_symbols(ans2_ops.stream_words(ev)
+                                      .to(torch.int16), states, n, inc,
+                                      limit_log2, r_log2)
+    assert out.cpu().numpy().tobytes() == data
+
+
+def test_ans2_kernels_refuse_past_65536_lanes(dev):
+    data = b"abc" * 50_000
+    with pytest.raises(ValueError, match="65536"):
+        ctt.compress(data, codec="adaptive_rans", device="cuda", lanes=1 << 17)
+    blob = ans2_ref.ans2_encode(data, lanes=1 << 17)
+    with pytest.raises(ValueError, match="65536"):
+        ctt.decompress(blob, codec="adaptive_rans", device="cuda")
+
+
+def test_w_x_y_launch_counters_move(dev):
+    counters = [(ans2_kernels, "model_launches"),
+                (ans2_kernels, "encode_launches"),
+                (ans2_kernels, "decode_launches")]
+    before = [getattr(m, a) for m, a in counters]
+    data = _textish(5000, 58).tobytes()
+    blob = ctt.compress(data, codec="adaptive_rans")
+    assert ctt.decompress(blob, codec="adaptive_rans") == data
+    assert [getattr(m, a) - b for (m, a), b in zip(counters, before)] \
+        == [1, 1, 1]

@@ -23,6 +23,7 @@ from cpprcoder_tpu.models import freq_header as jfh
 from cpprcoder_tpu.models import huffman as jhuf
 from cpprcoder_tpu.models import qmodel as jq
 from cpprcoder_tpu.models import static_table as jst
+from cpprcoder_tpu.reference import ans2_ref as jans2_ref
 from cpprcoder_tpu.reference import ase_ref as jase_ref
 from cpprcoder_tpu.reference import bwt_ref as jbwt_ref
 from cpprcoder_tpu.reference import huffman_ref as jhuf_ref
@@ -42,6 +43,7 @@ from cpprcoder_tpu_torch.models import freq_header as tfh
 from cpprcoder_tpu_torch.models import huffman as thuf
 from cpprcoder_tpu_torch.models import qmodel as tq
 from cpprcoder_tpu_torch.models import static_table as tst
+from cpprcoder_tpu_torch.reference import ans2_ref as tans2_ref
 from cpprcoder_tpu_torch.reference import ase_ref as tase_ref
 from cpprcoder_tpu_torch.reference import bwt_ref as tbwt_ref
 from cpprcoder_tpu_torch.reference import huffman_ref as thuf_ref
@@ -85,6 +87,8 @@ ORACLES = {
             (tase_ref.ase_encode, tase_ref.ase_decode)),
     "adaptive_o1": ((jo1_ref.o1_encode, jo1_ref.o1_decode),
                     (to1_ref.o1_encode, to1_ref.o1_decode)),
+    "adaptive_rans": ((jans2_ref.ans2_encode, jans2_ref.ans2_decode),
+                      (tans2_ref.ans2_encode, tans2_ref.ans2_decode)),
     # the v1 parse (the oracle's default) and the v2 parse, both seg_log2
     "slz4": ((lambda d: jslz4_ref.slz4_encode(d, seg_log2=9),
               jslz4_ref.slz4_decode),
@@ -265,7 +269,9 @@ def test_no_source_imports_the_jax_package():
             PKG / "bench" / "synth.py", PKG / "codecs" / "slz4.py",
             PKG / "ops" / "lz_ops.py", PKG / "ops" / "lz_kernels.py",
             PKG / "native" / "ctrc.py", PKG / "core" / "hashing.py",
-            PKG / "reference" / "slz4_ref.py"} <= set(paths)
+            PKG / "reference" / "slz4_ref.py", PKG / "ops" / "ans2_ops.py",
+            PKG / "ops" / "ans2_kernels.py", PKG / "reference" / "ans2_ref.py",
+            PKG / "codecs" / "adaptive_rans.py"} <= set(paths)
     for path in paths:
         assert not IMPORTS_JAX_PACKAGE.search(path.read_text()), path
 
@@ -300,4 +306,4 @@ print(len(ctt.list_codecs()), bad)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split(None, 1) == ["15", "[]\n"]
+    assert out.stdout.split(None, 1) == ["16", "[]\n"]

@@ -122,8 +122,8 @@ def test_every_ported_codec_under_ct_sb(codec):
 
 def test_registry_and_options():
     """compress(codec="stream") is CT-SB (id 10), the codec's options reach
-    every superblock, and a header naming a codec id still to port raises
-    the KeyError that names its ROADMAP item."""
+    every superblock, a header naming adaptive_rans (id 13, the last codec
+    ported) decodes, and one naming an unknown id raises KeyError."""
     data = _data(3000)
     assert ctt.get_codec_by_id(10) is ctt.get_codec("stream") \
         is tstream.CODEC
@@ -131,10 +131,18 @@ def test_registry_and_options():
     assert blob == cpprcoder_tpu.compress(data, codec="stream",
                                           sb_log2=SB_LOG2, lanes=2)
     assert ctt.decompress(blob, codec="stream", **CPU) == data
-    head = ByteWriter().u8(13).u8(SB_LOG2).u32(1).u32(0).getvalue()
-    with pytest.raises(KeyError, match="A12"):
+    blob = tstream.stream_encode(data[:900], codec="adaptive_rans",
+                                 sb_log2=9, **CPU)
+    assert blob[0] == 13
+    assert blob == jstream.stream_encode(data[:900], codec="adaptive_rans",
+                                         sb_log2=9)
+    assert tstream.stream_decode(blob, **CPU) == data[:900]
+    assert tstream.stream_decode_range(blob, 400, 700, **CPU) \
+        == data[400:700]
+    head = ByteWriter().u8(99).u8(SB_LOG2).u32(1).u32(0).getvalue()
+    with pytest.raises(KeyError, match="unknown codec id"):
         tstream.stream_decode(head, **CPU)
-    with pytest.raises(KeyError, match="A12"):
+    with pytest.raises(KeyError, match="unknown codec id"):
         tstream.stream_decode_range(head, 0, 1, **CPU)
     # ids 7 (ase) and 11 (adaptive_o1) are ported: their superblocks are
     # the JAX package's and decode
