@@ -1289,6 +1289,43 @@ def o1_params(k: int, opts: dict) -> tuple:
             opts.get("blend_log2", o1_ref.BLEND_LOG2))
 
 
+def table_edge_hits(rounds: int) -> bytes:
+    """64 distinct symbols, then hits at table indices 15, 16, 31, 32, 47,
+    48, 0 and 63 in turn: either side of kernel T's quad boundaries (16
+    entries a thread)."""
+    table = list(range(64))
+    out = list(table)
+    for _ in range(rounds):
+        for idx in (15, 16, 31, 32, 47, 48, 0, 63):
+            s = table.pop(idx)
+            table.append(s)
+            out.append(s)
+    return bytes(out)
+
+
+def o1_word_row_edges(dev, err):
+    """V against its plain version on word rows cut short: one row (l4 =
+    1), and rows ending with the longest lane's last word (three lanes'
+    payloads end on a word edge; seed 3)."""
+    data = np.random.default_rng(3).integers(0, 40, 8 * 120, np.uint8).tobytes()
+    n, k = len(data), 8
+    steps = -(-n // k)
+    params = o1_params(k, {})
+    x = to_dev(data, dev)
+    lens = layout.lane_lengths(n, k, steps, dev)
+    rows, sizes = expand.materialize_rows(o1_kernels.encode_events(
+        layout.pad2d_chunked(x, k, steps), lens, *params))
+    words = layout.decode_words(rows, sizes)
+    if int(sizes.max()) % 4 or int((sizes % 4 == 0).sum()) != 3:
+        fail(f"V's word-edge case lost its edges: sizes {sizes.tolist()}")
+    for cut in (words[:1].contiguous(), words[:int(sizes.max()) // 4].contiguous()):
+        out = hold(err, "o1_decode", o1_kernels.decode_symbols(cut, lens, n, steps, *params),
+                   o1_ops.decode_symbols_plain(cut, lens, n, steps, *params),
+                   f"kernel V on {cut.shape[0]} word rows")
+        if cut.shape[0] > 1 and out.cpu().numpy().tobytes() != data:
+            fail("kernel V on rows ending at a word edge did not decode")
+
+
 def phase_kernels_ase_o1(dev):
     """S, T (CT-ASE1) and U, V (CT-RC3) against their plain step loops,
     and the containers of their cases against the oracles."""
@@ -1376,12 +1413,20 @@ def phase_kernels_ase_o1(dev):
     # a multiple of K, K = 1 and K = 65,536 (lanes of length 0 too)
     rng = np.random.default_rng(600)
     seeded = lambda n, a: rng.integers(0, a, n, dtype=np.uint8).tobytes()  # noqa: E731
+    # T's quads: lanes whose first words sit at offsets 0, 2, 1, 3 mod 4
+    # (seed 1; the last lane ends on the payload's last word), hits either
+    # side of the quads' thread boundaries, a full table evicting every
+    # step at K = 2
     ase_cases = [(b"\x33" * 3000 + b"\x44" * 3000, 2, {}),
                  (bytes(range(256)) * 40, 4, {}),
                  (seeded(4000, 64), 1, {}), (seeded(4000, 65), 1, {}),
                  (seeded(256 * 40 + 7, 90), 256, {}),
                  (textish(4000, 601), 1, {}),
-                 (b"\x05" * 70_000 + seeded(60_000, 256), 65536, {})]
+                 (b"\x05" * 70_000 + seeded(60_000, 256), 65536, {}),
+                 (np.random.default_rng(1).integers(0, 70, 2001, dtype=np.uint8)
+                  .tobytes(), 4, {}),
+                 (table_edge_hits(150), 1, {}),
+                 (bytes(range(256)) * 6, 2, {})]
     for data, k, _ in ase_cases:
         ase_case(data, k, f"K={k} n={len(data)}")
     containers("ase", ase_cases, ase_ref.ase_encode)
@@ -1390,15 +1435,29 @@ def phase_kernels_ase_o1(dev):
     # cell), the u32 table (blend 0, limit1_log2 17: t1[7][7] passes 2^16)
     # at one and four lanes, 2,048 lanes (two a thread) and K = 65,536
     u32 = b"\x07" * 6000 + bytes(range(256)) * 4
+    # V's second design: every row halved every step (limit1_log2 8), rows
+    # halving at 64 lanes (9), t0 every step (limit0_log2 8), 64 lanes on
+    # the same bytes (all of them taking a row over its limit in one step),
+    # one-byte runs at 256 and 2,048 lanes (every atomic on one address; at
+    # 2,048 grouped), 256 symbols in one warp (K = 32), K = 1, 32 and 64
     o1_cases = [(textish(3000, 602), 2, dict(limit1_log2=9)),
                 (seeded(6000, 50), 4, dict(limit0_log2=10, inc=16)),
                 (b"abcde", 8, {}), (b"\x61" * 20_000, 64, dict(inc=255)),
                 (u32, 1, dict(blend_log2=0, limit1_log2=17)),
                 (u32, 4, dict(blend_log2=0, limit1_log2=17)),
                 (textish(2048 * 6 + 5, 603), 2048, {}),
-                (seeded(65536 * 2 + 100, 256), 65536, {})]
+                (seeded(65536 * 2 + 100, 256), 65536, {}),
+                (textish(600, 604), 2, dict(limit1_log2=8)),
+                (textish(64 * 50 + 3, 605), 64, dict(limit1_log2=9)),
+                (seeded(1200, 60), 4, dict(limit0_log2=8)),
+                (textish(80, 606) * 64, 64, {}),
+                (bytes(256 * 40), 256, {}), (bytes(2048 * 6), 2048, {}),
+                (bytes(i % 256 for i in range(32 * 150)), 32, {}),
+                (textish(800, 607), 1, {}), (textish(32 * 60 + 5, 608), 32, {}),
+                (textish(64 * 40 + 3, 609), 64, {})]
     for data, k, opts in o1_cases:
         o1_case(data, k, f"K={k} n={len(data)} {opts}", **opts)
+    o1_word_row_edges(dev, err)
     containers("adaptive_o1", o1_cases, o1_ref.o1_encode)
     print(f"[kernels] ok {len(ase_cases)} CT-ASE1 and {len(o1_cases)} CT-RC3 "
           f"containers equal the oracle's and round-trip", flush=True)

@@ -66,6 +66,18 @@ library's grid width and payload length read beforehand) and through a
 wrapper of each interface (its host reads inside; 50 calls, each timed
 apart); the blocks and sizes are compared, not the padding.
 
+Kernels S, T (CT-ASE1 encode and decode) and U, V (CT-RC3's) are timed at
+kennedy.xls (K = 256), alice29.txt (K = 64), grammar.lsp (K = 2) and the
+first 2^14-byte superblock of CT-SB over the concatenated corpus (K = 8),
+and U and V also at kennedy.xls over 2,048 lanes (V's lanes in turns,
+their state in scratch) and 65,536 (the u32 table), at the codec's
+defaults, their inputs made by this tree's S and U (`--only STUV`; T and
+V alone with `--only TV`). V's state scratch is sized for either tree. The
+`vdiag2_*` and `tdiag2_*` variants take one part of a step out of this
+tree's V and T; their outputs differ by design, so the script exits 1 with
+them. `o1_rows_contiguous` and `o1_rows_rotated` build U and V with the
+rescale's rows shared out over the warps otherwise.
+
 Prints one JSON object: per kernel and shape, each library's ms.
 """
 
@@ -91,6 +103,8 @@ from cpprcoder_tpu_torch.models.cxmodel import rcq_params, rcx_params
 from cpprcoder_tpu_torch.models.static_table import normalize_freqs
 from cpprcoder_tpu_torch.native import build
 from cpprcoder_tpu_torch.ops import (
+    ase_kernels,
+    ase_ops,
     expand,
     huffman_kernels,
     huffman_ops,
@@ -99,6 +113,8 @@ from cpprcoder_tpu_torch.ops import (
     lz_ops,
     mtf_kernels,
     mtf_ops,
+    o1_kernels,
+    o1_ops,
     range_kernels,
     range_ops,
     rans_kernels,
@@ -106,6 +122,7 @@ from cpprcoder_tpu_torch.ops import (
     rcq_kernels,
     rcx_kernels,
 )
+from cpprcoder_tpu_torch.reference import o1_ref
 
 ROOT = Path(__file__).resolve().parent
 OUT_ROOT = ROOT / "build" / "compare"
@@ -339,6 +356,37 @@ VARIANTS = {
          "        if (false) {\n          uint32_t cnt = 0;"),
         ("          for (uint32_t b = 128; b; b >>= 1)\n            if (t * row[s + b] <= cd) s += b;",
          "          s = cd & 0xFFu;")]),
+    # kernel V's second design, diagnostics (outputs differ): no rescale
+    # (its barrier kept), no update, the word loaded ahead from a register
+    "vdiag2_norescale": ("o1_decode.cu", [(
+        "    rescale<WIDE>(m, limit1, limit0);\n", "    __syncthreads();\n")]),
+    "vdiag2_noatomic": ("o1_decode.cu", [(
+        "      update_step<WIDE, MULTI>(m, active, r, sym, inc);\n", "")]),
+    "vdiag2_norefill": ("o1_decode.cu", [(
+        "nw = widx < (uint32_t)l4 ? words[(size_t)widx * K + lane] : 0u;",
+        "nw = widx * 0x9E3779B9u + lane;")]),
+    # kernel T's second design: CTAs of 64 or 128 threads (16 or 32 lanes)
+    # in place of one warp; the diagnostics: no entry shuffle (the symbol
+    # its index), no update
+    "t_cta64": ("ase.cu", [("constexpr int DEC_THREADS = 32;",
+                            "constexpr int DEC_THREADS = 64;")]),
+    "t_cta128": ("ase.cu", [("constexpr int DEC_THREADS = 32;",
+                             "constexpr int DEC_THREADS = 128;")]),
+    "tdiag2_noentry": ("ase.cu", [("const uint32_t e = quad_entry(tab, idx);",
+                                   "const uint32_t e = (uint32_t)idx ^ tab[0];")]),
+    "tdiag2_noupdate": ("ase.cu", [(
+        "    quad_update(tab, q, size, sym, hit, idx);\n",
+        "    tab[0] ^= sym;\n    if (!hit && size < TABLE) ++size;\n")]),
+    # kernels U and V: the rescale's rows, in place of warp w checking rows
+    # w, w + nw, ...: a run of R = 256 / nw rows a warp, or lane l of warp w
+    # row l + R * ((w + l) % nw) (spread, a warp's reads in R banks)
+    "o1_rows_contiguous": ("o1_model.cuh", [
+        ("m.rowtot[w + nw * ln]", "m.rowtot[w * (256 / nw) + ln]"),
+        ("halve_row<WIDE>(m, w + nw * i);", "halve_row<WIDE>(m, w * (256 / nw) + i);")]),
+    "o1_rows_rotated": ("o1_model.cuh", [
+        ("m.rowtot[w + nw * ln]", "m.rowtot[ln + 256 / nw * ((w + ln) & (nw - 1))]"),
+        ("halve_row<WIDE>(m, w + nw * i);",
+         "halve_row<WIDE>(m, i + 256 / nw * ((w + i) & (nw - 1)));")]),
 }
 
 
@@ -350,7 +398,9 @@ ENTRY = {"A": "ct_rcx_encode", "B": "ct_expand_count", "C": "ct_rcx_decode",
          "M": "ct_mtf_encode", "N": "ct_mtf_decode",
          "P": "ct_lz_walk",
          # Q: the two-launch entry, or the three-launch one of an older tree
-         "Q": ("ct_lz_serialize", "ct_lz_clamp"), "R": "ct_lz_decode"}
+         "Q": ("ct_lz_serialize", "ct_lz_clamp"), "R": "ct_lz_decode",
+         "S": "ct_ase_encode", "T": "ct_ase_decode", "U": "ct_o1_encode",
+         "V": "ct_o1_decode"}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # the CT-LZ4 entry points of a tree whose Q is three launches with a cumsum
 # and host reads between them (ct_lz_clamp, ct_lz_sizes, ct_lz_write) and
@@ -367,20 +417,23 @@ OLD_LZ_SIGNATURES = {
 OLD_WALK_SIGNATURE = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]
 VARIANT_SOURCE = {"a": "rcx_encode.cu", "b": "expand.cu", "g": "rans_decode.cu",
                   "h": "huffman_encode.cu", "i": "huffman_decode.cu", "j": "rc_exact.cu",
-                  "l": "rc_exact.cu", "ldiag": "rc_exact.cu", "m": "mtf.cu", "mn": "mtf.cu"}
+                  "l": "rc_exact.cu", "ldiag": "rc_exact.cu", "m": "mtf.cu", "mn": "mtf.cu",
+                  "vdiag2": "o1_decode.cu", "t": "ase.cu", "tdiag2": "ase.cu",
+                  "o1": ("o1_encode.cu", "o1_decode.cu")}
 
 
-def build_lib(name: str, csrc: Path, edits=(), only: str | None = None
+def build_lib(name: str, csrc: Path, edits=(), only: str | tuple = ()
               ) -> tuple[Path, str]:
-    """Copy csrc (of its .cu files only `only`, if given) into
-    build/compare/<name>/csrc, apply the edits, build it with build.build's
-    nvcc flags. -> (library, nvcc log)."""
+    """Copy csrc (of its .cu files only `only`, a name or a tuple of names,
+    if given) into build/compare/<name>/csrc, apply the edits, build it
+    with build.build's nvcc flags. -> (library, nvcc log)."""
     dst = OUT_ROOT / name
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(csrc, dst / "csrc")
     if only:
+        keep = (only,) if isinstance(only, str) else only
         for p in (dst / "csrc").glob("*.cu"):
-            if p.name != only:
+            if p.name not in keep:
                 p.unlink()
     for fname, subs in edits:
         p = dst / "csrc" / fname
@@ -460,11 +513,20 @@ def interleaved(data: bytes, k: int, dev):
             layout.lane_lengths_interleaved(n, k, stride, dev))
 
 
-def cases(dev):
+def cases(dev, only: str = ""):
     """-> [(kernel, shape, make(lib) -> (launch, output))]: each launch
-    writes into its own output buffer."""
+    writes into its own output buffer. With `only`, the inputs of the other
+    kernels are not made."""
     out = []
     stream = lambda: torch.cuda.current_stream(dev).cuda_stream  # noqa: E731
+
+    def want(letters: str) -> bool:
+        return not only or any(c in only for c in letters)
+
+    if want("STUV"):
+        out += ase_o1_cases(dev, stream)
+    if not want("ABCDEFGHIJLMNPQR"):
+        return out
     rcx_at = [("kennedy.xls", "balanced"), ("grammar.lsp", "balanced"),
               ("fields.c", "balanced"), ("cp.html", "balanced"),
               ("alice29.txt", "ratio"), ("ptt5", "ratio"),
@@ -604,6 +666,87 @@ def cases(dev):
             ("200,000 random bytes", rng.integers(0, 256, 200_000, np.uint8).tobytes(), 17),
             ("a 2^14-byte CT-SB superblock", concat[:1 << 14], 17)):
         out += lz_cases(label, data, sl, dev)
+    return out
+
+
+def ase_o1_cases(dev, stream):
+    """S and T (CT-ASE1, interleaved lanes) and U and V (CT-RC3, chunked
+    lanes) at kennedy.xls, alice29.txt, grammar.lsp and the first 2^14-byte
+    superblock of CT-SB over the concatenated corpus, each at
+    pick_lanes(n) lanes (256, 64, 2 and 8); U and V also at kennedy.xls
+    over 2,048 lanes (V's lanes two a thread, their state in scratch) and
+    65,536 (the u32 table). The inputs are made through this tree's
+    wrappers; V's state scratch is sized for either tree (7 words a lane)."""
+    out = []
+    concat = b"".join(corpus(f) for f in CANTERBURY)
+    at = [("kennedy.xls", corpus("kennedy.xls"), None),
+          ("alice29.txt", corpus("alice29.txt"), None),
+          ("grammar.lsp", corpus("grammar.lsp"), None),
+          ("a 2^14-byte CT-SB superblock", concat[:1 << 14], None)]
+    for label, data, _ in at:
+        n, stride, x2d, lens = interleaved(data, pick_lanes(len(data)), dev)
+        k = x2d.shape[1]
+        cap = ase_ops.words_cap(stride)
+        payload, bits = ase_kernels.encode_words(x2d, lens)
+        counts = ((bits.to(torch.int64) + 15) // 16)
+        words = payload[:int(counts.sum())].contiguous()
+        bases = (torch.cumsum(counts, 0) - counts).to(torch.int32)
+        counts = counts.to(torch.int32)
+        shape = f"{label} (K={k}, stride {stride})"
+
+        def s_enc(lib, a=(x2d, lens, k, stride, cap)):
+            scratch, pay = (torch.empty(a[2] * a[4], dtype=torch.int16, device=dev)
+                            for _ in range(2))
+            cnt, off, bts = torch.empty((3, a[2]), dtype=torch.int32, device=dev)
+            return (lambda: lib.ct_ase_encode(
+                a[0].data_ptr(), a[1].data_ptr(), scratch.data_ptr(), cnt.data_ptr(),
+                off.data_ptr(), bts.data_ptr(), pay.data_ptr(), *a[2:], stream())), (pay, bts)
+
+        def t_dec(lib, a=(words, bases, counts, lens, k, stride)):
+            o = torch.zeros(a[4] * a[5], dtype=torch.uint8, device=dev)
+            return (lambda: lib.ct_ase_decode(
+                a[0].data_ptr(), a[0].numel(), a[1].data_ptr(), a[2].data_ptr(),
+                a[3].data_ptr(), o.data_ptr(), *a[4:], stream())), o
+
+        out += [("S", shape, s_enc), ("T", shape, t_dec)]
+    at += [("kennedy.xls", corpus("kennedy.xls"), 2048),
+           ("kennedy.xls", corpus("kennedy.xls"), 65536)]
+    for label, data, k in at:
+        n = len(data)
+        k = k or pick_lanes(n)
+        steps = -(-n // k)
+        x2d = layout.pad2d_chunked(to_dev(data, dev), k, steps)
+        lens = layout.lane_lengths(n, k, steps, dev)
+        params = (o1_ref.pick_inc(k), o1_ref.LIMIT1_LOG2, o1_ref.LIMIT0_LOG2,
+                  o1_ref.BLEND_LOG2)
+        wide = o1_ops.table_wide(k, *params[:2])
+        ev0 = o1_kernels.encode_events(x2d, lens, *params)
+        words = layout.decode_words(*expand.materialize_rows(ev0))
+        shape = f"{label} (K={k}, L={steps}{', u32 table' if wide else ''})"
+
+        def scratch(k=k, wide=wide):
+            """-> (t1 and state scratch, kept alive by the caller; their
+            pointers, or None)."""
+            t = (torch.empty(256 * 256, dtype=torch.int32, device=dev) if wide else None,
+                 torch.empty(7 * k, dtype=torch.int32, device=dev)
+                 if k > o1_kernels.CTA_LANES else None)
+            return t, [None if x is None else x.data_ptr() for x in t]
+
+        def u_enc(lib, a=(x2d, lens, ev0, k, steps, *params, int(wide))):
+            ev = torch.empty_like(a[2])
+            keep, p = scratch()
+            return (lambda keep=keep: lib.ct_o1_encode(
+                a[0].data_ptr(), a[1].data_ptr(), ev.data_ptr(), *p, *a[3:],
+                stream())), ev
+
+        def v_dec(lib, a=(words, lens, n, k, steps, *params, int(wide))):
+            o = torch.empty(a[2], dtype=torch.uint8, device=dev)
+            keep, p = scratch()
+            return (lambda keep=keep: lib.ct_o1_decode(
+                a[0].data_ptr(), a[1].data_ptr(), o.data_ptr(), *p, a[3],
+                a[0].shape[0], *a[4:], stream())), o
+
+        out += [("U", shape, u_enc), ("V", shape, v_dec)]
     return out
 
 
@@ -935,7 +1078,7 @@ def main():
         report["d_sass_same"] = {lpt: old.get(lpt) == new.get(lpt)
                                  for lpt in sorted(set(old) | set(new))}
         report["d_sass_lines"] = {lpt: len(v) for lpt, v in new.items()}
-    for kern, shape, make in cases(dev):
+    for kern, shape, make in cases(dev, a.only):
         if a.only and kern not in a.only:
             continue
         if kern == a.profile and "wrapper" not in shape:

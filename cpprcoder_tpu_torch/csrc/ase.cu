@@ -21,21 +21,29 @@
 // them back (zeros past a lane's end, never past the payload's) and writes
 // out[j*K + i].
 //
-// Design. A thread a lane: lanes share nothing. The table lives in 16
-// registers, entry 4w + b in byte b of word w, so that every loop over it
-// unrolls to fixed registers (no local memory): the find is a zero-byte test
-// of (word ^ sym*0x01010101) a word, masked to the entries in use (entries
-// are distinct, so the lowest flagged byte of the lowest flagged word is the
+// Design. Lanes share nothing. The table lives in registers, entry 4w + b
+// in byte b of word w, so that every loop over it unrolls to fixed
+// registers (no local memory): the find is a zero-byte test of (word ^
+// sym*0x01010101) a word, masked to the entries in use (entries are
+// distinct, so the lowest flagged byte of the lowest flagged word is the
 // match: the test's false positives lie only above a true zero byte); the
 // update builds each word from itself and the next one shifted down a byte
 // (a funnel shift), under byte masks of the moved range and the symbol's
-// place. S prefetches its next symbol a step ahead and writes its words to a
-// padded word-major area [cap, K]; a one-CTA scan of the word counts gives
-// each lane's offset, and a warp a lane copies its words to their place.
+// place.
+//   S: a thread a lane, its table in 16 registers. It prefetches its next
+//   symbol a step ahead and writes its words to a padded word-major area
+//   [cap, K]; a one-CTA scan of the word counts gives each lane's offset, and
+//   a warp a lane copies its words to their place.
+//   T (second round; the first was S's thread a lane): a quad of 4 threads a
+//   lane, 4 table words each, the coder state copied in each; the entry of a
+//   hit is one shuffle from its owner, the update 4 words a thread and one
+//   shuffle down; the lane's words come from registers loaded a group of 4
+//   ahead, so no refill waits on global memory.
 //
-// What bounds it: each lane's steps are one dependent chain (find, update,
-// emit: about 150 integer operations), and at K = 256 (kennedy.xls) only 256
-// threads run: the chain's latency, not the card's rate, sets the time.
+// What bounds them: each lane's steps are one dependent chain (find or
+// entry, update, emit), and at K = 256 (kennedy.xls) only 256 lanes run: the
+// chain's latency, not the card's rate, sets the time. T's quad cuts the
+// chain's table work to 4 words a thread, and spreads K = 256 over 32 SMs.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -65,14 +73,6 @@ __device__ __forceinline__ int find(const uint32_t (&tab)[WORDS], uint32_t sym, 
     if (idx < 0 && z) idx = 4 * w + ((__ffs(z) - 1) >> 3);
   }
   return idx;
-}
-
-// Entry idx (0..63) of the table.
-__device__ __forceinline__ uint32_t entry(const uint32_t (&tab)[WORDS], int idx) {
-  uint32_t v = 0;
-#pragma unroll
-  for (int w = 0; w < WORDS; ++w) v = (idx >> 2) == w ? tab[w] : v;
-  return (v >> (8 * (idx & 3))) & 0xFFu;
 }
 
 // The table after coding sym (hit at idx, or a miss), as ase_ops._update:
@@ -188,48 +188,109 @@ __global__ void __launch_bounds__(COPY_WARPS * 32)
 
 // ------------------------------------------------------------- kernel T
 
+// Thread q of a lane's quad holds table words 4q..4q+3 (entries
+// 16q..16q+15): entry(idx) is thread idx >> 4's, and word 4q+3's successor
+// is thread q+1's word 0.
+constexpr int QUAD = 4;
+constexpr int QWORDS = WORDS / QUAD;  // table words a thread of a quad holds
+// T's CTA: one warp, 8 lanes (at K = 256, 32 CTAs on 32 SMs). Each warp's
+// step is a chain of shared-nothing ALU work and shuffles; measured against
+// CTAs of 64 and 128 threads (compare_kernels.py's t_cta64, t_cta128), the
+// one-warp CTA, whose launch bound lets the compiler schedule the chain
+// for one warp, was 3-4% faster at every shape timed.
+constexpr int DEC_THREADS = 32;
+constexpr uint32_t FULL = 0xFFFFFFFFu;
+
+// Entry idx (0..63) of the quad's table; every thread of the quad calls it
+// with the same idx (and every thread of the warp calls it).
+__device__ __forceinline__ uint32_t quad_entry(const uint32_t (&tab)[QWORDS], int idx) {
+  const int w = (idx >> 2) & (QWORDS - 1);
+  const uint32_t v = w == 0 ? tab[0] : w == 1 ? tab[1] : w == 2 ? tab[2] : tab[3];
+  return __shfl_sync(FULL, (v >> (8 * (idx & 3))) & 0xFFu, idx >> 4, QUAD);
+}
+
+// update() on the quad's table: thread q moves its words 4q..4q+3 (every
+// thread of the warp calls it).
+__device__ __forceinline__ void quad_update(uint32_t (&tab)[QWORDS], int q, int& size,
+                                            uint32_t sym, bool hit, int idx) {
+  const bool full = size >= TABLE;
+  const int start = hit ? idx : full ? 0 : size;
+  const int place = hit ? size - 1 : full ? TABLE - 1 : size;
+  const uint32_t s4 = sym * 0x01010101u;
+  const uint32_t after = __shfl_down_sync(FULL, tab[0], 1, QUAD);
+#pragma unroll
+  for (int w = 0; w < QWORDS; ++w) {
+    const int gw = QWORDS * q + w;
+    const uint32_t nxt = w + 1 < QWORDS ? tab[w + 1] : q == QUAD - 1 ? 0u : after;
+    const uint32_t shifted = __funnelshift_r(tab[w], nxt, 8);
+    const uint32_t ms = low_bytes(clamp4(place - 4 * gw)) & ~low_bytes(clamp4(start - 4 * gw));
+    const uint32_t mp = (place >= 0 && (place >> 2) == gw) ? 0xFFu << (8 * (place & 3)) : 0u;
+    tab[w] = (tab[w] & ~(ms | mp)) | (shifted & ms) | (s4 & mp);
+  }
+  if (!hit && !full) ++size;
+}
+
+// Word i of the payload, 0 outside [0, end).
+__device__ __forceinline__ uint32_t word_at(const uint16_t* __restrict__ words, long long i,
+                                            long long end) {
+  return i >= 0 && i < end ? (uint32_t)words[i] : 0u;
+}
+
 // words [P] u16, lane i's from bases[i], counts[i] of them; out [n] u8,
-// out[j*K + i] for j < lane_len[i].
-__global__ void __launch_bounds__(THREADS)
+// out[j*K + i] for j < lane_len[i]. A quad a lane; the warp runs the longest
+// of its lanes' steps, a quad past its lane's length writing nothing.
+__global__ void __launch_bounds__(DEC_THREADS)
     ase_decode_kernel(const uint16_t* __restrict__ words, long long P,
                       const int32_t* __restrict__ bases, const int32_t* __restrict__ counts,
                       const int32_t* __restrict__ lane_len, uint8_t* __restrict__ out, int K,
                       int stride) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= K) return;
-  const int len = min(max(lane_len[lane], 0), stride);
-  long long cur = bases[lane];
-  long long end = cur + (long long)max(counts[lane], 0);
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = g / QUAD, q = g % QUAD;
+  const bool real = lane < K;
+  const int len = real ? min(max(lane_len[lane], 0), stride) : 0;
+  const int steps = __reduce_max_sync(FULL, len);
+  long long cur = real ? bases[lane] : 0;
+  long long end = real ? cur + (long long)max(counts[lane], 0) : 0;
   end = end < P ? end : P;
-  uint32_t tab[WORDS];
+  // the words: grp the current group of 4 (left of them unread, the next
+  // lowest), a0..a3 the group after it, loaded a group ahead
+  uint64_t grp = 0;
 #pragma unroll
-  for (int w = 0; w < WORDS; ++w) tab[w] = 0;
+  for (int i = 0; i < 4; ++i) grp |= (uint64_t)word_at(words, cur + i, end) << (16 * i);
+  uint32_t a0 = word_at(words, cur + 4, end), a1 = word_at(words, cur + 5, end),
+           a2 = word_at(words, cur + 6, end), a3 = word_at(words, cur + 7, end);
+  cur += 8;
+  int left = 4;
+  uint32_t tab[QWORDS];
+#pragma unroll
+  for (int w = 0; w < QWORDS; ++w) tab[w] = 0;
   int size = 0, bits = 0;
   uint32_t win = 0, nb = 0;
-  for (int t = 0; t < len; ++t) {
+  for (int t = 0; t < steps; ++t) {
     if (nb <= 16) {
-      const uint32_t w = cur >= 0 && cur < end ? (uint32_t)words[cur] : 0u;
-      win |= w << nb;
+      if (left == 0) {
+        grp = (uint64_t)a0 | (uint64_t)a1 << 16 | (uint64_t)a2 << 32 | (uint64_t)a3 << 48;
+        left = 4;
+        a0 = word_at(words, cur, end), a1 = word_at(words, cur + 1, end);
+        a2 = word_at(words, cur + 2, end), a3 = word_at(words, cur + 3, end);
+        cur += 4;
+      }
+      win |= (uint32_t)(grp & 0xFFFFu) << nb;
+      grp >>= 16;
+      --left;
       nb += 16;
-      ++cur;
     }
     const bool hit = win & 1u;
-    uint32_t sym, used;
-    int idx = -1;
-    if (hit) {
-      const int d = (int)((win >> 1) & ((1u << bits) - 1u));
-      idx = max(size - 1 - d, 0);
-      sym = entry(tab, idx);
-      used = 1u + (uint32_t)bits;
-    } else {
-      sym = (win >> 1) & 0xFFu;
-      used = 9u;
-    }
+    const int d = (int)((win >> 1) & ((1u << bits) - 1u));
+    const int idx = max(size - 1 - d, 0);
+    const uint32_t e = quad_entry(tab, idx);
+    const uint32_t sym = hit ? e : (win >> 1) & 0xFFu;
+    const uint32_t used = hit ? 1u + (uint32_t)bits : 9u;
     if (!hit && size < TABLE) bits = 32 - __clz(size);
-    update(tab, size, sym, hit, idx);
+    quad_update(tab, q, size, sym, hit, idx);
     win >>= used;
     nb -= used;
-    out[(size_t)t * K + lane] = (uint8_t)sym;
+    if (q == 0 && t < len) out[(size_t)t * K + lane] = (uint8_t)sym;
   }
 }
 
@@ -268,8 +329,9 @@ extern "C" int ct_ase_decode(const void* words, long long P, const void* bases,
                              int stride, void* stream) {
   if (K < 1 || K > 65536 || (K & (K - 1)) || stride < 0 || P < 0)
     return (int)cudaErrorInvalidValue;
-  const int threads = K < THREADS ? K : THREADS;
-  ase_decode_kernel<<<(K + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
+  // whole warps: a warp's quads past K run with no lane
+  ase_decode_kernel<<<(QUAD * K + DEC_THREADS - 1) / DEC_THREADS, DEC_THREADS, 0,
+                      (cudaStream_t)stream>>>(
       (const uint16_t*)words, P, (const int32_t*)bases, (const int32_t*)counts,
       (const int32_t*)lane_len, (uint8_t*)out, K, stride);
   return (int)cudaGetLastError();

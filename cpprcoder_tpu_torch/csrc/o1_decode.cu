@@ -18,24 +18,168 @@
 // range < 2^24. s goes to out[i*L + j]; then every active lane adds inc to
 // the model, as the encoder does.
 //
-// Design. As kernel U's: one CTA a stream, a thread a lane up to 1,024
-// lanes, more lanes in turn with their state in global scratch; the three
-// phases between barriers. The search walks the 16 block sums of the row
-// (blended with t0's) to the block that holds v, then its 16 counts: about
-// 30 shared reads and compares, no divide beyond range / tot and code / t.
-// The queue is L's (csrc/rc_exact.cu), copied into o1_model.cuh.
+// Design (second round; the first was kernel U's three phases with a
+// chain search). All lanes share the model, so a stream runs in one CTA, a
+// thread a lane up to 1,024 lanes; a step is three phases between barriers:
+// o1_model.cuh's rescale, the coding and o1_model.cuh's update. What changed
+// (timed against the first design in PERF.md, section 6):
+//   - each lane's next word is loaded a refill ahead into a register, and
+//     its row length is read once: no global read waits on a lane's chain;
+//   - the search counts compares rather than walking a chain: the row's 16
+//     blended block sums are loaded and scanned while the divides run; the
+//     block is the number of its prefixes at or below v, then likewise the
+//     count in the block (prefix trees 4 levels deep where the first design
+//     walked two chains of 16 dependent compare-and-adds). No divide beyond
+//     range / tot and code / t;
+//   - past 1,024 lanes each thread codes K/1,024 lanes in turn, their coder
+//     state in global scratch (7 words a lane, the word loaded ahead among
+//     them; the context and symbol packed beside the queue's count, so no
+//     byte of the output is read back), and the update's atomics are
+//     grouped a warp by __match_any_sync (update_step's GROUPED), so that a
+//     thread's turns wait on fewer atomics.
+// Measured and left out: the rows to halve listed by the update's returned
+// atomics (a rescale only where rows crossed), the atomics grouped at 1,024
+// lanes or fewer, and one warp a stream up to 32 lanes: each was slower, or
+// no faster, at the corpus's shapes. The queue is L's (csrc/rc_exact.cu),
+// copied into o1_model.cuh.
 //
-// What bounds it: as U, the sequential steps, three barriers each, with the
-// search and two divides on a lane's chain.
+// What bounds it: the sequential steps; a lane's chain of two dependent
+// divides, the block's shared reads and the count trees, three barriers,
+// and the update's atomics, which runs of one byte put on few addresses.
 #include "o1_model.cuh"
 
 namespace {
 
 using namespace o1;
 
+// Inclusive prefix sums of 16 values in registers, 4 levels deep, and
+// pairwise trees over 16 values (4 levels, not a chain of 15). Each level
+// is its own instantiation, so that every index is a constant and the
+// arrays stay in registers.
+template <int D>
+__device__ __forceinline__ void scan_level(uint32_t (&p)[16]) {
+#pragma unroll
+  for (int k = 15; k >= D; --k) p[k] += p[k - D];
+}
+__device__ __forceinline__ void scan16(uint32_t (&p)[16]) {
+  scan_level<1>(p);
+  scan_level<2>(p);
+  scan_level<4>(p);
+  scan_level<8>(p);
+}
+
+struct Add {
+  __device__ __forceinline__ uint32_t operator()(uint32_t a, uint32_t b) const { return a + b; }
+};
+struct Max {
+  __device__ __forceinline__ uint32_t operator()(uint32_t a, uint32_t b) const { return max(a, b); }
+};
+struct Min {
+  __device__ __forceinline__ uint32_t operator()(uint32_t a, uint32_t b) const { return min(a, b); }
+};
+
+template <int H, class Op>
+__device__ __forceinline__ void tree_level(uint32_t (&x)[16], Op op) {
+#pragma unroll
+  for (int k = 0; k < H; ++k) x[k] = op(x[k], x[k + H]);
+}
+template <class Op>
+__device__ __forceinline__ uint32_t tree(uint32_t (&x)[16], Op op) {
+  tree_level<8>(x, op);
+  tree_level<4>(x, op);
+  tree_level<2>(x, op);
+  tree_level<1>(x, op);
+  return x[0];
+}
+
+// The blended block sums' inclusive prefixes of row r: they do not depend
+// on v, so they are loaded and summed while the divides run.
+__device__ __forceinline__ void block_prefixes(const Model& m, uint32_t r, int blend,
+                                               uint32_t (&p)[16]) {
+  const uint4* b1 = reinterpret_cast<const uint4*>(m.bsum1 + r * 16);
+  const uint4* b0 = reinterpret_cast<const uint4*>(m.bsum0);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const uint4 v1 = b1[q], v0 = b0[q];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) p[4 * q + k] = (u4_at(v1, k) << blend) + u4_at(v0, k);
+  }
+  scan16(p);
+}
+
+// The decoder's search (the symbol s whose blended inclusive prefix is the
+// first above v < tot_eff; c its exclusive prefix, f its blended count), as
+// counts of compares, not chains: the block b is the number of block
+// prefixes at or below v (the prefixes rise strictly: every count is at
+// least 1), the largest of them is the prefix before b, and in block b
+// likewise over its 16 counts. The same result as o1_model.cuh's search.
+template <bool WIDE>
+__device__ __forceinline__ uint32_t search_counted(const Model& m, uint32_t r, uint32_t v,
+                                                   int blend, const uint32_t (&p)[16],
+                                                   uint32_t& c, uint32_t& f) {
+  uint32_t le[16], below[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    const bool at = k < 15 && p[k] <= v;  // p[15] = tot_eff > v
+    le[k] = at;
+    below[k] = at ? p[k] : 0u;
+  }
+  const uint32_t b = tree(le, Add()), acc = tree(below, Max());
+  uint32_t e1[16], e0[16];
+  t1_block<WIDE>(m, r, b, e1);
+  t0_block(m, b, e0);
+#pragma unroll
+  for (int k = 0; k < 16; ++k) e1[k] = (e1[k] << blend) + e0[k];
+  scan16(e1);
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    const uint32_t q = acc + e1[k];
+    const bool at = q <= v;
+    le[k] = at;
+    below[k] = at ? q : acc;
+    e0[k] = at ? FULL : q;
+  }
+  const uint32_t cnt = tree(le, Add());
+  c = tree(below, Max());
+  f = tree(e0, Min()) - c;
+  // cnt <= 15 wherever the model's sums agree (the count at v's place
+  // rises past v); the clamp keeps a symbol inside the tables regardless
+  return 16 * b + min(cnt, 15u);
+}
+
+// One lane's coding step: the refill (the word loaded a refill ahead goes
+// into the queue, and the next one is loaded), the search, the renorm.
+// -> the symbol.
+template <bool WIDE>
+__device__ __forceinline__ uint32_t code_step(const Model& m, const uint32_t* __restrict__ words,
+                                              int K, int l4, int lane, uint32_t ctx,
+                                              uint32_t tot0, int blend, uint32_t& rng,
+                                              uint32_t& code, uint32_t& occ, uint32_t& widx,
+                                              uint64_t& q, uint32_t& nw) {
+  if (occ < (uint32_t)SLOTS) {
+    q = (q << 32) | nw;
+    occ += 4;
+    nw = widx < (uint32_t)l4 ? words[(size_t)widx * K + lane] : 0u;
+    ++widx;
+  }
+  const uint32_t tot = (m.rowtot[ctx] << blend) + tot0;
+  uint32_t p[16];
+  block_prefixes(m, ctx, blend, p);
+  const uint32_t t = rng / tot;
+  uint32_t v = code / t;
+  v = v < tot - 1 ? v : tot - 1;
+  uint32_t c, f;
+  const uint32_t sym = search_counted<WIDE>(m, ctx, v, blend, p, c, f);
+  code -= t * c;
+  rng = (c + f == tot) ? rng - t * c : t * f;
+  renorm_decode(code, rng, occ, q);
+  return sym;
+}
+
 // words [l4, K] u32 big-endian word rows (l4 >= 1); lane_len [K] i32; out
-// [n] u8; t1g as kernel U's; st [6][K] u32 (MULTI: range, code, occ,
-// widx, the queue's low and high words) or null.
+// [n] u8; t1g as kernel U's; st [7][K] u32 (MULTI: range, code, occ | ctx
+// << 8 | sym << 16, widx, the queue's low and high words, the word loaded
+// ahead) or null.
 template <bool WIDE, bool MULTI>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
     o1_decode_kernel(const uint32_t* __restrict__ words, const int32_t* __restrict__ lane_len,
@@ -45,68 +189,65 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
   const Model m = carve(smem, t1g, WIDE);
   const int tid = threadIdx.x, T = blockDim.x;
   const int lpt = MULTI ? K / T : 1;
-  uint32_t rng = FULL, code = 0, occ = 0, widx = 1, ctx = 0, sym = 0;
+  uint32_t rng = FULL, code = 0, occ = 0, widx = 2, ctx = 0, nw = 0;
   uint64_t q = 0;
+  int len = 0;
   if (MULTI) {
     for (int lane = tid; lane < K; lane += T) {
       st[lane] = FULL;
       st[K + lane] = words[lane];
       st[2 * K + lane] = 0;
-      st[3 * K + lane] = 1;
+      st[3 * K + lane] = 2;
       st[4 * K + lane] = 0;
       st[5 * K + lane] = 0;
+      st[6 * K + lane] = l4 > 1 ? words[K + lane] : 0u;
     }
   } else if (tid < K) {
     code = words[tid];
+    nw = l4 > 1 ? words[K + tid] : 0u;
+    len = lane_len[tid];
   }
   init_model<WIDE>(m);
   for (int j = 0; j < L; ++j) {
     rescale<WIDE>(m, limit1, limit0);
     const uint32_t tot0 = *m.tot0;
+    uint32_t sym = 0;
     for (int mm = 0; mm < lpt; ++mm) {
       const int lane = tid + mm * T;
-      if (lane >= K || j >= lane_len[lane]) continue;
-      const size_t at = (size_t)lane * L + j;
       if (MULTI) {
-        rng = st[lane], code = st[K + lane], occ = st[2 * K + lane], widx = st[3 * K + lane];
+        if (j >= lane_len[lane]) continue;
+        rng = st[lane], code = st[K + lane];
+        const uint32_t packed = st[2 * K + lane];
+        widx = st[3 * K + lane], nw = st[6 * K + lane];
         q = (uint64_t)st[5 * K + lane] << 32 | st[4 * K + lane];
-        ctx = j ? out[at - 1] : 0u;
+        occ = packed & 0xFFu;
+        ctx = packed >> 16;
+      } else if (j >= len) {
+        continue;
       }
-      if (occ < (uint32_t)SLOTS) {
-        const uint32_t w = widx < (uint32_t)l4 ? words[(size_t)widx * K + lane] : 0u;
-        q = (q << 32) | w;
-        occ += 4;
-        ++widx;
-      }
-      const uint32_t tot = (m.rowtot[ctx] << blend) + tot0;
-      const uint32_t t = rng / tot;
-      uint32_t v = code / t;
-      v = v < tot - 1 ? v : tot - 1;
-      uint32_t c, f;
-      sym = search<WIDE>(m, ctx, v, blend, c, f);
-      code -= t * c;
-      rng = (c + f == tot) ? rng - t * c : t * f;
-      renorm_decode(code, rng, occ, q);
-      out[at] = (uint8_t)sym;
+      sym = code_step<WIDE>(m, words, K, l4, lane, ctx, tot0, blend, rng, code, occ, widx, q, nw);
+      out[(size_t)lane * L + j] = (uint8_t)sym;
       if (MULTI) {
-        st[lane] = rng, st[K + lane] = code, st[2 * K + lane] = occ, st[3 * K + lane] = widx;
-        st[4 * K + lane] = (uint32_t)q, st[5 * K + lane] = (uint32_t)(q >> 32);
+        st[lane] = rng, st[K + lane] = code, st[2 * K + lane] = occ | ctx << 8 | sym << 16;
+        st[3 * K + lane] = widx, st[4 * K + lane] = (uint32_t)q;
+        st[5 * K + lane] = (uint32_t)(q >> 32), st[6 * K + lane] = nw;
       }
     }
     __syncthreads();
     for (int mm = 0; mm < lpt; ++mm) {
       const int lane = tid + mm * T;
-      const bool active = lane < K && j < lane_len[lane];
-      if (active) {
-        const size_t at = (size_t)lane * L + j;
-        if (MULTI) {
-          sym = out[at];
-          ctx = j ? out[at - 1] : 0u;
-        }
-        update<WIDE>(m, ctx, sym, inc);
-        ctx = sym;
+      bool active;
+      uint32_t r = ctx;
+      if (MULTI) {
+        active = j < lane_len[lane];
+        const uint32_t packed = active ? st[2 * K + lane] : 0u;
+        r = (packed >> 8) & 0xFFu;
+        sym = packed >> 16;
+      } else {
+        active = j < len;
       }
-      count_active(m, active, inc);
+      update_step<WIDE, MULTI>(m, active, r, sym, inc);
+      if (!MULTI && active) ctx = sym;
     }
     __syncthreads();
   }
@@ -129,8 +270,8 @@ cudaError_t launch(const void* words, const void* lane_len, void* out, void* t1g
 }  // namespace
 
 // words [l4, K] u32 (big-endian word rows), lane_len [K] i32 -> out [n] u8
-// (byte i*L + j is lane i's step j). t1 and st as for ct_o1_encode (st
-// [6*K]).
+// (byte i*L + j is lane i's step j). t1 as for ct_o1_encode; st [7*K] u32
+// scratch past 1,024 lanes, else null.
 extern "C" int ct_o1_decode(const void* words, const void* lane_len, void* out, void* t1,
                             void* st, int K, int l4, int L, int inc, int limit1_log2,
                             int limit0_log2, int blend_log2, int wide, void* stream) {

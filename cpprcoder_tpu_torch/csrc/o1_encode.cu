@@ -94,12 +94,12 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
     for (int mm = 0; mm < lpt; ++mm) {
       const int lane = tid + mm * T;
       const bool active = lane < K && j < lane_len[lane];
+      uint32_t r = 0, s = 0;
       if (active) {
-        const uint32_t s = x[(size_t)j * K + lane];
-        const uint32_t r = j ? x[(size_t)(j - 1) * K + lane] : 0u;
-        update<WIDE>(m, r, s, inc);
+        s = x[(size_t)j * K + lane];
+        r = j ? x[(size_t)(j - 1) * K + lane] : 0u;
       }
-      count_active(m, active, inc);
+      update_step<WIDE, false>(m, active, r, s, inc);
     }
     __syncthreads();
   }

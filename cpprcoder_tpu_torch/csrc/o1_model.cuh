@@ -1,7 +1,8 @@
 // CT-RC3's shared model and coder steps, for kernels U (o1_encode.cu) and V
 // (o1_decode.cu). What they compute is in those files and in
-// ops/o1_ops.py's docstring; this header holds the model's layout and the
-// three phases of a step that both kernels run the same way.
+// ops/o1_ops.py's docstring; this header holds the model's layout, its
+// set-up, the rescale and the update that both kernels run the same way,
+// and U's lookup (V finds its symbol by counts of compares: o1_decode.cu).
 //
 // The model, one copy a stream (one CTA):
 //   t1      order-1 counts [256][256]: u16 pairs in shared memory (128 KiB,
@@ -15,19 +16,20 @@
 // Every count starts at 1 (row totals 256, block sums 16).
 //
 // A step, between barriers:
-//   rescale  each warp takes 256 / warps rows; a row whose total has reached
-//            limit1 is halved, (f >> 1) | 1, by the warp (8 counts a lane),
-//            which rebuilds its block sums (lanes 2b, 2b+1: block b) and
-//            total; the last warp does t0 the same way once tot0 has reached
-//            limit0. Every row is checked every step: a halved row can still
-//            be at its limit.
+//   rescale  warp w takes rows w, w + warps, ...; a row whose total has
+//            reached limit1 is halved, (f >> 1) | 1, by the warp (8 counts
+//            a lane), which rebuilds its block sums (lanes 2b, 2b+1: block
+//            b) and total; the last warp does t0 the same way once tot0 has
+//            reached limit0. Every row is checked every step: a halved row
+//            can still be at its limit.
 //   code     each lane reads f and the exclusive prefix of its symbol in its
 //            context's row (the block sums before its block, then the counts
 //            before it in the block: 16-byte loads), and t0's likewise.
 //   update   each active lane adds inc to t1[ctx][s] (a u16 half through an
 //            atomic add on its word: no carry, the count stays below 2^16),
 //            the block sums, rowtot[ctx], t0[s] and bsum0; each warp adds
-//            inc times its active lanes to tot0.
+//            inc times its active lanes to tot0. Past 1,024 lanes V groups
+//            a warp's lanes by address first (update_step's GROUPED).
 #pragma once
 
 #include <cstdint>
@@ -134,17 +136,21 @@ __device__ __forceinline__ void halve_t0(const Model& m) {
   publish_sums(a.x + a.y + a.z + a.w + b.x + b.y + b.z + b.w, m.bsum0, m.tot0);
 }
 
-// The rescale phase (every warp; blockDim.x a power of two, 256..1024);
-// barrier after.
+// The rescale phase (every warp; blockDim.x a power of two, 256..1024):
+// warp w checks rows w, w + nw, ... and halves those at or over limit1;
+// the last warp does t0; a barrier after. Strided, rows that cross
+// together (a text's letters) fall to different warps: faster at K = 256
+// than a run of 256 / nw rows a warp or a spread whose reads fall in
+// distinct banks, and within 5% of both at the other shapes timed
+// (PERF.md, section 6).
 template <bool WIDE>
 __device__ void rescale(const Model& m, uint32_t limit1, uint32_t limit0) {
   const int ln = threadIdx.x & 31, w = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  const int rows = 256 / nw, r0 = w * rows;
-  uint32_t over = __ballot_sync(FULL, ln < rows && m.rowtot[r0 + ln] >= limit1);
+  uint32_t over = __ballot_sync(FULL, ln < 256 / nw && m.rowtot[w + nw * ln] >= limit1);
   while (over) {
     const int i = __ffs(over) - 1;
     over &= over - 1;
-    halve_row<WIDE>(m, r0 + i);
+    halve_row<WIDE>(m, w + nw * i);
   }
   if (w == nw - 1 && *m.tot0 >= limit0) halve_t0(m);
   __syncthreads();
@@ -222,62 +228,38 @@ __device__ __forceinline__ void lookup(const Model& m, uint32_t r, uint32_t s, i
   tot = (m.rowtot[r] << blend) + tot0;
 }
 
-// The decoder's search in context r: the symbol s with the blended
-// inclusive prefix of s - 1 at or below v and that of s above it (v <
-// tot_eff); c its exclusive prefix, f its blended count.
-template <bool WIDE>
-__device__ __forceinline__ uint32_t search(const Model& m, uint32_t r, uint32_t v, int blend,
-                                           uint32_t& c, uint32_t& f) {
-  const uint4* b1 = reinterpret_cast<const uint4*>(m.bsum1 + r * 16);
-  const uint4* b0 = reinterpret_cast<const uint4*>(m.bsum0);
-  uint32_t acc = 0;
-  int b = 0;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const uint4 v1 = b1[q], v0 = b0[q];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const uint32_t blk = (u4_at(v1, k) << blend) + u4_at(v0, k);
-      if (b == 4 * q + k && acc + blk <= v) acc += blk, ++b;
-    }
+// The update phase, a warp at a time (every lane of the warp calls it):
+// each active lane adds inc to t1[r][s], its block sum, rowtot[r], t0[s]
+// and its block sum (atomics: the sums do not depend on the order), and
+// lane 0 adds inc times the warp's active lanes to tot0. GROUPED: lanes
+// with the same (r, s) (the same s) add once, inc times the group's size.
+template <bool WIDE, bool GROUPED>
+__device__ __forceinline__ void update_step(const Model& m, bool active, uint32_t r, uint32_t s,
+                                            uint32_t inc) {
+  const int ln = threadIdx.x & 31;
+  bool lead1 = active, lead0 = active;
+  uint32_t add1 = inc, add0 = inc;
+  if (GROUPED) {
+    // inactive lanes get keys of their own, outside both ranges
+    const uint32_t g1 = __match_any_sync(FULL, active ? r << 8 | s : 0x10000u + (uint32_t)ln);
+    const uint32_t g0 = __match_any_sync(FULL, active ? s : 0x100u + (uint32_t)ln);
+    lead1 = active && __ffs(g1) - 1 == ln, lead0 = active && __ffs(g0) - 1 == ln;
+    add1 = inc * __popc(g1), add0 = inc * __popc(g0);
   }
-  b = b < 15 ? b : 15;
-  uint32_t e1[16], e0[16];
-  t1_block<WIDE>(m, r, b, e1);
-  t0_block(m, b, e0);
-  int cnt = 0;
-  f = 0;
-#pragma unroll
-  for (int k = 0; k < 16; ++k) {
-    const uint32_t e = (e1[k] << blend) + e0[k];
-    if (cnt == k) {
-      if (acc + e <= v)
-        acc += e, ++cnt;
-      else
-        f = e;
-    }
+  if (lead1) {
+    if (WIDE)
+      atomicAdd(m.t1 + r * 256 + s, add1);
+    else
+      atomicAdd(m.t1 + r * 128 + (s >> 1), add1 << (16 * (s & 1)));
+    atomicAdd(m.bsum1 + r * 16 + (s >> 4), add1);
+    atomicAdd(m.rowtot + r, add1);
   }
-  c = acc;
-  return (uint32_t)(16 * b + (cnt < 15 ? cnt : 15));
-}
-
-// One active lane's update (atomics: the sum does not depend on the order).
-template <bool WIDE>
-__device__ __forceinline__ void update(const Model& m, uint32_t r, uint32_t s, uint32_t inc) {
-  if (WIDE)
-    atomicAdd(m.t1 + r * 256 + s, inc);
-  else
-    atomicAdd(m.t1 + r * 128 + (s >> 1), inc << (16 * (s & 1)));
-  atomicAdd(m.bsum1 + r * 16 + (s >> 4), inc);
-  atomicAdd(m.rowtot + r, inc);
-  atomicAdd(m.t0 + s, inc);
-  atomicAdd(m.bsum0 + (s >> 4), inc);
-}
-
-// tot0 grows by inc for each active lane of the warp.
-__device__ __forceinline__ void count_active(const Model& m, bool active, uint32_t inc) {
+  if (lead0) {
+    atomicAdd(m.t0 + s, add0);
+    atomicAdd(m.bsum0 + (s >> 4), add0);
+  }
   const uint32_t a = __popc(__ballot_sync(FULL, active));
-  if ((threadIdx.x & 31) == 0 && a) atomicAdd(m.tot0, inc * a);
+  if (ln == 0 && a) atomicAdd(m.tot0, inc * a);
 }
 
 // ------------------------------------------------------- the coder's steps

@@ -3,9 +3,8 @@
 The JAX package has no Pallas kernel here: it runs each direction as one
 compiled `lax.scan` (cpprcoder_tpu/ops/ase_ops.py:47 `_encode_fn`, scan
 :89, whose words `rans_ops._stream_fn` places, :165-167; :103
-`_decode_fn`, scan :148). Both kernels are in `csrc/ase.cu`, a thread a
-lane: every lane has its own 64-entry recency table, so lanes share
-nothing.
+`_decode_fn`, scan :148). Both kernels are in `csrc/ase.cu`: every lane
+has its own 64-entry recency table, so lanes share nothing.
 
 S: each thread keeps its lane's table in 16 registers (4 entries a u32
 word), finds a symbol with a zero-byte test a word, and moves entries with
@@ -14,9 +13,13 @@ byte masks and funnel shifts; its words go to a padded word-major area
 offsets, and a warp a lane copies its words to their place in lane order
 (three launches and a memset, counted as one). Nothing is read back.
 
-T: the same table; each lane reads a 32-bit window of its words, taking a
-word whenever 16 bits or fewer are left, and writes out[j*K + i]
-(coalesced over the lanes).
+T: the same table, spread over a quad of 4 threads a lane (16 entries
+each; a hit's entry is one shuffle from its owner, the update 4 words a
+thread and one shuffle down, the coder state copied in each thread), a
+warp (8 lanes) a CTA; each lane reads a 32-bit window of its words,
+taking a word whenever 16 bits or fewer are left, from registers loaded a
+group of 4 words ahead, and writes out[j*K + i] (coalesced over the
+lanes).
 
 Their plain versions are `ase_ops.encode_words_plain` and
 `ase_ops.decode_symbols_plain`. On a CPU tensor a wrapper runs the plain

@@ -14,12 +14,16 @@ thread, their coder state in global scratch). The model lives in shared
 memory: t1 as u16 pairs (128 KiB) where its counts stay below 2^16
 (`o1_ops.table_wide` false), else as u32 in global memory (L2-resident);
 beside it, per row 16 block sums of 16 counts (u32) and the row total, and
-t0 with its block sums and total. A step is three phases between
-barriers: the rescale (a warp a row that has reached its limit: halve,
-rebuild its block sums and total), the coding (a lane reads its row's
-prefix as block sums then counts, about 30 reads, and divides range by
-tot_eff; V finds its symbol block by block), and the update (shared-memory
-atomics, whose sum does not depend on the lanes' order).
+t0 with its block sums and total. U's step is three phases between
+barriers: the rescale (every row checked; a warp a row that has reached
+its limit: halve, rebuild its block sums and total), the coding (a lane
+reads its row's prefix as block sums then counts, about 30 reads, and
+divides range by tot_eff), and the update (shared-memory atomics, whose
+sum does not depend on the lanes' order). V (second round) runs the same
+phases, its rows checked interleaved over the warps, its symbol found by
+counts of compares (prefix trees, not a chain), each lane's next word
+loaded a refill ahead; past 1,024 lanes its atomics are grouped a warp by
+`__match_any_sync`.
 
 Their plain versions are `o1_ops.encode_events_plain` and
 `o1_ops.decode_symbols_plain`. On a CPU tensor a wrapper runs the plain
@@ -112,7 +116,7 @@ def decode_symbols(words: torch.Tensor, lane_len: torch.Tensor, n: int,
     lib = build.load()
     with torch.cuda.device(dev):
         out = torch.empty(n, dtype=torch.uint8, device=dev)
-        t1, st = _scratch(k, wide, 6, dev)
+        t1, st = _scratch(k, wide, 7, dev)
         rc = lib.ct_o1_decode(
             words.data_ptr(), lane_len.data_ptr(), out.data_ptr(), _ptr(t1),
             _ptr(st), k, l4, steps, *params, int(wide),

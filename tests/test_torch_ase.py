@@ -51,7 +51,23 @@ def test_ase_matches_jax_and_oracle(case, lanes):
     assert jops.ase_decode_jax(blob) == data
 
 
-# the hard cases of chip_smoke.py's phase 3, at a few thousand steps
+def _table_edge_hits(rounds):
+    """64 distinct symbols, then hits at table indices 15, 16, 31, 32, 47,
+    48, 0 and 63 in turn: either side of kernel T's quad boundaries."""
+    table = list(range(64))
+    out = list(table)
+    for _ in range(rounds):
+        for idx in (15, 16, 31, 32, 47, 48, 0, 63):
+            s = table.pop(idx)
+            table.append(s)
+            out.append(s)
+    return bytes(out)
+
+
+# the hard cases of chip_smoke.py's phase 3, at a few thousand steps; the
+# last three for kernel T's quads: lanes whose first words sit at offsets
+# 0, 2, 1 and 3 mod 4, hits either side of the quad's boundaries, and a
+# full table evicting every step at K = 2
 HARD = {
     "runs (every hit at d = 0)": (b"\x33" * 1500 + b"\x44" * 1500, 2),
     "all 256 values cycled (a full table evicting every step)":
@@ -61,6 +77,9 @@ HARD = {
     "n not a multiple of K": (_seeded(8 * 301 + 5, 9, 40), 8),
     "K = 1": (corpus_file("xargs.1")[:3000], 1),
     "default lanes": (corpus_file("fields.c"), None),
+    "first words at each offset mod 4": (_seeded(4 * 500 + 1, 1, 70), 4),
+    "hits at the quad's edges": (_table_edge_hits(300), 1),
+    "full table evicting, K = 2": (bytes(range(256)) * 12, 2),
 }
 
 
@@ -71,6 +90,24 @@ def test_ase_hard_cases_match_the_oracle(case):
     assert blob == tref.ase_encode(data, lanes=lanes)
     assert ctt.decompress(blob, codec="ase", **CPU) == data
     assert tref.ase_decode(blob) == data
+
+
+@pytest.mark.parametrize("case", ["first words at each offset mod 4",
+                                  "hits at the quad's edges",
+                                  "full table evicting, K = 2"])
+def test_quad_cases_match_jax(case):
+    data, lanes = HARD[case]
+    blob = ctt.compress(data, codec="ase", lanes=lanes, **CPU)
+    assert blob == jops.ase_encode_jax(data, lanes=lanes)
+    assert jops.ase_decode_jax(blob) == data
+
+
+def test_first_words_sit_at_each_offset_mod_4():
+    data, k = HARD["first words at each offset mod 4"]
+    bits = np.frombuffer(tref.ase_encode(data, lanes=k)[5:5 + 4 * k],
+                         np.uint32).astype(np.int64)
+    counts = (bits + 15) // 16
+    assert sorted(((np.cumsum(counts) - counts) % 4).tolist()) == [0, 1, 2, 3]
 
 
 def test_each_side_decodes_the_others_containers():

@@ -1268,9 +1268,27 @@ def _seeded(n, seed, alphabet=256):
     return rng.integers(0, alphabet, n, dtype=np.uint8).tobytes()
 
 
+def table_edge_hits(rounds: int) -> bytes:
+    """64 distinct symbols, then hits at table indices 15, 16, 31, 32, 47,
+    48, 0 and 63 in turn (`rounds` times): the entries that kernel T's quad
+    keeps on either side of its threads' boundaries (16 entries each)."""
+    table = list(range(64))
+    out = list(table)
+    for _ in range(rounds):
+        for idx in (15, 16, 31, 32, 47, 48, 0, 63):
+            s = table.pop(idx)
+            table.append(s)
+            out.append(s)
+    return bytes(out)
+
+
 # (data, K): runs (every hit at d = 0), all 256 values cycled (a full table
 # evicting every step), exactly 64 and 65 distinct symbols, n not a
-# multiple of K, K = 1, and K = 65,536 (the top, with lanes of length 0)
+# multiple of K, K = 1, and K = 65,536 (the top, with lanes of length 0);
+# for T's quads: lanes whose first words sit at offsets 0, 2, 1, 3 mod 4
+# (the last lane ending on the payload's last word), hits at the indices
+# on either side of its threads' boundaries, and a full table evicting
+# every step at K = 2 (128 symbols a lane)
 ASE_CASES = {
     "runs": (b"\x33" * 3000 + b"\x44" * 3000, 2),
     "cycle": (bytes(range(256)) * 40, 4),
@@ -1279,6 +1297,9 @@ ASE_CASES = {
     "ragged": (_seeded(256 * 40 + 7, 33, 90), 256),
     "K=1": (_seeded(10_000, 34, 200), 1),
     "K=65536": (b"\x05" * 70_000 + _seeded(60_000, 35), 65536),
+    "first words at each offset mod 4": (_seeded(4 * 500 + 1, 1, 70), 4),
+    "hits at the quad's edges": (table_edge_hits(300), 1),
+    "full table evicting, K=2": (bytes(range(256)) * 30, 2),
 }
 
 
@@ -1298,6 +1319,9 @@ def test_ase_kernels_match_plain_and_the_oracle(dev, case):
     bases = (torch.cumsum(counts, 0) - counts).to(torch.int32)
     args = (payload[:p].contiguous(), bases, counts.to(torch.int32), lens, n,
             stride)
+    if case == "first words at each offset mod 4":
+        assert sorted((bases % 4).tolist()) == [0, 1, 2, 3]
+        assert int(bases[-1] + counts[-1]) == p
     out = ase_kernels.decode_symbols(*args)
     assert torch.equal(out, ase_ops.decode_symbols_plain(*args))
     assert out.cpu().numpy().tobytes() == data
@@ -1340,6 +1364,24 @@ O1_CASES = {
                   dict(inc=200, blend_log2=0, limit1_log2=13)),
     "K=2048": (_textish(2048 * 6 + 5, 44).tobytes(), 2048, {}),
     "K=65536": (_seeded(65536 * 2 + 100, 45), 65536, {}),
+    # kernel V's second design: every row halved every step (limit1_log2
+    # 8), rows halving at 64 lanes (9), t0 every step (limit0_log2 8), 64
+    # lanes on the same bytes (all of them taking one row over its limit in
+    # one step), one-byte runs at 256 and 2,048 lanes (every atomic on one
+    # address; at 2,048 grouped by __match_any_sync), 256 symbols in one
+    # warp (K = 32), and K = 1, 32 and 64
+    "limit1_log2 8": (_textish(3000, 47).tobytes(), 2, dict(limit1_log2=8)),
+    "limit1_log2 9, 64 lanes": (_textish(64 * 50 + 3, 48).tobytes(), 64,
+                                dict(limit1_log2=9)),
+    "limit0_log2 8": (_seeded(4000, 49, 60), 4, dict(limit0_log2=8)),
+    "lanes crossing a row together": (_textish(80, 50).tobytes() * 64, 64, {}),
+    "one-byte run, 256 lanes": (bytes(256 * 40), 256, {}),
+    "one-byte run, 2048 lanes": (bytes(2048 * 6), 2048, {}),
+    "256 symbols in one warp": (bytes(i % 256 for i in range(32 * 300)), 32,
+                                {}),
+    "K=1": (_textish(3000, 51).tobytes(), 1, {}),
+    "K=32": (_textish(32 * 60 + 5, 52).tobytes(), 32, {}),
+    "K=64": (_textish(64 * 40 + 3, 53).tobytes(), 64, {}),
 }
 
 
@@ -1364,6 +1406,33 @@ def test_o1_kernels_match_plain_and_the_oracle(dev, case):
                         **opts)
     assert blob == o1_ref.o1_encode(data, lanes=k, **opts)
     assert ctt.decompress(blob, codec="adaptive_o1", device="cuda") == data
+
+
+@pytest.mark.parametrize("rows", ["one word row", "rows ending at a word edge"])
+def test_o1_decode_word_row_edges(dev, rows):
+    """V against its plain version on word rows cut short: a single row
+    (l4 = 1), and rows that end with the longest lane's last word (no zero
+    row after it; three lanes' payloads end on a word edge there). Past a
+    row's end both read zeros."""
+    data = _seeded(8 * 120, 3, 40)
+    n, k = len(data), 8
+    steps = -(-n // k)
+    params = (o1_ref.pick_inc(k), 11, 15, 5)
+    x = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(dev)
+    lens = layout.lane_lengths(n, k, steps, dev)
+    rows_, sizes = expand.materialize_rows(
+        o1_kernels.encode_events(layout.pad2d_chunked(x, k, steps), lens,
+                                 *params))
+    words = layout.decode_words(rows_, sizes)
+    assert int(sizes.max()) % 4 == 0 and int((sizes % 4 == 0).sum()) == 3
+    cut = words[:1] if rows == "one word row" \
+        else words[:int(sizes.max()) // 4]
+    cut = cut.contiguous()
+    out = o1_kernels.decode_symbols(cut, lens, n, steps, *params)
+    assert torch.equal(out, o1_ops.decode_symbols_plain(cut, lens, n, steps,
+                                                        *params))
+    if rows != "one word row":
+        assert out.cpu().numpy().tobytes() == data
 
 
 def test_o1_outside_the_bound_raises_on_the_card(dev):

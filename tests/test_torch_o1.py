@@ -33,6 +33,14 @@ def _seeded(n, seed, alphabet=256):
     return bytes(rng.integers(0, alphabet, n, dtype=np.uint8))
 
 
+def _textish(n, seed):
+    """Half lowercase letters, half random bytes (seeded)."""
+    rng = np.random.default_rng(seed)
+    return np.concatenate([rng.integers(97, 123, n // 2, dtype=np.uint8),
+                           rng.integers(0, 256, n - n // 2, dtype=np.uint8)]
+                          ).tobytes()
+
+
 def _cases():
     cases = {f"std {i}": d for i, d in enumerate(std_cases())}
     cases["grammar.lsp"] = corpus_file("grammar.lsp")
@@ -83,6 +91,26 @@ HARD = {
                                     dict(limit1_log2=18, limit0_log2=20,
                                          blend_log2=2)),
     "inc 0: a static model": (corpus_file("xargs.1")[:1200], 2, dict(inc=0)),
+    # kernel V's hard cases (the card runs the same inputs, with 2,048
+    # lanes on a one-byte run beside them): every row halved every step
+    # (limit1_log2 8), rows halving at 64 lanes (9), t0 every step
+    # (limit0_log2 8), 64 lanes on the same bytes (all of them taking one
+    # row over its limit in one step), a one-byte run at 256 lanes (every
+    # atomic on one address), 256 symbols in one warp (K = 32), and K = 1,
+    # 32 and 64
+    "limit1_log2 8: every row halves every step":
+        (_textish(300, 47), 2, dict(limit1_log2=8)),
+    "limit1_log2 9 at 64 lanes": (_textish(64 * 50 + 3, 48), 64,
+                                  dict(limit1_log2=9)),
+    "limit0_log2 8: t0 halves every step": (_seeded(4000, 49, 60), 4,
+                                            dict(limit0_log2=8)),
+    "64 lanes crossing a row together": (_textish(80, 50) * 64, 64, {}),
+    "one-byte run at 256 lanes": (bytes(256 * 40), 256, {}),
+    "256 symbols in one warp": (bytes(i % 256 for i in range(32 * 150)), 32,
+                                {}),
+    "K = 1": (_textish(1500, 51), 1, {}),
+    "K = 32": (_textish(32 * 60 + 5, 52), 32, {}),
+    "K = 64": (_textish(64 * 40 + 3, 53), 64, {}),
 }
 
 
@@ -94,6 +122,49 @@ def test_o1_hard_cases_match_the_oracle(case):
     assert blob == tref.o1_encode(data, lanes=lanes, **opts)
     assert ctt.decompress(blob, codec="adaptive_o1", **CPU) == data
     assert tref.o1_decode(blob) == data
+
+
+@pytest.mark.parametrize("case", [c for c in HARD if not HARD[c][2]])
+def test_o1_hard_cases_at_the_defaults_match_jax(case):
+    """The hard cases at pick_inc's defaults, where the JAX package is
+    exact (C8): its container equals the port's."""
+    data, lanes, _ = HARD[case]
+    blob = ctt.compress(data, codec="adaptive_o1", lanes=lanes, **CPU)
+    assert blob == jops.o1_encode_jax(data, lanes=lanes)
+    assert jops.o1_decode_jax(blob) == data
+
+
+def _word_rows(data, k):
+    n = len(data)
+    steps = -(-n // k)
+    x = torch.from_numpy(np.frombuffer(data, np.uint8).copy())
+    lens = layout.lane_lengths(n, k, steps, "cpu")
+    params = (tref.pick_inc(k), 11, 15, 5)
+    rows, sizes = expand.materialize_rows(o1_ops.encode_events_plain(
+        layout.pad2d_chunked(x, k, steps), lens, *params))
+    return layout.decode_words(rows, sizes), sizes, lens, n, steps, params
+
+
+@pytest.mark.parametrize("rows", ["one word row", "rows ending at a word edge"])
+def test_decode_reads_zeros_past_the_word_rows(rows):
+    """decode_symbols_plain (kernel V's plain version, which the card holds
+    V to on the same rows) reads zeros past a lane's word row: rows cut
+    after the longest lane's last word (three lanes' payloads end on a
+    word edge) decode as with the zero row after them, and a single row
+    (l4 = 1) as with every later row zeroed."""
+    data = _seeded(8 * 120, 3, 40)
+    words, sizes, lens, n, steps, params = _word_rows(data, 8)
+    assert int(sizes.max()) % 4 == 0 and int((sizes % 4 == 0).sum()) == 3
+    if rows == "one word row":
+        cut, same = words[:1].contiguous(), words.clone()
+        same[1:] = 0
+    else:
+        cut, same = words[:int(sizes.max()) // 4].contiguous(), words
+    out = o1_ops.decode_symbols_plain(cut, lens, n, steps, *params)
+    assert torch.equal(out, o1_ops.decode_symbols_plain(same, lens, n, steps,
+                                                        *params))
+    if rows != "one word row":
+        assert out.numpy().tobytes() == data
 
 
 def test_u32_table_sizes_and_choice():
