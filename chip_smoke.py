@@ -75,18 +75,23 @@ Phases, one line each (a failed phase exits non-zero):
               V (CT-RC3 encode, decode) at limit1_log2 9 (rows halving
               nearly every step), t0 rescaling, n < K, a one-byte run,
               the u32 table (blend 0, limit1_log2 17) at one and four
-              lanes, 2,048 and 65,536 lanes; each case's container
-              against the oracle's; then timed at kennedy.xls's shapes
-              (K = 256) and grammar.lsp's (K = 2); W, X and Y (CT-ANS2's
-              model, coder and decode) and the normalize W and Y share
-              (alone, at 255 count vectors against the oracle's) at
-              refresh_log2 0 and past bitlen(steps), limit_log2 9, n < K,
-              n not a multiple of K, a one-byte run, all 256 values,
-              K = 1 and K = 65,536, each container against the oracle's,
-              and the model past 2^32 (8,192 lanes x 4,100 steps of one
-              byte at inc 255: W's tables against the oracle's model pass
-              at limit_log2 40, 33, 32, X and Y round trips); then timed
-              at kennedy.xls's and grammar.lsp's shapes;
+              lanes, 2,048 and 65,536 lanes (U's model pass and coder
+              pass each held to its plain version too), and U over chunks
+              of 1 to 300 steps (kennedy.xls in 16); each case's
+              container against the oracle's; then timed at kennedy.xls's
+              shapes (K = 256) and grammar.lsp's (K = 2); W, X and Y
+              (CT-ANS2's model, coder and decode) and the normalize W and
+              Y share (alone, at 255 count vectors against the oracle's)
+              at refresh_log2 0 and past bitlen(steps), limit_log2 9,
+              n < K, n not a multiple of K, a one-byte run, all 256
+              values, K = 1, 32, 64, 16,384, 32,768 and 65,536, more
+              words than Y's ring holds, every lane refilling at one
+              step, each container against the oracle's, Y on word
+              streams cut short, and the model past 2^32 (8,192 lanes x
+              4,100 steps of one byte at inc 255: W's tables against the
+              oracle's model pass at limit_log2 40, 33, 32, X and Y round
+              trips); then timed at kennedy.xls's and grammar.lsp's
+              shapes;
   4. main     per codec (rcx, rcq, rans, huffman, static_range,
               adaptive_range, blocksort, mtf, mtf1, rle0, pipeline, slz4,
               ase, adaptive_o1, adaptive_rans),
@@ -1326,6 +1331,44 @@ def o1_word_row_edges(dev, err):
             fail("kernel V on rows ending at a word edge did not decode")
 
 
+def u_chunk_edges(dev, err) -> str:
+    """Kernel U with its passes alternating over chunks of a few steps
+    (the model and the coder state carried across each edge): steps one
+    below, at and one past the chunk, chunks of one step, the last lane
+    ending mid-chunk, the u32 table and 2,048 lanes, each against the plain
+    version's events and the oracle's container; kennedy.xls in chunks of
+    256 steps against U in one chunk."""
+    text = textish(8 * 60, 611)
+    cases = [(text, 8, {}, 61), (text, 8, {}, 60), (text, 8, {}, 59),
+             (textish(4 * 50, 612), 4, {}, 1),
+             (textish(8 * 50 + 17, 613), 8, {}, 20),
+             (b"\x07" * 6000 + bytes(range(256)) * 4, 4,
+              dict(blend_log2=0, limit1_log2=17), 300),
+             (textish(2048 * 6 + 5, 614), 2048, {}, 2)]
+    for data, k, opts, chunk in cases:
+        n, steps, x2d, lens = coder_inputs(data, k, dev)
+        params = o1_params(k, opts)
+        what = f"K={k} n={n} {opts} in chunks of {chunk} steps"
+        ev = hold(err, "o1_encode", o1_kernels.encode_events(
+            x2d, lens, *params, chunk_steps=chunk),
+            o1_ops.encode_events_plain(x2d, lens, *params), f"kernel U at {what}")
+        rows, sizes = expand.materialize_rows(ev)
+        blob = layout.assemble(lambda wide: o1_ops.header(n, k, wide, *params),
+                               rows.cpu().numpy(), sizes.cpu().numpy())
+        if blob != o1_ref.o1_encode(data, lanes=k, **opts):
+            fail(f"kernel U at {what}: not the oracle's container")
+    data = corpus("kennedy.xls")
+    n, steps, x2d, lens = coder_inputs(data, pick_lanes(len(data)), dev)
+    params = o1_params(x2d.shape[1], {})
+    hold(err, "o1_encode", o1_kernels.encode_events(x2d, lens, *params,
+                                                    chunk_steps=256),
+         o1_kernels.encode_events(x2d, lens, *params),
+         "kernel U at kennedy.xls in chunks of 256 steps")
+    return (f"U over chunks of 1 to 300 steps ({len(cases)} cases, and "
+            f"kennedy.xls in {-(-steps // 256)} chunks) equals its plain "
+            f"version and the oracle")
+
+
 def phase_kernels_ase_o1(dev):
     """S, T (CT-ASE1) and U, V (CT-RC3) against their plain step loops,
     and the containers of their cases against the oracles."""
@@ -1375,10 +1418,20 @@ def phase_kernels_ase_o1(dev):
         stats = {}
         enc = (lambda: o1_kernels.encode_events(x2d, lens, *params),
                lambda: o1_ops.encode_events_plain(x2d, lens, *params))
-        ev = hold(err, "o1_encode", enc[0](), plain(
-            "o1_encode", lambda: o1_ops.encode_events_plain(x2d, lens,
-                                                            *params, stats)),
-            f"kernel U at {what}")
+
+        def plain_passes():
+            trip, _ = o1_ops.model_triples_plain(x2d, lens, *params,
+                                                 stats=stats)
+            return trip, o1_ops.coder_events_plain(trip)[0]
+
+        # U's plain version is its passes' composition: each pass alone and
+        # U whole held against it
+        trip_p, ev_p = plain("o1_encode", plain_passes)
+        ev = hold(err, "o1_encode", enc[0](), ev_p, f"kernel U at {what}")
+        hold(err, "o1_encode", o1_kernels.model_triples(x2d, lens, *params),
+             trip_p, f"kernel U's model pass at {what}")
+        hold(err, "o1_encode", o1_kernels.coder_events(trip_p), ev_p,
+             f"kernel U's coder pass at {what}")
         words = layout.decode_words(*expand.materialize_rows(ev))
         dec = (lambda: o1_kernels.decode_symbols(words, lens, n, steps,
                                                  *params),
@@ -1458,9 +1511,11 @@ def phase_kernels_ase_o1(dev):
     for data, k, opts in o1_cases:
         o1_case(data, k, f"K={k} n={len(data)} {opts}", **opts)
     o1_word_row_edges(dev, err)
+    u_chunks = u_chunk_edges(dev, err)
     containers("adaptive_o1", o1_cases, o1_ref.o1_encode)
     print(f"[kernels] ok {len(ase_cases)} CT-ASE1 and {len(o1_cases)} CT-RC3 "
-          f"containers equal the oracle's and round-trip", flush=True)
+          f"containers equal the oracle's and round-trip; {u_chunks}",
+          flush=True)
 
     # held and timed at kennedy.xls's shapes (ase K = 256, stride 4,023;
     # CT-RC3 K = 256, L = 4,023), kernel vs plain; held there and at
@@ -1577,7 +1632,20 @@ def phase_kernels_ans2(dev):
              (b"\x61" * 20_000, 64, dict(inc=255, limit_log2=200)),
              (bytes(range(256)) * 40, 32, dict(refresh_log2=2)),
              (seeded(6000, 200), 1, {}),
-             (b"\x05" * 70_000 + seeded(70_000, 256), 65536, {})]
+             (b"\x05" * 70_000 + seeded(70_000, 256), 65536, {}),
+             # Y's second design: more words than its ring of 8,192 holds,
+             # every lane refilling at the same steps, a window every step
+             # at one warp and past it, K = 32 and 64 around the one-warp
+             # cut, the states in shared memory (16,384 lanes) and in
+             # global scratch with the ring (32,768)
+             (seeded(64 * 400, 256), 64, {}),
+             (b"\x42" * (64 * 300), 64, dict(inc=1)),
+             (seeded(32 * 60, 70), 32, dict(refresh_log2=0)),
+             (seeded(64 * 40, 70), 64, dict(refresh_log2=0)),
+             (corpus("fields.c")[:32 * 70 + 9], 32, {}),
+             (corpus("fields.c")[:64 * 40 + 33], 64, {}),
+             (seeded(16384 * 5 + 77, 100), 16384, {}),
+             (seeded(32768 * 3 + 5, 100), 32768, {})]
     for data, k, opts in cases:
         case(data, k, f"K={k} n={len(data)} {opts}", **opts)
         blob = ctt.compress(data, codec="adaptive_rans", device="cuda",
@@ -1588,9 +1656,10 @@ def phase_kernels_ans2(dev):
             fail(f"adaptive_rans K={k} n={len(data)} {opts}: not the "
                  f"oracle's container, or no round trip")
     wide = wide_model_case(dev, err)
+    cut = y_cut_stream(dev, err)
     print(f"[kernels] ok the normalize at {len(counts)} count vectors and "
           f"{len(cases)} CT-ANS2 containers equal the oracle's and "
-          f"round-trip; {wide}", flush=True)
+          f"round-trip; {wide}; {cut}", flush=True)
 
     # held and timed at kennedy.xls's shape (K = 256, 4,023 steps, 69
     # windows), kernel vs plain; held there and at grammar.lsp's (K = 2,
@@ -1600,6 +1669,30 @@ def phase_kernels_ans2(dev):
         f"{len(cases) + 2} CT-ANS2 cases (W, X, Y) equal their plain "
         f"versions", plain_done=plain_done)
     return err, ms, work, ms_at
+
+
+def y_cut_stream(dev, err) -> str:
+    """Kernel Y on a word stream cut 0, 3 and 1,000 words short (K = 64:
+    the cut of 3 inside the last refilling step's words), from a 16-byte
+    aligned tensor and one 2 bytes off (the wrapper copies it): equal to
+    the plain decoder, which reads 0 past the end."""
+    data, k = textish(64 * 200, 710), 64
+    n, steps, x2d, lens = interleaved_inputs(data, k, dev)
+    params = ans2_params(k, n, {})
+    freqs, cums = ans2_kernels.window_tables(x2d, n, *params)
+    ev, st = ans2_kernels.encode_events(x2d, lens, freqs, cums, params[2])
+    words = ans2_ops.stream_words(ev).to(torch.int16)
+    for cut in (0, 3, 1000):
+        w = words[:words.numel() - cut]
+        for src in (w, torch.cat([w[:1], w])[1:]):
+            out = hold(err, "ans2_decode",
+                       ans2_kernels.decode_symbols(src, st, n, *params),
+                       ans2_ops.decode_symbols_plain(src.contiguous(), st, n,
+                                                     *params),
+                       f"kernel Y on a stream cut {cut} words short")
+            if (out.cpu().numpy().tobytes() == data) != (cut == 0):
+                fail(f"kernel Y on a stream cut {cut} words short")
+    return "Y on word streams cut 0, 3 and 1,000 words short equals its plain version"
 
 
 def wide_model_case(dev, err) -> str:

@@ -72,11 +72,40 @@ first 2^14-byte superblock of CT-SB over the concatenated corpus (K = 8),
 and U and V also at kennedy.xls over 2,048 lanes (V's lanes in turns,
 their state in scratch) and 65,536 (the u32 table), at the codec's
 defaults, their inputs made by this tree's S and U (`--only STUV`; T and
-V alone with `--only TV`). V's state scratch is sized for either tree. The
-`vdiag2_*` and `tdiag2_*` variants take one part of a step out of this
-tree's V and T; their outputs differ by design, so the script exits 1 with
-them. `o1_rows_contiguous` and `o1_rows_rotated` build U and V with the
-rescale's rows shared out over the warps otherwise.
+V alone with `--only TV`). U is timed once more at kennedy.xls with its
+two passes alternating over chunks of U_SMALL_CHUNK steps, so that the
+chunk edges are timed, and at lcet10.txt (K = 128). U takes the chunked
+interface of this tree (triples, model scratch and chunk): a tree whose U
+is one kernel is refused for U. V's state scratch is sized for either
+tree. The `vdiag2_*` and `tdiag2_*` variants take one
+part of a step out of this tree's V and T; their outputs differ by design,
+so the script exits 1 with them. `o1_rows_contiguous` and
+`o1_rows_rotated` build U and V with the rescale's rows shared out over
+the warps otherwise.
+
+Kernels W, X and Y (CT-ANS2's model, coder and decode) are timed at S-V's
+four shapes (pick_lanes(n) lanes: 256, 64, 2, 8) and at kennedy.xls over
+2,048 and 65,536 lanes (Y's states in global scratch there), at the
+codec's defaults, their inputs made by this tree's W and X (`--only WXY`;
+`--only UY` times U and Y alone). Y's state scratch is given at every K.
+
+U and Y's variants: `u_serial` (a chunk's coder pass after, not beside,
+the next chunk's model pass), `u_no_t0scan` (t0's sums kept by atomics at
+every K, not scanned in the rescale from 128 lanes on), `y_warp64`,
+`y_warp256` (one warp with K / 32 lanes a thread up to 64 or 256 lanes);
+the diagnostics, one part of a step taken out, whose
+outputs differ by design (the script then exits 1): `udiag_xreg` (the
+symbol ahead from a register), `udiag_nocoder` (no coder launch),
+`udiag_noupdate`, `udiag_norescale` (its barrier kept), `ydiag_wordreg`
+(the refill word from a register), `ydiag_nonorm` (the first window's
+table kept for every step), `ydiag_nohist` (no histogram; the parent's
+`ydiag_nobarrier`, the scan's barrier taken out, has no counterpart here:
+with the ring its race can leave a refill waiting on a chunk never
+issued). With `--only`
+among S-Y, the base and this tree build those kernels' sources alone.
+The parent's diagnostics of the same names (its U one kernel, its Y
+reading each word from global memory; PERF.md, section 7) were edits of
+its sources, dropped once read.
 
 Prints one JSON object: per kernel and shape, each library's ms.
 """
@@ -103,6 +132,8 @@ from cpprcoder_tpu_torch.models.cxmodel import rcq_params, rcx_params
 from cpprcoder_tpu_torch.models.static_table import normalize_freqs
 from cpprcoder_tpu_torch.native import build
 from cpprcoder_tpu_torch.ops import (
+    ans2_kernels,
+    ans2_ops,
     ase_kernels,
     ase_ops,
     expand,
@@ -122,7 +153,7 @@ from cpprcoder_tpu_torch.ops import (
     rcq_kernels,
     rcx_kernels,
 )
-from cpprcoder_tpu_torch.reference import o1_ref
+from cpprcoder_tpu_torch.reference import ans2_ref, o1_ref
 
 ROOT = Path(__file__).resolve().parent
 OUT_ROOT = ROOT / "build" / "compare"
@@ -365,6 +396,43 @@ VARIANTS = {
     "vdiag2_norefill": ("o1_decode.cu", [(
         "nw = widx < (uint32_t)l4 ? words[(size_t)widx * K + lane] : 0u;",
         "nw = widx * 0x9E3779B9u + lane;")]),
+    # kernel U's second design: a chunk's coder pass after the next chunk's
+    # model pass on one stream (not beside it); t0's sums kept by atomics
+    # at every K (not scanned in the rescale from 128 lanes on)
+    "u_serial": ("o1_encode.cu", [("  if (chunk >= L) {", "  if (true) {")]),
+    "u_no_t0scan": ("o1_encode.cu", [("constexpr int T0SCAN_LANES = 128;",
+                                      "constexpr int T0SCAN_LANES = 1 << 30;")]),
+    # kernel U, diagnostics (outputs differ): the symbol ahead from a
+    # register (no read of x), no coder pass, no update, no rescale (its
+    # barrier kept)
+    "udiag_xreg": ("o1_encode.cu", [(
+        "const uint32_t sn = next ? x[(size_t)(j + 1) * K + lane] : 0u;",
+        "const uint32_t sn = next ? (uint32_t)((j + 1) * 0x9E3779B9u + lane) >> 24 : 0u;")]),
+    "udiag_nocoder": ("o1_encode.cu", [(
+        "  o1_coder_kernel<<<", "  if (false) o1_coder_kernel<<<")]),
+    "udiag_noupdate": ("o1_encode.cu", [(
+        "      update_step<WIDE, false, T0SCAN>(m, act, ctx, s, inc);\n", "")]),
+    "udiag_norescale": ("o1_encode.cu", [(
+        "      rescale<WIDE, T0SCAN>(m, limit1, limit0);\n", "      __syncthreads();\n")]),
+    # kernel Y's second design: one warp with K / 32 lanes a thread up to
+    # 64 or 256 lanes (a thread a lane there by default); the diagnostics
+    # (outputs differ): the refill word from a register, the first window's
+    # table kept for every step, no histogram (a step's adds to its warp's
+    # copy). Not the scan's barrier taken out: with the ring, its race can
+    # leave a refill waiting on a chunk never issued
+    "y_warp64": ("ans2_decode.cu", [("constexpr int WARP_LANES = 32;",
+                                     "constexpr int WARP_LANES = 64;")]),
+    "y_warp256": ("ans2_decode.cu", [("constexpr int WARP_LANES = 32;",
+                                      "constexpr int WARP_LANES = 256;")]),
+    "ydiag_wordreg": ("ans2_decode.cu", [(
+        "rg.word(at++)", "((uint32_t)(at++ * 0x9E3779B9ull) >> 16)")]),
+    "ydiag_nonorm": ("ans2_decode.cu", [
+        ("const unsigned long long t1w = window_start(w + 1, r);",
+         "const unsigned long long t1w = steps;"),
+        ("if (t0 >= (unsigned long long)steps) break;",
+         "if (t0 >= (unsigned long long)steps || w > 0) break;")]),
+    "ydiag_nohist": ("ans2_decode.cu", [(
+        "            atomicAdd(whist + s, 1u);\n", "")]),
     # kernel T's second design: CTAs of 64 or 128 threads (16 or 32 lanes)
     # in place of one warp; the diagnostics: no entry shuffle (the symbol
     # its index), no update
@@ -400,7 +468,8 @@ ENTRY = {"A": "ct_rcx_encode", "B": "ct_expand_count", "C": "ct_rcx_decode",
          # Q: the two-launch entry, or the three-launch one of an older tree
          "Q": ("ct_lz_serialize", "ct_lz_clamp"), "R": "ct_lz_decode",
          "S": "ct_ase_encode", "T": "ct_ase_decode", "U": "ct_o1_encode",
-         "V": "ct_o1_decode"}
+         "V": "ct_o1_decode", "W": "ct_ans2_model", "X": "ct_ans2_encode",
+         "Y": "ct_ans2_decode"}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # the CT-LZ4 entry points of a tree whose Q is three launches with a cumsum
 # and host reads between them (ct_lz_clamp, ct_lz_sizes, ct_lz_write) and
@@ -415,11 +484,17 @@ OLD_LZ_SIGNATURES = {
 # lz_ops.walk_inputs) and an int32 exits scratch, one launch: step, off,
 # exits, mpos, mlen, moff, count, n, w, tcap, stream
 OLD_WALK_SIGNATURE = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]
+# U's chunks in the case that times its chunk edges
+U_SMALL_CHUNK = 256
+# the source of each of kernels S-Y
+SOURCE_OF = {"S": "ase.cu", "T": "ase.cu", "U": "o1_encode.cu", "V": "o1_decode.cu",
+             "W": "ans2_encode.cu", "X": "ans2_encode.cu", "Y": "ans2_decode.cu"}
 VARIANT_SOURCE = {"a": "rcx_encode.cu", "b": "expand.cu", "g": "rans_decode.cu",
                   "h": "huffman_encode.cu", "i": "huffman_decode.cu", "j": "rc_exact.cu",
                   "l": "rc_exact.cu", "ldiag": "rc_exact.cu", "m": "mtf.cu", "mn": "mtf.cu",
                   "vdiag2": "o1_decode.cu", "t": "ase.cu", "tdiag2": "ase.cu",
-                  "o1": ("o1_encode.cu", "o1_decode.cu")}
+                  "o1": ("o1_encode.cu", "o1_decode.cu"), "u": "o1_encode.cu",
+                  "udiag": "o1_encode.cu", "y": "ans2_decode.cu", "ydiag": "ans2_decode.cu"}
 
 
 def build_lib(name: str, csrc: Path, edits=(), only: str | tuple = ()
@@ -524,7 +599,9 @@ def cases(dev, only: str = ""):
         return not only or any(c in only for c in letters)
 
     if want("STUV"):
-        out += ase_o1_cases(dev, stream)
+        out += ase_o1_cases(dev, stream, only)
+    if want("WXY"):
+        out += ans2_cases(dev, stream)
     if not want("ABCDEFGHIJLMNPQR"):
         return out
     rcx_at = [("kennedy.xls", "balanced"), ("grammar.lsp", "balanced"),
@@ -669,7 +746,7 @@ def cases(dev, only: str = ""):
     return out
 
 
-def ase_o1_cases(dev, stream):
+def ase_o1_cases(dev, stream, only: str = ""):
     """S and T (CT-ASE1, interleaved lanes) and U and V (CT-RC3, chunked
     lanes) at kennedy.xls, alice29.txt, grammar.lsp and the first 2^14-byte
     superblock of CT-SB over the concatenated corpus, each at
@@ -683,7 +760,7 @@ def ase_o1_cases(dev, stream):
           ("alice29.txt", corpus("alice29.txt"), None),
           ("grammar.lsp", corpus("grammar.lsp"), None),
           ("a 2^14-byte CT-SB superblock", concat[:1 << 14], None)]
-    for label, data, _ in at:
+    for label, data, _ in at if not only or any(c in only for c in "ST") else ():
         n, stride, x2d, lens = interleaved(data, pick_lanes(len(data)), dev)
         k = x2d.shape[1]
         cap = ase_ops.words_cap(stride)
@@ -711,7 +788,13 @@ def ase_o1_cases(dev, stream):
         out += [("S", shape, s_enc), ("T", shape, t_dec)]
     at += [("kennedy.xls", corpus("kennedy.xls"), 2048),
            ("kennedy.xls", corpus("kennedy.xls"), 65536)]
-    for label, data, k in at:
+    # U alone at kennedy.xls with its passes alternating over chunks of
+    # U_SMALL_CHUNK steps, and at lcet10.txt (K = 128: between the lane
+    # counts timed where t0's sums are kept by atomics and by the scan)
+    at = [a + (None,) for a in at]
+    u_alone = [("kennedy.xls", corpus("kennedy.xls"), None, U_SMALL_CHUNK),
+               ("lcet10.txt", corpus("lcet10.txt"), None, None)]
+    for i, (label, data, k, chunk) in enumerate(at + u_alone):
         n = len(data)
         k = k or pick_lanes(n)
         steps = -(-n // k)
@@ -723,6 +806,9 @@ def ase_o1_cases(dev, stream):
         ev0 = o1_kernels.encode_events(x2d, lens, *params)
         words = layout.decode_words(*expand.materialize_rows(ev0))
         shape = f"{label} (K={k}, L={steps}{', u32 table' if wide else ''})"
+        if chunk:
+            shape = f"{label} (K={k}, L={steps}, U in chunks of {chunk} steps)"
+        chunk = chunk or o1_kernels.default_chunk_steps(k, steps)
 
         def scratch(k=k, wide=wide):
             """-> (t1 and state scratch, kept alive by the caller; their
@@ -732,21 +818,86 @@ def ase_o1_cases(dev, stream):
                  if k > o1_kernels.CTA_LANES else None)
             return t, [None if x is None else x.data_ptr() for x in t]
 
-        def u_enc(lib, a=(x2d, lens, ev0, k, steps, *params, int(wide))):
+        def u_enc(lib, a=(x2d, lens, ev0, k, steps, chunk, *params, int(wide)),
+                  scratch=scratch):
             ev = torch.empty_like(a[2])
             keep, p = scratch()
+            k, steps, chunk = a[3:6]
+            st = torch.empty(5 * k, dtype=torch.int32, device=dev)
+            trip = torch.empty((2, chunk, 3, k), dtype=torch.int32, device=dev)
+            mstate = torch.empty(o1_kernels.MODEL_WORDS + o1_kernels.T1_NARROW_WORDS,
+                                 dtype=torch.int32, device=dev)
+            keep += (st, trip, mstate)
             return (lambda keep=keep: lib.ct_o1_encode(
-                a[0].data_ptr(), a[1].data_ptr(), ev.data_ptr(), *p, *a[3:],
-                stream())), ev
+                a[0].data_ptr(), a[1].data_ptr(), ev.data_ptr(), p[0], st.data_ptr(),
+                trip.data_ptr(), mstate.data_ptr(), *a[3:], stream())), ev
 
-        def v_dec(lib, a=(words, lens, n, k, steps, *params, int(wide))):
+        def v_dec(lib, a=(words, lens, n, k, steps, *params, int(wide)),
+                  scratch=scratch):
             o = torch.empty(a[2], dtype=torch.uint8, device=dev)
             keep, p = scratch()
             return (lambda keep=keep: lib.ct_o1_decode(
                 a[0].data_ptr(), a[1].data_ptr(), o.data_ptr(), *p, a[3],
                 a[0].shape[0], *a[4:], stream())), o
 
-        out += [("U", shape, u_enc), ("V", shape, v_dec)]
+        out.append(("U", shape, u_enc))
+        if i < len(at):
+            out.append(("V", shape, v_dec))
+    return out
+
+
+def ans2_cases(dev, stream):
+    """W, X and Y (CT-ANS2, interleaved lanes) at S-V's shapes: kennedy.xls,
+    alice29.txt, grammar.lsp and the first 2^14-byte superblock of CT-SB
+    over the concatenated corpus at pick_lanes(n) lanes (256, 64, 2 and 8),
+    and kennedy.xls over 2,048 and 65,536 lanes (Y's states in global
+    scratch there), at the codec's defaults; the inputs made through this
+    tree's W and X. Y's state scratch is given at every K, so either tree
+    takes it."""
+    out = []
+    concat = b"".join(corpus(f) for f in CANTERBURY)
+    at = [("kennedy.xls", corpus("kennedy.xls"), None),
+          ("alice29.txt", corpus("alice29.txt"), None),
+          ("grammar.lsp", corpus("grammar.lsp"), None),
+          ("a 2^14-byte CT-SB superblock", concat[:1 << 14], None),
+          ("kennedy.xls", corpus("kennedy.xls"), 2048),
+          ("kennedy.xls", corpus("kennedy.xls"), 65536)]
+    for label, data, k in at:
+        k = k or pick_lanes(len(data))
+        n, steps, x2d, lens = interleaved(data, k, dev)
+        inc, limit = ans2_ref.ANS2_INC_DEFAULT, ans2_ref.ANS2_LIMIT_LOG2_DEFAULT
+        r_log2 = ans2_ref.default_refresh_log2(k, n)
+        r = ans2_ops.refresh_eff(r_log2, steps)
+        n_snap = ans2_ops.n_snapshots(steps, r)
+        freqs, cums = ans2_kernels.window_tables(x2d, n, inc, limit, r_log2)
+        ev, states = ans2_kernels.encode_events(x2d, lens, freqs, cums, r_log2)
+        words = ans2_ops.stream_words(ev).to(torch.int16)
+        shape = f"{label} (K={k}, {steps} steps, {n_snap} windows)"
+
+        def w_model(lib, a=(x2d, n, k, steps, inc, limit, r, n_snap)):
+            hist = torch.empty((a[7], 256), dtype=torch.int32, device=dev)
+            counts = torch.empty((a[7], 256), dtype=torch.int64, device=dev)
+            f, c = (torch.empty((a[7], 256), dtype=torch.int32, device=dev)
+                    for _ in range(2))
+            return (lambda: lib.ct_ans2_model(
+                a[0].data_ptr(), hist.data_ptr(), counts.data_ptr(), f.data_ptr(),
+                c.data_ptr(), *a[1:], stream())), (f, c)
+
+        def x_enc(lib, a=(x2d, lens, freqs, cums, k, steps, r)):
+            e = torch.empty((a[5], a[4]), dtype=torch.int32, device=dev)
+            st = torch.empty(a[4], dtype=torch.int32, device=dev)
+            return (lambda: lib.ct_ans2_encode(
+                *(t.data_ptr() for t in a[:4]), e.data_ptr(), st.data_ptr(), *a[4:],
+                stream())), (e, st)
+
+        def y_dec(lib, a=(words, states, n, k, steps, inc, limit, r)):
+            o = torch.empty(a[2], dtype=torch.uint8, device=dev)
+            scratch = torch.empty(a[3], dtype=torch.int32, device=dev)
+            return (lambda scratch=scratch: lib.ct_ans2_decode(
+                a[0].data_ptr(), a[0].numel(), a[1].data_ptr(), scratch.data_ptr(),
+                o.data_ptr(), *a[2:], stream())), o
+
+        out += [("W", shape, w_model), ("X", shape, x_enc), ("Y", shape, y_dec)]
     return out
 
 
@@ -969,7 +1120,9 @@ def time_turn(go, reps: int, each: bool = False) -> float | None:
     that waits on the host inside, as B's wrapper does) the median of reps
     calls timed one by one."""
     for _ in range(2):
-        if go() != 0:
+        rc = go()
+        if rc != 0:
+            print(f"[refused] error {rc}", flush=True)
             return None
     torch.cuda.synchronize()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1051,11 +1204,16 @@ def main():
     torch.cuda.set_device(dev)
     names = ["base", "tree"] + [v for v in a.variants.split(",") if v]
 
+    # with --only among S-Y, the base and this tree build those kernels'
+    # sources alone
+    only = (tuple(sorted({SOURCE_OF[c] for c in a.only}))
+            if a.only and all(c in SOURCE_OF for c in a.only) else ())
+
     def make(nm):
         if nm == "base":
-            return build_lib(nm, a.base / "cpprcoder_tpu_torch" / "csrc")
+            return build_lib(nm, a.base / "cpprcoder_tpu_torch" / "csrc", only=only)
         if nm == "tree":
-            return build_lib(nm, build.CSRC)
+            return build_lib(nm, build.CSRC, only=only)
         return build_lib(nm, build.CSRC, [VARIANTS[nm]],
                          VARIANT_SOURCE[nm.split("_")[0]])
 

@@ -52,46 +52,6 @@ namespace {
 
 using namespace o1;
 
-// Inclusive prefix sums of 16 values in registers, 4 levels deep, and
-// pairwise trees over 16 values (4 levels, not a chain of 15). Each level
-// is its own instantiation, so that every index is a constant and the
-// arrays stay in registers.
-template <int D>
-__device__ __forceinline__ void scan_level(uint32_t (&p)[16]) {
-#pragma unroll
-  for (int k = 15; k >= D; --k) p[k] += p[k - D];
-}
-__device__ __forceinline__ void scan16(uint32_t (&p)[16]) {
-  scan_level<1>(p);
-  scan_level<2>(p);
-  scan_level<4>(p);
-  scan_level<8>(p);
-}
-
-struct Add {
-  __device__ __forceinline__ uint32_t operator()(uint32_t a, uint32_t b) const { return a + b; }
-};
-struct Max {
-  __device__ __forceinline__ uint32_t operator()(uint32_t a, uint32_t b) const { return max(a, b); }
-};
-struct Min {
-  __device__ __forceinline__ uint32_t operator()(uint32_t a, uint32_t b) const { return min(a, b); }
-};
-
-template <int H, class Op>
-__device__ __forceinline__ void tree_level(uint32_t (&x)[16], Op op) {
-#pragma unroll
-  for (int k = 0; k < H; ++k) x[k] = op(x[k], x[k + H]);
-}
-template <class Op>
-__device__ __forceinline__ uint32_t tree(uint32_t (&x)[16], Op op) {
-  tree_level<8>(x, op);
-  tree_level<4>(x, op);
-  tree_level<2>(x, op);
-  tree_level<1>(x, op);
-  return x[0];
-}
-
 // The blended block sums' inclusive prefixes of row r: they do not depend
 // on v, so they are loaded and summed while the divides run.
 __device__ __forceinline__ void block_prefixes(const Model& m, uint32_t r, int blend,

@@ -1,8 +1,10 @@
 // CT-RC3's shared model and coder steps, for kernels U (o1_encode.cu) and V
 // (o1_decode.cu). What they compute is in those files and in
 // ops/o1_ops.py's docstring; this header holds the model's layout, its
-// set-up, the rescale and the update that both kernels run the same way,
-// and U's lookup (V finds its symbol by counts of compares: o1_decode.cu).
+// set-up (and its copy to and from global memory between U's chunks), the
+// rescale and the update that both kernels run the same way, the sums by
+// trees both use, and U's lookup (V finds its symbol by counts of
+// compares: o1_decode.cu).
 //
 // The model, one copy a stream (one CTA):
 //   t1      order-1 counts [256][256]: u16 pairs in shared memory (128 KiB,
@@ -12,7 +14,9 @@
 //           no stale L1 line is read after another thread's atomic);
 //   bsum1   per row the 16 sums of counts 16b..16b+15, u32 [256][16];
 //   rowtot  the row totals, u32 [256];
-//   t0      order-0 counts, u32 [256], with bsum0 [16] and tot0.
+//   t0      order-0 counts, u32 [256], with bsum0 [16] and tot0 (V), or
+//           tot0 and c0 [256], t0's exclusive prefix sums, scanned anew
+//           every step (U: T0SCAN).
 // Every count starts at 1 (row totals 256, block sums 16).
 //
 // A step, between barriers:
@@ -22,14 +26,18 @@
 //            b) and total; the last warp does t0 the same way once tot0 has
 //            reached limit0. Every row is checked every step: a halved row
 //            can still be at its limit.
-//   code     each lane reads f and the exclusive prefix of its symbol in its
-//            context's row (the block sums before its block, then the counts
-//            before it in the block: 16-byte loads), and t0's likewise.
+//   code     U: each lane reads its symbol's blended f and exclusive prefix
+//            in its context's row (the blended block sums before its block,
+//            then the counts before it in the block: 16-byte loads, summed
+//            by trees 4 levels deep). V searches by counts of compares.
 //   update   each active lane adds inc to t1[ctx][s] (a u16 half through an
 //            atomic add on its word: no carry, the count stays below 2^16),
 //            the block sums, rowtot[ctx], t0[s] and bsum0; each warp adds
-//            inc times its active lanes to tot0. Past 1,024 lanes V groups
-//            a warp's lanes by address first (update_step's GROUPED).
+//            inc times its active lanes to tot0 (T0SCAN: t0[s] alone, whose
+//            sums the next rescale scans). Grouped, a warp's lanes with
+//            one address add once (__match_any_sync): U and V past 1,024
+//            lanes (below, groups formed a step ahead were slower at every
+//            shape timed: PERF.md, section 6).
 #pragma once
 
 #include <cstdint>
@@ -45,9 +53,9 @@ constexpr int MAX_THREADS = 1024;  // lanes a CTA codes one a thread
 constexpr int MIN_THREADS = 256;   // a CTA has at least 8 warps for the rescale
 
 // dynamic shared memory: bsum1, rowtot, t0, bsum0, tot0 (padded to 16 B),
-// then t1 when it is kept there
+// c0, then t1 when it is kept there
 constexpr int BSUM1_WORDS = 256 * 16;
-constexpr int MODEL_WORDS = BSUM1_WORDS + 256 + 256 + 16 + 4;
+constexpr int MODEL_WORDS = BSUM1_WORDS + 256 + 256 + 16 + 4 + 256;
 constexpr int T1_NARROW_WORDS = 256 * 128;
 constexpr int smem_bytes(bool wide) { return 4 * (MODEL_WORDS + (wide ? 0 : T1_NARROW_WORDS)); }
 
@@ -58,6 +66,7 @@ struct Model {
   uint32_t* t0;
   uint32_t* bsum0;
   uint32_t* tot0;
+  uint32_t* c0;
 };
 
 __device__ __forceinline__ Model carve(uint32_t* smem, uint32_t* t1_global, bool wide) {
@@ -67,6 +76,7 @@ __device__ __forceinline__ Model carve(uint32_t* smem, uint32_t* t1_global, bool
   m.t0 = m.rowtot + 256;
   m.bsum0 = m.t0 + 256;
   m.tot0 = m.bsum0 + 16;
+  m.c0 = m.tot0 + 4;
   m.t1 = wide ? t1_global : smem + MODEL_WORDS;
   return m;
 }
@@ -76,7 +86,7 @@ template <bool WIDE>
 __device__ void init_model(const Model& m) {
   const int tid = threadIdx.x, bd = blockDim.x;
   for (int i = tid; i < BSUM1_WORDS; i += bd) m.bsum1[i] = 16;
-  for (int i = tid; i < 256; i += bd) m.rowtot[i] = 256, m.t0[i] = 1;
+  for (int i = tid; i < 256; i += bd) m.rowtot[i] = 256, m.t0[i] = 1, m.c0[i] = i;
   if (tid < 16) m.bsum0[tid] = 16;
   if (tid == 0) *m.tot0 = 256;
   if (WIDE) {
@@ -84,6 +94,16 @@ __device__ void init_model(const Model& m) {
   } else {
     for (int i = tid; i < T1_NARROW_WORDS; i += bd) m.t1[i] = 0x00010001u;
   }
+  __syncthreads();
+}
+
+// The model in shared memory (t1 too where it is kept there), copied to
+// or from global memory between kernel U's chunks: smem_bytes(WIDE) / 4
+// words; barrier after.
+template <bool WIDE>
+__device__ void copy_model(uint4* dst, const uint4* src) {
+  constexpr int n = (MODEL_WORDS + (WIDE ? 0 : T1_NARROW_WORDS)) / 4;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
   __syncthreads();
 }
 
@@ -136,14 +156,47 @@ __device__ __forceinline__ void halve_t0(const Model& m) {
   publish_sums(a.x + a.y + a.z + a.w + b.x + b.y + b.z + b.w, m.bsum0, m.tot0);
 }
 
+// Warp, T0SCAN: t0's total into tot0, t0 halved first where it has
+// reached limit0, and its exclusive prefix sums into c0 (counts 8l..8l+7
+// a lane).
+__device__ __forceinline__ void scan_t0(const Model& m, uint32_t limit0) {
+  const int ln = threadIdx.x & 31;
+  uint4* p = reinterpret_cast<uint4*>(m.t0) + 2 * ln;
+  uint4 a = p[0], b = p[1];
+  uint32_t s = a.x + a.y + a.z + a.w + b.x + b.y + b.z + b.w;
+  uint32_t tot = __reduce_add_sync(FULL, s);
+  if (tot >= limit0) {
+    a = make_uint4(halve(a.x), halve(a.y), halve(a.z), halve(a.w));
+    b = make_uint4(halve(b.x), halve(b.y), halve(b.z), halve(b.w));
+    p[0] = a;
+    p[1] = b;
+    s = a.x + a.y + a.z + a.w + b.x + b.y + b.z + b.w;
+    tot = __reduce_add_sync(FULL, s);
+  }
+  uint32_t incl = s;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const uint32_t y = __shfl_up_sync(FULL, incl, o);
+    if (ln >= o) incl += y;
+  }
+  uint32_t c = incl - s;
+  uint4 ca, cb;
+  ca.x = c, c += a.x, ca.y = c, c += a.y, ca.z = c, c += a.z, ca.w = c, c += a.w;
+  cb.x = c, c += b.x, cb.y = c, c += b.y, cb.z = c, c += b.z, cb.w = c;
+  uint4* q = reinterpret_cast<uint4*>(m.c0) + 2 * ln;
+  q[0] = ca;
+  q[1] = cb;
+  if (ln == 0) *m.tot0 = tot;
+}
+
 // The rescale phase (every warp; blockDim.x a power of two, 256..1024):
 // warp w checks rows w, w + nw, ... and halves those at or over limit1;
-// the last warp does t0; a barrier after. Strided, rows that cross
+// the last warp does t0 (T0SCAN: scan_t0); a barrier after. Strided, rows that cross
 // together (a text's letters) fall to different warps: faster at K = 256
 // than a run of 256 / nw rows a warp or a spread whose reads fall in
 // distinct banks, and within 5% of both at the other shapes timed
 // (PERF.md, section 6).
-template <bool WIDE>
+template <bool WIDE, bool T0SCAN = false>
 __device__ void rescale(const Model& m, uint32_t limit1, uint32_t limit0) {
   const int ln = threadIdx.x & 31, w = threadIdx.x >> 5, nw = blockDim.x >> 5;
   uint32_t over = __ballot_sync(FULL, ln < 256 / nw && m.rowtot[w + nw * ln] >= limit1);
@@ -152,12 +205,56 @@ __device__ void rescale(const Model& m, uint32_t limit1, uint32_t limit0) {
     over &= over - 1;
     halve_row<WIDE>(m, w + nw * i);
   }
-  if (w == nw - 1 && *m.tot0 >= limit0) halve_t0(m);
+  if (T0SCAN) {
+    if (w == nw - 1) scan_t0(m, limit0);
+  } else if (w == nw - 1 && *m.tot0 >= limit0) {
+    halve_t0(m);
+  }
   __syncthreads();
 }
 
 __device__ __forceinline__ uint32_t u4_at(const uint4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// Inclusive prefix sums of 16 values in registers, 4 levels deep, and
+// pairwise trees over 16 values (4 levels, not a chain of 15). Each level
+// is its own instantiation, so that every index is a constant and the
+// arrays stay in registers.
+template <int D>
+__device__ __forceinline__ void scan_level(uint32_t (&p)[16]) {
+#pragma unroll
+  for (int k = 15; k >= D; --k) p[k] += p[k - D];
+}
+__device__ __forceinline__ void scan16(uint32_t (&p)[16]) {
+  scan_level<1>(p);
+  scan_level<2>(p);
+  scan_level<4>(p);
+  scan_level<8>(p);
+}
+
+struct Add {
+  __device__ __forceinline__ uint32_t operator()(uint32_t a, uint32_t b) const { return a + b; }
+};
+struct Max {
+  __device__ __forceinline__ uint32_t operator()(uint32_t a, uint32_t b) const { return max(a, b); }
+};
+struct Min {
+  __device__ __forceinline__ uint32_t operator()(uint32_t a, uint32_t b) const { return min(a, b); }
+};
+
+template <int H, class Op>
+__device__ __forceinline__ void tree_level(uint32_t (&x)[16], Op op) {
+#pragma unroll
+  for (int k = 0; k < H; ++k) x[k] = op(x[k], x[k + H]);
+}
+template <class Op>
+__device__ __forceinline__ uint32_t tree(uint32_t (&x)[16], Op op) {
+  tree_level<8>(x, op);
+  tree_level<4>(x, op);
+  tree_level<2>(x, op);
+  tree_level<1>(x, op);
+  return x[0];
 }
 
 // The 16 counts of block b of row r of t1.
@@ -194,46 +291,48 @@ __device__ __forceinline__ void t0_block(const Model& m, int b, uint32_t (&e)[16
   }
 }
 
-// The encoder's read: (c, f, tot) of symbol s in context r, blended.
-template <bool WIDE>
+// The encoder's read: (c, f, tot) of symbol s in context r, blended. The
+// block sums before s's block and the counts before it in the block are
+// summed by two trees (blended, with t0's, unless T0SCAN: then t0's prefix
+// is c0[s]); f is read directly.
+template <bool WIDE, bool T0SCAN = false>
 __device__ __forceinline__ void lookup(const Model& m, uint32_t r, uint32_t s, int blend,
                                        uint32_t tot0, uint32_t& c, uint32_t& f, uint32_t& tot) {
   const int b = s >> 4, i = s & 15;
-  uint32_t c1 = 0, c0 = 0;
+  const uint32_t f1 = WIDE ? __ldcg(m.t1 + r * 256 + s)
+                           : (m.t1[r * 128 + (s >> 1)] >> (16 * (s & 1))) & 0xFFFFu;
+  f = (f1 << blend) + m.t0[s];
+  tot = (m.rowtot[r] << blend) + tot0;
+  uint32_t p[16], e1[16], e0[16];
   const uint4* b1 = reinterpret_cast<const uint4*>(m.bsum1 + r * 16);
   const uint4* b0 = reinterpret_cast<const uint4*>(m.bsum0);
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
-    const uint4 v1 = b1[q], v0 = b0[q];
+    const uint4 v1 = b1[q];
+    const uint4 v0 = T0SCAN ? make_uint4(0u, 0u, 0u, 0u) : b0[q];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const bool before = 4 * q + k < b;
-      c1 += before ? u4_at(v1, k) : 0u;
-      c0 += before ? u4_at(v0, k) : 0u;
-    }
+    for (int k = 0; k < 4; ++k)
+      p[4 * q + k] = 4 * q + k < b ? (u4_at(v1, k) << blend) + u4_at(v0, k) : 0u;
   }
-  uint32_t e1[16], e0[16];
   t1_block<WIDE>(m, r, b, e1);
-  t0_block(m, b, e0);
-  uint32_t f1 = 0, f0 = 0;
+  if (T0SCAN) {
 #pragma unroll
-  for (int k = 0; k < 16; ++k) {
-    c1 += k < i ? e1[k] : 0u;
-    c0 += k < i ? e0[k] : 0u;
-    f1 = k == i ? e1[k] : f1;
-    f0 = k == i ? e0[k] : f0;
+    for (int k = 0; k < 16; ++k) e0[k] = 0u;
+  } else {
+    t0_block(m, b, e0);
   }
-  c = (c1 << blend) + c0;
-  f = (f1 << blend) + f0;
-  tot = (m.rowtot[r] << blend) + tot0;
+#pragma unroll
+  for (int k = 0; k < 16; ++k) e1[k] = k < i ? (e1[k] << blend) + e0[k] : 0u;
+  c = tree(p, Add()) + tree(e1, Add()) + (T0SCAN ? m.c0[s] : 0u);
 }
 
 // The update phase, a warp at a time (every lane of the warp calls it):
 // each active lane adds inc to t1[r][s], its block sum, rowtot[r], t0[s]
 // and its block sum (atomics: the sums do not depend on the order), and
-// lane 0 adds inc times the warp's active lanes to tot0. GROUPED: lanes
-// with the same (r, s) (the same s) add once, inc times the group's size.
-template <bool WIDE, bool GROUPED>
+// lane 0 adds inc times the warp's active lanes to tot0 (T0SCAN: t0[s]
+// alone). GROUPED: lanes with the same (r, s) (the same s) add once, inc
+// times the group's size.
+template <bool WIDE, bool GROUPED, bool T0SCAN = false>
 __device__ __forceinline__ void update_step(const Model& m, bool active, uint32_t r, uint32_t s,
                                             uint32_t inc) {
   const int ln = threadIdx.x & 31;
@@ -256,10 +355,12 @@ __device__ __forceinline__ void update_step(const Model& m, bool active, uint32_
   }
   if (lead0) {
     atomicAdd(m.t0 + s, add0);
-    atomicAdd(m.bsum0 + (s >> 4), add0);
+    if (!T0SCAN) atomicAdd(m.bsum0 + (s >> 4), add0);
   }
-  const uint32_t a = __popc(__ballot_sync(FULL, active));
-  if (ln == 0 && a) atomicAdd(m.tot0, inc * a);
+  if (!T0SCAN) {
+    const uint32_t a = __popc(__ballot_sync(FULL, active));
+    if (ln == 0 && a) atomicAdd(m.tot0, inc * a);
+  }
 }
 
 // ------------------------------------------------------- the coder's steps

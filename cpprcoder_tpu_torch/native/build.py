@@ -93,9 +93,15 @@ SIGNATURES = {
     "ct_ase_encode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # kernel T: words, P, bases, counts, lane_len, out, K, stride, stream
     "ct_ase_decode": [_P, _L, _P, _P, _P, _P, _I, _I, _P],
-    # o1_encode.cu, kernel U: x, lane_len, events, t1 and state scratch (or
-    # null), K, L, inc, limit1_log2, limit0_log2, blend_log2, wide, stream
-    "ct_o1_encode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # o1_encode.cu, kernel U: x, lane_len, events, t1 (or null), the coder
+    # state, the triples, the model between chunks (or null), K, L, chunk,
+    # inc, limit1_log2, limit0_log2, blend_log2, wide, stream; its model
+    # pass alone: x, lane_len, triples, t1, model (or null), K, L, j0, j1,
+    # inc, limit1_log2, limit0_log2, blend_log2, wide, stream; its coder
+    # pass alone: triples, events, state (or null), K, L, j0, j1, stream
+    "ct_o1_encode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "ct_o1_model": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "ct_o1_coder": [_P, _P, _P, _I, _I, _I, _I, _P],
     # o1_decode.cu, kernel V: words, lane_len, out, t1 and state scratch (or
     # null), K, l4, L, inc, limit1_log2, limit0_log2, blend_log2, wide,
     # stream

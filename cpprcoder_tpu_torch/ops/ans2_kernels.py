@@ -14,11 +14,16 @@ one CTA (256 counts wide), then a CTA a window for the normalize
 (`csrc/ans2_model.cuh`, exact to models/static_table.normalize_freqs).
 X (the same file) is pass C with pass B folded in: kernel F's coder, a
 thread a lane, step t reading table snapshot_index(t) from global memory
-a run of steps ahead of its chain. Y (`csrc/ans2_decode.cu`) is one CTA a
-stream: at each window start the rescale, the shared normalize and a
-2^14-byte cum2sym in shared memory; each step a prefix count of the
-refilling lanes over the CTA (a thread owns a contiguous run of lanes, so
-lane order is thread order) and shared atomics for the model's update.
+a run of steps ahead of its chain. Y (`csrc/ans2_decode.cu`, second round)
+is one CTA a stream: at each window start every thread joins for the
+rescale, the shared normalize and a 2^14-byte cum2sym in shared memory;
+the steps run on one warp up to 32 lanes (no CTA barrier), else a thread a
+lane up to 1,024 (then 1,024 threads), their states in registers up to 8
+lanes a thread; each step a prefix count of the refilling lanes over the
+stepping threads (a thread owns a contiguous run of lanes, so lane order
+is thread order), the refill words read from a ring in shared memory that
+one thread fills ahead by bulk copies, and shared atomics for the model's
+update.
 
 Their plain versions are `ans2_ops.window_tables_plain`,
 `ans2_ops.encode_events_plain` and `ans2_ops.decode_symbols_plain`
@@ -39,9 +44,9 @@ encode_launches = 0   # kernel X
 decode_launches = 0   # kernel Y
 
 MAX_LANES = 1 << 16
-# Y keeps its lanes' states in shared memory up to this many lanes, in
-# global scratch above
-SHARED_STATE_LANES = 1 << 15
+# Y keeps its lanes' states in registers or shared memory up to this many
+# lanes, in global scratch above (csrc/ans2_decode.cu SHARED_STATE_LANES)
+SHARED_STATE_LANES = 1 << 14
 
 
 def _check_k(k: int):
@@ -180,6 +185,8 @@ def decode_symbols(words: torch.Tensor, states: torch.Tensor, n: int,
     steps = -(-n // k)
     dev = words.device
     lib = build.load()
+    if words.data_ptr() % 16:
+        words = words.clone()     # the kernel's bulk copies read 16 bytes aligned
     with torch.cuda.device(dev):
         out = torch.empty(n, dtype=torch.uint8, device=dev)
         scratch = (torch.empty(k, dtype=torch.int32, device=dev)

@@ -27,7 +27,10 @@ reads each lane's big-endian word row through a byte queue that takes a
 whole word whenever fewer than 3 bytes are buffered (bytes past the lane's
 end read as zero), as CT-RC2's decoder does. `encode_events_plain` and
 `decode_symbols_plain` are the kernels' plain versions: step loops over
-int64 lane vectors that read the model's rows by index.
+int64 lane vectors that read the model's rows by index. Kernel U is two
+passes, and so is its plain version: `model_triples_plain` (the model:
+each lane's blended (c, f, tot) a step) and `coder_events_plain` (the
+range coder over those triples), alternating over chunks of steps.
 
 The bound (ROADMAP C8), which `check_params` enforces on encode and on
 decode from the header's parameters alone:
@@ -140,26 +143,29 @@ def _update(t1, rowtot, t0, tot0, ctx, sym, active, inc: int):
     tot0.add_(w.sum())
 
 
-def encode_events_plain(x2d: torch.Tensor, lane_len: torch.Tensor, inc: int,
+def model_triples_plain(x2d: torch.Tensor, lane_len: torch.Tensor, inc: int,
                         limit1_log2: int, limit0_log2: int, blend_log2: int,
-                        stats: dict | None = None) -> torch.Tensor:
-    """Plain version of kernel U: x2d [L, K] uint8 (chunked: x2d[j, i] =
-    x[i*L + j]) -> events [3*L + 2, K] int32 (u32 bits). Lane i codes
-    x2d[j, i] for j < lane_len[i]. stats, if given, gets "rows_halved"
-    added: the t1 rows rescaled over the steps."""
+                        j0: int = 0, j1: int | None = None, model=None,
+                        stats: dict | None = None):
+    """Plain version of kernel U's model pass over steps [j0, j1) (j1
+    defaults to L): x2d [L, K] uint8 (chunked: x2d[j, i] = x[i*L + j]) ->
+    (triples [j1 - j0, 3, K] int32: each lane's blended (c, f, tot), 0
+    where it has ended; the model after step j1 - 1, to pass on as `model`
+    for the steps from j1). Lane i codes x2d[j, i] for j < lane_len[i].
+    stats, if given, gets "rows_halved" added: the t1 rows rescaled."""
     steps, k = x2d.shape
+    j1 = steps if j1 is None else j1
     dev = x2d.device
     limit1, limit0 = 1 << limit1_log2, 1 << limit0_log2
-    t1, rowtot, t0, tot0 = _init_model(dev)
-    st = rc_common.make_state(k, dev)
+    t1, rowtot, t0, tot0 = model if model is not None else _init_model(dev)
     xs = x2d.to(torch.int64)
     lens = lane_len.to(torch.int64)
-    ctx = torch.zeros(k, dtype=torch.int64, device=dev)
+    ctx = xs[j0 - 1] if j0 > 0 else torch.zeros(k, dtype=torch.int64,
+                                                 device=dev)
     lane = torch.arange(k, device=dev)
-    events = torch.empty((N_SLOTS * steps + 2, k), dtype=torch.int64,
-                         device=dev)
+    out = torch.zeros((j1 - j0, 3, k), dtype=torch.int64, device=dev)
     halved = 0
-    for j in range(steps):
+    for j in range(j0, j1):
         halved += _rescale(t1, rowtot, t0, tot0, limit1, limit0)
         active = j < lens
         sym = xs[j]
@@ -169,15 +175,62 @@ def encode_events_plain(x2d: torch.Tensor, lane_len: torch.Tensor, inc: int,
         f = (rows[lane, sym] << blend_log2) + t0[sym]
         c = (c1[lane, sym] << blend_log2) + c0[sym]
         tot = (rowtot[ctx] << blend_log2) + tot0
-        st, evs = rc_common.encode_symbol(st, st[2] // tot, c, f,
-                                          (c + f) == tot, active, N_SLOTS)
-        events[N_SLOTS * j:N_SLOTS * (j + 1)] = evs
+        out[j - j0] = torch.where(active, torch.stack([c, f, tot]), 0)
         _update(t1, rowtot, t0, tot0, ctx, sym, active, inc)
         ctx = torch.where(active, sym, ctx)
-    events[N_SLOTS * steps:] = rc_common.flush(st)
     if stats is not None:
         stats["rows_halved"] = stats.get("rows_halved", 0) + halved
-    return rc_common.u32_to_i32(events)
+    return out.to(torch.int32), (t1, rowtot, t0, tot0)
+
+
+def coder_events_plain(triples: torch.Tensor, state=None, final: bool = True):
+    """Plain version of kernel U's coder pass: triples [n, 3, K] int32 (the
+    model pass's; tot 0 where a lane has ended) -> (events [3*n (+ 2 where
+    final), K] int32 (u32 bits, rc_common's format: 3 slots a step, then
+    the two flush rows where final); the lanes' coder state, to pass on
+    as `state` for the next steps)."""
+    n, _, k = triples.shape
+    dev = triples.device
+    st = state if state is not None else rc_common.make_state(k, dev)
+    trip = triples.to(torch.int64)
+    events = torch.empty((N_SLOTS * n + (2 if final else 0), k),
+                         dtype=torch.int64, device=dev)
+    for j in range(n):
+        c, f, tot = trip[j]
+        active = tot > 0
+        t = st[2] // torch.clamp(tot, min=1)
+        st, evs = rc_common.encode_symbol(st, t, c, f, (c + f) == tot, active,
+                                          N_SLOTS)
+        events[N_SLOTS * j:N_SLOTS * (j + 1)] = evs
+    if final:
+        events[N_SLOTS * n:] = rc_common.flush(st)
+    return rc_common.u32_to_i32(events), st
+
+
+def encode_events_plain(x2d: torch.Tensor, lane_len: torch.Tensor, inc: int,
+                        limit1_log2: int, limit0_log2: int, blend_log2: int,
+                        stats: dict | None = None,
+                        chunk_steps: int | None = None) -> torch.Tensor:
+    """Plain version of kernel U: x2d [L, K] uint8 -> events [3*L + 2, K]
+    int32 (u32 bits), the model pass and the coder pass alternating over
+    chunks of chunk_steps steps (all L steps by default) as the kernel's
+    do; the events do not depend on the chunks. stats as for
+    model_triples_plain."""
+    steps = x2d.shape[0]
+    chunk = chunk_steps or max(steps, 1)
+    params = (inc, limit1_log2, limit0_log2, blend_log2)
+    model = state = None
+    parts = []
+    j0 = 0
+    while True:
+        j1 = min(steps, j0 + chunk)
+        trip, model = model_triples_plain(x2d, lane_len, *params, j0=j0, j1=j1,
+                                          model=model, stats=stats)
+        ev, state = coder_events_plain(trip, state, final=j1 == steps)
+        parts.append(ev)
+        j0 = j1
+        if j0 >= steps:
+            return torch.cat(parts)
 
 
 def decode_symbols_plain(words: torch.Tensor, lane_len: torch.Tensor, n: int,

@@ -121,6 +121,71 @@ def test_ans2_hard_cases_match_the_oracle(case):
     assert tref.ans2_decode(blob) == data
 
 
+# kernel Y's hard cases (the card runs the same inputs against the plain
+# decoder): more words than its ring of 8,192 holds, every lane refilling
+# at the same steps (one byte in every lane), a window every step
+# (refresh_log2 0) at one warp and past it, and K = 1, 32, 64 around its
+# one-warp cut; each against the JAX package (limit_log2 <= 31, C10) and
+# the oracle
+Y_HARD = {
+    "more words than the ring holds": (_seeded(64 * 400, 19), 64, {}),
+    "every lane refilling at one step": (b"\x42" * (64 * 300), 64, dict(inc=1)),
+    "a window every step, K = 32": (_seeded(32 * 60, 20, 70), 32,
+                                    dict(refresh_log2=0)),
+    "a window every step, K = 64": (_seeded(64 * 40, 21, 70), 64,
+                                    dict(refresh_log2=0)),
+    "K = 1": (corpus_file("xargs.1")[:1500], 1, {}),
+    "K = 32": (corpus_file("fields.c")[:32 * 70 + 9], 32, {}),
+    "K = 64": (corpus_file("fields.c")[:64 * 40 + 33], 64, {}),
+}
+
+
+@pytest.mark.parametrize("case", list(Y_HARD))
+def test_y_hard_cases_match_jax_and_the_oracle(case):
+    data, lanes, opts = Y_HARD[case]
+    blob = ctt.compress(data, codec="adaptive_rans", lanes=lanes, **CPU,
+                        **opts)
+    assert blob == tref.ans2_encode(data, lanes=lanes, **opts)
+    assert blob == jops.ans2_encode_jax(data, lanes=lanes, **opts)
+    assert ctt.decompress(blob, codec="adaptive_rans", **CPU) == data
+    assert jops.ans2_decode_jax(blob) == data
+
+
+def _cut_words(blob, k, cut):
+    """The container with its word stream `cut` words short."""
+    r = ByteReader(blob)
+    head = blob[:8 + 4 * k]
+    r.raw(8 + 4 * k)
+    n_words = r.u32()
+    words = r.u16s(n_words)[:n_words - cut]
+    return (head + int(len(words)).to_bytes(4, "little")
+            + words.astype("<u2").tobytes())
+
+
+def test_y_word_stream_ending_mid_step_reads_zeros():
+    """The word stream cut short inside the last refilling step's words:
+    the lanes that refill past its end read 0, in the port's plain decoder
+    (and on the card, kernel Y), the JAX package's and the oracle's alike,
+    and the bytes before that step still decode."""
+    data, k = _seeded(64 * 50, 22, 120), 64
+    blob = tref.ans2_encode(data, lanes=k)
+    n, steps = len(data), 50
+    x2d = layout.pad2d_interleaved(torch.from_numpy(
+        np.frombuffer(data, np.uint8).copy()), k, steps)
+    lens = layout.lane_lengths_interleaved(n, k, steps, "cpu")
+    r_log2 = tref.default_refresh_log2(k, n)
+    freqs, cums = ans2_ops.window_tables_plain(x2d, n, 8, 18, r_log2)
+    ev, _ = ans2_ops.encode_events_plain(x2d, lens, freqs, cums, r_log2)
+    emits = ((ev & ans2_ops.EMIT) != 0).sum(dim=1)
+    last = int(torch.nonzero(emits).max())
+    cut = 3
+    assert int(emits[last]) > cut      # the end falls inside step `last`
+    short = _cut_words(blob, k, cut)
+    out = ctt.decompress(short, codec="adaptive_rans", **CPU)
+    assert out == tref.ans2_decode(short) == jops.ans2_decode_jax(short)
+    assert out[:last * k] == data[:last * k] and out != data
+
+
 def test_c10_the_jax_package_refuses_limit_log2_32():
     """C10: at limit_log2 >= 32 the JAX package's u32 model raises on
     encode (`U32(1 << limit_log2)`) and on decode, where the oracle and the

@@ -1408,6 +1408,63 @@ def test_o1_kernels_match_plain_and_the_oracle(dev, case):
     assert ctt.decompress(blob, codec="adaptive_o1", device="cuda") == data
 
 
+def _o1_inputs(data, k, opts, dev):
+    n = len(data)
+    steps = -(-n // k)
+    params = (opts.get("inc", o1_ref.pick_inc(k)),
+              opts.get("limit1_log2", o1_ref.LIMIT1_LOG2),
+              opts.get("limit0_log2", o1_ref.LIMIT0_LOG2),
+              opts.get("blend_log2", o1_ref.BLEND_LOG2))
+    x = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(dev)
+    return (n, steps, layout.pad2d_chunked(x, k, steps),
+            layout.lane_lengths(n, k, steps, dev), params)
+
+
+# kernel U's passes alone and over chunks (data, K, options, chunk steps):
+# the CPU tests' chunk cases (steps one below, at and one past the chunk,
+# chunks of one step, the last lane ending mid-chunk, every row halved
+# every step, a one-byte run at 256 lanes), the u32 table (t1 in global
+# memory across the edges), 2,048 lanes (two a thread) and 65,536, each
+# crossing at least two chunk edges
+U_CHUNKED = {
+    "steps one below the chunk": (_textish(8 * 60, 54).tobytes(), 8, {}, 61),
+    "steps at the chunk": (_textish(8 * 60, 54).tobytes(), 8, {}, 60),
+    "steps one past the chunk": (_textish(8 * 60, 54).tobytes(), 8, {}, 59),
+    "chunks of one step": (_textish(4 * 50, 55).tobytes(), 4, {}, 1),
+    "the last lane ending mid-chunk": (_textish(8 * 50 + 17, 56).tobytes(), 8,
+                                       {}, 20),
+    "every row halved every step": (_textish(3000, 47).tobytes(), 2,
+                                    dict(limit1_log2=8), 7),
+    "one-byte run at 256 lanes": (bytes(256 * 40), 256, {}, 16),
+    "u32 table": (b"\x07" * 6000 + bytes(range(256)) * 4, 4,
+                  dict(blend_log2=0, limit1_log2=17), 300),
+    "K=2048": (_textish(2048 * 6 + 5, 44).tobytes(), 2048, {}, 2),
+    "K=65536": (_seeded(65536 * 3 + 100, 45), 65536, {}, 1),
+}
+
+
+@pytest.mark.parametrize("case", list(U_CHUNKED))
+def test_u_passes_match_their_plain_versions(dev, case):
+    """U's model pass equals model_triples_plain, its coder pass
+    coder_events_plain, and U over chunks of a few steps (at least two
+    edges) equals encode_events_plain and the oracle's container."""
+    data, k, opts, chunk = U_CHUNKED[case]
+    n, steps, x2d, lens, params = _o1_inputs(data, k, opts, dev)
+    trip = o1_kernels.model_triples(x2d, lens, *params)
+    trip_p, _ = o1_ops.model_triples_plain(x2d, lens, *params)
+    assert torch.equal(trip, trip_p)
+    ev = o1_kernels.coder_events(trip)
+    assert torch.equal(ev, o1_ops.coder_events_plain(trip_p)[0])
+    assert torch.equal(o1_kernels.encode_events(x2d, lens, *params,
+                                                chunk_steps=chunk), ev)
+    assert torch.equal(o1_ops.encode_events_plain(x2d, lens, *params,
+                                                  chunk_steps=chunk), ev)
+    rows, sizes = expand.materialize_rows(ev)
+    blob = layout.assemble(lambda wide: o1_ops.header(n, k, wide, *params),
+                           rows.cpu().numpy(), sizes.cpu().numpy())
+    assert blob == o1_ref.o1_encode(data, lanes=k, **opts)
+
+
 @pytest.mark.parametrize("rows", ["one word row", "rows ending at a word edge"])
 def test_o1_decode_word_row_edges(dev, rows):
     """V against its plain version on word rows cut short: a single row
@@ -1516,6 +1573,21 @@ ANS2_CASES = {
     "all 256 values": (bytes(range(256)) * 40, 32, dict(refresh_log2=2)),
     "K=1": (_seeded(6000, 56, 200), 1, {}),
     "K=65536": (b"\x05" * 70_000 + _seeded(70_000, 57), 65536, {}),
+    # kernel Y's second design: more words than its ring of 8,192 holds,
+    # every lane refilling at the same steps, a window every step at one
+    # warp and past it, K = 32 and 64 around the one-warp cut, and the
+    # states in shared memory (16,384 lanes) and in global scratch with the
+    # ring (32,768)
+    "more words than the ring": (_seeded(64 * 400, 59), 64, {}),
+    "every lane refilling": (b"\x42" * (64 * 300), 64, dict(inc=1)),
+    "a window every step, K=32": (_seeded(32 * 60, 60, 70), 32,
+                                  dict(refresh_log2=0)),
+    "a window every step, K=64": (_seeded(64 * 40, 61, 70), 64,
+                                  dict(refresh_log2=0)),
+    "K=32": (_corpus("fields.c")[:32 * 70 + 9], 32, {}),
+    "K=64": (_corpus("fields.c")[:64 * 40 + 33], 64, {}),
+    "K=16384": (_seeded(16384 * 5 + 77, 62, 100), 16384, {}),
+    "K=32768": (_seeded(32768 * 3 + 5, 63, 100), 32768, {}),
 }
 
 
@@ -1580,6 +1652,28 @@ def test_ans2_model_past_2_32(dev, limit_log2):
                                       .to(torch.int16), states, n, inc,
                                       limit_log2, r_log2)
     assert out.cpu().numpy().tobytes() == data
+
+
+@pytest.mark.parametrize("cut", [0, 3, 1000])
+def test_y_word_stream_cut_short(dev, cut):
+    """Y on a word stream cut inside the last refilling step's words (and
+    far before): the lanes that read past its end read 0, as in the plain
+    decoder; the stream's length not a multiple of 8 words (the tail read
+    from global memory), and a words tensor 2 bytes off 16-byte alignment
+    (the wrapper copies it)."""
+    data, k = _seeded(64 * 200, 64, 120), 64
+    n, steps, x2d, lens = _ans2_inputs(data, k, dev)
+    inc, limit_log2, r_log2 = _ans2_params(k, n, {})
+    freqs, cums = ans2_kernels.window_tables(x2d, n, inc, limit_log2, r_log2)
+    ev, states = ans2_kernels.encode_events(x2d, lens, freqs, cums, r_log2)
+    words = ans2_ops.stream_words(ev).to(torch.int16)
+    words = words[:words.numel() - cut]
+    for w in (words, torch.cat([words[:1], words])[1:]):
+        out = ans2_kernels.decode_symbols(w, states, n, inc, limit_log2,
+                                          r_log2)
+        assert torch.equal(out, ans2_ops.decode_symbols_plain(
+            w.contiguous(), states, n, inc, limit_log2, r_log2))
+        assert (out.cpu().numpy().tobytes() == data) == (cut == 0)
 
 
 def test_ans2_kernels_refuse_past_65536_lanes(dev):

@@ -253,6 +253,94 @@ def test_lane_counts_and_empty_input():
         assert ctt.decompress(blob, codec="adaptive_o1", **CPU) == b""
 
 
+# kernel U's two passes alternate over chunks of steps, the model and the
+# lanes' coder state carried across the edges; its plain version does the
+# same. (data, lanes, options, chunk): steps one below, at and one past the
+# chunk, chunks of one step, the last lane ending inside a chunk, every row
+# halved every step, and a one-byte run at 256 lanes (every update on one
+# cell), each across several chunk edges
+CHUNKED = {
+    "steps one below the chunk": (_textish(8 * 60, 54), 8, {}, 61),
+    "steps at the chunk": (_textish(8 * 60, 54), 8, {}, 60),
+    "steps one past the chunk": (_textish(8 * 60, 54), 8, {}, 59),
+    "chunks of one step": (_textish(4 * 50, 55), 4, {}, 1),
+    "the last lane ending mid-chunk": (_textish(8 * 50 + 17, 56), 8, {}, 20),
+    "every row halved every step, chunks of 7":
+        (_textish(120, 47), 2, dict(limit1_log2=8), 7),
+    "one-byte run at 256 lanes, chunks of 6": (bytes(256 * 20), 256, {}, 6),
+}
+
+
+def _chunked_inputs(case):
+    data, k, opts, chunk = CHUNKED[case]
+    n = len(data)
+    steps = -(-n // k)
+    x = torch.from_numpy(np.frombuffer(data, np.uint8).copy())
+    params = (opts.get("inc", tref.pick_inc(k)),
+              opts.get("limit1_log2", tref.LIMIT1_LOG2),
+              opts.get("limit0_log2", tref.LIMIT0_LOG2),
+              opts.get("blend_log2", tref.BLEND_LOG2))
+    return (data, k, opts, chunk, steps, layout.pad2d_chunked(x, k, steps),
+            layout.lane_lengths(n, k, steps, "cpu"), params)
+
+
+@pytest.mark.parametrize("case", list(CHUNKED))
+def test_u_passes_over_chunks_match_the_oracle(case):
+    """The composition over chunks (encode_events on the CPU) gives the
+    events of one chunk, and the oracle's container; the model pass over
+    chunks gives the one pass's triples, and the coder pass over them the
+    same events."""
+    data, k, opts, chunk, steps, x2d, lens, params = _chunked_inputs(case)
+    ev = o1_kernels.encode_events(x2d, lens, *params, chunk_steps=chunk)
+    whole = o1_ops.encode_events_plain(x2d, lens, *params)
+    assert torch.equal(ev, whole)
+    trip = o1_kernels.model_triples(x2d, lens, *params)
+    assert trip.shape == (steps, 3, k) and trip.dtype == torch.int32
+    assert torch.equal(o1_kernels.coder_events(trip), whole)
+    model, parts = None, []
+    for j0 in range(0, steps, chunk):
+        part, model = o1_ops.model_triples_plain(
+            x2d, lens, *params, j0=j0, j1=min(steps, j0 + chunk), model=model)
+        parts.append(part)
+    assert torch.equal(torch.cat(parts), trip)
+    ended = torch.arange(steps)[:, None] >= lens[None, :]
+    assert bool((trip.permute(1, 0, 2)[:, ended] == 0).all())
+    rows, sizes = expand.materialize_rows(ev)
+    blob = layout.assemble(lambda wide: o1_ops.header(len(data), k, wide,
+                                                      *params),
+                           rows.numpy(), sizes.numpy())
+    assert blob == tref.o1_encode(data, lanes=k, **opts)
+
+
+@pytest.mark.parametrize("case", [c for c in CHUNKED if not CHUNKED[c][2]])
+def test_u_passes_over_chunks_match_jax_events(case):
+    """At pick_inc's defaults (where the JAX package is exact, C8) the
+    events over chunks equal the JAX package's `_encode_fn` scan's."""
+    data, k, _, chunk, steps, x2d, lens, params = _chunked_inputs(case)
+    ev = o1_kernels.encode_events(x2d, lens, *params, chunk_steps=chunk)
+    jev, _, _ = jops._encode_fn(steps, k, *params)(
+        x2d.numpy(), lens.numpy().astype(np.int32))
+    want = np.asarray(jev).astype(np.uint32).reshape(k, -1).T
+    assert np.array_equal(ev.numpy().view(np.uint32), want)
+
+
+def test_u_chunk_steps_keep_the_triples_capped():
+    """The wrapper's chunks: a stream in PIPE_CHUNKS chunks of at least
+    PIPE_MIN_STEPS steps, as many as keep two buffers of triples (12 bytes
+    a lane a step) within TRIPLE_BYTES, at least one, at most the
+    stream's."""
+    cap = o1_kernels.TRIPLE_BYTES
+    assert o1_kernels.default_chunk_steps(65536, 10 ** 6) == cap // (24 * 65536)
+    assert o1_kernels.default_chunk_steps(256, 4023) == 503
+    assert o1_kernels.default_chunk_steps(8, 2048) == 256
+    assert o1_kernels.default_chunk_steps(2, 1861) == 256
+    assert o1_kernels.default_chunk_steps(256, 100) == 100
+    for k in (1, 256, 2048, 65536):
+        for steps in (1, 1000, 1 << 20):
+            c = o1_kernels.default_chunk_steps(k, steps)
+            assert 1 <= c <= steps and 2 * 12 * k * c <= cap
+
+
 def test_run_field_guard():
     """A lane's pending 0xFF run must fit the event's 22-bit field: 3*L + 2
     < 2^22, else ValueError, as for CT-RC1 and CT-RC2."""
