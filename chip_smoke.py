@@ -1331,6 +1331,44 @@ def o1_word_row_edges(dev, err):
             fail("kernel V on rows ending at a word edge did not decode")
 
 
+def s_segment_edges(dev, err) -> str:
+    """Kernel S at 1, 3 and 64 steps a segment, K = 1, 2 and 8: 63 and 64
+    distinct bytes between two occurrences, a byte back after many
+    segments, one byte over many segments (a segment's bits inside one
+    word), lanes of steps - 1 steps; K = 65,536 at 1 step a segment;
+    kennedy.xls at a quarter and four times its default segment. Each
+    against the plain version's payload and bit counts."""
+    rng = np.random.default_rng(620)
+    distinct = []
+    for r in range(6):
+        a, b = 200 + r, 250 - r
+        distinct += [a] + list(range(63)) + [a] + [b] + list(range(64)) + [b]
+    back = []
+    for r in range(5):
+        back += [7 + r] + list(rng.integers(0, 3, 130)) + [7 + r]
+    lanes = [bytes(distinct), bytes(np.array(back, np.uint8)),
+             b"\x00" * 400 + textish(300, 621)]
+    cases = []
+    for lane in lanes:
+        for k in (1, 2, 8):
+            x = np.frombuffer(lane, np.uint8)
+            data = np.repeat(x, k)[:len(x) * k - k // 2].tobytes()
+            cases += [(data, k, seg) for seg in (1, 3, 64)]
+    cases.append((b"\x05" * 70_000 + rng.integers(0, 256, 60_000, np.uint8)
+                  .tobytes(), 65536, 1))
+    kennedy = corpus("kennedy.xls")
+    seg = ase_ops.segment_steps(pick_lanes(len(kennedy)),
+                                -(-len(kennedy) // pick_lanes(len(kennedy))))
+    cases += [(kennedy, pick_lanes(len(kennedy)), max(1, seg // 4)),
+              (kennedy, pick_lanes(len(kennedy)), seg * 4)]
+    for data, k, seg in cases:
+        n, stride, x2d, lens = interleaved_inputs(data, k, dev)
+        hold(err, "ase_encode", ase_kernels.encode_words(x2d, lens, seg_steps=seg),
+             ase_ops.encode_words_plain(x2d, lens),
+             f"kernel S at K={k} n={n}, {seg} steps a segment")
+    return f"S at {len(cases)} segment edges equals its plain version"
+
+
 def u_chunk_edges(dev, err) -> str:
     """Kernel U with its passes alternating over chunks of a few steps
     (the model and the coder state carried across each edge): steps one
@@ -1512,10 +1550,11 @@ def phase_kernels_ase_o1(dev):
         o1_case(data, k, f"K={k} n={len(data)} {opts}", **opts)
     o1_word_row_edges(dev, err)
     u_chunks = u_chunk_edges(dev, err)
+    s_edges = s_segment_edges(dev, err)
     containers("adaptive_o1", o1_cases, o1_ref.o1_encode)
     print(f"[kernels] ok {len(ase_cases)} CT-ASE1 and {len(o1_cases)} CT-RC3 "
-          f"containers equal the oracle's and round-trip; {u_chunks}",
-          flush=True)
+          f"containers equal the oracle's and round-trip; {u_chunks}; "
+          f"{s_edges}", flush=True)
 
     # held and timed at kennedy.xls's shapes (ase K = 256, stride 4,023;
     # CT-RC3 K = 256, L = 4,023), kernel vs plain; held there and at
@@ -1645,7 +1684,16 @@ def phase_kernels_ans2(dev):
              (corpus("fields.c")[:32 * 70 + 9], 32, {}),
              (corpus("fields.c")[:64 * 40 + 33], 64, {}),
              (seeded(16384 * 5 + 77, 100), 16384, {}),
-             (seeded(32768 * 3 + 5, 100), 32768, {})]
+             (seeded(32768 * 3 + 5, 100), 32768, {}),
+             # X's second design: window edges inside a run of 16
+             # (refresh_log2 3), lanes of steps - 1 steps at 32 steps a
+             # window, K = 1 at 16 steps a window, one staged step, a table
+             # every step at grammar.lsp's shape
+             (seeded(8 * 300 + 3, 90), 8, dict(refresh_log2=3)),
+             (seeded(32 * 120 - 5, 60), 32, dict(refresh_log2=5)),
+             (textish(1200, 704), 1, dict(refresh_log2=4, limit_log2=12)),
+             (seeded(64 * 17 - 3, 256), 64, dict(refresh_log2=5)),
+             (corpus("grammar.lsp"), 2, dict(refresh_log2=0))]
     for data, k, opts in cases:
         case(data, k, f"K={k} n={len(data)} {opts}", **opts)
         blob = ctt.compress(data, codec="adaptive_rans", device="cuda",

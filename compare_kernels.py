@@ -83,11 +83,29 @@ so the script exits 1 with them. `o1_rows_contiguous` and
 `o1_rows_rotated` build U and V with the rescale's rows shared out over
 the warps otherwise.
 
-Kernels W, X and Y (CT-ANS2's model, coder and decode) are timed at S-V's
-four shapes (pick_lanes(n) lanes: 256, 64, 2, 8) and at kennedy.xls over
-2,048 and 65,536 lanes (Y's states in global scratch there), at the
-codec's defaults, their inputs made by this tree's W and X (`--only WXY`;
-`--only UY` times U and Y alone). Y's state scratch is given at every K.
+Kernels W, X and Y (CT-ANS2's model, coder and decode) are timed at
+`sx_shapes()` (below) and at grammar.lsp with refresh_log2 0 (a table a
+step), at the codec's defaults, their inputs made by this tree's W and X
+(`--only WXY`; `--only UY` times U and Y alone). Y's state scratch is
+given at every K.
+
+Kernels S and X (`--only SX`) are timed at `sx_shapes()`: kennedy.xls (K
+= 256), alice29.txt (64), grammar.lsp (2), the first 2^14-byte superblock
+(8), ptt5 (128), 200,000 random bytes (64), kennedy.xls at 2,048 and
+65,536 lanes; X also at grammar.lsp with refresh_log2 0. A library whose S
+is a thread a lane with a scan and a copy (its source says `void* offsets,
+void* bits, void* payload`) is called through that entry
+(OLD_S_SIGNATURE). Their variants: `s_quad` (T's quad a lane with the
+base's single pass, scan and copy: an edit of the BASE's ase.cu, a tree
+whose S is a thread a lane, as 14fafdd's), `s_segq` and
+`s_seg4` (this tree's S called with a quarter and four times
+`ase_ops.segment_steps`),
+`x_cta32` (X in CTAs of 32 lanes); the diagnostics, whose outputs differ
+by design (the script then exits 1): `sdiag_nocopy` (S's passes that place
+the words, the offsets, the scan and the write, skipped), `xdiag_nodiv` (X's reciprocal
+a constant), `xdiag_onetable` (every step of X reading table 0), and the
+same names with `@base` for a base as 14fafdd (its S's scan, memset and
+copy skipped; its X reading every table from global memory).
 
 U and Y's variants: `u_serial` (a chunk's coder pass after, not beside,
 the next chunk's model pass), `u_no_t0scan` (t0's sums kept by atomics at
@@ -242,6 +260,73 @@ L_BUILD = """    uint32_t sum[8] = {}, a = 0;
 
 # name -> (source file, [(text, replacement), ...]): one part of a design
 # taken out, or a parameter changed
+# s_quad's kernel: the base's S with T's quad (4 threads a lane), inserted
+# after quad_update
+S_QUAD_KERNEL = """__global__ void __launch_bounds__(DEC_THREADS)
+    ase_quad_encode_kernel(const uint8_t* __restrict__ x, const int32_t* __restrict__ lane_len,
+                           uint16_t* __restrict__ scratch, int32_t* __restrict__ counts,
+                           uint32_t* __restrict__ bits_out, int K, int stride) {
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = g / QUAD, q = g % QUAD;
+  const bool real = lane < K;
+  const int len = real ? min(max(lane_len[lane], 0), stride) : 0;
+  const int steps = __reduce_max_sync(FULL, len);
+  uint32_t tab[QWORDS];
+#pragma unroll
+  for (int w = 0; w < QWORDS; ++w) tab[w] = 0;
+  int size = 0, bits = 0;
+  uint32_t acc = 0, nb = 0, total = 0;
+  size_t m = 0;
+  uint32_t nxt = len > 0 ? x[lane] : 0u;
+  for (int t = 0; t < steps; ++t) {
+    const bool act = t < len;
+    const uint32_t sym = nxt;
+    nxt = t + 1 < len ? x[(size_t)(t + 1) * K + lane] : 0u;
+    const uint32_t s4 = sym * 0x01010101u;
+    int idx = TABLE;
+#pragma unroll
+    for (int w = 0; w < QWORDS; ++w) {
+      const int gw = QWORDS * q + w;
+      const uint32_t d = tab[w] ^ s4;
+      const uint32_t z = (d - 0x01010101u) & ~d & 0x80808080u & low_bytes(clamp4(size - 4 * gw));
+      if (idx == TABLE && z) idx = 4 * gw + ((__ffs(z) - 1) >> 3);
+    }
+    idx = min(idx, __shfl_xor_sync(FULL, idx, 1, QUAD));
+    idx = min(idx, __shfl_xor_sync(FULL, idx, 2, QUAD));
+    const bool hit = idx < TABLE;
+    const uint32_t val = hit ? ((uint32_t)(size - 1 - idx) << 1) | 1u : sym << 1;
+    const uint32_t width = hit ? (uint32_t)bits + 1u : 9u;
+    uint32_t nt[QWORDS];
+#pragma unroll
+    for (int w = 0; w < QWORDS; ++w) nt[w] = tab[w];
+    int nsize = size;
+    quad_update(nt, q, nsize, sym, hit, hit ? idx : 0);
+    if (act) {
+      if (!hit && size < TABLE) bits = 32 - __clz(size);
+#pragma unroll
+      for (int w = 0; w < QWORDS; ++w) tab[w] = nt[w];
+      size = nsize;
+      acc |= val << nb;
+      nb += width;
+      total += width;
+      if (nb >= 16) {
+        if (q == 0) scratch[m * K + lane] = (uint16_t)acc;
+        ++m;
+        acc >>= 16;
+        nb -= 16;
+      }
+    }
+  }
+  if (!real || q != 0) return;
+  if (nb > 0) {
+    scratch[m * K + lane] = (uint16_t)acc;
+    ++m;
+  }
+  counts[lane] = (int32_t)m;
+  bits_out[lane] = total;
+}
+"""
+
 VARIANTS = {
     # kernel A: every row requantized at every window
     "a_all_rows": ("rc_encode.cuh", [(
@@ -433,6 +518,34 @@ VARIANTS = {
          "if (t0 >= (unsigned long long)steps || w > 0) break;")]),
     "ydiag_nohist": ("ans2_decode.cu", [(
         "            atomicAdd(whist + s, 1u);\n", "")]),
+    # kernel S, diagnostics (outputs differ): the passes that place the
+    # words (the offsets, the scan and the write) skipped
+    "sdiag_nocopy": ("ase.cu", [
+        ("  ase_scan_kernel<<<1, SCAN_THREADS, 0, st>>>",
+         "  if (false) ase_scan_kernel<<<1, SCAN_THREADS, 0, st>>>"),
+        ("  ase_lane_kernel<<<", "  if (false) ase_lane_kernel<<<"),
+        ("  ase_code_kernel<true><<<", "  if (false) ase_code_kernel<true><<<")]),
+    # kernel S on T's quad (4 threads a lane, 16 entries each), with the
+    # base's single pass, scan and copy: an edit of the base's ase.cu (a
+    # tree whose S is a thread a lane, as 14fafdd's)
+    "s_quad": ("ase.cu", [
+        ("// Word i of the payload, 0 outside [0, end).", S_QUAD_KERNEL
+         + "\n// Word i of the payload, 0 outside [0, end)."),
+        ("  const int threads = K < THREADS ? K : THREADS;\n"
+         "  ase_encode_kernel<<<(K + threads - 1) / threads, threads, 0, st>>>(",
+         "  ase_quad_encode_kernel<<<(QUAD * K + DEC_THREADS - 1) / DEC_THREADS, "
+         "DEC_THREADS, 0, st>>>(")]),
+    # kernel X: CTAs of 32 lanes; the diagnostics (outputs differ): the
+    # reciprocal a constant, every step reading table 0
+    "s_segq": ("ase.cu", []),
+    "s_seg4": ("ase.cu", []),
+    "x_cta32": ("ans2_encode.cu", [("constexpr int THREADS = 128;  // X: lanes a CTA",
+                                    "constexpr int THREADS = 32;  // X: lanes a CTA")]),
+    "xdiag_nodiv": ("ans2_encode.cu", [("f ? 0xFFFFFFFFu / f : 0u", "f ? 0x40000u : 0u")]),
+    "xdiag_onetable": ("ans2_encode.cu", [
+        ("entry(freq, cum, snapshot_index(", "entry(freq, cum, 0u * snapshot_index("),
+        ("const size_t row = (size_t)w * 256 + threadIdx.x;",
+         "const size_t row = threadIdx.x;")]),
     # kernel T's second design: CTAs of 64 or 128 threads (16 or 32 lanes)
     # in place of one warp; the diagnostics: no entry shuffle (the symbol
     # its index), no update
@@ -484,6 +597,13 @@ OLD_LZ_SIGNATURES = {
 # lz_ops.walk_inputs) and an int32 exits scratch, one launch: step, off,
 # exits, mpos, mlen, moff, count, n, w, tcap, stream
 OLD_WALK_SIGNATURE = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]
+# kernel S of a tree whose S is a thread a lane with a scan and a copy:
+# x, lane_len, scratch, counts, offsets, bits, payload, K, stride, cap,
+# stream
+OLD_S_SIGNATURE = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]
+# kernel S's segment length in the s_seg* variants: this tree's library,
+# called with ase_ops.segment_steps times the scale
+SEG_SCALE = {"s_segq": 0.25, "s_seg4": 4.0}
 # U's chunks in the case that times its chunk edges
 U_SMALL_CHUNK = 256
 # the source of each of kernels S-Y
@@ -494,7 +614,25 @@ VARIANT_SOURCE = {"a": "rcx_encode.cu", "b": "expand.cu", "g": "rans_decode.cu",
                   "l": "rc_exact.cu", "ldiag": "rc_exact.cu", "m": "mtf.cu", "mn": "mtf.cu",
                   "vdiag2": "o1_decode.cu", "t": "ase.cu", "tdiag2": "ase.cu",
                   "o1": ("o1_encode.cu", "o1_decode.cu"), "u": "o1_encode.cu",
-                  "udiag": "o1_encode.cu", "y": "ans2_decode.cu", "ydiag": "ans2_decode.cu"}
+                  "udiag": "o1_encode.cu", "y": "ans2_decode.cu", "ydiag": "ans2_decode.cu",
+                  "s": "ase.cu", "sdiag": "ase.cu", "x": "ans2_encode.cu",
+                  "xdiag": "ans2_encode.cu"}
+# variants that edit the base's sources, not this tree's: s_quad, and
+# NAME@base, the diagnostics of a base whose S is a thread a lane with a
+# scan and a copy and whose X reads every table from global memory (as
+# 14fafdd's): S's scan, memset and copy skipped; X's reciprocal a
+# constant; every step of X reading table 0
+FROM_BASE = {"s_quad"}
+BASE_VARIANTS = {
+    "sdiag_nocopy": ("ase.cu", [
+        ("  ase_scan_kernel<<<1, SCAN_THREADS, 0, st>>>",
+         "  if (false) ase_scan_kernel<<<1, SCAN_THREADS, 0, st>>>"),
+        ("cudaMemsetAsync(payload, 0, (size_t)K * cap * 2, st)", "cudaSuccess"),
+        ("  ase_copy_kernel<<<", "  if (false) ase_copy_kernel<<<")]),
+    "xdiag_nodiv": ("ans2_encode.cu", [("f ? 0xFFFFFFFFu / f : 0u", "f ? 0x40000u : 0u")]),
+    "xdiag_onetable": ("ans2_encode.cu", [("entry(freq, cum, snapshot_index(",
+                                           "entry(freq, cum, 0u * snapshot_index(")]),
+}
 
 
 def build_lib(name: str, csrc: Path, edits=(), only: str | tuple = ()
@@ -530,6 +668,11 @@ def load(path: Path) -> ctypes.CDLL:
     sigs = dict(build.SIGNATURES)
     if hasattr(lib, "ct_lz_clamp"):
         sigs.update(OLD_LZ_SIGNATURES)
+    ase = path.parents[2] / "csrc" / "ase.cu"
+    lib.old_s = ase.exists() and "void* offsets, void* bits, void* payload" in ase.read_text()
+    if lib.old_s:
+        sigs["ct_ase_encode"] = OLD_S_SIGNATURE
+    lib.seg_scale = 1.0
     lz = path.parents[2] / "csrc" / "lz_encode.cu"
     lib.old_walk = lz.exists() and "ct_lz_walk(const void* step" in lz.read_text()
     if lib.old_walk:
@@ -755,13 +898,10 @@ def ase_o1_cases(dev, stream, only: str = ""):
     65,536 (the u32 table). The inputs are made through this tree's
     wrappers; V's state scratch is sized for either tree (7 words a lane)."""
     out = []
-    concat = b"".join(corpus(f) for f in CANTERBURY)
-    at = [("kennedy.xls", corpus("kennedy.xls"), None),
-          ("alice29.txt", corpus("alice29.txt"), None),
-          ("grammar.lsp", corpus("grammar.lsp"), None),
-          ("a 2^14-byte CT-SB superblock", concat[:1 << 14], None)]
-    for label, data, _ in at if not only or any(c in only for c in "ST") else ():
-        n, stride, x2d, lens = interleaved(data, pick_lanes(len(data)), dev)
+    at = sx_shapes()
+    for i, (label, data, k, _) in enumerate(
+            at if not only or any(c in only for c in "ST") else ()):
+        n, stride, x2d, lens = interleaved(data, k or pick_lanes(len(data)), dev)
         k = x2d.shape[1]
         cap = ase_ops.words_cap(stride)
         payload, bits = ase_kernels.encode_words(x2d, lens)
@@ -772,12 +912,22 @@ def ase_o1_cases(dev, stream, only: str = ""):
         shape = f"{label} (K={k}, stride {stride})"
 
         def s_enc(lib, a=(x2d, lens, k, stride, cap)):
-            scratch, pay = (torch.empty(a[2] * a[4], dtype=torch.int16, device=dev)
-                            for _ in range(2))
-            cnt, off, bts = torch.empty((3, a[2]), dtype=torch.int32, device=dev)
+            x2d, lens, k, stride, cap = a
+            pay = torch.empty(k * cap, dtype=torch.int16, device=dev)
+            bts = torch.empty(k, dtype=torch.int32, device=dev)
+            if lib.old_s:
+                scratch = torch.empty(k * cap, dtype=torch.int16, device=dev)
+                cnt, off = torch.empty((2, k), dtype=torch.int32, device=dev)
+                return (lambda: lib.ct_ase_encode(
+                    x2d.data_ptr(), lens.data_ptr(), scratch.data_ptr(), cnt.data_ptr(),
+                    off.data_ptr(), bts.data_ptr(), pay.data_ptr(), k, stride, cap,
+                    stream())), (pay, bts)
+            seg = max(1, round(ase_ops.segment_steps(k, stride) * lib.seg_scale))
+            scratch = torch.empty(ase_ops.segment_scratch_words(k, stride, seg),
+                                  dtype=torch.int32, device=dev)
             return (lambda: lib.ct_ase_encode(
-                a[0].data_ptr(), a[1].data_ptr(), scratch.data_ptr(), cnt.data_ptr(),
-                off.data_ptr(), bts.data_ptr(), pay.data_ptr(), *a[2:], stream())), (pay, bts)
+                x2d.data_ptr(), lens.data_ptr(), scratch.data_ptr(), bts.data_ptr(),
+                pay.data_ptr(), k, stride, seg, stream())), (pay, bts)
 
         def t_dec(lib, a=(words, bases, counts, lens, k, stride)):
             o = torch.zeros(a[4] * a[5], dtype=torch.uint8, device=dev)
@@ -785,7 +935,14 @@ def ase_o1_cases(dev, stream, only: str = ""):
                 a[0].data_ptr(), a[0].numel(), a[1].data_ptr(), a[2].data_ptr(),
                 a[3].data_ptr(), o.data_ptr(), *a[4:], stream())), o
 
-        out += [("S", shape, s_enc), ("T", shape, t_dec)]
+        out.append(("S", shape, s_enc))
+        if i < 4:
+            out.append(("T", shape, t_dec))
+    concat = b"".join(corpus(f) for f in CANTERBURY)
+    at = [("kennedy.xls", corpus("kennedy.xls"), None),
+          ("alice29.txt", corpus("alice29.txt"), None),
+          ("grammar.lsp", corpus("grammar.lsp"), None),
+          ("a 2^14-byte CT-SB superblock", concat[:1 << 14], None)]
     at += [("kennedy.xls", corpus("kennedy.xls"), 2048),
            ("kennedy.xls", corpus("kennedy.xls"), 65536)]
     # U alone at kennedy.xls with its passes alternating over chunks of
@@ -846,6 +1003,25 @@ def ase_o1_cases(dev, stream, only: str = ""):
     return out
 
 
+def sx_shapes():
+    """[(label, data, K or None for pick_lanes(n), refresh_log2 or None for
+    the codec's default)]: S's and X's shapes. kennedy.xls (K = 256),
+    alice29.txt (64), grammar.lsp (2), the first 2^14-byte superblock of
+    CT-SB over the concatenated corpus (8), ptt5 (128), 200,000 random bytes
+    (64), kennedy.xls at 2,048 and 65,536 lanes; X also grammar.lsp at
+    refresh_log2 0 (a table a step)."""
+    concat = b"".join(corpus(f) for f in CANTERBURY)
+    rand = np.random.default_rng(20).integers(0, 256, 200_000, np.uint8).tobytes()
+    return [("kennedy.xls", corpus("kennedy.xls"), None, None),
+            ("alice29.txt", corpus("alice29.txt"), None, None),
+            ("grammar.lsp", corpus("grammar.lsp"), None, None),
+            ("a 2^14-byte CT-SB superblock", concat[:1 << 14], None, None),
+            ("ptt5", corpus("ptt5"), None, None),
+            ("200,000 random bytes", rand, None, None),
+            ("kennedy.xls", corpus("kennedy.xls"), 2048, None),
+            ("kennedy.xls", corpus("kennedy.xls"), 65536, None)]
+
+
 def ans2_cases(dev, stream):
     """W, X and Y (CT-ANS2, interleaved lanes) at S-V's shapes: kennedy.xls,
     alice29.txt, grammar.lsp and the first 2^14-byte superblock of CT-SB
@@ -855,18 +1031,13 @@ def ans2_cases(dev, stream):
     tree's W and X. Y's state scratch is given at every K, so either tree
     takes it."""
     out = []
-    concat = b"".join(corpus(f) for f in CANTERBURY)
-    at = [("kennedy.xls", corpus("kennedy.xls"), None),
-          ("alice29.txt", corpus("alice29.txt"), None),
-          ("grammar.lsp", corpus("grammar.lsp"), None),
-          ("a 2^14-byte CT-SB superblock", concat[:1 << 14], None),
-          ("kennedy.xls", corpus("kennedy.xls"), 2048),
-          ("kennedy.xls", corpus("kennedy.xls"), 65536)]
-    for label, data, k in at:
+    at = sx_shapes() + [("grammar.lsp", corpus("grammar.lsp"), None, 0)]
+    for label, data, k, r_log2 in at:
         k = k or pick_lanes(len(data))
         n, steps, x2d, lens = interleaved(data, k, dev)
         inc, limit = ans2_ref.ANS2_INC_DEFAULT, ans2_ref.ANS2_LIMIT_LOG2_DEFAULT
-        r_log2 = ans2_ref.default_refresh_log2(k, n)
+        if r_log2 is None:
+            r_log2 = ans2_ref.default_refresh_log2(k, n)
         r = ans2_ops.refresh_eff(r_log2, steps)
         n_snap = ans2_ops.n_snapshots(steps, r)
         freqs, cums = ans2_kernels.window_tables(x2d, n, inc, limit, r_log2)
@@ -1214,8 +1385,12 @@ def main():
             return build_lib(nm, a.base / "cpprcoder_tpu_torch" / "csrc", only=only)
         if nm == "tree":
             return build_lib(nm, build.CSRC, only=only)
-        return build_lib(nm, build.CSRC, [VARIANTS[nm]],
-                         VARIANT_SOURCE[nm.split("_")[0]])
+        base = a.base / "cpprcoder_tpu_torch" / "csrc"
+        if nm.endswith("@base"):
+            edit = BASE_VARIANTS[nm[:-len("@base")]]
+            return build_lib(nm.replace("@", "_"), base, [edit], edit[0])
+        src = base if nm in FROM_BASE else build.CSRC
+        return build_lib(nm, src, [VARIANTS[nm]], VARIANT_SOURCE[nm.split("_")[0]])
 
     # every library's nvcc processes at once
     with ThreadPoolExecutor(len(names)) as pool:
@@ -1223,6 +1398,7 @@ def main():
     libs = {}
     for nm, (path, log) in built.items():
         libs[nm] = load(path)
+        libs[nm].seg_scale = SEG_SCALE.get(nm, 1.0)
         spills = sorted({ln.split(":")[-1].strip() for ln in log.splitlines()
                          if "spill" in ln and " 0 bytes spill stores" not in ln})
         print(f"[build] {nm}: nonzero spills: {spills}", flush=True)

@@ -24,22 +24,32 @@
 //         where a rescale fires, the total otherwise grown by inc times the
 //         window's coded positions;
 //   norm  a CTA a window: the normalize, -> freqs, cums [n_snap, 256].
-// X: kernel F's coder (csrc/rans_encode.cu), a thread a lane, walking the
-// lane's steps backwards; step t codes with table snapshot_index(t). The
-// tables lie in global memory (there may be one a step), so X reads a run
-// of AHEAD steps' entries a run ahead of the chain, and the run after's
-// bytes a run before that: the chain itself waits on no load. Each entry's
-// reciprocal floor((2^32 - 1) / f) is formed off the chain, and the step is
-// F's (`encode_step`, its exactness argument there and in
-// tests/test_torch_rans_divide.py). Events ev[t, j] are (emit << 16) |
-// (st & 0xFFFF) before the step, 0 where the lane is inactive.
+// X (second round; the first read every step's entry from global memory
+// and divided for its reciprocal a step): kernel F's coder
+// (csrc/rans_encode.cu), a thread a lane in CTAs of 128, walking the lane's
+// steps backwards; step t codes with table snapshot_index(t). Lane lengths
+// differ by at most one, so every lane of a CTA crosses a window edge at
+// the same step: the CTA stages the current window's table in shared
+// memory as (rcp, f | c << 16), rcp = floor((2^32 - 1) / f) formed once a
+// window (two divides a thread), the next window's (f, c) loaded during
+// the current one, one barrier a window. From step 16 on, where windows
+// are 16 steps or more (refresh_log2 >= 4), the steps run as F's: runs of
+// 16, a run's bytes loaded during the run before, its entries read from
+// the staged table at its start, the step F's (`encode_step`, its
+// exactness argument there and in tests/test_torch_rans_divide.py). The
+// first 16 steps, and every step at refresh_log2 < 4, read their entries
+// from global memory a run ahead (the first design). Measured and left
+// out (PERF.md, section 6): CTAs of 32 lanes (slower wherever tables are
+// staged), windows of 8 steps staged in runs of 8 (a barrier every run:
+// slower than global reads at K = 2,048). Events ev[t, j] are (emit <<
+// 16) | (st & 0xFFFF) before the step, 0 where the lane is inactive.
 //
 // What bounds them: W moves n bytes and writes 16 bytes a table cell (a
 // few microseconds of memory time at kennedy.xls); its walk is n_snap
 // dependent rounds of one CTA, its normalize a few microseconds a window,
 // all windows at once. X, like F, is bound by each lane's chain of about 6
-// dependent integer operations a step; K = 2 lanes over 1,861 steps
-// (grammar.lsp) fill one warp of one SM.
+// dependent integer operations a step, and a barrier a window; K = 2
+// lanes over 1,861 steps (grammar.lsp) fill one warp of one SM.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -53,6 +63,8 @@ constexpr int HIST_THREADS = 256;
 constexpr int TILE = 16384;   // positions a histogram CTA
 constexpr int THREADS = 128;  // X: lanes a CTA
 constexpr int AHEAD = 16;     // X: steps a run
+constexpr int STAGE_LOG2 = 4; // X: windows of 2^4 = AHEAD steps and more are staged
+constexpr int NS = 256 / THREADS;  // X: table entries a thread stages
 
 // x [steps*K] u8; hist [n_snap, 256] u32, zeroed.
 __global__ void __launch_bounds__(HIST_THREADS)
@@ -118,13 +130,36 @@ __global__ void __launch_bounds__(NORM_THREADS)
   cum[at] = (int32_t)c;
 }
 
-// Table entry of symbol s in table w: (rcp, f | c << 16), rcp =
-// floor((2^32 - 1) / f) (0 for f = 0, a symbol that is never coded).
+// Table entry (rcp, f | c << 16), rcp = floor((2^32 - 1) / f) (0 for f =
+// 0, a symbol that is never coded).
+__device__ __forceinline__ uint2 make_entry(uint32_t f, uint32_t c) {
+  return make_uint2(f ? 0xFFFFFFFFu / f : 0u, f | (c << 16));
+}
+
+// Symbol s's entry in table w, from global memory.
 __device__ __forceinline__ uint2 entry(const int32_t* __restrict__ freq,
                                        const int32_t* __restrict__ cum, uint32_t w, uint32_t s) {
   const size_t at = (size_t)w * 256 + s;
-  const uint32_t f = (uint32_t)__ldg(freq + at), c = (uint32_t)__ldg(cum + at);
-  return make_uint2(f ? 0xFFFFFFFFu / f : 0u, f | (c << 16));
+  return make_entry((uint32_t)__ldg(freq + at), (uint32_t)__ldg(cum + at));
+}
+
+// Table w's (f, c) of symbols threadIdx.x + i * THREADS, into registers.
+__device__ __forceinline__ void stage_load(const int32_t* __restrict__ freq,
+                                           const int32_t* __restrict__ cum, uint32_t w,
+                                           uint32_t (&f)[NS], uint32_t (&c)[NS]) {
+  const size_t row = (size_t)w * 256 + threadIdx.x;
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    f[i] = (uint32_t)__ldg(freq + row + i * THREADS);
+    c[i] = (uint32_t)__ldg(cum + row + i * THREADS);
+  }
+}
+
+// Their entries, reciprocals formed, into a table in shared memory.
+__device__ __forceinline__ void stage_store(uint2* tab, const uint32_t (&f)[NS],
+                                            const uint32_t (&c)[NS]) {
+#pragma unroll
+  for (int i = 0; i < NS; ++i) tab[threadIdx.x + i * THREADS] = make_entry(f[i], c[i]);
 }
 
 // Kernel F's step: -> the event; st advanced (csrc/rans_encode.cu has its
@@ -141,54 +176,107 @@ __device__ __forceinline__ uint32_t encode_step(uint32_t& st, uint2 tab) {
 }
 
 // x [stride, K] u8; lane_len [K] i32; freq, cum [n_snap, 256] i32;
-// ev [stride, K] u32; states [K] u32.
+// ev [stride, K] u32; states [K] u32. Lane lengths differ by at most one,
+// so every lane of a CTA crosses a window edge at the same step.
 __global__ void __launch_bounds__(THREADS)
     ans2_encode_kernel(const uint8_t* __restrict__ x, const int32_t* __restrict__ lane_len,
                        const int32_t* __restrict__ freq, const int32_t* __restrict__ cum,
                        uint32_t* __restrict__ ev, uint32_t* __restrict__ states, int K, int stride,
                        int r) {
+  __shared__ uint2 tabs[2][256];
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= K) return;
-  const int len = max(0, min(lane_len[lane], stride));
+  const bool real = lane < K;
+  const int len = real ? max(0, min(lane_len[lane], stride)) : 0;
   const uint8_t* xl = x + lane;
   uint32_t* el = ev + lane;
-  for (int j = len; j < stride; ++j) el[(size_t)j * K] = 0u;
+  if (real)
+    for (int j = len; j < stride; ++j) el[(size_t)j * K] = 0u;
   uint32_t st = LOW;
-  // the top len % AHEAD steps one at a time, then runs of AHEAD steps, j
-  // the first (highest) of a run: t holds its entries, read during the run
-  // before, and nx the next run's bytes, read two runs before
-  int j = len - 1;
-  for (; j >= 0 && (j + 1) % AHEAD != 0; --j)
-    el[(size_t)j * K] = encode_step(st, entry(freq, cum, snapshot_index(j, r), xl[(size_t)j * K]));
-  if (j < 0) {
-    states[lane] = st;
-    return;
-  }
-  uint32_t nx[AHEAD];
-  uint2 tn[AHEAD];
+  // The staged steps [t0, stride), every window there at least AHEAD steps
+  // long and starting at a multiple of AHEAD: window w's table in
+  // tabs[w & 1], the next window's loaded during it and formed at its end
+  // (one barrier a window). The top run's steps one at a time, then runs of
+  // AHEAD steps as kernel F's: a run's bytes loaded during the run before,
+  // its entries read from the table at its start, no bound checked inside.
+  const int t0 = r >= STAGE_LOG2 && stride > AHEAD ? AHEAD : stride;
+  if (t0 < stride) {
+    uint32_t w = snapshot_index(stride - 1, r);
+    uint32_t pf[NS], pc[NS];
+    stage_load(freq, cum, w, pf, pc);
+    stage_store(tabs[w & 1], pf, pc);
+    __syncthreads();
+    unsigned long long edge = window_start(w, r);  // window w's first step
+    if (edge > (unsigned long long)t0) stage_load(freq, cum, w - 1, pf, pc);
+    const int m0 = t0 / AHEAD;
+    int m = (stride - 1) / AHEAD;  // the top run, steps [AHEAD*m, stride)
+    for (int t = len - 1; t >= AHEAD * m; --t)
+      el[(size_t)t * K] = encode_step(st, tabs[w & 1][xl[(size_t)t * K]]);
+    uint32_t nx[AHEAD];
+    for (;;) {
+      if ((unsigned long long)(AHEAD * m) == edge && m > m0) {
+        stage_store(tabs[(w - 1) & 1], pf, pc);
+        __syncthreads();
+        edge = window_start(--w, r);
+        if (edge > (unsigned long long)t0) stage_load(freq, cum, w - 1, pf, pc);
+      }
+      if (--m < m0) break;
+      if (m == (stride - 1) / AHEAD - 1 && real) {
 #pragma unroll
-  for (int u = 0; u < AHEAD; ++u) nx[u] = xl[(size_t)(j - u) * K];
+        for (int u = 0; u < AHEAD; ++u) nx[u] = xl[(size_t)(AHEAD * m + u) * K];
+      }
+      if (real) {
+        const uint2* tab = tabs[w & 1];
+        uint2 e[AHEAD];
 #pragma unroll
-  for (int u = 0; u < AHEAD; ++u) tn[u] = entry(freq, cum, snapshot_index(j - u, r), nx[u]);
-  if (j >= AHEAD) {
+        for (int u = 0; u < AHEAD; ++u) e[u] = tab[nx[u]];
+        if (m > m0) {
 #pragma unroll
-    for (int u = 0; u < AHEAD; ++u) nx[u] = xl[(size_t)(j - AHEAD - u) * K];
-  }
-  for (; j >= 0; j -= AHEAD) {
-    uint2 t[AHEAD];
+          for (int u = 0; u < AHEAD; ++u) nx[u] = xl[(size_t)(AHEAD * (m - 1) + u) * K];
+        }
 #pragma unroll
-    for (int u = 0; u < AHEAD; ++u) t[u] = tn[u];
-    if (j >= AHEAD) {
-#pragma unroll
-      for (int u = 0; u < AHEAD; ++u)
-        tn[u] = entry(freq, cum, snapshot_index(j - AHEAD - u, r), nx[u]);
-      if (j >= 2 * AHEAD) {
-#pragma unroll
-        for (int u = 0; u < AHEAD; ++u) nx[u] = xl[(size_t)(j - 2 * AHEAD - u) * K];
+        for (int u = AHEAD - 1; u >= 0; --u)
+          el[(size_t)(AHEAD * m + u) * K] = encode_step(st, e[u]);
       }
     }
+  }
+  if (!real) return;
+  // The steps below t0, windows shorter than 2^STAGE_LOG2 (all of them at
+  // refresh_log2 < STAGE_LOG2), read from global memory: the top
+  // dl % AHEAD steps one at a time, then runs of AHEAD steps, j the first
+  // (highest) of a run: t holds its entries, read during the run before,
+  // and nx the next run's bytes, read two runs before; so the chain itself
+  // waits on no load.
+  const int dl = min(t0, len);
+  int j = dl - 1;
+  for (; j >= 0 && (j + 1) % AHEAD != 0; --j)
+    el[(size_t)j * K] = encode_step(st, entry(freq, cum, snapshot_index(j, r), xl[(size_t)j * K]));
+  if (j >= 0) {
+    uint32_t nx[AHEAD];
+    uint2 tn[AHEAD];
 #pragma unroll
-    for (int u = 0; u < AHEAD; ++u) el[(size_t)(j - u) * K] = encode_step(st, t[u]);
+    for (int u = 0; u < AHEAD; ++u) nx[u] = xl[(size_t)(j - u) * K];
+#pragma unroll
+    for (int u = 0; u < AHEAD; ++u) tn[u] = entry(freq, cum, snapshot_index(j - u, r), nx[u]);
+    if (j >= AHEAD) {
+#pragma unroll
+      for (int u = 0; u < AHEAD; ++u) nx[u] = xl[(size_t)(j - AHEAD - u) * K];
+    }
+    for (; j >= 0; j -= AHEAD) {
+      uint2 t[AHEAD];
+#pragma unroll
+      for (int u = 0; u < AHEAD; ++u) t[u] = tn[u];
+      if (j >= AHEAD) {
+#pragma unroll
+        for (int u = 0; u < AHEAD; ++u)
+          tn[u] = entry(freq, cum, snapshot_index(j - AHEAD - u, r), nx[u]);
+        if (j >= 2 * AHEAD) {
+#pragma unroll
+          for (int u = 0; u < AHEAD; ++u) nx[u] = xl[(size_t)(j - 2 * AHEAD - u) * K];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < AHEAD; ++u) el[(size_t)(j - u) * K] = encode_step(st, t[u]);
+    }
   }
   states[lane] = st;
 }

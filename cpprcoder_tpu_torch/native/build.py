@@ -88,9 +88,9 @@ SIGNATURES = {
     # err, n_segs, n, s, tcap, rounds, hops a round, stream
     "ct_lz_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _I,
                      _I, _I, _P],
-    # ase.cu, kernel S (three launches): x, lane_len, scratch, counts,
-    # offsets, bits, payload, K, stride, cap, stream
-    "ct_ase_encode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # ase.cu, kernel S (five launches): x, lane_len, scratch, bits,
+    # payload, K, stride, steps a segment, stream
+    "ct_ase_encode": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     # kernel T: words, P, bases, counts, lane_len, out, K, stride, stream
     "ct_ase_decode": [_P, _L, _P, _P, _P, _P, _I, _I, _P],
     # o1_encode.cu, kernel U: x, lane_len, events, t1 (or null), the coder

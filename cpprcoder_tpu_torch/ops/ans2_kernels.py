@@ -12,9 +12,15 @@ W (`csrc/ans2_encode.cu`, three launches and a memset) is pass A: each
 window's histogram over the card, the rescale walk over the windows in
 one CTA (256 counts wide), then a CTA a window for the normalize
 (`csrc/ans2_model.cuh`, exact to models/static_table.normalize_freqs).
-X (the same file) is pass C with pass B folded in: kernel F's coder, a
-thread a lane, step t reading table snapshot_index(t) from global memory
-a run of steps ahead of its chain. Y (`csrc/ans2_decode.cu`, second round)
+X (the same file; second round) is pass C with pass B folded in: kernel
+F's coder, a thread a lane in CTAs of 128, walking the steps backwards.
+Lanes move in step, so each CTA stages the current window's table in
+shared memory as (reciprocal, f | c << 16), the reciprocals formed once a
+window and the next window's entries loaded during the current one (one
+barrier a window); a step's entry is one shared read at its run's start.
+The first 16 steps (every step at refresh_log2 < 4, where windows are
+shorter than a run of 16) read their entries from global memory a run
+ahead, as the first design did. Y (`csrc/ans2_decode.cu`, second round)
 is one CTA a stream: at each window start every thread joins for the
 rescale, the shared normalize and a 2^14-byte cum2sym in shared memory;
 the steps run on one warp up to 32 lanes (no CTA barrier), else a thread a

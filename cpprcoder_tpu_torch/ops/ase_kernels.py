@@ -6,12 +6,20 @@ compiled `lax.scan` (cpprcoder_tpu/ops/ase_ops.py:47 `_encode_fn`, scan
 `_decode_fn`, scan :148). Both kernels are in `csrc/ase.cu`: every lane
 has its own 64-entry recency table, so lanes share nothing.
 
-S: each thread keeps its lane's table in 16 registers (4 entries a u32
-word), finds a symbol with a zero-byte test a word, and moves entries with
-byte masks and funnel shifts; its words go to a padded word-major area
-[words_cap(stride), K]. A one-CTA scan turns the lanes' word counts into
-offsets, and a warp a lane copies its words to their place in lane order
-(three launches and a memset, counted as one). Nothing is read back.
+S (second round): the encoder's table is a function of the input alone,
+so a lane's steps are cut into segments (`ase_ops.segment_steps`) that
+code side by side, each from its start table: six launches, counted as
+one, nothing read back. 1, a thread a segment: its distinct bytes, newest
+first (64 at most), and their 256-bit set; 2, a warp a lane, over its
+segments: the LRU composition of those, each segment's start table; 3, a
+thread a segment: its bit count, coding from its start table (16
+registers, a zero-byte test a word to find, funnel shifts to move); 4, up
+to 32 threads a lane: its segment offsets and bit count; 5, one CTA: the
+lanes' first words; 6, a thread a segment: the same coding again, writing
+each word whose first
+bit is its own (coding on into the next segment's steps to finish the
+last), and the payload's tail zeroed. The scratch is
+`ase_ops.segment_scratch_words` (at most 17.3 MB, whatever n).
 
 T: the same table, spread over a quad of 4 threads a lane (16 entries
 each; a hit's entry is one shuffle from its owner, the update 4 words a
@@ -46,11 +54,13 @@ def _check_lane_count(k: int):
                          f"1..{MAX_LANES} lanes, got {k}")
 
 
-def encode_words(x2d: torch.Tensor, lane_len: torch.Tensor):
+def encode_words(x2d: torch.Tensor, lane_len: torch.Tensor,
+                 seg_steps: int | None = None):
     """x2d [stride, K] uint8 (interleaved: x2d[j, i] = x[j*K + i]; K a
     power of two) -> (payload int16 [K * ase_ops.words_cap(stride)]: the
     lanes' u16 words lane after lane, zero past them; bits [K] int32, each
-    lane's bit count)."""
+    lane's bit count). seg_steps (the card only; the output does not
+    depend on it) overrides ase_ops.segment_steps."""
     global encode_launches
     layout.check_lanes("x2d", x2d, torch.uint8, lane_len, MAX_LANES)
     stride, k = x2d.shape
@@ -61,17 +71,19 @@ def encode_words(x2d: torch.Tensor, lane_len: torch.Tensor):
     if k * cap >= 1 << 31:
         raise ValueError(f"{k} lanes of {stride} steps exceed the kernel's "
                          f"31-bit word offsets")
+    seg = seg_steps or ase_ops.segment_steps(k, stride)
+    if not 1 <= seg or k * -(-stride // seg) >= ase_ops.MAX_SEGMENTS:
+        raise ValueError(f"{seg} steps a segment over {k} lanes of {stride}")
     dev = x2d.device
     lib = build.load()
     with torch.cuda.device(dev):
-        scratch = torch.empty(k * cap, dtype=torch.int16, device=dev)
+        scratch = torch.empty(ase_ops.segment_scratch_words(k, stride, seg),
+                              dtype=torch.int32, device=dev)
         payload = torch.empty(k * cap, dtype=torch.int16, device=dev)
-        counts, offsets, bits = torch.empty((3, k), dtype=torch.int32,
-                                            device=dev)
+        bits = torch.empty(k, dtype=torch.int32, device=dev)
         rc = lib.ct_ase_encode(
             x2d.data_ptr(), lane_len.data_ptr(), scratch.data_ptr(),
-            counts.data_ptr(), offsets.data_ptr(), bits.data_ptr(),
-            payload.data_ptr(), k, stride, cap,
+            bits.data_ptr(), payload.data_ptr(), k, stride, seg,
             torch.cuda.current_stream(dev).cuda_stream)
         build.check(rc, "ct_ase_encode")
     encode_launches += 1

@@ -17,7 +17,11 @@ lane's ceil(bits / 16) u16-LE words, lane after lane.
 `encode_words_plain` and `decode_symbols_plain` are the plain versions of
 kernels S and T (ops/ase_kernels.py): step loops over int64 lane vectors
 with the tables as [K, 64] tensors, the update as the JAX package's
-masked shift (`_update`). `ase_encode`/`ase_decode` build containers
+masked shift (`_update`). The encoder's table is a function of the input
+alone, which kernel S's design rests on; its plain formulations are
+`segment_states_plain` (each segment's start table, the LRU composition
+of the segments before it) and `stack_distance_plain` (each step's code
+from the input), both packed by `pack_words_plain`. `ase_encode`/`ase_decode` build containers
 around the kernel wrappers, so the same code runs the kernels on a CUDA
 device and the plain versions on the CPU.
 
@@ -39,12 +43,38 @@ from cpprcoder_tpu_torch.ops import layout, rans_ops
 from cpprcoder_tpu_torch.reference.ase_ref import ENTROPY, TABLE_SIZE, _lane_desc
 
 LITERAL_BITS = 9      # the widest symbol: a literal
+# kernel S's segments: a call aims at SEG_TARGET of them, each at least
+# SEG_MIN steps (fewer segments a lane keep pass 2's walk short), so that
+# it has at most SEG_TARGET + K; MAX_SEGMENTS is the kernel's own bound
+SEG_TARGET = 1 << 15
+SEG_MIN = 32
+MAX_SEGMENTS = 1 << 25
+SEG_SCRATCH_WORDS = 44          # 32-bit scratch words a segment
+LANE_SCRATCH_WORDS = (1 << 16) + 4   # the lanes' first words and the total
 
 
 def words_cap(stride: int) -> int:
     """The most u16 words a lane of `stride` steps writes: 9 bits a symbol
     at most, its last word partial."""
     return -(-LITERAL_BITS * stride // 16)
+
+
+def segment_steps(k: int, stride: int) -> int:
+    """Kernel S's steps a segment at K lanes of `stride` steps: K * stride
+    / SEG_TARGET, at least SEG_MIN, at most the stride (one segment a lane
+    from K = SEG_TARGET lanes on). The segment count is then at most
+    SEG_TARGET + K, so the scratch stays under 4 * (44 * (2^15 + 2^16) +
+    2^16 + 4) bytes (17.6 MB) whatever n."""
+    if stride <= 0:
+        return 1
+    return min(max(-(-k * stride // SEG_TARGET), SEG_MIN), stride)
+
+
+def segment_scratch_words(k: int, stride: int, seg: int) -> int:
+    """Kernel S's scratch in int32 words (csrc/ase.cu `seg_scratch`): 44 a
+    segment (start table, own bytes, their set, counts, offsets) and the
+    lanes' first words."""
+    return SEG_SCRATCH_WORDS * k * -(-stride // seg) + LANE_SCRATCH_WORDS
 
 
 def _update(table, size, sym, hit, idx0):
@@ -87,9 +117,10 @@ def encode_words_plain(x2d: torch.Tensor, lane_len: torch.Tensor,
     lens = lane_len.to(torch.int64)
     z = torch.zeros(k, dtype=torch.int64, device=dev)
     table = torch.zeros((k, TABLE_SIZE), dtype=torch.int64, device=dev)
-    size, bits, acc, nb, count = z, z, z, z, z
+    size, bits = z, z
     slot = torch.arange(TABLE_SIZE, device=dev)[None, :]
-    events = torch.zeros((stride + 1, k), dtype=torch.int64, device=dev)
+    val = torch.zeros((stride, k), dtype=torch.int64, device=dev)
+    width = torch.zeros_like(val)
     work = z
     for j in range(stride):
         active = j < lens
@@ -97,34 +128,149 @@ def encode_words_plain(x2d: torch.Tensor, lane_len: torch.Tensor,
         found = (table == sym[:, None]) & (slot < size[:, None])
         hit = found.any(dim=1)
         idx0 = found.to(torch.int64).argmax(dim=1)
-        val = torch.where(hit, ((size - 1 - idx0) << 1) | 1, sym << 1)
-        width = torch.where(hit, bits + 1, LITERAL_BITS)
+        val[j] = torch.where(active, torch.where(
+            hit, ((size - 1 - idx0) << 1) | 1, sym << 1), 0)
+        width[j] = torch.where(active, torch.where(hit, bits + 1,
+                                                   LITERAL_BITS), 0)
         table2, size2 = _update(table, size, sym, hit, idx0)
         bits2 = _next_bits(bits, size, hit, entropy)
-        acc2 = acc | (val << nb)
-        nb2 = nb + width
-        emit = nb2 >= 16
-        events[j] = torch.where(active & emit, rans_ops.EMIT, 0) \
-            | (acc2 & 0xFFFF)
-        acc2 = torch.where(emit, acc2 >> 16, acc2)
-        nb2 = torch.where(emit, nb2 - 16, nb2)
         if stats is not None:
             work = work + torch.where(active, size + torch.where(
                 ~hit & (size >= TABLE_SIZE), TABLE_SIZE - 1, 0), 0)
         table = torch.where(active[:, None], table2, table)
-        size, bits, acc, nb = (torch.where(active, a, b) for a, b in
-                               ((size2, size), (bits2, bits), (acc2, acc),
-                                (nb2, nb)))
-        count = count + torch.where(active, width, 0)
-    events[stride] = torch.where(nb > 0, rans_ops.EMIT, 0) | (acc & 0xFFFF)
+        size = torch.where(active, size2, size)
+        bits = torch.where(active, bits2, bits)
     if stats is not None:
         stats["table_ops"] = stats.get("table_ops", 0) + int(work.sum())
+    return pack_words_plain(val, width)
+
+
+def _own_states(xs, valid):
+    """One segment's state a lane: xs [L, K] int64 bytes, valid [L, K] ->
+    (own [K, 64]: its distinct bytes newest first, -1 past them; ocnt [K]
+    = min(distinct, 64); mask [K, 256] bool, the bytes it codes)."""
+    steps, k = xs.shape
+    dev = xs.device
+    t = torch.arange(steps, device=dev)[:, None].expand(steps, k)
+    last = torch.full((k, 256), -1, dtype=torch.int64, device=dev)
+    last.scatter_reduce_(1, xs.T, torch.where(valid, t, -1).T, "amax")
+    mask = last >= 0
+    order = torch.argsort(last, dim=1, descending=True, stable=True)
+    ocnt = torch.clamp(mask.sum(dim=1), max=TABLE_SIZE)
+    slot = torch.arange(TABLE_SIZE, device=dev)[None, :]
+    own = torch.where(slot < ocnt[:, None], order[:, :TABLE_SIZE], -1)
+    return own, ocnt, mask
+
+
+def _compose(table, size, own, ocnt, mask):
+    """The LRU composition kernel S's pass 2 runs a step: the state (table
+    [K, 64] newest first, `size` entries) after a segment of own state
+    (own, ocnt, mask) is its bytes newest first, then the state's entries
+    that it does not code, cut at 64."""
+    k = table.shape[0]
+    dev = table.device
+    slot = torch.arange(TABLE_SIZE, device=dev)[None, :]
+    keep = (slot < size[:, None]) & ~mask.gather(1, table.clamp(min=0))
+    pos = ocnt[:, None] + torch.cumsum(keep, dim=1) - keep.to(torch.int64)
+    new = torch.cat([torch.where(slot < ocnt[:, None], own, -1),
+                     torch.full((k, 1), -1, dtype=torch.int64, device=dev)],
+                    dim=1)
+    drop = torch.full_like(pos, TABLE_SIZE)
+    new.scatter_(1, torch.where(keep & (pos < TABLE_SIZE), pos, drop),
+                 torch.where(keep, table, -1))
+    size = torch.clamp(ocnt + keep.sum(dim=1), max=TABLE_SIZE)
+    return new[:, :TABLE_SIZE], size
+
+
+def segment_states_plain(x2d: torch.Tensor, lane_len: torch.Tensor,
+                         seg: int):
+    """Plain version of kernel S's passes 1 and 2 at `seg` steps a
+    segment: x2d [stride, K] uint8 -> (tables [nseg, K, 64] int64: each
+    segment's start table in the JAX package's order, entry 0 the least
+    recent, zero past its size; sizes [nseg, K]; bits [nseg, K], ENTROPY
+    of the size). Each segment's own state (its distinct bytes newest
+    first, at most 64, and their set) is composed over the lane's
+    segments in order."""
+    stride, k = x2d.shape
+    dev = x2d.device
+    xs = x2d.to(torch.int64)
+    lens = lane_len.to(torch.int64)
+    nseg = -(-stride // seg)
+    slot = torch.arange(TABLE_SIZE, device=dev)[None, :]
+    table = torch.full((k, TABLE_SIZE), -1, dtype=torch.int64, device=dev)
+    size = torch.zeros(k, dtype=torch.int64, device=dev)
+    tables, sizes = [], []
+    for s in range(nseg):
+        lo, hi = s * seg, min((s + 1) * seg, stride)
+        # newest first -> the JAX package's order: entry size-1-p is p
+        idx = torch.clamp(size[:, None] - 1 - slot, min=0)
+        tables.append(torch.where(slot < size[:, None],
+                                  table.gather(1, idx), 0))
+        sizes.append(size)
+        t = torch.arange(lo, hi, device=dev)[:, None]
+        table, size = _compose(table, size, *_own_states(xs[lo:hi],
+                                                         t < lens[None, :]))
+    entropy = torch.from_numpy(ENTROPY).to(dev)
+    sizes = torch.stack(sizes) if nseg else torch.zeros((0, k), dtype=torch.int64)
+    tables = torch.stack(tables) if nseg else torch.zeros((0, k, TABLE_SIZE),
+                                                          dtype=torch.int64)
+    return tables, sizes, entropy[sizes]
+
+
+def stack_distance_plain(x2d: torch.Tensor, lane_len: torch.Tensor):
+    """Each step's code from the input alone: x2d [stride, K] uint8 ->
+    (val, width) int64 [stride, K], 0 where the lane is inactive. For lane
+    i at step t, with p its last step that coded the same byte (or -1), D
+    the distinct bytes it coded at steps p+1..t-1 and N those at steps
+    0..t-1: a hit iff p >= 0 and D < 64, (D << 1) | 1 in ENTROPY[min(N,
+    64)] + 1 bits; else sym << 1 in 9 bits."""
+    stride, k = x2d.shape
+    dev = x2d.device
+    entropy = torch.from_numpy(ENTROPY).to(dev)
+    xs = x2d.to(torch.int64)
+    lens = lane_len.to(torch.int64)
+    lane = torch.arange(k, device=dev)
+    last = torch.full((k, 256), -1, dtype=torch.int64, device=dev)
+    val = torch.zeros((stride, k), dtype=torch.int64, device=dev)
+    width = torch.zeros_like(val)
+    for t in range(stride):
+        sym = xs[t]
+        p = last[lane, sym]
+        d = (last > p[:, None]).sum(dim=1)
+        n = (last >= 0).sum(dim=1)
+        hit = (p >= 0) & (d < TABLE_SIZE)
+        active = t < lens
+        val[t] = torch.where(active, torch.where(hit, (d << 1) | 1, sym << 1),
+                             0)
+        width[t] = torch.where(active, torch.where(
+            hit, entropy[torch.clamp(n, max=TABLE_SIZE)] + 1, LITERAL_BITS), 0)
+        last[lane, sym] = torch.where(active, t, p)
+    return val, width
+
+
+def pack_words_plain(val: torch.Tensor, width: torch.Tensor):
+    """Codes (val, width) [stride, K], width 0 where a lane is inactive ->
+    encode_words_plain's (payload, bits): each lane's codes LSB-first into
+    u16 words, its partial last word flushed, lane after lane."""
+    stride, k = val.shape
+    dev = val.device
+    z = torch.zeros(k, dtype=torch.int64, device=dev)
+    acc, nb = z, z
+    events = torch.zeros((stride + 1, k), dtype=torch.int64, device=dev)
+    for j in range(stride):
+        acc = acc | (val[j] << nb)
+        nb = nb + width[j]
+        emit = nb >= 16
+        events[j] = torch.where(emit, rans_ops.EMIT, 0) | (acc & 0xFFFF)
+        acc = torch.where(emit, acc >> 16, acc)
+        nb = torch.where(emit, nb - 16, nb)
+    events[stride] = torch.where(nb > 0, rans_ops.EMIT, 0) | (acc & 0xFFFF)
     words, _ = rans_ops.lane_words(events)
     payload = torch.zeros(k * words_cap(stride), dtype=torch.int64,
                           device=dev)
     payload[:words.numel()] = words
     payload = torch.where(payload >= 1 << 15, payload - (1 << 16), payload)
-    return payload.to(torch.int16), count.to(torch.int32)
+    return payload.to(torch.int16), width.sum(dim=0).to(torch.int32)
 
 
 def decode_symbols_plain(words: torch.Tensor, bases: torch.Tensor,

@@ -347,3 +347,78 @@ def test_superblocks_and_pipeline_stage_match_the_jax_package():
     assert blob == cpprcoder_tpu.compress(data, codec="pipeline",
                                           stages=stages)
     assert ctt.decompress(blob, codec="pipeline", **CPU) == data
+
+
+# Kernel X's second design stages each window's table in shared memory from
+# step 16 on where windows there are 16 steps or more (refresh_log2 >= 4),
+# in runs of 16 steps, and reads the first 16 steps (every step at
+# refresh_log2 < 4) from global memory. Its hard cases: a table every step,
+# window edges inside a run of 16 (refresh_log2 3), 16 and 32 steps a
+# window, lanes of steps - 1 steps, K = 1 and K = 32; at limit_log2 <= 31
+# the JAX package takes them too (C10).
+X_HARD = {
+    "refresh 0, K=2": (corpus_file("grammar.lsp")[:1500], 2,
+                       dict(refresh_log2=0)),
+    "refresh 3 (edges inside a run of 16), K=8":
+        (_seeded(8 * 300 + 3, 81, 90), 8, dict(refresh_log2=3)),
+    "refresh 4, K=4": (corpus_file("fields.c")[:4 * 400 + 1], 4,
+                       dict(refresh_log2=4)),
+    "refresh 5, lanes of steps - 1, K=32": (_seeded(32 * 120 - 5, 82, 60), 32,
+                                            dict(refresh_log2=5)),
+    "K=1": (_seeded(1500, 83, 120), 1, {}),
+    "K=1, refresh 3": (corpus_file("xargs.1")[:1200], 1,
+                       dict(refresh_log2=3, limit_log2=12)),
+    "K=32": (corpus_file("fields.c")[:32 * 60 + 9], 32, {}),
+    "steps 17 and 16 (one staged step), K=64": (_seeded(64 * 17 - 3, 84),
+                                                64, dict(refresh_log2=5)),
+}
+
+
+@pytest.mark.parametrize("case", list(X_HARD))
+def test_x_hard_cases_match_jax_and_the_oracle(case):
+    data, lanes, opts = X_HARD[case]
+    blob = ctt.compress(data, codec="adaptive_rans", lanes=lanes, **opts,
+                        **CPU)
+    assert blob == jops.ans2_encode_jax(data, lanes=lanes, **opts)
+    assert blob == tref.ans2_encode(data, lanes=lanes, **opts)
+    assert ctt.decompress(blob, codec="adaptive_rans", **CPU) == data
+    assert jops.ans2_decode_jax(blob) == data
+
+
+def _x_tables_read(stride, length, r, run=16, stage_log2=4):
+    """The table kernel X codes each step of a lane of `length` steps with
+    (csrc/ans2_encode.cu's control flow): the staged steps [t0, stride) in
+    runs of `run` from the top (the top run ragged), the window moving down
+    one table at each window start; the steps below t0 by snapshot_index.
+    -> {step: table}."""
+    used = {}
+    t0 = run if r >= stage_log2 and stride > run else stride
+    if t0 < stride:
+        w = tref.snapshot_index(stride - 1, 1 << r)
+        edge = ans2_ops.window_start(w, r)
+        m0, m = t0 // run, (stride - 1) // run
+        for t in range(length - 1, run * m - 1, -1):
+            used[t] = w
+        while True:
+            if run * m == edge and m > m0:
+                w -= 1
+                edge = ans2_ops.window_start(w, r)
+            m -= 1
+            if m < m0:
+                break
+            for u in range(run):
+                used[run * m + u] = w
+    for t in range(min(t0, length)):
+        used[t] = tref.snapshot_index(t, 1 << r)
+    return used
+
+
+@pytest.mark.parametrize("r", list(range(12)))
+def test_x_staged_walk_reads_each_steps_table(r):
+    """At every refresh_log2, stride and lane length, kernel X's walk codes
+    step t with table snapshot_index(t): no run of the staged path crosses
+    a window edge."""
+    for stride in list(range(1, 300)) + [1861, 2048, 4010, 4023]:
+        for length in (stride, stride - 1):
+            want = {t: tref.snapshot_index(t, 1 << r) for t in range(length)}
+            assert _x_tables_read(stride, length, r) == want

@@ -1330,6 +1330,76 @@ def test_ase_kernels_match_plain_and_the_oracle(dev, case):
     assert ctt.decompress(blob, codec="ase", device="cuda") == data
 
 
+def _s_lane(kind, seed):
+    """One lane's bytes for kernel S's segment edges (about 700 steps)."""
+    rng = np.random.default_rng(seed)
+    if kind == "63 and 64 distinct between occurrences":
+        out = []
+        for r in range(6):
+            a, b = 200 + r % 40, 250 - r % 5
+            out += [a] + list(range(63)) + [a] + [b] + list(range(64)) + [b]
+        return bytes(out)
+    if kind == "previous occurrence segments back":
+        out = []
+        for r in range(5):
+            out += [7 + r] + list(rng.integers(0, 3, 130)) + [7 + r]
+        return bytes(np.array(out, np.uint8))
+    if kind == "one byte over many segments":
+        return b"\x00" * 400 + rng.integers(0, 90, 300, dtype=np.uint8).tobytes()
+    if kind == "66 values (eviction at the edge)":
+        return rng.integers(0, 66, 700, dtype=np.uint8).tobytes()
+    return bytes(700)                      # zeros: a segment in one word
+
+
+def _s_input(kind, k, dev):
+    """The lanes interleaved, the first k // 2 one step longer."""
+    lanes = [np.frombuffer(_s_lane(kind, i), np.uint8) for i in range(k)]
+    steps = min(len(v) for v in lanes) - 1
+    x = np.stack([v[:steps + 1] for v in lanes], axis=1).reshape(-1)
+    data = x[:steps * k + (k // 2 if k > 1 else 1)].tobytes()
+    n, stride = len(data), steps + 1
+    t = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(dev)
+    return (data, layout.pad2d_interleaved(t, k, stride),
+            layout.lane_lengths_interleaved(n, k, stride, dev))
+
+
+@pytest.mark.parametrize("seg", [1, 3, 64, None])
+@pytest.mark.parametrize("lanes", [1, 2, 8])
+@pytest.mark.parametrize("kind", ["63 and 64 distinct between occurrences",
+                                  "previous occurrence segments back",
+                                  "one byte over many segments",
+                                  "66 values (eviction at the edge)",
+                                  "zeros (a segment in one word)"])
+def test_s_segment_edges_match_plain(dev, kind, lanes, seg):
+    """Kernel S at 1, 3 and 64 steps a segment (and its default): the
+    payload and bit counts equal its plain version's, and the oracle's
+    container's."""
+    data, x2d, lens = _s_input(kind, lanes, dev)
+    payload, bits = ase_kernels.encode_words(x2d, lens, seg_steps=seg)
+    want = ase_ops.encode_words_plain(x2d, lens)
+    assert torch.equal(payload, want[0]) and torch.equal(bits, want[1])
+    p = int(((bits.to(torch.int64) + 15) // 16).sum())
+    blob = ase_ref.ase_encode(data, lanes=lanes)
+    assert blob[5 + 4 * lanes:] == payload[:p].cpu().view(torch.uint8) \
+        .numpy().tobytes()
+
+
+@pytest.mark.parametrize("seg", [1, 2, 5])
+def test_s_many_lanes_and_segments(dev, seg):
+    """K = 65,536 (lanes of length 0 among them) and 2,048 at a few steps
+    a segment: many segments a lane, and a payload tail to zero."""
+    for data, k in ((b"\x05" * 70_000 + _seeded(60_000, 35), 65536),
+                    (_seeded(2048 * 20 + 3, 37, 80), 2048)):
+        n = len(data)
+        stride = -(-n // k)
+        x = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(dev)
+        x2d = layout.pad2d_interleaved(x, k, stride)
+        lens = layout.lane_lengths_interleaved(n, k, stride, dev)
+        payload, bits = ase_kernels.encode_words(x2d, lens, seg_steps=seg)
+        want = ase_ops.encode_words_plain(x2d, lens)
+        assert torch.equal(payload, want[0]) and torch.equal(bits, want[1])
+
+
 def test_ase_decode_random_words_match_plain(dev):
     """T and its plain version agree on words that no encoder wrote
     (hits past a table's end, counts that claim more words than there
@@ -1588,6 +1658,22 @@ ANS2_CASES = {
     "K=64": (_corpus("fields.c")[:64 * 40 + 33], 64, {}),
     "K=16384": (_seeded(16384 * 5 + 77, 62, 100), 16384, {}),
     "K=32768": (_seeded(32768 * 3 + 5, 63, 100), 32768, {}),
+    # kernel X's second design (tables staged from step 16 on where windows
+    # are 16 steps or more, runs of 16; global reads below): window edges
+    # inside a run of 16 (refresh_log2 3), lanes of steps - 1 steps at 16
+    # and 32 steps a window, K = 1 staged and not, one staged step, K = 32
+    "X: refresh 3, K=8": (_seeded(8 * 300 + 3, 81, 90), 8,
+                          dict(refresh_log2=3)),
+    "X: refresh 4, K=4": (_corpus("fields.c")[:4 * 400 + 1], 4,
+                          dict(refresh_log2=4)),
+    "X: refresh 5, lanes of steps - 1, K=32": (_seeded(32 * 120 - 5, 82, 60),
+                                               32, dict(refresh_log2=5)),
+    "X: K=1": (_seeded(3000, 83, 120), 1, {}),
+    "X: K=1, refresh 3": (_corpus("xargs.1")[:1200], 1,
+                          dict(refresh_log2=3, limit_log2=12)),
+    "X: one staged step, K=64": (_seeded(64 * 17 - 3, 84), 64,
+                                 dict(refresh_log2=5)),
+    "X: K=32, 300 steps": (_seeded(32 * 300, 85, 200), 32, {}),
 }
 
 
