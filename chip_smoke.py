@@ -153,7 +153,7 @@ from cpprcoder_tpu_torch.bench.synth import synth_stream
 from cpprcoder_tpu_torch.codecs import stream
 from cpprcoder_tpu_torch.codecs.resume import RCQResumableEncoder
 from cpprcoder_tpu_torch.config import adaptive_params_for, pick_lanes
-from cpprcoder_tpu_torch.core.bytesutil import ByteReader
+from cpprcoder_tpu_torch.core.bytesutil import ByteReader, CorruptContainerError
 from cpprcoder_tpu_torch.models.cxmodel import rcq_params, rcx_params
 from cpprcoder_tpu_torch.models.static_table import normalize_freqs
 from cpprcoder_tpu_torch.native import build
@@ -1331,6 +1331,33 @@ def o1_word_row_edges(dev, err):
             fail("kernel V on rows ending at a word edge did not decode")
 
 
+def o1_step_zero(dev) -> str:
+    """Fault P6: U raises ValueError at the first step whose t = range /
+    tot_eff is 0 ("abracadabra" x 50 at one lane, blend_log2 14: step
+    100), V raises CorruptContainerError at one (ten zeros at blend_log2
+    23 on a zero payload: step 1), as their plain versions do."""
+    data = b"abracadabra" * 50
+    x2d = to_dev(data, dev).reshape(-1, 1)
+    lens = torch.tensor([len(data)], dtype=torch.int32, device=dev)
+    for fn in (o1_kernels.encode_events, o1_ops.encode_events_plain):
+        try:
+            fn(x2d, lens, 32, 11, 15, 14)
+            fail(f"{fn.__name__} coded a step with t = 0")
+        except ValueError as e:
+            if "step 100, lane 0" not in str(e):
+                fail(f"{fn.__name__}: {e}")
+    words = torch.zeros((2, 1), dtype=torch.int32, device=dev)
+    ten = torch.tensor([10], dtype=torch.int32, device=dev)
+    for fn in (o1_kernels.decode_symbols, o1_ops.decode_symbols_plain):
+        try:
+            fn(words, ten, 10, 10, 32, 16, 16, 23)
+            fail(f"{fn.__name__} decoded a step with t = 0")
+        except CorruptContainerError as e:
+            if "step 1, lane 0" not in str(e):
+                fail(f"{fn.__name__}: {e}")
+    return "U and V raise at a step with t = 0, as their plain versions"
+
+
 def s_segment_edges(dev, err) -> str:
     """Kernel S at 1, 3 and 64 steps a segment, K = 1, 2 and 8: 63 and 64
     distinct bytes between two occurrences, a byte back after many
@@ -1546,15 +1573,26 @@ def phase_kernels_ase_o1(dev):
                 (bytes(i % 256 for i in range(32 * 150)), 32, {}),
                 (textish(800, 607), 1, {}), (textish(32 * 60 + 5, 608), 32, {}),
                 (textish(64 * 40 + 3, 609), 64, {})]
+    # fault P6: parameters past C8's bound where the oracle ends (b"a" and
+    # alice29.txt[:488] at 64 lanes, grammar.lsp at 2, xargs.1 at 4 with
+    # limit0_log2 16; 20,000 zeros at one lane, held to the oracle's
+    # container alone: the plain loops would take most of a minute)
+    p6 = dict(inc=32, limit1_log2=16, limit0_log2=12, blend_log2=8)
+    p6_cases = [(b"a", 64, p6), (corpus("alice29.txt")[:488], 64, p6),
+                (corpus("grammar.lsp"), 2, p6),
+                (corpus("xargs.1"), 4, dict(p6, limit0_log2=16))]
+    o1_cases += p6_cases
     for data, k, opts in o1_cases:
         o1_case(data, k, f"K={k} n={len(data)} {opts}", **opts)
+    o1_cases.append((bytes(20_000), 1, p6))
+    p6_steps = o1_step_zero(dev)
     o1_word_row_edges(dev, err)
     u_chunks = u_chunk_edges(dev, err)
     s_edges = s_segment_edges(dev, err)
     containers("adaptive_o1", o1_cases, o1_ref.o1_encode)
     print(f"[kernels] ok {len(ase_cases)} CT-ASE1 and {len(o1_cases)} CT-RC3 "
-          f"containers equal the oracle's and round-trip; {u_chunks}; "
-          f"{s_edges}", flush=True)
+          f"containers equal the oracle's and round-trip ({len(p6_cases) + 1} "
+          f"past C8's bound); {p6_steps}; {u_chunks}; {s_edges}", flush=True)
 
     # held and timed at kennedy.xls's shapes (ase K = 256, stride 4,023;
     # CT-RC3 K = 256, L = 4,023), kernel vs plain; held there and at
@@ -1620,11 +1658,10 @@ def phase_kernels_ans2(dev):
         r_log2 = params[2]
         mdl = (lambda: ans2_kernels.window_tables(x2d, n, *params),
                lambda: ans2_ops.window_tables_plain(x2d, n, *params))
-        freqs, cums = hold(err, "ans2_model", mdl[0](),
-                           plain("ans2_model", mdl[1]), f"kernel W at {what}")
-        enc = (lambda: ans2_kernels.encode_events(x2d, lens, freqs, cums,
-                                                  r_log2),
-               lambda: ans2_ops.encode_events_plain(x2d, lens, freqs, cums,
+        entries = hold(err, "ans2_model", mdl[0](),
+                       plain("ans2_model", mdl[1]), f"kernel W at {what}")
+        enc = (lambda: ans2_kernels.encode_events(x2d, lens, entries, r_log2),
+               lambda: ans2_ops.encode_events_plain(x2d, lens, entries,
                                                     r_log2))
         ev, st = hold(err, "ans2_encode", enc[0](),
                       plain("ans2_encode", enc[1]), f"kernel X at {what}")
@@ -1635,25 +1672,25 @@ def phase_kernels_ans2(dev):
                    plain("ans2_decode", dec[1]), f"kernel Y at {what}")
         if sym.cpu().numpy().tobytes() != data:
             fail(f"kernel Y did not invert kernel X at {what}")
-        cells = freqs.shape[0] * 256 * OPS_PER_ANS2_CELL
-        work = {"ans2_model": (n + nbytes(freqs, cums),
+        cells = entries.shape[0] * 256 * OPS_PER_ANS2_CELL
+        work = {"ans2_model": (n + nbytes(entries),
                                coder_ops("ans2_model", n) + cells),
-                "ans2_encode": (nbytes(x2d, lens, freqs, cums, ev, st),
+                "ans2_encode": (nbytes(x2d, lens, entries, ev, st),
                                 coder_ops("ans2_encode", n)),
                 "ans2_decode": (nbytes(words, st) + n,
                                 coder_ops("ans2_decode", n) + cells)}
-        return (f"K={k}, steps={steps}, {freqs.shape[0]} windows",
+        return (f"K={k}, steps={steps}, {entries.shape[0]} windows",
                 {"ans2_model": mdl, "ans2_encode": enc, "ans2_decode": dec},
                 work)
 
     # the normalize alone, on count vectors that no CT-ANS2 model reaches
     # (absent symbols, rule 5) as well as ones it does
     counts = normalize_cases()
-    f, c = ans2_kernels.normalize_tables(torch.from_numpy(counts).to(dev))
+    got = ans2_kernels.normalize_tables(torch.from_numpy(counts).to(dev))
     want = ans2_ops.normalize_tables_plain(torch.from_numpy(counts))
-    hold(err, "ans2_model", (f.cpu(), c.cpu()), want,
+    hold(err, "ans2_model", got.cpu(), want,
          f"the normalize at {len(counts)} count vectors")
-    for row, fw in zip(counts, want[0].numpy()):
+    for row, fw in zip(counts, ans2_ops.entry_tables(want)[0].numpy()):
         if row.sum() and not np.array_equal(fw, normalize_freqs(row, 14)):
             fail("normalize_tables_plain is not the oracle's normalize")
 
@@ -1693,7 +1730,21 @@ def phase_kernels_ans2(dev):
              (seeded(32 * 120 - 5, 60), 32, dict(refresh_log2=5)),
              (textish(1200, 704), 1, dict(refresh_log2=4, limit_log2=12)),
              (seeded(64 * 17 - 3, 256), 64, dict(refresh_log2=5)),
-             (corpus("grammar.lsp"), 2, dict(refresh_log2=0))]
+             (corpus("grammar.lsp"), 2, dict(refresh_log2=0)),
+             # W's second design: one step at 65,536 lanes (one table), n =
+             # 1, no rescale (limit_log2 63) and one every window (9) at
+             # 256 lanes, windows of 32 histogram rows (65,536 lanes,
+             # windows of 8 steps), the walk's chunks crossed many times
+             # (3,000 windows), zeros (one byte's runs); X's global-read
+             # path at K = 2,048 (windows of 8 steps)
+             (seeded(50_000, 256), 65536, {}),
+             (b"q", 1, {}),
+             (textish(256 * 500, 706), 256, dict(limit_log2=63)),
+             (textish(256 * 500, 707), 256, dict(limit_log2=9)),
+             (seeded(65536 * 40, 50), 65536, dict(refresh_log2=3)),
+             (textish(3000, 705), 1, dict(refresh_log2=0)),
+             (bytes(200_000), 64, {}),
+             (corpus("kennedy.xls"), 2048, {})]
     for data, k, opts in cases:
         case(data, k, f"K={k} n={len(data)} {opts}", **opts)
         blob = ctt.compress(data, codec="adaptive_rans", device="cuda",
@@ -1727,8 +1778,8 @@ def y_cut_stream(dev, err) -> str:
     data, k = textish(64 * 200, 710), 64
     n, steps, x2d, lens = interleaved_inputs(data, k, dev)
     params = ans2_params(k, n, {})
-    freqs, cums = ans2_kernels.window_tables(x2d, n, *params)
-    ev, st = ans2_kernels.encode_events(x2d, lens, freqs, cums, params[2])
+    entries = ans2_kernels.window_tables(x2d, n, *params)
+    ev, st = ans2_kernels.encode_events(x2d, lens, entries, params[2])
     words = ans2_ops.stream_words(ev).to(torch.int16)
     for cut in (0, 3, 1000):
         w = words[:words.numel() - cut]
@@ -1755,20 +1806,21 @@ def wide_model_case(dev, err) -> str:
     x_host = np.frombuffer(data, np.uint8).reshape(steps, k)
     for limit_log2 in (40, 33, 32):
         params = (inc, limit_log2, r_log2)
-        freqs, cums = ans2_kernels.window_tables(x2d, n, *params)
+        entries = ans2_kernels.window_tables(x2d, n, *params)
+        freqs, cums = ans2_ops.entry_tables(entries)
         snaps = ans2_ref._snapshots_and_counts(x_host, n, k, inc,
                                                1 << limit_log2, 1 << r_log2)
         want = (torch.from_numpy(np.stack([f for f, _ in snaps])
-                                 .astype(np.int32)),
+                                 .astype(np.int64)),
                 torch.from_numpy(np.stack([c for _, c in snaps])
-                                 .astype(np.int32)))
+                                 .astype(np.int64)))
         hold(err, "ans2_model", (freqs.cpu(), cums.cpu()), want,
              f"kernel W past 2^32 at limit_log2 {limit_log2}")
-        ev, st = ans2_kernels.encode_events(x2d, lens, freqs, cums, r_log2)
+        ev, st = ans2_kernels.encode_events(x2d, lens, entries, r_log2)
         words = ans2_ops.stream_words(ev).to(torch.int16)
         if limit_log2 == 32:
             hold(err, "ans2_encode", (ev, st), ans2_ops.encode_events_plain(
-                x2d, lens, freqs, cums, r_log2), "kernel X past 2^32")
+                x2d, lens, entries, r_log2), "kernel X past 2^32")
         sym = ans2_kernels.decode_symbols(words, st, n, *params)
         if limit_log2 == 32:
             hold(err, "ans2_decode", sym, ans2_ops.decode_symbols_plain(

@@ -84,10 +84,36 @@ so the script exits 1 with them. `o1_rows_contiguous` and
 the warps otherwise.
 
 Kernels W, X and Y (CT-ANS2's model, coder and decode) are timed at
-`sx_shapes()` (below) and at grammar.lsp with refresh_log2 0 (a table a
-step), at the codec's defaults, their inputs made by this tree's W and X
-(`--only WXY`; `--only UY` times U and Y alone). Y's state scratch is
-given at every K.
+`ans2_shapes()`: `sx_shapes()` (below), grammar.lsp with refresh_log2 0
+(a table a step), kennedy.xls at limit_log2 9 (a rescale every window)
+and 63 (none), and 200,000 zero bytes (runs for W's histograms), at the
+codec's inc, their inputs made by this tree's W and X (`--only WXY`;
+`--only UY` times U and Y alone). A library whose W takes hist and
+counts scratch and whose X reads (freqs, cums) (its source says `void*
+hist, void* counts`, as 1697712's) is called through those entries
+(OLD_W_SIGNATURE, OLD_X_SIGNATURE); W's outputs are compared as (freqs,
+cums). W is also timed through a wrapper of each interface, its
+allocations in each call (1697712's four tensors; this tree's
+`ans2_kernels.model_launch`; 50 calls, each timed apart). Y's state
+scratch is given at every K. W's variants: `w_alloc1` (the wrapper's
+entries and scratch as one allocation with two views), `w_attr_once` (the
+walk's shared-memory attribute set once a process, not once a call),
+`norm_rank` (the normalize as 1697712's rank loops, a CTA of 256 a
+window, W_RANK_NORM), `w_nopdl` (the three launches without programmatic
+dependent launch), `w_fold` (the walk folded into the histogram launch:
+one CTA histograms the whole input into shared memory, then walks;
+refused past 200 windows; W_FOLD_KERNEL); the diagnostics, whose outputs
+differ by design (the script then exits 1): `wdiag_nowalk` (the counts
+all ones, the walk skipped), `wdiag_norm1` (the normalize replaced by a
+copy of the counts' low bits), `wdiag_walkonly` (the walk alone, the
+other launches skipped), `wdiag_walknostage`, `wdiag_walknostore` and
+`wdiag_walkbare` (the walk alone without its bulk copies and waits,
+without its counts stores, or both), and for a base as 1697712
+`wdiag_nowalk@base`,
+`wdiag_norm1@base` (there the memset stays). `--profile W` gives each of
+W's launches' device time (the memset, hist, walk and norm). A library
+whose U and V take no flag of a step with t = 0 (before the fault P6
+repair, as 1697712's) is called without it (OLD_O1_SIGNATURES).
 
 Kernels S and X (`--only SX`) are timed at `sx_shapes()`: kennedy.xls (K
 = 256), alice29.txt (64), grammar.lsp (2), the first 2^14-byte superblock
@@ -327,6 +353,174 @@ S_QUAD_KERNEL = """__global__ void __launch_bounds__(DEC_THREADS)
 }
 """
 
+# kernel W's normalize as 1697712 had it (ans2_model.cuh `normalize`: a
+# CTA of 256 threads a window, a thread a symbol, ranks counted by 256
+# shared reads a thread), for the norm_rank variant: injected before this
+# tree's norm kernel, which it replaces (the warp version renamed, unused)
+W_RANK_NORM = r"""
+struct RankScratch {
+  unsigned long long red[MAX_WARPS];
+  uint32_t part[MAX_WARPS];
+  uint32_t key[256];
+  uint32_t ex[256];
+  int full;
+};
+
+__device__ __forceinline__ unsigned long long rank_block_sum(unsigned long long v,
+                                                             RankScratch& sc) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(FULL_MASK, v, o);
+  const int warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  if ((threadIdx.x & 31) == 0) sc.red[warp] = v;
+  __syncthreads();
+  unsigned long long s = 0;
+  for (int i = 0; i < warps; ++i) s += sc.red[i];
+  __syncthreads();
+  return s;
+}
+
+__device__ __forceinline__ uint32_t rank_exclusive_scan(uint32_t v, RankScratch& sc) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint32_t incl = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const uint32_t y = __shfl_up_sync(FULL_MASK, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane == 31) sc.part[warp] = incl;
+  __syncthreads();
+  uint32_t base = 0;
+  for (int i = 0; i < warp; ++i) base += sc.part[i];
+  __syncthreads();
+  return base + incl - v;
+}
+
+__device__ inline uint32_t rank_normalize(unsigned long long cnt, RankScratch& sc,
+                                          uint32_t& c_out) {
+  const int tid = threadIdx.x;
+  const unsigned long long n = rank_block_sum(cnt, sc);
+  if (n == 0) {
+    c_out = 0;
+    return 0;
+  }
+  const int bitlen = 64 - __clzll((long long)(n - 1));
+  const int shift = bitlen > (int)PROB_BITS ? bitlen - (int)PROB_BITS : 0;
+  const bool present = cnt > 0;
+  uint32_t c = (uint32_t)(cnt >> shift);
+  if (present && c == 0) c = 1;
+  const uint32_t np = (uint32_t)rank_block_sum(c, sc);
+  const uint32_t scaled = c << PROB_BITS;
+  uint32_t f = scaled / np;
+  const uint32_t r = scaled - f * np;
+  if (present && f == 0) f = 1;
+  const int d = (int)TOTAL - (int)rank_block_sum(f, sc);
+  if (d > 0) {
+    const uint32_t key = present ? r + 1 : 0;
+    sc.key[tid] = key;
+    __syncthreads();
+    if (present) {
+      int rank = 0;
+      for (int s = 0; s < 256; ++s) {
+        const uint32_t o = sc.key[s];
+        rank += (o > key) | ((o == key) & (s < tid));
+      }
+      f += rank < d;
+    }
+    __syncthreads();
+  } else if (d < 0) {
+    sc.key[tid] = f;
+    sc.ex[tid] = present ? f - 1 : 0;
+    __syncthreads();
+    if (present) {
+      int before = 0;
+      for (int s = 0; s < 256; ++s) {
+        const uint32_t o = sc.key[s];
+        if (o > f || (o == f && s < tid)) before += (int)sc.ex[s];
+      }
+      const int take = min(max(-d - before, 0), (int)f - 1);
+      f -= (uint32_t)take;
+    }
+    __syncthreads();
+  }
+  if (tid == 0) sc.full = -1;
+  __syncthreads();
+  if (f == TOTAL) sc.full = tid;
+  __syncthreads();
+  const int full = sc.full;
+  if (full >= 0) {
+    if (tid == full) f -= 1;
+    if (tid == ((full + 1) & 255)) f += 1;
+  }
+  c_out = rank_exclusive_scan(f, sc);
+  return f;
+}
+
+__global__ void __launch_bounds__(NORM_CTA)
+    ans2_norm_kernel(const unsigned long long* __restrict__ counts, uint2* __restrict__ entries,
+                     int B) {
+  __shared__ RankScratch sc;
+  griddep_wait();
+  const size_t at = (size_t)blockIdx.x * 256 + threadIdx.x;
+  uint32_t c;
+  const uint32_t f = rank_normalize(counts[at], sc, c);
+  entries[at] = make_entry(f, c);
+}
+
+"""
+
+# edits for W's walk diagnostics: the other launches skipped; the staging
+# (bulk copies and waits) skipped; the counts stores skipped
+W_WALK_ONLY = [
+    ("  ans2_hist_kernel<<<dim3(n_snap, rows), HIST_THREADS, 0, s>>>(",
+     "  if (false) ans2_hist_kernel<<<dim3(n_snap, rows), HIST_THREADS, 0, s>>>("),
+    ("  if (e == cudaSuccess)\n    e = launch_after(ans2_norm_kernel,",
+     "  if (false)\n    e = launch_after(ans2_norm_kernel,")]
+W_NO_STAGE = [
+    ("    mbar_wait(bar + (c & 1), (uint32_t)(c >> 1) & 1u);\n", ""),
+    ("    stage(0);\n    if (n_chunks > 1) stage(1);\n", ""),
+    ("      stage(c + 2);\n", "")]
+W_NO_STORE = [("      *out = cnt;\n", "      if (cnt == 12345) *out = cnt;\n")]
+
+# kernel W's launch-gap alternative to programmatic dependent launch: the
+# walk folded into the histogram launch (one CTA histograms the whole input
+# into shared memory, then walks; at most 200 windows, refused past that)
+W_FOLD_KERNEL = r"""// The fold (variant w_fold): one CTA takes every window's histogram into
+// shared memory (at most 200 windows), then walks them; no hist launch.
+__global__ void __launch_bounds__(WALK_THREADS)
+    ans2_fold_kernel(const uint8_t* __restrict__ x, unsigned long long* __restrict__ counts,
+                     long long n, int K, int steps, int r, int n_snap, uint32_t inc,
+                     int limit_log2) {
+  extern __shared__ __align__(16) uint32_t hs[];
+  const int s = threadIdx.x;
+  for (int i = s; i < n_snap * 256; i += WALK_THREADS) hs[i] = 0;
+  griddep_wait();
+  griddep_launch();
+  __syncthreads();
+  const int kshift = __ffs(K) - 1;
+  for (long long p = s; p < n; p += WALK_THREADS)
+    atomicAdd(hs + snapshot_index((uint32_t)(p >> kshift), r) * 256 + x[p], 1u);
+  __syncthreads();
+  const bool can_rescale = limit_log2 < 64;
+  const unsigned long long limit = can_rescale ? 1ull << limit_log2 : 0;
+  unsigned long long cnt = 1, total = 256;
+  for (int w = 0; w < n_snap; ++w) {
+    if (can_rescale && total >= limit) {
+      const unsigned long long h = cnt >> 1;
+      const int odd = __syncthreads_count((int)(cnt & 1));
+      const int even_half = __syncthreads_count((int)(~h & 1));
+      cnt = h | 1;
+      total = (total - odd) / 2 + even_half;
+    }
+    counts[(size_t)w * 256 + s] = cnt;
+    cnt += (unsigned long long)inc * hs[w * 256 + s];
+    unsigned long long e = window_start(w + 1, r);
+    if (e > (unsigned long long)steps) e = steps;
+    total += (unsigned long long)inc * coded(window_start(w, r), e, n, K);
+  }
+}
+
+"""
+
 VARIANTS = {
     # kernel A: every row requantized at every window
     "a_all_rows": ("rc_encode.cuh", [(
@@ -535,6 +729,75 @@ VARIANTS = {
          "  ase_encode_kernel<<<(K + threads - 1) / threads, threads, 0, st>>>(",
          "  ase_quad_encode_kernel<<<(QUAD * K + DEC_THREADS - 1) / DEC_THREADS, "
          "DEC_THREADS, 0, st>>>(")]),
+    # kernel W's second design: the normalize as the rank loops of 1697712
+    # (a CTA of 256 a window); the three launches without programmatic
+    # dependent launch; the diagnostics (outputs differ): the counts all
+    # ones with the walk skipped, the normalize replaced by a copy of the
+    # counts' low bits
+    "norm_rank": ("ans2_encode.cu", [
+        ("constexpr int NORM_WINDOWS = 4;      // windows a norm CTA, a warp each\n"
+         "constexpr int NORM_CTA = 32 * NORM_WINDOWS;",
+         "constexpr int NORM_WINDOWS = 1;\nconstexpr int NORM_CTA = 256;"),
+        ("__global__ void __launch_bounds__(NORM_CTA)\n    ans2_norm_kernel(",
+         W_RANK_NORM + "__global__ void __launch_bounds__(NORM_CTA)\n"
+         "    ans2_norm_kernel_warp(")]),
+    # W's wrapper with its scratch and entries as one allocation and two
+    # views (this tree's library; its wrapper case alone differs), and W
+    # with the walk's shared-memory attribute set once a process, not once
+    # a call
+    "w_alloc1": ("ans2_encode.cu", []),
+    "w_attr_once": ("ans2_encode.cu", [(
+        "  e = cudaFuncSetAttribute(walk, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);",
+        "  static const void* set_for[4] = {};\n"
+        "  const int wi = rows == 1 ? 0 : rows == 2 ? 1 : rows == 4 ? 2 : 3;\n"
+        "  e = cudaSuccess;\n"
+        "  if (set_for[wi] == nullptr) {\n"
+        "    e = cudaFuncSetAttribute(walk, cudaFuncAttributeMaxDynamicSharedMemorySize,\n"
+        "                             2 * WALK_CHUNK);\n"
+        "    if (e == cudaSuccess) set_for[wi] = (const void*)walk;\n"
+        "  }")]),
+    "w_nopdl": ("ans2_encode.cu", [("programmaticStreamSerializationAllowed = 1;",
+                                    "programmaticStreamSerializationAllowed = 0;")]),
+    "w_fold": ("ans2_encode.cu", [
+        ("// A kernel after the last on the stream, by programmatic dependent launch.",
+         W_FOLD_KERNEL + "// A kernel after the last on the stream, by programmatic dependent launch."),
+        ("""  ans2_hist_kernel<<<dim3(n_snap, rows), HIST_THREADS, 0, s>>>((const uint8_t*)x, part, n, K,
+                                                               steps, r, rows);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int per = WALK_CHUNK / (1024 * rows) > 0 ? WALK_CHUNK / (1024 * rows) : 1;
+  const int smem = 2 * per * rows * 1024;
+  const auto walk = rows == 1   ? ans2_walk_kernel<1>
+                    : rows == 2 ? ans2_walk_kernel<2>
+                    : rows == 4 ? ans2_walk_kernel<4>
+                                : ans2_walk_kernel<0>;
+  e = cudaFuncSetAttribute(walk, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = launch_after(walk, dim3(1), dim3(WALK_THREADS), smem, s, (const uint32_t*)part, counts, n,
+                     K, steps, r, n_snap, rows, (uint32_t)inc, limit_log2);""",
+         """  (void)part;
+  if (n_snap > 200) return (int)cudaErrorInvalidValue;
+  const int smem = n_snap * 1024;
+  cudaError_t e = cudaFuncSetAttribute(ans2_fold_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = launch_after(ans2_fold_kernel, dim3(1), dim3(WALK_THREADS), smem, s, (const uint8_t*)x,
+                     counts, n, K, steps, r, n_snap, (uint32_t)inc, limit_log2);""")]),
+    "wdiag_nowalk": ("ans2_encode.cu", [
+        ("  if (e == cudaSuccess)\n    e = launch_after(walk,",
+         "  if (false)\n    e = launch_after(walk,"),
+        ("  warp_normalize(c8, f, c);\n  uint4* eo",
+         "  for (int i = 0; i < PER_LANE; ++i) c8[i] = 1;\n  warp_normalize(c8, f, c);\n"
+         "  uint4* eo")]),
+    # the walk alone (hist and norm launches skipped), and further without
+    # its bulk copies and their waits, without its counts stores, or both
+    "wdiag_walkonly": ("ans2_encode.cu", W_WALK_ONLY),
+    "wdiag_walknostage": ("ans2_encode.cu", W_WALK_ONLY + W_NO_STAGE),
+    "wdiag_walknostore": ("ans2_encode.cu", W_WALK_ONLY + W_NO_STORE),
+    "wdiag_walkbare": ("ans2_encode.cu", W_WALK_ONLY + W_NO_STAGE + W_NO_STORE),
+    "wdiag_norm1": ("ans2_encode.cu", [
+        ("  warp_normalize(c8, f, c);\n  uint4* eo",
+         "  for (int i = 0; i < PER_LANE; ++i) f[i] = c[i] = (uint32_t)c8[i];\n  uint4* eo")]),
     # kernel X: CTAs of 32 lanes; the diagnostics (outputs differ): the
     # reciprocal a constant, every step reading table 0
     "s_segq": ("ase.cu", []),
@@ -543,7 +806,7 @@ VARIANTS = {
                                     "constexpr int THREADS = 32;  // X: lanes a CTA")]),
     "xdiag_nodiv": ("ans2_encode.cu", [("f ? 0xFFFFFFFFu / f : 0u", "f ? 0x40000u : 0u")]),
     "xdiag_onetable": ("ans2_encode.cu", [
-        ("entry(freq, cum, snapshot_index(", "entry(freq, cum, 0u * snapshot_index("),
+        ("entry(entries, snapshot_index(", "entry(entries, 0u * snapshot_index("),
         ("const size_t row = (size_t)w * 256 + threadIdx.x;",
          "const size_t row = threadIdx.x;")]),
     # kernel T's second design: CTAs of 64 or 128 threads (16 or 32 lanes)
@@ -601,6 +864,19 @@ OLD_WALK_SIGNATURE = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]
 # x, lane_len, scratch, counts, offsets, bits, payload, K, stride, cap,
 # stream
 OLD_S_SIGNATURE = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]
+# kernels W and X of a tree whose W takes hist and counts scratch and
+# whose X reads (freqs, cums), as 1697712's: x, hist, counts, freq, cum,
+# n, K, steps, inc, limit_log2, r, n_snap, stream; x, lane_len, freq, cum,
+# ev, states, K, stride, r, stream
+OLD_W_SIGNATURE = [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P]
+OLD_X_SIGNATURE = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]
+# kernels U and V of a tree without the flag of a step with t = 0 (as
+# 1697712's)
+OLD_O1_SIGNATURES = {
+    "ct_o1_encode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "ct_o1_coder": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "ct_o1_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+}
 # kernel S's segment length in the s_seg* variants: this tree's library,
 # called with ase_ops.segment_steps times the scale
 SEG_SCALE = {"s_segq": 0.25, "s_seg4": 4.0}
@@ -616,7 +892,8 @@ VARIANT_SOURCE = {"a": "rcx_encode.cu", "b": "expand.cu", "g": "rans_decode.cu",
                   "o1": ("o1_encode.cu", "o1_decode.cu"), "u": "o1_encode.cu",
                   "udiag": "o1_encode.cu", "y": "ans2_decode.cu", "ydiag": "ans2_decode.cu",
                   "s": "ase.cu", "sdiag": "ase.cu", "x": "ans2_encode.cu",
-                  "xdiag": "ans2_encode.cu"}
+                  "xdiag": "ans2_encode.cu", "w": "ans2_encode.cu",
+                  "wdiag": "ans2_encode.cu", "norm": "ans2_encode.cu"}
 # variants that edit the base's sources, not this tree's: s_quad, and
 # NAME@base, the diagnostics of a base whose S is a thread a lane with a
 # scan and a copy and whose X reads every table from global memory (as
@@ -632,6 +909,17 @@ BASE_VARIANTS = {
     "xdiag_nodiv": ("ans2_encode.cu", [("f ? 0xFFFFFFFFu / f : 0u", "f ? 0x40000u : 0u")]),
     "xdiag_onetable": ("ans2_encode.cu", [("entry(freq, cum, snapshot_index(",
                                            "entry(freq, cum, 0u * snapshot_index(")]),
+    # kernel W of a base with a memset and three launches (1697712): the
+    # counts all ones with the walk skipped; the normalize replaced by a
+    # copy of the counts' low bits
+    "wdiag_nowalk": ("ans2_encode.cu", [
+        ("  ans2_walk_kernel<<<1, NORM_THREADS, 0, s>>>",
+         "  if (false) ans2_walk_kernel<<<1, NORM_THREADS, 0, s>>>"),
+        ("const uint32_t f = normalize(counts[at], sc, c);",
+         "const uint32_t f = normalize(1ull, sc, c);")]),
+    "wdiag_norm1": ("ans2_encode.cu", [
+        ("const uint32_t f = normalize(counts[at], sc, c);",
+         "const uint32_t f = (uint32_t)counts[at];\n  c = f;")]),
 }
 
 
@@ -673,6 +961,19 @@ def load(path: Path) -> ctypes.CDLL:
     if lib.old_s:
         sigs["ct_ase_encode"] = OLD_S_SIGNATURE
     lib.seg_scale = 1.0
+    lib.w_alloc1 = False
+    ans2 = path.parents[2] / "csrc" / "ans2_encode.cu"
+    ans2 = ans2.read_text() if ans2.exists() else ""
+    lib.old_w = "void* hist, void* counts" in ans2
+    lib.old_x = "const void* entries, void* ev" not in ans2
+    if lib.old_w:
+        sigs["ct_ans2_model"] = OLD_W_SIGNATURE
+    o1 = path.parents[2] / "csrc" / "o1_encode.cu"
+    lib.o1_flag = o1.exists() and "void* flag" in o1.read_text()
+    if o1.exists() and not lib.o1_flag:
+        sigs.update(OLD_O1_SIGNATURES)
+    if lib.old_x:
+        sigs["ct_ans2_encode"] = OLD_X_SIGNATURE
     lz = path.parents[2] / "csrc" / "lz_encode.cu"
     lib.old_walk = lz.exists() and "ct_lz_walk(const void* step" in lz.read_text()
     if lib.old_walk:
@@ -984,17 +1285,23 @@ def ase_o1_cases(dev, stream, only: str = ""):
             trip = torch.empty((2, chunk, 3, k), dtype=torch.int32, device=dev)
             mstate = torch.empty(o1_kernels.MODEL_WORDS + o1_kernels.T1_NARROW_WORDS,
                                  dtype=torch.int32, device=dev)
-            keep += (st, trip, mstate)
+            flag = torch.empty(1, dtype=torch.int64, device=dev)
+            keep += (st, trip, mstate, flag)
+            # a tree whose U and V take the flag of a step with t = 0
+            fl = (flag.data_ptr(),) if lib.o1_flag else ()
             return (lambda keep=keep: lib.ct_o1_encode(
                 a[0].data_ptr(), a[1].data_ptr(), ev.data_ptr(), p[0], st.data_ptr(),
-                trip.data_ptr(), mstate.data_ptr(), *a[3:], stream())), ev
+                trip.data_ptr(), mstate.data_ptr(), *fl, *a[3:], stream())), ev
 
         def v_dec(lib, a=(words, lens, n, k, steps, *params, int(wide)),
                   scratch=scratch):
             o = torch.empty(a[2], dtype=torch.uint8, device=dev)
             keep, p = scratch()
+            flag = torch.empty(1, dtype=torch.int64, device=dev)
+            keep += (flag,)
+            fl = (flag.data_ptr(),) if lib.o1_flag else ()
             return (lambda keep=keep: lib.ct_o1_decode(
-                a[0].data_ptr(), a[1].data_ptr(), o.data_ptr(), *p, a[3],
+                a[0].data_ptr(), a[1].data_ptr(), o.data_ptr(), *p, *fl, a[3],
                 a[0].shape[0], *a[4:], stream())), o
 
         out.append(("U", shape, u_enc))
@@ -1022,44 +1329,109 @@ def sx_shapes():
             ("kennedy.xls", corpus("kennedy.xls"), 65536, None)]
 
 
+def ans2_shapes():
+    """[(label, data, K or None, refresh_log2 or None, limit_log2)]: W's, X's
+    and Y's shapes. `sx_shapes()` at the codec's limit_log2, then
+    grammar.lsp at refresh_log2 0 (a table a step), kennedy.xls at
+    limit_log2 9 (a rescale every window) and 63 (none), and 200,000 zero
+    bytes (one symbol: runs for W's histograms)."""
+    lim = ans2_ref.ANS2_LIMIT_LOG2_DEFAULT
+    ken = corpus("kennedy.xls")
+    return ([(*s, lim) for s in sx_shapes()]
+            + [("grammar.lsp", corpus("grammar.lsp"), None, 0, lim),
+               ("kennedy.xls", ken, None, None, 9),
+               ("kennedy.xls", ken, None, None, 63),
+               ("200,000 zero bytes", bytes(200_000), None, None, lim)])
+
+
+def w_tables(entries):
+    """W's entries -> (freqs, cums) int32, as a base as 1697712 writes
+    them, and the entries."""
+    return (*(t.to(torch.int32) for t in ans2_ops.entry_tables(entries)), entries)
+
+
 def ans2_cases(dev, stream):
-    """W, X and Y (CT-ANS2, interleaved lanes) at S-V's shapes: kennedy.xls,
-    alice29.txt, grammar.lsp and the first 2^14-byte superblock of CT-SB
-    over the concatenated corpus at pick_lanes(n) lanes (256, 64, 2 and 8),
-    and kennedy.xls over 2,048 and 65,536 lanes (Y's states in global
-    scratch there), at the codec's defaults; the inputs made through this
-    tree's W and X. Y's state scratch is given at every K, so either tree
-    takes it."""
+    """W, X and Y (CT-ANS2, interleaved lanes) at `ans2_shapes()`, at the
+    codec's inc; the inputs made through this tree's W and X. A library
+    whose W takes hist and counts scratch and whose X reads (freqs, cums)
+    (as 1697712's: `lib.old_w`, `lib.old_x`) is called through those
+    entries; W's outputs are compared as (freqs, cums), and the entries too
+    where both libraries write them. Y's state scratch is given at every K,
+    so either tree takes it."""
     out = []
-    at = sx_shapes() + [("grammar.lsp", corpus("grammar.lsp"), None, 0)]
-    for label, data, k, r_log2 in at:
+    inc = ans2_ref.ANS2_INC_DEFAULT
+    for label, data, k, r_log2, limit in ans2_shapes():
         k = k or pick_lanes(len(data))
         n, steps, x2d, lens = interleaved(data, k, dev)
-        inc, limit = ans2_ref.ANS2_INC_DEFAULT, ans2_ref.ANS2_LIMIT_LOG2_DEFAULT
         if r_log2 is None:
             r_log2 = ans2_ref.default_refresh_log2(k, n)
         r = ans2_ops.refresh_eff(r_log2, steps)
         n_snap = ans2_ops.n_snapshots(steps, r)
-        freqs, cums = ans2_kernels.window_tables(x2d, n, inc, limit, r_log2)
-        ev, states = ans2_kernels.encode_events(x2d, lens, freqs, cums, r_log2)
+        entries = ans2_kernels.window_tables(x2d, n, inc, limit, r_log2)
+        freqs, cums = (t.to(torch.int32) for t in ans2_ops.entry_tables(entries))
+        ev, states = ans2_kernels.encode_events(x2d, lens, entries, r_log2)
         words = ans2_ops.stream_words(ev).to(torch.int16)
-        shape = f"{label} (K={k}, {steps} steps, {n_snap} windows)"
+        shape = (f"{label} (K={k}, {steps} steps, {n_snap} windows"
+                 + (f", refresh_log2 {r_log2}" if r_log2 == 0 else "")
+                 + (f", limit_log2 {limit}" if limit != ans2_ref.ANS2_LIMIT_LOG2_DEFAULT
+                    else "") + ")")
 
         def w_model(lib, a=(x2d, n, k, steps, inc, limit, r, n_snap)):
-            hist = torch.empty((a[7], 256), dtype=torch.int32, device=dev)
-            counts = torch.empty((a[7], 256), dtype=torch.int64, device=dev)
-            f, c = (torch.empty((a[7], 256), dtype=torch.int32, device=dev)
-                    for _ in range(2))
+            ns = a[7]
+            if lib.old_w:
+                f, c = (torch.empty((ns, 256), dtype=torch.int32, device=dev)
+                        for _ in range(2))
+                hist = torch.empty((ns, 256), dtype=torch.int32, device=dev)
+                counts = torch.empty((ns, 256), dtype=torch.int64, device=dev)
+                return (lambda: lib.ct_ans2_model(
+                    a[0].data_ptr(), hist.data_ptr(), counts.data_ptr(), f.data_ptr(),
+                    c.data_ptr(), *a[1:], stream())), (f, c)
+            rows, nbytes = ans2_kernels.model_scratch(a[1], a[2], a[3], a[6], ns)
+            scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+            e = torch.empty((ns, 256), dtype=torch.int64, device=dev)
             return (lambda: lib.ct_ans2_model(
-                a[0].data_ptr(), hist.data_ptr(), counts.data_ptr(), f.data_ptr(),
-                c.data_ptr(), *a[1:], stream())), (f, c)
+                a[0].data_ptr(), scratch.data_ptr(), e.data_ptr(), *a[1:], rows,
+                stream())), lambda: w_tables(e)
 
-        def x_enc(lib, a=(x2d, lens, freqs, cums, k, steps, r)):
-            e = torch.empty((a[5], a[4]), dtype=torch.int32, device=dev)
-            st = torch.empty(a[4], dtype=torch.int32, device=dev)
+        def w_wrapper(lib, a=(x2d, n, k, steps, inc, limit, r, n_snap)):
+            """W as a wrapper of its library's interface runs it, its
+            allocations in each call: 1697712's four tensors (hist, counts,
+            freqs, cums), this tree's `ans2_kernels.model_launch` (entries
+            and scratch), or for w_alloc1 one allocation with two views."""
+            res = {}
+
+            def go():
+                if lib.old_w:
+                    hist = torch.empty((a[7], 256), dtype=torch.int32, device=dev)
+                    counts = torch.empty((a[7], 256), dtype=torch.int64, device=dev)
+                    f = torch.empty((a[7], 256), dtype=torch.int32, device=dev)
+                    c = torch.empty_like(f)
+                    res["out"] = (f, c)
+                    return lib.ct_ans2_model(a[0].data_ptr(), hist.data_ptr(),
+                                             counts.data_ptr(), f.data_ptr(), c.data_ptr(),
+                                             *a[1:], stream())
+                if lib.w_alloc1:
+                    rows, nbytes = ans2_kernels.model_scratch(a[1], a[2], a[3], a[6], a[7])
+                    buf = torch.empty(a[7] * 2048 + nbytes, dtype=torch.uint8, device=dev)
+                    e = buf[:a[7] * 2048].view(torch.int64).view(a[7], 256)
+                    res["out"] = e
+                    return lib.ct_ans2_model(a[0].data_ptr(), buf[a[7] * 2048:].data_ptr(),
+                                             e.data_ptr(), *a[1:], rows, stream())
+                try:
+                    res["out"] = ans2_kernels.model_launch(a[0], a[1], a[4], a[5], a[6],
+                                                           a[7], lib)
+                except RuntimeError:    # a variant that refuses the shape
+                    return 1
+                return 0
+            return go, lambda: (res["out"] if lib.old_w else w_tables(res["out"]))
+
+        def x_enc(lib, a=(x2d, lens, freqs, cums, entries, k, steps, r)):
+            e = torch.empty((a[6], a[5]), dtype=torch.int32, device=dev)
+            st = torch.empty(a[5], dtype=torch.int32, device=dev)
+            tables = a[2:4] if lib.old_x else a[4:5]
             return (lambda: lib.ct_ans2_encode(
-                *(t.data_ptr() for t in a[:4]), e.data_ptr(), st.data_ptr(), *a[4:],
-                stream())), (e, st)
+                a[0].data_ptr(), a[1].data_ptr(), *(t.data_ptr() for t in tables),
+                e.data_ptr(), st.data_ptr(), *a[5:], stream())), (e, st)
 
         def y_dec(lib, a=(words, states, n, k, steps, inc, limit, r)):
             o = torch.empty(a[2], dtype=torch.uint8, device=dev)
@@ -1068,7 +1440,8 @@ def ans2_cases(dev, stream):
                 a[0].data_ptr(), a[0].numel(), a[1].data_ptr(), scratch.data_ptr(),
                 o.data_ptr(), *a[2:], stream())), o
 
-        out += [("W", shape, w_model), ("X", shape, x_enc), ("Y", shape, y_dec)]
+        out += [("W", shape, w_model), ("W", f"{shape} through the wrapper", w_wrapper),
+                ("X", shape, x_enc), ("Y", shape, y_dec)]
     return out
 
 
@@ -1399,6 +1772,7 @@ def main():
     for nm, (path, log) in built.items():
         libs[nm] = load(path)
         libs[nm].seg_scale = SEG_SCALE.get(nm, 1.0)
+        libs[nm].w_alloc1 = nm == "w_alloc1"
         spills = sorted({ln.split(":")[-1].strip() for ln in log.splitlines()
                          if "spill" in ln and " 0 bytes spill stores" not in ln})
         print(f"[build] {nm}: nonzero spills: {spills}", flush=True)

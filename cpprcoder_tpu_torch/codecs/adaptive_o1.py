@@ -5,8 +5,11 @@ blended with exact integer weights.
 
 Format: reference/o1_ref.py; options `inc` (default pick_inc(K)),
 `limit1_log2`, `limit0_log2` and `blend_log2` (defaults LIMIT1_LOG2,
-LIMIT0_LOG2, BLEND_LOG2), as there. Parameters outside C8's bound
-(ops/o1_ops.py) raise ValueError on encode and on decode. Backends
+LIMIT0_LOG2, BLEND_LOG2), as there. A step whose range / tot_eff is 0,
+where the oracle never ends (ops/o1_ops.py), raises ValueError on encode
+and CorruptContainerError on decode. On the card, at a limit_log2 of 32
+or more, a stream whose counts could reach 2^32 raises
+ops.o1_ops.CardCountsError (fault P7); the CPU backends take it. Backends
 (codecs/base.py): "cuda" (kernels U, B and V on the card), "torch" (plain
 versions on the CPU) and "ref" (the numpy oracle); all write
 byte-identical containers.

@@ -40,11 +40,13 @@
 //     its symbol to its warp's copy of the window's histogram (a copy a
 //     warp, mod 8: one shared atomic, no match of the warp's lanes). At a
 //     window start every thread of the CTA (at least 256: a thread a
-//     symbol for the normalize) joins after a CTA barrier: the copies
-//     summed into the counts, the rescale, the normalize (ans2_model.cuh,
-//     shared with W), the table (f | c << 16) and a 2^14-byte cum2sym, each
-//     thread filling a run of slots from one binary search. The other
-//     threads wait there while the stepping ones run the window's steps.
+//     symbol for the histogram) joins after a CTA barrier: the copies
+//     summed into the counts (in shared memory), then warp 0 alone the
+//     rescale and the normalize (ans2_model.cuh's warp functions, shared
+//     with W: 8 counts a lane, no CTA barrier inside) and the table (f | c
+//     << 16), then every thread a 2^14-byte cum2sym, each filling a run of
+//     slots from one binary search. The other threads wait there while the
+//     stepping ones run the window's steps.
 // Measured and left out (PERF.md, section 6): the histogram counted back
 // from the output at window starts (its atomics on a few hot bins, with or
 // without a warp's lanes grouped by __match_any_sync), the chunks landed
@@ -66,7 +68,7 @@ namespace {
 
 using namespace ans2;
 
-constexpr int MIN_THREADS = 256;  // a thread a symbol for the normalize
+constexpr int MIN_THREADS = 256;  // a thread a symbol for the window's histogram
 constexpr int MAX_THREADS = 1024;
 constexpr int WARP_LANES = 32;    // one warp runs the steps up to this many lanes
 constexpr int REG_LANES = 8;      // a thread's states in registers up to this many
@@ -101,26 +103,6 @@ Geometry geometry(int K) {
 
 int smem_bytes(const Geometry& g, int K) {
   return 2 * g.ring + 4 * FIXED_WORDS + 8 * MAX_SLOTS + (g.shared_states ? 4 * K : 0);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n"
-      "}\n" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
 }
 
 // The staged word stream: chunk i (words [i*RING_CHUNK, ...) of the
@@ -234,6 +216,35 @@ __device__ __forceinline__ uint32_t refills_before(uint32_t mine, int ts, uint32
   return before + incl - mine;
 }
 
+// Warp 0 at a window start: the rescale where it is due and the normalize
+// (ans2_model.cuh, shared with W), 8 counts a lane, no CTA barrier inside;
+// the counts from and (rescaled) back to cnt in shared memory, the table
+// (f | c << 16) into tab, the total into *total_out. Not inlined: its
+// registers stay out of the steps' loop (inlined, the kernel spilled).
+__device__ __noinline__ void window_table(unsigned long long* cnt, uint32_t* tab, bool rescale,
+                                          unsigned long long total,
+                                          unsigned long long* total_out) {
+  const int lane = threadIdx.x & 31;
+  unsigned long long c8[PER_LANE];
+  ulonglong2* wc = reinterpret_cast<ulonglong2*>(cnt + PER_LANE * lane);
+#pragma unroll
+  for (int i = 0; i < PER_LANE / 2; ++i) {
+    const ulonglong2 v = wc[i];
+    c8[2 * i] = v.x, c8[2 * i + 1] = v.y;
+  }
+  if (rescale) {
+    warp_rescale(c8, total);
+#pragma unroll
+    for (int i = 0; i < PER_LANE / 2; ++i) wc[i] = make_ulonglong2(c8[2 * i], c8[2 * i + 1]);
+  }
+  uint32_t f[PER_LANE], c[PER_LANE];
+  warp_normalize(c8, f, c);
+  uint4* tb = reinterpret_cast<uint4*>(tab + PER_LANE * lane);
+  tb[0] = make_uint4(f[0] | c[0] << 16, f[1] | c[1] << 16, f[2] | c[2] << 16, f[3] | c[3] << 16);
+  tb[1] = make_uint4(f[4] | c[4] << 16, f[5] | c[5] << 16, f[6] | c[6] << 16, f[7] | c[7] << 16);
+  if (lane == 0) *total_out = total;
+}
+
 // words [n_words] u16 (read order, 16-byte aligned); states_in [K] u32;
 // st_global [K] u32 scratch where the states are kept there; out [n] u8.
 // LPT > 0: a stepping thread's LPT lanes' states in registers; LPT = 0:
@@ -245,7 +256,10 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
                        uint8_t* __restrict__ out, long long n, int K, int steps, uint32_t inc,
                        int limit_log2, int r, int ts, int lpt_rt, int ring_words) {
   extern __shared__ __align__(128) uint32_t smem[];
-  __shared__ Scratch sc;
+  // the model's counts, which warp 0 rescales and normalizes at a window
+  // start, and the total it leaves
+  __shared__ __align__(16) unsigned long long wcnt[256];
+  __shared__ unsigned long long wtotal;
   const int lpt = LPT > 0 ? LPT : lpt_rt;
   const int slots = ring_words / RING_CHUNK;
   uint16_t* const ring = reinterpret_cast<uint16_t*>(smem);
@@ -259,7 +273,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
   const int tid = threadIdx.x, T = blockDim.x;
   const bool stepping = tid < ts;
   const int first = tid * lpt;  // lanes [first, first + lpt)
-  const bool sym_thread = tid < 256;  // owns count[tid]
+  const bool sym_thread = tid < 256;  // adds symbol tid's histogram to its count
   const bool can_rescale = limit_log2 < 64;
   const unsigned long long limit = can_rescale ? 1ull << limit_log2 : 0;
 
@@ -285,9 +299,10 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
     for (int i = tid; i < K; i += T) st[(i % lpt) * ts + i / lpt] = states_in[i];
   }
   for (int i = tid; i < HIST_COPIES * 256; i += T) hist[i] = 0;
+  if (sym_thread) wcnt[tid] = 1;
   __syncthreads();
   if (tid == 0) rg.issue(0);
-  unsigned long long cnt = sym_thread ? 1 : 0, total = 256, base = 0;
+  unsigned long long total = 256, base = 0;
   unsigned long long wstart = 0;  // the last window's first step
   for (unsigned long long w = 0;; ++w) {
     const unsigned long long t0 = window_start(w, r);
@@ -304,19 +319,15 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
           h += hist[c * 256 + tid];
           hist[c * 256 + tid] = 0;
         }
-        cnt += (unsigned long long)inc * h;
+        wcnt[tid] += (unsigned long long)inc * h;
       }
       total += (unsigned long long)inc * coded(wstart, t0, n, K);
       wstart = t0;
     }
-    if (can_rescale && total >= limit) {
-      if (sym_thread) cnt = (cnt >> 1) | 1;
-      total = block_sum(cnt, sc);
-    }
-    uint32_t c;
-    const uint32_t f = normalize(cnt, sc, c);
-    if (sym_thread) tab[tid] = f | (c << 16);
     __syncthreads();
+    if (tid < 32) window_table(wcnt, tab, can_rescale && total >= limit, total, &wtotal);
+    __syncthreads();
+    total = wtotal;
     // cum2sym: each thread a run of 2^14 / T slots, its first symbol by
     // binary search (the last s with c[s] <= slot), then walked forward
     {

@@ -11,8 +11,10 @@
 // word-major) through a byte queue that takes a whole word whenever fewer
 // than 3 bytes are buffered (zero past the row's end). With the shared model
 // of o1_model.cuh rescaled before the step, an active lane with context ctx
-// (its previous symbol, 0 at j = 0) takes tot = A*rowtot[ctx] + tot0,
-// t = range / tot, v = min(code / t, tot - 1), and the symbol s whose
+// (its previous symbol, 0 at j = 0) takes tot = A*rowtot[ctx] + tot0 (in 64
+// bits: a step whose t is 0, tot above the range, goes to a flag, the
+// first (step, lane), and the wrapper raises), t = range / tot,
+// v = min(code / t, tot - 1), and the symbol s whose
 // blended inclusive prefix is the first above v; code -= t*c; range =
 // (c + f == tot) ? range - t*c : t*f; up to 3 bytes from the queue while
 // range < 2^24. s goes to out[i*L + j]; then every active lane adds inc to
@@ -109,23 +111,28 @@ __device__ __forceinline__ uint32_t search_counted(const Model& m, uint32_t r, u
 
 // One lane's coding step: the refill (the word loaded a refill ahead goes
 // into the queue, and the next one is loaded), the search, the renorm.
-// -> the symbol.
+// -> the symbol; bad set where t = range / tot is 0.
 template <bool WIDE>
 __device__ __forceinline__ uint32_t code_step(const Model& m, const uint32_t* __restrict__ words,
                                               int K, int l4, int lane, uint32_t ctx,
                                               uint32_t tot0, int blend, uint32_t& rng,
                                               uint32_t& code, uint32_t& occ, uint32_t& widx,
-                                              uint64_t& q, uint32_t& nw) {
+                                              uint64_t& q, uint32_t& nw, bool& bad) {
   if (occ < (uint32_t)SLOTS) {
     q = (q << 32) | nw;
     occ += 4;
     nw = widx < (uint32_t)l4 ? words[(size_t)widx * K + lane] : 0u;
     ++widx;
   }
-  const uint32_t tot = (m.rowtot[ctx] << blend) + tot0;
+  const uint32_t r = m.rowtot[ctx];
+  const uint32_t tot = (r << blend) + tot0;
   uint32_t p[16];
   block_prefixes(m, ctx, blend, p);
   const uint32_t t = rng / tot;
+  // off the chain: tot in 64 bits past 2^32 - 1, or t = 0 (a step past
+  // either runs on, with t = 0 or t from a wrapped tot: nothing after it
+  // counts, and every index stays clamped)
+  bad = ((uint64_t)r << blend) + tot0 > FULL || t == 0u;
   uint32_t v = code / t;
   v = v < tot - 1 ? v : tot - 1;
   uint32_t c, f;
@@ -139,12 +146,13 @@ __device__ __forceinline__ uint32_t code_step(const Model& m, const uint32_t* __
 // words [l4, K] u32 big-endian word rows (l4 >= 1); lane_len [K] i32; out
 // [n] u8; t1g as kernel U's; st [7][K] u32 (MULTI: range, code, occ | ctx
 // << 8 | sym << 16, widx, the queue's low and high words, the word loaded
-// ahead) or null.
+// ahead) or null; flag gets the first step with t = 0.
 template <bool WIDE, bool MULTI>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
     o1_decode_kernel(const uint32_t* __restrict__ words, const int32_t* __restrict__ lane_len,
-                     uint8_t* __restrict__ out, uint32_t* t1g, uint32_t* __restrict__ st, int K,
-                     int l4, int L, uint32_t inc, uint32_t limit1, uint32_t limit0, int blend) {
+                     uint8_t* __restrict__ out, uint32_t* t1g, uint32_t* __restrict__ st,
+                     unsigned long long* __restrict__ flag, int K, int l4, int L, uint32_t inc,
+                     uint32_t limit1, uint32_t limit0, int blend) {
   extern __shared__ __align__(16) uint32_t smem[];
   const Model m = carve(smem, t1g, WIDE);
   const int tid = threadIdx.x, T = blockDim.x;
@@ -152,6 +160,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
   uint32_t rng = FULL, code = 0, occ = 0, widx = 2, ctx = 0, nw = 0;
   uint64_t q = 0;
   int len = 0;
+  unsigned long long first = NONE;  // the least step of this thread's lanes with t = 0
   if (MULTI) {
     for (int lane = tid; lane < K; lane += T) {
       st[lane] = FULL;
@@ -185,7 +194,10 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
       } else if (j >= len) {
         continue;
       }
-      sym = code_step<WIDE>(m, words, K, l4, lane, ctx, tot0, blend, rng, code, occ, widx, q, nw);
+      bool bad;
+      sym = code_step<WIDE>(m, words, K, l4, lane, ctx, tot0, blend, rng, code, occ, widx, q, nw,
+                            bad);
+      first = first_bad(first, bad, j, lane);
       out[(size_t)lane * L + j] = (uint8_t)sym;
       if (MULTI) {
         st[lane] = rng, st[K + lane] = code, st[2 * K + lane] = occ | ctx << 8 | sym << 16;
@@ -211,19 +223,20 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
     }
     __syncthreads();
   }
+  report_steps(flag, first);
 }
 
 template <bool WIDE, bool MULTI>
-cudaError_t launch(const void* words, const void* lane_len, void* out, void* t1g, void* st, int K,
-                   int l4, int L, uint32_t inc, uint32_t limit1, uint32_t limit0, int blend,
-                   cudaStream_t stream) {
+cudaError_t launch(const void* words, const void* lane_len, void* out, void* t1g, void* st,
+                   void* flag, int K, int l4, int L, uint32_t inc, uint32_t limit1,
+                   uint32_t limit0, int blend, cudaStream_t stream) {
   const int smem = smem_bytes(WIDE);
   cudaError_t err = cudaFuncSetAttribute(o1_decode_kernel<WIDE, MULTI>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   o1_decode_kernel<WIDE, MULTI><<<1, cta_threads(K), smem, stream>>>(
       (const uint32_t*)words, (const int32_t*)lane_len, (uint8_t*)out, (uint32_t*)t1g,
-      (uint32_t*)st, K, l4, L, inc, limit1, limit0, blend);
+      (uint32_t*)st, (unsigned long long*)flag, K, l4, L, inc, limit1, limit0, blend);
   return cudaGetLastError();
 }
 
@@ -231,25 +244,26 @@ cudaError_t launch(const void* words, const void* lane_len, void* out, void* t1g
 
 // words [l4, K] u32 (big-endian word rows), lane_len [K] i32 -> out [n] u8
 // (byte i*L + j is lane i's step j). t1 as for ct_o1_encode; st [7*K] u32
-// scratch past 1,024 lanes, else null.
+// scratch past 1,024 lanes, else null; flag one u64, all ones, which gets
+// the first (step << 32 | lane) whose t is 0.
 extern "C" int ct_o1_decode(const void* words, const void* lane_len, void* out, void* t1,
-                            void* st, int K, int l4, int L, int inc, int limit1_log2,
+                            void* st, void* flag, int K, int l4, int L, int inc, int limit1_log2,
                             int limit0_log2, int blend_log2, int wide, void* stream) {
-  if (K < 1 || K > 65536 || (K & (K - 1)) || l4 < 1 || L < 0 || inc < 0 || inc > 255 ||
-      limit1_log2 < 0 || limit1_log2 > 31 || limit0_log2 < 0 || limit0_log2 > 31 ||
-      blend_log2 < 0 || blend_log2 > 24 || (wide && t1 == nullptr) ||
-      (K > MAX_THREADS && st == nullptr))
+  if (K < 1 || K > 65536 || (K & (K - 1)) || l4 < 1 || L < 0 ||
+      bad_header(inc, limit1_log2, limit0_log2, blend_log2) || (wide && t1 == nullptr) ||
+      flag == nullptr || (K > MAX_THREADS && st == nullptr))
     return (int)cudaErrorInvalidValue;
-  const uint32_t u = (uint32_t)inc, l1 = 1u << limit1_log2, l0 = 1u << limit0_log2;
+  const uint32_t u = (uint32_t)inc;
+  const uint32_t l1 = limit_of(limit1_log2), l0 = limit_of(limit0_log2);
   const cudaStream_t s = (cudaStream_t)stream;
   const bool multi = K > MAX_THREADS;
   if (wide)
-    return (int)(multi ? launch<true, true>(words, lane_len, out, t1, st, K, l4, L, u, l1, l0,
-                                            blend_log2, s)
-                       : launch<true, false>(words, lane_len, out, t1, st, K, l4, L, u, l1, l0,
-                                             blend_log2, s));
-  return (int)(multi ? launch<false, true>(words, lane_len, out, t1, st, K, l4, L, u, l1, l0,
-                                           blend_log2, s)
-                     : launch<false, false>(words, lane_len, out, t1, st, K, l4, L, u, l1, l0,
-                                            blend_log2, s));
+    return (int)(multi ? launch<true, true>(words, lane_len, out, t1, st, flag, K, l4, L, u, l1,
+                                            l0, blend_log2, s)
+                       : launch<true, false>(words, lane_len, out, t1, st, flag, K, l4, L, u, l1,
+                                             l0, blend_log2, s));
+  return (int)(multi ? launch<false, true>(words, lane_len, out, t1, st, flag, K, l4, L, u, l1,
+                                           l0, blend_log2, s)
+                     : launch<false, false>(words, lane_len, out, t1, st, flag, K, l4, L, u, l1,
+                                            l0, blend_log2, s));
 }

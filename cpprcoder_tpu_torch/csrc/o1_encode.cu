@@ -11,11 +11,13 @@
 // each active lane codes its symbol s against f = A*t1[ctx][s] + t0[s],
 // c = A*C1[ctx][s] + C0[s], tot = A*rowtot[ctx] + tot0 (A = 2^blend):
 // t = range / tot; low += t*c; range = (c + f == tot) ? range - t*c : t*f;
-// then up to 3 shift_lows while range < 2^24 (3 suffice within C8's bound,
-// which the wrapper enforces: tot <= 2^24, so t >= 1). One packed event a
-// slot, time-major [3*L + 2, K] (ops/rc_common.py's format, which kernel B
-// expands), then two flush rows. After the step every active lane adds inc
-// to the model.
+// then up to 3 shift_lows while range < 2^24 (3 suffice wherever t >= 1:
+// ops/o1_ops.py's docstring). tot is formed in 64 bits; a step with t = 0
+// (tot above the range) is reported through a flag, the first (step, lane)
+// of the call, and the wrapper raises. One packed event a slot, time-major
+// [3*L + 2, K] (ops/rc_common.py's format, which kernel B expands), then
+// two flush rows. After the step every active lane adds inc to the
+// model.
 //
 // Design (second round; the first ran the coder inside the model's step).
 // The model never reads the coder, so U is two passes, as CT-ANS2's encode
@@ -88,12 +90,14 @@ __device__ __forceinline__ void coder_store(const Coder& q, uint32_t* st, int K,
 }
 
 // One symbol (c, f, tot) coded into the step's SLOTS events; tot = 0 (a
-// lane that has ended) codes nothing and emits nothing.
-__device__ __forceinline__ void code_symbol(Coder& q, uint32_t c, uint32_t f, uint32_t tot,
+// lane that has ended) codes nothing and emits nothing. -> false where t =
+// 0, or f = 0 (the model pass's mark of a tot past 2^32 - 1): the coder
+// does not end there.
+__device__ __forceinline__ bool code_symbol(Coder& q, uint32_t c, uint32_t f, uint32_t tot,
                                             uint32_t (&e)[SLOTS]) {
 #pragma unroll
   for (int sl = 0; sl < SLOTS; ++sl) e[sl] = 0u;
-  if (tot == 0) return;
+  if (tot == 0) return true;
   const uint32_t t = q.rng / tot;
   const uint32_t add = t * c;
   const uint32_t nl = q.low + add;
@@ -101,6 +105,7 @@ __device__ __forceinline__ void code_symbol(Coder& q, uint32_t c, uint32_t f, ui
   q.low = nl;
   q.rng = (c + f == tot) ? q.rng - add : t * f;
   renorm_encode(q.low, q.carry, q.rng, q.cache, q.csize, e);
+  return t != 0u && f != 0u;
 }
 
 // The flush: low rounded up to a multiple of 2^24, then two shift_lows
@@ -204,12 +209,15 @@ __global__ void __launch_bounds__(MAXT, 1)
 // The coder pass over steps [j0, j1): trip [j1 - j0][3][K] -> ev rows
 // [3*j0, 3*j1); the lanes' state from st where j0 > 0, to st where j1 < L,
 // else the two flush rows. A thread a lane: the triples of the next run of
-// AHEAD steps are loaded while this run codes.
+// AHEAD steps are loaded while this run codes. The lane's first step with
+// t = 0 goes to *flag at its end.
 __global__ void __launch_bounds__(CODER_THREADS)
     o1_coder_kernel(const uint32_t* __restrict__ trip, uint32_t* __restrict__ ev,
-                    uint32_t* __restrict__ st, int K, int L, int j0, int j1) {
+                    uint32_t* __restrict__ st, unsigned long long* __restrict__ flag, int K,
+                    int L, int j0, int j1) {
   const int lane = blockIdx.x * CODER_THREADS + threadIdx.x;
   if (lane >= K) return;
+  unsigned long long first = NONE;
   Coder q = j0 == 0 ? coder_start() : coder_load(st, K, lane);
   const int n = j1 - j0;
   const uint32_t* tp = trip + lane;
@@ -236,7 +244,8 @@ __global__ void __launch_bounds__(CODER_THREADS)
     for (int u = 0; u < AHEAD; ++u) {
       if (i + u < n) {
         uint32_t e[SLOTS];
-        code_symbol(q, c[u], f[u], t[u], e);
+        const bool good = code_symbol(q, c[u], f[u], t[u], e);
+        first = first_bad(first, !good, j0 + i + u, lane);
         store_events(ev, K, j0 + i + u, lane, e);
       }
       c[u] = cn[u], f[u] = fn[u], t[u] = tn[u];
@@ -246,6 +255,7 @@ __global__ void __launch_bounds__(CODER_THREADS)
     coder_store(q, st, K, lane);
   else
     flush(q, ev + (size_t)SLOTS * L * K, K, lane);
+  report_steps(flag, first);
 }
 
 template <bool WIDE, bool MULTI, int MAXT, bool T0SCAN>
@@ -289,10 +299,11 @@ cudaError_t model(const void* x, const void* lane_len, void* trip, void* t1g, vo
                                       limit0, blend, s);
 }
 
-cudaError_t coder(const void* trip, void* ev, void* st, int K, int L, int j0, int j1,
+cudaError_t coder(const void* trip, void* ev, void* st, void* flag, int K, int L, int j0, int j1,
                   cudaStream_t s) {
   o1_coder_kernel<<<(K + CODER_THREADS - 1) / CODER_THREADS, CODER_THREADS, 0, s>>>(
-      (const uint32_t*)trip, (uint32_t*)ev, (uint32_t*)st, K, L, j0, j1);
+      (const uint32_t*)trip, (uint32_t*)ev, (uint32_t*)st, (unsigned long long*)flag, K, L, j0,
+      j1);
   return cudaGetLastError();
 }
 
@@ -334,9 +345,8 @@ cudaError_t side_of_device(Side*& out) {
 }
 
 bool bad_params(int K, int L, int inc, int limit1_log2, int limit0_log2, int blend_log2) {
-  return K < 1 || K > 65536 || (K & (K - 1)) || L < 0 || inc < 0 || inc > 255 ||
-         limit1_log2 < 0 || limit1_log2 > 31 || limit0_log2 < 0 || limit0_log2 > 31 ||
-         blend_log2 < 0 || blend_log2 > 24;
+  return K < 1 || K > 65536 || (K & (K - 1)) || L < 0 ||
+         bad_header(inc, limit1_log2, limit0_log2, blend_log2);
 }
 
 }  // namespace
@@ -348,18 +358,20 @@ bool bad_params(int K, int L, int inc, int limit1_log2, int limit0_log2, int ble
 // and the caller's stream waits for the last. Scratch: t1
 // [65536] u32 when wide (a t1 count may reach 2^16), else null; st [5*K]
 // u32; trip [2][chunk][3][K] u32 ([chunk][3][K] where chunk >= L);
-// mstate smem_bytes(wide) bytes where chunk < L, else null. K a power of
-// two up to 65,536; the caller has checked C8's bound
-// (o1_ops.check_params).
+// mstate smem_bytes(wide) bytes where chunk < L, else null; flag one u64,
+// all ones, which gets the first (step << 32 | lane) whose t is 0. K a
+// power of two up to 65,536; the caller has checked that no u32 total
+// reaches 2^32 (o1_ops.card_counts_fit).
 extern "C" int ct_o1_encode(const void* x, const void* lane_len, void* ev, void* t1, void* st,
-                            void* trip, void* mstate, int K, int L, int chunk, int inc,
-                            int limit1_log2, int limit0_log2, int blend_log2, int wide,
+                            void* trip, void* mstate, void* flag, int K, int L, int chunk,
+                            int inc, int limit1_log2, int limit0_log2, int blend_log2, int wide,
                             void* stream) {
   if (bad_params(K, L, inc, limit1_log2, limit0_log2, blend_log2) || chunk < 1 ||
-      (wide && t1 == nullptr) || st == nullptr || trip == nullptr ||
+      (wide && t1 == nullptr) || st == nullptr || trip == nullptr || flag == nullptr ||
       (chunk < L && mstate == nullptr))
     return (int)cudaErrorInvalidValue;
-  const uint32_t u = (uint32_t)inc, l1 = 1u << limit1_log2, l0 = 1u << limit0_log2;
+  const uint32_t u = (uint32_t)inc;
+  const uint32_t l1 = limit_of(limit1_log2), l0 = limit_of(limit0_log2);
   const cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e = cudaSuccess;
   if (chunk >= L) {
@@ -368,7 +380,7 @@ extern "C" int ct_o1_encode(const void* x, const void* lane_len, void* ev, void*
       const int j1 = L - j0 < chunk ? L : j0 + chunk;
       if (j1 > j0)
         e = model(x, lane_len, trip, t1, mstate, K, L, j0, j1, u, l1, l0, blend_log2, wide, s);
-      if (e == cudaSuccess) e = coder(trip, ev, st, K, L, j0, j1, s);
+      if (e == cudaSuccess) e = coder(trip, ev, st, flag, K, L, j0, j1, s);
       if (e != cudaSuccess) return (int)e;
       j0 = j1;
     } while (j0 < L);
@@ -388,7 +400,7 @@ extern "C" int ct_o1_encode(const void* x, const void* lane_len, void* ev, void*
       e = model(x, lane_len, tb, t1, mstate, K, L, j0, j1, u, l1, l0, blend_log2, wide, s);
     if (e == cudaSuccess) e = cudaEventRecord(side->model_done[b], s);
     if (e == cudaSuccess) e = cudaStreamWaitEvent(side->stream, side->model_done[b], 0);
-    if (e == cudaSuccess) e = coder(tb, ev, st, K, L, j0, j1, side->stream);
+    if (e == cudaSuccess) e = coder(tb, ev, st, flag, K, L, j0, j1, side->stream);
     if (e == cudaSuccess) e = cudaEventRecord(side->coder_done[b], side->stream);
     if (e != cudaSuccess) {
       // the caller frees the scratch on its stream once this returns: no
@@ -412,16 +424,18 @@ extern "C" int ct_o1_model(const void* x, const void* lane_len, void* trip, void
       ((j0 > 0 || j1 < L) && mstate == nullptr))
     return (int)cudaErrorInvalidValue;
   return (int)model(x, lane_len, trip, t1, mstate, K, L, j0, j1, (uint32_t)inc,
-                    1u << limit1_log2, 1u << limit0_log2, blend_log2, wide, (cudaStream_t)stream);
+                    limit_of(limit1_log2), limit_of(limit0_log2), blend_log2, wide,
+                    (cudaStream_t)stream);
 }
 
 // The coder pass alone over steps [j0, j1) (0 <= j0 <= j1 <= L): trip
 // [j1 - j0][3][K] u32 -> ev [3*L + 2, K] u32 rows 3*j0 to 3*j1 (and the
-// flush rows where j1 = L); st [5*K] u32 the lanes' state between chunks.
-extern "C" int ct_o1_coder(const void* trip, void* ev, void* st, int K, int L, int j0, int j1,
-                           void* stream) {
-  if (K < 1 || K > 65536 || (K & (K - 1)) || j0 < 0 || j1 < j0 || j1 > L ||
+// flush rows where j1 = L); st [5*K] u32 the lanes' state between chunks;
+// flag as for ct_o1_encode.
+extern "C" int ct_o1_coder(const void* trip, void* ev, void* st, void* flag, int K, int L, int j0,
+                           int j1, void* stream) {
+  if (K < 1 || K > 65536 || (K & (K - 1)) || j0 < 0 || j1 < j0 || j1 > L || flag == nullptr ||
       (j1 > j0 && trip == nullptr) || ((j0 > 0 || j1 < L) && st == nullptr))
     return (int)cudaErrorInvalidValue;
-  return (int)coder(trip, ev, st, K, L, j0, j1, (cudaStream_t)stream);
+  return (int)coder(trip, ev, st, flag, K, L, j0, j1, (cudaStream_t)stream);
 }

@@ -294,15 +294,19 @@ __device__ __forceinline__ void t0_block(const Model& m, int b, uint32_t (&e)[16
 // The encoder's read: (c, f, tot) of symbol s in context r, blended. The
 // block sums before s's block and the counts before it in the block are
 // summed by two trees (blended, with t0's, unless T0SCAN: then t0's prefix
-// is c0[s]); f is read directly.
+// is c0[s]); f is read directly. tot is also formed in 64 bits, beside
+// the rest: past 2^32 - 1 (t = 0 whatever the range) the triple is the mark
+// (0, 0, 2^32 - 1), which the coder reports (f = 0); c and f fit u32
+// wherever tot does.
 template <bool WIDE, bool T0SCAN = false>
 __device__ __forceinline__ void lookup(const Model& m, uint32_t r, uint32_t s, int blend,
                                        uint32_t tot0, uint32_t& c, uint32_t& f, uint32_t& tot) {
   const int b = s >> 4, i = s & 15;
   const uint32_t f1 = WIDE ? __ldcg(m.t1 + r * 256 + s)
                            : (m.t1[r * 128 + (s >> 1)] >> (16 * (s & 1))) & 0xFFFFu;
+  const uint32_t rt = m.rowtot[r];
   f = (f1 << blend) + m.t0[s];
-  tot = (m.rowtot[r] << blend) + tot0;
+  tot = (rt << blend) + tot0;
   uint32_t p[16], e1[16], e0[16];
   const uint4* b1 = reinterpret_cast<const uint4*>(m.bsum1 + r * 16);
   const uint4* b0 = reinterpret_cast<const uint4*>(m.bsum0);
@@ -324,6 +328,7 @@ __device__ __forceinline__ void lookup(const Model& m, uint32_t r, uint32_t s, i
 #pragma unroll
   for (int k = 0; k < 16; ++k) e1[k] = k < i ? (e1[k] << blend) + e0[k] : 0u;
   c = tree(p, Add()) + tree(e1, Add()) + (T0SCAN ? m.c0[s] : 0u);
+  if (((uint64_t)rt << blend) + tot0 > FULL) c = 0u, f = 0u, tot = FULL;
 }
 
 // The update phase, a warp at a time (every lane of the warp calls it):
@@ -410,6 +415,36 @@ __device__ __forceinline__ void renorm_decode(uint32_t& code, uint32_t& rng, uin
     rng = d ? rng << 8 : rng;
     occ = o;
   }
+}
+
+// Steps whose t = range / tot_eff is 0 (the coder would not end): a
+// thread keeps the least (step << 32 | lane) of its lanes' such steps in a
+// register (NONE: none), off the steps' chain, and at its end adds it to
+// *flag (all ones before the call) by atomicMin; the wrapper reads the
+// flag once after the call.
+constexpr unsigned long long NONE = ~0ull;
+__device__ __forceinline__ unsigned long long first_bad(unsigned long long first, bool bad, int j,
+                                                        int lane) {
+  const unsigned long long at = (unsigned long long)j << 32 | (uint32_t)lane;
+  return bad && at < first ? at : first;
+}
+__device__ __forceinline__ void report_steps(unsigned long long* flag, unsigned long long first) {
+  if (first != NONE) atomicMin(flag, first);
+}
+
+// The limit a total is held to: 2^log2, or from 2^32 on none, 2^32 - 1
+// (the wrappers take such streams only where no u32 total reaches 2^32 - 1:
+// o1_ops.card_counts_fit).
+__host__ __device__ inline uint32_t limit_of(int log2) {
+  return log2 >= 32 ? 0xFFFFFFFFu : 1u << log2;
+}
+
+// Header values the kernels take: a u8 each, and blend_log2 <= 23 (from 24
+// on step 0 has t = 0: o1_ops.check_params refuses it).
+__host__ __device__ inline bool bad_header(int inc, int limit1_log2, int limit0_log2,
+                                           int blend_log2) {
+  return inc < 0 || inc > 255 || limit1_log2 < 0 || limit1_log2 > 255 || limit0_log2 < 0 ||
+         limit0_log2 > 255 || blend_log2 < 0 || blend_log2 > 23;
 }
 
 // The CTA's threads for K lanes: K rounded up to 256, at most 1,024.

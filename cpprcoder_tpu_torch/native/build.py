@@ -94,25 +94,27 @@ SIGNATURES = {
     # kernel T: words, P, bases, counts, lane_len, out, K, stride, stream
     "ct_ase_decode": [_P, _L, _P, _P, _P, _P, _I, _I, _P],
     # o1_encode.cu, kernel U: x, lane_len, events, t1 (or null), the coder
-    # state, the triples, the model between chunks (or null), K, L, chunk,
-    # inc, limit1_log2, limit0_log2, blend_log2, wide, stream; its model
-    # pass alone: x, lane_len, triples, t1, model (or null), K, L, j0, j1,
-    # inc, limit1_log2, limit0_log2, blend_log2, wide, stream; its coder
-    # pass alone: triples, events, state (or null), K, L, j0, j1, stream
-    "ct_o1_encode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # state, the triples, the model between chunks (or null), the flag of a
+    # step with t = 0, K, L, chunk, inc, limit1_log2, limit0_log2,
+    # blend_log2, wide, stream; its model pass alone: x, lane_len, triples,
+    # t1, model (or null), K, L, j0, j1, inc, limit1_log2, limit0_log2,
+    # blend_log2, wide, stream; its coder pass alone: triples, events, state
+    # (or null), flag, K, L, j0, j1, stream
+    "ct_o1_encode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                     _P],
     "ct_o1_model": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "ct_o1_coder": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "ct_o1_coder": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # o1_decode.cu, kernel V: words, lane_len, out, t1 and state scratch (or
-    # null), K, l4, L, inc, limit1_log2, limit0_log2, blend_log2, wide,
+    # null), flag, K, l4, L, inc, limit1_log2, limit0_log2, blend_log2, wide,
     # stream
-    "ct_o1_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # ans2_encode.cu, kernel W (a memset and three launches): x, hist,
-    # counts, freq, cum, n, K, steps, inc, limit_log2, r, n_snap, stream
-    "ct_ans2_model": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P],
-    # W's and Y's normalize alone: counts, freq, cum, B, stream
-    "ct_ans2_normalize": [_P, _P, _P, _I, _P],
-    # kernel X: x, lane_len, freq, cum, events, states, K, stride, r, stream
-    "ct_ans2_encode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "ct_o1_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # ans2_encode.cu, kernel W (three launches): x, scratch, entries, n, K,
+    # steps, inc, limit_log2, r, n_snap, rows, stream
+    "ct_ans2_model": [_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _P],
+    # W's and Y's normalize alone: counts, entries, B, stream
+    "ct_ans2_normalize": [_P, _P, _I, _P],
+    # kernel X: x, lane_len, entries, events, states, K, stride, r, stream
+    "ct_ans2_encode": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     # ans2_decode.cu, kernel Y: words, n_words, states, state scratch (or
     # null), out, n, K, steps, inc, limit_log2, r, stream
     "ct_ans2_decode": [_P, _L, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P],

@@ -8,21 +8,25 @@ the model windows, `:99-137`, a scan at `:126`; pass B each position's
 `:153-177`) and the decode as scans over windows and steps (`:183`
 `_decode_fn`, scans `:220`, `:236`).
 
-W (`csrc/ans2_encode.cu`, three launches and a memset) is pass A: each
-window's histogram over the card, the rescale walk over the windows in
-one CTA (256 counts wide), then a CTA a window for the normalize
-(`csrc/ans2_model.cuh`, exact to models/static_table.normalize_freqs).
-X (the same file; second round) is pass C with pass B folded in: kernel
-F's coder, a thread a lane in CTAs of 128, walking the steps backwards.
-Lanes move in step, so each CTA stages the current window's table in
-shared memory as (reciprocal, f | c << 16), the reciprocals formed once a
-window and the next window's entries loaded during the current one (one
+W (`csrc/ans2_encode.cu`; second round) is pass A in three launches
+chained by programmatic dependent launch: each (window, tile)'s histogram
+row over the card (no memset, no global atomic), the rescale walk over
+the windows in one CTA (the rows staged by bulk copies, nothing on its
+chain from global memory), then a warp a window for the normalize
+(`csrc/ans2_model.cuh`, exact to models/static_table.normalize_freqs by a
+sort of packed keys), which writes the tables as the entries X reads:
+(reciprocal, f | c << 16), the table's (f, c) exactly. X (the same file;
+second round) is pass C with pass B folded in: kernel F's coder, a thread
+a lane in CTAs of 128, walking the steps backwards. Lanes move in step, so
+each CTA stages the current window's entries (reciprocal, f | c << 16) in
+shared memory, the next window's loaded during the current one (one
 barrier a window); a step's entry is one shared read at its run's start.
 The first 16 steps (every step at refresh_log2 < 4, where windows are
 shorter than a run of 16) read their entries from global memory a run
-ahead, as the first design did. Y (`csrc/ans2_decode.cu`, second round)
+ahead, one 8-byte load each. Y (`csrc/ans2_decode.cu`, second round)
 is one CTA a stream: at each window start every thread joins for the
-rescale, the shared normalize and a 2^14-byte cum2sym in shared memory;
+histogram, warp 0 for the rescale and the shared normalize, every thread
+again for a 2^14-byte cum2sym in shared memory;
 the steps run on one warp up to 32 lanes (no CTA barrier), else a thread a
 lane up to 1,024 (then 1,024 threads), their states in registers up to 8
 lanes a thread; each step a prefix count of the refilling lanes over the
@@ -50,6 +54,10 @@ encode_launches = 0   # kernel X
 decode_launches = 0   # kernel Y
 
 MAX_LANES = 1 << 16
+# W's histogram rows: a CTA a tile of TILE positions, a window's tiles in at
+# most MAX_ROWS rows (csrc/ans2_encode.cu TILE, MAX_ROWS)
+TILE = 4096
+MAX_ROWS = 32
 # Y keeps its lanes' states in registers or shared memory up to this many
 # lanes, in global scratch above (csrc/ans2_decode.cu SHARED_STATE_LANES)
 SHARED_STATE_LANES = 1 << 14
@@ -65,20 +73,19 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def _check_tables(freqs, cums, dev):
-    for nm, v in (("freqs", freqs), ("cums", cums)):
-        if v.dtype != torch.int32 or v.dim() != 2 or v.shape[1] != 256 \
-                or not v.is_contiguous() or v.device != dev:
-            raise ValueError(f"{nm} must be contiguous int32 [n_snap, 256] "
-                             f"on {dev}, got {v.dtype} {tuple(v.shape)}")
-    if freqs.shape != cums.shape:
-        raise ValueError("freqs and cums differ in shape")
+def model_scratch(n: int, k: int, steps: int, r: int, n_snap: int):
+    """-> (rows, bytes): W's histogram rows a window (the longest window's
+    tiles, at most MAX_ROWS) and its scratch bytes (the counts, u64
+    [n_snap, 256], then the rows, u32 [n_snap, rows, 256])."""
+    longest = min(steps, 1 << r) * k
+    rows = max(1, min(MAX_ROWS, -(-longest // TILE)))
+    return rows, n_snap * 256 * 8 + n_snap * rows * 256 * 4
 
 
-def normalize_tables(counts: torch.Tensor):
-    """counts [B, 256] int64 (each >= 0) -> (freqs, exclusive cums) int32
-    [B, 256]: each row normalize_freqs(row, 14), by the device function W
-    and Y share (a CTA a row)."""
+def normalize_tables(counts: torch.Tensor) -> torch.Tensor:
+    """counts [B, 256] int64 (each >= 0) -> the entries int64 [B, 256]
+    (`ans2_ops.table_entries`) of each row's normalize_freqs(row, 14), by
+    the device function W and Y share (a warp a row)."""
     if counts.dtype != torch.int64 or counts.dim() != 2 \
             or counts.shape[1] != 256 or not counts.is_contiguous():
         raise ValueError(f"counts must be contiguous int64 [B, 256], got "
@@ -88,20 +95,39 @@ def normalize_tables(counts: torch.Tensor):
     dev = counts.device
     lib = build.load()
     with torch.cuda.device(dev):
-        freqs = torch.empty(counts.shape, dtype=torch.int32, device=dev)
-        cums = torch.empty_like(freqs)
+        entries = torch.empty(counts.shape, dtype=torch.int64, device=dev)
         if counts.shape[0]:
-            rc = lib.ct_ans2_normalize(counts.data_ptr(), freqs.data_ptr(),
-                                       cums.data_ptr(), counts.shape[0],
-                                       _stream(dev))
+            rc = lib.ct_ans2_normalize(counts.data_ptr(), entries.data_ptr(),
+                                       counts.shape[0], _stream(dev))
             build.check(rc, "ct_ans2_normalize")
-    return freqs, cums
+    return entries
+
+
+def model_launch(x2d: torch.Tensor, n: int, inc: int, limit_log2: int,
+                 r: int, n_snap: int, lib) -> torch.Tensor:
+    """Kernel W's launch through `lib` (build.load(), or another build of
+    the sources), r the effective refresh_log2: -> entries int64 [n_snap,
+    256]."""
+    steps, k = x2d.shape
+    dev = x2d.device
+    rows, nbytes = model_scratch(n, k, steps, r, n_snap)
+    with torch.cuda.device(dev):
+        entries = torch.empty((n_snap, 256), dtype=torch.int64, device=dev)
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        rc = lib.ct_ans2_model(
+            x2d.data_ptr(), scratch.data_ptr(), entries.data_ptr(), n, k,
+            steps, inc, min(limit_log2, ans2_ops.LIMIT_LOG2_NEVER), r, n_snap,
+            rows, _stream(dev))
+        build.check(rc, "ct_ans2_model")
+    return entries
 
 
 def window_tables(x2d: torch.Tensor, n: int, inc: int, limit_log2: int,
-                  refresh_log2: int):
-    """x2d [steps, K] uint8 (interleaved, zero past n) -> (freqs, exclusive
-    cums) int32 [n_snap, 256], window w's table in row w."""
+                  refresh_log2: int) -> torch.Tensor:
+    """x2d [steps, K] uint8 (interleaved, zero past n) -> the entries int64
+    [n_snap, 256] (`ans2_ops.table_entries`: what X reads;
+    `ans2_ops.entry_tables` gives back (f, c)), window w's table in row
+    w."""
     global model_launches
     steps, k = x2d.shape
     if x2d.dtype != torch.uint8 or x2d.dim() != 2 \
@@ -116,39 +142,33 @@ def window_tables(x2d: torch.Tensor, n: int, inc: int, limit_log2: int,
                                             refresh_log2)
     _check_k(k)
     r = ans2_ops.refresh_eff(refresh_log2, steps)
-    n_snap = ans2_ops.n_snapshots(steps, r)
-    dev = x2d.device
-    lib = build.load()
-    with torch.cuda.device(dev):
-        hist = torch.empty((n_snap, 256), dtype=torch.int32, device=dev)
-        counts = torch.empty((n_snap, 256), dtype=torch.int64, device=dev)
-        freqs = torch.empty((n_snap, 256), dtype=torch.int32, device=dev)
-        cums = torch.empty_like(freqs)
-        rc = lib.ct_ans2_model(
-            x2d.data_ptr(), hist.data_ptr(), counts.data_ptr(),
-            freqs.data_ptr(), cums.data_ptr(), n, k, steps, inc,
-            min(limit_log2, ans2_ops.LIMIT_LOG2_NEVER), r, n_snap,
-            _stream(dev))
-        build.check(rc, "ct_ans2_model")
+    entries = model_launch(x2d, n, inc, limit_log2, r,
+                           ans2_ops.n_snapshots(steps, r), build.load())
     model_launches += 1
-    return freqs, cums
+    return entries
 
 
 def encode_events(x2d: torch.Tensor, lane_len: torch.Tensor,
-                  freqs: torch.Tensor, cums: torch.Tensor, refresh_log2: int):
-    """x2d [steps, K] uint8 (interleaved) and W's tables -> (events [steps,
-    K] int32: bit 16 emit, bits 15:0 the state's low word, 0 where
-    inactive; final states [K] int32 holding u32 bits)."""
+                  entries: torch.Tensor, refresh_log2: int):
+    """x2d [steps, K] uint8 (interleaved) and W's entries int64 [n_snap,
+    256] -> (events [steps, K] int32: bit 16 emit, bits 15:0 the state's
+    low word, 0 where inactive; final states [K] int32 holding u32
+    bits)."""
     global encode_launches
     layout.check_lanes("x2d", x2d, torch.uint8, lane_len, MAX_LANES)
-    _check_tables(freqs, cums, x2d.device)
+    if entries.dtype != torch.int64 or entries.dim() != 2 \
+            or entries.shape[1] != 256 or not entries.is_contiguous() \
+            or entries.device != x2d.device:
+        raise ValueError(f"entries must be contiguous int64 [n_snap, 256] on "
+                         f"{x2d.device}, got {entries.dtype} "
+                         f"{tuple(entries.shape)}")
     steps, k = x2d.shape
     r = ans2_ops.refresh_eff(refresh_log2, steps)
-    if freqs.shape[0] != (ans2_ops.n_snapshots(steps, r) if steps else 0):
-        raise ValueError(f"{freqs.shape[0]} tables for {steps} steps at "
+    if entries.shape[0] != (ans2_ops.n_snapshots(steps, r) if steps else 0):
+        raise ValueError(f"{entries.shape[0]} tables for {steps} steps at "
                          f"refresh_log2 {refresh_log2}")
     if x2d.device.type == "cpu":
-        return ans2_ops.encode_events_plain(x2d, lane_len, freqs, cums,
+        return ans2_ops.encode_events_plain(x2d, lane_len, entries,
                                             refresh_log2)
     _check_k(k)
     dev = x2d.device
@@ -157,9 +177,8 @@ def encode_events(x2d: torch.Tensor, lane_len: torch.Tensor,
         ev = torch.empty((steps, k), dtype=torch.int32, device=dev)
         states = torch.empty(k, dtype=torch.int32, device=dev)
         rc = lib.ct_ans2_encode(
-            x2d.data_ptr(), lane_len.data_ptr(), freqs.data_ptr(),
-            cums.data_ptr(), ev.data_ptr(), states.data_ptr(), k, steps, r,
-            _stream(dev))
+            x2d.data_ptr(), lane_len.data_ptr(), entries.data_ptr(),
+            ev.data_ptr(), states.data_ptr(), k, steps, r, _stream(dev))
         build.check(rc, "ct_ans2_encode")
     encode_launches += 1
     return ev, states

@@ -12,11 +12,14 @@ the rescale counts = (counts >> 1) | 1 wherever the total has reached
 R = 2^refresh_log2 and at every multiple of R; step t codes with snapshot
 `snapshot_index(t, R)`.
 
-Encode is three device passes, decode one:
+Encode is two device passes, decode one:
   W  the model (`window_tables`): each window's histogram, the rescale walk
-     over the windows, each window's normalize -> tables [n_snap, 256];
+     over the windows, each window's normalize -> tables [n_snap, 256] as
+     the entries X reads, (rcp, f | c << 16) packed in an int64, rcp =
+     floor((2^32 - 1) / f) (`table_entries`; `entry_tables` gives back (f,
+     c));
   X  the coder (`encode_events`): CT-ANS1's reverse interleaved rANS, step t
-     reading its window's table by index (the JAX package's pass B, a
+     reading its window's entry by index (the JAX package's pass B, a
      one-hot matrix product, has no counterpart: Mosaic has no gather, the
      card has one). Its events [steps, K] are (emit << 16) | (st & 0xFFFF),
      time-major, so the stream in the decoder's read order is
@@ -35,7 +38,10 @@ bitlen(steps - 1) makes every window a warm-up window (`refresh_eff`).
 
 `window_tables_plain`, `encode_events_plain` and `decode_symbols_plain` are
 the kernels' plain versions (ops/ans2_kernels.py), and
-`normalize_tables_plain` that of the normalize W and Y share.
+`normalize_tables_plain` that of the normalize W and Y share (the spec,
+normalize_freqs, row by row). `normalize_sorted_plain` is the kernels'
+formulation of it, a sort of packed unique keys, in PyTorch, for the tests
+that hold it to normalize_freqs.
 """
 
 from __future__ import annotations
@@ -105,15 +111,85 @@ def _rescale(counts: np.ndarray, total: int, limit_log2: int):
     return counts, total
 
 
-def normalize_tables_plain(counts: torch.Tensor):
+def _bitlen(x: torch.Tensor) -> torch.Tensor:
+    """Bit lengths of int64 values in [0, 2^63)."""
+    return (x[..., None] >= (1 << torch.arange(63, device=x.device))).sum(-1)
+
+
+def normalize_sorted_plain(counts: torch.Tensor) -> torch.Tensor:
+    """normalize_freqs(row, 14) of each row of counts [B, 256] int64 (each
+    >= 0, each row's sum below 2^63) -> f int64 [B, 256], in the kernels'
+    form (csrc/ans2_model.cuh warp_normalize): steps 1-3 as the spec; the
+    d > 0 and d < 0 orders as a descending sort of packed unique keys, (r +
+    1) << 8 | (255 - s) (absent: 255 - s) and f << 8 | (255 - s); d > 0: +1
+    where a present key is at least the d-th largest; d < 0: the symbols
+    above the sorted place where the excess (f - 1) before it reaches need
+    drop to 1, that one gives the rest; rule 5 where one symbol is
+    present."""
+    b = counts.shape[0]
+    dev = counts.device
+    s = torch.arange(256, device=dev)
+    low = 255 - s
+    n = counts.sum(1, keepdim=True)
+    shift = torch.clamp(_bitlen(torch.clamp(n - 1, min=0)) - ANS_PROB_BITS, min=0)
+    present = counts > 0
+    c = counts >> shift
+    c = torch.where(present & (c == 0), 1, c)
+    np_ = torch.clamp(c.sum(1, keepdim=True), min=1)
+    f = (c << ANS_PROB_BITS) // np_
+    r = (c << ANS_PROB_BITS) % np_
+    f = torch.where(present & (f == 0), 1, f)
+    d = ANS_TOTAL - f.sum(1, keepdim=True)
+    rows = torch.arange(b, device=dev)[:, None]
+    # d > 0: the d-th largest key
+    kpos = (torch.where(present, r + 1, 0) << 8) | low
+    spos = torch.sort(kpos, dim=1, descending=True).values
+    t = spos[rows, torch.clamp(d - 1, 0, 255)]
+    f = torch.where((d > 0) & present & (kpos >= t), f + 1, f)
+    # d < 0: the sorted place where the excess before it reaches need
+    kneg = (f << 8) | low
+    sneg = torch.sort(kneg, dim=1, descending=True).values
+    ex = torch.clamp((sneg >> 8) - 1, min=0)
+    before = torch.cumsum(ex, 1) - ex
+    need = -d
+    here = (before < need) & (before + ex >= need)
+    at = torch.argmax(here.to(torch.int64), 1, keepdim=True)
+    bk = sneg.gather(1, at)
+    bt = need - before.gather(1, at)
+    neg = d < 0
+    f = torch.where(neg & (kneg > bk), torch.clamp(f, max=1), f)
+    f = torch.where(neg & (kneg == bk), f - bt, f)
+    # rule 5: one present symbol holds all of 2^14
+    one = present.sum(1, keepdim=True) == 1
+    sym = torch.argmax(present.to(torch.int64), 1, keepdim=True)
+    f = f - (one & (s == sym)).to(torch.int64) \
+        + (one & (s == (sym + 1) % 256)).to(torch.int64)
+    return torch.where(n > 0, f, 0)
+
+
+def table_entries(freqs: torch.Tensor, cums: torch.Tensor) -> torch.Tensor:
+    """(f, c) [B, 256] -> the entries X reads, int64 [B, 256]: rcp | (f | c
+    << 16) << 32, rcp = floor((2^32 - 1) / f) (0 where f = 0), the bytes of
+    kernel W's (rcp, f | c << 16) pairs."""
+    f = freqs.to(torch.int64)
+    rcp = torch.where(f > 0, 0xFFFFFFFF // torch.clamp(f, min=1), 0)
+    return rcp | ((f | (cums.to(torch.int64) << 16)) << 32)
+
+
+def entry_tables(entries: torch.Tensor):
+    """Entries [B, 256] int64 -> (f, c) int64 [B, 256]."""
+    return (entries >> 32) & 0xFFFF, (entries >> 48) & 0xFFFF
+
+
+def normalize_tables_plain(counts: torch.Tensor) -> torch.Tensor:
     """Plain version of the normalize kernels W and Y share: counts [B,
-    256] int64 -> (freqs, exclusive cums) int32 [B, 256], each row
-    normalize_freqs(row, 14) on the host."""
+    256] int64 -> the entries (`table_entries`) int64 [B, 256] of each
+    row's normalize_freqs(row, 14), on the host."""
     f = np.stack([normalize_freqs(c, ANS_PROB_BITS)
                   for c in counts.cpu().numpy()]).reshape(-1, 256)
     cum = np.stack([exclusive_cumsum(row) for row in f]).reshape(-1, 256)
-    return tuple(torch.from_numpy(a.astype(np.int32)).to(counts.device)
-                 for a in (f, cum))
+    return table_entries(*(torch.from_numpy(a.astype(np.int64))
+                           for a in (f, cum))).to(counts.device)
 
 
 def window_counts_plain(x2d: torch.Tensor, n: int, inc: int,
@@ -142,7 +218,7 @@ def window_counts_plain(x2d: torch.Tensor, n: int, inc: int,
 def window_tables_plain(x2d: torch.Tensor, n: int, inc: int,
                         limit_log2: int, refresh_log2: int):
     """Plain version of kernel W: x2d [steps, K] uint8 (interleaved, zero
-    past n) -> (freqs, exclusive cums) int32 [n_snap, 256], window w's
+    past n) -> entries int64 [n_snap, 256] (`table_entries`), window w's
     table in row w (the oracle's `_snapshots_and_counts`)."""
     return normalize_tables_plain(
         window_counts_plain(x2d, n, inc, limit_log2, refresh_log2))
@@ -151,15 +227,14 @@ def window_tables_plain(x2d: torch.Tensor, n: int, inc: int,
 # ------------------------------------------------------------------ encode
 
 def encode_events_plain(x2d: torch.Tensor, lane_len: torch.Tensor,
-                        freqs: torch.Tensor, cums: torch.Tensor,
-                        refresh_log2: int):
+                        entries: torch.Tensor, refresh_log2: int):
     """Plain version of kernel X: x2d [steps, K] uint8 -> (events [steps,
     K] int32, final states [K] int32), walking t = steps-1 .. 0, step t
-    coding with table snapshot_index(t) of freqs, cums [n_snap, 256]."""
+    coding with table snapshot_index(t) of W's entries [n_snap, 256] (its
+    (f, c); the divide is exact here)."""
     steps, k = x2d.shape
     r_steps = 1 << refresh_eff(refresh_log2, steps)
-    f_t = freqs.to(torch.int64)
-    c_t = cums.to(torch.int64)
+    f_t, c_t = entry_tables(entries)
     xs = x2d.to(torch.int64)
     lens = lane_len.to(torch.int64)
     st = torch.full((k,), ANS_LOW, dtype=torch.int64, device=x2d.device)
@@ -206,10 +281,10 @@ def ans2_encode(data, lanes: int | None = None, inc: int = ANS2_INC_DEFAULT,
     steps = -(-n // k)
     xt = torch.from_numpy(x.copy()).to(device)
     x2d = layout.pad2d_interleaved(xt, k, steps)
-    freqs, cums = ans2_kernels.window_tables(x2d, n, inc, limit_log2, r_log2)
+    entries = ans2_kernels.window_tables(x2d, n, inc, limit_log2, r_log2)
     ev, states = ans2_kernels.encode_events(
-        x2d, layout.lane_lengths_interleaved(n, k, steps, xt.device),
-        freqs, cums, r_log2)
+        x2d, layout.lane_lengths_interleaved(n, k, steps, xt.device), entries,
+        r_log2)
     words = stream_words(ev).cpu().numpy()
     w.u32s(i32_to_u32(states).cpu().numpy())
     w.u32(len(words))

@@ -39,8 +39,14 @@ Their plain versions are `o1_ops.encode_events_plain` (the composition of
 `model_triples_plain` and `coder_events_plain`, over the same chunks) and
 `o1_ops.decode_symbols_plain`. On a CPU tensor a wrapper runs the plain
 version; on a CUDA tensor it launches the kernel or raises. Both take
-every power of two up to 65,536 lanes and raise ValueError outside C8's
-bound (`o1_ops.check_params`).
+every power of two up to 65,536 lanes. A step whose t = range / tot_eff is
+0 (fault P6: tot_eff formed in 64 bits, above the range) sets a flag of the
+call, its first (step, lane); the wrapper reads the flag once after the
+call and raises ValueError on encode, CorruptContainerError on decode
+(`o1_ops.step_error`), as the plain versions do. The kernels' counts are
+u32: at limit_log2 >= 32 they take a stream only where no total can reach
+2^32 (`o1_ops.card_counts_fit`; else `o1_ops.CardCountsError`, a
+NotImplementedError: the container is valid, fault P7).
 """
 
 from __future__ import annotations
@@ -68,13 +74,35 @@ MODEL_WORDS = 256 * 16 + 256 + 256 + 16 + 4 + 256
 T1_NARROW_WORDS = 256 * 128
 
 
-def _check(name, t, dtype, lane_len, params):
+def _check(name, t, dtype, lane_len, params, n, decode=False):
+    """Shapes and parameters; n the bytes coded (at most L*K), for the
+    step-0 check."""
     layout.check_lanes(name, t, dtype, lane_len, MAX_LANES)
     k = t.shape[1]
     if k & (k - 1) or k > MAX_LANES:
         raise ValueError(f"kernels U and V take a power of two up to "
                          f"{MAX_LANES} lanes, got {k}")
-    o1_ops.check_params(k, *params)
+    o1_ops.check_params(n, *params, decode=decode)
+
+
+def _check_card(steps: int, k: int, params):
+    if not o1_ops.card_counts_fit(steps, k, *params[:3]):
+        raise o1_ops.CardCountsError(
+            f"kernels U and V keep u32 counts: at limit1_log2={params[1]}, "
+            f"limit0_log2={params[2]} a total of {steps} steps of {k} lanes "
+            f"at inc {params[0]} may reach 2^32")
+
+
+def _flag(dev):
+    """The flag a call's kernels set at a step with t = 0: all ones."""
+    return torch.full((1,), -1, dtype=torch.int64, device=dev)
+
+
+def _raise_flagged(flag, decode: bool):
+    """Raise the step error the flag holds, if any (one host read)."""
+    v = int(flag.item()) & (1 << 64) - 1
+    if v != (1 << 64) - 1:
+        raise o1_ops.step_error(v >> 32, v & 0xFFFFFFFF, decode)
 
 
 def _t1(wide: bool, dev):
@@ -107,8 +135,8 @@ def encode_events(x2d: torch.Tensor, lane_len: torch.Tensor, inc: int,
     `default_chunk_steps(K, L)`)."""
     global encode_launches
     params = (inc, limit1_log2, limit0_log2, blend_log2)
-    _check("x2d", x2d, torch.uint8, lane_len, params)
     steps, k = x2d.shape
+    _check("x2d", x2d, torch.uint8, lane_len, params, steps * k)
     chunk = chunk_steps or default_chunk_steps(k, steps)
     if chunk < 1:
         raise ValueError(f"chunk_steps={chunk_steps} is not a step count")
@@ -116,6 +144,7 @@ def encode_events(x2d: torch.Tensor, lane_len: torch.Tensor, inc: int,
         return o1_ops.encode_events_plain(x2d, lane_len, *params,
                                           chunk_steps=chunk)
     chunk = min(chunk, max(steps, 1))
+    _check_card(steps, k, params)
     dev = x2d.device
     wide = o1_ops.table_wide(k, inc, limit1_log2)
     lib = build.load()
@@ -131,12 +160,15 @@ def encode_events(x2d: torch.Tensor, lane_len: torch.Tensor, inc: int,
         mstate = torch.empty(MODEL_WORDS + (0 if wide else T1_NARROW_WORDS),
                              dtype=torch.int32, device=dev) \
             if chunk < steps else None
+        flag = _flag(dev)
         rc = lib.ct_o1_encode(
             x2d.data_ptr(), lane_len.data_ptr(), ev.data_ptr(), _ptr(t1),
-            st.data_ptr(), trip.data_ptr(), _ptr(mstate), k, steps, chunk,
-            *params, int(wide), torch.cuda.current_stream(dev).cuda_stream)
+            st.data_ptr(), trip.data_ptr(), _ptr(mstate), flag.data_ptr(), k,
+            steps, chunk, *params, int(wide),
+            torch.cuda.current_stream(dev).cuda_stream)
         build.check(rc, "ct_o1_encode")
     encode_launches += 1
+    _raise_flagged(flag, decode=False)
     return ev
 
 
@@ -145,13 +177,15 @@ def model_triples(x2d: torch.Tensor, lane_len: torch.Tensor, inc: int,
                   blend_log2: int) -> torch.Tensor:
     """Kernel U's model pass alone, over all L steps (no cap: for tests):
     x2d [L, K] uint8 -> triples [L, 3, K] int32, each lane's blended (c,
-    f, tot), 0 where it has ended."""
+    f, tot), 0 where it has ended, (0, 0, 2^32 - 1) where tot passes
+    2^32 - 1."""
     global encode_launches
     params = (inc, limit1_log2, limit0_log2, blend_log2)
-    _check("x2d", x2d, torch.uint8, lane_len, params)
+    steps, k = x2d.shape
+    _check("x2d", x2d, torch.uint8, lane_len, params, steps * k)
     if x2d.device.type == "cpu":
         return o1_ops.model_triples_plain(x2d, lane_len, *params)[0]
-    steps, k = x2d.shape
+    _check_card(steps, k, params)
     dev = x2d.device
     wide = o1_ops.table_wide(k, inc, limit1_log2)
     lib = build.load()
@@ -187,11 +221,13 @@ def coder_events(triples: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(dev):
         ev = torch.empty((o1_ops.N_SLOTS * steps + 2, k), dtype=torch.int32,
                          device=dev)
-        rc = lib.ct_o1_coder(triples.data_ptr(), ev.data_ptr(), None, k,
-                             steps, 0, steps,
+        flag = _flag(dev)
+        rc = lib.ct_o1_coder(triples.data_ptr(), ev.data_ptr(), None,
+                             flag.data_ptr(), k, steps, 0, steps,
                              torch.cuda.current_stream(dev).cuda_stream)
         build.check(rc, "ct_o1_coder")
     encode_launches += 1
+    _raise_flagged(flag, decode=False)
     return ev
 
 
@@ -203,13 +239,14 @@ def decode_symbols(words: torch.Tensor, lane_len: torch.Tensor, n: int,
     L = steps)."""
     global decode_launches
     params = (inc, limit1_log2, limit0_log2, blend_log2)
-    _check("words", words, torch.int32, lane_len, params)
+    _check("words", words, torch.int32, lane_len, params, n, decode=True)
     l4, k = words.shape
     if l4 < 1 or not 0 <= n <= k * steps:
         raise ValueError(f"n={n} does not fit {k} lanes of {steps} steps, "
                          f"or no word rows ({l4})")
     if words.device.type == "cpu":
         return o1_ops.decode_symbols_plain(words, lane_len, n, steps, *params)
+    _check_card(steps, k, params)
     dev = words.device
     wide = o1_ops.table_wide(k, inc, limit1_log2)
     lib = build.load()
@@ -219,10 +256,12 @@ def decode_symbols(words: torch.Tensor, lane_len: torch.Tensor, n: int,
         # past CTA_LANES the lanes' coder state between a thread's turns
         st = torch.empty(7 * k, dtype=torch.int32, device=dev) \
             if k > CTA_LANES else None
+        flag = _flag(dev)
         rc = lib.ct_o1_decode(
             words.data_ptr(), lane_len.data_ptr(), out.data_ptr(), _ptr(t1),
-            _ptr(st), k, l4, steps, *params, int(wide),
+            _ptr(st), flag.data_ptr(), k, l4, steps, *params, int(wide),
             torch.cuda.current_stream(dev).cuda_stream)
         build.check(rc, "ct_o1_decode")
     decode_launches += 1
+    _raise_flagged(flag, decode=True)
     return out

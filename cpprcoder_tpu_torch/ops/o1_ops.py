@@ -32,31 +32,44 @@ passes, and so is its plain version: `model_triples_plain` (the model:
 each lane's blended (c, f, tot) a step) and `coder_events_plain` (the
 range coder over those triples), alternating over chunks of steps.
 
-The bound (ROADMAP C8), which `check_params` enforces on encode and on
-decode from the header's parameters alone:
+The parameters and the steps (ROADMAP C8, fault P6). Each of inc and the
+three log2s must fit the header's byte. Nothing else is refused from the
+parameters alone but blend_log2 >= 24 where n >= 1: at step 0 every count
+is 1, so tot_eff = 2^blend_log2 * 256 + 256 > 2^32 - 1 >= range and
+t = range / tot_eff = 0 there (`check_params`; n = 0 codes no step and
+writes the 9-byte header at any parameters). Every other step is checked
+where t is formed: tot_eff is computed in 64 bits, and a step whose t is 0
+(tot_eff above the range, which is below 2^32) raises ValueError on encode
+and CorruptContainerError on decode. The oracle never ends on such a step,
+so it writes no such container.
 
-    tot_eff <= 2^blend_log2 * B1 + B0 <= 2^24,
-    B1 = max(2^limit1_log2 - 1, K*inc + 512),
-    B0 = max(2^limit0_log2 - 1, K*inc + 512).
+Claim: where t >= 1 at every step, 3 slots a step suffice and the coder
+ends. Proof. With t >= 1 and c_eff + f_eff <= tot_eff, the step leaves
+range >= t*f_eff >= 1 (the top symbol keeps range - t*c_eff >= t*f_eff
+too); three shifts of 8 bits bring a range >= 1 to 2^24 or more, and a
+range below 2^24 shifted by 8 stays below 2^32. So every step ends within
+its 3 slots, and the flush ends the stream.
 
-Proof. range_ops.total_bound's induction holds for each row of t1 on its
-own: a row's total is 256 <= B1 at step 0; before step j + 1 it is
-P = T + a*inc with T <= B1 its total at step j and a <= K the lanes that
-coded in this context; if P < 2^limit1 it is kept and P <= B1, else every
-count f becomes (f >> 1) | 1 <= f/2 + 1 and the total is at most
-P/2 + 256 <= (B1 + K*inc)/2 + 256 <= B1. The same induction over all
-active lanes bounds tot0 by B0. So every step codes against
-tot_eff <= A*B1 + B0. Where that is at most 2^24, and range >= 2^24
-before a step, t = range / tot_eff >= 1; the step leaves range >= t*f_eff
->= 1 (the top symbol keeps range - t*c_eff >= t*f_eff too), so three
-shifts of 8 bits bring it back to 2^24 or more: 3 slots a step always
-suffice, and the coder always ends. Outside the bound t can be 0, where
-the oracle never ends; there the port raises ValueError.
+C8's bound stays a fact that gates nothing: no step codes against a
+tot_eff above `model_bound` = 2^blend_log2 * B1 + B0, B1 = max(2^limit1_log2
+- 1, K*inc + 512) and B0 likewise for limit0_log2. range_ops.total_bound's
+induction holds for each row of t1 on its own: a row's total is 256 <= B1
+at step 0; before step j + 1 it is P = T + a*inc with T <= B1 its total at
+step j and a <= K the lanes that coded in this context; if P < 2^limit1 it
+is kept and P <= B1, else every count f becomes (f >> 1) | 1 <= f/2 + 1 and
+the total is at most P/2 + 256 <= (B1 + K*inc)/2 + 256 <= B1. The same
+induction bounds tot0 by B0. Within 2^24, t >= 1 at every step.
 
 The counts the kernels store: a count never exceeds its row's total
-before a rescale, P <= B1 + K*inc, so t1 fits u16 where
-B1 + K*inc < 2^16 (`table_wide` false: kernel U and V keep t1 in shared
-memory as u16 pairs), else the kernels keep t1 as u32 in global memory.
+before a rescale, P <= B1 + K*inc, so t1 fits u16 where B1 + K*inc < 2^16
+(`table_wide` false: kernel U and V keep t1 in shared memory as u16
+pairs), else the kernels keep t1 as u32 in global memory. The kernels'
+counts and totals are u32: at limit_log2 <= 31 every total stays below
+2^31 + 2^24 (B + K*inc), and at limit_log2 >= 32 the wrappers take only
+streams where 256 + inc*L*K < 2^32 - 1, so that no total reaches 2^32 - 1,
+the kernels' limit there (`card_counts_fit`; else CardCountsError, on
+encode and decode alike); the plain versions' int64 counts take every
+stream.
 """
 
 from __future__ import annotations
@@ -64,7 +77,12 @@ from __future__ import annotations
 import torch
 
 from cpprcoder_tpu_torch.config import MASK32, RC_TOP, pick_lanes
-from cpprcoder_tpu_torch.core.bytesutil import ByteReader, ByteWriter, as_u8
+from cpprcoder_tpu_torch.core.bytesutil import (
+    ByteReader,
+    ByteWriter,
+    CorruptContainerError,
+    as_u8,
+)
 from cpprcoder_tpu_torch.ops import layout, rc_common
 from cpprcoder_tpu_torch.ops.range_ops import total_bound
 from cpprcoder_tpu_torch.reference.o1_ref import (
@@ -76,7 +94,9 @@ from cpprcoder_tpu_torch.reference.o1_ref import (
 from cpprcoder_tpu_torch.reference.rc_ref import _lane_desc, _parse_lane_desc
 
 N_SLOTS = 3           # shift_low slots a step (3: tot_eff may pass 2^16)
-TOTAL_LIMIT = 1 << 24  # C8: the largest tot_eff that keeps t >= 1
+TOTAL_LIMIT = 1 << 24  # C8: no tot_eff within 2^24 gives t = 0
+BLEND_LOG2_STEP0 = 24  # from here t = 0 at step 0 (tot_eff > 2^32 - 1)
+LIMIT_LOG2_NEVER = 62  # no int64 count reaches 2^62: the rescale never fires
 
 
 def model_bound(k: int, inc: int, limit1_log2: int, limit0_log2: int,
@@ -87,22 +107,45 @@ def model_bound(k: int, inc: int, limit1_log2: int, limit0_log2: int,
         + total_bound(k, inc, limit0_log2)
 
 
-def check_params(k: int, inc: int, limit1_log2: int, limit0_log2: int,
-                 blend_log2: int) -> None:
-    """Raise ValueError unless the parameters (a header's, or an
-    encode's) keep every tot_eff at or below 2^24 (C8) and fit the
-    header's bytes."""
+def check_params(n: int, inc: int, limit1_log2: int, limit0_log2: int,
+                 blend_log2: int, decode: bool = False) -> None:
+    """Raise ValueError unless the parameters fit the header's bytes and,
+    where n >= 1, step 0 has t >= 1 (blend_log2 < 24; else
+    CorruptContainerError where `decode`). Later steps are checked where t
+    is formed."""
     for name, v in (("inc", inc), ("limit1_log2", limit1_log2),
                     ("limit0_log2", limit0_log2), ("blend_log2", blend_log2)):
         if not 0 <= v < 256:
             raise ValueError(f"{name}={v} does not fit the header's byte")
-    bound = model_bound(k, inc, limit1_log2, limit0_log2, blend_log2)
-    if bound > TOTAL_LIMIT:
-        raise ValueError(
-            f"CT-RC3 at K={k}, inc={inc}, limit1_log2={limit1_log2}, "
-            f"limit0_log2={limit0_log2}, blend_log2={blend_log2}: tot_eff "
-            f"may reach {bound} > 2^24, where range / tot_eff can be 0 and "
-            f"the coder does not end (ROADMAP C8)")
+    if n and blend_log2 >= BLEND_LOG2_STEP0:
+        msg = (f"CT-RC3 at blend_log2={blend_log2}: step 0 codes against "
+               f"tot_eff = 2^{blend_log2}*256 + 256 > 2^32 - 1, so range / "
+               f"tot_eff = 0 and the coder does not end")
+        raise CorruptContainerError(msg) if decode else ValueError(msg)
+
+
+class CardCountsError(NotImplementedError):
+    """Kernels U and V refuse a valid stream whose u32 counts could reach
+    2^32 (`card_counts_fit` false): a limit of the card's kernels (fault
+    P7), not a fault of the input, which the CPU path encodes and
+    decodes."""
+
+
+def card_counts_fit(steps: int, k: int, inc: int, limit1_log2: int,
+                    limit0_log2: int) -> bool:
+    """Whether kernels U and V's u32 counts and totals stay below 2^32 - 1
+    (their limit where the header's is 2^32 or more): always at limit_log2
+    <= 31 (the module's docstring), else where 256 plus inc for each of the
+    L*K positions stays below 2^32 - 1."""
+    return max(limit1_log2, limit0_log2) < 32 \
+        or 256 + inc * steps * k < (1 << 32) - 1
+
+
+def step_error(step: int, lane: int, decode: bool) -> ValueError:
+    """The error for a step whose t = range / tot_eff is 0."""
+    msg = (f"CT-RC3 step {step}, lane {lane}: range / tot_eff = 0 (tot_eff "
+           f"above the range), where the coder does not end")
+    return CorruptContainerError(msg) if decode else ValueError(msg)
 
 
 def table_wide(k: int, inc: int, limit1_log2: int) -> bool:
@@ -150,13 +193,16 @@ def model_triples_plain(x2d: torch.Tensor, lane_len: torch.Tensor, inc: int,
     """Plain version of kernel U's model pass over steps [j0, j1) (j1
     defaults to L): x2d [L, K] uint8 (chunked: x2d[j, i] = x[i*L + j]) ->
     (triples [j1 - j0, 3, K] int32: each lane's blended (c, f, tot), 0
-    where it has ended; the model after step j1 - 1, to pass on as `model`
-    for the steps from j1). Lane i codes x2d[j, i] for j < lane_len[i].
-    stats, if given, gets "rows_halved" added: the t1 rows rescaled."""
+    where it has ended, and (0, 0, 2^32 - 1) where tot_eff passes 2^32 - 1:
+    t = 0 there, which the coder pass reports; the model after step j1 - 1,
+    to pass on as `model` for the steps from j1). Lane i codes x2d[j, i] for
+    j < lane_len[i]. stats, if given, gets "rows_halved" added: the t1 rows
+    rescaled."""
     steps, k = x2d.shape
     j1 = steps if j1 is None else j1
     dev = x2d.device
-    limit1, limit0 = 1 << limit1_log2, 1 << limit0_log2
+    limit1 = 1 << min(limit1_log2, LIMIT_LOG2_NEVER)
+    limit0 = 1 << min(limit0_log2, LIMIT_LOG2_NEVER)
     t1, rowtot, t0, tot0 = model if model is not None else _init_model(dev)
     xs = x2d.to(torch.int64)
     lens = lane_len.to(torch.int64)
@@ -175,35 +221,46 @@ def model_triples_plain(x2d: torch.Tensor, lane_len: torch.Tensor, inc: int,
         f = (rows[lane, sym] << blend_log2) + t0[sym]
         c = (c1[lane, sym] << blend_log2) + c0[sym]
         tot = (rowtot[ctx] << blend_log2) + tot0
-        out[j - j0] = torch.where(active, torch.stack([c, f, tot]), 0)
+        over = tot > MASK32
+        trip = torch.stack([torch.where(over, 0, c), torch.where(over, 0, f),
+                            torch.where(over, MASK32, tot)])
+        out[j - j0] = torch.where(active, trip, 0)
         _update(t1, rowtot, t0, tot0, ctx, sym, active, inc)
         ctx = torch.where(active, sym, ctx)
     if stats is not None:
         stats["rows_halved"] = stats.get("rows_halved", 0) + halved
-    return out.to(torch.int32), (t1, rowtot, t0, tot0)
+    return rc_common.u32_to_i32(out), (t1, rowtot, t0, tot0)
 
 
-def coder_events_plain(triples: torch.Tensor, state=None, final: bool = True):
+def coder_events_plain(triples: torch.Tensor, state=None, final: bool = True,
+                       j0: int = 0):
     """Plain version of kernel U's coder pass: triples [n, 3, K] int32 (the
     model pass's; tot 0 where a lane has ended) -> (events [3*n (+ 2 where
     final), K] int32 (u32 bits, rc_common's format: 3 slots a step, then
     the two flush rows where final); the lanes' coder state, to pass on
-    as `state` for the next steps)."""
+    as `state` for the next steps). Raises ValueError naming the first
+    step (j0 + its index) and lane whose t = range / tot_eff is 0, or
+    whose f is 0 (the model pass's mark of a tot_eff past 2^32 - 1)."""
     n, _, k = triples.shape
     dev = triples.device
     st = state if state is not None else rc_common.make_state(k, dev)
-    trip = triples.to(torch.int64)
+    trip = rc_common.i32_to_u32(triples)
     events = torch.empty((N_SLOTS * n + (2 if final else 0), k),
                          dtype=torch.int64, device=dev)
+    bad = torch.zeros((n, k), dtype=torch.bool, device=dev)
     for j in range(n):
         c, f, tot = trip[j]
         active = tot > 0
         t = st[2] // torch.clamp(tot, min=1)
+        bad[j] = active & ((t == 0) | (f == 0))
         st, evs = rc_common.encode_symbol(st, t, c, f, (c + f) == tot, active,
                                           N_SLOTS)
         events[N_SLOTS * j:N_SLOTS * (j + 1)] = evs
     if final:
         events[N_SLOTS * n:] = rc_common.flush(st)
+    at = torch.nonzero(bad)
+    if at.numel():
+        raise step_error(j0 + int(at[0, 0]), int(at[0, 1]), decode=False)
     return rc_common.u32_to_i32(events), st
 
 
@@ -226,7 +283,7 @@ def encode_events_plain(x2d: torch.Tensor, lane_len: torch.Tensor, inc: int,
         j1 = min(steps, j0 + chunk)
         trip, model = model_triples_plain(x2d, lane_len, *params, j0=j0, j1=j1,
                                           model=model, stats=stats)
-        ev, state = coder_events_plain(trip, state, final=j1 == steps)
+        ev, state = coder_events_plain(trip, state, final=j1 == steps, j0=j0)
         parts.append(ev)
         j0 = j1
         if j0 >= steps:
@@ -240,10 +297,13 @@ def decode_symbols_plain(words: torch.Tensor, lane_len: torch.Tensor, n: int,
     rows (word-major, l4 >= 1) -> the n decoded bytes, uint8 [n] (byte
     i*L + j is lane i's step j, L = steps). The symbol is the number of
     blended inclusive cumulative counts at or below min(code / t,
-    tot_eff - 1)."""
+    tot_eff - 1). Raises CorruptContainerError naming the first step and
+    lane whose t = range / tot_eff is 0."""
     l4, k = words.shape
     dev = words.device
-    limit1, limit0 = 1 << limit1_log2, 1 << limit0_log2
+    limit1 = 1 << min(limit1_log2, LIMIT_LOG2_NEVER)
+    limit0 = 1 << min(limit0_log2, LIMIT_LOG2_NEVER)
+    bad = torch.zeros((steps, k), dtype=torch.bool, device=dev)
     t1, rowtot, t0, tot0 = _init_model(dev)
     w = rc_common.i32_to_u32(words)
     zero = torch.zeros(k, dtype=torch.int64, device=dev)
@@ -269,6 +329,8 @@ def decode_symbols_plain(words: torch.Tensor, lane_len: torch.Tensor, n: int,
             + torch.cumsum(t0, 0)[None, :]
         tot = (rowtot[ctx] << blend_log2) + tot0
         t = rng // tot
+        bad[j] = active & (t == 0)
+        t = torch.clamp(t, min=1)   # past a step with t = 0 nothing counts
         v = torch.minimum(code // t, tot - 1)
         sym = torch.clamp((incl <= v[:, None]).sum(dim=1), max=255)
         c = torch.where(sym > 0, incl[lane, torch.clamp(sym - 1, min=0)], 0)
@@ -289,6 +351,9 @@ def decode_symbols_plain(words: torch.Tensor, lane_len: torch.Tensor, n: int,
         out[j] = torch.where(active, sym, 0).to(torch.uint8)
         _update(t1, rowtot, t0, tot0, ctx, sym, active, inc)
         ctx = torch.where(active, sym, ctx)
+    at = torch.nonzero(bad)
+    if at.numel():
+        raise step_error(int(at[0, 0]), int(at[0, 1]), decode=True)
     return out.T.reshape(-1)[:n]
 
 
@@ -307,13 +372,14 @@ def o1_encode(data, lanes: int | None = None, inc: int | None = None,
               blend_log2: int = BLEND_LOG2, *, device) -> bytes:
     """CT-RC3 container of `data`, coded on `device` (kernels U and B on
     CUDA, their plain versions on the CPU). Same parameters as
-    o1_ref.o1_encode; raises ValueError outside C8's bound."""
+    o1_ref.o1_encode; raises ValueError at a step whose t = range / tot_eff
+    is 0, where the oracle does not end."""
     x = as_u8(data)
     n = len(x)
     k = lanes or pick_lanes(n)
     inc = inc if inc is not None else pick_inc(k)
     params = (inc, limit1_log2, limit0_log2, blend_log2)
-    check_params(k, *params)
+    check_params(n, *params)
     if n == 0:
         return header(0, k, False, *params).getvalue()
     from cpprcoder_tpu_torch.ops import expand, o1_kernels
@@ -333,11 +399,14 @@ def o1_encode(data, lanes: int | None = None, inc: int | None = None,
 
 
 def o1_decode(blob, *, device) -> bytes:
+    """CT-RC3 container -> its bytes, decoded on `device` (kernel V on CUDA,
+    its plain version on the CPU). Raises CorruptContainerError where a
+    step's t = range / tot_eff is 0 (step 0 at blend_log2 >= 24)."""
     r = ByteReader(blob)
     n = r.u32()
     k, wide = _parse_lane_desc(r.u8())
     params = (r.u8(), r.u8(), r.u8(), r.u8())
-    check_params(k, *params)
+    check_params(n, *params, decode=True)
     if n == 0:
         return b""
     from cpprcoder_tpu_torch.ops import o1_kernels

@@ -174,8 +174,8 @@ def test_y_word_stream_ending_mid_step_reads_zeros():
         np.frombuffer(data, np.uint8).copy()), k, steps)
     lens = layout.lane_lengths_interleaved(n, k, steps, "cpu")
     r_log2 = tref.default_refresh_log2(k, n)
-    freqs, cums = ans2_ops.window_tables_plain(x2d, n, 8, 18, r_log2)
-    ev, _ = ans2_ops.encode_events_plain(x2d, lens, freqs, cums, r_log2)
+    entries = ans2_ops.window_tables_plain(x2d, n, 8, 18, r_log2)
+    ev, _ = ans2_ops.encode_events_plain(x2d, lens, entries, r_log2)
     emits = ((ev & ans2_ops.EMIT) != 0).sum(dim=1)
     last = int(torch.nonzero(emits).max())
     cut = 3
@@ -211,8 +211,8 @@ def test_window_tables_past_2_32_match_the_oracles_model(limit_log2):
     k, steps, inc, r_log2 = 8192, 4100, 255, 13
     x = np.full((steps, k), 7, np.uint8)
     n = k * steps
-    freqs, cums = ans2_ops.window_tables_plain(torch.from_numpy(x), n, inc,
-                                               limit_log2, r_log2)
+    freqs, cums = ans2_ops.entry_tables(ans2_ops.window_tables_plain(
+        torch.from_numpy(x), n, inc, limit_log2, r_log2))
     counts = ans2_ops.window_counts_plain(torch.from_numpy(x), n, inc,
                                           limit_log2, r_log2)
     assert int(counts[-1, 7]) > 1 << 32 or limit_log2 == 32
@@ -235,8 +235,8 @@ def test_stream_words_are_the_decoders_read_order():
         np.frombuffer(data, np.uint8).copy()), k, steps)
     lens = layout.lane_lengths_interleaved(n, k, steps, "cpu")
     r_log2 = tref.default_refresh_log2(k, n)
-    freqs, cums = ans2_ops.window_tables_plain(x2d, n, 8, 18, r_log2)
-    ev, states = ans2_ops.encode_events_plain(x2d, lens, freqs, cums, r_log2)
+    entries = ans2_ops.window_tables_plain(x2d, n, 8, 18, r_log2)
+    ev, states = ans2_ops.encode_events_plain(x2d, lens, entries, r_log2)
     emits = ((ev & ans2_ops.EMIT) != 0).sum(dim=1)
     assert int(emits.max()) >= 4
     r = ByteReader(tref.ans2_encode(data, lanes=k))
@@ -275,7 +275,9 @@ def test_normalize_tables_plain_is_the_oracles():
     rows.append(np.eye(256, dtype=np.int64)[255] * 99)
     rows += [np.full(256, 1 << 33), np.zeros(256)]
     counts = torch.from_numpy(np.stack(rows).astype(np.int64))
-    f, c = ans2_kernels.normalize_tables(counts)
+    e = ans2_kernels.normalize_tables(counts)
+    f, c = ans2_ops.entry_tables(e)
+    assert torch.equal(e, ans2_ops.table_entries(f, c))
     for i, row in enumerate(counts.numpy()):
         want = (tref.normalize_freqs(row, 14) if row.sum()
                 else np.zeros(256, np.uint32))
@@ -317,10 +319,12 @@ def test_wrappers_check_their_inputs():
         ans2_kernels.window_tables(x2d, 3, 8, 18, 2)
     with pytest.raises(ValueError, match="uint8"):
         ans2_kernels.window_tables(x2d.to(torch.int32), 8, 8, 18, 2)
-    freqs, cums = ans2_kernels.window_tables(x2d, 8, 8, 18, 2)
+    entries = ans2_kernels.window_tables(x2d, 8, 8, 18, 2)
     lens = torch.full((2,), 4, dtype=torch.int32)
     with pytest.raises(ValueError, match="tables"):
-        ans2_kernels.encode_events(x2d, lens, freqs[:1], cums[:1], 2)
+        ans2_kernels.encode_events(x2d, lens, entries[:1], 2)
+    with pytest.raises(ValueError, match="int64"):
+        ans2_kernels.encode_events(x2d, lens, entries.to(torch.int32), 2)
     with pytest.raises(ValueError, match="int16"):
         ans2_kernels.decode_symbols(torch.zeros(3, dtype=torch.int32),
                                     torch.zeros(2, dtype=torch.int32), 8, 8,
@@ -422,3 +426,142 @@ def test_x_staged_walk_reads_each_steps_table(r):
         for length in (stride, stride - 1):
             want = {t: tref.snapshot_index(t, 1 << r) for t in range(length)}
             assert _x_tables_read(stride, length, r) == want
+
+
+# the sorted-key normalize (csrc/ans2_model.cuh warp_normalize) in its plain
+# form, against the spec's normalize_freqs: 50 seeded count vectors of each
+# kind, d > 0 with remainder ties, d < 0, rule 5, all zero, sums near 2^63
+def _count_rows(kind, seed, m=50):
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(m):
+        if kind == "random":
+            c = rng.integers(0, 1000, 256)
+        elif kind == "equal counts (ties)":
+            c = np.full(256, rng.integers(1, 50))
+        elif kind == "equal remainders":
+            c = rng.integers(0, 4, 256) * 7
+        elif kind == "one dominant symbol (d < 0)":
+            c = np.ones(256, np.int64)
+            c[rng.integers(256)] = rng.integers(1 << 20, 1 << 30)
+        elif kind == "one symbol alone (rule 5)":
+            c = np.zeros(256, np.int64)
+            c[rng.integers(256)] = rng.integers(1, 1 << 40)
+        elif kind == "all zero":
+            c = np.zeros(256, np.int64)
+        elif kind == "sums near 2^63":
+            c = rng.integers(0, 1 << 53, 256)
+            c[rng.integers(256)] = 1 << 62      # the sum below 2^62 + 2^61
+        else:   # "a few present, spread wide"
+            c = rng.integers(0, 3, 256) * rng.integers(1, 1 << 20)
+        rows.append(np.asarray(c, np.int64))
+    return np.stack(rows)
+
+
+@pytest.mark.parametrize("kind", [
+    "random", "equal counts (ties)", "equal remainders",
+    "one dominant symbol (d < 0)", "one symbol alone (rule 5)", "all zero",
+    "sums near 2^63", "a few present, spread wide"])
+def test_normalize_sorted_plain_is_normalize_freqs(kind):
+    counts = _count_rows(kind, 100 + len(kind))
+    assert counts.sum(1).min() >= 0          # every sum below 2^63
+    got = ans2_ops.normalize_sorted_plain(torch.from_numpy(counts)).numpy()
+    for row, f in zip(counts, got):
+        assert np.array_equal(f, tref.normalize_freqs(row, 14)
+                              if row.sum() else np.zeros(256))
+
+
+def _jax_pass_a(x2d, n, k, inc, limit_log2, r_log2):
+    """The JAX package's pass A (ops/ans2_ops.py `_encode_fn`): its warm-up
+    windows, then windows of R steps, each `_window_model` then the
+    window's histogram_masked -> freqs [windows, 256]."""
+    import jax
+    import jax.numpy as jnp
+
+    from cpprcoder_tpu.models.table_jax import histogram_masked
+
+    steps = x2d.shape[0]
+    r_steps = 1 << r_log2
+    lens = jops._warm_lens(r_log2)
+    lens += [r_steps] * jops._layout(steps, r_log2)[1]
+    # every window's bytes padded to one shape: one compile of each step
+    model = jax.jit(jops._window_model, static_argnums=2)
+    hist = jax.jit(histogram_masked)
+    width = min(max(lens), steps) * k
+    counts, total = jnp.ones(256, jnp.uint32), jnp.uint32(256)
+    out, off = [], 0
+    for length in lens:
+        if off >= steps:
+            break
+        counts, total, freqs = model(counts, total, 1 << limit_log2)
+        out.append(np.asarray(freqs))
+        xw = np.zeros(width, np.uint8)
+        part = x2d[off:off + length].reshape(-1)[:width]
+        xw[:len(part)] = part
+        n_rem = int(np.clip(n - off * k, 0, length * k))
+        counts = counts + hist(jnp.asarray(xw), jnp.int32(n_rem)).astype(
+            jnp.uint32) * inc
+        total = total + jnp.uint32(inc * n_rem)
+        off += length
+    return np.stack(out)
+
+
+# W's hard cases (data, K, inc, limit_log2, refresh_log2), at small sizes
+W_HARD = {
+    "refresh_log2 0: a table a step": (corpus_file("grammar.lsp")[:300], 2,
+                                       8, 18, 0),
+    "refresh_log2 31: the warm-up windows alone": (_seeded(400, 90), 4, 8,
+                                                   18, 31),
+    "K = 65,536, one step": (_seeded(3000, 91), 65536, 8, 18, None),
+    "n = 1": (b"q", 1, 8, 18, None),
+    "the last window cut short by n": (_seeded(8 * 37 + 3, 92, 30), 8, 8, 18,
+                                       3),
+    "rescales every window (limit_log2 9)": (_seeded(4 * 300, 93, 40), 4, 8,
+                                             9, 3),
+    "no rescale (limit_log2 63)": (_seeded(4 * 300, 94, 40), 4, 255, 63, 3),
+    "one distinct byte": (bytes(2 * 500), 2, 255, 18, 4),
+    "one dominant symbol (d < 0)": (b"\x05" * 1900 + _seeded(100, 95), 4,
+                                    255, 30, 5),
+}
+
+
+@pytest.mark.parametrize("case", list(W_HARD))
+def test_w_tables_and_entries_match_jax_and_the_oracle(case):
+    """window_tables (its plain version on the CPU) equals the oracle's
+    model pass window for window, and the JAX package's pass A where that
+    takes the parameters (limit_log2 <= 31, C10); its entries are (rcp, f
+    | c << 16) of those tables, and X's plain version reads them as the
+    tables."""
+    data, k, inc, limit_log2, r_log2 = W_HARD[case]
+    n = len(data)
+    steps = -(-n // k)
+    if r_log2 is None:
+        r_log2 = tref.default_refresh_log2(k, n)
+    x2d = layout.pad2d_interleaved(torch.from_numpy(
+        np.frombuffer(data, np.uint8).copy()), k, steps)
+    e = ans2_kernels.window_tables(x2d, n, inc, limit_log2, r_log2)
+    f, c = ans2_ops.entry_tables(e)
+    snaps = tref._snapshots_and_counts(x2d.numpy(), n, k, inc,
+                                       1 << limit_log2, 1 << r_log2)
+    assert f.shape[0] == len(snaps)
+    assert np.array_equal(f.numpy(), np.stack([s[0] for s in snaps]))
+    assert np.array_equal(c.numpy(), np.stack([s[1] for s in snaps]))
+    assert torch.equal(e, ans2_ops.table_entries(f, c))
+    rcp = e & 0xFFFFFFFF
+    assert torch.equal(rcp, torch.where(f > 0, 0xFFFFFFFF // f.clamp(min=1), 0))
+    if limit_log2 <= 31:
+        jf = _jax_pass_a(x2d.numpy(), n, k, inc, limit_log2,
+                         min(r_log2, 30))
+        assert np.array_equal(jf[:f.shape[0]], f.numpy())
+
+
+def test_w_scratch_geometry():
+    """W's histogram rows a window: the longest window's tiles of
+    ans2_kernels.TILE positions, at most MAX_ROWS (a CTA then takes tiles
+    y, y + rows, ...), and its scratch the counts and the rows."""
+    t, m = ans2_kernels.TILE, ans2_kernels.MAX_ROWS
+    assert ans2_kernels.model_scratch(3721, 2, 1861, 5, 64) == (1, 64 * 3072)
+    rows, nbytes = ans2_kernels.model_scratch(1029744, 256, 4023, 6, 69)
+    assert rows == 64 * 256 // t and nbytes == 69 * (2048 + 1024 * rows)
+    assert ans2_kernels.model_scratch(65536 * 40, 65536, 40, 3, 8)[0] == m
+    assert ans2_kernels.model_scratch(1, 1, 1, 0, 1) == (1, 3072)

@@ -1563,13 +1563,87 @@ def test_o1_decode_word_row_edges(dev, rows):
 
 
 def test_o1_outside_the_bound_raises_on_the_card(dev):
-    x2d = torch.zeros((4, 1), dtype=torch.uint8, device=dev)
-    lens = torch.ones(1, dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="C8"):
-        o1_kernels.encode_events(x2d, lens, 32, 11, 15, 14)
+    """Fault P6 on the card: U raises ValueError at the first step whose t
+    = range / tot_eff is 0 ("abracadabra" x 50 at lanes 1, blend_log2 14:
+    step 100), V raises CorruptContainerError at a header with n >= 1 and
+    blend_log2 24 (t = 0 at step 0) and at a step past the first (ten
+    zeros at blend_log2 23, a zero payload: step 1); the plain versions
+    name the same steps."""
+    data = b"abracadabra" * 50
+    x2d = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).reshape(
+        -1, 1).to(dev)
+    lens = torch.tensor([len(data)], dtype=torch.int32, device=dev)
+    for fn in (o1_kernels.encode_events, o1_ops.encode_events_plain):
+        with pytest.raises(ValueError, match="step 100, lane 0"):
+            fn(x2d, lens, 32, 11, 15, 14)
     words = torch.zeros((2, 1), dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="C8"):
-        o1_kernels.decode_symbols(words, lens, 1, 4, 32, 11, 15, 14)
+    ten = torch.tensor([10], dtype=torch.int32, device=dev)
+    with pytest.raises(ctt_bytes.CorruptContainerError, match="step 0"):
+        o1_kernels.decode_symbols(words, ten, 10, 10, 32, 11, 15, 24)
+    for fn in (o1_kernels.decode_symbols, o1_ops.decode_symbols_plain):
+        with pytest.raises(ctt_bytes.CorruptContainerError,
+                           match="step 1, lane 0"):
+            fn(words, ten, 10, 10, 32, 16, 16, 23)
+
+
+# fault P6: the CPU tests' inputs past C8's bound, which the oracle writes
+# and decodes (20,000 zeros at lanes 1 at full size here)
+DATA = Path(__file__).resolve().parent.parent / "data"
+O1_P6 = {
+    "b'a' at lanes 64": (b"a", 64, {}),
+    "alice29.txt[:488] at lanes 64": (
+        (DATA / "alice29.txt").read_bytes()[:488], 64, {}),
+    "grammar.lsp at lanes 2": ((DATA / "grammar.lsp").read_bytes(),
+                               2, {}),
+    "20,000 zeros at lanes 1": (bytes(20000), 1, {}),
+    "xargs.1 at lanes 4, limits 16 / 16": (
+        (DATA / "xargs.1").read_bytes(), 4, dict(limit0_log2=16)),
+}
+
+
+def test_o1_card_counts_refusal_on_the_card(dev):
+    """Fault P7: at a limit_log2 of 32, a stream whose 256 + inc*L*K
+    reaches 2^32 - 1 (4,096 lanes of 4,200 steps at inc 255) is refused by
+    U and V before any launch with CardCountsError, a NotImplementedError
+    and not a ValueError: the container is valid."""
+    k, steps, params = 4096, 4200, (255, 32, 11, 5)
+    assert not o1_ops.card_counts_fit(steps, k, *params[:3])
+    lens = torch.full((k,), steps, dtype=torch.int32, device=dev)
+    x2d = torch.zeros((steps, k), dtype=torch.uint8, device=dev)
+    words = torch.zeros((1, k), dtype=torch.int32, device=dev)
+    for call in (lambda: o1_kernels.encode_events(x2d, lens, *params),
+                 lambda: o1_kernels.decode_symbols(words, lens, steps * k,
+                                                   steps, *params)):
+        with pytest.raises(o1_ops.CardCountsError, match="u32 counts") as e:
+            call()
+        assert isinstance(e.value, NotImplementedError)
+        assert not isinstance(e.value, ValueError)
+
+
+@pytest.mark.parametrize("case", list(O1_P6))
+def test_o1_p6_inputs_match_the_oracle_on_the_card(dev, case):
+    """U writes the oracle's container and V decodes it; both equal their
+    plain versions (but at 20,000 steps, where the plain loops would take
+    most of a minute: the oracle's bytes hold U there)."""
+    data, k, extra = O1_P6[case]
+    opts = {**dict(inc=32, limit1_log2=16, limit0_log2=12, blend_log2=8),
+            **extra}
+    n, steps, x2d, lens, params = _o1_inputs(data, k, opts, dev)
+    ev = o1_kernels.encode_events(x2d, lens, *params)
+    oracle = o1_ref.o1_encode(data, lanes=k, **opts)
+    rows, sizes = expand.materialize_rows(ev)
+    assert layout.assemble(lambda wide: o1_ops.header(n, k, wide, *params),
+                           rows.cpu().numpy(), sizes.cpu().numpy()) == oracle
+    assert ctt.compress(data, codec="adaptive_o1", device="cuda", lanes=k,
+                        **opts) == oracle
+    assert ctt.decompress(oracle, codec="adaptive_o1", device="cuda") == data
+    words = layout.decode_words(rows, sizes)
+    out = o1_kernels.decode_symbols(words, lens, n, steps, *params)
+    assert out.cpu().numpy().tobytes() == data
+    if steps <= 2200:
+        assert torch.equal(ev, o1_ops.encode_events_plain(x2d, lens, *params))
+        assert torch.equal(out, o1_ops.decode_symbols_plain(words, lens, n,
+                                                            steps, *params))
 
 
 @pytest.mark.parametrize("codec", ["ase", "adaptive_o1"])
@@ -1616,7 +1690,9 @@ def _ans2_counts():
 
 def test_ans2_normalize_matches_the_oracle(dev):
     counts = _ans2_counts()
-    f, c = ans2_kernels.normalize_tables(torch.from_numpy(counts).to(dev))
+    e = ans2_kernels.normalize_tables(torch.from_numpy(counts).to(dev))
+    f, c = ans2_ops.entry_tables(e)
+    assert torch.equal(e, ans2_ops.table_entries(f, c))
     for i, row in enumerate(counts):
         want = normalize_freqs(row, 14) if row.sum() else np.zeros(256)
         assert np.array_equal(f[i].cpu().numpy(), want), i
@@ -1674,6 +1750,18 @@ ANS2_CASES = {
     "X: one staged step, K=64": (_seeded(64 * 17 - 3, 84), 64,
                                  dict(refresh_log2=5)),
     "X: K=32, 300 steps": (_seeded(32 * 300, 85, 200), 32, {}),
+    # kernel W's second design: one step at 65,536 lanes (one table), n = 1,
+    # no rescale (limit_log2 63), windows of 32 histogram rows, one walk
+    # chunk each (65,536 lanes, windows of 8 steps), and the walk's chunks
+    # of 32 windows crossed many times (refresh_log2 0 at 3,000 steps)
+    "W: K=65536, one step": (_seeded(50_000, 86), 65536, {}),
+    "W: n = 1": (b"q", 1, {}),
+    "W: limit 63": (_textish(16 * 700, 87).tobytes(), 16,
+                    dict(limit_log2=63)),
+    "W: 32 rows a window, K=65536": (_seeded(65536 * 40, 88, 50), 65536,
+                                     dict(refresh_log2=3)),
+    "W: refresh 0, 3,000 windows": (_textish(3000, 89).tobytes(), 1,
+                                    dict(refresh_log2=0)),
 }
 
 
@@ -1696,13 +1784,11 @@ def test_ans2_kernels_match_plain_and_the_oracle(dev, case):
     data, k, opts = ANS2_CASES[case]
     n, steps, x2d, lens = _ans2_inputs(data, k, dev)
     inc, limit_log2, r_log2 = _ans2_params(k, n, opts)
-    freqs, cums = ans2_kernels.window_tables(x2d, n, inc, limit_log2, r_log2)
-    for a, b in zip((freqs, cums), ans2_ops.window_tables_plain(
-            x2d, n, inc, limit_log2, r_log2)):
-        assert torch.equal(a, b)
-    ev, states = ans2_kernels.encode_events(x2d, lens, freqs, cums, r_log2)
-    ev_p, states_p = ans2_ops.encode_events_plain(x2d, lens, freqs, cums,
-                                                  r_log2)
+    entries = ans2_kernels.window_tables(x2d, n, inc, limit_log2, r_log2)
+    assert torch.equal(entries, ans2_ops.window_tables_plain(
+        x2d, n, inc, limit_log2, r_log2))
+    ev, states = ans2_kernels.encode_events(x2d, lens, entries, r_log2)
+    ev_p, states_p = ans2_ops.encode_events_plain(x2d, lens, entries, r_log2)
     assert torch.equal(ev, ev_p) and torch.equal(states, states_p)
     words = ans2_ops.stream_words(ev).to(torch.int16)
     out = ans2_kernels.decode_symbols(words, states, n, inc, limit_log2,
@@ -1725,7 +1811,8 @@ def test_ans2_model_past_2_32(dev, limit_log2):
     k, steps, inc, r_log2 = 8192, 4100, 255, 13
     data = b"\x07" * (k * steps)
     n, steps, x2d, lens = _ans2_inputs(data, k, dev)
-    freqs, cums = ans2_kernels.window_tables(x2d, n, inc, limit_log2, r_log2)
+    entries = ans2_kernels.window_tables(x2d, n, inc, limit_log2, r_log2)
+    freqs, cums = ans2_ops.entry_tables(entries)
     snaps = ans2_ref._snapshots_and_counts(
         np.frombuffer(data, np.uint8).reshape(steps, k), n, k, inc,
         1 << limit_log2, 1 << r_log2)
@@ -1733,7 +1820,7 @@ def test_ans2_model_past_2_32(dev, limit_log2):
     for w, (f, c) in enumerate(snaps):
         assert np.array_equal(freqs[w].cpu().numpy(), f)
         assert np.array_equal(cums[w].cpu().numpy(), c)
-    ev, states = ans2_kernels.encode_events(x2d, lens, freqs, cums, r_log2)
+    ev, states = ans2_kernels.encode_events(x2d, lens, entries, r_log2)
     out = ans2_kernels.decode_symbols(ans2_ops.stream_words(ev)
                                       .to(torch.int16), states, n, inc,
                                       limit_log2, r_log2)
@@ -1750,8 +1837,8 @@ def test_y_word_stream_cut_short(dev, cut):
     data, k = _seeded(64 * 200, 64, 120), 64
     n, steps, x2d, lens = _ans2_inputs(data, k, dev)
     inc, limit_log2, r_log2 = _ans2_params(k, n, {})
-    freqs, cums = ans2_kernels.window_tables(x2d, n, inc, limit_log2, r_log2)
-    ev, states = ans2_kernels.encode_events(x2d, lens, freqs, cums, r_log2)
+    entries = ans2_kernels.window_tables(x2d, n, inc, limit_log2, r_log2)
+    ev, states = ans2_kernels.encode_events(x2d, lens, entries, r_log2)
     words = ans2_ops.stream_words(ev).to(torch.int16)
     words = words[:words.numel() - cut]
     for w in (words, torch.cat([words[:1], words])[1:]):

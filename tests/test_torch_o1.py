@@ -7,9 +7,10 @@ o1_ops.o1_encode_jax / o1_decode_jax (XLA scans on the CPU, no Pallas
 kernel; at pick_inc's defaults only, where its byte-split row extraction
 is exact) and through the port's `device="cpu"`: the containers must be
 byte-identical, equal to the oracle (the port's copy of
-reference/o1_ref.py), and decode on both sides. Inside C8's bound
-(ops/o1_ops.py) the port is held to the oracle at other parameters too;
-outside it both directions raise ValueError."""
+reference/o1_ref.py), and decode on both sides. At other parameters the
+port is held to the oracle wherever the oracle ends, inside C8's bound
+(ops/o1_ops.py) and past it (fault P6); a step whose t = range / tot_eff
+is 0 raises ValueError on encode and CorruptContainerError on decode."""
 
 import numpy as np
 import pytest
@@ -21,7 +22,7 @@ import cpprcoder_tpu_torch as ctt
 from cpprcoder_tpu.codecs.pipeline import pipeline_decode, pipeline_encode
 from cpprcoder_tpu.ops import o1_ops as jops
 from cpprcoder_tpu.reference import o1_ref as jref
-from cpprcoder_tpu_torch.core.bytesutil import ByteWriter
+from cpprcoder_tpu_torch.core.bytesutil import ByteWriter, CorruptContainerError
 from cpprcoder_tpu_torch.ops import expand, layout, o1_kernels, o1_ops
 from cpprcoder_tpu_torch.reference import o1_ref as tref
 
@@ -190,7 +191,10 @@ def test_c8_bound_values():
     # pick_inc's defaults stay inside at every lane count
     for k in 2 ** np.arange(0, 17):
         k = int(k)
-        o1_ops.check_params(k, tref.pick_inc(k), tref.LIMIT1_LOG2,
+        assert o1_ops.model_bound(k, tref.pick_inc(k), tref.LIMIT1_LOG2,
+                                  tref.LIMIT0_LOG2, tref.BLEND_LOG2) \
+            <= o1_ops.TOTAL_LIMIT
+        o1_ops.check_params(1, tref.pick_inc(k), tref.LIMIT1_LOG2,
                             tref.LIMIT0_LOG2, tref.BLEND_LOG2)
 
 
@@ -198,23 +202,109 @@ def test_c8_bound_values():
                                   dict(limit0_log2=25),
                                   dict(limit1_log2=14, blend_log2=11)])
 def test_outside_the_bound_raises(opts):
-    """Encode raises ValueError outside C8's bound, as does decode of a
-    header that names such parameters (crafted: the oracle would never
-    end on it), on the CPU path and in the kernels' wrappers."""
+    """Outside C8's bound on "abracadabra" x 50 at one lane, inc 32 (fault
+    P6): where the oracle ends (limit1_log2 24, limit0_log2 25, limit1_log2
+    14 with blend_log2 11) the port writes its bytes and decodes its
+    container, on the CPU path and in the kernels' wrappers; at
+    blend_log2 14 (the oracle does not end) encode raises ValueError at the
+    first step whose t is 0, step 100, the wrapper too, and a header with n
+    >= 1 at blend_log2 24 (t = 0 at step 0 whatever the payload) raises
+    CorruptContainerError on decode."""
     data = b"abracadabra" * 50
-    with pytest.raises(ValueError, match="C8"):
-        ctt.compress(data, codec="adaptive_o1", lanes=1, **CPU, **opts)
     p = {**dict(inc=32, limit1_log2=11, limit0_log2=15, blend_log2=5), **opts}
-    head = o1_ops.header(len(data), 1, False, p["inc"], p["limit1_log2"],
-                         p["limit0_log2"], p["blend_log2"])
-    blob = head.u16s([20]).getvalue() + bytes(20)
-    with pytest.raises(ValueError, match="C8"):
+    params = (p["inc"], p["limit1_log2"], p["limit0_log2"], p["blend_log2"])
+    x2d = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).reshape(-1, 1)
+    lens = torch.tensor([len(data)], dtype=torch.int32)
+    if opts == dict(blend_log2=14):
+        with pytest.raises(ValueError, match="step 100, lane 0"):
+            ctt.compress(data, codec="adaptive_o1", lanes=1, **CPU, **opts)
+        with pytest.raises(ValueError, match="step 100, lane 0"):
+            o1_kernels.encode_events(x2d, lens, *params)
+        head = o1_ops.header(len(data), 1, False, p["inc"], p["limit1_log2"],
+                             p["limit0_log2"], 24)
+        blob = head.u16s([20]).getvalue() + bytes(20)
+        with pytest.raises(CorruptContainerError, match="step 0"):
+            ctt.decompress(blob, codec="adaptive_o1", **CPU)
+        return
+    blob = ctt.compress(data, codec="adaptive_o1", lanes=1, inc=32, **CPU,
+                        **opts)
+    oracle = tref.o1_encode(data, lanes=1, inc=32, **opts)
+    assert blob == oracle
+    assert len(oracle) == {"limit0_log2": 114}.get(next(iter(opts)), 106)
+    assert ctt.decompress(oracle, codec="adaptive_o1", **CPU) == data
+    assert torch.equal(o1_kernels.encode_events(x2d, lens, *params),
+                       o1_ops.encode_events_plain(x2d, lens, *params))
+
+
+# fault P6: inputs whose parameters pass C8's bound (at lanes 64 it is
+# 16,781,055 > 2^24), which the oracle writes and decodes; the port writes
+# its bytes and decodes its containers (20,000 zeros at lanes 1 run on the
+# card; 2,500 here, where the plain loops take about a millisecond a step:
+# row 0 still reaches 2^16 and halves, at step 2,041)
+P6_OPTS = dict(inc=32, limit1_log2=16, limit0_log2=12, blend_log2=8)
+P6 = {
+    "b'a' at lanes 64": (b"a", 64, P6_OPTS),
+    "alice29.txt[:488] at lanes 64": (corpus_file("alice29.txt")[:488], 64,
+                                      P6_OPTS),
+    "grammar.lsp at lanes 2": (corpus_file("grammar.lsp"), 2, P6_OPTS),
+    "2,500 zeros at lanes 1": (bytes(2500), 1, P6_OPTS),
+    "xargs.1 at lanes 4, limits 16 / 16": (
+        corpus_file("xargs.1"), 4, dict(P6_OPTS, limit0_log2=16)),
+}
+
+
+@pytest.mark.parametrize("case", list(P6))
+def test_p6_inputs_match_the_oracle(case):
+    data, lanes, opts = P6[case]
+    oracle = tref.o1_encode(data, lanes=lanes, **opts)
+    assert ctt.compress(data, codec="adaptive_o1", lanes=lanes, **CPU,
+                        **opts) == oracle
+    assert ctt.decompress(oracle, codec="adaptive_o1", **CPU) == data
+
+
+@pytest.mark.parametrize("blend_log2", [24, 255])
+def test_p6_empty_input_at_any_blend(blend_log2):
+    """n = 0 writes and reads the oracle's 9-byte header at any
+    parameters, blend_log2 24 and 255 among them."""
+    blob = ctt.compress(b"", codec="adaptive_o1", lanes=1, **CPU,
+                        blend_log2=blend_log2)
+    assert blob == tref.o1_encode(b"", lanes=1, blend_log2=blend_log2)
+    assert len(blob) == 9
+    assert ctt.decompress(blob, codec="adaptive_o1", **CPU) == b""
+
+
+def test_p6_a_later_step_with_t_zero_raises():
+    """Ten zeros at lanes 1, blend_log2 23: step 0 has t = 1 (tot_eff =
+    2^31 + 256, and the range left is 2^23 + 1, shifted once); step 1 codes
+    against row 0 grown by inc, tot_eff above that range, so t = 0 there. Encode raises ValueError naming step 1 (the
+    oracle does not end there: it is not run), and the decoder meets the
+    same step on a zero payload (symbol 0 at step 0) and raises
+    CorruptContainerError; the wrappers and the plain versions agree."""
+    data = bytes(10)
+    opts = dict(inc=32, limit1_log2=16, limit0_log2=16, blend_log2=23)
+    with pytest.raises(ValueError, match="step 1, lane 0"):
+        ctt.compress(data, codec="adaptive_o1", lanes=1, **CPU, **opts)
+    x2d = torch.zeros((10, 1), dtype=torch.uint8)
+    lens = torch.tensor([10], dtype=torch.int32)
+    params = tuple(opts.values())
+    trip, _ = o1_ops.model_triples_plain(x2d, lens, *params)
+    with pytest.raises(ValueError, match="step 1, lane 0"):
+        o1_ops.coder_events_plain(trip)
+    # row 0 reaches 512 at step 8: tot_eff = 2^32 + tot0, marked (0, 0,
+    # 2^32 - 1); a fresh coder (range 2^32 - 1, so t = 1) still reports it
+    assert trip[7, 2].item() < 0 and trip[8].tolist() == [[0], [0], [-1]]
+    with pytest.raises(ValueError, match="step 8, lane 0"):
+        o1_ops.coder_events_plain(trip[8:], j0=8)
+    blob = o1_ops.header(10, 1, False, *params).u16s([8]).getvalue() \
+        + bytes(8)
+    with pytest.raises(CorruptContainerError, match="step 1, lane 0"):
         ctt.decompress(blob, codec="adaptive_o1", **CPU)
-    x2d = torch.zeros((4, 1), dtype=torch.uint8)
-    with pytest.raises(ValueError, match="C8"):
-        o1_kernels.encode_events(x2d, torch.ones(1, dtype=torch.int32),
-                                 p["inc"], p["limit1_log2"],
-                                 p["limit0_log2"], p["blend_log2"])
+    words = torch.zeros((2, 1), dtype=torch.int32)
+    with pytest.raises(CorruptContainerError, match="step 1, lane 0"):
+        o1_kernels.decode_symbols(words, lens, 10, 10, *params)
+    assert o1_ops.card_counts_fit(10, 1, *params[:3])
+    assert not o1_ops.card_counts_fit(1 << 22, 1 << 12, 255, 32, 11)
+    assert o1_ops.card_counts_fit(1 << 22, 1 << 12, 255, 31, 31)
 
 
 def test_each_side_decodes_the_others_containers():
