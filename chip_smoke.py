@@ -78,7 +78,13 @@ Phases, one line each (a failed phase exits non-zero):
               lanes, 2,048 and 65,536 lanes (U's model pass and coder
               pass each held to its plain version too), and U over chunks
               of 1 to 300 steps (kennedy.xls in 16); each case's
-              container against the oracle's; then timed at kennedy.xls's
+              container against the oracle's; U and V past the u32 guard
+              (fault P7: 4,096 lanes x 4,200 steps of zeros at limits
+              32/11, blend 5, and 65,536 x 263 random bytes at limit1_log2
+              32 and 33, their counts in 64 bits), held to their plain
+              versions (the same events, decoded back, or the same step
+              error) and timed, and the 64-bit instantiation beside the
+              u32 one at kennedy.xls; then timed at kennedy.xls's
               shapes (K = 256) and grammar.lsp's (K = 2); W, X and Y
               (CT-ANS2's model, coder and decode) and the normalize W and
               Y share (alone, at 255 count vectors against the oracle's)
@@ -121,7 +127,17 @@ Phases, one line each (a failed phase exits non-zero):
               and encode/decode seconds and GB/s). Every kernel of the
               path must have launched. Each call of a kernel's wrapper is
               recorded and timed again afterwards (on the stream path
-              timed where it ran): `main_ms` is their sum.
+              timed where it ran): `main_ms` is their sum;
+  5. tooling  the CLI (python -m cpprcoder_tpu_torch.cli) as processes of
+              their own on the card: compress/decompress -c rans --profile
+              --shadow of kennedy.xls and a --stages pipeline on
+              grammar.lsp (byte-compared, the containers the codec path's
+              and the oracle's), bench -c rans rcx --json (rows that
+              round-trip, of the codec path's container sizes); the
+              profile report's phases at kennedy.xls (adaptive_range
+              encode, rcq and rcx decode) beside the card's name and
+              power limit; the host library's static, adaptive, rcq and
+              rcx containers against the card's on the 11 files.
 Then a {"kernels": [...]} JSON line (per kernel: launches on the main
 paths and main_ms, the largest difference from its plain version, its time and the
 plain version's at kennedy.xls's shape, and the bound: the larger of the
@@ -156,7 +172,7 @@ from cpprcoder_tpu_torch.config import adaptive_params_for, pick_lanes
 from cpprcoder_tpu_torch.core.bytesutil import ByteReader, CorruptContainerError
 from cpprcoder_tpu_torch.models.cxmodel import rcq_params, rcx_params
 from cpprcoder_tpu_torch.models.static_table import normalize_freqs
-from cpprcoder_tpu_torch.native import build
+from cpprcoder_tpu_torch.native import build, ctrc
 from cpprcoder_tpu_torch.ops import (
     ans2_kernels,
     ans2_ops,
@@ -183,6 +199,7 @@ from cpprcoder_tpu_torch.ops import (
     rcx_ops,
 )
 from cpprcoder_tpu_torch.reference import ans2_ref, ase_ref, o1_ref, slz4_ref
+from cpprcoder_tpu_torch.utils import profiling
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 MASK32 = 0xFFFFFFFF
@@ -1434,6 +1451,95 @@ def u_chunk_edges(dev, err) -> str:
             f"version and the oracle")
 
 
+# fault P7's repair: CT-RC3 streams past the u32 kernels' old guard (256 +
+# inc*L*K >= 2^32 - 1 at a limit_log2 of 32 or more), where U and V keep
+# their counts and totals in 64 bits: (what, K, steps, params, zeros)
+PAST_GUARD = [
+    ("4,096 x 4,200 zeros, limits 32/11, blend 5", 4096, 4200,
+     (255, 32, 11, 5), True),
+    ("65,536 x 263 random bytes, limits 32/11", 65536, 263, (255, 32, 11, 0),
+     False),
+    ("65,536 x 263 random bytes, limits 33/11", 65536, 263, (255, 33, 11, 0),
+     False)]
+
+
+def step_outcome(fn):
+    """-> ("ok", fn's output) or (the error's type, its message)."""
+    try:
+        return "ok", fn()
+    except ValueError as e:
+        return type(e).__name__, str(e)
+
+
+def held_outcome(err, name, got, want, what):
+    """Hold a kernel's outcome against its plain version's: the same
+    output, or the same step error."""
+    if got[0] != want[0] or (got[0] != "ok" and got[1] != want[1]):
+        fail(f"{what}: {got[0]} {got[1] if got[0] != 'ok' else ''} != plain "
+             f"{want[0]} {want[1] if want[0] != 'ok' else ''}")
+    if got[0] == "ok":
+        hold(err, name, got[1], want[1], what)
+    return got
+
+
+def o1_past_guard(dev, err, cases=PAST_GUARD) -> str:
+    """Fault P7: U and V at streams past the old guard, each against its
+    plain version (the same events, decoded back by V, or the same step
+    error, step and lane; V on zero word rows where U raised), and the
+    64-bit instantiation's times there (ms, 3 reps) and at kennedy.xls
+    beside the u32 one's."""
+    rng = np.random.default_rng(700)
+    times = []
+    for what, k, steps, params, zeros in cases:
+        if not o1_ops.counts_long(steps, k, *params[:3]):
+            fail(f"CT-RC3 {what}: inside the u32 guard")
+        x = np.zeros(k * steps, np.uint8) if zeros \
+            else rng.integers(0, 256, k * steps, np.uint8)
+        x2d = torch.from_numpy(x).to(dev).reshape(k, steps).T.contiguous()
+        lens = torch.full((k,), steps, dtype=torch.int32, device=dev)
+        enc = held_outcome(
+            err, "o1_encode",
+            step_outcome(lambda: o1_kernels.encode_events(x2d, lens, *params)),
+            step_outcome(lambda: o1_ops.encode_events_plain(x2d, lens,
+                                                            *params)),
+            f"kernel U at {what}")
+        words = layout.decode_words(*expand.materialize_rows(enc[1])) \
+            if enc[0] == "ok" else torch.zeros((1, k), dtype=torch.int32,
+                                               device=dev)
+        dec_k = lambda: o1_kernels.decode_symbols(  # noqa: E731
+            words, lens, k * steps, steps, *params)
+        dec = held_outcome(
+            err, "o1_decode", step_outcome(dec_k),
+            step_outcome(lambda: o1_ops.decode_symbols_plain(
+                words, lens, k * steps, steps, *params)),
+            f"kernel V at {what}")
+        if enc[0] == "ok" and not torch.equal(dec[1], x2d.T.reshape(-1)):
+            fail(f"kernel V did not invert kernel U at {what}")
+        # a call that raises has run every step before its flag is read
+        u_ms = cuda_ms(lambda: step_outcome(lambda: o1_kernels.encode_events(
+            x2d, lens, *params)), 3)
+        v_ms = cuda_ms(lambda: step_outcome(dec_k), 3)
+        raised = "" if enc[0] == "ok" else f" (both raise {enc[1]!r})"
+        times.append(f"{what}: U {u_ms:.3f}, V {v_ms:.3f}{raised}")
+    data = corpus("kennedy.xls")
+    n, steps, x2d, lens = coder_inputs(data, pick_lanes(len(data)), dev)
+    params = o1_params(x2d.shape[1], {})
+    words = layout.decode_words(*expand.materialize_rows(
+        o1_kernels.encode_events(x2d, lens, *params)))
+    at = {}
+    for long_counts in (False, True):
+        at[long_counts] = (
+            cuda_ms(lambda: o1_kernels.encode_events(
+                x2d, lens, *params, long_counts=long_counts), 5),
+            cuda_ms(lambda: o1_kernels.decode_symbols(
+                words, lens, n, steps, *params, long_counts=long_counts), 5))
+    times.append("kennedy.xls u32/u64: U {:.3f}/{:.3f}, V {:.3f}/{:.3f}".format(
+        at[False][0], at[True][0], at[False][1], at[True][1]))
+    return (f"U and V past the u32 guard equal their plain versions at "
+            f"{len(cases)} streams; the 64-bit instantiation's ms: "
+            + "; ".join(times))
+
+
 def phase_kernels_ase_o1(dev):
     """S, T (CT-ASE1) and U, V (CT-RC3) against their plain step loops,
     and the containers of their cases against the oracles."""
@@ -1588,11 +1694,13 @@ def phase_kernels_ase_o1(dev):
     p6_steps = o1_step_zero(dev)
     o1_word_row_edges(dev, err)
     u_chunks = u_chunk_edges(dev, err)
+    past_guard = o1_past_guard(dev, err)
     s_edges = s_segment_edges(dev, err)
     containers("adaptive_o1", o1_cases, o1_ref.o1_encode)
     print(f"[kernels] ok {len(ase_cases)} CT-ASE1 and {len(o1_cases)} CT-RC3 "
           f"containers equal the oracle's and round-trip ({len(p6_cases) + 1} "
           f"past C8's bound); {p6_steps}; {u_chunks}; {s_edges}", flush=True)
+    print(f"[kernels] ok {past_guard}", flush=True)
 
     # held and timed at kennedy.xls's shapes (ase K = 256, stride 4,023;
     # CT-RC3 K = 256, L = 4,023), kernel vs plain; held there and at
@@ -2755,6 +2863,146 @@ SCAN_KERNELS = [
 ]
 
 
+# the tooling phase: the CLI's stages and the files it runs them on
+TOOL_STAGES = ["blocksort", "mtf1", "rle0", "adaptive_range"]
+TOOL_BENCH = ("kennedy.xls", "grammar.lsp")
+
+
+def cli_start(*args):
+    """python -m cpprcoder_tpu_torch.cli ARGS in a process of its own, on
+    the card (no --device)."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "cpprcoder_tpu_torch.cli", *args], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def cli_wait(proc, what: str) -> tuple[str, str]:
+    """-> its (stdout, stderr); fails unless it exits 0 within 300 s."""
+    try:
+        out, err = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"CLI {what}: no exit within 300 s")
+    if proc.returncode != 0:
+        fail(f"CLI {what}: exit {proc.returncode}: {err[-2000:]}")
+    return out, err
+
+
+def phase_ms(rep: dict) -> str:
+    return ", ".join(f"{nm} {row['wall_s'] * 1e3:.3f} ms"
+                     for nm, row in rep.items())
+
+
+def phase_tooling(smi_line: str) -> str:
+    """The port's tooling on the card: the CLI as processes of their own
+    (compress and decompress of kennedy.xls by rans with --profile and
+    --shadow, byte-compared; a --stages pipeline on grammar.lsp; bench's
+    JSON rows, which must round-trip and equal the codec paths' container
+    sizes), the profile report's phases at kennedy.xls (adaptive_range
+    encode, rcq and rcx decode), and the host library's four other entry
+    points, whose containers must equal the card's on the 11 files."""
+    work = os.path.join(ROOT, "build", "tooling")
+    os.makedirs(work, exist_ok=True)
+    src = {nm: os.path.join(ROOT, "data", nm) for nm in TOOL_BENCH}
+    at = {nm: os.path.join(work, nm) for nm in
+          ("k.ct", "k.out", "g.ct", "g.out")}
+    procs = [cli_start("compress", "-c", "rans", "--profile", "--shadow",
+                       src["kennedy.xls"], at["k.ct"]),
+             cli_start("compress", src["grammar.lsp"], at["g.ct"],
+                       "--stages", *TOOL_STAGES),
+             cli_start("bench", "-c", "rans", "rcx", "--files", *TOOL_BENCH,
+                       "--json")]
+    _, err = cli_wait(procs[0], "compress -c rans --profile --shadow")
+    if "| phase |" not in err:
+        fail(f"CLI compress --profile printed no report: {err[-500:]}")
+    cli_wait(procs[1], "compress --stages")
+    bench_out, _ = cli_wait(procs[2], "bench --json")
+    procs = [cli_start("decompress", "-c", "rans", "--profile", at["k.ct"],
+                       at["k.out"]),
+             cli_start("decompress", "--stages", at["g.ct"], at["g.out"])]
+    cli_wait(procs[0], "decompress -c rans --profile")
+    cli_wait(procs[1], "decompress --stages")
+    kennedy, grammar = corpus("kennedy.xls"), corpus("grammar.lsp")
+    with open(at["k.ct"], "rb") as f:
+        k_blob = f.read()
+    with open(at["g.ct"], "rb") as f:
+        g_blob = f.read()
+    if k_blob != ctt.compress(kennedy, codec="rans", device="cuda") \
+            or k_blob != oracle(kennedy, "rans"):
+        fail("CLI compress -c rans: not the codec path's container")
+    if g_blob != ctt.compress(grammar, codec="pipeline", stages=TOOL_STAGES,
+                              backend="ref"):
+        fail("CLI compress --stages: not the oracle's container")
+    for nm, data in (("k.out", kennedy), ("g.out", grammar)):
+        with open(at[nm], "rb") as f:
+            if f.read() != data:
+                fail(f"CLI decompress: {nm} is not the input")
+    rows = [json.loads(line) for line in bench_out.splitlines()
+            if line.startswith("{")]
+    if [r["codec"] for r in rows] != ["rans", "rcx"]:
+        fail(f"CLI bench: rows {[r.get('codec') for r in rows]}")
+    for r in rows:
+        for f in r["files"]:
+            want = len(ctt.compress(corpus(f["file"]), codec=r["codec"],
+                                    device="cuda"))
+            if not f["roundtrip_ok"] or f["compressed"] != want:
+                fail(f"CLI bench {r['codec']} {f['file']}: {f}")
+    # the profile report's phases, in this process
+    profiling.enable()
+    reports = {}
+    try:
+        for what, fn in (
+                ("adaptive_range encode", lambda: ctt.compress(
+                    kennedy, codec="adaptive_range", device="cuda")),
+                ("rcq decode", lambda b=ctt.compress(kennedy, codec="rcq",
+                                                     device="cuda"):
+                 ctt.decompress(b, codec="rcq", device="cuda")),
+                ("rcx decode", lambda b=ctt.compress(kennedy, codec="rcx",
+                                                     device="cuda"):
+                 ctt.decompress(b, codec="rcx", device="cuda"))):
+            fn()    # warm
+            profiling.reset()
+            fn()
+            reports[what] = profiling.report()
+    finally:
+        profiling.disable()
+        profiling.reset()
+    if set(reports["adaptive_range encode"]) != {
+            "enc.scan", "enc.materialize", "enc.assemble"} or any(
+            set(reports[w]) != {"dec.rows", "dec.scan", "dec.fetch"}
+            for w in ("rcq decode", "rcx decode")):
+        fail(f"profile phases: {reports}")
+    print(f"[tooling] profile at kennedy.xls ({smi_line}): "
+          + "; ".join(f"{w}: {phase_ms(r)}" for w, r in reports.items()),
+          flush=True)
+    # the host library's entry points against the card's containers
+    files = list(EXPECTED_SIZES["rcx"])
+    for nm in files:
+        data = corpus(nm)
+        n = len(data)
+        k = pick_lanes(n)
+        kq, inc_q, cl_q = rcq_params(n)
+        kx, inc_x, cl_x, cb_x = rcx_params(n)
+        for codec, blob, dec in (
+                ("static_range", ctrc.static_encode(data, k),
+                 ctrc.static_decode),
+                ("adaptive_range", ctrc.adaptive_encode(
+                    data, k, *adaptive_params_for(k)), ctrc.adaptive_decode),
+                ("rcq", ctrc.rcq_encode(data, kq, inc_q, cl_q),
+                 ctrc.rcq_decode),
+                ("rcx", ctrc.rcx_encode(data, kx, inc_x, cl_x, cb_x),
+                 ctrc.rcx_decode)):
+            if blob != ctt.compress(data, codec=codec, device="cuda") \
+                    or dec(blob) != data:
+                fail(f"native {codec} at {nm}: not the card's container, "
+                     f"or no round trip")
+    return (f"CLI compress/decompress (rans --profile --shadow at "
+            f"kennedy.xls, --stages at grammar.lsp) and bench (rans, rcx) "
+            f"on the card; profile phases; native static/adaptive/rcq/rcx "
+            f"equal the card's containers on {len(files)} files")
+
+
 def bound(moved: int, ops: int):
     """-> (bound_ms, bound_by): the larger of bytes moved over the memory
     rate and operations over the peak rate."""
@@ -2815,6 +3063,8 @@ def main():
                 by_path[nm][codec] = c
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
+    print(f"[tooling] ok {timed('tooling', phase_tooling, smi_line)}",
+          flush=True)
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "cpprcoder_tpu"))
     if loaded:

@@ -11,7 +11,8 @@ any codec; codecs/stream.py, with `SuperblockEncoder` and
 `stream_decode_range`), `adaptive_o1` (11, CT-RC3), `rle0` (12, CT-RLE0),
 `adaptive_rans` (13, CT-ANS2), `rcq` (14, CT-RCQ; its resumable encoder is
 codecs/resume.py) and `rcx` (15, CT-RCX). An unknown name or id (a
-pipeline stage or a CT-SB header) raises KeyError.
+pipeline stage or a CT-SB header) raises KeyError. In shadow mode
+(debug.py) every encode is decoded again by an independent backend.
 """
 
 from __future__ import annotations
@@ -31,7 +32,12 @@ class Codec:
         self._decode = decode
 
     def encode(self, data, **opts) -> bytes:
-        return self._encode(data, **opts)
+        blob = self._encode(data, **opts)
+        from cpprcoder_tpu_torch import debug
+
+        if debug.shadow_enabled():
+            debug.check_roundtrip(self, data, blob, opts)
+        return blob
 
     def decode(self, blob, **opts) -> bytes:
         return self._decode(blob, **opts)

@@ -5,7 +5,8 @@ A pipeline is itself a codec: each stage's container feeds the next, and
 the container is u8 stage count, the stages' codec ids, then the last
 stage's container. The default stages are BASELINE's Config 4:
 blocksort (2^19-byte blocks), mtf1, rle0, adaptive_range. `backend` and
-`device` pass through to every stage, encode and decode alike.
+`device` pass through to every stage, encode and decode alike;
+`make_pipeline` binds a list of stages.
 """
 
 from __future__ import annotations
@@ -48,3 +49,12 @@ def pipeline_decode(blob, backend=None, device=None) -> bytes:
 
 
 CODEC = register("pipeline", 9, pipeline_encode, pipeline_decode)
+
+
+def make_pipeline(stages: list):
+    """A named pipeline as a pair of functions: (encode(data, backend=None,
+    device=None), pipeline_decode); the stages as for pipeline_encode."""
+    def encode(data, backend=None, device=None):
+        return pipeline_encode(data, stages=stages, backend=backend,
+                               device=device)
+    return encode, pipeline_decode

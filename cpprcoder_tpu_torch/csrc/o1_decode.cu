@@ -18,7 +18,8 @@
 // blended inclusive prefix is the first above v; code -= t*c; range =
 // (c + f == tot) ? range - t*c : t*f; up to 3 bytes from the queue while
 // range < 2^24. s goes to out[i*L + j]; then every active lane adds inc to
-// the model, as the encoder does.
+// the model, as the encoder does, its counts and totals u32 or, where one
+// can reach 2^32 - 1, u64 (FORM_LONG, o1_model.cuh).
 //
 // Design (second round; the first was kernel U's three phases with a
 // chain search). All lanes share the model, so a stream runs in one CTA, a
@@ -56,13 +57,12 @@ using namespace o1;
 
 // The blended block sums' inclusive prefixes of row r: they do not depend
 // on v, so they are loaded and summed while the divides run.
-__device__ __forceinline__ void block_prefixes(const Model& m, uint32_t r, int blend,
+template <class C>
+__device__ __forceinline__ void block_prefixes(const Model<C>& m, uint32_t r, int blend,
                                                uint32_t (&p)[16]) {
-  const uint4* b1 = reinterpret_cast<const uint4*>(m.bsum1 + r * 16);
-  const uint4* b0 = reinterpret_cast<const uint4*>(m.bsum0);
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
-    const uint4 v1 = b1[q], v0 = b0[q];
+    const uint4 v1 = load4(m.bsum1 + r * 16 + 4 * q), v0 = load4(m.bsum0 + 4 * q);
 #pragma unroll
     for (int k = 0; k < 4; ++k) p[4 * q + k] = (u4_at(v1, k) << blend) + u4_at(v0, k);
   }
@@ -75,8 +75,8 @@ __device__ __forceinline__ void block_prefixes(const Model& m, uint32_t r, int b
 // prefixes at or below v (the prefixes rise strictly: every count is at
 // least 1), the largest of them is the prefix before b, and in block b
 // likewise over its 16 counts. The same result as o1_model.cuh's search.
-template <bool WIDE>
-__device__ __forceinline__ uint32_t search_counted(const Model& m, uint32_t r, uint32_t v,
+template <bool WIDE, class C>
+__device__ __forceinline__ uint32_t search_counted(const Model<C>& m, uint32_t r, uint32_t v,
                                                    int blend, const uint32_t (&p)[16],
                                                    uint32_t& c, uint32_t& f) {
   uint32_t le[16], below[16];
@@ -112,10 +112,10 @@ __device__ __forceinline__ uint32_t search_counted(const Model& m, uint32_t r, u
 // One lane's coding step: the refill (the word loaded a refill ahead goes
 // into the queue, and the next one is loaded), the search, the renorm.
 // -> the symbol; bad set where t = range / tot is 0.
-template <bool WIDE>
-__device__ __forceinline__ uint32_t code_step(const Model& m, const uint32_t* __restrict__ words,
+template <bool WIDE, class C>
+__device__ __forceinline__ uint32_t code_step(const Model<C>& m, const uint32_t* __restrict__ words,
                                               int K, int l4, int lane, uint32_t ctx,
-                                              uint32_t tot0, int blend, uint32_t& rng,
+                                              C tot0, int blend, uint32_t& rng,
                                               uint32_t& code, uint32_t& occ, uint32_t& widx,
                                               uint64_t& q, uint32_t& nw, bool& bad) {
   if (occ < (uint32_t)SLOTS) {
@@ -124,15 +124,15 @@ __device__ __forceinline__ uint32_t code_step(const Model& m, const uint32_t* __
     nw = widx < (uint32_t)l4 ? words[(size_t)widx * K + lane] : 0u;
     ++widx;
   }
-  const uint32_t r = m.rowtot[ctx];
-  const uint32_t tot = (r << blend) + tot0;
+  const C r = m.rowtot[ctx];
+  const uint32_t tot = ((uint32_t)r << blend) + (uint32_t)tot0;
   uint32_t p[16];
   block_prefixes(m, ctx, blend, p);
   const uint32_t t = rng / tot;
   // off the chain: tot in 64 bits past 2^32 - 1, or t = 0 (a step past
   // either runs on, with t = 0 or t from a wrapped tot: nothing after it
   // counts, and every index stays clamped)
-  bad = ((uint64_t)r << blend) + tot0 > FULL || t == 0u;
+  bad = ((u64)r << blend) + tot0 > FULL || t == 0u;
   uint32_t v = code / t;
   v = v < tot - 1 ? v : tot - 1;
   uint32_t c, f;
@@ -147,14 +147,14 @@ __device__ __forceinline__ uint32_t code_step(const Model& m, const uint32_t* __
 // [n] u8; t1g as kernel U's; st [7][K] u32 (MULTI: range, code, occ | ctx
 // << 8 | sym << 16, widx, the queue's low and high words, the word loaded
 // ahead) or null; flag gets the first step with t = 0.
-template <bool WIDE, bool MULTI>
+template <bool WIDE, bool MULTI, class C>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
     o1_decode_kernel(const uint32_t* __restrict__ words, const int32_t* __restrict__ lane_len,
                      uint8_t* __restrict__ out, uint32_t* t1g, uint32_t* __restrict__ st,
                      unsigned long long* __restrict__ flag, int K, int l4, int L, uint32_t inc,
-                     uint32_t limit1, uint32_t limit0, int blend) {
+                     C limit1, C limit0, int blend) {
   extern __shared__ __align__(16) uint32_t smem[];
-  const Model m = carve(smem, t1g, WIDE);
+  const Model<C> m = carve<C>(smem, t1g, WIDE);
   const int tid = threadIdx.x, T = blockDim.x;
   const int lpt = MULTI ? K / T : 1;
   uint32_t rng = FULL, code = 0, occ = 0, widx = 2, ctx = 0, nw = 0;
@@ -179,7 +179,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
   init_model<WIDE>(m);
   for (int j = 0; j < L; ++j) {
     rescale<WIDE>(m, limit1, limit0);
-    const uint32_t tot0 = *m.tot0;
+    const C tot0 = *m.tot0;
     uint32_t sym = 0;
     for (int mm = 0; mm < lpt; ++mm) {
       const int lane = tid + mm * T;
@@ -226,44 +226,61 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
   report_steps(flag, first);
 }
 
-template <bool WIDE, bool MULTI>
+template <bool WIDE, bool MULTI, class C>
 cudaError_t launch(const void* words, const void* lane_len, void* out, void* t1g, void* st,
-                   void* flag, int K, int l4, int L, uint32_t inc, uint32_t limit1,
-                   uint32_t limit0, int blend, cudaStream_t stream) {
-  const int smem = smem_bytes(WIDE);
-  cudaError_t err = cudaFuncSetAttribute(o1_decode_kernel<WIDE, MULTI>,
+                   void* flag, int K, int l4, int L, uint32_t inc, int limit1_log2,
+                   int limit0_log2, int blend, cudaStream_t stream) {
+  const int smem = smem_bytes<C>(WIDE);
+  cudaError_t err = cudaFuncSetAttribute(o1_decode_kernel<WIDE, MULTI, C>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  o1_decode_kernel<WIDE, MULTI><<<1, cta_threads(K), smem, stream>>>(
+  o1_decode_kernel<WIDE, MULTI, C><<<1, cta_threads(K), smem, stream>>>(
       (const uint32_t*)words, (const int32_t*)lane_len, (uint8_t*)out, (uint32_t*)t1g,
-      (uint32_t*)st, (unsigned long long*)flag, K, l4, L, inc, limit1, limit0, blend);
+      (uint32_t*)st, (unsigned long long*)flag, K, l4, L, inc, limit_of<C>(limit1_log2),
+      limit_of<C>(limit0_log2), blend);
   return cudaGetLastError();
+}
+
+template <bool WIDE, class C>
+cudaError_t launch_of_form(const void* words, const void* lane_len, void* out, void* t1g,
+                           void* st, void* flag, int K, int l4, int L, uint32_t inc, int l1,
+                           int l0, int blend, cudaStream_t s) {
+  return K > MAX_THREADS
+             ? launch<WIDE, true, C>(words, lane_len, out, t1g, st, flag, K, l4, L, inc, l1, l0,
+                                     blend, s)
+             : launch<WIDE, false, C>(words, lane_len, out, t1g, st, flag, K, l4, L, inc, l1, l0,
+                                      blend, s);
 }
 
 }  // namespace
 
 // words [l4, K] u32 (big-endian word rows), lane_len [K] i32 -> out [n] u8
-// (byte i*L + j is lane i's step j). t1 as for ct_o1_encode; st [7*K] u32
-// scratch past 1,024 lanes, else null; flag one u64, all ones, which gets
-// the first (step << 32 | lane) whose t is 0.
+// (byte i*L + j is lane i's step j). form and t1 as for ct_o1_encode; st
+// [7*K] u32 scratch past 1,024 lanes, else null; flag one u64, all ones,
+// which gets the first (step << 32 | lane) whose t is 0.
 extern "C" int ct_o1_decode(const void* words, const void* lane_len, void* out, void* t1,
                             void* st, void* flag, int K, int l4, int L, int inc, int limit1_log2,
-                            int limit0_log2, int blend_log2, int wide, void* stream) {
+                            int limit0_log2, int blend_log2, int form, void* stream) {
   if (K < 1 || K > 65536 || (K & (K - 1)) || l4 < 1 || L < 0 ||
-      bad_header(inc, limit1_log2, limit0_log2, blend_log2) || (wide && t1 == nullptr) ||
+      bad_header(inc, limit1_log2, limit0_log2, blend_log2) || form < 0 ||
+      form > (FORM_WIDE | FORM_LONG) || ((form & FORM_WIDE) && t1 == nullptr) ||
       flag == nullptr || (K > MAX_THREADS && st == nullptr))
     return (int)cudaErrorInvalidValue;
   const uint32_t u = (uint32_t)inc;
-  const uint32_t l1 = limit_of(limit1_log2), l0 = limit_of(limit0_log2);
+  const int l1 = limit1_log2, l0 = limit0_log2;
   const cudaStream_t s = (cudaStream_t)stream;
-  const bool multi = K > MAX_THREADS;
-  if (wide)
-    return (int)(multi ? launch<true, true>(words, lane_len, out, t1, st, flag, K, l4, L, u, l1,
-                                            l0, blend_log2, s)
-                       : launch<true, false>(words, lane_len, out, t1, st, flag, K, l4, L, u, l1,
-                                             l0, blend_log2, s));
-  return (int)(multi ? launch<false, true>(words, lane_len, out, t1, st, flag, K, l4, L, u, l1,
-                                           l0, blend_log2, s)
-                     : launch<false, false>(words, lane_len, out, t1, st, flag, K, l4, L, u, l1,
-                                            l0, blend_log2, s));
+  switch (form) {
+    case 0:
+      return (int)launch_of_form<false, uint32_t>(words, lane_len, out, t1, st, flag, K, l4, L, u,
+                                                  l1, l0, blend_log2, s);
+    case FORM_WIDE:
+      return (int)launch_of_form<true, uint32_t>(words, lane_len, out, t1, st, flag, K, l4, L, u,
+                                                 l1, l0, blend_log2, s);
+    case FORM_LONG:
+      return (int)launch_of_form<false, u64>(words, lane_len, out, t1, st, flag, K, l4, L, u, l1,
+                                             l0, blend_log2, s);
+    default:
+      return (int)launch_of_form<true, u64>(words, lane_len, out, t1, st, flag, K, l4, L, u, l1,
+                                            l0, blend_log2, s);
+  }
 }

@@ -17,7 +17,8 @@
 // of the call, and the wrapper raises. One packed event a slot, time-major
 // [3*L + 2, K] (ops/rc_common.py's format, which kernel B expands), then
 // two flush rows. After the step every active lane adds inc to the
-// model.
+// model. The model's counts and totals are u32, or u64 where one can reach
+// 2^32 - 1 (the FORM_LONG instantiation, o1_model.cuh: fault P7's repair).
 //
 // Design (second round; the first ran the coder inside the model's step).
 // The model never reads the coder, so U is two passes, as CT-ANS2's encode
@@ -128,20 +129,19 @@ __device__ __forceinline__ void store_events(uint32_t* ev, int K, int j, int lan
 // The model pass over steps [j0, j1): x [L, K] u8, lane_len [K] i32 ->
 // trip [j1 - j0][3][K] u32, each lane's (c, f, tot) (0 where it has
 // ended). The model starts fresh at j0 = 0, else from mstate, and goes to
-// mstate where j1 < L. t1g [65536] u32 holds t1 where WIDE.
-template <bool WIDE, bool MULTI, int MAXT, bool T0SCAN>
+// mstate where j1 < L. t1g [65536] C holds t1 where WIDE.
+template <bool WIDE, bool MULTI, int MAXT, bool T0SCAN, class C>
 __global__ void __launch_bounds__(MAXT, 1)
     o1_model_kernel(const uint8_t* __restrict__ x, const int32_t* __restrict__ lane_len,
                     uint32_t* __restrict__ trip, uint32_t* t1g, uint32_t* __restrict__ mstate,
-                    int K, int L, int j0, int j1, uint32_t inc, uint32_t limit1, uint32_t limit0,
-                    int blend) {
+                    int K, int L, int j0, int j1, uint32_t inc, C limit1, C limit0, int blend) {
   extern __shared__ __align__(16) uint32_t smem[];
-  const Model m = carve(smem, t1g, WIDE);
+  const Model<C> m = carve<C>(smem, t1g, WIDE);
   const int tid = threadIdx.x, T = blockDim.x;
   if (j0 == 0)
     init_model<WIDE>(m);
   else
-    copy_model<WIDE>(reinterpret_cast<uint4*>(smem), reinterpret_cast<const uint4*>(mstate));
+    copy_model<WIDE, C>(reinterpret_cast<uint4*>(smem), reinterpret_cast<const uint4*>(mstate));
   if (!MULTI) {
     const int lane = tid;
     const int len = lane < K ? lane_len[lane] : 0;
@@ -174,7 +174,7 @@ __global__ void __launch_bounds__(MAXT, 1)
     const int lpt = K / T;
     for (int j = j0; j < j1; ++j) {
       rescale<WIDE, T0SCAN>(m, limit1, limit0);
-      const uint32_t tot0 = *m.tot0;
+      const C tot0 = *m.tot0;
       for (int mm = 0; mm < lpt; ++mm) {
         const int lane = tid + mm * T;
         uint32_t c = 0, f = 0, tot = 0;
@@ -203,7 +203,7 @@ __global__ void __launch_bounds__(MAXT, 1)
     }
   }
   if (j1 < L)
-    copy_model<WIDE>(reinterpret_cast<uint4*>(mstate), reinterpret_cast<const uint4*>(smem));
+    copy_model<WIDE, C>(reinterpret_cast<uint4*>(mstate), reinterpret_cast<const uint4*>(smem));
 }
 
 // The coder pass over steps [j0, j1): trip [j1 - j0][3][K] -> ev rows
@@ -258,45 +258,56 @@ __global__ void __launch_bounds__(CODER_THREADS)
   report_steps(flag, first);
 }
 
-template <bool WIDE, bool MULTI, int MAXT, bool T0SCAN>
+template <bool WIDE, bool MULTI, int MAXT, bool T0SCAN, class C>
 cudaError_t launch_model(const void* x, const void* lane_len, void* trip, void* t1g, void* mstate,
-                         int K, int L, int j0, int j1, uint32_t inc, uint32_t limit1,
-                         uint32_t limit0, int blend, cudaStream_t stream) {
-  const int smem = smem_bytes(WIDE);
-  cudaError_t err = cudaFuncSetAttribute(o1_model_kernel<WIDE, MULTI, MAXT, T0SCAN>,
+                         int K, int L, int j0, int j1, uint32_t inc, int limit1_log2,
+                         int limit0_log2, int blend, cudaStream_t stream) {
+  const int smem = smem_bytes<C>(WIDE);
+  cudaError_t err = cudaFuncSetAttribute(o1_model_kernel<WIDE, MULTI, MAXT, T0SCAN, C>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  o1_model_kernel<WIDE, MULTI, MAXT, T0SCAN><<<1, cta_threads(K), smem, stream>>>(
+  o1_model_kernel<WIDE, MULTI, MAXT, T0SCAN, C><<<1, cta_threads(K), smem, stream>>>(
       (const uint8_t*)x, (const int32_t*)lane_len, (uint32_t*)trip, (uint32_t*)t1g,
-      (uint32_t*)mstate, K, L, j0, j1, inc, limit1, limit0, blend);
+      (uint32_t*)mstate, K, L, j0, j1, inc, limit_of<C>(limit1_log2), limit_of<C>(limit0_log2),
+      blend);
   return cudaGetLastError();
 }
 
-template <bool WIDE>
-cudaError_t model_of_width(const void* x, const void* lane_len, void* trip, void* t1g,
-                           void* mstate, int K, int L, int j0, int j1, uint32_t inc,
-                           uint32_t limit1, uint32_t limit0, int blend, cudaStream_t s) {
+template <bool WIDE, class C>
+cudaError_t model_of_form(const void* x, const void* lane_len, void* trip, void* t1g,
+                          void* mstate, int K, int L, int j0, int j1, uint32_t inc, int l1,
+                          int l0, int blend, cudaStream_t s) {
   // a CTA of 256 threads may keep more registers a thread than one of 1,024
   if (K > MAX_THREADS)
-    return launch_model<WIDE, true, MAX_THREADS, true>(x, lane_len, trip, t1g, mstate, K, L, j0,
-                                                       j1, inc, limit1, limit0, blend, s);
+    return launch_model<WIDE, true, MAX_THREADS, true, C>(x, lane_len, trip, t1g, mstate, K, L,
+                                                          j0, j1, inc, l1, l0, blend, s);
   if (K > MIN_THREADS)
-    return launch_model<WIDE, false, MAX_THREADS, true>(x, lane_len, trip, t1g, mstate, K, L, j0,
-                                                        j1, inc, limit1, limit0, blend, s);
+    return launch_model<WIDE, false, MAX_THREADS, true, C>(x, lane_len, trip, t1g, mstate, K, L,
+                                                           j0, j1, inc, l1, l0, blend, s);
   if (K >= T0SCAN_LANES)
-    return launch_model<WIDE, false, MIN_THREADS, true>(x, lane_len, trip, t1g, mstate, K, L, j0,
-                                                        j1, inc, limit1, limit0, blend, s);
-  return launch_model<WIDE, false, MIN_THREADS, false>(x, lane_len, trip, t1g, mstate, K, L, j0,
-                                                       j1, inc, limit1, limit0, blend, s);
+    return launch_model<WIDE, false, MIN_THREADS, true, C>(x, lane_len, trip, t1g, mstate, K, L,
+                                                           j0, j1, inc, l1, l0, blend, s);
+  return launch_model<WIDE, false, MIN_THREADS, false, C>(x, lane_len, trip, t1g, mstate, K, L,
+                                                          j0, j1, inc, l1, l0, blend, s);
 }
 
 cudaError_t model(const void* x, const void* lane_len, void* trip, void* t1g, void* mstate, int K,
-                  int L, int j0, int j1, uint32_t inc, uint32_t limit1, uint32_t limit0,
-                  int blend, bool wide, cudaStream_t s) {
-  return wide ? model_of_width<true>(x, lane_len, trip, t1g, mstate, K, L, j0, j1, inc, limit1,
-                                     limit0, blend, s)
-              : model_of_width<false>(x, lane_len, trip, t1g, mstate, K, L, j0, j1, inc, limit1,
-                                      limit0, blend, s);
+                  int L, int j0, int j1, uint32_t inc, int l1, int l0, int blend, int form,
+                  cudaStream_t s) {
+  switch (form) {
+    case 0:
+      return model_of_form<false, uint32_t>(x, lane_len, trip, t1g, mstate, K, L, j0, j1, inc,
+                                            l1, l0, blend, s);
+    case FORM_WIDE:
+      return model_of_form<true, uint32_t>(x, lane_len, trip, t1g, mstate, K, L, j0, j1, inc, l1,
+                                           l0, blend, s);
+    case FORM_LONG:
+      return model_of_form<false, u64>(x, lane_len, trip, t1g, mstate, K, L, j0, j1, inc, l1, l0,
+                                       blend, s);
+    default:
+      return model_of_form<true, u64>(x, lane_len, trip, t1g, mstate, K, L, j0, j1, inc, l1, l0,
+                                      blend, s);
+  }
 }
 
 cudaError_t coder(const void* trip, void* ev, void* st, void* flag, int K, int L, int j0, int j1,
@@ -344,9 +355,10 @@ cudaError_t side_of_device(Side*& out) {
   return cudaSuccess;
 }
 
-bool bad_params(int K, int L, int inc, int limit1_log2, int limit0_log2, int blend_log2) {
-  return K < 1 || K > 65536 || (K & (K - 1)) || L < 0 ||
-         bad_header(inc, limit1_log2, limit0_log2, blend_log2);
+bool bad_params(int K, int L, int inc, int limit1_log2, int limit0_log2, int blend_log2,
+                int form) {
+  return K < 1 || K > 65536 || (K & (K - 1)) || L < 0 || form < 0 ||
+         form > (FORM_WIDE | FORM_LONG) || bad_header(inc, limit1_log2, limit0_log2, blend_log2);
 }
 
 }  // namespace
@@ -355,23 +367,24 @@ bool bad_params(int K, int L, int inc, int limit1_log2, int limit0_log2, int ble
 // the model and coder passes over chunks of at most `chunk` steps. Where
 // there is more than one chunk, the coder pass of a chunk runs on a side
 // stream beside the model pass of the next, the triples double-buffered,
-// and the caller's stream waits for the last. Scratch: t1
-// [65536] u32 when wide (a t1 count may reach 2^16), else null; st [5*K]
-// u32; trip [2][chunk][3][K] u32 ([chunk][3][K] where chunk >= L);
-// mstate smem_bytes(wide) bytes where chunk < L, else null; flag one u64,
-// all ones, which gets the first (step << 32 | lane) whose t is 0. K a
-// power of two up to 65,536; the caller has checked that no u32 total
-// reaches 2^32 (o1_ops.card_counts_fit).
+// and the caller's stream waits for the last. form: FORM_WIDE where a t1
+// count may reach 2^16, FORM_LONG where a count may reach 2^32 - 1
+// (o1_ops's table_wide and counts_long). Scratch: t1 [65536] C (u32, or
+// u64 with FORM_LONG) with FORM_WIDE, else null; st [5*K] u32; trip
+// [2][chunk][3][K] u32 ([chunk][3][K] where chunk >= L); mstate
+// smem_bytes<C>(wide) bytes where chunk < L, else null; flag one u64, all
+// ones, which gets the first (step << 32 | lane) whose t is 0. K a power
+// of two up to 65,536.
 extern "C" int ct_o1_encode(const void* x, const void* lane_len, void* ev, void* t1, void* st,
                             void* trip, void* mstate, void* flag, int K, int L, int chunk,
-                            int inc, int limit1_log2, int limit0_log2, int blend_log2, int wide,
+                            int inc, int limit1_log2, int limit0_log2, int blend_log2, int form,
                             void* stream) {
-  if (bad_params(K, L, inc, limit1_log2, limit0_log2, blend_log2) || chunk < 1 ||
-      (wide && t1 == nullptr) || st == nullptr || trip == nullptr || flag == nullptr ||
-      (chunk < L && mstate == nullptr))
+  if (bad_params(K, L, inc, limit1_log2, limit0_log2, blend_log2, form) || chunk < 1 ||
+      ((form & FORM_WIDE) && t1 == nullptr) || st == nullptr || trip == nullptr ||
+      flag == nullptr || (chunk < L && mstate == nullptr))
     return (int)cudaErrorInvalidValue;
   const uint32_t u = (uint32_t)inc;
-  const uint32_t l1 = limit_of(limit1_log2), l0 = limit_of(limit0_log2);
+  const int l1 = limit1_log2, l0 = limit0_log2;
   const cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e = cudaSuccess;
   if (chunk >= L) {
@@ -379,7 +392,7 @@ extern "C" int ct_o1_encode(const void* x, const void* lane_len, void* ev, void*
     do {
       const int j1 = L - j0 < chunk ? L : j0 + chunk;
       if (j1 > j0)
-        e = model(x, lane_len, trip, t1, mstate, K, L, j0, j1, u, l1, l0, blend_log2, wide, s);
+        e = model(x, lane_len, trip, t1, mstate, K, L, j0, j1, u, l1, l0, blend_log2, form, s);
       if (e == cudaSuccess) e = coder(trip, ev, st, flag, K, L, j0, j1, s);
       if (e != cudaSuccess) return (int)e;
       j0 = j1;
@@ -397,7 +410,7 @@ extern "C" int ct_o1_encode(const void* x, const void* lane_len, void* ev, void*
     // buffer b is free once the coder pass two chunks back has read it
     if (j0 >= 2 * chunk) e = cudaStreamWaitEvent(s, side->coder_done[b], 0);
     if (e == cudaSuccess)
-      e = model(x, lane_len, tb, t1, mstate, K, L, j0, j1, u, l1, l0, blend_log2, wide, s);
+      e = model(x, lane_len, tb, t1, mstate, K, L, j0, j1, u, l1, l0, blend_log2, form, s);
     if (e == cudaSuccess) e = cudaEventRecord(side->model_done[b], s);
     if (e == cudaSuccess) e = cudaStreamWaitEvent(side->stream, side->model_done[b], 0);
     if (e == cudaSuccess) e = coder(tb, ev, st, flag, K, L, j0, j1, side->stream);
@@ -418,14 +431,13 @@ extern "C" int ct_o1_encode(const void* x, const void* lane_len, void* ev, void*
 // j1 < L. Scratch as for ct_o1_encode.
 extern "C" int ct_o1_model(const void* x, const void* lane_len, void* trip, void* t1,
                            void* mstate, int K, int L, int j0, int j1, int inc, int limit1_log2,
-                           int limit0_log2, int blend_log2, int wide, void* stream) {
-  if (bad_params(K, L, inc, limit1_log2, limit0_log2, blend_log2) || j0 < 0 || j1 <= j0 ||
-      j1 > L || (wide && t1 == nullptr) || trip == nullptr ||
+                           int limit0_log2, int blend_log2, int form, void* stream) {
+  if (bad_params(K, L, inc, limit1_log2, limit0_log2, blend_log2, form) || j0 < 0 ||
+      j1 <= j0 || j1 > L || ((form & FORM_WIDE) && t1 == nullptr) || trip == nullptr ||
       ((j0 > 0 || j1 < L) && mstate == nullptr))
     return (int)cudaErrorInvalidValue;
-  return (int)model(x, lane_len, trip, t1, mstate, K, L, j0, j1, (uint32_t)inc,
-                    limit_of(limit1_log2), limit_of(limit0_log2), blend_log2, wide,
-                    (cudaStream_t)stream);
+  return (int)model(x, lane_len, trip, t1, mstate, K, L, j0, j1, (uint32_t)inc, limit1_log2,
+                    limit0_log2, blend_log2, form, (cudaStream_t)stream);
 }
 
 // The coder pass alone over steps [j0, j1) (0 <= j0 <= j1 <= L): trip

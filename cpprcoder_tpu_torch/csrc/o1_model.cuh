@@ -6,18 +6,28 @@
 // trees both use, and U's lookup (V finds its symbol by counts of
 // compares: o1_decode.cu).
 //
-// The model, one copy a stream (one CTA):
+// The model, one copy a stream (one CTA), its counts and totals of type C:
+// u32, or u64 where one of them can reach 2^32 - 1 (a limit_log2 of 32 or
+// more over a long stream: o1_ops.counts_long, fault P7):
 //   t1      order-1 counts [256][256]: u16 pairs in shared memory (128 KiB,
 //           count e of row r in half e & 1 of word r*128 + e/2) where every
-//           count stays below 2^16 (WIDE false), else u32 in global memory
-//           (256 KiB of scratch, L2-resident, read with ld.global.cg so that
-//           no stale L1 line is read after another thread's atomic);
-//   bsum1   per row the 16 sums of counts 16b..16b+15, u32 [256][16];
-//   rowtot  the row totals, u32 [256];
-//   t0      order-0 counts, u32 [256], with bsum0 [16] and tot0 (V), or
+//           count stays below 2^16 (WIDE false), else C in global memory
+//           (256 or 512 KiB of scratch, L2-resident, read with ld.global.cg
+//           so that no stale L1 line is read after another thread's atomic);
+//   bsum1   per row the 16 sums of counts 16b..16b+15, C [256][16];
+//   rowtot  the row totals, C [256];
+//   t0      order-0 counts, C [256], with bsum0 [16] and tot0 (V), or
 //           tot0 and c0 [256], t0's exclusive prefix sums, scanned anew
 //           every step (U: T0SCAN).
-// Every count starts at 1 (row totals 256, block sums 16).
+// Every count starts at 1 (row totals 256, block sums 16). The coding reads
+// the counts and sums as u32 (truncated where C is u64) beside the row's
+// total and tot0 in 64 bits: wherever that tot_eff fits u32 (t >= 1 needs
+// it), every count and prefix it sums is below it, so the u32 sums are
+// exact; where it does not, the step is reported and nothing after it
+// counts. Before the first such step no total reaches 2^32 + 2^24 (a row
+// grows only where it is read, by at most K*inc a step), so u64 holds
+// every count exactly, and a total that reaches 2^limit_log2 is halved
+// at the oracle's step at every limit_log2.
 //
 // A step, between barriers:
 //   rescale  warp w takes rows w, w + warps, ...; a row whose total has
@@ -55,42 +65,53 @@ constexpr int MIN_THREADS = 256;   // a CTA has at least 8 warps for the rescale
 // dynamic shared memory: bsum1, rowtot, t0, bsum0, tot0 (padded to 16 B),
 // c0, then t1 when it is kept there
 constexpr int BSUM1_WORDS = 256 * 16;
-constexpr int MODEL_WORDS = BSUM1_WORDS + 256 + 256 + 16 + 4 + 256;
+constexpr int MODEL_WORDS = BSUM1_WORDS + 256 + 256 + 16 + 4 + 256;  // counts of type C
 constexpr int T1_NARROW_WORDS = 256 * 128;
-constexpr int smem_bytes(bool wide) { return 4 * (MODEL_WORDS + (wide ? 0 : T1_NARROW_WORDS)); }
+template <class C>
+constexpr int smem_bytes(bool wide) {
+  return (int)sizeof(C) * MODEL_WORDS + (wide ? 0 : 4 * T1_NARROW_WORDS);
+}
 
+// The counts and totals where one can reach 2^32 - 1
+using u64 = unsigned long long;
+
+template <class C>
 struct Model {
-  uint32_t* t1;
-  uint32_t* bsum1;
-  uint32_t* rowtot;
-  uint32_t* t0;
-  uint32_t* bsum0;
-  uint32_t* tot0;
-  uint32_t* c0;
+  uint32_t* t1;  // u16 pairs, or where WIDE C counts (t1w)
+  C* bsum1;
+  C* rowtot;
+  C* t0;
+  C* bsum0;
+  C* tot0;
+  C* c0;
 };
 
-__device__ __forceinline__ Model carve(uint32_t* smem, uint32_t* t1_global, bool wide) {
-  Model m;
-  m.bsum1 = smem;
+template <class C>
+__device__ __forceinline__ C* t1w(const Model<C>& m) { return reinterpret_cast<C*>(m.t1); }
+
+template <class C>
+__device__ __forceinline__ Model<C> carve(uint32_t* smem, uint32_t* t1_global, bool wide) {
+  Model<C> m;
+  m.bsum1 = reinterpret_cast<C*>(smem);
   m.rowtot = m.bsum1 + BSUM1_WORDS;
   m.t0 = m.rowtot + 256;
   m.bsum0 = m.t0 + 256;
   m.tot0 = m.bsum0 + 16;
   m.c0 = m.tot0 + 4;
-  m.t1 = wide ? t1_global : smem + MODEL_WORDS;
+  m.t1 = wide ? t1_global : reinterpret_cast<uint32_t*>(m.bsum1 + MODEL_WORDS);
   return m;
 }
 
 // Every count 1; barrier after.
-template <bool WIDE>
-__device__ void init_model(const Model& m) {
+template <bool WIDE, class C>
+__device__ void init_model(const Model<C>& m) {
   const int tid = threadIdx.x, bd = blockDim.x;
   for (int i = tid; i < BSUM1_WORDS; i += bd) m.bsum1[i] = 16;
   for (int i = tid; i < 256; i += bd) m.rowtot[i] = 256, m.t0[i] = 1, m.c0[i] = i;
   if (tid < 16) m.bsum0[tid] = 16;
   if (tid == 0) *m.tot0 = 256;
   if (WIDE) {
-    for (int i = tid; i < 256 * 256; i += bd) __stcg(m.t1 + i, 1u);
+    for (int i = tid; i < 256 * 256; i += bd) __stcg(t1w(m) + i, (C)1);
   } else {
     for (int i = tid; i < T1_NARROW_WORDS; i += bd) m.t1[i] = 0x00010001u;
   }
@@ -98,42 +119,93 @@ __device__ void init_model(const Model& m) {
 }
 
 // The model in shared memory (t1 too where it is kept there), copied to
-// or from global memory between kernel U's chunks: smem_bytes(WIDE) / 4
+// or from global memory between kernel U's chunks: smem_bytes<C>(WIDE) / 4
 // words; barrier after.
-template <bool WIDE>
+template <bool WIDE, class C>
 __device__ void copy_model(uint4* dst, const uint4* src) {
-  constexpr int n = (MODEL_WORDS + (WIDE ? 0 : T1_NARROW_WORDS)) / 4;
+  constexpr int n = ((int)sizeof(C) / 4 * MODEL_WORDS + (WIDE ? 0 : T1_NARROW_WORDS)) / 4;
   for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
   __syncthreads();
 }
 
-__device__ __forceinline__ uint32_t halve(uint32_t f) { return (f >> 1) | 1u; }
+template <class C>
+__device__ __forceinline__ C halve(C f) { return (f >> 1) | (C)1; }
 __device__ __forceinline__ uint32_t halve2(uint32_t w) { return ((w >> 1) & 0x7FFF7FFFu) | 0x00010001u; }
 __device__ __forceinline__ uint32_t sum2(uint32_t w) { return (w & 0xFFFFu) + (w >> 16); }
 
+__device__ __forceinline__ uint32_t warp_sum(uint32_t s) { return __reduce_add_sync(FULL, s); }
+__device__ __forceinline__ u64 warp_sum(u64 s) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
+  return s;
+}
+
+// Four consecutive values of a C array (16-byte aligned) as u32: cached
+// (shared memory) or read with ld.global.cg (CG, t1 in global memory).
+template <bool CG = false>
+__device__ __forceinline__ uint4 load4(const uint32_t* p) {
+  const uint4* q = reinterpret_cast<const uint4*>(p);
+  return CG ? __ldcg(q) : *q;
+}
+template <bool CG = false>
+__device__ __forceinline__ uint4 load4(const u64* p) {
+  const ulonglong2* q = reinterpret_cast<const ulonglong2*>(p);
+  const ulonglong2 a = CG ? __ldcg(q) : q[0], b = CG ? __ldcg(q + 1) : q[1];
+  return make_uint4((uint32_t)a.x, (uint32_t)a.y, (uint32_t)b.x, (uint32_t)b.y);
+}
+
 // Warp: the 8 halved counts of a lane sum to s; the block sums (lanes 2b,
 // 2b+1) and the total follow.
-__device__ __forceinline__ void publish_sums(uint32_t s, uint32_t* bsum, uint32_t* total) {
+template <class C>
+__device__ __forceinline__ void publish_sums(C s, C* bsum, C* total) {
   const int ln = threadIdx.x & 31;
-  const uint32_t b = s + __shfl_xor_sync(FULL, s, 1);
+  const C b = s + __shfl_xor_sync(FULL, s, 1);
   if (!(ln & 1)) bsum[ln >> 1] = b;
-  const uint32_t t = __reduce_add_sync(FULL, s);
+  const C t = warp_sum(s);
   if (ln == 0) *total = t;
 }
 
+// Warp: 8 counts of type C at p (a lane's), halved in place (CG: in
+// global memory) -> their sum.
+template <bool CG>
+__device__ __forceinline__ uint32_t halve8(uint32_t* p) {
+  uint4* q = reinterpret_cast<uint4*>(p);
+  uint4 a = CG ? __ldcg(q) : q[0], b = CG ? __ldcg(q + 1) : q[1];
+  a = make_uint4(halve(a.x), halve(a.y), halve(a.z), halve(a.w));
+  b = make_uint4(halve(b.x), halve(b.y), halve(b.z), halve(b.w));
+  if (CG) {
+    __stcg(q, a);
+    __stcg(q + 1, b);
+  } else {
+    q[0] = a;
+    q[1] = b;
+  }
+  return a.x + a.y + a.z + a.w + b.x + b.y + b.z + b.w;
+}
+template <bool CG>
+__device__ __forceinline__ u64 halve8(u64* p) {
+  ulonglong2* q = reinterpret_cast<ulonglong2*>(p);
+  u64 s = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    ulonglong2 a = CG ? __ldcg(q + k) : q[k];
+    a.x = halve(a.x), a.y = halve(a.y);
+    if (CG)
+      __stcg(q + k, a);
+    else
+      q[k] = a;
+    s += a.x + a.y;
+  }
+  return s;
+}
+
 // Warp: row r of t1 halved (counts 8l..8l+7 a lane).
-template <bool WIDE>
-__device__ __forceinline__ void halve_row(const Model& m, int r) {
+template <bool WIDE, class C>
+__device__ __forceinline__ void halve_row(const Model<C>& m, int r) {
   const int ln = threadIdx.x & 31;
-  uint32_t s;
+  C s;
   if (WIDE) {
-    uint4* p = reinterpret_cast<uint4*>(m.t1 + r * 256) + 2 * ln;
-    uint4 a = __ldcg(p), b = __ldcg(p + 1);
-    a = make_uint4(halve(a.x), halve(a.y), halve(a.z), halve(a.w));
-    b = make_uint4(halve(b.x), halve(b.y), halve(b.z), halve(b.w));
-    __stcg(p, a);
-    __stcg(p + 1, b);
-    s = a.x + a.y + a.z + a.w + b.x + b.y + b.z + b.w;
+    s = halve8<true>(t1w(m) + r * 256 + 8 * ln);
   } else {
     uint4* p = reinterpret_cast<uint4*>(m.t1 + r * 128) + ln;
     uint4 a = *p;
@@ -145,21 +217,15 @@ __device__ __forceinline__ void halve_row(const Model& m, int r) {
 }
 
 // Warp: t0 halved.
-__device__ __forceinline__ void halve_t0(const Model& m) {
-  const int ln = threadIdx.x & 31;
-  uint4* p = reinterpret_cast<uint4*>(m.t0) + 2 * ln;
-  uint4 a = p[0], b = p[1];
-  a = make_uint4(halve(a.x), halve(a.y), halve(a.z), halve(a.w));
-  b = make_uint4(halve(b.x), halve(b.y), halve(b.z), halve(b.w));
-  p[0] = a;
-  p[1] = b;
-  publish_sums(a.x + a.y + a.z + a.w + b.x + b.y + b.z + b.w, m.bsum0, m.tot0);
+template <class C>
+__device__ __forceinline__ void halve_t0(const Model<C>& m) {
+  publish_sums(halve8<false>(m.t0 + 8 * (threadIdx.x & 31)), m.bsum0, m.tot0);
 }
 
 // Warp, T0SCAN: t0's total into tot0, t0 halved first where it has
 // reached limit0, and its exclusive prefix sums into c0 (counts 8l..8l+7
 // a lane).
-__device__ __forceinline__ void scan_t0(const Model& m, uint32_t limit0) {
+__device__ __forceinline__ void scan_t0(const Model<uint32_t>& m, uint32_t limit0) {
   const int ln = threadIdx.x & 31;
   uint4* p = reinterpret_cast<uint4*>(m.t0) + 2 * ln;
   uint4 a = p[0], b = p[1];
@@ -188,6 +254,32 @@ __device__ __forceinline__ void scan_t0(const Model& m, uint32_t limit0) {
   q[1] = cb;
   if (ln == 0) *m.tot0 = tot;
 }
+__device__ __forceinline__ void scan_t0(const Model<u64>& m, u64 limit0) {
+  const int ln = threadIdx.x & 31;
+  u64* p = m.t0 + 8 * ln;
+  u64 s = 0;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) s += p[k];
+  u64 tot = warp_sum(s);
+  if (tot >= limit0) {
+    s = halve8<false>(p);
+    tot = warp_sum(s);
+  }
+  u64 incl = s;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const u64 y = __shfl_up_sync(FULL, incl, o);
+    if (ln >= o) incl += y;
+  }
+  u64 c = incl - s;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const u64 f = p[k];
+    m.c0[8 * ln + k] = c;
+    c += f;
+  }
+  if (ln == 0) *m.tot0 = tot;
+}
 
 // The rescale phase (every warp; blockDim.x a power of two, 256..1024):
 // warp w checks rows w, w + nw, ... and halves those at or over limit1;
@@ -196,8 +288,8 @@ __device__ __forceinline__ void scan_t0(const Model& m, uint32_t limit0) {
 // than a run of 256 / nw rows a warp or a spread whose reads fall in
 // distinct banks, and within 5% of both at the other shapes timed
 // (PERF.md, section 6).
-template <bool WIDE, bool T0SCAN = false>
-__device__ void rescale(const Model& m, uint32_t limit1, uint32_t limit0) {
+template <bool WIDE, bool T0SCAN = false, class C>
+__device__ void rescale(const Model<C>& m, C limit1, C limit0) {
   const int ln = threadIdx.x & 31, w = threadIdx.x >> 5, nw = blockDim.x >> 5;
   uint32_t over = __ballot_sync(FULL, ln < 256 / nw && m.rowtot[w + nw * ln] >= limit1);
   while (over) {
@@ -257,14 +349,14 @@ __device__ __forceinline__ uint32_t tree(uint32_t (&x)[16], Op op) {
   return x[0];
 }
 
-// The 16 counts of block b of row r of t1.
-template <bool WIDE>
-__device__ __forceinline__ void t1_block(const Model& m, int r, int b, uint32_t (&e)[16]) {
+// The 16 counts of block b of row r of t1 (as u32).
+template <bool WIDE, class C>
+__device__ __forceinline__ void t1_block(const Model<C>& m, int r, int b, uint32_t (&e)[16]) {
   if (WIDE) {
-    const uint4* p = reinterpret_cast<const uint4*>(m.t1 + r * 256 + b * 16);
+    const C* p = t1w(m) + r * 256 + b * 16;
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      const uint4 v = __ldcg(p + q);
+      const uint4 v = load4<true>(p + 4 * q);
       e[4 * q] = v.x, e[4 * q + 1] = v.y, e[4 * q + 2] = v.z, e[4 * q + 3] = v.w;
     }
   } else {
@@ -282,11 +374,12 @@ __device__ __forceinline__ void t1_block(const Model& m, int r, int b, uint32_t 
   }
 }
 
-__device__ __forceinline__ void t0_block(const Model& m, int b, uint32_t (&e)[16]) {
-  const uint4* p = reinterpret_cast<const uint4*>(m.t0 + b * 16);
+template <class C>
+__device__ __forceinline__ void t0_block(const Model<C>& m, int b, uint32_t (&e)[16]) {
+  const C* p = m.t0 + b * 16;
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
-    const uint4 v = p[q];
+    const uint4 v = load4(p + 4 * q);
     e[4 * q] = v.x, e[4 * q + 1] = v.y, e[4 * q + 2] = v.z, e[4 * q + 3] = v.w;
   }
 }
@@ -297,23 +390,21 @@ __device__ __forceinline__ void t0_block(const Model& m, int b, uint32_t (&e)[16
 // is c0[s]); f is read directly. tot is also formed in 64 bits, beside
 // the rest: past 2^32 - 1 (t = 0 whatever the range) the triple is the mark
 // (0, 0, 2^32 - 1), which the coder reports (f = 0); c and f fit u32
-// wherever tot does.
-template <bool WIDE, bool T0SCAN = false>
-__device__ __forceinline__ void lookup(const Model& m, uint32_t r, uint32_t s, int blend,
-                                       uint32_t tot0, uint32_t& c, uint32_t& f, uint32_t& tot) {
+// wherever tot does (and are summed as u32: the model's docstring).
+template <bool WIDE, bool T0SCAN = false, class C>
+__device__ __forceinline__ void lookup(const Model<C>& m, uint32_t r, uint32_t s, int blend,
+                                       C tot0, uint32_t& c, uint32_t& f, uint32_t& tot) {
   const int b = s >> 4, i = s & 15;
-  const uint32_t f1 = WIDE ? __ldcg(m.t1 + r * 256 + s)
+  const uint32_t f1 = WIDE ? (uint32_t)__ldcg(t1w(m) + r * 256 + s)
                            : (m.t1[r * 128 + (s >> 1)] >> (16 * (s & 1))) & 0xFFFFu;
-  const uint32_t rt = m.rowtot[r];
-  f = (f1 << blend) + m.t0[s];
-  tot = (rt << blend) + tot0;
+  const C rt = m.rowtot[r];
+  f = (f1 << blend) + (uint32_t)m.t0[s];
+  tot = ((uint32_t)rt << blend) + (uint32_t)tot0;
   uint32_t p[16], e1[16], e0[16];
-  const uint4* b1 = reinterpret_cast<const uint4*>(m.bsum1 + r * 16);
-  const uint4* b0 = reinterpret_cast<const uint4*>(m.bsum0);
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
-    const uint4 v1 = b1[q];
-    const uint4 v0 = T0SCAN ? make_uint4(0u, 0u, 0u, 0u) : b0[q];
+    const uint4 v1 = load4(m.bsum1 + r * 16 + 4 * q);
+    const uint4 v0 = T0SCAN ? make_uint4(0u, 0u, 0u, 0u) : load4(m.bsum0 + 4 * q);
 #pragma unroll
     for (int k = 0; k < 4; ++k)
       p[4 * q + k] = 4 * q + k < b ? (u4_at(v1, k) << blend) + u4_at(v0, k) : 0u;
@@ -327,8 +418,8 @@ __device__ __forceinline__ void lookup(const Model& m, uint32_t r, uint32_t s, i
   }
 #pragma unroll
   for (int k = 0; k < 16; ++k) e1[k] = k < i ? (e1[k] << blend) + e0[k] : 0u;
-  c = tree(p, Add()) + tree(e1, Add()) + (T0SCAN ? m.c0[s] : 0u);
-  if (((uint64_t)rt << blend) + tot0 > FULL) c = 0u, f = 0u, tot = FULL;
+  c = tree(p, Add()) + tree(e1, Add()) + (T0SCAN ? (uint32_t)m.c0[s] : 0u);
+  if (((u64)rt << blend) + tot0 > FULL) c = 0u, f = 0u, tot = FULL;
 }
 
 // The update phase, a warp at a time (every lane of the warp calls it):
@@ -337,8 +428,8 @@ __device__ __forceinline__ void lookup(const Model& m, uint32_t r, uint32_t s, i
 // lane 0 adds inc times the warp's active lanes to tot0 (T0SCAN: t0[s]
 // alone). GROUPED: lanes with the same (r, s) (the same s) add once, inc
 // times the group's size.
-template <bool WIDE, bool GROUPED, bool T0SCAN = false>
-__device__ __forceinline__ void update_step(const Model& m, bool active, uint32_t r, uint32_t s,
+template <bool WIDE, bool GROUPED, bool T0SCAN = false, class C>
+__device__ __forceinline__ void update_step(const Model<C>& m, bool active, uint32_t r, uint32_t s,
                                             uint32_t inc) {
   const int ln = threadIdx.x & 31;
   bool lead1 = active, lead0 = active;
@@ -352,19 +443,19 @@ __device__ __forceinline__ void update_step(const Model& m, bool active, uint32_
   }
   if (lead1) {
     if (WIDE)
-      atomicAdd(m.t1 + r * 256 + s, add1);
+      atomicAdd(t1w(m) + r * 256 + s, (C)add1);
     else
       atomicAdd(m.t1 + r * 128 + (s >> 1), add1 << (16 * (s & 1)));
-    atomicAdd(m.bsum1 + r * 16 + (s >> 4), add1);
-    atomicAdd(m.rowtot + r, add1);
+    atomicAdd(m.bsum1 + r * 16 + (s >> 4), (C)add1);
+    atomicAdd(m.rowtot + r, (C)add1);
   }
   if (lead0) {
-    atomicAdd(m.t0 + s, add0);
-    if (!T0SCAN) atomicAdd(m.bsum0 + (s >> 4), add0);
+    atomicAdd(m.t0 + s, (C)add0);
+    if (!T0SCAN) atomicAdd(m.bsum0 + (s >> 4), (C)add0);
   }
   if (!T0SCAN) {
     const uint32_t a = __popc(__ballot_sync(FULL, active));
-    if (ln == 0 && a) atomicAdd(m.tot0, inc * a);
+    if (ln == 0 && a) atomicAdd(m.tot0, (C)(inc * a));
   }
 }
 
@@ -432,12 +523,18 @@ __device__ __forceinline__ void report_steps(unsigned long long* flag, unsigned 
   if (first != NONE) atomicMin(flag, first);
 }
 
-// The limit a total is held to: 2^log2, or from 2^32 on none, 2^32 - 1
-// (the wrappers take such streams only where no u32 total reaches 2^32 - 1:
-// o1_ops.card_counts_fit).
-__host__ __device__ inline uint32_t limit_of(int log2) {
-  return log2 >= 32 ? 0xFFFFFFFFu : 1u << log2;
+// The limit a total of type C is held to: 2^log2, or past C's width none,
+// all ones (u32 only where no total reaches 2^32 - 1, u64 where none
+// reaches 2^64 - 1: o1_ops.counts_long).
+template <class C>
+__host__ __device__ inline C limit_of(int log2) {
+  return log2 >= 8 * (int)sizeof(C) ? ~(C)0 : (C)1 << log2;
 }
+
+// The model's form, an argument of the entry points: FORM_WIDE keeps t1
+// in global memory (o1_ops.table_wide), FORM_LONG the counts and totals
+// as u64 (o1_ops.counts_long).
+constexpr int FORM_WIDE = 1, FORM_LONG = 2;
 
 // Header values the kernels take: a u8 each, and blend_log2 <= 23 (from 24
 // on step 0 has t = 0: o1_ops.check_params refuses it).

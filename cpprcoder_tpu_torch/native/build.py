@@ -96,16 +96,16 @@ SIGNATURES = {
     # o1_encode.cu, kernel U: x, lane_len, events, t1 (or null), the coder
     # state, the triples, the model between chunks (or null), the flag of a
     # step with t = 0, K, L, chunk, inc, limit1_log2, limit0_log2,
-    # blend_log2, wide, stream; its model pass alone: x, lane_len, triples,
-    # t1, model (or null), K, L, j0, j1, inc, limit1_log2, limit0_log2,
-    # blend_log2, wide, stream; its coder pass alone: triples, events, state
+    # blend_log2, the model's form (o1_kernels.model_form), stream; its
+    # model pass alone: x, lane_len, triples, t1, model (or null), K, L, j0,
+    # j1, inc, limit1_log2, limit0_log2, blend_log2, form, stream; its coder pass alone: triples, events, state
     # (or null), flag, K, L, j0, j1, stream
     "ct_o1_encode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                      _P],
     "ct_o1_model": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "ct_o1_coder": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # o1_decode.cu, kernel V: words, lane_len, out, t1 and state scratch (or
-    # null), flag, K, l4, L, inc, limit1_log2, limit0_log2, blend_log2, wide,
+    # null), flag, K, l4, L, inc, limit1_log2, limit0_log2, blend_log2, form,
     # stream
     "ct_o1_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # ans2_encode.cu, kernel W (three launches): x, scratch, entries, n, K,

@@ -1,13 +1,18 @@
 """ctypes binding of the native host codec (the repository's
-native/ctrc.cpp), for the port's `backend="native"` of `slz4`.
+native/ctrc.cpp): the port's `backend="native"` of `slz4`, and the host
+library's other entry points.
 
 The port's own copy of the JAX package's host loader
-(cpprcoder_tpu/native/__init__.py: its `slz4_encode` and `slz4_decode`),
-which builds the same source. This copy builds it with g++ at first use
-into `build/host/<source hash>/libctrc.so` under the repository root (the
-hash covers the source and the flags), never next to the source. Its
-containers are the v1 parse's, byte-identical to
-reference/slz4_ref.slz4_encode(parse="v1").
+(cpprcoder_tpu/native/__init__.py), which builds the same source: CT-RC1
+(`static_encode`/`static_decode`), CT-RC2 (`adaptive_*`), CT-RCQ
+(`rcq_*`), CT-RCX (`rcx_*`) and CT-LZ4 (`slz4_*`), each writing the
+numpy oracle's containers byte for byte (slz4 the v1 parse's,
+reference/slz4_ref.slz4_encode(parse="v1")), and `available()`. Only
+`slz4` is a codec backend, as in the JAX package; the others serve
+host-speed checks of large inputs. This copy builds the library with g++
+at first use into `build/host/<source hash>/libctrc.so` under the
+repository root (the hash covers the source and the flags), never next to
+the source.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from pathlib import Path
 import numpy as np
 
 from cpprcoder_tpu_torch.core.bytesutil import CorruptContainerError
+from cpprcoder_tpu_torch.models.cxmodel import WLOG_DEFAULT
 
 ROOT = Path(__file__).resolve().parents[2]
 SOURCE = ROOT / "native" / "ctrc.cpp"
@@ -47,14 +53,32 @@ def build() -> Path:
     return out
 
 
+def available() -> bool:
+    """Whether the library builds (g++ is there) and loads."""
+    try:
+        load()
+    except (OSError, subprocess.CalledProcessError):
+        return False
+    return True
+
+
 @functools.lru_cache(maxsize=1)
 def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     u8p = ctypes.POINTER(ctypes.c_uint8)
+    i64, u32 = ctypes.c_int64, ctypes.c_uint32
+    decode = [u8p, i64, u8p, i64]
     for name, args in [
-        ("ct_slz4_encode", [u8p, ctypes.c_int64, ctypes.c_uint32,
-                            ctypes.c_uint32, u8p, ctypes.c_int64]),
-        ("ct_slz4_decode", [u8p, ctypes.c_int64, u8p, ctypes.c_int64]),
+        ("ct_static_encode", [u8p, i64, u32, u8p, i64]),
+        ("ct_static_decode", decode),
+        ("ct_adaptive_encode", [u8p, i64, u32, u32, u32, u8p, i64]),
+        ("ct_adaptive_decode", decode),
+        ("ct_rcq_encode", [u8p, i64, u32, u32, u32, u8p, i64]),
+        ("ct_rcq_decode", decode),
+        ("ct_rcx_encode", [u8p, i64, u32, u32, u32, u32, u32, u8p, i64]),
+        ("ct_rcx_decode", decode),
+        ("ct_slz4_encode", [u8p, i64, u32, u32, u8p, i64]),
+        ("ct_slz4_decode", decode),
     ]:
         fn = getattr(lib, name)
         fn.argtypes = args
@@ -66,32 +90,94 @@ def _ptr(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
 
 
+def _u8(data) -> np.ndarray:
+    return data if isinstance(data, np.ndarray) \
+        else np.frombuffer(bytes(data), np.uint8)
+
+
+def _encode(name: str, data, cap_of, *args) -> bytes:
+    """Call the library's encoder `name` on data with its parameters args,
+    into a buffer of cap_of(n) bytes."""
+    x = _u8(data)
+    cap = cap_of(len(x))
+    out = np.empty(cap, np.uint8)
+    sz = getattr(load(), name)(_ptr(x), len(x), *args, _ptr(out), cap)
+    if sz < 0:
+        raise RuntimeError(f"{name} failed")
+    return out[:sz].tobytes()
+
+
+def _decode(name: str, blob) -> bytes:
+    """Call the library's decoder `name` on a container whose header
+    starts with its u32 byte count."""
+    b = np.frombuffer(bytes(blob), np.uint8)
+    if len(b) < 4:
+        raise CorruptContainerError(f"{name}: container shorter than its "
+                                    f"header")
+    n = int.from_bytes(bytes(blob[:4]), "little")
+    out = np.empty(max(n, 1), np.uint8)
+    sz = getattr(load(), name)(_ptr(b), len(b), _ptr(out), n)
+    if sz < 0:
+        raise CorruptContainerError(f"{name} rejected the container")
+    return out[:sz].tobytes()
+
+
+def static_encode(data, lanes: int) -> bytes:
+    """CT-RC1 at `lanes` lanes, rc_ref.static_encode's container."""
+    return _encode("ct_static_encode", data,
+                   lambda n: n + (n >> 3) + 16 * lanes + 4096, lanes)
+
+
+def static_decode(blob) -> bytes:
+    return _decode("ct_static_decode", blob)
+
+
+def adaptive_encode(data, lanes: int, inc: int, limit_log2: int) -> bytes:
+    """CT-RC2, rc_ref.adaptive_encode's container."""
+    return _encode("ct_adaptive_encode", data,
+                   lambda n: n + (n >> 3) + 16 * lanes + 4096, lanes, inc,
+                   limit_log2)
+
+
+def adaptive_decode(blob) -> bytes:
+    return _decode("ct_adaptive_decode", blob)
+
+
+def rcq_encode(data, lanes: int, inc: int, climit_log2: int) -> bytes:
+    """CT-RCQ, rcq_ref.rcq_encode's container."""
+    return _encode("ct_rcq_encode", data,
+                   lambda n: 2 * n + 16 * lanes + 4096, lanes, inc,
+                   climit_log2)
+
+
+def rcq_decode(blob) -> bytes:
+    return _decode("ct_rcq_decode", blob)
+
+
+def rcx_encode(data, lanes: int, inc: int, climit_log2: int, cbits: int,
+               wlog: int | None = None) -> bytes:
+    """CT-RCX, rcx_ref.rcx_encode's container (wlog WLOG_DEFAULT unless
+    given)."""
+    return _encode("ct_rcx_encode", data,
+                   lambda n: 2 * n + 16 * lanes + 4096, lanes, inc,
+                   climit_log2, cbits, WLOG_DEFAULT if wlog is None else wlog)
+
+
+def rcx_decode(blob) -> bytes:
+    return _decode("ct_rcx_decode", blob)
+
+
 def slz4_encode(data, seg_log2: int = 17, lazy: bool = True) -> bytes:
-    lib = load()
-    x = np.frombuffer(bytes(data), np.uint8) \
-        if not isinstance(data, np.ndarray) else data
-    n = len(x)
+    """CT-LZ4's v1 parse, slz4_ref.slz4_encode(parse="v1")'s container."""
+    n = len(_u8(data))
     if n > 0xFFFFFFFF:
         raise ValueError(
             f"slz4 container rawSize is u32; input is {n} bytes")
-    s = 1 << seg_log2
-    n_segs = -(-n // s) if n else 0
-    cap = n + n // 128 + 16 * max(n_segs, 1) + 4096
-    out = np.empty(cap, np.uint8)
-    sz = lib.ct_slz4_encode(_ptr(x), n, seg_log2, int(lazy), _ptr(out), cap)
-    if sz < 0:
-        raise RuntimeError("ct_slz4_encode failed")
-    return out[:sz].tobytes()
+    n_segs = -(-n // (1 << seg_log2)) if n else 0
+    return _encode("ct_slz4_encode", data,
+                   lambda n: n + n // 128 + 16 * max(n_segs, 1) + 4096,
+                   seg_log2, int(lazy))
 
 
 def slz4_decode(blob) -> bytes:
-    lib = load()
-    b = np.frombuffer(bytes(blob), np.uint8)
-    if len(b) < 4:
-        raise CorruptContainerError("slz4 container shorter than header")
-    n = int.from_bytes(bytes(blob[:4]), "little")
-    out = np.empty(max(n, 1), np.uint8)
-    sz = lib.ct_slz4_decode(_ptr(b), len(b), _ptr(out), n)
-    if sz < 0:
-        raise CorruptContainerError("native slz4 decode rejected container")
-    return out[:sz].tobytes()
+    return _decode("ct_slz4_decode", blob)

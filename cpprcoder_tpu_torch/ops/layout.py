@@ -138,6 +138,12 @@ def assemble_payload(head: Callable[[bool], ByteWriter], payload: np.ndarray,
     return w.getvalue()
 
 
+def payload_bytes(r: ByteReader, k: int, wide: bool) -> int:
+    """The payload bytes after the size table that r is at (none if the
+    container is shorter than the table)."""
+    return max(0, len(r.buf) - r.pos - (4 if wide else 2) * k)
+
+
 def payload_words(r: ByteReader, k: int, wide: bool, device) -> torch.Tensor:
     """Read the size table and the lane payloads that follow it; -> the
     decode word rows [l4, K] on `device`. Raises CorruptContainerError when

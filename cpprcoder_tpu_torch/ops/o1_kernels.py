@@ -12,7 +12,7 @@ All K lanes share the model and update it every step, so the model runs
 in one CTA a stream (256 to 1,024 threads; lanes past 1,024 are taken in
 turn by each thread). The model lives in shared memory: t1 as u16 pairs
 (128 KiB) where its counts stay below 2^16 (`o1_ops.table_wide` false),
-else as u32 in global memory (L2-resident); beside it, per row 16 block
+else in global memory (L2-resident); beside it, per row 16 block
 sums of 16 counts (u32) and the row total, and t0 with its block sums and
 total. A step is three phases between barriers: the rescale (every row
 checked, strided over the warps; a warp halves a row that has reached its
@@ -43,10 +43,11 @@ every power of two up to 65,536 lanes. A step whose t = range / tot_eff is
 0 (fault P6: tot_eff formed in 64 bits, above the range) sets a flag of the
 call, its first (step, lane); the wrapper reads the flag once after the
 call and raises ValueError on encode, CorruptContainerError on decode
-(`o1_ops.step_error`), as the plain versions do. The kernels' counts are
-u32: at limit_log2 >= 32 they take a stream only where no total can reach
-2^32 (`o1_ops.card_counts_fit`; else `o1_ops.CardCountsError`, a
-NotImplementedError: the container is valid, fault P7).
+(`o1_ops.step_error`), as the plain versions do. The kernels' counts and
+totals are u32 wherever none can reach 2^32 - 1, else u64 (fault P7's
+repair: `o1_ops.counts_long`; the model's form, `model_form`, picks the
+kernels' instantiation, and the u32 one is what it was before), so they
+take every stream the plain versions take.
 """
 
 from __future__ import annotations
@@ -85,12 +86,23 @@ def _check(name, t, dtype, lane_len, params, n, decode=False):
     o1_ops.check_params(n, *params, decode=decode)
 
 
-def _check_card(steps: int, k: int, params):
-    if not o1_ops.card_counts_fit(steps, k, *params[:3]):
-        raise o1_ops.CardCountsError(
-            f"kernels U and V keep u32 counts: at limit1_log2={params[1]}, "
-            f"limit0_log2={params[2]} a total of {steps} steps of {k} lanes "
-            f"at inc {params[0]} may reach 2^32")
+# the model's form (csrc/o1_model.cuh): t1 in global memory; the counts
+# and totals in 64 bits
+FORM_WIDE = 1
+FORM_LONG = 2
+
+
+def model_form(steps: int, k: int, inc: int, limit1_log2: int,
+               limit0_log2: int, long_counts: bool | None = None) -> int:
+    """The kernels' instantiation for a stream: FORM_WIDE where a t1 count
+    can reach 2^16 (`o1_ops.table_wide`), FORM_LONG where a count can reach
+    2^32 - 1 (`o1_ops.counts_long`; long_counts, if given, decides
+    instead: the 64-bit instantiation is exact at every stream)."""
+    wide = o1_ops.table_wide(k, inc, limit1_log2)
+    if long_counts is None:
+        long_counts = o1_ops.counts_long(steps, k, inc, limit1_log2,
+                                         limit0_log2)
+    return (FORM_WIDE if wide else 0) | (FORM_LONG if long_counts else 0)
 
 
 def _flag(dev):
@@ -105,11 +117,16 @@ def _raise_flagged(flag, decode: bool):
         raise o1_ops.step_error(v >> 32, v & 0xFFFFFFFF, decode)
 
 
-def _t1(wide: bool, dev):
+def _words(form: int) -> int:
+    """int32 words a count takes in the form."""
+    return 2 if form & FORM_LONG else 1
+
+
+def _t1(form: int, dev):
     """-> t1 in global memory where its counts can reach 2^16, else
     None."""
-    return torch.empty(256 * 256, dtype=torch.int32, device=dev) \
-        if wide else None
+    return torch.empty(256 * 256 * _words(form), dtype=torch.int32,
+                       device=dev) if form & FORM_WIDE else None
 
 
 def _ptr(t):
@@ -128,11 +145,12 @@ def default_chunk_steps(k: int, steps: int) -> int:
 
 def encode_events(x2d: torch.Tensor, lane_len: torch.Tensor, inc: int,
                   limit1_log2: int, limit0_log2: int, blend_log2: int,
-                  chunk_steps: int | None = None) -> torch.Tensor:
+                  chunk_steps: int | None = None,
+                  long_counts: bool | None = None) -> torch.Tensor:
     """x2d [L, K] uint8 (chunked lanes: x2d[j, i] = x[i*L + j]) -> events
     [3*L + 2, K] int32 (u32 bits, rc_common's format): the model pass and
     the coder pass over chunks of chunk_steps steps (by default
-    `default_chunk_steps(K, L)`)."""
+    `default_chunk_steps(K, L)`); long_counts as for `model_form`."""
     global encode_launches
     params = (inc, limit1_log2, limit0_log2, blend_log2)
     steps, k = x2d.shape
@@ -144,27 +162,27 @@ def encode_events(x2d: torch.Tensor, lane_len: torch.Tensor, inc: int,
         return o1_ops.encode_events_plain(x2d, lane_len, *params,
                                           chunk_steps=chunk)
     chunk = min(chunk, max(steps, 1))
-    _check_card(steps, k, params)
     dev = x2d.device
-    wide = o1_ops.table_wide(k, inc, limit1_log2)
+    form = model_form(steps, k, *params[:3], long_counts)
     lib = build.load()
     with torch.cuda.device(dev):
         ev = torch.empty((o1_ops.N_SLOTS * steps + 2, k), dtype=torch.int32,
                          device=dev)
-        t1 = _t1(wide, dev)
+        t1 = _t1(form, dev)
         st = torch.empty(5 * k, dtype=torch.int32, device=dev)
         trip = torch.empty((2 if chunk < steps else 1, chunk, 3, k),
                            dtype=torch.int32, device=dev)
         # the model between chunks: its shared-memory words, with t1 where
         # it is kept there
-        mstate = torch.empty(MODEL_WORDS + (0 if wide else T1_NARROW_WORDS),
-                             dtype=torch.int32, device=dev) \
-            if chunk < steps else None
+        mstate = torch.empty(
+            MODEL_WORDS * _words(form)
+            + (0 if form & FORM_WIDE else T1_NARROW_WORDS),
+            dtype=torch.int32, device=dev) if chunk < steps else None
         flag = _flag(dev)
         rc = lib.ct_o1_encode(
             x2d.data_ptr(), lane_len.data_ptr(), ev.data_ptr(), _ptr(t1),
             st.data_ptr(), trip.data_ptr(), _ptr(mstate), flag.data_ptr(), k,
-            steps, chunk, *params, int(wide),
+            steps, chunk, *params, form,
             torch.cuda.current_stream(dev).cuda_stream)
         build.check(rc, "ct_o1_encode")
     encode_launches += 1
@@ -173,29 +191,28 @@ def encode_events(x2d: torch.Tensor, lane_len: torch.Tensor, inc: int,
 
 
 def model_triples(x2d: torch.Tensor, lane_len: torch.Tensor, inc: int,
-                  limit1_log2: int, limit0_log2: int,
-                  blend_log2: int) -> torch.Tensor:
+                  limit1_log2: int, limit0_log2: int, blend_log2: int,
+                  long_counts: bool | None = None) -> torch.Tensor:
     """Kernel U's model pass alone, over all L steps (no cap: for tests):
     x2d [L, K] uint8 -> triples [L, 3, K] int32, each lane's blended (c,
     f, tot), 0 where it has ended, (0, 0, 2^32 - 1) where tot passes
-    2^32 - 1."""
+    2^32 - 1; long_counts as for `model_form`."""
     global encode_launches
     params = (inc, limit1_log2, limit0_log2, blend_log2)
     steps, k = x2d.shape
     _check("x2d", x2d, torch.uint8, lane_len, params, steps * k)
     if x2d.device.type == "cpu":
         return o1_ops.model_triples_plain(x2d, lane_len, *params)[0]
-    _check_card(steps, k, params)
     dev = x2d.device
-    wide = o1_ops.table_wide(k, inc, limit1_log2)
+    form = model_form(steps, k, *params[:3], long_counts)
     lib = build.load()
     with torch.cuda.device(dev):
         trip = torch.empty((steps, 3, k), dtype=torch.int32, device=dev)
         if steps:
-            t1 = _t1(wide, dev)
+            t1 = _t1(form, dev)
             rc = lib.ct_o1_model(
                 x2d.data_ptr(), lane_len.data_ptr(), trip.data_ptr(),
-                _ptr(t1), None, k, steps, 0, steps, *params, int(wide),
+                _ptr(t1), None, k, steps, 0, steps, *params, form,
                 torch.cuda.current_stream(dev).cuda_stream)
             build.check(rc, "ct_o1_model")
             encode_launches += 1
@@ -233,10 +250,11 @@ def coder_events(triples: torch.Tensor) -> torch.Tensor:
 
 def decode_symbols(words: torch.Tensor, lane_len: torch.Tensor, n: int,
                    steps: int, inc: int, limit1_log2: int, limit0_log2: int,
-                   blend_log2: int) -> torch.Tensor:
+                   blend_log2: int,
+                   long_counts: bool | None = None) -> torch.Tensor:
     """words [l4, K] int32 big-endian u32 word rows (word-major, l4 >= 1)
     -> the n decoded bytes, uint8 [n] (byte i*L + j is lane i's step j,
-    L = steps)."""
+    L = steps); long_counts as for `model_form`."""
     global decode_launches
     params = (inc, limit1_log2, limit0_log2, blend_log2)
     _check("words", words, torch.int32, lane_len, params, n, decode=True)
@@ -246,20 +264,19 @@ def decode_symbols(words: torch.Tensor, lane_len: torch.Tensor, n: int,
                          f"or no word rows ({l4})")
     if words.device.type == "cpu":
         return o1_ops.decode_symbols_plain(words, lane_len, n, steps, *params)
-    _check_card(steps, k, params)
     dev = words.device
-    wide = o1_ops.table_wide(k, inc, limit1_log2)
+    form = model_form(steps, k, *params[:3], long_counts)
     lib = build.load()
     with torch.cuda.device(dev):
         out = torch.empty(n, dtype=torch.uint8, device=dev)
-        t1 = _t1(wide, dev)
+        t1 = _t1(form, dev)
         # past CTA_LANES the lanes' coder state between a thread's turns
         st = torch.empty(7 * k, dtype=torch.int32, device=dev) \
             if k > CTA_LANES else None
         flag = _flag(dev)
         rc = lib.ct_o1_decode(
             words.data_ptr(), lane_len.data_ptr(), out.data_ptr(), _ptr(t1),
-            _ptr(st), flag.data_ptr(), k, l4, steps, *params, int(wide),
+            _ptr(st), flag.data_ptr(), k, l4, steps, *params, form,
             torch.cuda.current_stream(dev).cuda_stream)
         build.check(rc, "ct_o1_decode")
     decode_launches += 1

@@ -63,13 +63,16 @@ induction bounds tot0 by B0. Within 2^24, t >= 1 at every step.
 The counts the kernels store: a count never exceeds its row's total
 before a rescale, P <= B1 + K*inc, so t1 fits u16 where B1 + K*inc < 2^16
 (`table_wide` false: kernel U and V keep t1 in shared memory as u16
-pairs), else the kernels keep t1 as u32 in global memory. The kernels'
-counts and totals are u32: at limit_log2 <= 31 every total stays below
-2^31 + 2^24 (B + K*inc), and at limit_log2 >= 32 the wrappers take only
-streams where 256 + inc*L*K < 2^32 - 1, so that no total reaches 2^32 - 1,
-the kernels' limit there (`card_counts_fit`; else CardCountsError, on
-encode and decode alike); the plain versions' int64 counts take every
-stream.
+pairs), else the kernels keep t1 in global memory. The kernels' counts
+and totals are u32 where none can reach 2^32 - 1: at limit_log2 <= 31
+every total stays below 2^31 + 2^24 (B + K*inc), and at limit_log2 >= 32
+wherever 256 + inc*L*K < 2^32 - 1 (the old guard of fault P7, which the
+corpus and every default meet). Elsewhere (`counts_long`) they keep them
+in 64 bits, as the plain versions' int64 counts do: before the first step
+with t = 0 no total passes 2^32 + 2^24 (a row grows only at a step that
+reads it, whose tot_eff must fit the range, by at most K*inc), so a total
+that reaches 2^limit_log2 is halved at the oracle's step at every
+limit_log2, 32 included, and nothing wraps.
 """
 
 from __future__ import annotations
@@ -124,23 +127,6 @@ def check_params(n: int, inc: int, limit1_log2: int, limit0_log2: int,
         raise CorruptContainerError(msg) if decode else ValueError(msg)
 
 
-class CardCountsError(NotImplementedError):
-    """Kernels U and V refuse a valid stream whose u32 counts could reach
-    2^32 (`card_counts_fit` false): a limit of the card's kernels (fault
-    P7), not a fault of the input, which the CPU path encodes and
-    decodes."""
-
-
-def card_counts_fit(steps: int, k: int, inc: int, limit1_log2: int,
-                    limit0_log2: int) -> bool:
-    """Whether kernels U and V's u32 counts and totals stay below 2^32 - 1
-    (their limit where the header's is 2^32 or more): always at limit_log2
-    <= 31 (the module's docstring), else where 256 plus inc for each of the
-    L*K positions stays below 2^32 - 1."""
-    return max(limit1_log2, limit0_log2) < 32 \
-        or 256 + inc * steps * k < (1 << 32) - 1
-
-
 def step_error(step: int, lane: int, decode: bool) -> ValueError:
     """The error for a step whose t = range / tot_eff is 0."""
     msg = (f"CT-RC3 step {step}, lane {lane}: range / tot_eff = 0 (tot_eff "
@@ -150,8 +136,18 @@ def step_error(step: int, lane: int, decode: bool) -> ValueError:
 
 def table_wide(k: int, inc: int, limit1_log2: int) -> bool:
     """Whether a t1 count can reach 2^16 (B1 + K*inc >= 2^16): the kernels
-    then keep t1 as u32 in global memory, else as u16 in shared memory."""
+    then keep t1 in global memory, else as u16 in shared memory."""
     return total_bound(k, inc, limit1_log2) + k * inc >= 1 << 16
+
+
+def counts_long(steps: int, k: int, inc: int, limit1_log2: int,
+                limit0_log2: int) -> bool:
+    """Whether kernels U and V keep their counts and totals in 64 bits: where
+    one can reach 2^32 - 1, the u32 kernels' limit where the header's is
+    2^32 or more. Never at limit_log2 <= 31 (the module's docstring), else
+    where 256 plus inc for each of the L*K positions reaches 2^32 - 1."""
+    return max(limit1_log2, limit0_log2) >= 32 \
+        and 256 + inc * steps * k >= (1 << 32) - 1
 
 
 def _rescale(t1, rowtot, t0, tot0, limit1: int, limit0: int) -> int:

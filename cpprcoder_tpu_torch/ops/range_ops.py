@@ -48,6 +48,7 @@ from cpprcoder_tpu_torch.models.freq_header import pack_freqs, read_freqs
 from cpprcoder_tpu_torch.models.static_table import normalize_freqs
 from cpprcoder_tpu_torch.ops import layout, rc_common
 from cpprcoder_tpu_torch.reference.rc_ref import _lane_desc, _parse_lane_desc
+from cpprcoder_tpu_torch.utils import profiling
 
 STATIC_SLOTS = 2   # total 2^16: t >= 2^8, so at most 2 shifts a symbol
 
@@ -201,7 +202,7 @@ def _encode(x: np.ndarray, k: int, freqs, inc: int, limit_log2: int,
             head, device) -> bytes:
     """Code x over K interleaved lanes on `device` (J, then B) and build
     the container: head(wide), the size table, the lane payloads."""
-    from cpprcoder_tpu_torch.ops import expand, range_kernels
+    from cpprcoder_tpu_torch.ops import range_kernels
 
     n = len(x)
     stride = -(-n // k)
@@ -212,12 +213,29 @@ def _encode(x: np.ndarray, k: int, freqs, inc: int, limit_log2: int,
     xt = torch.from_numpy(x.copy()).to(device)
     ft = None if freqs is None else \
         torch.from_numpy(freqs.astype(np.int32)).to(device)
-    events = range_kernels.encode_events(
+    return encode_container(n, lambda: range_kernels.encode_events(
         layout.pad2d_interleaved(xt, k, stride),
         layout.lane_lengths_interleaved(n, k, stride, xt.device),
-        ft, inc, limit_log2)
-    rows, sizes = expand.materialize_rows(events)
-    return layout.assemble(head, rows.cpu().numpy(), sizes.cpu().numpy())
+        ft, inc, limit_log2), head, xt.device)
+
+
+def encode_container(n: int, events_fn, head, device) -> bytes:
+    """The lane-payload container (CT-RC1, CT-RC2, CT-RCQ, CT-RCX) of n
+    bytes whose coder events `events_fn()` makes on `device`: kernel B's
+    payload rows, then head(wide), the size table and the payloads. The
+    counterpart of the JAX package's `_encode_container`, with its phases:
+    enc.scan (the coder, n bytes), enc.materialize (the rows, read to the
+    host) and enc.assemble (the container), each of the payload's bytes."""
+    from cpprcoder_tpu_torch.ops import expand
+
+    with profiling.phase("enc.scan", n, device):
+        events = events_fn()
+    with profiling.phase("enc.materialize", device=device) as ph:
+        rows, sizes = expand.materialize_rows(events)
+        rows, sizes = rows.cpu().numpy(), sizes.cpu().numpy()
+        total = ph.nbytes = int(sizes.sum())
+    with profiling.phase("enc.assemble", total):
+        return layout.assemble(head, rows, sizes)
 
 
 def _decode(r: ByteReader, n: int, k: int, wide: bool, freqs, inc: int,

@@ -27,7 +27,9 @@ from cpprcoder_tpu_torch.core.bytesutil import (
 )
 from cpprcoder_tpu_torch.models.cxmodel import QBITS, rcq_params
 from cpprcoder_tpu_torch.ops import layout, rc_common, rcx_ops
+from cpprcoder_tpu_torch.ops.range_ops import encode_container
 from cpprcoder_tpu_torch.reference.rc_ref import _lane_desc, _parse_lane_desc
+from cpprcoder_tpu_torch.utils import profiling
 
 
 ROUNDS = 1   # CT-RCQ halves once (models/qmodel.py rescale)
@@ -55,17 +57,14 @@ def rcq_encode(data, lanes: int | None = None, inc: int | None = None,
     if 3 * stride + 2 >= 1 << rc_common.EV_RUN_BITS:
         raise ValueError(f"{n} bytes over {k} lanes exceed one container "
                          f"(stride {stride}); split the input")
-    from cpprcoder_tpu_torch.ops import expand, rcq_kernels
+    from cpprcoder_tpu_torch.ops import rcq_kernels
 
     xt = torch.from_numpy(x.copy()).to(device)
-    events = rcq_kernels.encode_events(
+    return encode_container(n, lambda: rcq_kernels.encode_events(
         layout.pad2d_interleaved(xt, k, stride),
         layout.lane_lengths_interleaved(n, k, stride, xt.device),
-        inc, rc_common.climit_u32(climit_log2, n, inc))
-    rows, sizes = expand.materialize_rows(events)
-    return layout.assemble(
-        lambda wide: header(n, k, wide, inc, climit_log2),
-        rows.cpu().numpy(), sizes.cpu().numpy())
+        inc, rc_common.climit_u32(climit_log2, n, inc)),
+        lambda wide: header(n, k, wide, inc, climit_log2), xt.device)
 
 
 def encode_chunk_plain(x2d: torch.Tensor, lane_len: torch.Tensor, t0: int,
@@ -119,8 +118,15 @@ def rcq_decode(blob, *, device) -> bytes:
     from cpprcoder_tpu_torch.ops import rcq_kernels
 
     stride = -(-n // k)
-    words = layout.payload_words(r, k, wide, device)
-    out = rcq_kernels.decode_symbols(
-        words, layout.lane_lengths_interleaved(n, k, stride, words.device),
-        n, stride, inc, rc_common.climit_u32(climit_log2, n, inc))
-    return out.cpu().numpy().tobytes()
+    # the phases of the JAX package's rcq_decode: the word rows, the
+    # decode, the bytes read back
+    with profiling.phase("dec.rows", layout.payload_bytes(r, k, wide),
+                         device):
+        words = layout.payload_words(r, k, wide, device)
+    with profiling.phase("dec.scan", n, words.device):
+        out = rcq_kernels.decode_symbols(
+            words,
+            layout.lane_lengths_interleaved(n, k, stride, words.device),
+            n, stride, inc, rc_common.climit_u32(climit_log2, n, inc))
+    with profiling.phase("dec.fetch", n, words.device):
+        return out.cpu().numpy().tobytes()

@@ -37,6 +37,8 @@ from cpprcoder_tpu_torch.models.cxmodel import (
     rcx_params,
 )
 from cpprcoder_tpu_torch.ops import layout, rc_common
+from cpprcoder_tpu_torch.ops.range_ops import encode_container
+from cpprcoder_tpu_torch.utils import profiling
 from cpprcoder_tpu_torch.reference.rc_ref import _lane_desc, _parse_lane_desc
 
 N_SLOTS = 2   # range_new >= t >= 2^(24-QBITS) = 2^9: <= 2 renorms a step
@@ -119,17 +121,15 @@ def rcx_encode(data, lanes: int | None = None, inc: int | None = None,
     if 3 * stride + 2 >= 1 << rc_common.EV_RUN_BITS:
         raise ValueError(f"{n} bytes over {k} lanes exceed one container "
                          f"(stride {stride}); split the input")
-    from cpprcoder_tpu_torch.ops import expand, rcx_kernels
+    from cpprcoder_tpu_torch.ops import rcx_kernels
 
     xt = torch.from_numpy(x.copy()).to(device)
-    events = rcx_kernels.encode_events(
+    return encode_container(n, lambda: rcx_kernels.encode_events(
         layout.pad2d_chunked(xt, k, stride),
         layout.lane_lengths(n, k, stride, xt.device),
-        inc, rc_common.climit_u32(climit_log2, n, inc), cbits, wlog)
-    rows, sizes = expand.materialize_rows(events)
-    return layout.assemble(
+        inc, rc_common.climit_u32(climit_log2, n, inc), cbits, wlog),
         lambda wide: header(n, k, wide, inc, climit_log2, cbits, wlog),
-        rows.cpu().numpy(), sizes.cpu().numpy())
+        xt.device)
 
 
 # ------------------------------------------------------------------ decode
@@ -220,8 +220,15 @@ def rcx_decode(blob, *, device) -> bytes:
     from cpprcoder_tpu_torch.ops import rcx_kernels
 
     stride = -(-n // k)
-    words = layout.payload_words(r, k, wide, device)
-    out = rcx_kernels.decode_symbols(
-        words, layout.lane_lengths(n, k, stride, words.device), n, stride,
-        inc, rc_common.climit_u32(climit_log2, n, inc), cbits, wlog)
-    return out.cpu().numpy().tobytes()
+    # the phases of the JAX package's rcx_decode: the word rows, the
+    # decode, the bytes read back
+    with profiling.phase("dec.rows", layout.payload_bytes(r, k, wide),
+                         device):
+        words = layout.payload_words(r, k, wide, device)
+    with profiling.phase("dec.scan", n, words.device):
+        out = rcx_kernels.decode_symbols(
+            words, layout.lane_lengths(n, k, stride, words.device), n,
+            stride, inc, rc_common.climit_u32(climit_log2, n, inc), cbits,
+            wlog)
+    with profiling.phase("dec.fetch", n, words.device):
+        return out.cpu().numpy().tobytes()

@@ -1601,23 +1601,92 @@ O1_P6 = {
 }
 
 
-def test_o1_card_counts_refusal_on_the_card(dev):
-    """Fault P7: at a limit_log2 of 32, a stream whose 256 + inc*L*K
-    reaches 2^32 - 1 (4,096 lanes of 4,200 steps at inc 255) is refused by
-    U and V before any launch with CardCountsError, a NotImplementedError
-    and not a ValueError: the container is valid."""
-    k, steps, params = 4096, 4200, (255, 32, 11, 5)
-    assert not o1_ops.card_counts_fit(steps, k, *params[:3])
+# fault P7's repair: streams past the u32 kernels' old guard (256 +
+# inc*L*K >= 2^32 - 1 at a limit_log2 of 32 or more), where U and V keep
+# their counts and totals in 64 bits (what the refusal test of the u32
+# kernels refused): zeros at blend 5 (t = 0 once row 0 passes 2^27), and
+# random bytes at limit1_log2 32 and 33 (-> (x2d, K, params))
+def _past_guard(case, dev):
+    k, steps, params, zeros = {
+        "4,096 x 4,200 zeros, limits 32 / 11, blend 5":
+            (4096, 4200, (255, 32, 11, 5), True),
+        "65,536 x 263 random bytes, limits 32 / 11":
+            (65536, 263, (255, 32, 11, 0), False),
+        "65,536 x 263 random bytes, limits 33 / 11":
+            (65536, 263, (255, 33, 11, 0), False)}[case]
+    x = np.zeros(k * steps, np.uint8) if zeros else \
+        np.random.default_rng(22).integers(0, 256, k * steps, np.uint8)
+    x2d = torch.from_numpy(x).to(dev).reshape(k, steps).T.contiguous()
+    return x2d, k, params
+
+
+def _outcome(fn):
+    """-> ("ok", output) or the error's type and message."""
+    try:
+        return "ok", fn()
+    except ValueError as e:
+        return type(e).__name__, str(e)
+
+
+@pytest.mark.parametrize("case", [
+    "4,096 x 4,200 zeros, limits 32 / 11, blend 5",
+    "65,536 x 263 random bytes, limits 32 / 11",
+    "65,536 x 263 random bytes, limits 33 / 11"])
+def test_o1_past_the_old_guard_matches_plain_on_the_card(dev, case):
+    """U and V at streams whose totals could reach 2^32 - 1: the 64-bit
+    instantiation (o1_ops.counts_long) gives what the plain versions give,
+    the same events (which V decodes back, as its plain version does) or
+    the same step error, step and lane."""
+    x2d, k, params = _past_guard(case, dev)
+    steps = x2d.shape[0]
+    assert o1_ops.counts_long(steps, k, *params[:3])
     lens = torch.full((k,), steps, dtype=torch.int32, device=dev)
-    x2d = torch.zeros((steps, k), dtype=torch.uint8, device=dev)
-    words = torch.zeros((1, k), dtype=torch.int32, device=dev)
-    for call in (lambda: o1_kernels.encode_events(x2d, lens, *params),
-                 lambda: o1_kernels.decode_symbols(words, lens, steps * k,
-                                                   steps, *params)):
-        with pytest.raises(o1_ops.CardCountsError, match="u32 counts") as e:
-            call()
-        assert isinstance(e.value, NotImplementedError)
-        assert not isinstance(e.value, ValueError)
+    got = _outcome(lambda: o1_kernels.encode_events(x2d, lens, *params))
+    want = _outcome(lambda: o1_ops.encode_events_plain(x2d, lens, *params))
+    assert got[0] == want[0]
+    if got[0] == "ok":
+        assert torch.equal(got[1], want[1])
+        words = layout.decode_words(*expand.materialize_rows(got[1]))
+    else:
+        assert got[1] == want[1] and "range / tot_eff = 0" in got[1]
+        words = torch.zeros((1, k), dtype=torch.int32, device=dev)
+    n = k * steps
+    got = _outcome(lambda: o1_kernels.decode_symbols(words, lens, n, steps,
+                                                     *params))
+    want = _outcome(lambda: o1_ops.decode_symbols_plain(words, lens, n,
+                                                        steps, *params))
+    assert got[0] == want[0] and (got[0] != "ok" or torch.equal(got[1],
+                                                                want[1]))
+    if got[0] == "ok":
+        assert torch.equal(got[1], x2d.T.reshape(-1))
+    else:
+        assert got[1] == want[1]
+
+
+@pytest.mark.parametrize("case", ["limit1 9", "t0 rescales", "n < K",
+                                  "u32 lanes 4", "large inc", "K=2048",
+                                  "K=65536", "limit1_log2 8",
+                                  "limit0_log2 8", "one-byte run, 2048 lanes",
+                                  "K=1", "K=64"])
+def test_o1_long_counts_match_plain_on_the_card(dev, case):
+    """The 64-bit instantiation of U and V (long_counts=True), which the
+    wrappers pick only past the old guard, equals the plain versions and
+    the u32 instantiation wherever both hold: rows and t0 halved, the
+    table in global memory, 2,048 and 65,536 lanes."""
+    data, k, opts = O1_CASES[case]
+    n, steps, x2d, lens, params = _o1_inputs(data, k, opts, dev)
+    ev = o1_kernels.encode_events(x2d, lens, *params, long_counts=True)
+    assert torch.equal(ev, o1_ops.encode_events_plain(x2d, lens, *params))
+    assert torch.equal(o1_kernels.encode_events(x2d, lens, *params,
+                                                chunk_steps=3,
+                                                long_counts=True), ev)
+    assert torch.equal(o1_kernels.model_triples(x2d, lens, *params,
+                                                long_counts=True),
+                       o1_ops.model_triples_plain(x2d, lens, *params)[0])
+    words = layout.decode_words(*expand.materialize_rows(ev))
+    out = o1_kernels.decode_symbols(words, lens, n, steps, *params,
+                                    long_counts=True)
+    assert out.cpu().numpy().tobytes() == data
 
 
 @pytest.mark.parametrize("case", list(O1_P6))

@@ -16,6 +16,10 @@ import torch
 from conftest import std_cases
 
 from cpprcoder_tpu import config as jconfig
+from cpprcoder_tpu.bench import harness as jharness
+from cpprcoder_tpu.bench import ratio_sim as jratio_sim
+from cpprcoder_tpu.bench import rcq_sim as jrcq_sim
+from cpprcoder_tpu.bench import rcx_sim as jrcx_sim
 from cpprcoder_tpu.bench import synth as jsynth
 from cpprcoder_tpu.core import hashing as jhash
 from cpprcoder_tpu.models import cxmodel as jcx
@@ -36,6 +40,10 @@ from cpprcoder_tpu.reference import rcx_ref as jrcx_ref
 from cpprcoder_tpu.reference import rle0_ref as jrle0_ref
 from cpprcoder_tpu.reference import slz4_ref as jslz4_ref
 from cpprcoder_tpu_torch import config as tconfig
+from cpprcoder_tpu_torch.bench import harness as tharness
+from cpprcoder_tpu_torch.bench import ratio_sim as tratio_sim
+from cpprcoder_tpu_torch.bench import rcq_sim as trcq_sim
+from cpprcoder_tpu_torch.bench import rcx_sim as trcx_sim
 from cpprcoder_tpu_torch.bench import synth as tsynth
 from cpprcoder_tpu_torch.core import hashing as thash
 from cpprcoder_tpu_torch.models import cxmodel as tcx
@@ -252,6 +260,44 @@ def test_synth_stream_copy(n, seed):
     assert np.array_equal(got, jsynth.synth_stream(n, seed))
 
 
+def test_sim_copies():
+    """bench/{ratio,rcq,rcx}_sim.py: the same bits and ratios as the
+    originals on seeded inputs (text-like, random, one byte) over lane
+    counts, windows, increments, limits and context widths."""
+    rng = np.random.default_rng(26)
+    inputs = [rng.integers(0, 256, 1000, dtype=np.uint8),
+              np.frombuffer(b"the quick brown fox jumps " * 30, np.uint8),
+              np.zeros(500, np.uint8),
+              rng.integers(97, 110, 777, dtype=np.uint8)]
+    assert tratio_sim.PER_LANE_BYTES == jratio_sim.PER_LANE_BYTES
+    assert tratio_sim.HEADER_BYTES == jratio_sim.HEADER_BYTES
+    for x in inputs:
+        for k, uf, inc, limit in ((1, 1, 24, 1 << 17), (8, 4, 32, 1 << 12),
+                                  (64, 8, 16, 1 << 10)):
+            assert tratio_sim.simulate_ratio(x, k, uf, inc, limit) == \
+                jratio_sim.simulate_ratio(x, k, uf, inc, limit)
+        for k, inc, cl in ((1, 24, 1 << 16), (8, 32, 1 << 13),
+                           (64, 16, 1 << 15)):
+            assert np.array_equal(
+                trcq_sim.quantize_counts(np.bincount(x, minlength=256) + 1),
+                jrcq_sim.quantize_counts(np.bincount(x, minlength=256) + 1))
+            assert trcq_sim.simulate_ratio(x, k, inc, cl) == \
+                jrcq_sim.simulate_ratio(x, k, inc, cl)
+            for cbits in (0, 3, 8):
+                assert trcx_sim.simulate_ratio_ctx(x, k, inc, cl, cbits) == \
+                    jrcx_sim.simulate_ratio_ctx(x, k, inc, cl, cbits)
+
+
+def test_harness_tables():
+    """bench/harness.py's corpus and reference tables are the original's."""
+    assert tharness.CANTERBURY == jharness.CANTERBURY
+    assert tharness.REF_RATIOS == jharness.REF_RATIOS
+    assert tharness.SILESIA == jharness.SILESIA
+    assert Path(tharness.data_dir()).resolve() == \
+        Path(jharness.data_dir()).resolve()
+    assert tharness.load("xargs.1") == jharness.load("xargs.1")
+
+
 IMPORTS_JAX_PACKAGE = re.compile(
     r"^\s*(import\s+cpprcoder_tpu\b(?!_)|from\s+cpprcoder_tpu(\.|\s+import\b))",
     re.M)
@@ -271,7 +317,11 @@ def test_no_source_imports_the_jax_package():
             PKG / "native" / "ctrc.py", PKG / "core" / "hashing.py",
             PKG / "reference" / "slz4_ref.py", PKG / "ops" / "ans2_ops.py",
             PKG / "ops" / "ans2_kernels.py", PKG / "reference" / "ans2_ref.py",
-            PKG / "codecs" / "adaptive_rans.py"} <= set(paths)
+            PKG / "codecs" / "adaptive_rans.py", PKG / "cli.py",
+            PKG / "debug.py", PKG / "utils" / "profiling.py",
+            PKG / "bench" / "harness.py", PKG / "bench" / "compare.py",
+            PKG / "bench" / "ratio_sim.py", PKG / "bench" / "rcq_sim.py",
+            PKG / "bench" / "rcx_sim.py"} <= set(paths)
     for path in paths:
         assert not IMPORTS_JAX_PACKAGE.search(path.read_text()), path
 
@@ -280,8 +330,13 @@ def test_running_every_codec_loads_nothing_of_jax():
     code = """
 import sys
 import cpprcoder_tpu_torch as ctt
+from cpprcoder_tpu_torch import cli, debug
+from cpprcoder_tpu_torch.bench import compare, harness, ratio_sim, rcq_sim, rcx_sim
 from cpprcoder_tpu_torch.bench.synth import synth_stream
 from cpprcoder_tpu_torch.codecs import resume, stream
+from cpprcoder_tpu_torch.codecs.pipeline import make_pipeline
+from cpprcoder_tpu_torch.native import ctrc
+from cpprcoder_tpu_torch.utils import profiling
 data = bytes(range(256)) * 3 + b"no jax here " * 50
 for codec in ctt.list_codecs():
     for opts in ({"device": "cpu"}, {"backend": "ref"}):

@@ -302,9 +302,43 @@ def test_p6_a_later_step_with_t_zero_raises():
     words = torch.zeros((2, 1), dtype=torch.int32)
     with pytest.raises(CorruptContainerError, match="step 1, lane 0"):
         o1_kernels.decode_symbols(words, lens, 10, 10, *params)
-    assert o1_ops.card_counts_fit(10, 1, *params[:3])
-    assert not o1_ops.card_counts_fit(1 << 22, 1 << 12, 255, 32, 11)
-    assert o1_ops.card_counts_fit(1 << 22, 1 << 12, 255, 31, 31)
+    assert not o1_ops.counts_long(10, 1, *params[:3])
+    assert o1_ops.counts_long(1 << 22, 1 << 12, 255, 32, 11)
+    assert not o1_ops.counts_long(1 << 22, 1 << 12, 255, 31, 31)
+
+
+# the largest L*K at inc 255 whose 256 + inc*L*K stays below 2^32 - 1
+_U32_POSITIONS = ((1 << 32) - 2 - 256) // 255
+
+
+@pytest.mark.parametrize("limits, positions, inc, long_counts", [
+    ((31, 31), 1 << 40, 255, False),           # no total past 2^31 + 2^24
+    ((32, 11), _U32_POSITIONS, 255, False),    # 256 + inc*L*K = 2^32 - 2 - r
+    ((32, 11), _U32_POSITIONS + 1, 255, True),  # reaches 2^32 - 1
+    ((11, 32), _U32_POSITIONS + 1, 255, True),  # t0's limit alone
+    ((255, 0), _U32_POSITIONS + 1, 255, True),
+    ((32, 32), (1 << 32) - 1 - 256, 1, True),  # exactly 2^32 - 1 at inc 1
+    ((32, 32), (1 << 32) - 2 - 256, 1, False),
+    ((33, 11), 10, 255, False), ((63, 63), 1 << 40, 0, False)])
+def test_counts_long_at_its_boundary(limits, positions, inc, long_counts):
+    """o1_ops.counts_long picks U and V's 64-bit instantiation exactly
+    where a count or total could reach 2^32 - 1, the u32 kernels' limit at
+    a limit_log2 of 32 or more: 256 + inc*L*K >= 2^32 - 1 there, never at
+    limit_log2 <= 31; the form the wrappers pass follows it, beside
+    table_wide."""
+    assert 256 + 255 * _U32_POSITIONS < (1 << 32) - 1 \
+        <= 256 + 255 * (_U32_POSITIONS + 1)
+    k = 1 << 12
+    steps = -(-positions // k)
+    if positions % k:   # a split of L*K that is not a power of two
+        k, steps = 1, positions
+    assert o1_ops.counts_long(steps, k, inc, *limits) is long_counts
+    form = o1_kernels.model_form(steps, k, inc, *limits)
+    assert bool(form & o1_kernels.FORM_LONG) is long_counts
+    assert bool(form & o1_kernels.FORM_WIDE) \
+        is o1_ops.table_wide(k, inc, limits[0])
+    assert o1_kernels.model_form(steps, k, inc, *limits, long_counts=True) \
+        & o1_kernels.FORM_LONG
 
 
 def test_each_side_decodes_the_others_containers():
