@@ -5,7 +5,8 @@ the Config-4 BWT pipeline (CT-PIPE: blocksort, mtf1, rle0,
 adaptive_range) with its stages and CT-RC1, CT-LZ4 (slz4), CT-ASE1 (ase),
 CT-RC3 (adaptive_o1), CT-ANS2 (adaptive_rans), the resumable CT-RCQ
 encoder and CT-SB streaming over every codec, up to a stream of
-2^30 + 12,345 bytes.
+2^30 + 12,345 bytes, the tooling, and the sharded CT-RCX, CT-RCQ and
+CT-RC2 paths over worlds of 1, 2 and 4 ranks.
 
     python3 chip_smoke.py
 
@@ -137,13 +138,51 @@ Phases, one line each (a failed phase exits non-zero):
               profile report's phases at kennedy.xls (adaptive_range
               encode, rcq and rcx decode) beside the card's name and
               power limit; the host library's static, adaptive, rcq and
-              rcx containers against the card's on the 11 files.
+              rcx containers against the card's on the 11 files;
+  6. parallel the sharded paths (cpprcoder_tpu_torch/parallel/), each run
+              alone on the card and the host: first the launch module
+              under torchrun, one process at its default 2^24 bytes;
+              then the new kernel forms held to their plain versions,
+              exactly: the
+              lane-range forms of A (one CTA, its global model at cbits
+              8, the cluster at 2,048 and 4,096 lanes), D (up to 8,192
+              lanes) and J (CTAs of 64 and of 256 coders, three slots),
+              and the stepped lane-range forms of C (wlog 0, 1, 2; cbits
+              4 and 8) and E, two and four ranks simulated in this
+              process, every launch's symbols and state held to the plain
+              version's and the joined symbols to the input; then timed
+              at kennedy.xls beside the one-shot kernels (a stepped
+              form's device time from events around each launch while
+              the card is held behind a spin, so that the wrapper's host
+              work falls outside them, timed again with a longer spin
+              where the card caught up, and its host time apart); then
+              dryrun_multichip over worlds of 1 (NCCL), 2 (mesh 1 x 2) and
+              4 (2 x 2), NCCL where the card count reaches the world,
+              else gloo with the ranks sharing cuda:0 (the world of 2 also
+              codes kennedy.xls at its rcx_params, wlog 0, and its
+              rcq_params over lane = 2, and CT-RC2 at its adaptive
+              parameters: each container against the oracle's, which
+              the oracle workers compute from the start, and the
+              single-device one, the mesh decodes against the input);
+              then the launch module under torchrun in two processes at
+              2^20. Each run's backend, world, mesh, encode and decode
+              seconds and a decode exchange's microseconds are printed
+              beside the nvidia-smi line. The launches of A, B, C, D, E
+              and J inside the sharded calls (not the checks beside
+              them) are their `launches_by_path["parallel"]`: a world of
+              one must run the one-shot kernels and no form, a world
+              with lane = 2 every form in every rank and no one-shot
+              A, C, D, E or J, every decode with lane = 2 exchange
+              steps - 1 times and no encode exchange at all.
 Then a {"kernels": [...]} JSON line (per kernel: launches on the main
 paths and main_ms, the largest difference from its plain version, its time and the
 plain version's at kennedy.xls's shape, and the bound: the larger of the
 bytes it moves over the memory rate and its operations over the peak
 rate; `ms_at`, its times at each shape timed, for B `passes_ms` and for
-H `wrapper_ms`; `launches_by_path`, its launches on each codec's path;
+H `wrapper_ms`; A, C, D, E and J `forms`, the new form's numbers
+(its largest difference from its plain version, its ms at kennedy.xls
+beside the one-shot kernel's); `launches_by_path`, its launches on each
+codec's path and on the parallel path;
 `tpu_kernel`, the Pallas kernel it replaces, null for J, L, M, N, O, P,
 Q, R, S, T, U, V, W, X and Y, which replace the JAX package's lax.scan
 loops and XLA code), the nvidia-smi line, and last
@@ -156,6 +195,7 @@ import json
 import multiprocessing
 import os
 import pickle
+import shutil
 import subprocess
 import sys
 import time
@@ -198,7 +238,16 @@ from cpprcoder_tpu_torch.ops import (
     rcx_kernels,
     rcx_ops,
 )
-from cpprcoder_tpu_torch.reference import ans2_ref, ase_ref, o1_ref, slz4_ref
+from cpprcoder_tpu_torch.parallel import dryrun, spawn
+from cpprcoder_tpu_torch.reference import (
+    ans2_ref,
+    ase_ref,
+    o1_ref,
+    rc_ref,
+    rcq_ref,
+    rcx_ref,
+    slz4_ref,
+)
 from cpprcoder_tpu_torch.utils import profiling
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -3003,6 +3052,435 @@ def phase_tooling(smi_line: str) -> str:
             f"equal the card's containers on {len(files)} files")
 
 
+# the parallel phase: the kernels of the sharded paths (parallel/), whose
+# launches (and their forms') inside the sharded calls of the spawned ranks
+# and torchrun's processes count under launches_by_path["parallel"]
+PARALLEL_KERNELS = [nm for nm in dryrun.COUNTERS if nm not in dryrun.FORMS]
+# the torchrun launches: (processes, bytes; None: the default 2^24)
+TORCHRUN = ((1, None), (2, 1 << 20))
+# a stepped decode timed a segment of windows at a time behind a spin of
+# the card (torch.cuda._sleep cycles a launch: about 0.3 ms, some times the
+# wrapper's host time), so that its launches queue up before the card
+# reaches them; where the card caught up with the host (a slow host), the
+# run is timed again with the spin doubled, up to SPIN_TRIES runs
+SEGMENT = 64
+SPIN_A_LAUNCH = 600_000
+SPIN_TRIES = 4
+
+
+def stepped_run(words, lane_len, lane_n: int, steps: int, window: int,
+                launch, plain, cbits: int, check: bool,
+                spin: int = SPIN_A_LAUNCH):
+    """A lane-sharded decode of one stream with lane_n ranks simulated in
+    this process: each window, every rank's stepped launch, held (where
+    `check`) launch by launch to the plain version from the same state
+    (its symbols and the state after it: lane state, counts, contexts),
+    then the ranks' symbols joined as the exchange would. Unchecked, rank
+    0's launches are timed: the windows go SEGMENT at a time behind a spin
+    of the card (`spin` cycles a launch), each launch between two events, so that the events see
+    the kernel and not the wrapper's host work, whose time is taken apart.
+    -> (symbols [steps, K], largest difference, (rank 0's launches, their
+    device ms summed, their wrappers' host ms summed, whether the card was
+    still spinning when each segment was queued))."""
+    k = words.shape[1]
+    ko = k // lane_n
+    ws = [words[:, r * ko:(r + 1) * ko].contiguous()[None]
+          for r in range(lane_n)]
+    ll = lane_len[None].contiguous()
+    states = [rcx_ops.decode_state(w, k, cbits) for w in ws]
+    xs = torch.empty((1, 0, k), dtype=torch.uint8, device=words.device)
+    outs, err = [], 0
+    pairs, host_ms, queued = [], 0.0, True
+    windows = list(range(0, steps, window))
+    for s0 in range(0, len(windows), SEGMENT):
+        seg = windows[s0:s0 + SEGMENT]
+        if not check:
+            torch.cuda.synchronize()
+            torch.cuda._sleep(spin * len(seg) * lane_n)
+            spun = torch.cuda.Event()
+            spun.record()
+        for t0 in seg:
+            n = min(window, steps - t0)
+            got = []
+            for r in range(lane_n):
+                if check:
+                    mirror = tuple(t.clone() for t in states[r])
+                    want = plain(ws[r], ll, mirror, xs, r * ko, t0, n)
+                if r == 0 and not check:
+                    a = torch.cuda.Event(enable_timing=True)
+                    b = torch.cuda.Event(enable_timing=True)
+                    a.record()
+                    h0 = time.perf_counter()
+                    o = launch(ws[r], ll, states[r], xs, r * ko, t0, n)
+                    host_ms += (time.perf_counter() - h0) * 1e3
+                    b.record()
+                    pairs.append((a, b))
+                else:
+                    o = launch(ws[r], ll, states[r], xs, r * ko, t0, n)
+                if check:
+                    err = max(err, max_err(o, want), *(
+                        max_err(a, b) for a, b in zip(states[r], mirror)))
+                got.append(o)
+            xs = torch.cat(got, dim=2).contiguous()
+            outs.append(xs[0])
+        if not check:
+            queued = queued and not spun.query()
+    torch.cuda.synchronize()
+    ms = sum(a.elapsed_time(b) for a, b in pairs)
+    return torch.cat(outs), err, (len(pairs), ms, host_ms, queued)
+
+
+def parallel_forms(dev):
+    """The lane-range forms of A, D and J and the stepped lane-range forms
+    of C and E, each held to its plain version (exact) at K_local below and
+    at 1,024 lanes and above (A and C's one-CTA, global-model and cluster
+    instantiations), the stepped ones launch by launch with their state;
+    then timed at kennedy.xls's shapes beside the one-shot kernel (the
+    plain versions' times there are phase 3's). -> ({kernel: largest
+    difference}, {kernel: its form's numbers})."""
+    kennedy = corpus("kennedy.xls")
+    err = dict.fromkeys(PARALLEL_KERNELS, 0)
+
+    def held(nm, got, want):
+        err[nm] = max(err[nm], max_err(got, want))
+
+    def chunked(data, k):
+        n, x = len(data), to_dev(data, dev)
+        stride = -(-n // k)
+        return (layout.pad2d_chunked(x, k, stride),
+                layout.lane_lengths(n, k, stride, dev), stride)
+
+    # A: (K, cbits, lane ranks, rank, steps)
+    for k, cb, lane_n, r, steps in ((512, 4, 2, 1, 150), (256, 8, 2, 0, 90),
+                                    (2048, 4, 2, 1, 100),
+                                    (4096, 8, 4, 2, 40)):
+        x2d, ll, _ = chunked(kennedy[:k * steps - k // 3], k)
+        ko = k // lane_n
+        got = rcx_kernels.encode_events_range(x2d, ll, r * ko, ko, 16,
+                                              1 << 16, cb, 0)
+        held("rcx_encode", got, rcx_ops.encode_events_plain(
+            x2d, ll, 16, 1 << 16, cb, 0)[:, r * ko:(r + 1) * ko])
+        held("rcx_encode", got, rcx_kernels.encode_events(
+            x2d, ll, 16, 1 << 16, cb, 0)[:, r * ko:(r + 1) * ko])
+    # D and J: (K, lane ranks, rank, steps)
+    for k, lane_n, r, steps in ((512, 2, 1, 150), (2048, 2, 0, 100),
+                                (8192, 4, 3, 30)):
+        n, _, x2d, ll = interleaved_inputs(kennedy[:k * steps - 5], k, dev)
+        ko = k // lane_n
+        got = rcq_kernels.encode_events_range(x2d, ll, r * ko, ko, 24,
+                                              1 << 16)
+        held("rcq_encode", got, rcx_ops.encode_events_plain(
+            x2d, ll, 24, 1 << 16, 0, 0, rcq_ops.ROUNDS)[:, r * ko:(r + 1) * ko])
+    for k, lane_n, r, steps, limit in ((512, 2, 1, 150, 16),
+                                       (2048, 2, 1, 100, 16),
+                                       (4096, 2, 0, 60, 16),
+                                       (1024, 2, 0, 100, 17)):
+        n, _, x2d, ll = interleaved_inputs(kennedy[:k * steps - 7], k, dev)
+        ko = k // lane_n
+        got = range_kernels.encode_events_range(x2d, ll, r * ko, ko, None,
+                                                24, limit)
+        held("rc_exact_encode", got, range_ops.encode_events_plain(
+            x2d, ll, None, 24, limit)[:, r * ko:(r + 1) * ko])
+
+    def rcx_words(data, k, cb, wlog):
+        x2d, ll, stride = chunked(data, k)
+        ev = rcx_kernels.encode_events(x2d, ll, 16, 1 << 16, cb, wlog)
+        return layout.decode_words(*expand.materialize_rows(ev)), ll, stride
+
+    def rcq_words(data, k):
+        n, stride, x2d, ll = interleaved_inputs(data, k, dev)
+        ev = rcq_kernels.encode_events(x2d, ll, 24, 1 << 16)
+        return layout.decode_words(*expand.materialize_rows(ev)), ll, stride
+
+    def c_launch(cb, wlog):
+        return lambda w, ll, st, xs, l0, t0, n: rcx_kernels.decode_steps(
+            w, ll, st, xs, l0, t0, n, 16, 1 << 16, cb, wlog)
+
+    def c_plain(cb):
+        return lambda w, ll, st, xs, l0, t0, n: rcx_ops.decode_steps_plain(
+            w, ll, st, xs, l0, t0, n, 16, 1 << 16, cb)
+
+    e_launch = (lambda w, ll, st, xs, l0, t0, n: rcq_kernels.decode_steps(
+        w, ll, st, xs, l0, t0, 24, 1 << 16))
+    e_plain = (lambda w, ll, st, xs, l0, t0, n: rcx_ops.decode_steps_plain(
+        w, ll, st, xs, l0, t0, 1, 24, 1 << 16, 0, rcq_ops.ROUNDS))
+    # C: (K, cbits, wlog, lane ranks, steps)
+    for k, cb, wlog, lane_n, steps in ((512, 4, 0, 2, 80), (256, 8, 2, 2, 60),
+                                       (2048, 4, 0, 2, 40),
+                                       (4096, 8, 1, 4, 24)):
+        data = kennedy[:k * steps - k // 3]
+        words, ll, stride = rcx_words(data, k, cb, wlog)
+        sym, e, _ = stepped_run(words, ll, lane_n, stride, 1 << wlog,
+                                c_launch(cb, wlog), c_plain(cb), cb, True)
+        err["rcx_decode"] = max(err["rcx_decode"], e)
+        if sym.T.reshape(-1)[:len(data)].cpu().numpy().tobytes() != data:
+            fail(f"stepped C at K={k} cbits={cb} wlog={wlog}: not the input")
+    # E: (K, lane ranks, steps)
+    for k, lane_n, steps in ((256, 2, 80), (2048, 2, 40), (8192, 4, 12)):
+        data = kennedy[:k * steps - 3]
+        words, ll, stride = rcq_words(data, k)
+        sym, e, _ = stepped_run(words, ll, lane_n, stride, 1, e_launch,
+                                e_plain, 0, True)
+        err["rcq_decode"] = max(err["rcq_decode"], e)
+        if sym.reshape(-1)[:len(data)].cpu().numpy().tobytes() != data:
+            fail(f"stepped E at K={k}: not the input")
+
+    # times at kennedy.xls's shapes, lane = 2, rank 0's lanes
+    n = len(kennedy)
+    forms = {}
+    kx, inc_x, _, cb_x = rcx_params(n)
+    x2d, ll, stride = chunked(kennedy, kx)
+    ko = kx // 2
+    forms["rcx_encode"] = {
+        "form": "lane-range", "k": kx, "ko": ko,
+        "ms": cuda_ms(lambda: rcx_kernels.encode_events_range(
+            x2d, ll, 0, ko, inc_x, 1 << 16, cb_x, 0), 3),
+        "one_shot_ms": cuda_ms(lambda: rcx_kernels.encode_events(
+            x2d, ll, inc_x, 1 << 16, cb_x, 0), 3)}
+    kq, inc_q, _ = rcq_params(n)
+    _, _, q2d, qll = interleaved_inputs(kennedy, kq, dev)
+    forms["rcq_encode"] = {
+        "form": "lane-range", "k": kq, "ko": kq // 2,
+        "ms": cuda_ms(lambda: rcq_kernels.encode_events_range(
+            q2d, qll, 0, kq // 2, inc_q, 1 << 16), 3),
+        "one_shot_ms": cuda_ms(lambda: rcq_kernels.encode_events(
+            q2d, qll, inc_q, 1 << 16), 3)}
+    k2 = pick_lanes(n)
+    inc2, lim2 = adaptive_params_for(k2)
+    _, _, j2d, jll = interleaved_inputs(kennedy, k2, dev)
+    forms["rc_exact_encode"] = {
+        "form": "lane-range", "k": k2, "ko": k2 // 2,
+        "ms": cuda_ms(lambda: range_kernels.encode_events_range(
+            j2d, jll, 0, k2 // 2, None, inc2, lim2), 3),
+        "one_shot_ms": cuda_ms(lambda: range_kernels.encode_events(
+            j2d, jll, None, inc2, lim2), 3)}
+    # the stepped decodes: every launch of both ranks, the exchange a
+    # concatenation on the card (no collective: the ranks' runs time it);
+    # ms is one rank's launches' device time summed, host_ms its wrappers'
+    # host time, against the one-shot decode; timed again with a longer
+    # spin where the card caught up with the host (`tries`)
+    def stepped_timed(words, ll, steps, launch, plain, cbits, k,
+                      one_shot_ms):
+        spin = SPIN_A_LAUNCH
+        for tries in range(1, SPIN_TRIES + 1):
+            sym, _, (n_l, ms, host_ms, queued) = stepped_run(
+                words, ll, 2, steps, 1, launch, plain, cbits, False, spin)
+            if queued:
+                break
+            spin *= 2
+        return sym, {"form": "stepped lane-range", "k": k, "ko": k // 2,
+                     "timed_launches": n_l, "ms": ms, "host_ms": host_ms,
+                     "device_us_a_launch": ms / n_l * 1e3,
+                     "host_us_a_launch": host_ms / n_l * 1e3,
+                     "queued": queued, "tries": tries,
+                     "one_shot_ms": one_shot_ms}
+
+    words, ll, stride = rcx_words(kennedy, kx, cb_x, 0)
+    sym, forms["rcx_decode"] = stepped_timed(
+        words, ll, stride, c_launch(cb_x, 0), c_plain(cb_x), cb_x, kx,
+        cuda_ms(lambda: rcx_kernels.decode_symbols(
+            words, ll, n, stride, inc_x, 1 << 16, cb_x, 0), 3))
+    if sym.T.reshape(-1)[:n].cpu().numpy().tobytes() != kennedy:
+        fail("stepped C at kennedy.xls: not the input")
+    words, qll2, qstride = rcq_words(kennedy, kq)
+    sym, forms["rcq_decode"] = stepped_timed(
+        words, qll2, qstride, e_launch, e_plain, 0, kq,
+        cuda_ms(lambda: rcq_kernels.decode_symbols(
+            words, qll2, n, qstride, inc_q, 1 << 16), 3))
+    if sym.reshape(-1)[:n].cpu().numpy().tobytes() != kennedy:
+        fail("stepped E at kennedy.xls: not the input")
+    for nm, f in forms.items():
+        f["max_abs_err"] = err[nm]
+    return err, forms
+
+
+def torchrun_start(nproc: int, nbytes: int | None, backend: str):
+    """The launch module under torchrun --standalone, started: -> (its
+    process, nproc)."""
+    exe = shutil.which("torchrun")
+    cmd = ([exe] if exe else [sys.executable, "-m", "torch.distributed.run"])
+    cmd += ["--standalone", "--nproc-per-node", str(nproc), "-m",
+            "cpprcoder_tpu_torch.parallel.launch"]
+    cmd += ([str(nbytes)] if nbytes else []) + ["--backend", backend]
+    return subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True), nproc
+
+
+def torchrun_wait(run) -> dict:
+    """-> the started launch's JSON line; fails unless it exits 0 within
+    300 s and round-trips."""
+    proc, nproc = run
+    try:
+        out, err = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"torchrun x{nproc}: no exit within 300 s")
+    rows = [json.loads(line) for line in out.splitlines()
+            if line.startswith("{")]
+    if proc.returncode != 0 or len(rows) != 1 or not rows[0].get(
+            "roundtrip_ok"):
+        fail(f"torchrun x{nproc}: exit {proc.returncode}, {rows}, "
+             f"{err[-2000:]}")
+    return rows[0]
+
+
+def parallel_oracle(codec: str) -> bytes:
+    """kennedy.xls's oracle container at the sharded path's parameters
+    (rcx at wlog 0), for the parallel phase's workers."""
+    data = corpus("kennedy.xls")
+    n = len(data)
+    if codec == "rcx":
+        k, inc, cl, cb = rcx_params(n)
+        return rcx_ref.rcx_encode(data, lanes=k, inc=inc, climit_log2=cl,
+                                  cbits=cb, wlog=0)
+    if codec == "rcq":
+        k, inc, cl = rcq_params(n)
+        return rcq_ref.rcq_encode(data, lanes=k, inc=inc, climit_log2=cl)
+    k = pick_lanes(n)
+    inc, lim = adaptive_params_for(k)
+    return rc_ref.adaptive_encode(data, lanes=k, inc=inc, limit_log2=lim)
+
+
+def start_parallel_oracles(pool):
+    """kennedy.xls's oracle containers at the sharded paths' parameters,
+    computed by the oracle workers from the start: {codec: future}."""
+    return {c: pool.submit(parallel_oracle, c) for c in ("rcx", "rcq", "rc2")}
+
+
+def check_sharded_run(what: str, lane: int, launches: list, cases: list,
+                      kernels=tuple(dryrun.FORMS.values())):
+    """The sharded calls of a run went through the kernels' forms: with
+    lane = 1 the one-shot kernels and no form, with lane = 2 every form in
+    every process (`launches`: each process's counts) and no one-shot
+    kernel, of `kernels` (A, C, D, E and J by default); each decode
+    (`cases`, the run's case dicts) exchanges steps - 1 times with lane =
+    2 and never with lane = 1, and no encode exchanges."""
+    pairs = [(f, k) for f, k in dryrun.FORMS.items() if k in kernels]
+    for i, c in enumerate(launches):
+        forms = [f for f, _ in pairs if c[f]]
+        one_shot = [k for _, k in pairs if c[k]]
+        if lane == 1 and (forms or len(one_shot) < len(pairs)):
+            fail(f"{what}, process {i}: lane 1 must run the one-shot kernels "
+                 f"alone, launched {c}")
+        if lane > 1 and (one_shot or len(forms) < len(pairs)):
+            fail(f"{what}, process {i}: lane {lane} must run every form and "
+                 f"no one-shot kernel, launched {c}")
+    for v in cases:
+        if v.get("enc_exchanges", 0):
+            fail(f"{what}: an encode exchanged {v['enc_exchanges']} times")
+        if "exchanges" in v and v["exchanges"] != (
+                v["steps"] - 1 if lane > 1 else 0):
+            fail(f"{what}: {v['exchanges']} exchanges over {v['steps']} "
+                 f"steps at lane {lane}")
+
+
+def phase_parallel(dev, smi_line: str, oracle_futures: dict):
+    """The sharded paths (parallel/), each run alone on the card and the
+    host, so that no reading is taken beside other work: the launch module
+    under torchrun in one process at its default 2^24 bytes; the kernels'
+    new forms against their plain versions (parallel_forms);
+    dryrun_multichip over worlds of 1 (NCCL), 2 (mesh 1 x 2) and 4 (2 x
+    2), on NCCL across cards where the card count reaches the world, else
+    gloo with the ranks sharing cuda:0; in the world of 2 also kennedy.xls
+    through the sharded CT-RCX at its rcx_params (wlog 0) and CT-RCQ at
+    its rcq_params over lane = 2, each container against its oracle
+    (`oracle_futures`, start_parallel_oracles') and the single-device one,
+    the mesh decodes against the input, and CT-RC2's sharded encode there;
+    then the launch module in two processes at 2^20. Every run is held to
+    check_sharded_run. -> ({kernel: largest difference of its forms},
+    {kernel: its forms' numbers}, {kernel: launches in the sharded calls,
+    its forms' included}, notes)."""
+    counts = dict.fromkeys(dryrun.COUNTERS, 0)
+    cards = torch.cuda.device_count()
+
+    def backend_for(world):
+        return "nccl" if cards >= world else "gloo"
+
+    def lane_of(world):
+        return 2 if world % 2 == 0 and world > 1 else 1
+
+    notes = []
+
+    def torchrun(nproc, nbytes):
+        row = timed(f"parallel torchrun x{nproc}", torchrun_wait,
+                    torchrun_start(nproc, nbytes, backend_for(nproc)))
+        for nm in counts:
+            counts[nm] += row["launches"][nm]
+        # the launch codes CT-RCX alone (its launches summed over the ranks)
+        check_sharded_run(f"torchrun x{nproc}", lane_of(nproc),
+                          [row["launches"]], [row],
+                          ("rcx_encode", "rcx_decode"))
+        print(f"[parallel] torchrun --nproc-per-node {nproc}: "
+              f"{json.dumps(row)}; {smi_line}", flush=True)
+        notes.append(f"torchrun x{nproc} roundtrip_ok")
+
+    torchrun(*TORCHRUN[0])
+    err, forms = timed("parallel forms", parallel_forms, dev)
+    kennedy = corpus("kennedy.xls")
+    n = len(kennedy)
+    kx, inc_x, cl_x, cb_x = rcx_params(n)
+    kq, inc_q, cl_q = rcq_params(n)
+    k2 = pick_lanes(n)
+    inc2, lim2 = adaptive_params_for(k2)
+    for world in (1, 2, 4):
+        tasks = [("dryrun", {})]
+        if world == 2:
+            oracles = {c: f.result() for c, f in oracle_futures.items()}
+            tasks += [
+                ("rcx", dict(data=kennedy, lane=2, blocks=1, k=kx, inc=inc_x,
+                             climit_log2=cl_x, cbits=cb_x, wide_check=False,
+                             oracles=[oracles["rcx"]])),
+                ("rcq", dict(data=kennedy, lane=2, k=kq, inc=inc_q,
+                             climit_log2=cl_q, oracles=[oracles["rcq"]])),
+                ("rc2", dict(data=kennedy, lane=2, blocks=1, k=k2, inc=inc2,
+                             limit_log2=lim2, oracles=[oracles["rc2"]]))]
+        res = timed(f"parallel world {world}", lambda: spawn.run(
+            world, dryrun.rank_main, tasks, backend=backend_for(world),
+            device="cuda"))
+        for r in res:
+            if r.foreign:
+                fail(f"a rank loaded {r.foreign}")
+            for nm, c in r.launches.items():
+                counts[nm] += c
+        cases = [c for r in res for v in r.value
+                 for c in ([v["rcx"], v["rcq"], v["rc2"]] if "rcx" in v
+                           else [v])]
+        check_sharded_run(f"dryrun_multichip({world})", lane_of(world),
+                          [r.launches for r in res], cases)
+        v, *extra = res[0].value
+        print(f"[parallel] dryrun_multichip({world}) backend {v['backend']} "
+              f"mesh {v['mesh']}: rcx enc {v['rcx']['enc_s']:.4f} s dec "
+              f"{v['rcx']['dec_s']:.4f} s ({v['rcx']['exchanges']} "
+              f"exchanges), rcq enc {v['rcq']['enc_s']:.4f} s dec "
+              f"{v['rcq']['dec_s']:.4f} s ({v['rcq']['exchanges']} "
+              f"exchanges), exchange {v['exchange_us']} us; launches in the "
+              f"ranks' sharded calls {[r.launches for r in res]}; "
+              f"{smi_line}", flush=True)
+        notes.append(f"dryrun {world} ({v['backend']})")
+        for (nm, _), v in zip(tasks[1:], extra):
+            print(f"[parallel] kennedy.xls sharded {nm} K={v['lanes']} "
+                  f"world 2 backend {v['backend']} mesh {v['mesh']}: "
+                  f"container {v['compressed']} payload bytes == oracle's "
+                  f"and the single-device container; enc {v['enc_s']:.4f} s"
+                  + (f", mesh decode == input in {v['dec_s']:.4f} s over "
+                     f"{v['steps']} steps ({v['exchanges']} exchanges, "
+                     f"{v['dec_s'] / v['steps'] * 1e6:.1f} us a step), "
+                     f"exchange {v['exchange_us']:.1f} us"
+                     if nm != "rc2" else "") + f"; {smi_line}", flush=True)
+    torchrun(*TORCHRUN[1])
+    launches = {nm: counts[nm] + sum(counts[f] for f, k in dryrun.FORMS.items()
+                                     if k == nm)
+                for nm in PARALLEL_KERNELS}
+    for f, k in dryrun.FORMS.items():
+        forms[k]["parallel_launches"] = counts[f]
+    idle = [nm for nm, c in counts.items() if c == 0]
+    if idle:
+        fail(f"kernels or forms never launched on the parallel path: {idle}")
+    notes.append("kennedy.xls rcx/rcq/rc2 sharded == oracle")
+    return err, forms, launches, notes
+
+
 def bound(moved: int, ops: int):
     """-> (bound_ms, bound_by): the larger of bytes moved over the memory
     rate and operations over the peak rate."""
@@ -3032,6 +3510,7 @@ def main():
         "spawn"))
     try:
         oracles = start_oracles(pool)
+        p_oracles = start_parallel_oracles(pool)
         err, ms, work, ms_at, b_passes = timed("kernels A, B, C",
                                                phase_kernels, dev)
         rcq, rans, (*huffman, h_wrapper), exact, mtf, chunk, lz, stuv, wxy = (
@@ -3061,9 +3540,19 @@ def main():
                 launches[nm] += c
                 main_ms[nm] += times[nm]
                 by_path[nm][codec] = c
+        for f in p_oracles.values():
+            f.result()
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
     print(f"[tooling] ok {timed('tooling', phase_tooling, smi_line)}",
+          flush=True)
+    p_err, forms, p_launches, p_notes = timed("parallel", phase_parallel,
+                                              dev, smi_line, p_oracles)
+    for nm, c in p_launches.items():
+        launches[nm] += c
+        by_path[nm]["parallel"] = c
+        err[nm] = max(err[nm], p_err[nm])
+    print(f"[parallel] ok {'; '.join(p_notes)}; launches {p_launches}",
           flush=True)
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "cpprcoder_tpu"))
@@ -3087,6 +3576,8 @@ def main():
             rows[-1]["passes_ms"] = b_passes
         if nm == "huffman_encode":  # H through its wrapper
             rows[-1]["wrapper_ms"] = h_wrapper
+        if nm in forms:     # its lane-range or stepped form
+            rows[-1]["forms"] = forms[nm]
     print(f"[time] all {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(smi_line)

@@ -230,4 +230,145 @@ cudaError_t launch_kernel(const void* words, const void* lane_len, void* out, vo
 using LaunchFn = cudaError_t (*)(const void*, const void*, void*, void*, int, int, int, int, int,
                                  uint32_t, int, int, cudaStream_t);
 
+// ------------------------------------------------------------------------
+// The stepped lane-range form of C and E (ct_rcx_decode_steps,
+// ct_rcq_decode_steps), for a stream whose K lanes are sharded over the
+// ranks of a 'lane' group (parallel/sharded_rcx.py, sharded_rcq.py): a
+// launch decodes one window, steps t0 .. t0 + steps - 1 (t0 a multiple of
+// 2^wlog, steps <= 2^wlog), of lanes l0 .. l0 + ko - 1. Step t + 1's model
+// needs every lane's symbol of step t, and a rank decodes only its own
+// lanes, so one exchange of the symbols among the ranks a window is
+// inherent; at wlog = 0 that is a launch and an exchange a step. Between
+// launches the state stays in global memory, as kernel O keeps D's:
+//   - st [6, ko] u32: each own lane's range, code, the queue's q0, q1, occ
+//     and the next word's index (the one-shot kernel's registers);
+//   - C [rows, 256] u32: the counts, after the last window's requant;
+//   - prev [K] u8: every lane's symbol before the pending steps (its
+//     context).
+// A launch first adds the pending steps' symbols of every lane, xs [np, K]
+// (the previous window, as the ranks exchanged them), to the counts, each
+// lane in step order from its prev, then requantizes every row (a warp a
+// row, ct::requant_row: a row that did not change requantizes to itself,
+// as requant_changed's skip assumes), so the tables are the one-shot
+// kernel's at that window; then each own lane decodes the window's steps
+// against them, a thread a lane, in the one-shot kernel's arithmetic (the
+// sorted search; E's tree order is a layout of the same search), and
+// writes its symbols to out [steps, ko] (0 where the lane has ended).
+// Lanes past their length keep their state, as in the one-shot kernel.
+// What bounds it: not the card. A launch is a few microseconds of work for
+// a step of a few thousand lanes, so the launch and the exchange between
+// two launches set the pace.
+template <int ROUNDS>
+__global__ void __launch_bounds__(ct::MAX_THREADS)
+    rc_decode_steps_kernel(const uint32_t* __restrict__ words, const int32_t* __restrict__ lane_len,
+                           uint32_t* __restrict__ st, uint32_t* C, uint8_t* __restrict__ prev,
+                           const uint8_t* __restrict__ xs, uint8_t* __restrict__ out, int K,
+                           int l4, int l0, int ko, int t0, int steps, int np, uint32_t inc,
+                           uint32_t climit, int cbits) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint16_t* cum = reinterpret_cast<uint16_t*>(smem);
+  const int rows = 1 << cbits, shift = 8 - cbits;
+  const size_t s = blockIdx.x;
+  words += s * (size_t)l4 * ko;
+  lane_len += s * K;
+  st += s * 6 * (size_t)ko;
+  C += s * (size_t)rows * 256;
+  prev += s * K;
+  xs += s * (size_t)np * K;
+  out += s * (size_t)steps * ko;
+  const int tid = threadIdx.x, bd = blockDim.x;
+
+  // the pending window's updates, every lane, from its previous symbol
+  for (int i = tid; i < K; i += bd) {
+    const int len = lane_len[i];
+    uint32_t p = prev[i];
+    for (int u = 0; u < np && t0 - np + u < len; ++u) {
+      const uint32_t sym = xs[(size_t)u * K + i];
+      atomicAdd(&C[(p >> shift) * 256 + sym], inc);
+      p = sym;
+    }
+    prev[i] = (uint8_t)p;
+  }
+  __syncthreads();
+  for (int r = tid >> 5; r < rows; r += bd >> 5)
+    ct::requant_row<ROUNDS>(C + (size_t)r * 256, cum + (size_t)r * ct::CUM_STRIDE, climit);
+  __syncthreads();
+
+  for (int i = tid; i < ko; i += bd) {
+    const int len = lane_len[l0 + i];
+    uint32_t rng = st[i], code = st[ko + i], q0 = st[2 * ko + i], q1 = st[3 * ko + i];
+    uint32_t occ = st[4 * ko + i], widx = st[5 * ko + i], p = prev[l0 + i];
+    for (int u = 0; u < steps; ++u) {
+      uint32_t sym = 0;
+      if (t0 + u < len) {
+        if (occ < 2) {
+          const uint32_t wd = widx < (uint32_t)l4 ? words[(size_t)widx * ko + i] : 0u;
+          const bool empty = occ == 0;
+          q0 |= empty ? wd : (wd >> 8);
+          q1 |= empty ? 0u : (wd << 24);
+          occ += 4;
+          ++widx;
+        }
+        const uint16_t* cr = cum + (p >> shift) * ct::CUM_STRIDE;
+        const uint32_t t = rng >> ct::QBITS;
+        // the largest s with cum[s] * t <= code; c = cum[s], h = cum[s + 1]
+        uint32_t k = 0, c = 0, h = ct::QTOTAL;
+#pragma unroll
+        for (int it = 0; it < 8; ++it) {
+          const uint32_t at = k | (128u >> it);
+          const uint32_t v = cr[at];
+          const bool right = v * t <= code;
+          c = right ? v : c;
+          h = right ? h : v;
+          k = right ? at : k;
+        }
+        code -= c * t;
+        rng = (h == ct::QTOTAL) ? rng - c * t : (h - c) * t;
+#pragma unroll
+        for (int slot = 0; slot < 2; ++slot) {
+          if (rng < ct::RC_TOP) {
+            const uint32_t b = q0 >> 24;
+            q0 = (q0 << 8) | (q1 >> 24);
+            q1 <<= 8;
+            --occ;
+            code = (code << 8) | b;
+            rng <<= 8;
+          }
+        }
+        sym = p = k;
+      }
+      out[(size_t)u * ko + i] = (uint8_t)sym;
+    }
+    st[i] = rng;
+    st[ko + i] = code;
+    st[2 * ko + i] = q0;
+    st[3 * ko + i] = q1;
+    st[4 * ko + i] = occ;
+    st[5 * ko + i] = widx;
+  }
+}
+
+// Checks a stepped launch's window and launches one CTA a stream (up to
+// 1,024 threads, at least a warp a row), the cum rows in dynamic shared
+// memory; returns its cudaError_t.
+template <int ROUNDS>
+cudaError_t launch_decode_steps(const void* words, const void* lane_len, void* st, void* C,
+                                void* prev, const void* xs, void* out, int streams, int K, int l4,
+                                int l0, int ko, int t0, int steps, int np, int inc,
+                                uint32_t climit, int cbits, int wlog, cudaStream_t stream) {
+  const int w = 1 << wlog;
+  if (streams < 1 || K < 1 || l0 < 0 || ko < 1 || l0 + ko > K || l4 < 1 || t0 < 0 ||
+      t0 % w != 0 || steps < 1 || steps > w || np < 0 || np > w || np > t0 || cbits < 0 ||
+      cbits > 8)
+    return cudaErrorInvalidValue;
+  const int rows = 1 << cbits;
+  const size_t smem = ((size_t)rows * ct::CUM_STRIDE * 2 + 15) & ~(size_t)15;
+  const int lanes = K > 32 * rows ? K : 32 * rows;
+  return ct::launch_streams<1>(rc_decode_steps_kernel<ROUNDS>, streams, ct::block_threads(lanes),
+                               smem, stream, (const uint32_t*)words, (const int32_t*)lane_len,
+                               (uint32_t*)st, (uint32_t*)C, (uint8_t*)prev, (const uint8_t*)xs,
+                               (uint8_t*)out, K, l4, l0, ko, t0, steps, np, (uint32_t)inc, climit,
+                               cbits);
+}
+
 }  // namespace

@@ -63,6 +63,16 @@
 // the chunk's rows, so the look-ahead load stops at the last row. The
 // flush runs only where asked, after the state is stored.
 //
+// RANGE (the lane-range form of A and D, for a stream whose lanes are
+// sharded over several ranks, parallel/sharded_rcx.py and sharded_rcq.py):
+// every lane of the stream runs the model's update from its own symbols,
+// exactly as in the one-shot form, but only lanes l0 .. l0 + ko - 1 run the
+// coder and write events, into [2*stride+2, ko] (lane l0 + i to column i).
+// The other lanes read their symbols and add to the counts, nothing more.
+// The model never leaves the kernel, so every rank's model is the one-shot
+// kernel's, step for step, and its lanes' events are the one-shot events'
+// columns l0 .. l0 + ko - 1.
+//
 // What bounds it: the stride steps are sequential and one stream occupies
 // one SM (a cluster: four), so a single stream is latency-bound (per step:
 // a shared-memory table read, ~20 integer ops, an atomic, two coalesced
@@ -127,12 +137,17 @@ struct Resume {
 // ptxas may give a thread its 64 registers (at one lane a thread it
 // otherwise stops at 32 and spills); a minimum of 0 is none, so kernel A
 // compiles as with no minimum.
-template <int LPT, int ROUNDS, bool ONE_ROW, int G, bool GMODEL, bool RESUME = false>
+// RANGE: events only for lanes l0 .. l0 + ko - 1, into [.., ko] (above).
+template <int LPT, int ROUNDS, bool ONE_ROW, int G, bool GMODEL, bool RESUME = false,
+          bool RANGE = false>
 __global__ void __launch_bounds__(ct::MAX_THREADS, ONE_ROW ? 1 : 0) rc_encode_kernel(const uint8_t* __restrict__ x, const int32_t* __restrict__ lane_len,
                                   uint32_t* __restrict__ ev, uint8_t* gmodel, int K, int stride,
                                   uint32_t inc, uint32_t climit, int cbits, int wlog,
-                                  Resume rs) {
+                                  Resume rs, int l0, int ko) {
   static_assert(!RESUME || (ONE_ROW && G == 1 && !GMODEL), "kernel O is D's one-row kernel");
+  static_assert(!(RESUME && RANGE), "kernel O codes every lane");
+  // the lanes that code and their events' row width
+  const int lo = RANGE ? l0 : 0, kout = RANGE ? ko : K;
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ uint32_t xch[ONE_ROW ? ROUNDS + 4 : 1][8];
   __shared__ uint32_t sub[ONE_ROW ? SUBS * SUB_STRIDE : 1];
@@ -148,7 +163,7 @@ __global__ void __launch_bounds__(ct::MAX_THREADS, ONE_ROW ? 1 : 0) rc_encode_ke
   uint16_t* cum = reinterpret_cast<uint16_t*>(base + (size_t)held * 256 * 4);
   x += s * (size_t)stride * K;
   lane_len += s * K;
-  ev += s * (size_t)(2 * stride + (RESUME ? 2 * rs.flush : 2)) * K;
+  ev += s * (size_t)(2 * stride + (RESUME ? 2 * rs.flush : 2)) * kout;
 
   const int tid = threadIdx.x;
   const int bd = blockDim.x;
@@ -235,8 +250,8 @@ __global__ void __launch_bounds__(ct::MAX_THREADS, ONE_ROW ? 1 : 0) rc_encode_ke
         __syncthreads();
       }
     }
-    uint32_t* ev0 = ev + (size_t)(2 * j) * K;
-    uint32_t* ev1 = ev0 + K;
+    uint32_t* ev0 = ev + (size_t)(2 * j) * kout;
+    uint32_t* ev1 = ev0 + kout;
     const uint8_t* xj = x + (size_t)j * K;
 #pragma unroll
     for (int m = 0; m < LPT; ++m) {
@@ -260,22 +275,24 @@ __global__ void __launch_bounds__(ct::MAX_THREADS, ONE_ROW ? 1 : 0) rc_encode_ke
           } else {
             sym = xj[lane];
           }
-          const uint16_t* cr = cum + ctx * ct::CUM_STRIDE;
-          const uint32_t c = cr[sym];
-          const uint32_t f = cr[sym + 1] - c;
-          const uint32_t t = rng[m] >> ct::QBITS;
-          const uint32_t add = t * c;
-          const uint32_t nl = low[m] + add;
-          carry[m] |= nl < low[m] ? 1u : 0u;
-          low[m] = nl;
-          rng[m] = (c + f == ct::QTOTAL) ? rng[m] - add : t * f;
-          if (rng[m] < ct::RC_TOP) {
-            e0 = shift_low(low[m], carry[m], cache[m], csize[m]);
-            rng[m] <<= 8;
-          }
-          if (rng[m] < ct::RC_TOP) {
-            e1 = shift_low(low[m], carry[m], cache[m], csize[m]);
-            rng[m] <<= 8;
+          if (!RANGE || (unsigned)(lane - lo) < (unsigned)kout) {
+            const uint16_t* cr = cum + ctx * ct::CUM_STRIDE;
+            const uint32_t c = cr[sym];
+            const uint32_t f = cr[sym + 1] - c;
+            const uint32_t t = rng[m] >> ct::QBITS;
+            const uint32_t add = t * c;
+            const uint32_t nl = low[m] + add;
+            carry[m] |= nl < low[m] ? 1u : 0u;
+            low[m] = nl;
+            rng[m] = (c + f == ct::QTOTAL) ? rng[m] - add : t * f;
+            if (rng[m] < ct::RC_TOP) {
+              e0 = shift_low(low[m], carry[m], cache[m], csize[m]);
+              rng[m] <<= 8;
+            }
+            if (rng[m] < ct::RC_TOP) {
+              e1 = shift_low(low[m], carry[m], cache[m], csize[m]);
+              rng[m] <<= 8;
+            }
           }
           if constexpr (PACK) csize[m] |= (cache[m] << 22) | (carry[m] << 30);
           if constexpr (ONE_ROW) {
@@ -292,8 +309,10 @@ __global__ void __launch_bounds__(ct::MAX_THREADS, ONE_ROW ? 1 : 0) rc_encode_ke
             touched[ctx] = 1;
           }
         }
-        ev0[lane] = e0;
-        ev1[lane] = e1;
+        if (!RANGE || (unsigned)(lane - lo) < (unsigned)kout) {
+          ev0[lane - lo] = e0;
+          ev1[lane - lo] = e1;
+        }
       }
     }
   }
@@ -310,12 +329,12 @@ __global__ void __launch_bounds__(ct::MAX_THREADS, ONE_ROW ? 1 : 0) rc_encode_ke
   }
 
   // flush: round low up to a multiple of 2^24, then shift_low twice
-  uint32_t* fl0 = ev + (size_t)(2 * stride) * K;
-  uint32_t* fl1 = fl0 + K;
+  uint32_t* fl0 = ev + (size_t)(2 * stride) * kout;
+  uint32_t* fl1 = fl0 + kout;
 #pragma unroll
   for (int m = 0; m < LPT; ++m) {
     const int loc = tid + m * bd, lane = g * kg + loc;
-    if (loc < kg && lane < K) {
+    if (loc < kg && lane < K && (!RANGE || (unsigned)(lane - lo) < (unsigned)kout)) {
       if constexpr (PACK) unpack_lane(csize[m], cache[m], carry[m]);
       if constexpr (RESUME) {
         rs.st_out[lane] = low[m];
@@ -328,8 +347,8 @@ __global__ void __launch_bounds__(ct::MAX_THREADS, ONE_ROW ? 1 : 0) rc_encode_ke
       const uint32_t nl = low[m] + ((0u - low[m]) & 0xFFFFFFu);
       carry[m] |= nl < low[m] ? 1u : 0u;
       low[m] = nl;
-      fl0[lane] = shift_low(low[m], carry[m], cache[m], csize[m]);
-      fl1[lane] = shift_low(low[m], carry[m], cache[m], csize[m]);
+      fl0[lane - lo] = shift_low(low[m], carry[m], cache[m], csize[m]);
+      fl1[lane - lo] = shift_low(low[m], carry[m], cache[m], csize[m]);
     }
   }
   // no block leaves while the others may still add to its counts
@@ -337,18 +356,27 @@ __global__ void __launch_bounds__(ct::MAX_THREADS, ONE_ROW ? 1 : 0) rc_encode_ke
 }
 
 // Launches one instantiation: streams * G blocks, a cluster of G a stream;
-// returns its cudaError_t.
+// returns its cudaError_t. RANGE launches pass the lanes that code, l0 ..
+// l0 + ko - 1; the others pass l0 = 0, ko = K.
+template <int LPT, int ROUNDS, bool ONE_ROW, int G, bool GMODEL, bool RESUME, bool RANGE>
+cudaError_t launch_encode_any(const void* x, const void* lane_len, void* ev, void* gmodel,
+                              int streams, int K, int stride, int inc, uint32_t climit, int cbits,
+                              int wlog, Resume rs, int l0, int ko, cudaStream_t stream) {
+  const int rows = 1 << cbits, held = (rows + G - 1) / G;
+  const size_t smem = GMODEL ? 0 : ct::model_bytes(rows) - (size_t)(rows - held) * 256 * 4;
+  const int threads = ct::coder_threads((K + G - 1) / G, held, ONE_ROW);
+  return ct::launch_streams<G>(
+      rc_encode_kernel<LPT, ROUNDS, ONE_ROW, G, GMODEL, RESUME, RANGE>, streams, threads, smem,
+      stream, (const uint8_t*)x, (const int32_t*)lane_len, (uint32_t*)ev, (uint8_t*)gmodel, K,
+      stride, (uint32_t)inc, climit, cbits, wlog, rs, l0, ko);
+}
+
 template <int LPT, int ROUNDS, bool ONE_ROW, int G, bool GMODEL, bool RESUME = false>
 cudaError_t launch_encode_resume(const void* x, const void* lane_len, void* ev, void* gmodel,
                                  int streams, int K, int stride, int inc, uint32_t climit,
                                  int cbits, int wlog, Resume rs, cudaStream_t stream) {
-  const int rows = 1 << cbits, held = (rows + G - 1) / G;
-  const size_t smem = GMODEL ? 0 : ct::model_bytes(rows) - (size_t)(rows - held) * 256 * 4;
-  const int threads = ct::coder_threads((K + G - 1) / G, held, ONE_ROW);
-  return ct::launch_streams<G>(rc_encode_kernel<LPT, ROUNDS, ONE_ROW, G, GMODEL, RESUME>,
-                               streams, threads, smem, stream, (const uint8_t*)x,
-                               (const int32_t*)lane_len, (uint32_t*)ev, (uint8_t*)gmodel, K,
-                               stride, (uint32_t)inc, climit, cbits, wlog, rs);
+  return launch_encode_any<LPT, ROUNDS, ONE_ROW, G, GMODEL, RESUME, false>(
+      x, lane_len, ev, gmodel, streams, K, stride, inc, climit, cbits, wlog, rs, 0, K, stream);
 }
 
 template <int LPT, int ROUNDS, bool ONE_ROW, int G, bool GMODEL>
@@ -359,8 +387,19 @@ cudaError_t launch_encode(const void* x, const void* lane_len, void* ev, void* g
       x, lane_len, ev, gmodel, streams, K, stride, inc, climit, cbits, wlog, Resume{}, stream);
 }
 
+template <int LPT, int ROUNDS, bool ONE_ROW, int G, bool GMODEL>
+cudaError_t launch_encode_range(const void* x, const void* lane_len, void* ev, void* gmodel,
+                                int streams, int K, int stride, int inc, uint32_t climit,
+                                int cbits, int wlog, int l0, int ko, cudaStream_t stream) {
+  return launch_encode_any<LPT, ROUNDS, ONE_ROW, G, GMODEL, false, true>(
+      x, lane_len, ev, gmodel, streams, K, stride, inc, climit, cbits, wlog, Resume{}, l0, ko,
+      stream);
+}
+
 using EncodeFn = cudaError_t (*)(const void*, const void*, void*, void*, int, int, int, int,
                                  uint32_t, int, int, cudaStream_t);
+using RangeFn = cudaError_t (*)(const void*, const void*, void*, void*, int, int, int, int,
+                                uint32_t, int, int, int, int, cudaStream_t);
 using ResumeFn = cudaError_t (*)(const void*, const void*, void*, void*, int, int, int, int,
                                  uint32_t, int, int, Resume, cudaStream_t);
 

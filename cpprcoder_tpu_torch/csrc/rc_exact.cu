@@ -387,14 +387,17 @@ __device__ void count_rows(EncShared& sh, const uint8_t* __restrict__ x,
 }
 
 // x [stride, K] u8 (16-byte aligned); lane_len [K] i32; freqs_in [256] i32
-// (CT-RC1) or null; ev [SLOTS*stride + 2, K] u32. A CTA: `coders` coder
-// threads (a lane each: lanes blockIdx.x*coders + tid), then, for CT-RC2,
-// one table warp and H histogram warps.
+// (CT-RC1) or null; ev [SLOTS*stride + 2, ko] u32, the events of lanes l0 ..
+// l0 + ko - 1 (the lane-range form; l0 = 0, ko = K codes every lane). A
+// CTA: `coders` coder threads (a lane each: lanes l0 + blockIdx.x*coders +
+// tid), then, for CT-RC2, one table warp and H histogram warps, which count
+// every lane's bytes whatever the range: the tables are the whole stream's.
 template <int SLOTS, bool ADAPTIVE, int GROUP>
 __global__ void __launch_bounds__(ENC_ADAPTIVE_LANES + (1 + MAX_HIST_WARPS) * 32)
     rc_exact_encode_kernel(const uint8_t* __restrict__ x, const int32_t* __restrict__ lane_len,
                            const int32_t* __restrict__ freqs_in, uint32_t* __restrict__ ev, int K,
-                           int stride, int coders, int H, uint32_t inc, uint32_t limit) {
+                           int stride, int coders, int H, uint32_t inc, uint32_t limit, int l0,
+                           int ko) {
   __shared__ __align__(16) EncShared sh;
   const int tid = threadIdx.x;
   if (ADAPTIVE) {
@@ -420,8 +423,8 @@ __global__ void __launch_bounds__(ENC_ADAPTIVE_LANES + (1 + MAX_HIST_WARPS) * 32
     return;
   }
 
-  const int lane = blockIdx.x * coders + tid, warp = tid >> 5;
-  const bool has = lane < K;
+  const int lane = l0 + blockIdx.x * coders + tid, warp = tid >> 5;
+  const bool has = lane < l0 + ko;
   const int len = has ? min(max(lane_len[lane], 0), stride) : 0;
   uint32_t low = 0, carry = 0, rng = FULL, cache = 0, csize = 1;
   int seen = -1;
@@ -466,9 +469,9 @@ __global__ void __launch_bounds__(ENC_ADAPTIVE_LANES + (1 + MAX_HIST_WARPS) * 32
         renorm_encode<SLOTS>(low, carry, rng, cache, csize, e);
       }
       if (has) {
-        uint32_t* evj = ev + (size_t)j * SLOTS * K + lane;
+        uint32_t* evj = ev + (size_t)j * SLOTS * ko + (lane - l0);
 #pragma unroll
-        for (int sl = 0; sl < SLOTS; ++sl) evj[(size_t)sl * K] = e[sl];
+        for (int sl = 0; sl < SLOTS; ++sl) evj[(size_t)sl * ko] = e[sl];
       }
     }
     if (ADAPTIVE) {
@@ -491,12 +494,12 @@ __global__ void __launch_bounds__(ENC_ADAPTIVE_LANES + (1 + MAX_HIST_WARPS) * 32
 
   // flush: round low up to a multiple of 2^24, then shift_low twice
   if (!has) return;
-  uint32_t* fl0 = ev + (size_t)SLOTS * stride * K;
+  uint32_t* fl0 = ev + (size_t)SLOTS * stride * ko + (lane - l0);
   const uint32_t nl = low + ((0u - low) & 0xFFFFFFu);
   carry |= nl < low ? 1u : 0u;
   low = nl;
-  fl0[lane] = shift_low(low, carry, cache, csize);
-  fl0[K + lane] = shift_low(low, carry, cache, csize);
+  fl0[0] = shift_low(low, carry, cache, csize);
+  fl0[ko] = shift_low(low, carry, cache, csize);
 }
 
 // ------------------------------------------------------------- kernel L
@@ -705,20 +708,22 @@ __global__ void __launch_bounds__(MAXT, 1)
 
 __host__ inline int round32(int k) { return (k + 31) & ~31; }
 
+// The coder CTAs cover lanes l0 .. l0 + ko - 1 (every lane: 0, K).
 template <int SLOTS, bool ADAPTIVE, int GROUP>
 cudaError_t launch_encode(const void* x, const void* lane_len, const void* freqs, void* ev, int K,
-                          int stride, uint32_t inc, uint32_t limit, cudaStream_t stream) {
+                          int stride, uint32_t inc, uint32_t limit, int l0, int ko,
+                          cudaStream_t stream) {
   const int most = !ADAPTIVE ? ENC_STATIC_LANES
-                   : K <= ENC_SMALL_K ? ENC_ADAPTIVE_SMALL : ENC_ADAPTIVE_LANES;
-  const int coders = K >= most ? most : round32(K);
-  const int ctas = (K + coders - 1) / coders;
+                   : ko <= ENC_SMALL_K ? ENC_ADAPTIVE_SMALL : ENC_ADAPTIVE_LANES;
+  const int coders = ko >= most ? most : round32(ko);
+  const int ctas = (ko + coders - 1) / coders;
   // histogram warps: one for each 64 lanes (up to 2 bytes of a row a lane)
   // up to 8 warps
   const int H = K <= 64 ? 1 : K <= 128 ? 2 : K <= 256 ? 4 : MAX_HIST_WARPS;
   rc_exact_encode_kernel<SLOTS, ADAPTIVE, GROUP>
       <<<ctas, coders + (ADAPTIVE ? (1 + H) * 32 : 0), 0, stream>>>(
           (const uint8_t*)x, (const int32_t*)lane_len, (const int32_t*)freqs, (uint32_t*)ev, K,
-          stride, coders, H, inc, limit);
+          stride, coders, H, inc, limit, l0, ko);
   return cudaGetLastError();
 }
 
@@ -762,24 +767,39 @@ cudaError_t launch_adaptive_decode(const void* words, const void* lane_len, void
 // CT-RC1 when freqs is not null (slots 2; inc and limit_log2 unused), else
 // CT-RC2 (slots 2 or 3). K a power of two up to 65,536. Returns the
 // cudaError_t as an int (cudaErrorInvalidValue for what it does not take).
-extern "C" int ct_rc_exact_encode(const void* x, const void* lane_len, const void* freqs, void* ev,
-                                  int K, int stride, int inc, int limit_log2, int slots,
-                                  void* stream) {
-  if (K < 1 || K > 65536 || (K & (K - 1)) || stride < 0 || limit_log2 < 0 || limit_log2 > 31)
+// The lane-range form (kernel J for a stream sharded over the 'lane' axis,
+// parallel/sharded.py, where the JAX package psums the model's update at
+// every step, sharded.py:66): every CTA builds the whole stream's tables,
+// only lanes l0 .. l0 + ko - 1 code, ev [slots*stride + 2, ko];
+// ct_rc_exact_encode is the range 0, K.
+extern "C" int ct_rc_exact_encode_range(const void* x, const void* lane_len, const void* freqs,
+                                        void* ev, int K, int stride, int inc, int limit_log2,
+                                        int slots, int l0, int ko, void* stream) {
+  if (K < 1 || K > 65536 || (K & (K - 1)) || stride < 0 || limit_log2 < 0 || limit_log2 > 31 ||
+      l0 < 0 || ko < 1 || l0 + ko > K)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const uint32_t u = (uint32_t)inc, limit = 1u << limit_log2;
   if (freqs != nullptr)
-    return slots == 2 ? (int)launch_encode<2, false, AHEAD>(x, lane_len, freqs, ev, K, stride, 0, 0, st)
+    return slots == 2 ? (int)launch_encode<2, false, AHEAD>(x, lane_len, freqs, ev, K, stride, 0,
+                                                             0, l0, ko, st)
                       : (int)cudaErrorInvalidValue;
-#define CT_RC_ENC(S)                                                                       \
-  (K <= ENC_SMALL_K                                                                        \
-       ? launch_encode<S, true, AHEAD_SMALL>(x, lane_len, nullptr, ev, K, stride, u, limit, st) \
-       : launch_encode<S, true, AHEAD>(x, lane_len, nullptr, ev, K, stride, u, limit, st))
+#define CT_RC_ENC(S)                                                                         \
+  (ko <= ENC_SMALL_K ? launch_encode<S, true, AHEAD_SMALL>(x, lane_len, nullptr, ev, K, stride, \
+                                                           u, limit, l0, ko, st)             \
+                     : launch_encode<S, true, AHEAD>(x, lane_len, nullptr, ev, K, stride, u,  \
+                                                     limit, l0, ko, st))
   if (slots == 2) return (int)CT_RC_ENC(2);
   if (slots == 3) return (int)CT_RC_ENC(3);
 #undef CT_RC_ENC
   return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int ct_rc_exact_encode(const void* x, const void* lane_len, const void* freqs, void* ev,
+                                  int K, int stride, int inc, int limit_log2, int slots,
+                                  void* stream) {
+  return ct_rc_exact_encode_range(x, lane_len, freqs, ev, K, stride, inc, limit_log2, slots, 0, K,
+                                  stream);
 }
 
 extern "C" int ct_rc_exact_decode(const void* words, const void* lane_len, const void* freqs,

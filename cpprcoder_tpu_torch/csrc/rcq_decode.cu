@@ -18,6 +18,11 @@
 // that tree (8 reads in shared memory, where the Pallas kernel made a
 // two-level 16x16 one-hot search) and load their next word a refill ahead.
 //
+// ct_rcq_decode_steps is its stepped lane-range form (rc_decode.cuh), one
+// step a launch, for one rank's lanes of a stream sharded over the 'lane'
+// axis (parallel/sharded_rcq.py; the JAX package psums the decoded
+// symbols' histogram at every step, sharded_rcq.py:185).
+//
 // What bounds it: the sequential steps on one SM, and at every step the
 // requant between two __syncthreads; at K = 2048 also the lanes' search
 // reads and atomics through the SM's shared-memory pipe.
@@ -41,4 +46,14 @@ extern "C" int ct_rcq_decode(const void* words, const void* lane_len, void* out,
   if (!fn) return (int)cudaErrorInvalidValue;
   return (int)fn(words, lane_len, out, nullptr, 1, K, l4, stride, inc, climit, 0, 0,
                  (cudaStream_t)stream);
+}
+
+// The stepped lane-range form, one step a launch: ct_rcx_decode_steps's
+// arguments with one row (C [streams, 1, 256]), one halving, wlog = 0.
+extern "C" int ct_rcq_decode_steps(const void* words, const void* lane_len, void* st, void* C,
+                                   void* prev, const void* xs, void* out, int streams, int K,
+                                   int l4, int l0, int ko, int t0, int steps, int np, int inc,
+                                   uint32_t climit, void* stream) {
+  return (int)launch_decode_steps<1>(words, lane_len, st, C, prev, xs, out, streams, K, l4, l0,
+                                     ko, t0, steps, np, inc, climit, 0, 0, (cudaStream_t)stream);
 }

@@ -52,6 +52,29 @@ extern "C" int ct_rcq_encode(const void* x, const void* lane_len, void* ev, int 
                  (cudaStream_t)stream);
 }
 
+// The lane-range form of D (RANGE in rc_encode.cuh), for a CT-RCQ stream
+// whose lanes are sharded over the 'lane' axis (parallel/sharded_rcq.py,
+// where the JAX package psums the model's update at every step,
+// sharded_rcq.py:87): every lane updates the model, only lanes l0 .. l0 +
+// ko - 1 code and write events, ev [2*stride+2, ko] u32.
+extern "C" int ct_rcq_encode_range(const void* x, const void* lane_len, void* ev, int K,
+                                   int stride, int inc, uint32_t climit, int l0, int ko,
+                                   void* stream) {
+  if (l0 < 0 || ko < 1 || l0 + ko > K) return (int)cudaErrorInvalidValue;
+  RangeFn fn = nullptr;
+  switch (ct::lanes_per_thread(K)) {
+    case 1: fn = launch_encode_range<1, 1, true, 1, false>; break;
+    case 2: fn = launch_encode_range<2, 1, true, 1, false>; break;
+    case 4: fn = launch_encode_range<4, 1, true, 1, false>; break;
+    case 8: fn = launch_encode_range<8, 1, true, 1, false>; break;
+    case 16: fn = launch_encode_range<16, 1, true, 1, false>; break;
+    case 32: fn = launch_encode_range<32, 1, true, 1, false>; break;
+  }
+  if (!fn) return (int)cudaErrorInvalidValue;
+  return (int)fn(x, lane_len, ev, nullptr, 1, K, stride, inc, climit, 0, 0, l0, ko,
+                 (cudaStream_t)stream);
+}
+
 // Kernel O. x [steps, K] u8, the chunk's interleaved rows (steps may be 0);
 // lane_len [K] i32, each lane's steps in the whole stream (lane i codes row
 // j iff t0 + j < lane_len[i]); ev [2*steps + 2*flush, K] u32; st_in /

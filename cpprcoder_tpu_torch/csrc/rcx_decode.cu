@@ -11,7 +11,10 @@
 // instantiates with RESCALE_ROUNDS = 3 and chunked output, one CTA a stream
 // below ct::CLUSTER_MIN_K lanes and a cluster of ct::CLUSTER_CTAS from there on
 // (kernel E is the same kernel with one context, a requant every step, one
-// halving and interleaved output).
+// halving and interleaved output). ct_rcx_decode_steps is its stepped
+// lane-range form (rc_decode.cuh), for one rank's lanes of a stream sharded
+// over the 'lane' axis (parallel/sharded_rcx.py, where the JAX package
+// psums the model's update over the lanes at every step, sharded_rcx.py:179).
 #include "rc_decode.cuh"
 
 // Bytes of the global model scratch ct_rcx_decode needs for K lanes at
@@ -45,4 +48,20 @@ extern "C" int ct_rcx_decode(const void* words, const void* lane_len, void* out,
   if (!fn) return (int)cudaErrorInvalidValue;
   return (int)fn(words, lane_len, out, gmodel, streams, K, l4, stride, inc, climit, cbits, wlog,
                  (cudaStream_t)stream);
+}
+
+// The stepped lane-range form (rc_decode.cuh, rc_decode_steps_kernel):
+// words [streams, l4, ko] u32 word rows of lanes l0 .. l0 + ko - 1;
+// lane_len [streams, K] i32, every lane's; st [streams, 6, ko] u32, C
+// [streams, 2^cbits, 256] u32 and prev [streams, K] u8, the state, updated
+// in place; xs [streams, np, K] u8, every lane's symbols of the np steps
+// before t0 (np = 0 at t0 = 0); out [streams, steps, ko] u8. t0 a multiple
+// of 2^wlog, 1 <= steps <= 2^wlog.
+extern "C" int ct_rcx_decode_steps(const void* words, const void* lane_len, void* st, void* C,
+                                   void* prev, const void* xs, void* out, int streams, int K,
+                                   int l4, int l0, int ko, int t0, int steps, int np, int inc,
+                                   uint32_t climit, int cbits, int wlog, void* stream) {
+  return (int)launch_decode_steps<ct::RESCALE_ROUNDS>(words, lane_len, st, C, prev, xs, out,
+                                                      streams, K, l4, l0, ko, t0, steps, np, inc,
+                                                      climit, cbits, wlog, (cudaStream_t)stream);
 }

@@ -13,7 +13,11 @@
 // instantiates with RESCALE_ROUNDS = 3, one CTA a stream below
 // ct::CLUSTER_MIN_K lanes and a cluster of ct::CLUSTER_CTAS from there on,
 // as kernel C (kernel D is the same kernel's one-row instantiation, with a
-// requant every step and one halving).
+// requant every step and one halving). ct_rcx_encode_range is its
+// lane-range form (RANGE in rc_encode.cuh): the model from every lane, the
+// coder and the events for one rank's lanes of a stream sharded over the
+// 'lane' axis (parallel/sharded_rcx.py), where the JAX package psums the
+// model's update over the lanes at every step (sharded_rcx.py:89).
 #include "rc_encode.cuh"
 
 // Bytes of the global model scratch ct_rcx_encode needs a stream for K
@@ -47,5 +51,30 @@ extern "C" int ct_rcx_encode(const void* x, const void* lane_len, void* ev, void
   }
   if (!fn) return (int)cudaErrorInvalidValue;
   return (int)fn(x, lane_len, ev, gmodel, streams, K, stride, inc, climit, cbits, wlog,
+                 (cudaStream_t)stream);
+}
+
+// The lane-range form: as ct_rcx_encode, but only lanes l0 .. l0 + ko - 1
+// code and write events, ev [streams, 2*stride+2, ko] u32; every lane's
+// symbols still update the model (0 <= l0, 1 <= ko, l0 + ko <= K).
+extern "C" int ct_rcx_encode_range(const void* x, const void* lane_len, void* ev, void* gmodel,
+                                   int streams, int K, int stride, int inc, uint32_t climit,
+                                   int cbits, int wlog, int l0, int ko, void* stream) {
+  constexpr int R = ct::RESCALE_ROUNDS, G = ct::CLUSTER_CTAS;
+  if (l0 < 0 || ko < 1 || l0 + ko > K) return (int)cudaErrorInvalidValue;
+  RangeFn fn = nullptr;
+  if (K < ct::CLUSTER_MIN_K) {
+    fn = gmodel ? launch_encode_range<1, R, false, 1, true>
+                : launch_encode_range<1, R, false, 1, false>;
+  } else {
+    switch (ct::lanes_per_thread((K + G - 1) / G)) {
+      case 1: fn = launch_encode_range<1, R, false, G, false>; break;
+      case 2: fn = launch_encode_range<2, R, false, G, false>; break;
+      case 4: fn = launch_encode_range<4, R, false, G, false>; break;
+      case 8: fn = launch_encode_range<8, R, false, G, false>; break;
+    }
+  }
+  if (!fn) return (int)cudaErrorInvalidValue;
+  return (int)fn(x, lane_len, ev, gmodel, streams, K, stride, inc, climit, cbits, wlog, l0, ko,
                  (cudaStream_t)stream);
 }

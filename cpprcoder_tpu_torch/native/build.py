@@ -39,6 +39,9 @@ SIGNATURES = {
     "ct_rcx_encode": [_P, _P, _P, _P, _I, _I, _I, _I, _U, _I, _I, _P],
     # K, cbits -> model scratch bytes a stream (0: none)
     "ct_rcx_encode_scratch": [_I, _I],
+    # the lane-range form: ct_rcx_encode's arguments, then l0, ko, stream
+    "ct_rcx_encode_range": [_P, _P, _P, _P, _I, _I, _I, _I, _U, _I, _I, _I, _I,
+                            _P],
     # events, may_drop mask (or null: drop_all for every lane), drop_all,
     # sizes, largest size (u64), E, K, stream
     "ct_expand_count": [_P, _P, _I, _P, _P, _I, _I, _P],
@@ -49,14 +52,25 @@ SIGNATURES = {
     "ct_rcx_decode": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _I, _I, _P],
     # K, cbits -> model scratch bytes a stream (0: none)
     "ct_rcx_decode_scratch": [_I, _I],
+    # the stepped lane-range form: words, lane_len, state, C, prev, xs, out,
+    # streams, K, l4, l0, ko, t0, steps, np, inc, climit, cbits, wlog, stream
+    "ct_rcx_decode_steps": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _I, _I, _I, _U, _I, _I, _P],
     # x, lane_len, events, K, stride, inc, climit, stream
     "ct_rcq_encode": [_P, _P, _P, _I, _I, _I, _U, _P],
+    # the lane-range form: x, lane_len, events, K, stride, inc, climit, l0,
+    # ko, stream
+    "ct_rcq_encode_range": [_P, _P, _P, _I, _I, _I, _U, _I, _I, _P],
     # x, lane_len, events, state in, state out, C in, C out, K, steps, t0,
     # flush, inc, climit, stream
     "ct_rcq_encode_chunk": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _U, _P],
     # words, lane_len, out, K, l4, stride, inc, climit, stream
     "ct_rcq_decode": [_P, _P, _P, _I, _I, _I, _I, _U, _P],
+    # the stepped lane-range form: ct_rcx_decode_steps's arguments without
+    # cbits and wlog
+    "ct_rcq_decode_steps": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _I, _I, _I, _U, _P],
     # x, lane_len, freq, cum, events, states, K, stride, stream
     "ct_rans_encode": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     # states, rows, lane_len, freq, cum, out, K, l2, stride, stream
@@ -71,6 +85,10 @@ SIGNATURES = {
     # x, lane_len, static freqs (or null: CT-RC2), events, K, stride, inc,
     # limit_log2, slots, stream
     "ct_rc_exact_encode": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # the lane-range form: ct_rc_exact_encode's arguments, then l0, ko,
+    # stream
+    "ct_rc_exact_encode_range": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                 _P],
     # words, lane_len, static freqs (or null), out, K, l4, stride, inc,
     # limit_log2, slots, stream
     "ct_rc_exact_decode": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

@@ -79,6 +79,13 @@ def check_lanes(name: str, t: torch.Tensor, dtype, lane_len: torch.Tensor,
         raise ValueError(f"unsupported device {t.device}")
 
 
+def check_range(k: int, l0: int, ko: int) -> None:
+    """Raise ValueError unless l0 .. l0 + ko - 1 are lanes of K (a rank's
+    lanes, for the kernels' lane-range forms)."""
+    if not (0 <= l0 and 1 <= ko and l0 + ko <= k):
+        raise ValueError(f"lanes {l0} .. {l0 + ko - 1} are not lanes of {k}")
+
+
 # ------------------------------------------------------------ lane rows
 
 def lane_rows(flat: torch.Tensor, sizes: torch.Tensor,

@@ -27,6 +27,12 @@ the largest s with t*cum[s] <= code (no divide). Up to 4,096 lanes a CTA;
 more run a cluster of up to 8 CTAs that read each other's histograms
 through distributed shared memory.
 
+J's lane-range form (`encode_events_range`, `ct_rc_exact_encode_range`),
+for a stream whose lanes are sharded over a 'lane' group
+(parallel/sharded.py): every CTA still builds the whole stream's tables,
+but only one rank's lanes code; its plain version is J's plain version's
+columns of those lanes, and it counts its own launches (`range_launches`).
+
 n_slots comes from `range_ops.slots` (K, inc and limit_log2; the bound on
 CT-RC2's total is proved there). Their plain versions are
 `range_ops.encode_events_plain` and `range_ops.decode_symbols_plain`. On a
@@ -44,6 +50,7 @@ from cpprcoder_tpu_torch.ops import layout, range_ops
 
 encode_launches = 0   # kernel J
 decode_launches = 0   # kernel L
+range_launches = 0    # kernel J's lane-range form
 
 MAX_LANES = 1 << 16   # CT-RC2 decode: a cluster of 8 CTAs of 8,192 lanes at most
 
@@ -122,3 +129,32 @@ def decode_symbols(words: torch.Tensor, lane_len: torch.Tensor, n: int,
         build.check(rc, "ct_rc_exact_decode")
     decode_launches += 1
     return out[:n]
+
+
+def encode_events_range(x2d: torch.Tensor, lane_len: torch.Tensor, l0: int,
+                        ko: int, freqs: torch.Tensor | None, inc: int,
+                        limit_log2: int) -> torch.Tensor:
+    """Kernel J's lane-range form: encode_events(...)[:, l0:l0 + ko], the
+    events [n_slots*stride + 2, ko] int32 of lanes l0 .. l0 + ko - 1 (n_slots
+    of all K lanes), from the whole stream x2d [stride, K]."""
+    global range_launches
+    _check("x2d", x2d, torch.uint8, lane_len, freqs, inc, limit_log2)
+    stride, k = x2d.shape
+    layout.check_range(k, l0, ko)
+    if x2d.device.type == "cpu":
+        return range_ops.encode_events_plain(
+            x2d, lane_len, freqs, inc, limit_log2)[:, l0:l0 + ko].contiguous()
+    slots = range_ops.slots(freqs, limit_log2, k, inc)
+    dev = x2d.device
+    lib = build.load()
+    with torch.cuda.device(dev):
+        ev = torch.empty((slots * stride + 2, ko), dtype=torch.int32,
+                         device=dev)
+        rc = lib.ct_rc_exact_encode_range(
+            x2d.data_ptr(), lane_len.data_ptr(),
+            None if freqs is None else freqs.data_ptr(), ev.data_ptr(), k,
+            stride, inc, limit_log2, slots, l0, ko,
+            torch.cuda.current_stream(dev).cuda_stream)
+        build.check(rc, "ct_rc_exact_encode_range")
+    range_launches += 1
+    return ev

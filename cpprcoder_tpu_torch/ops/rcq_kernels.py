@@ -19,6 +19,14 @@ only when asked: the steps of cpprcoder_tpu/codecs/resume.py:44
 resumable encoder (codecs/resume.py). Its plain version is
 `rcq_ops.encode_chunk_plain`.
 
+For a stream whose lanes are sharded over a 'lane' group
+(parallel/sharded_rcq.py), D's lane-range form (`encode_events_range`,
+`ct_rcq_encode_range`) codes one rank's lanes against the model of every
+lane, and E's stepped lane-range form (`decode_steps`,
+`ct_rcq_decode_steps`) decodes one step of them from a state kept between
+launches: kernel A's and C's forms with one row (rcx_kernels). Each form
+counts its own launches (`range_launches`, `steps_launches`).
+
 D's and E's plain versions are kernel A's and C's step loops
 (`rcx_ops.encode_events_plain` / `decode_symbols_plain`) with cbits=0,
 wlog=0, rounds=1 and the interleaved output. On a CPU tensor a wrapper
@@ -30,13 +38,19 @@ from __future__ import annotations
 import torch
 
 from cpprcoder_tpu_torch.native import build
-from cpprcoder_tpu_torch.ops import rcq_ops, rcx_ops
+from cpprcoder_tpu_torch.ops import layout, rcq_ops, rcx_ops
 from cpprcoder_tpu_torch.ops.rcq_ops import ROUNDS
-from cpprcoder_tpu_torch.ops.rcx_kernels import check_args
+from cpprcoder_tpu_torch.ops.rcx_kernels import (
+    check_args,
+    check_steps,
+    launch_steps,
+)
 
 encode_launches = 0   # kernel D
 decode_launches = 0   # kernel E
 chunk_launches = 0    # kernel O
+range_launches = 0    # kernel D's lane-range form
+steps_launches = 0    # kernel E's stepped lane-range form
 
 
 def encode_events(x2d: torch.Tensor, lane_len: torch.Tensor, inc: int,
@@ -125,3 +139,45 @@ def encode_chunk(x2d: torch.Tensor, lane_len: torch.Tensor, t0: int,
         build.check(rc, "ct_rcq_encode_chunk")
     chunk_launches += 1
     return ev, st_out, c_out
+
+
+def encode_events_range(x2d: torch.Tensor, lane_len: torch.Tensor, l0: int,
+                        ko: int, inc: int, climit: int) -> torch.Tensor:
+    """Kernel D's lane-range form: encode_events(...)[:, l0:l0 + ko], the
+    events [2*stride+2, ko] int32 of lanes l0 .. l0 + ko - 1, from the
+    whole stream (every lane updates the model)."""
+    global range_launches
+    check_args("x2d", x2d, torch.uint8, lane_len, 0, 0, climit, inc)
+    stride, k = x2d.shape
+    layout.check_range(k, l0, ko)
+    if x2d.device.type == "cpu":
+        return rcx_ops.encode_events_plain(
+            x2d, lane_len, inc, climit, 0, 0, ROUNDS)[:, l0:l0 + ko].contiguous()
+    dev = x2d.device
+    lib = build.load()
+    with torch.cuda.device(dev):
+        ev = torch.empty((2 * stride + 2, ko), dtype=torch.int32, device=dev)
+        rc = lib.ct_rcq_encode_range(
+            x2d.data_ptr(), lane_len.data_ptr(), ev.data_ptr(), k, stride,
+            inc, climit, l0, ko, torch.cuda.current_stream(dev).cuda_stream)
+        build.check(rc, "ct_rcq_encode_range")
+    range_launches += 1
+    return ev
+
+
+def decode_steps(words: torch.Tensor, lane_len: torch.Tensor, state,
+                 xs: torch.Tensor, l0: int, t0: int, inc: int,
+                 climit: int) -> torch.Tensor:
+    """Kernel E's stepped lane-range form: step t0 of lanes l0 .. l0 + ko -
+    1 (rcx_ops.decode_steps_plain with one row, one halving, a window a
+    step; the state is rcx_ops.decode_state(words, K, 0), updated in
+    place). -> out uint8 [S, 1, ko]."""
+    global steps_launches
+    check_steps(words, lane_len, state, xs, l0, t0, 1, 0, 0, inc, climit)
+    if words.device.type == "cpu":
+        return rcx_ops.decode_steps_plain(words, lane_len, state, xs, l0, t0,
+                                          1, inc, climit, 0, ROUNDS)
+    out = launch_steps("ct_rcq_decode_steps", words, lane_len, state, xs, l0,
+                       t0, 1, inc, climit, ())
+    steps_launches += 1
+    return out

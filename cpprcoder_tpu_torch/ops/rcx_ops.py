@@ -192,6 +192,108 @@ def decode_symbols_plain(words: torch.Tensor, lane_len: torch.Tensor, n: int,
     return (out.T if interleaved else out).reshape(-1)[:n]
 
 
+# ------------------------------------------ the stepped lane-range decode
+
+STATE_ROWS = 6   # a lane's range, code, q0, q1, occ and next word's index
+
+
+def decode_state(words: torch.Tensor, k: int, cbits: int):
+    """The stepped decode's state at step 0 (kernels C's and E's stepped
+    lane-range form, rcx_kernels.decode_steps) for words [S, l4, ko] int32,
+    one rank's lanes of S streams of K lanes: (st int32 [S, 6, ko]: each
+    lane's range 2^32 - 1, code its first word, q0 = q1 = occ = 0, next word
+    1; C int32 [S, 2^cbits, 256] of ones; prev uint8 [S, K] of zeros)."""
+    s, l4, ko = words.shape
+    st = torch.zeros((s, STATE_ROWS, ko), dtype=torch.int32,
+                     device=words.device)
+    st[:, 0] = -1
+    if l4:
+        st[:, 1] = words[:, 0]
+    st[:, 5] = 1
+    C = torch.ones((s, 1 << cbits, 256), dtype=torch.int32,
+                   device=words.device)
+    prev = torch.zeros((s, k), dtype=torch.uint8, device=words.device)
+    return st, C, prev
+
+
+def decode_steps_plain(words: torch.Tensor, lane_len: torch.Tensor,
+                       state, xs: torch.Tensor, l0: int, t0: int, steps: int,
+                       inc: int, climit: int, cbits: int,
+                       rounds: int = RESCALE_ROUNDS) -> torch.Tensor:
+    """Plain version of the stepped lane-range form of kernels C and E: one
+    window, steps t0 .. t0 + steps - 1, of lanes l0 .. l0 + ko - 1 of S
+    streams of K lanes.
+
+    words [S, l4, ko] int32, those lanes' big-endian word rows; lane_len
+    [S, K] int32, every lane's steps; state = decode_state(...) after the
+    windows before, updated in place; xs [S, np, K] uint8, every lane's
+    symbols of the np steps before t0, which the counts do not hold yet.
+    The counts first take xs's updates (each lane from its previous
+    symbol), then the window's requant; each own lane then decodes the
+    steps against those tables as decode_symbols_plain does, a lane past
+    its length keeping its state. -> out uint8 [S, steps, ko]: the own
+    lanes' symbols, 0 past a lane's length."""
+    st_all, C_all, prev_all = state
+    n_s, l4, ko = words.shape
+    dev = words.device
+    shift = 8 - cbits
+    out = torch.zeros((n_s, steps, ko), dtype=torch.uint8, device=dev)
+    lanes = torch.arange(ko, device=dev)
+    for s in range(n_s):
+        lens = lane_len[s].to(torch.int64)
+        C = rc_common.i32_to_u32(C_all[s])
+        prev = prev_all[s].to(torch.int64)
+        n_p = xs.shape[1]
+        for u in range(n_p):
+            active = t0 - n_p + u < lens
+            sym = xs[s, u].to(torch.int64)
+            C.index_put_((prev >> shift, sym), torch.where(active, inc, 0),
+                         accumulate=True)
+            prev = torch.where(active, sym, prev)
+        prev_all[s] = prev.to(torch.uint8)
+        C, q, cum = model_tables(C, climit, rounds)
+        C_all[s] = rc_common.u32_to_i32(C)
+        w = rc_common.i32_to_u32(words[s])
+        rng, code, q0, q1, occ, widx = rc_common.i32_to_u32(st_all[s])
+        p = prev[l0:l0 + ko]
+        for u in range(steps):
+            active = t0 + u < lens[l0:l0 + ko]
+            need = occ < N_SLOTS
+            word = w[torch.clamp(widx, max=l4 - 1), lanes]
+            word = torch.where(widx < l4, word, 0)
+            q0n = torch.where(need, q0 | torch.where(occ == 0, word, word >> 8),
+                              q0)
+            q1n = torch.where(need, q1 | torch.where(
+                occ == 0, 0, (word << 24) & MASK32), q1)
+            occn = torch.where(need, occ + 4, occ)
+            widxn = widx + need.to(torch.int64)
+            row_c = cum[p >> shift]
+            t = rng >> QBITS
+            sym = (row_c * t[:, None] <= code[:, None]).sum(dim=1) - 1
+            c = row_c.gather(1, sym[:, None])[:, 0]
+            f = q[p >> shift, sym]
+            coden = (code - c * t) & MASK32
+            rngn = torch.where((c + f) == QTOTAL, (rng - c * t) & MASK32,
+                               (f * t) & MASK32)
+            for _ in range(N_SLOTS):
+                do = rngn < RC_TOP
+                b = q0n >> 24
+                q0n = torch.where(do, ((q0n << 8) & MASK32) | (q1n >> 24), q0n)
+                q1n = torch.where(do, (q1n << 8) & MASK32, q1n)
+                occn = occn - do.to(torch.int64)
+                coden = torch.where(do, ((coden << 8) & MASK32) | b, coden)
+                rngn = torch.where(do, (rngn << 8) & MASK32, rngn)
+            rng, code, q0, q1, occ, widx = (
+                torch.where(active, a, b) for a, b in
+                ((rngn, rng), (coden, code), (q0n, q0), (q1n, q1),
+                 (occn, occ), (widxn, widx)))
+            p = torch.where(active, sym, p)
+            out[s, u] = torch.where(active, sym, 0).to(torch.uint8)
+        st_all[s] = rc_common.u32_to_i32(
+            torch.stack([rng, code, q0, q1, occ, widx]))
+    return out
+
+
 def parse_rcx_header(r: ByteReader):
     """-> (n, k, wide, inc, climit_log2, cbits, wlog); rejects a qbits
     other than QBITS, cbits > 8 and wlog > 3."""

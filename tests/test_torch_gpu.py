@@ -1937,3 +1937,131 @@ def test_w_x_y_launch_counters_move(dev):
     assert ctt.decompress(blob, codec="adaptive_rans") == data
     assert [getattr(m, a) - b for (m, a), b in zip(counters, before)] \
         == [1, 1, 1]
+
+
+# ---------------------------------------------- the sharded paths' forms
+
+def _shard_words(words, lane_n):
+    k = words.shape[1]
+    ko = k // lane_n
+    return [words[:, r * ko:(r + 1) * ko].contiguous()[None]
+            for r in range(lane_n)], ko
+
+
+@pytest.mark.parametrize("k,cbits,lane_n,rank",
+                         [(64, 4, 2, 1), (256, 8, 2, 0), (1024, 4, 2, 1),
+                          (2048, 8, 4, 3), (4096, 4, 2, 0)])
+def test_rcx_encode_range_matches_plain(dev, k, cbits, lane_n, rank):
+    """Kernel A's lane-range form (one CTA, its global model, the cluster
+    from 1,024 lanes) against its plain version and the one-shot events'
+    columns."""
+    n = 30 * k - k // 3
+    x = torch.from_numpy(_textish(n, k + 1)).to(dev)
+    stride = -(-n // k)
+    x2d = layout.pad2d_chunked(x, k, stride)
+    lens = layout.lane_lengths(n, k, stride, dev)
+    ko = k // lane_n
+    cols = slice(rank * ko, (rank + 1) * ko)
+    before = (rcx_kernels.range_launches, rcx_kernels.encode_launches)
+    got = rcx_kernels.encode_events_range(x2d, lens, rank * ko, ko, 16,
+                                          1 << 16, cbits, 0)
+    torch.cuda.synchronize()
+    # the form counts its own launch, apart from the one-shot kernel's
+    assert (rcx_kernels.range_launches,
+            rcx_kernels.encode_launches) == (before[0] + 1, before[1])
+    assert torch.equal(got, rcx_ops.encode_events_plain(
+        x2d, lens, 16, 1 << 16, cbits, 0)[:, cols])
+    assert torch.equal(got, rcx_kernels.encode_events(
+        x2d, lens, 16, 1 << 16, cbits, 0)[:, cols])
+
+
+@pytest.mark.parametrize("k,lane_n,rank", [(32, 2, 0), (2048, 2, 1),
+                                           (8192, 4, 2)])
+def test_rcq_and_rc2_encode_range_match_plain(dev, k, lane_n, rank):
+    """Kernels D's and J's lane-range forms against their plain versions."""
+    n = 25 * k - 5
+    x = torch.from_numpy(_textish(n, k + 2)).to(dev)
+    stride = -(-n // k)
+    x2d = layout.pad2d_interleaved(x, k, stride)
+    lens = layout.lane_lengths_interleaved(n, k, stride, dev)
+    ko = k // lane_n
+    cols = slice(rank * ko, (rank + 1) * ko)
+    got = rcq_kernels.encode_events_range(x2d, lens, rank * ko, ko, 24,
+                                          1 << 16)
+    assert torch.equal(got, rcx_ops.encode_events_plain(
+        x2d, lens, 24, 1 << 16, 0, 0, rcq_ops.ROUNDS)[:, cols])
+    for limit in (16, 17):
+        got = range_kernels.encode_events_range(x2d, lens, rank * ko, ko,
+                                                None, 24, limit)
+        assert torch.equal(got, range_ops.encode_events_plain(
+            x2d, lens, None, 24, limit)[:, cols])
+
+
+@pytest.mark.parametrize("codec,k,cbits,wlog,lane_n",
+                         [("rcx", 64, 4, 0, 2), ("rcx", 256, 8, 2, 2),
+                          ("rcx", 2048, 4, 1, 2), ("rcq", 128, 0, 0, 2),
+                          ("rcq", 4096, 0, 0, 4)])
+def test_stepped_decode_matches_plain(dev, codec, k, cbits, wlog, lane_n):
+    """Kernels C's and E's stepped lane-range forms, lane_n ranks simulated:
+    every launch's symbols and state (lane state, counts, contexts) against
+    the plain version from the same state; the joined symbols are the
+    input."""
+    n = 20 * k - 3
+    data = _textish(n, k + 3)
+    x = torch.from_numpy(data).to(dev)
+    stride = -(-n // k)
+    if codec == "rcx":
+        x2d = layout.pad2d_chunked(x, k, stride)
+        lens = layout.lane_lengths(n, k, stride, dev)
+        ev = rcx_kernels.encode_events(x2d, lens, 16, 1 << 16, cbits, wlog)
+        inc, rounds = 16, 3
+    else:
+        x2d = layout.pad2d_interleaved(x, k, stride)
+        lens = layout.lane_lengths_interleaved(n, k, stride, dev)
+        ev = rcq_kernels.encode_events(x2d, lens, 24, 1 << 16)
+        inc, rounds = 24, rcq_ops.ROUNDS
+    words = layout.decode_words(*expand.materialize_rows(ev))
+    ws, ko = _shard_words(words, lane_n)
+    ll = lens[None].contiguous()
+    states = [rcx_ops.decode_state(w, k, cbits) for w in ws]
+    xs = torch.empty((1, 0, k), dtype=torch.uint8, device=dev)
+    rows = []
+    for t0 in range(0, stride, 1 << wlog):
+        steps = min(1 << wlog, stride - t0)
+        outs = []
+        for r in range(lane_n):
+            mirror = tuple(t.clone() for t in states[r])
+            want = rcx_ops.decode_steps_plain(ws[r], ll, mirror, xs, r * ko,
+                                              t0, steps, inc, 1 << 16, cbits,
+                                              rounds)
+            if codec == "rcx":
+                got = rcx_kernels.decode_steps(ws[r], ll, states[r], xs,
+                                               r * ko, t0, steps, inc,
+                                               1 << 16, cbits, wlog)
+            else:
+                got = rcq_kernels.decode_steps(ws[r], ll, states[r], xs,
+                                               r * ko, t0, inc, 1 << 16)
+            assert torch.equal(got, want)
+            for a, b in zip(states[r], mirror):
+                assert torch.equal(a, b)
+            outs.append(got)
+        xs = torch.cat(outs, dim=2).contiguous()
+        rows.append(xs[0])
+    sym = torch.cat(rows)
+    flat = (sym.T if codec == "rcx" else sym).reshape(-1)[:n]
+    assert flat.cpu().numpy().tobytes() == data.tobytes()
+
+
+def test_dryrun_multichip_world_of_one_over_nccl(dev):
+    """dryrun_multichip(1) over NCCL on the card: every check passes in the
+    rank, the one-shot kernels decode (no exchange), and the rank loads no
+    JAX."""
+    from cpprcoder_tpu_torch.parallel import dryrun
+
+    res = dryrun.dryrun_multichip(1, backend="nccl", device="cuda")
+    v = res[0].value[0]
+    assert res[0].foreign == [] and v["backend"] == "nccl"
+    assert v["rcx"]["exchanges"] == 0 and v["rcq"]["exchanges"] == 0
+    assert res[0].launches["rcx_decode"] > 0
+    assert res[0].launches["rc_exact_encode"] > 0
+    assert all(res[0].launches[f] == 0 for f in dryrun.FORMS)

@@ -321,7 +321,12 @@ def test_no_source_imports_the_jax_package():
             PKG / "debug.py", PKG / "utils" / "profiling.py",
             PKG / "bench" / "harness.py", PKG / "bench" / "compare.py",
             PKG / "bench" / "ratio_sim.py", PKG / "bench" / "rcq_sim.py",
-            PKG / "bench" / "rcx_sim.py"} <= set(paths)
+            PKG / "bench" / "rcx_sim.py", PKG / "parallel" / "mesh.py",
+            PKG / "parallel" / "spawn.py", PKG / "parallel" / "sharded.py",
+            PKG / "parallel" / "sharded_rcq.py",
+            PKG / "parallel" / "sharded_rcx.py",
+            PKG / "parallel" / "launch.py",
+            PKG / "parallel" / "dryrun.py"} <= set(paths)
     for path in paths:
         assert not IMPORTS_JAX_PACKAGE.search(path.read_text()), path
 
@@ -336,8 +341,15 @@ from cpprcoder_tpu_torch.bench.synth import synth_stream
 from cpprcoder_tpu_torch.codecs import resume, stream
 from cpprcoder_tpu_torch.codecs.pipeline import make_pipeline
 from cpprcoder_tpu_torch.native import ctrc
+from cpprcoder_tpu_torch.parallel import dryrun, launch, mesh, spawn
+from cpprcoder_tpu_torch.parallel import sharded, sharded_rcq, sharded_rcx
 from cpprcoder_tpu_torch.utils import profiling
 data = bytes(range(256)) * 3 + b"no jax here " * 50
+m = mesh.make_mesh(device="cpu")
+x = __import__("numpy").frombuffer(data, "uint8")
+shard, _ = sharded_rcx.sharded_rcx_encode(x, m, k_global=16)
+assert shard.total == int(shard.totals.sum()) and shard.offset == 0
+assert sharded.sharded_histogram(x, m).sum() == len(data)
 for codec in ctt.list_codecs():
     for opts in ({"device": "cpu"}, {"backend": "ref"}):
         blob = ctt.compress(data, codec=codec, **opts)
@@ -362,3 +374,27 @@ print(len(ctt.list_codecs()), bad)
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split(None, 1) == ["16", "[]\n"]
+
+
+def test_launch_help_loads_nothing_of_jax():
+    """python -m cpprcoder_tpu_torch.parallel.launch --help prints its
+    usage and loads neither jax nor the JAX package."""
+    out = subprocess.run(
+        [sys.executable, "-m", "cpprcoder_tpu_torch.parallel.launch",
+         "--help"], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "--blocks-per-shard" in out.stdout and "--backend" in out.stdout
+    code = """
+import runpy, sys
+sys.argv = ["launch", "--help"]
+try:
+    runpy.run_module("cpprcoder_tpu_torch.parallel.launch", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0
+import cpprcoder_tpu_torch.parallel.launch
+print(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "cpprcoder_tpu")))
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
