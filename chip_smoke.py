@@ -69,7 +69,13 @@ Phases, one line each (a failed phase exits non-zero):
               and a zero segment, on 8 segments with segment 3 corrupted
               and on the longest chain of matches; timed at those five
               shapes and R at the last two, the plain versions at
-              kennedy.xls; S and T (CT-ASE1 encode, decode) on runs
+              kennedy.xls; Z (CT-LZ4's v1 match table) against its plain
+              version at those shapes and edges and at the distance limit
+              (a key's nearest copy 65,535 and 65,536 back, a farther one
+              beyond), timed at P's shapes beside the plain version and
+              v2's tensor table; then slz4's encode parts at
+              kennedy.xls, v2's (its table, P, Q) beside v1's (Z, P, Q);
+              S and T (CT-ASE1 encode, decode) on runs
               (every hit at distance 0), all 256 values cycled (a full
               table evicting every step), exactly 64 and 65 distinct
               symbols, n not a multiple of K, K = 1 and K = 65,536; U and
@@ -113,7 +119,10 @@ Phases, one line each (a failed phase exits non-zero):
               bytes: K = 1,024, limit_log2 17), for slz4 (held to the v2
               oracle, which its card path writes; its backend="ref" is the
               v1 parse) also the 11 files concatenated (22 segments: the
-              C1 row) and the v1 oracle's containers decoded; then the
+              C1 row); then the `slz4_v1` path (the 11 files through
+              lz_ops.slz4_encode(parse="v1", device="cuda"): Z, P and Q,
+              each container the v1 oracle's, 1,140,737 bytes in all, each
+              decoded through R); then the
               `resume` path
               (kennedy.xls and fields.c through RCQResumableEncoder,
               checkpointed half-way through pickle and resumed: one-shot
@@ -184,7 +193,7 @@ H `wrapper_ms`; A, C, D, E and J `forms`, the new form's numbers
 beside the one-shot kernel's); `launches_by_path`, its launches on each
 codec's path and on the parallel path;
 `tpu_kernel`, the Pallas kernel it replaces, null for J, L, M, N, O, P,
-Q, R, S, T, U, V, W, X and Y, which replace the JAX package's lax.scan
+Q, R, S, T, U, V, W, X, Y and Z, which replace the JAX package's lax.scan
 loops and XLA code), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Each phase prints its seconds.
 """
@@ -405,6 +414,7 @@ COUNTERS = {
     "rc_exact_decode": (range_kernels, "decode_launches", "decode_symbols"),
     "mtf_encode": (mtf_kernels, "encode_launches", "encode_ranks"),
     "mtf_decode": (mtf_kernels, "decode_launches", "decode_bytes"),
+    "lz_match_v1": (lz_kernels, "match_launches", "match_v1"),
     "lz_walk": (lz_kernels, "walk_launches", "walk"),
     "lz_serialize": (lz_kernels, "serialize_launches", "serialize"),
     "lz_decode": (lz_kernels, "decode_launches", "decode"),
@@ -429,6 +439,8 @@ PATH_KERNELS = {
     "blocksort": [], "mtf": MTF, "mtf1": MTF, "rle0": [],
     "pipeline": MTF + RC_EXACT,
     "slz4": ["lz_walk", "lz_serialize", "lz_decode"],
+    # the v1 parse (an ops-level argument: the codec writes v2 on the card)
+    "slz4_v1": ["lz_match_v1", "lz_walk", "lz_serialize", "lz_decode"],
     "ase": ["ase_encode", "ase_decode"],
     "adaptive_o1": ["o1_encode", "expand", "o1_decode"],
     "adaptive_rans": ["ans2_model", "ans2_encode", "ans2_decode"],
@@ -436,9 +448,11 @@ PATH_KERNELS = {
     # decode (E) that it is held to
     "resume": ["rcq_encode_chunk", "expand", "rcq_encode", "rcq_decode"],
 }
-# CT-SB over every ported codec: every kernel but O
+# CT-SB over every ported codec: every kernel but O and Z (CT-SB's slz4
+# writes the v2 parse)
 PATH_KERNELS["stream"] = sorted({nm for ks in PATH_KERNELS.values()
-                                 for nm in ks} - {"rcq_encode_chunk"})
+                                 for nm in ks} - {"rcq_encode_chunk",
+                                                  "lz_match_v1"})
 
 # The bound of a kernel (bound_ms): the larger of the bytes it must move
 # (each input read once, each output written once) over the H100's
@@ -476,6 +490,12 @@ OPS_PER_EVENT = 5      # kernel B: an event's fields and its lane cumsum
 # normalize's pre-scale, divide, remainder, a rank from a sort of 256 (8
 # compares) and the scan, and Y's cum2sym
 OPS_PER_ANS2_CELL = 20
+# Z: a position's key, its hash and probe, its rank neighbour's compare,
+# the distance and cap rules (the lcp's compares come from the bytes read)
+OPS_PER_V1_POSITION = 8
+# Z's plain version and v2's tensor table, ms at each shape timed
+# (phase_kernels_lz fills it; the kernels line reports it)
+TABLES_MS_AT: dict[str, dict] = {}
 
 
 def nbytes(*ts) -> int:
@@ -2268,13 +2288,56 @@ def lz_decode_cases():
              slz4_ref.decode_block(bytes(chain), n), [0])]
 
 
+def v1_distance_edges():
+    """Z's distance limit: a 64-byte key 5,000 bytes and then `dist` bytes
+    apart, and again `dist` after the second copy (the nearest copy
+    `dist` back, a farther one 5,000 more), dist 65,535 and 65,536."""
+    out = []
+    for dist in (65535, 65536):
+        rng = np.random.default_rng(dist)
+        head = rng.integers(0, 256, 64, np.uint8).tobytes()
+        noise = rng.integers(0, 256, 5000 + dist, np.uint8).tobytes()
+        out.append((f"a key's nearest copy {dist} back", head + noise[:4936]
+                    + head + noise[4936:4872 + dist] + head + b"end", 17, True))
+    return out
+
+
+def phase_kernels_z(dev, shapes, edges, err, plain):
+    """Z against its plain version (lz_ops.match_table_v1) at P's shapes
+    and edges and at the distance limit; timed at the shapes beside its
+    plain version and v2's tensor table (lz_ops.match_table). -> (Z's ms
+    at each shape, its work at kennedy.xls)."""
+    z_at, work = {}, None
+    for i, (what, data, sl, _) in enumerate(shapes + edges
+                                            + v1_distance_edges()):
+        rows, lens = lz_ops.segment_rows(to_dev(data, dev), sl)
+        hold(err, "lz_match_v1", lz_kernels.match_v1(rows, lens),
+             plain("lz_match_v1", lambda: lz_ops.match_table_v1(rows, lens),
+                   i == 0), f"kernel Z at {what}")
+        if i >= len(shapes):
+            continue
+        shape = f"{what}: {rows.shape[0]} segments"
+        z_at[shape] = cuda_ms(lambda: lz_kernels.match_v1(rows, lens), 5)
+        TABLES_MS_AT.setdefault("match_table_v1", {})[shape] = cuda_ms(
+            lambda: lz_ops.match_table_v1(rows, lens), 2)
+        TABLES_MS_AT.setdefault("match_table (v2)", {})[shape] = cuda_ms(
+            lambda: lz_ops.match_table(rows, lens), 2)
+        if i == 0:
+            # Z reads the rows (the last one's padding too) and lens and
+            # writes lcp and cand (int64) whole
+            work = (17 * rows.numel() + 8 * rows.shape[0],
+                    OPS_PER_V1_POSITION * rows.numel())
+    return z_at, work
+
+
 def phase_kernels_lz(dev):
     """P, Q and R against their plain versions (lz_kernels.walk_plain,
     serialize_plain, decode_plain) and the payload against the v2 oracle's
     container, at the main path's shapes (P from the match table of each,
     lz_ops.match_table) and at edges; R also on malformed blocks (the same
     error code as its plain version's). Times at each shape; the plain
-    versions at kennedy.xls."""
+    versions at kennedy.xls. Then Z (phase_kernels_z) and the encode's
+    parts (slz4_encode_parts)."""
     err = {"lz_walk": 0, "lz_serialize": 0, "lz_decode": 0}
     rng = np.random.default_rng(601)
     text = corpus("fields.c")
@@ -2415,6 +2478,19 @@ def phase_kernels_lz(dev):
               for at in ms_at["lz_walk"]) + "; R at " + ", ".join(
               f"{at} {v:.3f}" for at, v in ms_at["lz_decode"].items()
               if at not in ms_at["lz_walk"]), flush=True)
+    err["lz_match_v1"] = 0
+    ms_at["lz_match_v1"], work["lz_match_v1"] = phase_kernels_z(
+        dev, shapes, edges, err, plain)
+    ms["lz_match_v1"] = (next(iter(ms_at["lz_match_v1"].values())),
+                         plain_ms["lz_match_v1"])
+    print(f"[kernels] ok {len(shapes) + len(edges) + 2} CT-LZ4 v1 tables: "
+          f"kernel Z equals its plain version (max_abs_err "
+          f"{err['lz_match_v1']}); ms kernel/plain at kennedy.xls "
+          f"{ms['lz_match_v1'][0]:.4f}/{ms['lz_match_v1'][1]:.3f}; ms at "
+          + "; ".join(f"{at}: Z {v:.4f}, match_table_v1 "
+                      f"{TABLES_MS_AT['match_table_v1'][at]:.3f}, v2 table "
+                      f"{TABLES_MS_AT['match_table (v2)'][at]:.3f}"
+                      for at, v in ms_at["lz_match_v1"].items()), flush=True)
     slz4_encode_parts(dev)
     return err, ms, work, ms_at
 
@@ -2422,34 +2498,44 @@ def phase_kernels_lz(dev):
 def slz4_encode_parts(dev, reps: int = 5):
     """kennedy.xls's slz4 encode (8 segments of 2^17) in its three parts,
     each ending in a synchronize, host clock, the median of reps after a
-    warm-up: the match table (lz_ops.match_table's tensor code), the walk
-    (kernel P), the serializer and the copies (kernel Q, then the sizes and
-    the payload to the host); and the whole compress() call."""
+    warm-up, by each parse: the match table (v2: lz_ops.match_table's
+    tensor code; v1: kernel Z), the walk (kernel P), the serializer and the
+    copies (kernel Q, then the sizes and the payload to the host); and the
+    whole call (v2: compress(); v1: lz_ops.slz4_encode(parse="v1"))."""
     data = corpus("kennedy.xls")
     rows, lens = lz_ops.segment_rows(to_dev(data, dev), 17)
     names = ["match table", "walk (P)", "serializer and copies (Q)",
-             "whole compress()"]
-    runs = []
-    for _ in range(reps + 1):
-        torch.cuda.synchronize()
-        t = [time.perf_counter()]
-        lcp, cand = lz_ops.match_table(rows, lens)
-        torch.cuda.synchronize()
-        t.append(time.perf_counter())
-        tokens = lz_kernels.walk(lcp, cand, lens)
-        torch.cuda.synchronize()
-        t.append(time.perf_counter())
-        payload, sizes = lz_kernels.serialize(rows, lens, *tokens)
-        sizes = sizes.cpu().numpy()
-        payload[:int(sizes.sum())].cpu().numpy().tobytes()
-        t.append(time.perf_counter())
-        ctt.compress(data, codec="slz4", device="cuda")
-        t.append(time.perf_counter())
-        runs.append(np.diff(t) * 1e3)
-    med = np.median(runs[1:], axis=0)
+             "whole call"]
+    tables = {"v2": lambda: lz_ops.match_table(rows, lens),
+              "v1": lambda: lz_kernels.match_v1(rows, lens)}
+    whole = {"v2": lambda: ctt.compress(data, codec="slz4", device="cuda"),
+             "v1": lambda: lz_ops.slz4_encode(data, parse="v1",
+                                              device="cuda")}
+    parts = {}
+    for parse in ("v2", "v1"):
+        runs = []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t = [time.perf_counter()]
+            lcp, cand = tables[parse]()
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            tokens = lz_kernels.walk(lcp, cand, lens)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            payload, sizes = lz_kernels.serialize(rows, lens, *tokens)
+            sizes = sizes.cpu().numpy()
+            payload[:int(sizes.sum())].cpu().numpy().tobytes()
+            t.append(time.perf_counter())
+            whole[parse]()
+            t.append(time.perf_counter())
+            runs.append(np.diff(t) * 1e3)
+        parts[parse] = np.median(runs[1:], axis=0)
     print("[kernels] slz4 encode parts at kennedy.xls (ms, host clock, median "
-          f"of {reps}): " + ", ".join(f"{nm} {v:.3f}" for nm, v in
-                                     zip(names, med)), flush=True)
+          f"of {reps}): " + "; ".join(
+              f"{parse} " + ", ".join(f"{nm} {v:.3f}" for nm, v in
+                                      zip(names, med))
+              for parse, med in parts.items()), flush=True)
 
 
 def run_corpus(codec: str):
@@ -2744,8 +2830,7 @@ def start_oracles(pool):
 def slz4_whole_inputs(oracles):
     """The 11 files concatenated (2,810,784 bytes, 22 segments of 2^17:
     the C1 row, where the JAX package's serializer wraps) against the v2
-    oracle's container, and back; then the v1 oracle's containers of the
-    11 files decoded on the card."""
+    oracle's container, and back."""
     data = concat_corpus()
     t0 = time.perf_counter()
     blob = ctt.compress(data, codec="slz4", device="cuda")
@@ -2762,20 +2847,38 @@ def slz4_whole_inputs(oracles):
     print(f"[main] slz4 11 files concatenated n={len(data)} "
           f"bytes={len(blob)} enc_s={t1 - t0:.4f} dec_s={t2 - t1:.4f}",
           flush=True)
+    return (f"the concatenated corpus in {len(blob)} bytes (the v2 "
+            f"oracle's)")
+
+
+def slz4_v1_files(oracles):
+    """The v1 parse on the card: the 11 files through
+    lz_ops.slz4_encode(parse="v1", device="cuda") (kernels Z, P and Q),
+    each container the v1 oracle's (slz4's backend="ref", computed in a
+    worker process), 1,140,737 bytes in all, each decoded through R."""
     v1 = oracles["slz4 v1"].result()
-    t0 = time.perf_counter()
-    for name, v1_blob in zip(EXPECTED_SIZES["slz4"], v1):
-        if ctt.decompress(v1_blob, codec="slz4",
-                          device="cuda") != corpus(name):
-            fail(f"slz4: the v1 oracle's container of {name} did not decode")
+    enc_s = dec_s = 0.0
+    for name, want in zip(EXPECTED_SIZES["slz4"], v1):
+        data = corpus(name)
+        t0 = time.perf_counter()
+        blob = lz_ops.slz4_encode(data, parse="v1", device="cuda")
+        t1 = time.perf_counter()
+        back = ctt.decompress(blob, codec="slz4", device="cuda")
+        dec_s += time.perf_counter() - t1
+        enc_s += t1 - t0
+        if blob != want:
+            fail(f"slz4 v1 on the card, {name}: container differs from the "
+                 f"v1 oracle's from byte {first_difference(blob, want)}")
+        if back != data:
+            fail(f"slz4 v1 on the card, {name}: no round trip")
     if sum(map(len, v1)) != SLZ4_V1_BYTES:
         fail(f"slz4: the v1 oracle wrote {sum(map(len, v1))} bytes, not "
              f"{SLZ4_V1_BYTES}")
-    print(f"[main] slz4 v1 oracle containers of the 11 files "
-          f"({SLZ4_V1_BYTES} bytes) decoded in "
-          f"{time.perf_counter() - t0:.4f} s", flush=True)
-    return (f"the concatenated corpus in {len(blob)} bytes (the v2 "
-            f"oracle's); the v1 oracle's containers decode")
+    print(f"[main] slz4 v1 on the card: the 11 files in {SLZ4_V1_BYTES} "
+          f"bytes (the v1 oracle's) enc_s={enc_s:.4f} dec_s={dec_s:.4f}",
+          flush=True)
+    return (f"the 11 files' v1 containers written on the card are the v1 "
+            f"oracle's ({SLZ4_V1_BYTES} bytes) and decode")
 
 
 EXTRAS = {"rcx": lambda _: rcx_ratio_preset(), "rcq": None,
@@ -2822,6 +2925,8 @@ def phase_main(codec: str, oracles):
     try:
         if codec == "resume":
             notes = run_resume()
+        elif codec == "slz4_v1":
+            notes = [slz4_v1_files(oracles)]
         elif codec == "stream":
             notes = run_stream(oracles)
         else:
@@ -2885,7 +2990,10 @@ SCAN_KERNELS = [
      "cpprcoder_tpu/ops/mtf_ops.py:64"),
     ("rcq_encode_chunk", "cpprcoder_tpu_torch/csrc/rcq_encode.cu",
      "cpprcoder_tpu/codecs/resume.py:44"),
-    # CT-LZ4: the v2 walk (P) and serializer (Q), and the decode (R)
+    # CT-LZ4: the v1 match table (Z), the walk (P) and serializer (Q), and
+    # the decode (R)
+    ("lz_match_v1", "cpprcoder_tpu_torch/csrc/lz_match.cu",
+     "cpprcoder_tpu/ops/lz_ops.py:81"),
     ("lz_walk", "cpprcoder_tpu_torch/csrc/lz_encode.cu",
      "cpprcoder_tpu/ops/lz_ops.py:644"),
     ("lz_serialize", "cpprcoder_tpu_torch/csrc/lz_encode.cu",
@@ -3520,7 +3628,7 @@ def main():
             timed("kernels J, L", phase_kernels_exact, dev),
             timed("kernels M, N", phase_kernels_mtf, dev),
             timed("kernel O", phase_kernels_chunk, dev),
-            timed("kernels P, Q, R", phase_kernels_lz, dev),
+            timed("kernels P, Q, R, Z", phase_kernels_lz, dev),
             timed("kernels S, T, U, V", phase_kernels_ase_o1, dev),
             timed("kernels W, X, Y", phase_kernels_ans2, dev))
         for e, m, w, a in (rcq, rans, huffman, exact, mtf, chunk, lz, stuv,
@@ -3578,6 +3686,8 @@ def main():
             rows[-1]["wrapper_ms"] = h_wrapper
         if nm in forms:     # its lane-range or stepped form
             rows[-1]["forms"] = forms[nm]
+        if nm == "lz_match_v1":  # its plain version and v2's tensor table
+            rows[-1]["tables_ms_at"] = TABLES_MS_AT
     print(f"[time] all {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(smi_line)

@@ -66,6 +66,15 @@ library's grid width and payload length read beforehand) and through a
 wrapper of each interface (its host reads inside; 50 calls, each timed
 apart); the blocks and sizes are compared, not the padding.
 
+Kernel Z (CT-LZ4's v1 match table) is timed at kennedy.xls, grammar.lsp,
+fields.c at seg_log2 7, 70,000 zero bytes, 200,000 random bytes and
+kennedy.xls at seg_log2 20 (`--only Z`), its launches queued back to back,
+beside its plain version (lz_ops.match_table_v1) and v2's tensor table
+(lz_ops.match_table) at the same shapes, each call of those timed apart. A
+tree without Z (no lz_match.cu) skips it. Its diagnostics skip a step
+(their outputs differ): `zdiag_noscan` the window scan, `zdiag_nosort` the
+sort, `zdiag_nolcp` the byte compares.
+
 Kernels S, T (CT-ASE1 encode and decode) and U, V (CT-RC3's) are timed at
 kennedy.xls (K = 256), alice29.txt (K = 64), grammar.lsp (K = 2) and the
 first 2^14-byte superblock of CT-SB over the concatenated corpus (K = 8),
@@ -521,6 +530,13 @@ __global__ void __launch_bounds__(WALK_THREADS)
 
 """
 
+# kernel Z's diagnostics: its window scan (step 3), its sort (step 4) or
+# its byte compares (step 5) skipped (the outputs then differ)
+Z_NO_SCAN = [("j >= b0; j -= (int)blockDim.x", "j >= t0; j -= (int)blockDim.x")]
+Z_NO_SORT = [("for (int k = 2; k <= sort_n; k <<= 1)", "for (int k = 2; k <= 0; k <<= 1)")]
+Z_NO_LCP = [("r < LANE_BYTES / 4 && q < lim", "r < 0 && q < lim"),
+            ("more = mm == lim && q < lim;", "more = false;")]
+
 VARIANTS = {
     # kernel A: every row requantized at every window
     "a_all_rows": ("rc_encode.cuh", [(
@@ -827,6 +843,9 @@ VARIANTS = {
     "o1_rows_contiguous": ("o1_model.cuh", [
         ("m.rowtot[w + nw * ln]", "m.rowtot[w * (256 / nw) + ln]"),
         ("halve_row<WIDE>(m, w + nw * i);", "halve_row<WIDE>(m, w * (256 / nw) + i);")]),
+    "zdiag_noscan": ("lz_match.cu", Z_NO_SCAN),
+    "zdiag_nosort": ("lz_match.cu", Z_NO_SORT),
+    "zdiag_nolcp": ("lz_match.cu", Z_NO_LCP),
     "o1_rows_rotated": ("o1_model.cuh", [
         ("m.rowtot[w + nw * ln]", "m.rowtot[ln + 256 / nw * ((w + ln) & (nw - 1))]"),
         ("halve_row<WIDE>(m, w + nw * i);",
@@ -845,7 +864,7 @@ ENTRY = {"A": "ct_rcx_encode", "B": "ct_expand_count", "C": "ct_rcx_decode",
          "Q": ("ct_lz_serialize", "ct_lz_clamp"), "R": "ct_lz_decode",
          "S": "ct_ase_encode", "T": "ct_ase_decode", "U": "ct_o1_encode",
          "V": "ct_o1_decode", "W": "ct_ans2_model", "X": "ct_ans2_encode",
-         "Y": "ct_ans2_decode"}
+         "Y": "ct_ans2_decode", "Z": "ct_lz_match_v1"}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # the CT-LZ4 entry points of a tree whose Q is three launches with a cumsum
 # and host reads between them (ct_lz_clamp, ct_lz_sizes, ct_lz_write) and
@@ -882,9 +901,10 @@ OLD_O1_SIGNATURES = {
 SEG_SCALE = {"s_segq": 0.25, "s_seg4": 4.0}
 # U's chunks in the case that times its chunk edges
 U_SMALL_CHUNK = 256
-# the source of each of kernels S-Y
+# the source of each of kernels S-Z
 SOURCE_OF = {"S": "ase.cu", "T": "ase.cu", "U": "o1_encode.cu", "V": "o1_decode.cu",
-             "W": "ans2_encode.cu", "X": "ans2_encode.cu", "Y": "ans2_decode.cu"}
+             "W": "ans2_encode.cu", "X": "ans2_encode.cu", "Y": "ans2_decode.cu",
+             "Z": "lz_match.cu"}
 VARIANT_SOURCE = {"a": "rcx_encode.cu", "b": "expand.cu", "g": "rans_decode.cu",
                   "h": "huffman_encode.cu", "i": "huffman_decode.cu", "j": "rc_exact.cu",
                   "l": "rc_exact.cu", "ldiag": "rc_exact.cu", "m": "mtf.cu", "mn": "mtf.cu",
@@ -893,7 +913,8 @@ VARIANT_SOURCE = {"a": "rcx_encode.cu", "b": "expand.cu", "g": "rans_decode.cu",
                   "udiag": "o1_encode.cu", "y": "ans2_decode.cu", "ydiag": "ans2_decode.cu",
                   "s": "ase.cu", "sdiag": "ase.cu", "x": "ans2_encode.cu",
                   "xdiag": "ans2_encode.cu", "w": "ans2_encode.cu",
-                  "wdiag": "ans2_encode.cu", "norm": "ans2_encode.cu"}
+                  "wdiag": "ans2_encode.cu", "norm": "ans2_encode.cu",
+                  "zdiag": "lz_match.cu"}
 # variants that edit the base's sources, not this tree's: s_quad, and
 # NAME@base, the diagnostics of a base whose S is a thread a lane with a
 # scan and a copy and whose X reads every table from global memory (as
@@ -924,10 +945,11 @@ BASE_VARIANTS = {
 
 
 def build_lib(name: str, csrc: Path, edits=(), only: str | tuple = ()
-              ) -> tuple[Path, str]:
+              ) -> tuple[Path | None, str]:
     """Copy csrc (of its .cu files only `only`, a name or a tuple of names,
     if given) into build/compare/<name>/csrc, apply the edits, build it
-    with build.build's nvcc flags. -> (library, nvcc log)."""
+    with build.build's nvcc flags. -> (library, nvcc log); (None, "") where
+    csrc has none of `only`."""
     dst = OUT_ROOT / name
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(csrc, dst / "csrc")
@@ -936,6 +958,8 @@ def build_lib(name: str, csrc: Path, edits=(), only: str | tuple = ()
         for p in (dst / "csrc").glob("*.cu"):
             if p.name not in keep:
                 p.unlink()
+        if not any((dst / "csrc").glob("*.cu")):
+            return None, ""
     for fname, subs in edits:
         p = dst / "csrc" / fname
         text = p.read_text()
@@ -1046,6 +1070,8 @@ def cases(dev, only: str = ""):
         out += ase_o1_cases(dev, stream, only)
     if want("WXY"):
         out += ans2_cases(dev, stream)
+    if want("Z"):
+        out += z_cases(dev, stream)
     if not want("ABCDEFGHIJLMNPQR"):
         return out
     rcx_at = [("kennedy.xls", "balanced"), ("grammar.lsp", "balanced"),
@@ -1587,6 +1613,46 @@ def lz_cases(label: str, data: bytes, seg_log2: int, dev):
             ("R", shape, r_launch)]
 
 
+def z_cases(dev, stream):
+    """Z at its shapes (launches into buffers allocated once), and beside
+    it, as cases of its own, its plain version and v2's tensor table on
+    the same rows (tensor code: each call timed apart)."""
+    rng = np.random.default_rng(601)
+    out = []
+    for label, data, sl in (
+            ("kennedy.xls", corpus("kennedy.xls"), 17),
+            ("grammar.lsp", corpus("grammar.lsp"), 17),
+            ("fields.c at seg_log2 7", corpus("fields.c"), 7),
+            ("70,000 zero bytes", bytes(70_000), 17),
+            ("200,000 random bytes", rng.integers(0, 256, 200_000, np.uint8).tobytes(), 17),
+            ("kennedy.xls at seg_log2 20", corpus("kennedy.xls"), 20)):
+        rows, lens = lz_ops.segment_rows(to_dev(data, dev), sl)
+        ns, w = rows.shape
+        shape = f"{label} ({ns} segments of {w})"
+
+        def z(lib, rows=rows, lens=lens, ns=ns, w=w):
+            lcp, cand = torch.empty((2, ns, w), dtype=torch.int64, device=dev).unbind(0)
+            return (lambda: lib.ct_lz_match_v1(rows.data_ptr(), lens.data_ptr(), lcp.data_ptr(),
+                                               cand.data_ptr(), ns, w, stream())), (lcp, cand)
+
+        def tensor_code(fn, rows=rows, lens=lens):
+            def make(lib):
+                res = {}
+
+                def go():
+                    res["out"] = fn(rows, lens)
+                    return 0
+                return go, lambda: res["out"]
+            return make
+
+        out += [("Z", shape, z),
+                ("Z", f"{shape} match_table_v1 (tensor code)",
+                 tensor_code(lz_ops.match_table_v1)),
+                ("Z", f"{shape} v2 match_table (tensor code)",
+                 tensor_code(lz_ops.match_table))]
+    return out
+
+
 def range_cases(label: str, data: bytes, k: int | None, static: bool, dev, stream):
     """J and L at one shape: the codec's defaults for n bytes over k lanes
     (pick_lanes(n) when None), made through this tree's wrappers."""
@@ -1770,6 +1836,9 @@ def main():
         built = dict(zip(names, pool.map(make, names)))
     libs = {}
     for nm, (path, log) in built.items():
+        if path is None:
+            print(f"[build] {nm}: has none of {only}: skipped", flush=True)
+            continue
         libs[nm] = load(path)
         libs[nm].seg_scale = SEG_SCALE.get(nm, 1.0)
         libs[nm].w_alloc1 = nm == "w_alloc1"
@@ -1797,12 +1866,12 @@ def main():
         runs = {nm: make(lib) for nm, lib in libs.items() if has_kernel(lib, kern)}
         order = [nm for nm in names + names[::-1] if nm in runs]
         best = {}
-        # a call through a wrapper waits on the host: more calls a turn,
-        # each timed apart
-        wrapper = "wrapper" in shape
-        reps = a.reps * 5 if wrapper else a.reps
+        # a call through a wrapper, or of tensor code, waits on the host:
+        # more calls a turn, each timed apart
+        each = "wrapper" in shape or "tensor code" in shape
+        reps = a.reps * 5 if each else a.reps
         for nm in order:
-            t = time_turn(runs[nm][0], reps, wrapper)
+            t = time_turn(runs[nm][0], reps, each)
             if t is not None:
                 best[nm] = min(best.get(nm, t), t)
         torch.cuda.synchronize()

@@ -23,7 +23,9 @@ every codec of the JAX package.
 
 slz4 writes the v2 parse on the card and the CPU and, like the JAX codec,
 the v1 parse under backend="ref" (the oracle's default) and "native" (the
-host library built from native/ctrc.cpp).
+host library built from native/ctrc.cpp); as in the JAX package, the v1
+parse runs on a device through ops.lz_ops.slz4_encode(parse="v1",
+device=...) (kernel Z, then P and Q, on the card).
 
 Streaming and resume (the JAX package's surface, checkpoints that cross
 between the packages): `codecs.stream.SuperblockEncoder` and

@@ -5,7 +5,8 @@ Every codec of the JAX package is ported: `static_range` (id 0, CT-RC1),
 `adaptive_range` (1, CT-RC2), `rans` (2, CT-ANS1 v2, the default codec, as
 in the JAX package), `huffman` (3, CT-HUF1), `blocksort` (4, CT-BWT1),
 `mtf` (5) and `mtf1` (8) (CT-MTF1), `slz4` (6, CT-LZ4: the v2 parse on the
-card and the CPU, the v1 parse under `backend="ref"` and `"native"`), `ase`
+card and the CPU, the v1 parse under `backend="ref"` and `"native"`, and
+on a device through `ops.lz_ops.slz4_encode(parse="v1")`), `ase`
 (7, CT-ASE1), `pipeline` (9, CT-PIPE), `stream` (10, CT-SB: superblocks of
 any codec; codecs/stream.py, with `SuperblockEncoder` and
 `stream_decode_range`), `adaptive_o1` (11, CT-RC3), `rle0` (12, CT-RLE0),

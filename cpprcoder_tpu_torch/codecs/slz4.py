@@ -10,8 +10,12 @@ Backends, as in the JAX codec:
       (slz4_ref.slz4_encode(parse="v1")), as the JAX codec's "ref" writes;
   "native": the host library built from the repository's native/ctrc.cpp
       (native/ctrc.py), which also writes the v1 parse.
-The parses differ, the block format does not: every decoder reads every
-container (decode: kernel R on the card, its plain version on the CPU).
+The parse stays an ops-level argument, as in the JAX package: the v1
+parse on a device is lz_ops.slz4_encode(..., parse="v1", device=...)
+(kernel Z, the exact v1 match table, then P and Q on the card; their
+plain versions on the CPU), the oracle's bytes. The parses differ, the
+block format does not: every decoder reads every container (decode:
+kernel R on the card, its plain version on the CPU).
 """
 
 from __future__ import annotations

@@ -95,6 +95,9 @@ SIGNATURES = {
     # in, out, n, blocks, mtf1, stream
     "ct_mtf_encode": [_P, _P, _L, _I, _I, _P],
     "ct_mtf_decode": [_P, _P, _L, _I, _I, _P],
+    # lz_match.cu, kernel Z (one launch): rows, lens, lcp, cand, n, w,
+    # stream
+    "ct_lz_match_v1": [_P, _P, _P, _P, _I, _I, _P],
     # lz_encode.cu, kernel P (two launches): lcp, cand, lens, the scratch
     # rows and entries, mpos, mlen, moff, count, n, w, lb, lazy, tcap, stream
     "ct_lz_walk": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

@@ -1,8 +1,22 @@
-"""Kernel P, Q and R wrappers: CT-LZ4 (SLZ4) parse walk, token serializer
-and decode on the card, each with its plain PyTorch version beside it.
+"""Kernel Z, P, Q and R wrappers: CT-LZ4 (SLZ4) v1 match table, parse
+walk, token serializer and decode on the card, each with its plain PyTorch
+version beside it.
 
 The JAX package has no Pallas kernel here. It runs these steps as XLA code
 shaped by Mosaic's limits (cpprcoder_tpu/ops/lz_ops.py):
+  - Z replaces the v1 parse's match table, `_candidates` (:81-100: one
+    stable lax.sort of (flag, key, position) and the adjacent rank) and
+    `_lcp_estimate` (:103-124: two u32 hash chains, descending spans, an
+    estimate that the parse clamps after the walk). `csrc/lz_match.cu`, one
+    launch: a CTA a tile of 4,096 positions of a segment stages the bytes
+    from 65,535 before the tile to 4,096 past it in shared memory, keys the
+    tile's exact 4-byte values in a shared hash set, scans the window before
+    the tile once for each key's last position there (atomicMax), sorts the
+    tile's (slot, position) pairs for the nearest earlier one inside it,
+    and compares the bytes for the exact lcp once a chain (positions whose
+    candidates move with them share their first mismatch), a warp 32
+    positions at a time. Bound: bytes (the rows in, lcp and cand int64
+    out: 17 bytes a position).
   - P replaces the walk's inputs (:700-709), `_greedy_membership`
     (:644-692: jump tables built from one-hot MXU dots, one lax.scan over
     128-position blocks) and the sort that lists the walk's matches
@@ -48,6 +62,7 @@ from cpprcoder_tpu_torch.native import build
 from cpprcoder_tpu_torch.ops import lz_ops
 from cpprcoder_tpu_torch.reference.slz4_ref import MIN_MATCH
 
+match_launches = 0       # kernel Z
 walk_launches = 0        # kernel P
 serialize_launches = 0   # kernel Q
 decode_launches = 0      # kernel R
@@ -79,6 +94,38 @@ def _same_device(dev, **ts) -> None:
     for nm, t in ts.items():
         if t.device != dev:
             raise ValueError(f"{nm} is on {t.device}, not {dev}")
+
+
+# ------------------------------------------------------ Z: the v1 table
+
+def match_v1(rows: torch.Tensor, lens: torch.Tensor):
+    """rows uint8 [n, W] (segment i's L_i = lens[i] bytes, zero past them)
+    and lens int64 [n] -> lcp, cand int64 [n, W]: the v1 match table,
+    lz_ops.match_table_v1's. On the card: one launch, no host read."""
+    global match_launches
+    _check("rows", rows, torch.uint8, 2)
+    _check("lens", lens, torch.int64, 1)
+    _same_device(rows.device, lens=lens)
+    n, w = rows.shape
+    if lens.numel() != n:
+        raise ValueError(f"lens {tuple(lens.shape)} does not match rows "
+                         f"{(n, w)}")
+    if not 0 < w <= 1 << 30 or not 0 < n < 1 << 31:
+        raise ValueError(f"{n} segments of width {w}: the kernels take "
+                         f"1 to 2^31 - 1 segments of 1 to 2^30 positions")
+    if rows.device.type == "cpu":
+        return lz_ops.match_table_v1(rows, lens)
+    dev = rows.device
+    lib = build.load()
+    with torch.cuda.device(dev):
+        lcp, cand = torch.empty((2, n, w), dtype=torch.int64,
+                                device=dev).unbind(0)
+        rc = lib.ct_lz_match_v1(rows.data_ptr(), lens.data_ptr(),
+                                lcp.data_ptr(), cand.data_ptr(), n, w,
+                                torch.cuda.current_stream(dev).cuda_stream)
+        build.check(rc, "ct_lz_match_v1")
+    match_launches += 1
+    return lcp, cand
 
 
 # ------------------------------------------------------------- P: the walk
@@ -170,8 +217,9 @@ def walk_plain(lcp: torch.Tensor, cand: torch.Tensor, lens: torch.Tensor,
 
 def walk(lcp: torch.Tensor, cand: torch.Tensor, lens: torch.Tensor,
          lazy: bool = True):
-    """lcp, cand int64 [n, W] (lz_ops.match_table's: lcp <= LCP_CAP, cand
-    -1 or an earlier position) and lens int64 [n] -> walk_plain's outputs.
+    """lcp, cand int64 [n, W] (a match table, lz_ops.match_table's or
+    match_v1's: lcp <= LCP_CAP, cand -1 or an earlier position at most
+    MAX_DISTANCE back) and lens int64 [n] -> walk_plain's outputs.
     On the card: two launches (the walk's inputs and the blocks' exits
     over the whole card, then a CTA a segment), no host read."""
     global walk_launches
@@ -228,16 +276,17 @@ def payload_bound(width: int) -> int:
     each of ll_t literals and a match of m_t >= MIN_MATCH bytes, and one
     last token of literals, with sum(ll_t + m_t) = L. (Kernel P's matches
     are at least MIN_MATCH long and their first min(length, 32) bytes
-    compare exactly, by the v2 spec's words, so the clamp keeps m_t >=
-    MIN_MATCH.) A match token writes 1 + ext(ll) + ll + 2 + ext(m - 4)
-    bytes for its ll + m output bytes: an excess of 3 + ext(ll) + ext(m -
-    4) - m, which is at most ext(ll) - 1, since ext(m - 4) = 0 for m < 19
-    (and m >= 4), and ext(m - 4) <= (m - 4 + 240) / 255 <= m - 4 for m >=
-    19. And ext(ll) - 1 <= (ll - 15) // 255 <= ll // 255 for ll >= 15 (-1
-    below). The last token writes 1 + ext(ll) + ll: an excess of at most
-    2 + ll // 255. The excesses sum to at most 2 + sum(ll // 255) <= 2 +
-    L // 255, so a segment's block has at most L + L // 255 + 2 bytes; the
-    bound rounds the 2 up to 16."""
+    compare exactly, by the v2 spec's words, or all of them, by the v1
+    spec's exact lcp, so the clamp keeps m_t >= MIN_MATCH.) A match token
+    writes 1 + ext(ll) + ll + 2 + ext(m - 4) bytes for its ll + m output
+    bytes: an excess of 3 + ext(ll) + ext(m - 4) - m, which is at most
+    ext(ll) - 1, since ext(m - 4) = 0 for m < 19 (and m >= 4), and ext(m -
+    4) <= (m - 4 + 240) / 255 <= m - 4 for m >= 19. And ext(ll) - 1 <= (ll
+    - 15) // 255 <= ll // 255 for ll >= 15 (-1 below). The last token
+    writes 1 + ext(ll) + ll: an excess of at most 2 + ll // 255. The
+    excesses sum to at most 2 + sum(ll // 255) <= 2 + L // 255, so a
+    segment's block has at most L + L // 255 + 2 bytes; the bound rounds
+    the 2 up to 16."""
     return width + width // 255 + 16
 
 

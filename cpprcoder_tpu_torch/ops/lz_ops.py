@@ -1,14 +1,19 @@
 """CT-LZ4 (SLZ4) in PyTorch (counterpart of cpprcoder_tpu/ops/lz_ops.py's
-v2 parse and decode): LZ77 over independent segments in the LZ4 block
-format.
+v1 and v2 parses and decode): LZ77 over independent segments in the LZ4
+block format.
 
-Format and parse: reference/slz4_ref.py (`parse_segment_v2`). Encode, all
-batched over the segments as rows [n_segs, W] on one device:
-  1. the v2 match table, tensor code: the words w0..w7 and the hash
-     ladder, one stable sort of each row by (past the segment, w0..w3,
-     position) in three passes of torch.sort, the adjacent ranks' lcp, the
-     best of the up-to-4-up and up-to-2-down rank neighbours, scattered
-     back to position order;
+Format and parses: reference/slz4_ref.py (`parse_segment`, v1, and
+`parse_segment_v2`). Encode, all batched over the segments as rows [n_segs,
+W] on one device:
+  1. the match table, (lcp, cand) a position:
+     - v2 (`match_table`), tensor code: the words w0..w7 and the hash
+       ladder, one stable sort of each row by (past the segment, w0..w3,
+       position) in three passes of torch.sort, the adjacent ranks' lcp,
+       the best of the up-to-4-up and up-to-2-down rank neighbours,
+       scattered back to position order;
+     - v1 (`match_table_v1`, kernel Z on the card, ops/lz_kernels.py): the
+       nearest earlier position with the same 4 bytes within MAX_DISTANCE,
+       and the exact lcp;
   2. kernel P, the walk (ops/lz_kernels.py): from the match table it
      applies the walk's rule a position (`walk_inputs`: `valid`, the length
      capped at END_LITERALS before the end, the position-local lazy rule,
@@ -23,10 +28,11 @@ raises CorruptContainerError.
 
 The JAX package's limits are not carried over: any seg_log2 (its v2 walk
 needs 2^seg_log2 >= 128, C2), no 2^18-token bound on the serializer (C1)
-and no 2^26-byte cap on the decode; global offsets are int64. Segments are
-rows of W = 2^seg_log2 positions (W = n when there is one segment); the
-last row is zero past its length, and the sort's first key keeps those
-positions after every real one.
+and no 2^26-byte cap on the decode; global offsets are int64. Its v1 lcp is
+a hash estimate clamped after the walk; here it is exact, as the oracle's.
+Segments are rows of W = 2^seg_log2 positions (W = n when there is one
+segment); the last row is zero past its length, and the sort's first key
+keeps those positions after every real one.
 """
 
 from __future__ import annotations
@@ -183,6 +189,69 @@ def match_table(rows: torch.Tensor, lens: torch.Tensor):
     return lcp, cand
 
 
+LCP_CHUNK = 64   # bytes match_table_v1 compares a chain a round
+
+
+def match_table_v1(rows: torch.Tensor, lens: torch.Tensor):
+    """Per-position (lcp, cand) of the v1 spec (slz4_ref.parse_segment),
+    rows uint8 [n, W] with lens int64 [n] -> int64 [n, W] each; the plain
+    version of kernel Z. For p with p + 4 <= L, cand[p] is the largest j <
+    p with j + 4 <= L and the same 4 bytes, if p - j <= MAX_DISTANCE;
+    there lcp[p] is the exact common prefix of the bytes at j and at p
+    (overlap allowed), capped at LCP_CAP and at L - p. Elsewhere cand is
+    -1 and lcp 0.
+
+    The candidates: one stable sort of each row by (not indexable, the 4
+    bytes), then the adjacent rank. The lcp by chains: where cand[p] =
+    cand[p - 1] + 1 the two share their first mismatch (the 4 bytes at
+    every position of the chain match), so each maximal chain compares
+    bytes once from 4 past its last position, LCP_CHUNK a round, up to
+    LCP_CAP past it or the segment's end."""
+    n, w = rows.shape
+    dev = rows.device
+    pos = torch.arange(w, device=dev).expand(n, w)
+    ln = lens[:, None]
+    u = rows.to(torch.int64)
+    key = (u << 24) | (_shl(u, 1) << 16) | (_shl(u, 2) << 8) | _shl(u, 3)
+    key = torch.where(pos + MIN_MATCH <= ln, key, 1 << 32)
+    s_key, p_s = torch.sort(key, dim=1, stable=True)
+    same = (s_key == _shr(s_key, 1, -1)) & (s_key < 1 << 32)
+    c_s = torch.where(same, _shr(p_s, 1, -1), -1)
+    cand = torch.empty_like(c_s).scatter_(1, p_s, c_s)
+    cand = torch.where(pos - cand <= MAX_DISTANCE, cand, -1)
+    has = cand >= 0
+    d = pos - cand
+    cont = has & _shr(has, 1, False) & (_shr(d, 1) == d)
+    last = has & ~_shl(cont, 1, False)
+    rr, ee = last.nonzero(as_tuple=True)
+    dd = d[rr, ee]
+    lim = torch.minimum(lens[rr], ee + LCP_CAP)
+    flat = rows.reshape(-1)
+    base = rr * w
+    mm = lim.clone()               # each chain's first mismatch, or lim
+    k = ee + MIN_MATCH
+    act = torch.arange(ee.numel(), device=dev)
+    step = torch.arange(LCP_CHUNK, device=dev)
+    act = act[k[act] < lim[act]]
+    while act.numel():
+        kk = k[act, None] + step
+        ok = kk < lim[act, None]
+        at = torch.where(ok, base[act, None] + kk, 0)
+        bad = (flat[at] != flat[torch.where(ok, at - dd[act, None], 0)]) & ok
+        hit = bad.any(1)
+        mm[act[hit]] = (kk.gather(1, bad.to(torch.uint8).argmax(1)[:, None])
+                        [:, 0])[hit]
+        k[act] += LCP_CHUNK
+        act = act[~hit]
+        act = act[k[act] < lim[act]]
+    at_end = torch.zeros((n, w), dtype=torch.int64, device=dev)
+    at_end[rr, ee] = mm
+    nxt = torch.where(last, pos, w - 1).flip(1).cummin(1).values.flip(1)
+    cap = torch.minimum(ln - pos, torch.full_like(pos, LCP_CAP))
+    lcp = torch.where(has, torch.minimum(cap, at_end.gather(1, nxt) - pos), 0)
+    return lcp, cand
+
+
 def walk_inputs(lcp: torch.Tensor, cand: torch.Tensor, lens: torch.Tensor,
                 lazy: bool = True):
     """The match table's lcp, cand int64 [n, W] and lens int64 [n] -> step,
@@ -220,16 +289,14 @@ def segment_rows(x: torch.Tensor, seg_log2: int):
 
 def slz4_encode(data, seg_log2: int = 17, lazy: bool = True,
                 parse: str = "v2", *, device) -> bytes:
-    """CT-LZ4 container of `data` by the v2 parse, on `device` (kernels P
-    and Q on CUDA, their plain versions on the CPU). Same bytes as
-    slz4_ref.slz4_encode(data, seg_log2, lazy, parse="v2")."""
+    """CT-LZ4 container of `data` by the v2 or the v1 parse, on `device`:
+    the match table (v2: `match_table`'s tensor code; v1: kernel Z), then
+    kernels P and Q, on CUDA, and their plain versions on the CPU. Same
+    bytes as slz4_ref.slz4_encode(data, seg_log2, lazy, parse)."""
     from cpprcoder_tpu_torch.ops import lz_kernels
 
-    if parse != "v2":
-        raise NotImplementedError(
-            f"parse={parse!r}: only the v2 parse runs on a device (the v1 "
-            f"parse is ROADMAP.md item A11b; backend='ref' or 'native' "
-            f"writes it on the host)")
+    if parse not in ("v1", "v2"):
+        raise ValueError(f"parse={parse!r}: 'v1' or 'v2'")
     x = as_u8(data)
     n = len(x)
     if n > M:
@@ -242,7 +309,9 @@ def slz4_encode(data, seg_log2: int = 17, lazy: bool = True,
     if n_segs == 0:
         return w.getvalue()
     rows, lens = segment_rows(torch.from_numpy(x.copy()).to(device), seg_log2)
-    tokens = lz_kernels.walk(*match_table(rows, lens), lens, lazy)
+    table = (match_table(rows, lens) if parse == "v2"
+             else lz_kernels.match_v1(rows, lens))
+    tokens = lz_kernels.walk(*table, lens, lazy)
     payload, sizes = lz_kernels.serialize(rows, lens, *tokens)
     sizes = sizes.cpu().numpy()
     w.u32s(sizes)

@@ -1099,6 +1099,42 @@ def test_lz_kernels_match_plain_and_the_oracle(dev, name, seg_log2, lazy):
     assert ctt.decompress(want, codec="slz4") == data
 
 
+def _v1_edge(dist):
+    """A 64-byte key 5,000 bytes and then `dist` bytes apart, and again
+    `dist` after the second copy (the nearest copy `dist` back, a farther
+    one 5,000 more)."""
+    rng = np.random.default_rng(dist)
+    head = rng.integers(0, 256, 64, np.uint8).tobytes()
+    noise = rng.integers(0, 256, 5000 + dist, np.uint8).tobytes()
+    return head + noise[:4936] + head + noise[4936:4872 + dist] + head + b"end"
+
+
+@pytest.mark.parametrize("name,seg_log2", [
+    ("grammar.lsp", 17), ("kennedy.xls", 17), ("fields.c", 7), ("zeros", 17),
+    ("random", 17), ("1 byte", 17), ("13 bytes", 17), ("text 300", 0),
+    ("text 2000", 3), ("tail run", 9), ("tail zeros", 12), ("fields.c", 12),
+    ("match 600", 17), ("C1", 17), ("runs", 17), ("2^17 - 1", 17),
+    ("superblock", 17), ("2^18", 18), ("2^20", 20), ("nearest 65535", 17),
+    ("nearest 65536", 17)])
+def test_lz_match_v1_equals_plain_and_the_oracle(dev, name, seg_log2):
+    """Kernel Z against match_table_v1 at every shape of the P, Q and R
+    test and at the distance limit (a nearest copy 65,535 and 65,536 back,
+    a farther one beyond), and the v1 container written on the card
+    against the v1 oracle's; it decodes through R."""
+    data = (_v1_edge(int(name.split()[1])) if name.startswith("nearest")
+            else _lz_input(name))
+    x = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(dev)
+    rows, lens = lz_ops.segment_rows(x, seg_log2)
+    before = lz_kernels.match_launches
+    lcp, cand = lz_kernels.match_v1(rows, lens)
+    assert lz_kernels.match_launches == before + 1
+    pl, pc = lz_ops.match_table_v1(rows, lens)
+    assert torch.equal(lcp, pl) and torch.equal(cand, pc)
+    blob = lz_ops.slz4_encode(data, seg_log2, parse="v1", device=dev)
+    assert blob == slz4_ref.slz4_encode(data, seg_log2=seg_log2, parse="v1")
+    assert lz_ops.slz4_decode(blob, device=dev) == data
+
+
 def _lz_block(edit):
     """grammar.lsp's v2 block at seg_log2 12 with `edit` applied to the
     offset of its first match ("offset0", "before") or its length ("cut")."""

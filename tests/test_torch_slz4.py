@@ -371,8 +371,9 @@ def test_registry_has_slz4():
     c = ctt.get_codec("slz4")
     assert c.codec_id == 6 and ctt.get_codec_by_id(6) is c
     assert "slz4" in ctt.list_codecs()
-    with pytest.raises(NotImplementedError, match="A11b"):
-        lz_ops.slz4_encode(b"abc" * 9, parse="v1", device="cpu")
+    data = b"abc" * 9 + corpus_file("fields.c")[:500]
+    assert lz_ops.slz4_encode(data, parse="v1", device="cpu") \
+        == slz4_ref.slz4_encode(data, parse="v1")
 
 
 # ------------------------------------------------- kernel R's failed segments
