@@ -73,8 +73,13 @@ Phases, one line each (a failed phase exits non-zero):
               version at those shapes and edges and at the distance limit
               (a key's nearest copy 65,535 and 65,536 back, a farther one
               beyond), timed at P's shapes beside the plain version and
-              v2's tensor table; then slz4's encode parts at
-              kennedy.xls, v2's (its table, P, Q) beside v1's (Z, P, Q);
+              v2's tensor table; K (CT-LZ4's v2 match table) against its
+              plain version (v2's tensor table) at those shapes and
+              edges, the distance limit and a 2^14-byte CT-SB
+              superblock, and against the oracle a segment at a time on
+              the 11 files, timed at P's shapes beside the tensor table;
+              then slz4's encode parts at kennedy.xls, v2's (K, P, Q;
+              the tensor table timed beside K) beside v1's (Z, P, Q);
               S and T (CT-ASE1 encode, decode) on runs
               (every hit at distance 0), all 256 values cycled (a full
               table evicting every step), exactly 64 and 65 distinct
@@ -116,10 +121,10 @@ Phases, one line each (a failed phase exits non-zero):
               preset on three files, for rans also the default codec and a
               lane with a wide word count, for static_range and
               adaptive_range also the 11 files concatenated (2,810,784
-              bytes: K = 1,024, limit_log2 17), for slz4 (held to the v2
-              oracle, which its card path writes; its backend="ref" is the
-              v1 parse) also the 11 files concatenated (22 segments: the
-              C1 row); then the `slz4_v1` path (the 11 files through
+              bytes: K = 1,024, limit_log2 17), for slz4 (kernels K, P, Q
+              and R, held to the v2 oracle, which its card path writes;
+              its backend="ref" is the v1 parse) also the 11 files
+              concatenated (22 segments: the C1 row); then the `slz4_v1` path (the 11 files through
               lz_ops.slz4_encode(parse="v1", device="cuda"): Z, P and Q,
               each container the v1 oracle's, 1,140,737 bytes in all, each
               decoded through R); then the
@@ -192,9 +197,9 @@ H `wrapper_ms`; A, C, D, E and J `forms`, the new form's numbers
 (its largest difference from its plain version, its ms at kennedy.xls
 beside the one-shot kernel's); `launches_by_path`, its launches on each
 codec's path and on the parallel path;
-`tpu_kernel`, the Pallas kernel it replaces, null for J, L, M, N, O, P,
-Q, R, S, T, U, V, W, X, Y and Z, which replace the JAX package's lax.scan
-loops and XLA code), the nvidia-smi line, and last
+`tpu_kernel`, the Pallas kernel it replaces, null for J, K, L, M, N, O,
+P, Q, R, S, T, U, V, W, X, Y and Z, which replace the JAX package's
+lax.scan loops and XLA code), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Each phase prints its seconds.
 """
 
@@ -414,6 +419,7 @@ COUNTERS = {
     "rc_exact_decode": (range_kernels, "decode_launches", "decode_symbols"),
     "mtf_encode": (mtf_kernels, "encode_launches", "encode_ranks"),
     "mtf_decode": (mtf_kernels, "decode_launches", "decode_bytes"),
+    "lz_match_v2": (lz_kernels, "match_v2_launches", "match_v2"),
     "lz_match_v1": (lz_kernels, "match_launches", "match_v1"),
     "lz_walk": (lz_kernels, "walk_launches", "walk"),
     "lz_serialize": (lz_kernels, "serialize_launches", "serialize"),
@@ -438,7 +444,7 @@ PATH_KERNELS = {
     "static_range": RC_EXACT, "adaptive_range": RC_EXACT,
     "blocksort": [], "mtf": MTF, "mtf1": MTF, "rle0": [],
     "pipeline": MTF + RC_EXACT,
-    "slz4": ["lz_walk", "lz_serialize", "lz_decode"],
+    "slz4": ["lz_match_v2", "lz_walk", "lz_serialize", "lz_decode"],
     # the v1 parse (an ops-level argument: the codec writes v2 on the card)
     "slz4_v1": ["lz_match_v1", "lz_walk", "lz_serialize", "lz_decode"],
     "ase": ["ase_encode", "ase_decode"],
@@ -493,8 +499,12 @@ OPS_PER_ANS2_CELL = 20
 # Z: a position's key, its hash and probe, its rank neighbour's compare,
 # the distance and cap rules (the lcp's compares come from the bytes read)
 OPS_PER_V1_POSITION = 8
-# Z's plain version and v2's tensor table, ms at each shape timed
-# (phase_kernels_lz fills it; the kernels line reports it)
+# K: a position's key compares in a sort of its row (2 log2(W): a
+# compare and a move each), plus its ladder (11 mixes of 5 operations, 7
+# records), its adjacent lcp and six candidates' rules (6 each): 98
+OPS_PER_V2_POSITION = 98
+# Z's and K's plain versions, ms at each shape timed (phase_kernels_lz
+# fills it; the kernels line reports it)
 TABLES_MS_AT: dict[str, dict] = {}
 
 
@@ -2330,14 +2340,56 @@ def phase_kernels_z(dev, shapes, edges, err, plain):
     return z_at, work
 
 
+def phase_kernels_k(dev, shapes, edges, err, plain):
+    """K against its plain version (lz_ops.match_table) at P's shapes and
+    edges, the distance limit and a 2^14-byte CT-SB superblock, and against
+    the oracle (slz4_ref.match_table_v2) a segment at a time on the 11
+    files; timed at P's shapes beside the plain version (phase_kernels_z
+    times it there too). -> (K's ms at each shape, its work at
+    kennedy.xls)."""
+    k_at, work = {}, None
+    sb = concat_corpus()[:1 << 14]
+    for i, (what, data, sl, _) in enumerate(
+            shapes + edges + v1_distance_edges()
+            + [("a 2^14-byte CT-SB superblock", sb, 17, True)]):
+        rows, lens = lz_ops.segment_rows(to_dev(data, dev), sl)
+        hold(err, "lz_match_v2", lz_kernels.match_v2(rows, lens),
+             plain("lz_match_v2", lambda: lz_ops.match_table(rows, lens),
+                   i == 0), f"kernel K at {what}")
+        if i >= len(shapes):
+            continue
+        shape = f"{what}: {rows.shape[0]} segments"
+        k_at[shape] = cuda_ms(lambda: lz_kernels.match_v2(rows, lens), 5)
+        if i == 0:
+            # K reads the rows (the last one's padding too) and lens and
+            # writes lcp and cand (int64) whole: Z's basis
+            w = rows.shape[1]
+            work = (17 * rows.numel() + 8 * rows.shape[0],
+                    (OPS_PER_V2_POSITION + 2 * (w - 1).bit_length())
+                    * rows.numel())
+    for nm in EXPECTED_SIZES["slz4"]:
+        data = corpus(nm)
+        rows, lens = lz_ops.segment_rows(to_dev(data, dev), 17)
+        lcp, cand = (t.cpu().numpy() for t in lz_kernels.match_v2(rows, lens))
+        w = rows.shape[1]
+        for r in range(rows.shape[0]):
+            ol, oc = slz4_ref.match_table_v2(
+                np.frombuffer(data, np.uint8)[r * w:(r + 1) * w])
+            if not (np.array_equal(lcp[r, :len(ol)], ol)
+                    and np.array_equal(cand[r, :len(oc)], oc)):
+                fail(f"kernel K at {nm}, segment {r}: not the oracle's "
+                     f"match_table_v2")
+    return k_at, work
+
+
 def phase_kernels_lz(dev):
     """P, Q and R against their plain versions (lz_kernels.walk_plain,
     serialize_plain, decode_plain) and the payload against the v2 oracle's
     container, at the main path's shapes (P from the match table of each,
     lz_ops.match_table) and at edges; R also on malformed blocks (the same
     error code as its plain version's). Times at each shape; the plain
-    versions at kennedy.xls. Then Z (phase_kernels_z) and the encode's
-    parts (slz4_encode_parts)."""
+    versions at kennedy.xls. Then Z (phase_kernels_z), K (phase_kernels_k)
+    and the encode's parts (slz4_encode_parts)."""
     err = {"lz_walk": 0, "lz_serialize": 0, "lz_decode": 0}
     rng = np.random.default_rng(601)
     text = corpus("fields.c")
@@ -2491,6 +2543,19 @@ def phase_kernels_lz(dev):
                       f"{TABLES_MS_AT['match_table_v1'][at]:.3f}, v2 table "
                       f"{TABLES_MS_AT['match_table (v2)'][at]:.3f}"
                       for at, v in ms_at["lz_match_v1"].items()), flush=True)
+    err["lz_match_v2"] = 0
+    ms_at["lz_match_v2"], work["lz_match_v2"] = phase_kernels_k(
+        dev, shapes, edges, err, plain)
+    ms["lz_match_v2"] = (next(iter(ms_at["lz_match_v2"].values())),
+                         plain_ms["lz_match_v2"])
+    print(f"[kernels] ok {len(shapes) + len(edges) + 3} CT-LZ4 v2 tables: "
+          f"kernel K equals its plain version (max_abs_err "
+          f"{err['lz_match_v2']}) and the oracle's table of every segment "
+          f"of the 11 files; ms kernel/plain at kennedy.xls "
+          f"{ms['lz_match_v2'][0]:.4f}/{ms['lz_match_v2'][1]:.3f}; ms at "
+          + "; ".join(f"{at}: K {v:.4f}, v2 tensor table "
+                      f"{TABLES_MS_AT['match_table (v2)'][at]:.3f}"
+                      for at, v in ms_at["lz_match_v2"].items()), flush=True)
     slz4_encode_parts(dev)
     return err, ms, work, ms_at
 
@@ -2498,15 +2563,16 @@ def phase_kernels_lz(dev):
 def slz4_encode_parts(dev, reps: int = 5):
     """kennedy.xls's slz4 encode (8 segments of 2^17) in its three parts,
     each ending in a synchronize, host clock, the median of reps after a
-    warm-up, by each parse: the match table (v2: lz_ops.match_table's
-    tensor code; v1: kernel Z), the walk (kernel P), the serializer and the
-    copies (kernel Q, then the sizes and the payload to the host); and the
-    whole call (v2: compress(); v1: lz_ops.slz4_encode(parse="v1"))."""
+    warm-up, by each parse: the match table (v2: kernel K; v1: kernel Z),
+    the walk (kernel P), the serializer and the copies (kernel Q, then the
+    sizes and the payload to the host); and the whole call (v2: compress();
+    v1: lz_ops.slz4_encode(parse="v1")). v2's tensor table
+    (lz_ops.match_table, K's plain version) is timed beside, the same way."""
     data = corpus("kennedy.xls")
     rows, lens = lz_ops.segment_rows(to_dev(data, dev), 17)
     names = ["match table", "walk (P)", "serializer and copies (Q)",
              "whole call"]
-    tables = {"v2": lambda: lz_ops.match_table(rows, lens),
+    tables = {"v2": lambda: lz_kernels.match_v2(rows, lens),
               "v1": lambda: lz_kernels.match_v1(rows, lens)}
     whole = {"v2": lambda: ctt.compress(data, codec="slz4", device="cuda"),
              "v1": lambda: lz_ops.slz4_encode(data, parse="v1",
@@ -2531,11 +2597,19 @@ def slz4_encode_parts(dev, reps: int = 5):
             t.append(time.perf_counter())
             runs.append(np.diff(t) * 1e3)
         parts[parse] = np.median(runs[1:], axis=0)
+    tensor = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lz_ops.match_table(rows, lens)
+        torch.cuda.synchronize()
+        tensor.append((time.perf_counter() - t) * 1e3)
     print("[kernels] slz4 encode parts at kennedy.xls (ms, host clock, median "
           f"of {reps}): " + "; ".join(
               f"{parse} " + ", ".join(f"{nm} {v:.3f}" for nm, v in
                                       zip(names, med))
-              for parse, med in parts.items()), flush=True)
+              for parse, med in parts.items())
+          + f"; v2's tensor table {np.median(tensor[1:]):.3f}", flush=True)
 
 
 def run_corpus(codec: str):
@@ -2990,8 +3064,10 @@ SCAN_KERNELS = [
      "cpprcoder_tpu/ops/mtf_ops.py:64"),
     ("rcq_encode_chunk", "cpprcoder_tpu_torch/csrc/rcq_encode.cu",
      "cpprcoder_tpu/codecs/resume.py:44"),
-    # CT-LZ4: the v1 match table (Z), the walk (P) and serializer (Q), and
-    # the decode (R)
+    # CT-LZ4: the v2 match table (K, the JAX package's XLA code), the v1
+    # table (Z), the walk (P) and serializer (Q), and the decode (R)
+    ("lz_match_v2", "cpprcoder_tpu_torch/csrc/lz_match_v2.cu",
+     "cpprcoder_tpu/ops/lz_ops.py:589"),
     ("lz_match_v1", "cpprcoder_tpu_torch/csrc/lz_match.cu",
      "cpprcoder_tpu/ops/lz_ops.py:81"),
     ("lz_walk", "cpprcoder_tpu_torch/csrc/lz_encode.cu",
@@ -3628,7 +3704,7 @@ def main():
             timed("kernels J, L", phase_kernels_exact, dev),
             timed("kernels M, N", phase_kernels_mtf, dev),
             timed("kernel O", phase_kernels_chunk, dev),
-            timed("kernels P, Q, R, Z", phase_kernels_lz, dev),
+            timed("kernels P, Q, R, Z, K", phase_kernels_lz, dev),
             timed("kernels S, T, U, V", phase_kernels_ase_o1, dev),
             timed("kernels W, X, Y", phase_kernels_ans2, dev))
         for e, m, w, a in (rcq, rans, huffman, exact, mtf, chunk, lz, stuv,
@@ -3686,7 +3762,7 @@ def main():
             rows[-1]["wrapper_ms"] = h_wrapper
         if nm in forms:     # its lane-range or stepped form
             rows[-1]["forms"] = forms[nm]
-        if nm == "lz_match_v1":  # its plain version and v2's tensor table
+        if nm in ("lz_match_v1", "lz_match_v2"):  # both plain versions
             rows[-1]["tables_ms_at"] = TABLES_MS_AT
     print(f"[time] all {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))

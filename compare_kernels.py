@@ -73,7 +73,21 @@ beside its plain version (lz_ops.match_table_v1) and v2's tensor table
 (lz_ops.match_table) at the same shapes, each call of those timed apart. A
 tree without Z (no lz_match.cu) skips it. Its diagnostics skip a step
 (their outputs differ): `zdiag_noscan` the window scan, `zdiag_nosort` the
-sort, `zdiag_nolcp` the byte compares.
+sort, `zdiag_nolcp` the byte compares. A base whose Z is its first design
+(a bitonic sort in shared memory, as 3b1a96c's) times it against this
+tree's (Z's block merge sort, csrc/lz_sort.cuh) in the same call.
+
+Kernel K (CT-LZ4's v2 match table) is timed at Z's six shapes (`--only
+K`): its launches queued back to back into buffers allocated once, and
+through a wrapper that allocates its outputs and scratch in each call as
+lz_kernels.match_v2 does (50 calls, each timed apart), beside its plain
+version (v2's tensor table, lz_ops.match_table). A tree without K (no
+lz_match_v2.cu) skips it. Its diagnostics skip a step (their outputs
+differ): `kdiag_nosort` the tiles' block sort and the merge passes (the
+rank order is then each tile's positions in order), `kdiag_noladder` the
+ladder launch, `kdiag_nopick` the pick launch. Its geometry variants:
+`k_ladder1024` (the ladder in CTAs of 1,024 threads, 4 positions a thread),
+`k_items4` (the sort and merges 4 keys a thread in CTAs of 512).
 
 Kernels S, T (CT-ASE1 encode and decode) and U, V (CT-RC3's) are timed at
 kennedy.xls (K = 256), alice29.txt (K = 64), grammar.lsp (K = 2) and the
@@ -533,9 +547,22 @@ __global__ void __launch_bounds__(WALK_THREADS)
 # kernel Z's diagnostics: its window scan (step 3), its sort (step 4) or
 # its byte compares (step 5) skipped (the outputs then differ)
 Z_NO_SCAN = [("j >= b0; j -= (int)blockDim.x", "j >= t0; j -= (int)blockDim.x")]
-Z_NO_SORT = [("for (int k = 2; k <= sort_n; k <<= 1)", "for (int k = 2; k <= 0; k <<= 1)")]
+Z_NO_SORT = [("      ct::block_sort(it, order);\n", "")]
 Z_NO_LCP = [("r < LANE_BYTES / 4 && q < lim", "r < 0 && q < lim"),
             ("more = mm == lim && q < lim;", "more = false;")]
+# kernel K's diagnostics: its sort (the tiles' block sort and the merge
+# passes: the rank order is then each tile's positions in order), its
+# ladder launch or its pick launch skipped (the outputs then differ)
+K_NO_SORT = [("    ct::block_sort(it, sh);\n", ""),
+             ("width = TILE; width < w; width *= 2", "width = TILE; width < 0; width *= 2")]
+K_NO_LADDER = [("  k_ladder<<<", "  if (false) k_ladder<<<")]
+K_NO_PICK = [("  k_pick<<<", "  if (false) k_pick<<<")]
+# kernel K's geometry: the ladder in CTAs of 1,024 threads (4 positions a
+# thread, not 8), and the sort and merges with 4 keys a thread in CTAs of
+# 512 (the same 2,048-position tile)
+K_LADDER_1024 = [("constexpr int LADDER_THREADS = 512;", "constexpr int LADDER_THREADS = 1024;")]
+K_ITEMS_4 = [("constexpr int ITEMS = 8; ", "constexpr int ITEMS = 4; "),
+             ("constexpr int SORT_THREADS = 256;", "constexpr int SORT_THREADS = 512;")]
 
 VARIANTS = {
     # kernel A: every row requantized at every window
@@ -846,6 +873,11 @@ VARIANTS = {
     "zdiag_noscan": ("lz_match.cu", Z_NO_SCAN),
     "zdiag_nosort": ("lz_match.cu", Z_NO_SORT),
     "zdiag_nolcp": ("lz_match.cu", Z_NO_LCP),
+    "kdiag_nosort": ("lz_match_v2.cu", K_NO_SORT),
+    "kdiag_noladder": ("lz_match_v2.cu", K_NO_LADDER),
+    "kdiag_nopick": ("lz_match_v2.cu", K_NO_PICK),
+    "k_ladder1024": ("lz_match_v2.cu", K_LADDER_1024),
+    "k_items4": ("lz_match_v2.cu", K_ITEMS_4),
     "o1_rows_rotated": ("o1_model.cuh", [
         ("m.rowtot[w + nw * ln]", "m.rowtot[ln + 256 / nw * ((w + ln) & (nw - 1))]"),
         ("halve_row<WIDE>(m, w + nw * i);",
@@ -864,7 +896,7 @@ ENTRY = {"A": "ct_rcx_encode", "B": "ct_expand_count", "C": "ct_rcx_decode",
          "Q": ("ct_lz_serialize", "ct_lz_clamp"), "R": "ct_lz_decode",
          "S": "ct_ase_encode", "T": "ct_ase_decode", "U": "ct_o1_encode",
          "V": "ct_o1_decode", "W": "ct_ans2_model", "X": "ct_ans2_encode",
-         "Y": "ct_ans2_decode", "Z": "ct_lz_match_v1"}
+         "Y": "ct_ans2_decode", "Z": "ct_lz_match_v1", "K": "ct_lz_match_v2"}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # the CT-LZ4 entry points of a tree whose Q is three launches with a cumsum
 # and host reads between them (ct_lz_clamp, ct_lz_sizes, ct_lz_write) and
@@ -901,10 +933,10 @@ OLD_O1_SIGNATURES = {
 SEG_SCALE = {"s_segq": 0.25, "s_seg4": 4.0}
 # U's chunks in the case that times its chunk edges
 U_SMALL_CHUNK = 256
-# the source of each of kernels S-Z
+# the source of each of kernels K and S-Z
 SOURCE_OF = {"S": "ase.cu", "T": "ase.cu", "U": "o1_encode.cu", "V": "o1_decode.cu",
              "W": "ans2_encode.cu", "X": "ans2_encode.cu", "Y": "ans2_decode.cu",
-             "Z": "lz_match.cu"}
+             "Z": "lz_match.cu", "K": "lz_match_v2.cu"}
 VARIANT_SOURCE = {"a": "rcx_encode.cu", "b": "expand.cu", "g": "rans_decode.cu",
                   "h": "huffman_encode.cu", "i": "huffman_decode.cu", "j": "rc_exact.cu",
                   "l": "rc_exact.cu", "ldiag": "rc_exact.cu", "m": "mtf.cu", "mn": "mtf.cu",
@@ -914,7 +946,7 @@ VARIANT_SOURCE = {"a": "rcx_encode.cu", "b": "expand.cu", "g": "rans_decode.cu",
                   "s": "ase.cu", "sdiag": "ase.cu", "x": "ans2_encode.cu",
                   "xdiag": "ans2_encode.cu", "w": "ans2_encode.cu",
                   "wdiag": "ans2_encode.cu", "norm": "ans2_encode.cu",
-                  "zdiag": "lz_match.cu"}
+                  "zdiag": "lz_match.cu", "kdiag": "lz_match_v2.cu", "k": "lz_match_v2.cu"}
 # variants that edit the base's sources, not this tree's: s_quad, and
 # NAME@base, the diagnostics of a base whose S is a thread a lane with a
 # scan and a copy and whose X reads every table from global memory (as
@@ -1072,6 +1104,8 @@ def cases(dev, only: str = ""):
         out += ans2_cases(dev, stream)
     if want("Z"):
         out += z_cases(dev, stream)
+    if want("K"):
+        out += k_cases(dev, stream)
     if not want("ABCDEFGHIJLMNPQR"):
         return out
     rcx_at = [("kennedy.xls", "balanced"), ("grammar.lsp", "balanced"),
@@ -1613,10 +1647,8 @@ def lz_cases(label: str, data: bytes, seg_log2: int, dev):
             ("R", shape, r_launch)]
 
 
-def z_cases(dev, stream):
-    """Z at its shapes (launches into buffers allocated once), and beside
-    it, as cases of its own, its plain version and v2's tensor table on
-    the same rows (tensor code: each call timed apart)."""
+def lz_table_shapes(dev):
+    """The six shapes of Z's and K's cases: -> [(shape, rows, lens)]."""
     rng = np.random.default_rng(601)
     out = []
     for label, data, sl in (
@@ -1627,29 +1659,72 @@ def z_cases(dev, stream):
             ("200,000 random bytes", rng.integers(0, 256, 200_000, np.uint8).tobytes(), 17),
             ("kennedy.xls at seg_log2 20", corpus("kennedy.xls"), 20)):
         rows, lens = lz_ops.segment_rows(to_dev(data, dev), sl)
+        out.append((f"{label} ({rows.shape[0]} segments of {rows.shape[1]})", rows, lens))
+    return out
+
+
+def tensor_code(fn, rows, lens):
+    """make(lib) for a call of tensor code on (rows, lens), whatever the
+    library."""
+    def make(lib):
+        res = {}
+
+        def go():
+            res["out"] = fn(rows, lens)
+            return 0
+        return go, lambda: res["out"]
+    return make
+
+
+def k_cases(dev, stream):
+    """K at Z's six shapes: its launches queued into buffers allocated
+    once, and through a wrapper (its outputs and scratch allocated in
+    each call, as lz_kernels.match_v2 does; each call timed apart); beside
+    them, as a case of its own, its plain version (v2's tensor table)."""
+    out = []
+    for shape, rows, lens in lz_table_shapes(dev):
         ns, w = rows.shape
-        shape = f"{label} ({ns} segments of {w})"
+
+        def k(lib, rows=rows, lens=lens, ns=ns, w=w, fresh=False):
+            res = {}
+
+            def go():
+                if fresh or not res:
+                    res["lcp"], res["cand"] = torch.empty(
+                        (2, ns, w), dtype=torch.int64, device=dev).unbind(0)
+                    res["scratch"] = torch.empty(lz_kernels.MATCH_V2_SCRATCH * ns * w,
+                                                 dtype=torch.int32, device=dev)
+                return lib.ct_lz_match_v2(rows.data_ptr(), lens.data_ptr(),
+                                          res["lcp"].data_ptr(), res["cand"].data_ptr(),
+                                          res["scratch"].data_ptr(), ns, w, stream())
+            go()
+            return go, lambda: (res["lcp"], res["cand"])
+
+        out += [("K", f"{shape} launches", k),
+                ("K", f"{shape} through the wrapper", partial(k, fresh=True)),
+                ("K", f"{shape} v2 match_table (tensor code)",
+                 tensor_code(lz_ops.match_table, rows, lens))]
+    return out
+
+
+def z_cases(dev, stream):
+    """Z at its shapes (launches into buffers allocated once), and beside
+    it, as cases of its own, its plain version and v2's tensor table on
+    the same rows (tensor code: each call timed apart)."""
+    out = []
+    for shape, rows, lens in lz_table_shapes(dev):
+        ns, w = rows.shape
 
         def z(lib, rows=rows, lens=lens, ns=ns, w=w):
             lcp, cand = torch.empty((2, ns, w), dtype=torch.int64, device=dev).unbind(0)
             return (lambda: lib.ct_lz_match_v1(rows.data_ptr(), lens.data_ptr(), lcp.data_ptr(),
                                                cand.data_ptr(), ns, w, stream())), (lcp, cand)
 
-        def tensor_code(fn, rows=rows, lens=lens):
-            def make(lib):
-                res = {}
-
-                def go():
-                    res["out"] = fn(rows, lens)
-                    return 0
-                return go, lambda: res["out"]
-            return make
-
         out += [("Z", shape, z),
                 ("Z", f"{shape} match_table_v1 (tensor code)",
-                 tensor_code(lz_ops.match_table_v1)),
+                 tensor_code(lz_ops.match_table_v1, rows, lens)),
                 ("Z", f"{shape} v2 match_table (tensor code)",
-                 tensor_code(lz_ops.match_table))]
+                 tensor_code(lz_ops.match_table, rows, lens))]
     return out
 
 

@@ -3,9 +3,9 @@ LZ4 block format with exact parallel match-finding instead of a
 single-probe hash; counterpart of cpprcoder_tpu/codecs/slz4.py).
 
 Backends, as in the JAX codec:
-  "cuda" (default) and "torch": the v2 parse (ops/lz_ops.py; kernels P and
-      Q on the card, their plain versions on the CPU), the counterparts of
-      the JAX codec's "jax" backend;
+  "cuda" (default) and "torch": the v2 parse (ops/lz_ops.py; kernels K,
+      the match table, P and Q on the card, their plain versions on the
+      CPU), the counterparts of the JAX codec's "jax" backend;
   "ref": the numpy oracle's default, the v1 parse
       (slz4_ref.slz4_encode(parse="v1")), as the JAX codec's "ref" writes;
   "native": the host library built from the repository's native/ctrc.cpp

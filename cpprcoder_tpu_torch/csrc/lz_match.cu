@@ -31,10 +31,12 @@
 //      atomics. (A first design kept the position in the slot's low word:
 //      a 64-bit shared atomicMax is a compare-and-swap loop, which a run
 //      of one byte turned into a spin. Its 70,000 zeros took 0.181 ms.)
-//   4. sorts the tile's (slot, position) pairs, 25 bits in a u32, bitonic
-//      in shared memory: a position's nearest earlier equal key is its
-//      rank neighbour where the slots agree, else its slot's last position
-//      before the tile; then the distance rule;
+//   4. sorts the tile's (slot, position) pairs, 25 bits in a u32, by the
+//      block merge sort K shares (lz_sort.cuh: 4 keys a thread sorted in
+//      registers, then 10 merge rounds through shared memory, 20 barriers
+//      at a full tile where a bitonic sort takes 78): a position's nearest
+//      earlier equal key is its rank neighbour where the slots agree, else
+//      its slot's last position before the tile; then the distance rule;
 //   5. the exact lcp by chains: where cand[p] = cand[p - 1] + 1 both share
 //      their first mismatch (the 4 bytes at every position of the chain
 //      match), so a warp takes 32 positions, finds by a ballot the last
@@ -48,13 +50,14 @@
 //      byte: 1,024 compares of 4,096 bytes a tile);
 //   6. writes lcp and cand (int64, the walk's interface) coalesced.
 // Bound: bytes (the rows read once, lcp and cand written: 17 bytes a
-// position). What holds it back: step 3's 65,535 probes and step 4's 78
-// rounds of barriers a tile, in one CTA a SM (216 KiB of shared memory).
+// position). What holds it back: step 3's 65,535 probes and step 4's
+// merge rounds a tile, in one CTA a SM (216 KiB of shared memory).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "lz_common.cuh"
+#include "lz_sort.cuh"
 
 namespace {
 
@@ -67,6 +70,7 @@ constexpr int POS_BITS = 12;
 constexpr uint32_t PAST = 0xFFFFFFFFu;  // a sort key after every slot
 constexpr unsigned FULL = 0xFFFFFFFFu;
 constexpr int LANE_BYTES = 16;          // step 5: a lane's compare before the warp's
+constexpr int ITEMS = 4;                // step 4: keys a thread (THREADS * ITEMS = TILE)
 
 // 4 bytes at byte offset o of the staged window (little-endian)
 __device__ __forceinline__ uint32_t ld4(const uint32_t* w, int o) {
@@ -153,18 +157,14 @@ __global__ void __launch_bounds__(THREADS)
     }
 
     // 4. sort (slot, position), then each position's nearest earlier key
-    for (int k = 2; k <= sort_n; k <<= 1) {
-      for (int j = k >> 1; j > 0; j >>= 1) {
-        __syncthreads();
-        for (int t = threadIdx.x; t < sort_n / 2; t += blockDim.x) {
-          const int lo = ((t & ~(j - 1)) << 1) | (t & (j - 1));
-          const uint32_t a = order[lo], b = order[lo + j];
-          if ((a > b) == ((lo & k) == 0)) {
-            order[lo] = b;
-            order[lo + j] = a;
-          }
-        }
-      }
+    {
+      uint32_t it[ITEMS];
+#pragma unroll
+      for (int k = 0; k < ITEMS; ++k) it[k] = order[ITEMS * threadIdx.x + k];
+      ct::block_sort(it, order);
+      __syncthreads();
+#pragma unroll
+      for (int k = 0; k < ITEMS; ++k) order[ITEMS * threadIdx.x + k] = it[k];
     }
     __syncthreads();
     for (int r = threadIdx.x; r < idx_n; r += blockDim.x) {
@@ -251,7 +251,9 @@ extern "C" int ct_lz_match_v1(const void* rows, const void* lens, void* lcp, voi
     ++bits;
   }
   const int hash_bits = bits + 1;  // at most half full
-  const int threads = min(THREADS, max(32, ((tile + 3) / 4 + 31) / 32 * 32));
+  // the sort's keys: ITEMS a thread, a power of two of threads, a warp at least
+  sort_n = max(sort_n, 32 * ITEMS);
+  const int threads = sort_n / ITEMS;
   // the window, 16 bytes of slack for the last compare's second word
   const int win = (int)((min((long long)w, (long long)MAX_DISTANCE + tile + LCP_CAP) + 15) & ~15LL) +
                   16;

@@ -1,9 +1,18 @@
-"""Kernel Z, P, Q and R wrappers: CT-LZ4 (SLZ4) v1 match table, parse
-walk, token serializer and decode on the card, each with its plain PyTorch
-version beside it.
+"""Kernel K, Z, P, Q and R wrappers: CT-LZ4 (SLZ4) v2 and v1 match tables,
+parse walk, token serializer and decode on the card, each with its plain
+PyTorch version beside it.
 
 The JAX package has no Pallas kernel here. It runs these steps as XLA code
 shaped by Mosaic's limits (cpprcoder_tpu/ops/lz_ops.py):
+  - K replaces the v2 parse's match table, `_match_table_v2` (:589, with
+    `_v2_operands` :540 and `_alcp_sorted` :557: one 16-operand stable
+    lax.sort a segment, the pick in rank order, a sort back).
+    `csrc/lz_match_v2.cu`, 3 + log2(W / 2,048) launches: a CTA sorts each
+    2,048-position tile by (16 key bytes, position) (lz_sort.cuh's block
+    merge sort), a CTA a 4,096-position tile writes each position's hash
+    ladder record, merge passes by merge path join the tiles' runs, and a
+    CTA 256 ranks computes the adjacent lcp, picks each rank's candidate
+    and stores it at its position. Bound: bytes, on Z's basis.
   - Z replaces the v1 parse's match table, `_candidates` (:81-100: one
     stable lax.sort of (flag, key, position) and the adjacent rank) and
     `_lcp_estimate` (:103-124: two u32 hash chains, descending spans, an
@@ -62,6 +71,7 @@ from cpprcoder_tpu_torch.native import build
 from cpprcoder_tpu_torch.ops import lz_ops
 from cpprcoder_tpu_torch.reference.slz4_ref import MIN_MATCH
 
+match_v2_launches = 0    # kernel K
 match_launches = 0       # kernel Z
 walk_launches = 0        # kernel P
 serialize_launches = 0   # kernel Q
@@ -96,13 +106,9 @@ def _same_device(dev, **ts) -> None:
             raise ValueError(f"{nm} is on {t.device}, not {dev}")
 
 
-# ------------------------------------------------------ Z: the v1 table
+# ------------------------------------------------- K and Z: the match tables
 
-def match_v1(rows: torch.Tensor, lens: torch.Tensor):
-    """rows uint8 [n, W] (segment i's L_i = lens[i] bytes, zero past them)
-    and lens int64 [n] -> lcp, cand int64 [n, W]: the v1 match table,
-    lz_ops.match_table_v1's. On the card: one launch, no host read."""
-    global match_launches
+def _check_table_inputs(rows: torch.Tensor, lens: torch.Tensor) -> None:
     _check("rows", rows, torch.uint8, 2)
     _check("lens", lens, torch.int64, 1)
     _same_device(rows.device, lens=lens)
@@ -113,8 +119,47 @@ def match_v1(rows: torch.Tensor, lens: torch.Tensor):
     if not 0 < w <= 1 << 30 or not 0 < n < 1 << 31:
         raise ValueError(f"{n} segments of width {w}: the kernels take "
                          f"1 to 2^31 - 1 segments of 1 to 2^30 positions")
+
+
+MATCH_V2_SCRATCH = 10   # K's scratch, u32 words a position: the ladder
+#                         records (8) and two rank orders
+
+
+def match_v2(rows: torch.Tensor, lens: torch.Tensor):
+    """rows uint8 [n, W] (segment i's L_i = lens[i] bytes, zero past them)
+    and lens int64 [n] -> lcp, cand int64 [n, W]: the v2 match table,
+    lz_ops.match_table's. On the card: kernel K's launches, no host read,
+    its scratch (40 bytes a position) from torch.empty."""
+    global match_v2_launches
+    _check_table_inputs(rows, lens)
+    if rows.device.type == "cpu":
+        return lz_ops.match_table(rows, lens)
+    n, w = rows.shape
+    dev = rows.device
+    lib = build.load()
+    with torch.cuda.device(dev):
+        lcp, cand = torch.empty((2, n, w), dtype=torch.int64,
+                                device=dev).unbind(0)
+        scratch = torch.empty(MATCH_V2_SCRATCH * n * w, dtype=torch.int32,
+                              device=dev)
+        rc = lib.ct_lz_match_v2(rows.data_ptr(), lens.data_ptr(),
+                                lcp.data_ptr(), cand.data_ptr(),
+                                scratch.data_ptr(), n, w,
+                                torch.cuda.current_stream(dev).cuda_stream)
+        build.check(rc, "ct_lz_match_v2")
+    match_v2_launches += 1
+    return lcp, cand
+
+
+def match_v1(rows: torch.Tensor, lens: torch.Tensor):
+    """rows uint8 [n, W] (segment i's L_i = lens[i] bytes, zero past them)
+    and lens int64 [n] -> lcp, cand int64 [n, W]: the v1 match table,
+    lz_ops.match_table_v1's. On the card: one launch, no host read."""
+    global match_launches
+    _check_table_inputs(rows, lens)
     if rows.device.type == "cpu":
         return lz_ops.match_table_v1(rows, lens)
+    n, w = rows.shape
     dev = rows.device
     lib = build.load()
     with torch.cuda.device(dev):

@@ -6,11 +6,12 @@ Format and parses: reference/slz4_ref.py (`parse_segment`, v1, and
 `parse_segment_v2`). Encode, all batched over the segments as rows [n_segs,
 W] on one device:
   1. the match table, (lcp, cand) a position:
-     - v2 (`match_table`), tensor code: the words w0..w7 and the hash
+     - v2 (kernel K on the card, ops/lz_kernels.py `match_v2`; its plain
+       version `match_table`, tensor code: the words w0..w7 and the hash
        ladder, one stable sort of each row by (past the segment, w0..w3,
        position) in three passes of torch.sort, the adjacent ranks' lcp,
        the best of the up-to-4-up and up-to-2-down rank neighbours,
-       scattered back to position order;
+       scattered back to position order);
      - v1 (`match_table_v1`, kernel Z on the card, ops/lz_kernels.py): the
        nearest earlier position with the same 4 bytes within MAX_DISTANCE,
        and the exact lcp;
@@ -151,8 +152,8 @@ def _adjacent_lcp(ws, lads, p_s, lens):
 def match_table(rows: torch.Tensor, lens: torch.Tensor):
     """Per-position (lcp, cand) of the v2 spec (slz4_ref.match_table_v2),
     rows uint8 [n, W] with lens int64 [n] -> int64 [n, W] each (cand -1:
-    none). Positions past a row's length sort after its real ones and get
-    no candidate that counts."""
+    none); the plain version of kernel K. Positions past a row's length
+    sort after its real ones and get no candidate that counts."""
     n, w = rows.shape
     dev = rows.device
     pos = torch.arange(w, device=dev).expand(n, w)
@@ -290,9 +291,9 @@ def segment_rows(x: torch.Tensor, seg_log2: int):
 def slz4_encode(data, seg_log2: int = 17, lazy: bool = True,
                 parse: str = "v2", *, device) -> bytes:
     """CT-LZ4 container of `data` by the v2 or the v1 parse, on `device`:
-    the match table (v2: `match_table`'s tensor code; v1: kernel Z), then
-    kernels P and Q, on CUDA, and their plain versions on the CPU. Same
-    bytes as slz4_ref.slz4_encode(data, seg_log2, lazy, parse)."""
+    the match table (v2: kernel K; v1: kernel Z), then kernels P and Q, on
+    CUDA, and their plain versions on the CPU. Same bytes as
+    slz4_ref.slz4_encode(data, seg_log2, lazy, parse)."""
     from cpprcoder_tpu_torch.ops import lz_kernels
 
     if parse not in ("v1", "v2"):
@@ -309,7 +310,7 @@ def slz4_encode(data, seg_log2: int = 17, lazy: bool = True,
     if n_segs == 0:
         return w.getvalue()
     rows, lens = segment_rows(torch.from_numpy(x.copy()).to(device), seg_log2)
-    table = (match_table(rows, lens) if parse == "v2"
+    table = (lz_kernels.match_v2(rows, lens) if parse == "v2"
              else lz_kernels.match_v1(rows, lens))
     tokens = lz_kernels.walk(*table, lens, lazy)
     payload, sizes = lz_kernels.serialize(rows, lens, *tokens)

@@ -1135,6 +1135,108 @@ def test_lz_match_v1_equals_plain_and_the_oracle(dev, name, seg_log2):
     assert lz_ops.slz4_decode(blob, device=dev) == data
 
 
+def _k_input(name):
+    """K's own shapes beside P's: copies equal past 32 bytes (the ladder)
+    and past LCP_CAP, rows of W = n around the tile size, and one row of
+    2^23 + 12,345 positions."""
+    rng = np.random.default_rng(41)
+    if name == "ladder":
+        out = b""
+        for n in (33, 64, 65, 129, 513, 2047, 2049, 4095, 4096, 4097, 4200):
+            blk = rng.integers(0, 256, n + 8, np.uint8).tobytes()
+            twin = bytearray(blk)
+            twin[n] ^= 0x5A
+            out += blk + rng.integers(0, 256, 50, np.uint8).tobytes() + twin
+        return out
+    if name.startswith("W = "):
+        return (_corpus("asyoulik.txt") * 2)[:int(name[4:])]
+    if name == "2^23 + 12,345":
+        concat = b"".join(_corpus(nm) for nm in sorted(SLZ4_BYTES))
+        return (concat * 3)[:(1 << 23) + 12_345]
+    return _lz_input(name)
+
+
+K_SHAPES = [
+    ("grammar.lsp", 17), ("kennedy.xls", 17), ("fields.c", 7), ("zeros", 17),
+    ("random", 17), ("1 byte", 17), ("13 bytes", 17), ("text 300", 0),
+    ("text 2000", 3), ("tail run", 9), ("tail zeros", 12), ("fields.c", 12),
+    ("match 600", 17), ("C1", 17), ("runs", 17), ("2^17 - 1", 17),
+    ("superblock", 17), ("2^18", 18), ("2^20", 20), ("kennedy.xls", 20),
+    ("nearest 65535", 17), ("nearest 65536", 17), ("ladder", 17),
+    ("W = 2047", 17), ("W = 2049", 17), ("W = 6149", 17),
+    ("2^23 + 12,345", 24)]
+
+
+@pytest.mark.parametrize("name,seg_log2", K_SHAPES)
+def test_lz_match_v2_equals_plain_and_the_oracle(dev, name, seg_log2):
+    """Kernel K against its plain version (lz_ops.match_table) at every
+    shape of the P, Q and R test, kennedy.xls as one 1,029,744-position
+    segment, the distance limit, copies equal past 32 bytes and past
+    LCP_CAP, W = n around the 2,048-position tile and one row of 2^23 +
+    12,345; and against the oracle (slz4_ref.match_table_v2) a segment at
+    a time, up to 2^20 positions."""
+    data = (_v1_edge(int(name.split()[1])) if name.startswith("nearest")
+            else _k_input(name))
+    x = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(dev)
+    rows, lens = lz_ops.segment_rows(x, seg_log2)
+    before = lz_kernels.match_v2_launches
+    lcp, cand = lz_kernels.match_v2(rows, lens)
+    assert lz_kernels.match_v2_launches == before + 1
+    pl, pc = lz_ops.match_table(rows, lens)
+    assert torch.equal(lcp, pl) and torch.equal(cand, pc)
+    if rows.shape[1] > 1 << 20:
+        return
+    w = rows.shape[1]
+    arr = np.frombuffer(data, np.uint8)
+    lcp, cand = lcp.cpu().numpy(), cand.cpu().numpy()
+    for r in range(rows.shape[0]):
+        ol, oc = slz4_ref.match_table_v2(arr[r * w:(r + 1) * w])
+        assert np.array_equal(lcp[r, :len(ol)], ol)
+        assert np.array_equal(cand[r, :len(oc)], oc)
+
+
+def test_lz_match_v2_narrow_rows(dev):
+    """K at W = 1..128: one row of n = W bytes each, and 2,000 bytes in
+    rows of 2^0 .. 2^7 (a partial last row)."""
+    text = _corpus("fields.c")
+    cases = [(text[3 * w:4 * w], 17) for w in range(1, 129)]
+    cases += [(text[:2000], sl) for sl in range(8)]
+    for data, sl in cases:
+        x = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(dev)
+        rows, lens = lz_ops.segment_rows(x, sl)
+        for a, b in zip(lz_kernels.match_v2(rows, lens),
+                        lz_ops.match_table(rows, lens)):
+            assert torch.equal(a, b), (len(data), sl)
+
+
+def test_lz_match_v2_does_not_synchronize(dev):
+    """K at kennedy.xls (8 segments of 2^17) and at one 2^20 segment, after
+    a warm-up: no call synchronizes with the host."""
+    data = _corpus("kennedy.xls")
+    x = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(dev)
+    shapes = [lz_ops.segment_rows(x, sl) for sl in (17, 20)]
+    want = [lz_kernels.match_v2(rows, lens) for rows, lens in shapes]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [lz_kernels.match_v2(rows, lens) for rows, lens in shapes]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for g, wt in zip(got, want):
+        assert all(torch.equal(a, b) for a, b in zip(g, wt))
+
+
+def test_lz_match_v2_once_a_compress(dev):
+    """compress(codec="slz4") on the card launches K once a call (and never
+    Z), and writes the v2 oracle's container."""
+    data = _corpus("alice29.txt")
+    k, z = lz_kernels.match_v2_launches, lz_kernels.match_launches
+    blob = ctt.compress(data, codec="slz4")
+    assert lz_kernels.match_v2_launches == k + 1
+    assert lz_kernels.match_launches == z
+    assert blob == slz4_ref.slz4_encode(data, parse="v2")
+
+
 def _lz_block(edit):
     """grammar.lsp's v2 block at seg_log2 12 with `edit` applied to the
     offset of its first match ("offset0", "before") or its length ("cut")."""
@@ -1196,7 +1298,7 @@ SLZ4_BYTES = {"alice29.txt": 71996, "asyoulik.txt": 63239, "cp.html": 11200,
 
 @pytest.mark.parametrize("name", sorted(SLZ4_BYTES))
 def test_slz4_corpus_on_the_card(dev, name):
-    """compress(codec="slz4") on the card (kernels P and Q) writes the v2
+    """compress(codec="slz4") on the card (kernels K, P and Q) writes the v2
     oracle's container of each file; decompress (kernel R) reads it and
     the v1 oracle's (backend="ref")."""
     data = _corpus(name)
