@@ -219,6 +219,7 @@ import numpy as np
 import torch
 
 import cpprcoder_tpu_torch as ctt
+from cpprcoder_tpu_torch.bench import lz_edges
 from cpprcoder_tpu_torch.bench.synth import synth_stream
 from cpprcoder_tpu_torch.codecs import stream
 from cpprcoder_tpu_torch.codecs.resume import RCQResumableEncoder
@@ -2342,21 +2343,33 @@ def phase_kernels_z(dev, shapes, edges, err, plain):
 
 def phase_kernels_k(dev, shapes, edges, err, plain):
     """K against its plain version (lz_ops.match_table) at P's shapes and
-    edges, the distance limit and a 2^14-byte CT-SB superblock, and against
-    the oracle (slz4_ref.match_table_v2) a segment at a time on the 11
-    files; timed at P's shapes beside the plain version (phase_kernels_z
-    times it there too). -> (K's ms at each shape, its work at
-    kennedy.xls)."""
+    edges, the distance limit, a 2^14-byte CT-SB superblock, ptt5 and K's
+    own edges (bench/lz_edges.py: a tail position between two copies, one
+    group of CAP - 1 / CAP / CAP + 1 positions, singletons, ties on 16
+    bytes, keys of one home slot), and against the oracle
+    (slz4_ref.match_table_v2) a segment at a time on those edges and the 11
+    files; timed at P's shapes and ptt5 beside the plain version
+    (phase_kernels_z times it there too). -> (K's ms at each shape, its
+    work at kennedy.xls)."""
     k_at, work = {}, None
     sb = concat_corpus()[:1 << 14]
-    for i, (what, data, sl, _) in enumerate(
-            shapes + edges + v1_distance_edges()
-            + [("a 2^14-byte CT-SB superblock", sb, 17, True)]):
+    ptt5 = [("ptt5", corpus("ptt5"), 17, True)]
+    own = [(f"{nm} ({what})", lz_edges.edge(nm), 17, True)
+           for nm, what in lz_edges.EDGES.items()]
+    cases = (shapes + ptt5 + edges + v1_distance_edges()
+             + [("a 2^14-byte CT-SB superblock", sb, 17, True)] + own)
+    for i, (what, data, sl, _) in enumerate(cases):
         rows, lens = lz_ops.segment_rows(to_dev(data, dev), sl)
-        hold(err, "lz_match_v2", lz_kernels.match_v2(rows, lens),
-             plain("lz_match_v2", lambda: lz_ops.match_table(rows, lens),
-                   i == 0), f"kernel K at {what}")
-        if i >= len(shapes):
+        got = hold(err, "lz_match_v2", lz_kernels.match_v2(rows, lens),
+                   plain("lz_match_v2", lambda: lz_ops.match_table(rows, lens),
+                         i == 0), f"kernel K at {what}")
+        if i >= len(cases) - len(own):
+            lcp, cand = (t.cpu().numpy() for t in got)
+            ol, oc = slz4_ref.match_table_v2(np.frombuffer(data, np.uint8))
+            if not (np.array_equal(lcp[0, :len(ol)], ol)
+                    and np.array_equal(cand[0, :len(oc)], oc)):
+                fail(f"kernel K at {what}: not the oracle's match_table_v2")
+        if i > len(shapes):
             continue
         shape = f"{what}: {rows.shape[0]} segments"
         k_at[shape] = cuda_ms(lambda: lz_kernels.match_v2(rows, lens), 5)
@@ -2548,13 +2561,14 @@ def phase_kernels_lz(dev):
         dev, shapes, edges, err, plain)
     ms["lz_match_v2"] = (next(iter(ms_at["lz_match_v2"].values())),
                          plain_ms["lz_match_v2"])
-    print(f"[kernels] ok {len(shapes) + len(edges) + 3} CT-LZ4 v2 tables: "
-          f"kernel K equals its plain version (max_abs_err "
+    tables = TABLES_MS_AT["match_table (v2)"]
+    print(f"[kernels] ok {len(shapes) + len(edges) + 4 + len(lz_edges.EDGES)} "
+          f"CT-LZ4 v2 tables: kernel K equals its plain version (max_abs_err "
           f"{err['lz_match_v2']}) and the oracle's table of every segment "
-          f"of the 11 files; ms kernel/plain at kennedy.xls "
+          f"of the 11 files and of K's edges; ms kernel/plain at kennedy.xls "
           f"{ms['lz_match_v2'][0]:.4f}/{ms['lz_match_v2'][1]:.3f}; ms at "
-          + "; ".join(f"{at}: K {v:.4f}, v2 tensor table "
-                      f"{TABLES_MS_AT['match_table (v2)'][at]:.3f}"
+          + "; ".join(f"{at}: K {v:.4f}" + (f", v2 tensor table {tables[at]:.3f}"
+                                            if at in tables else "")
                       for at, v in ms_at["lz_match_v2"].items()), flush=True)
     slz4_encode_parts(dev)
     return err, ms, work, ms_at

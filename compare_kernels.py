@@ -77,17 +77,22 @@ sort, `zdiag_nolcp` the byte compares. A base whose Z is its first design
 (a bitonic sort in shared memory, as 3b1a96c's) times it against this
 tree's (Z's block merge sort, csrc/lz_sort.cuh) in the same call.
 
-Kernel K (CT-LZ4's v2 match table) is timed at Z's six shapes (`--only
-K`): its launches queued back to back into buffers allocated once, and
-through a wrapper that allocates its outputs and scratch in each call as
-lz_kernels.match_v2 does (50 calls, each timed apart), beside its plain
-version (v2's tensor table, lz_ops.match_table). A tree without K (no
-lz_match_v2.cu) skips it. Its diagnostics skip a step (their outputs
-differ): `kdiag_nosort` the tiles' block sort and the merge passes (the
-rank order is then each tile's positions in order), `kdiag_noladder` the
-ladder launch, `kdiag_nopick` the pick launch. Its geometry variants:
-`k_ladder1024` (the ladder in CTAs of 1,024 threads, 4 positions a thread),
-`k_items4` (the sort and merges 4 keys a thread in CTAs of 512).
+Kernel K (CT-LZ4's v2 match table) is timed at Z's six shapes and ptt5
+(`--only K`): its launches queued back to back into buffers allocated
+once, and through a wrapper that allocates its outputs and scratch in each
+call as lz_kernels.match_v2 does (50 calls, each timed apart), beside its
+plain version (v2's tensor table, lz_ops.match_table). Every library gets
+this tree's scratch (lz_kernels.match_v2_scratch), which covers an older
+K's. A tree without K (no lz_match_v2.cu) skips it. `--profile K` names
+its launches (the memset, k_count, k_zero, k_alloc, k_scatter, k_sort,
+k_fix, the merge passes summed, k_al, k_ladder, k_pick, k_out). Its
+diagnostics skip a step (their outputs differ): `kdiag_nosort` the tile
+sort, the crossing groups' merges and the merge passes (each group then
+in the scatter's order), `kdiag_noladder` the ladder launch,
+`kdiag_nopick` the pick launch. Its geometry variants: `k_cap2048` sorts
+tiles of 2,048 keys (this tree's 4,096): the groups past a tile take the
+merge passes; `k_wide` sorts the wide keys (a 5-word key) at every W,
+where this tree packs them into 16 bytes up to W = 2^20.
 
 Kernels S, T (CT-ASE1 encode and decode) and U, V (CT-RC3's) are timed at
 kennedy.xls (K = 256), alice29.txt (K = 64), grammar.lsp (K = 2) and the
@@ -550,19 +555,20 @@ Z_NO_SCAN = [("j >= b0; j -= (int)blockDim.x", "j >= t0; j -= (int)blockDim.x")]
 Z_NO_SORT = [("      ct::block_sort(it, order);\n", "")]
 Z_NO_LCP = [("r < LANE_BYTES / 4 && q < lim", "r < 0 && q < lim"),
             ("more = mm == lim && q < lim;", "more = false;")]
-# kernel K's diagnostics: its sort (the tiles' block sort and the merge
-# passes: the rank order is then each tile's positions in order), its
+# kernel K's diagnostics: its sort (the tile sort, the crossing groups'
+# merges and the merge passes: each group then in the scatter's order), its
 # ladder launch or its pick launch skipped (the outputs then differ)
-K_NO_SORT = [("    ct::block_sort(it, sh);\n", ""),
-             ("width = TILE; width < w; width *= 2", "width = TILE; width < 0; width *= 2")]
+K_NO_SORT = [("    k_sort<PackedTile><<<", "    if (false) k_sort<PackedTile><<<"),
+             ("    k_sort<WideTile><<<", "    if (false) k_sort<WideTile><<<"),
+             ("  k_fix<<<", "  if (false) k_fix<<<"),
+             ("    k_merge<<<", "    if (false) k_merge<<<")]
 K_NO_LADDER = [("  k_ladder<<<", "  if (false) k_ladder<<<")]
 K_NO_PICK = [("  k_pick<<<", "  if (false) k_pick<<<")]
-# kernel K's geometry: the ladder in CTAs of 1,024 threads (4 positions a
-# thread, not 8), and the sort and merges with 4 keys a thread in CTAs of
-# 512 (the same 2,048-position tile)
-K_LADDER_1024 = [("constexpr int LADDER_THREADS = 512;", "constexpr int LADDER_THREADS = 1024;")]
-K_ITEMS_4 = [("constexpr int ITEMS = 8; ", "constexpr int ITEMS = 4; "),
-             ("constexpr int SORT_THREADS = 256;", "constexpr int SORT_THREADS = 512;")]
+# kernel K's geometry: tiles of 2,048 keys; the wide keys (K5, 8 a thread)
+# at every W, not only past 2^20
+K_CAP_2048 = [("constexpr int SORT_THREADS = 512;", "constexpr int SORT_THREADS = 256;")]
+K_WIDE = [("  if (w <= (1 << 20)) {\n    if ((e = cudaFuncSetAttribute(k_sort<PackedTile>",
+           "  if (false) {\n    if ((e = cudaFuncSetAttribute(k_sort<PackedTile>")]
 
 VARIANTS = {
     # kernel A: every row requantized at every window
@@ -876,8 +882,8 @@ VARIANTS = {
     "kdiag_nosort": ("lz_match_v2.cu", K_NO_SORT),
     "kdiag_noladder": ("lz_match_v2.cu", K_NO_LADDER),
     "kdiag_nopick": ("lz_match_v2.cu", K_NO_PICK),
-    "k_ladder1024": ("lz_match_v2.cu", K_LADDER_1024),
-    "k_items4": ("lz_match_v2.cu", K_ITEMS_4),
+    "k_cap2048": ("lz_match_v2.cu", K_CAP_2048),
+    "k_wide": ("lz_match_v2.cu", K_WIDE),
     "o1_rows_rotated": ("o1_model.cuh", [
         ("m.rowtot[w + nw * ln]", "m.rowtot[ln + 256 / nw * ((w + ln) & (nw - 1))]"),
         ("halve_row<WIDE>(m, w + nw * i);",
@@ -1677,12 +1683,15 @@ def tensor_code(fn, rows, lens):
 
 
 def k_cases(dev, stream):
-    """K at Z's six shapes: its launches queued into buffers allocated
-    once, and through a wrapper (its outputs and scratch allocated in
-    each call, as lz_kernels.match_v2 does; each call timed apart); beside
-    them, as a case of its own, its plain version (v2's tensor table)."""
+    """K at Z's six shapes and ptt5: its launches queued into buffers
+    allocated once, and through a wrapper (its outputs and scratch
+    allocated in each call, as lz_kernels.match_v2 does; each call timed
+    apart); beside them, as a case of its own, its plain version (v2's
+    tensor table)."""
     out = []
-    for shape, rows, lens in lz_table_shapes(dev):
+    rows, lens = lz_ops.segment_rows(to_dev(corpus("ptt5"), dev), 17)
+    ptt5 = (f"ptt5 ({rows.shape[0]} segments of {rows.shape[1]})", rows, lens)
+    for shape, rows, lens in lz_table_shapes(dev) + [ptt5]:
         ns, w = rows.shape
 
         def k(lib, rows=rows, lens=lens, ns=ns, w=w, fresh=False):
@@ -1692,7 +1701,7 @@ def k_cases(dev, stream):
                 if fresh or not res:
                     res["lcp"], res["cand"] = torch.empty(
                         (2, ns, w), dtype=torch.int64, device=dev).unbind(0)
-                    res["scratch"] = torch.empty(lz_kernels.MATCH_V2_SCRATCH * ns * w,
+                    res["scratch"] = torch.empty(lz_kernels.match_v2_scratch(ns, w),
                                                  dtype=torch.int32, device=dev)
                 return lib.ct_lz_match_v2(rows.data_ptr(), lens.data_ptr(),
                                           res["lcp"].data_ptr(), res["cand"].data_ptr(),

@@ -98,9 +98,9 @@ SIGNATURES = {
     # lz_match.cu, kernel Z (one launch): rows, lens, lcp, cand, n, w,
     # stream
     "ct_lz_match_v1": [_P, _P, _P, _P, _I, _I, _P],
-    # lz_match_v2.cu, kernel K (3 + log2(w / 2,048) launches): rows, lens,
-    # lcp, cand, scratch (lz_kernels.MATCH_V2_SCRATCH u32 a position), n,
-    # w, stream
+    # lz_match_v2.cu, kernel K (a memset, 11 + log2(w / 4,096) launches):
+    # rows, lens, lcp, cand, scratch (lz_kernels.match_v2_scratch(n, w)
+    # u32), n, w, stream
     "ct_lz_match_v2": [_P, _P, _P, _P, _P, _I, _I, _P],
     # lz_encode.cu, kernel P (two launches): lcp, cand, lens, the scratch
     # rows and entries, mpos, mlen, moff, count, n, w, lb, lazy, tcap, stream

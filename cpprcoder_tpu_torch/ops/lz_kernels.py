@@ -7,12 +7,22 @@ shaped by Mosaic's limits (cpprcoder_tpu/ops/lz_ops.py):
   - K replaces the v2 parse's match table, `_match_table_v2` (:589, with
     `_v2_operands` :540 and `_alcp_sorted` :557: one 16-operand stable
     lax.sort a segment, the pick in rank order, a sort back).
-    `csrc/lz_match_v2.cu`, 3 + log2(W / 2,048) launches: a CTA sorts each
-    2,048-position tile by (16 key bytes, position) (lz_sort.cuh's block
-    merge sort), a CTA a 4,096-position tile writes each position's hash
-    ladder record, merge passes by merge path join the tiles' runs, and a
-    CTA 256 ranks computes the adjacent lcp, picks each rank's candidate
-    and stores it at its position. Bound: bytes, on Z's basis.
+    `csrc/lz_match_v2.cu`, a memset and 11 + ceil(log2(W / 4,096))
+    launches: the pick reads only the order inside each group of equal
+    4-byte keys (w0), so each row's positions are grouped by w0 in a hash
+    table in global memory (a 2,048-position tile's count of a key added
+    at once by 64-bit atomics), each group of 2 or more gets a range of
+    the order (the singletons none; the positions whose 16 key bytes are
+    zero lead the group of w0 = 0 in position order, unsorted), a CTA
+    sorts each 4,096-key tile of the small groups (a group a segment) or
+    of a large group by (w1, w2, w3, p), the groups that cross a tile are
+    merged in place, merge passes
+    join each large group's tiles (the keys in global memory: no gather),
+    the adjacent lcp is taken from the keys and the row, the hash ladder's
+    records are built only for the 4,096-position tiles whose pairs are
+    equal on 32 bytes, a CTA 256 ranks picks each rank's candidate into 4
+    bytes at its position, and a last launch writes (lcp, cand) in
+    position order. Bound: bytes, on Z's basis.
   - Z replaces the v1 parse's match table, `_candidates` (:81-100: one
     stable lax.sort of (flag, key, position) and the adjacent rank) and
     `_lcp_estimate` (:103-124: two u32 hash chains, descending spans, an
@@ -121,15 +131,22 @@ def _check_table_inputs(rows: torch.Tensor, lens: torch.Tensor) -> None:
                          f"1 to 2^31 - 1 segments of 1 to 2^30 positions")
 
 
-MATCH_V2_SCRATCH = 10   # K's scratch, u32 words a position: the ladder
-#                         records (8) and two rank orders
+def match_v2_scratch(n: int, w: int) -> int:
+    """K's scratch in u32 words for n rows of w: 14 a position (the order
+    and the merge buffer, 16 bytes each; the hash table, 2w slots of 8
+    bytes; each position's slot and rank, 8 bytes: the ladder records reuse
+    the buffer and the table, al and the pick's results the slot and rank)
+    and 16 + 7 * ceil(w / 2,048) a row (its counters, the zero group, the
+    large groups' list, the crossing groups, the ladder's tile flags, the
+    count tiles' zero positions; csrc/lz_match_v2.cu `meta_words`)."""
+    return 14 * n * w + n * (16 + 7 * -(-w // 2048))
 
 
 def match_v2(rows: torch.Tensor, lens: torch.Tensor):
     """rows uint8 [n, W] (segment i's L_i = lens[i] bytes, zero past them)
     and lens int64 [n] -> lcp, cand int64 [n, W]: the v2 match table,
     lz_ops.match_table's. On the card: kernel K's launches, no host read,
-    its scratch (40 bytes a position) from torch.empty."""
+    its scratch (match_v2_scratch, 56 bytes a position) from torch.empty."""
     global match_v2_launches
     _check_table_inputs(rows, lens)
     if rows.device.type == "cpu":
@@ -140,7 +157,7 @@ def match_v2(rows: torch.Tensor, lens: torch.Tensor):
     with torch.cuda.device(dev):
         lcp, cand = torch.empty((2, n, w), dtype=torch.int64,
                                 device=dev).unbind(0)
-        scratch = torch.empty(MATCH_V2_SCRATCH * n * w, dtype=torch.int32,
+        scratch = torch.empty(match_v2_scratch(n, w), dtype=torch.int32,
                               device=dev)
         rc = lib.ct_lz_match_v2(rows.data_ptr(), lens.data_ptr(),
                                 lcp.data_ptr(), cand.data_ptr(),

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import cpprcoder_tpu_torch as ctt
+from cpprcoder_tpu_torch.bench import lz_edges
 from cpprcoder_tpu_torch.core import bytesutil as ctt_bytes
 from cpprcoder_tpu_torch.models.cxmodel import rcx_params
 from cpprcoder_tpu_torch.models.qmodel import rcq_params
@@ -1137,8 +1138,11 @@ def test_lz_match_v1_equals_plain_and_the_oracle(dev, name, seg_log2):
 
 def _k_input(name):
     """K's own shapes beside P's: copies equal past 32 bytes (the ladder)
-    and past LCP_CAP, rows of W = n around the tile size, and one row of
-    2^23 + 12,345 positions."""
+    and past LCP_CAP, rows of W = n around the tile sizes, one row of 2^23
+    + 12,345 positions, ptt5, and the CPU model's edges (bench/lz_edges.py:
+    a tail position between two copies, one group of CAP - 1 / CAP / CAP +
+    1 positions, a row of singletons, a row tied on 16 bytes, keys of one
+    home slot)."""
     rng = np.random.default_rng(41)
     if name == "ladder":
         out = b""
@@ -1153,6 +1157,10 @@ def _k_input(name):
     if name == "2^23 + 12,345":
         concat = b"".join(_corpus(nm) for nm in sorted(SLZ4_BYTES))
         return (concat * 3)[:(1 << 23) + 12_345]
+    if name == "ptt5":
+        return _corpus("ptt5")
+    if name in lz_edges.EDGES:
+        return lz_edges.edge(name)
     return _lz_input(name)
 
 
@@ -1164,7 +1172,10 @@ K_SHAPES = [
     ("superblock", 17), ("2^18", 18), ("2^20", 20), ("kennedy.xls", 20),
     ("nearest 65535", 17), ("nearest 65536", 17), ("ladder", 17),
     ("W = 2047", 17), ("W = 2049", 17), ("W = 6149", 17),
-    ("2^23 + 12,345", 24)]
+    ("2^23 + 12,345", 24), ("W = 4095", 17), ("W = 4097", 17),
+    ("W = 8191", 17), ("W = 8193", 17),
+    ("W = 24581", 17), ("ptt5", 17), ("ptt5", 20)] + [
+        (nm, 17) for nm in lz_edges.EDGES]
 
 
 @pytest.mark.parametrize("name,seg_log2", K_SHAPES)
@@ -1172,9 +1183,10 @@ def test_lz_match_v2_equals_plain_and_the_oracle(dev, name, seg_log2):
     """Kernel K against its plain version (lz_ops.match_table) at every
     shape of the P, Q and R test, kennedy.xls as one 1,029,744-position
     segment, the distance limit, copies equal past 32 bytes and past
-    LCP_CAP, W = n around the 2,048-position tile and one row of 2^23 +
-    12,345; and against the oracle (slz4_ref.match_table_v2) a segment at
-    a time, up to 2^20 positions."""
+    LCP_CAP, W = n around 2,048, 4,096 and 8,192, one row of 2^23 +
+    12,345, ptt5 (one group past 100,000 positions a row) and the CPU
+    model's edges; and against the oracle (slz4_ref.match_table_v2) a
+    segment at a time, up to 2^20 positions."""
     data = (_v1_edge(int(name.split()[1])) if name.startswith("nearest")
             else _k_input(name))
     x = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(dev)
